@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (sparse_vae_tpu_torch) on one NVIDIA
+GPU:
+
+    python3 chip_smoke.py
+
+Phases, each timed:
+  1. device  — the card's name and power limit (nvidia-smi); exits non-zero
+               without CUDA;
+  2. build   — the CUDA kernels from csrc/, one nvcc call;
+  3. kernels — each kernel against its plain PyTorch version on the card,
+               at the shapes the serving path gives it, timed with CUDA
+               events beside its bound and, for K1, beside PyTorch's
+               scaled_dot_product_attention (a yardstick the port never
+               calls);
+  4. model   — the flagship real-prose-vae-r5 weights on the card in bf16:
+               prefill logits against the fp32 CPU model on a fixed input;
+  5. serve   — ServeEngine (batch 64, max_length 512, fused selection)
+               answers requests, some with >= 128-token prompts so bulk
+               prefill runs K1; every request must complete and both
+               kernels' launch counts, zeroed just before, must rise.
+Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failed check raises: no result line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+# The run writes nothing into the checkout but the kernel library
+# (sparse_vae_tpu_torch/_build/): no bytecode caches either.
+sys.dont_write_bytecode = True
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sparse_vae_tpu_torch.checkpoint import load_run
+from sparse_vae_tpu_torch.models.base import SEP_ID
+from sparse_vae_tpu_torch.models.generation import (SamplingParams,
+                                                    gumbel_noise)
+from sparse_vae_tpu_torch.ops import cuda_lib, select_kernel, swa_kernel
+from sparse_vae_tpu_torch.ops.sliding_window_attention import (
+    sliding_window_attention_plain)
+from sparse_vae_tpu_torch.server import ServeEngine
+
+RUN = "real-prose-vae-r5"
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# K1: out is compared in bf16, where the plain version rounds the softmax
+# weights to bf16 before the value product and the kernel keeps them fp32
+# (two bf16 roundings of values of order 1); lse is fp32 on both sides and
+# differs only by summation order.
+K1_OUT_ATOL, K1_OUT_RTOL = 2e-2, 2e-2
+K1_LSE_ATOL = 1e-3
+# K4: a row may choose differently only when its bisection mass sat within
+# fp32 summation rounding of the target at some step (relative margin
+# below this) or its chosen token's p sits on the threshold.
+K4_FLIP_MARGIN = 1e-4
+# Model: the bf16 card path against the fp32 CPU path after 6 layers.
+MODEL_MEAN_ABS_TOL = 0.25
+MODEL_ARGMAX_AGREE = 0.9
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        print(f"[{self.name}] start", flush=True)
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        status = "failed" if exc[0] else "done"
+        print(f"[{self.name}] {status} in {dt:.2f} s", flush=True)
+        return False
+
+
+def check(ok: bool, what: str):
+    if not ok:
+        raise AssertionError(what)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of fn() over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, op_rate: float):
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / op_rate * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def device_phase() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+    # Full fp32 for the plain versions' fp32 products.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def build_phase():
+    cuda_lib.library()
+    info = cuda_lib.build_info
+    print(f"library {info.path.name}: nvcc {info.seconds:.1f} s", flush=True)
+    for line in info.ptxas_log.splitlines():
+        if "ptxas" in line:
+            print(f"  {line.strip()}")
+
+
+def band_mask(L: int, lengths, window: int, block: int, device):
+    """[B, 1, L, L] bool: causal band of `window` blocks + [CLS] block +
+    key prefix, the token mask the K1 kernel applies."""
+    pos = torch.arange(L, device=device)
+    qb, kb = pos[:, None] // block, pos[None, :] // block
+    mask = ((qb - kb < window) | (kb == 0)) & (pos[None, :] <= pos[:, None])
+    keys = pos[None, :] < lengths[:, None]
+    return (mask[None] & keys[:, None, :])[:, None]
+
+
+def k1_phase(b: int, L: int, lengths, seed: int, iters: int):
+    h, d, window, block = 8, 64, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, L, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    key_mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    out, lse = swa_kernel.swa_fwd(q, k, v, lens, window_size=window,
+                                  block_size=block, causal=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = sliding_window_attention_plain(
+        q, k, v, key_mask, window_size=window, block_size=block,
+        causal=True, return_lse=True)
+    err = (out.float() - ref.float()).abs()
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()), "K1 out is not finite")
+    check(bool((err <= K1_OUT_ATOL + K1_OUT_RTOL * ref.float().abs()).all()),
+          f"K1 out disagrees with its plain version: max {err.max():.3g}")
+    check(lse_err <= K1_LSE_ATOL, f"K1 lse disagrees: {lse_err:.3g}")
+
+    mask = band_mask(L, lens, window, block, "cuda")
+    ms = cuda_ms(lambda: swa_kernel.swa_fwd(q, k, v, lens,
+                                            window_size=window,
+                                            block_size=block), iters)
+    plain_ms = cuda_ms(lambda: sliding_window_attention_plain(
+        q, k, v, key_mask, window_size=window, block_size=block),
+        max(3, iters // 10))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), max(3, iters // 10))
+    pairs = int(mask.sum().item()) * h      # attended (query, key) pairs
+    nbytes = 4 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4 * d * pairs, BF16_TENSOR_FLOPS)
+    row = {"shape": [b, h, L, d], "lengths": list(lengths),
+           "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print("K1 " + json.dumps(row), flush=True)
+    return row
+
+
+def k4_phase(temperature: float, seed: int, iters: int, n: int = 64,
+             vocab: int = 32768, top_p: float = 0.9):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # Peaked like a language model's logits, so the nucleus is a small set.
+    s = 4.0 * torch.randn((n, vocab), generator=gen, device="cuda")
+    noise = gumbel_noise((n, vocab), gen)
+    got = select_kernel.nucleus_gumbel_argmax(
+        s, noise, top_p=top_p, temperature=temperature)
+    torch.cuda.synchronize()
+    ref, thresh, margin = select_kernel.select_rows_plain(
+        s, noise, top_p=top_p, temperature=temperature)
+    differ = (got != ref).nonzero().flatten().tolist()
+    scaled = s / temperature if temperature != 1.0 else s
+    p_un = torch.exp(scaled - scaled.amax(dim=-1, keepdim=True))
+    flips = []
+    for r in differ:
+        on_edge = any(abs(p_un[r, t].item() - thresh[r].item())
+                      <= 1e-5 * thresh[r].item()
+                      for t in (int(got[r]), int(ref[r])))
+        if margin[r].item() < K4_FLIP_MARGIN or on_edge:
+            flips.append(r)
+    check(len(flips) == len(differ),
+          f"K4 disagrees with its plain version on rows "
+          f"{sorted(set(differ) - set(flips))}")
+    held = torch.ones(n, dtype=torch.bool, device="cuda")
+    held[flips] = False
+    max_err = (got[held] - ref[held]).abs().max().item() if held.any() \
+        else 0.0
+    ms = cuda_ms(lambda: select_kernel.nucleus_gumbel_argmax(
+        s, noise, top_p=top_p, temperature=temperature), iters)
+    plain_ms = cuda_ms(lambda: select_kernel.nucleus_gumbel_argmax_plain(
+        s, noise, top_p=top_p, temperature=temperature), max(3, iters // 10))
+    ops = n * vocab * (3 * select_kernel.NUM_ITERS + 8)
+    bound_ms, bound_by = bound(2 * s.numel() * 4 + n * 8, ops, FP32_FLOPS)
+    row = {"shape": [n, vocab], "temperature": temperature, "top_p": top_p,
+           "max_abs_err": max_err, "ulp_flip_rows": len(flips),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print("K4 " + json.dumps(row), flush=True)
+    return row
+
+
+def model_phase(model, seed: int = 0, length: int = 256):
+    """Prefill logits of the card model (bf16, K1) against the fp32 CPU
+    model (plain attention) on one fixed input."""
+    cpu_model, _, _ = load_run(RUN, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    vocab = model.hparams.vocab_size
+    ids = rng.integers(3, vocab, size=(1, length))
+    ids[0, 0] = 1
+    ids[0, 200:] = 0                                   # right padding
+    z = rng.standard_normal((1, 1, model.hparams.latent_depth))
+    ids_t = torch.tensor(ids)
+    z_t = torch.tensor(z, dtype=torch.float32)
+    with torch.inference_mode():
+        got = model.reconstruct(ids_t.cuda(), z_t.cuda()).float().cpu()
+        ref = cpu_model.reconstruct(ids_t, z_t)
+    real = ids_t[0] != 0
+    diff = (got - ref).abs()[0, real]
+    agree = (got.argmax(-1) == ref.argmax(-1))[0, real].float().mean().item()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          "model logits are not finite or have the wrong shape")
+    check(diff.mean().item() <= MODEL_MEAN_ABS_TOL,
+          f"model logits mean abs err {diff.mean():.3g}")
+    check(agree >= MODEL_ARGMAX_AGREE, f"model argmax agreement {agree:.3f}")
+    print(f"model: logits max abs err {diff.max():.4g}, mean abs err "
+          f"{diff.mean():.4g}, argmax agreement {agree:.4f} "
+          f"(bf16 card vs fp32 CPU, {int(real.sum())} tokens)", flush=True)
+
+
+def make_requests(vocab: int, prompt_lengths, max_tokens, seed: int):
+    rng = np.random.default_rng(seed)
+    return [([int(t) for t in rng.integers(3, vocab, size=p)], m)
+            for p, m in zip(prompt_lengths, max_tokens)]
+
+
+def serve_phase(model, requests, *, batch_size: int = 64,
+                max_length: int = 512, slice_steps: int = 64,
+                fused_select: bool = True, timeout: float = 300.0,
+                before_traffic=None) -> dict:
+    """Drive ServeEngine with `requests` [(prompt_tokens, max_tokens)] and
+    check every answer. before_traffic() runs once the engine is ready,
+    just before the first submit. Returns the run's statistics."""
+    sampling = SamplingParams(temperature=1.0, top_p=0.9,
+                              repetition_penalty=1.2)
+    engine = ServeEngine(model, batch_size=batch_size, max_length=max_length,
+                         sampling=sampling, end_token=SEP_ID,
+                         slice_steps=slice_steps, fused_select=fused_select,
+                         rng_seed=0)
+    try:
+        deadline = time.monotonic() + timeout
+        while not engine.snapshot()["ready"]:
+            check("fatal" not in engine.snapshot(), "engine failed to start")
+            check(time.monotonic() < deadline, "engine never became ready")
+            time.sleep(0.05)
+        if before_traffic is not None:
+            before_traffic()
+        if model.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        done_at = {}
+        futures = []
+        for i, (prompt, max_tokens) in enumerate(requests):
+            fut = engine.submit(max_tokens, seed=1000 + i,
+                                prompt_tokens=prompt or None)
+            fut.add_done_callback(
+                lambda f, i=i: done_at.setdefault(i, time.monotonic()))
+            futures.append(fut)
+        outs = [f.result(max(1.0, deadline - time.monotonic()))
+                for f in futures]
+        wall = time.monotonic() - t0
+        vocab = model.hparams.vocab_size
+        new_tokens = 0
+        for (prompt, max_tokens), out in zip(requests, outs):
+            p = len(prompt)
+            check(np.array_equal(out[:p], prompt), "prompt not echoed")
+            new = out[p:]
+            check(1 <= len(new) <= max_tokens,
+                  f"{len(new)} new tokens for max_tokens={max_tokens}")
+            check(bool(((new >= 0) & (new < vocab)).all()),
+                  "token id out of range")
+            new_tokens += len(new)
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown(timeout=30.0)
+    check(not engine._thread.is_alive(), "engine worker did not stop")
+    check(snap["served"] == len(requests), "not every request was served")
+    latency = np.array([done_at[i] - t0 for i in range(len(requests))])
+    stats = {"requests": len(requests), "new_tokens": new_tokens,
+             "wall_s": wall, "tokens_per_s": new_tokens / wall,
+             "latency_p50_s": float(np.median(latency)),
+             "latency_max_s": float(latency.max()),
+             "prefills": snap["prefills"], "slices": snap["slices"]}
+    if model.device.type == "cuda":
+        stats["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    return stats
+
+
+def reset_counts():
+    swa_kernel.launches = 0
+    select_kernel.launches = 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    with Phase("device"):
+        smi = device_phase()
+    with Phase("build"):
+        build_phase()
+    with Phase("kernels"):
+        k1_serve = k1_phase(1, 512, [417], seed=1, iters=200)
+        k1_long = k1_phase(4, 4096, [4096, 3001, 1500, 129], seed=2,
+                           iters=50)
+        k4_rows = [k4_phase(t, seed=3 + i, iters=200)
+                   for i, t in enumerate((1.0, 0.7))]
+    with Phase("model"):
+        model, _, _ = load_run(RUN, device="cuda")
+        model_phase(model)
+    with Phase("serve"):
+        vocab = model.hparams.vocab_size
+        requests = make_requests(
+            vocab, prompt_lengths=[0, 127, 0, 200, 300, 0, 416, 150, 0, 255,
+                                   0, 180],
+            max_tokens=[256, 128, 192, 160, 96, 64, 64, 256, 128, 200, 96,
+                        160], seed=7)
+        stats = serve_phase(model, requests, before_traffic=reset_counts)
+        counts = {"swa_fwd": swa_kernel.launches,
+                  "nucleus_select": select_kernel.launches}
+        check(counts["swa_fwd"] > 0, "the serve path never launched K1")
+        check(counts["nucleus_select"] > 0,
+              "the serve path never launched K4")
+        print("serve " + json.dumps({**stats, "launches": counts,
+                                     "card": smi}), flush=True)
+
+    kernels = [
+        {"name": "swa_fwd", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
+         "launches": counts["swa_fwd"],
+         **{k: k1_serve[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by",
+                                     "library_ms")},
+         "shape": k1_serve["shape"],
+         "long": {k: k1_long[k] for k in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "library_ms")}},
+        {"name": "nucleus_select", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/nucleus_select.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_select.py:128",
+         "launches": counts["nucleus_select"],
+         **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+         "shape": k4_rows[0]["shape"],
+         "ulp_flip_rows": sum(r["ulp_flip_rows"] for r in k4_rows),
+         "temperature_0.7": {k: k4_rows[1][k] for k in (
+             "max_abs_err", "ms", "plain_ms")}},
+    ]
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

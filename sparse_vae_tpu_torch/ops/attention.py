@@ -1,0 +1,301 @@
+"""Multi-head attention with the sliding-window masks and the decode caches
+(port of sparse_vae_tpu/ops/attention.py, the parts the serving slice runs).
+
+Ported: the masks, `dense_attention`, head split/merge, and `Attention`'s
+projection, full-sequence self-attention (the blocked sparse path and the
+masked-dense fallback), the block-ring and dense decode caches with
+`_decode_ring` and `decode_rowwise`, plus `row_cache_write` and
+`fill_cache_row`. The packed-layout, sequence-parallel, tensor-parallel,
+learned-query, cross-attention and frontier-window branches are not ported.
+
+Unlike the reference, whose arrays are immutable, the decode caches are
+updated in place: a step writes one position per row instead of copying
+every cache.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .rotary import apply_rotary
+from .sliding_window_attention import sliding_window_attention
+
+NEG_INF = -1e9
+
+
+def row_cache_write(buf, idx, val):
+    """Write val [B, H, Dh] into buf [B, H, L, Dh] at per-row position
+    idx [B], in place. Rows whose idx is outside [0, L) are left as they
+    are (the [CLS] store routes positions past block 0 to idx == L)."""
+    length = buf.shape[2]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    ok = (idx >= 0) & (idx < length)
+    pos = idx.clamp(0, length - 1)
+    cur = buf[rows, :, pos]                                    # [B, H, Dh]
+    buf[rows, :, pos] = torch.where(ok[:, None, None], val.to(buf.dtype),
+                                    cur)
+    return buf
+
+
+def sliding_window_block_mask(num_q: int, num_k: int, block_size: int,
+                              window_size: int, causal: bool = True,
+                              include_cls: bool = True, q_offset: int = 0,
+                              device=None):
+    """[num_q, num_k] bool block mask (True = may attend): the band of
+    `window_size` blocks (ending at the diagonal when causal, split
+    ceil-left / floor-right otherwise) plus the [CLS] column."""
+    qb = torch.arange(num_q, device=device) + q_offset
+    kb = torch.arange(num_k, device=device)
+    delta = qb[:, None] - kb[None, :]
+    num_sides = 1 if causal else 2
+    left = (window_size + num_sides - 1) // num_sides
+    right = window_size - left
+    mask = (delta >= -right) & (delta < left)
+    if include_cls:
+        mask = mask | (kb[None, :] == 0)
+    if causal:
+        mask = mask & (delta >= 0)
+    return mask
+
+
+def sliding_window_token_mask(q_len: int, k_len: int, block_size: int,
+                              window_size: int, causal: bool = True,
+                              include_cls: bool = True, device=None):
+    """Token-level [q_len, k_len] expansion of the block mask, with the
+    causal triangle inside diagonal blocks."""
+    nq, nk = -(-q_len // block_size), -(-k_len // block_size)
+    blocks = sliding_window_block_mask(nq, nk, block_size, window_size,
+                                       causal, include_cls, device=device)
+    mask = blocks.repeat_interleave(block_size, 0).repeat_interleave(
+        block_size, 1)[:q_len, :k_len]
+    if causal:
+        qi = torch.arange(q_len, device=device)[:, None]
+        ki = torch.arange(k_len, device=device)[None, :]
+        mask = mask & (ki <= qi)
+    return mask
+
+
+def dense_attention(q, k, v, mask=None):
+    """Masked scaled-dot-product attention. q: [B, H, Lq, D], k/v:
+    [B, H, Lk, D]; mask broadcastable to [B, H, Lq, Lk], True = attend.
+    Scores and softmax in fp32; weights cast to v's dtype for the value
+    product."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(weights, v)
+
+
+def split_heads(x, num_heads: int):
+    b, l, d = x.shape
+    return x.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
+
+
+def merge_heads(x):
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+class Attention(nn.Module):
+    """Rotary multi-head self-attention, optionally sliding-window sparse.
+
+    Rotary base: 2 * window_size * block_size on the sparse path, else
+    max_length (10,000), as in the reference.
+    """
+
+    def __init__(self, d_model: int, num_heads: int, causal: bool = False,
+                 sparse: bool = False, window_size: int = 2,
+                 block_size: int = 128, max_length: int = 10_000):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError("d_model must be a multiple of num_heads")
+        self.d_model, self.num_heads = d_model, num_heads
+        self.causal, self.sparse = causal, sparse
+        self.window_size, self.block_size = window_size, block_size
+        self.max_length = max_length
+        self.q_linear = nn.Linear(d_model, d_model)
+        self.k_linear = nn.Linear(d_model, d_model)
+        self.v_linear = nn.Linear(d_model, d_model)
+        self.output_linear = nn.Linear(d_model, d_model)
+
+    @property
+    def rotary_base(self) -> float:
+        if self.sparse:
+            return float(2 * self.window_size * self.block_size)
+        return float(self.max_length)
+
+    def _project(self, x, pos_offset=0):
+        """Head-major rotary q, k and plain v [B, H, L, Dh]."""
+        h, base = self.num_heads, self.rotary_base
+        q = apply_rotary(split_heads(self.q_linear(x), h), base, pos_offset)
+        k = apply_rotary(split_heads(self.k_linear(x), h), base, pos_offset)
+        v = split_heads(self.v_linear(x), h)
+        return q, k, v
+
+    def _finalize(self, out_heads):
+        """Merge heads and close the output projection."""
+        return self._close(merge_heads(out_heads))
+
+    def _close(self, merged):
+        return self.output_linear(merged)
+
+    def forward(self, x, kv_mask=None, return_kv: bool = False):
+        """Full-sequence self-attention. x: [B, L, D]; kv_mask: [B, L] bool
+        (True = valid key). With return_kv, also returns the head-major
+        rotary (k, v) — the bulk-prefill cache seed (fill_cache_row)."""
+        q, k, v = self._project(x)
+        length = q.shape[2]
+        mask = None
+        if self.sparse and length % self.block_size == 0:
+            out = sliding_window_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), kv_mask,
+                window_size=self.window_size, block_size=self.block_size,
+                causal=self.causal)
+        else:
+            if self.sparse:
+                mask = sliding_window_token_mask(
+                    length, length, self.block_size, self.window_size,
+                    self.causal, device=x.device)[None, None]
+            elif self.causal:
+                ar = torch.arange(length, device=x.device)
+                mask = (ar[None, :] <= ar[:, None])[None, None]
+            if kv_mask is not None:
+                pad = kv_mask[:, None, None, :]
+                mask = pad if mask is None else (mask & pad)
+            out = dense_attention(q, k, v, mask)
+        y = self._finalize(out)
+        return (y, (k, v)) if return_kv else y
+
+    # -- incremental decoding ----------------------------------------------
+    def init_cache(self, batch_size: int, max_length: int, device=None,
+                   dtype=torch.float32) -> dict:
+        """Decode-time KV cache: a block ring of `window_size` blocks plus a
+        copy of the [CLS] block when sparse, the full [B, H, max_length,
+        Dh] buffer when dense."""
+        head_dim = self.d_model // self.num_heads
+        if self.sparse:
+            ring = (batch_size, self.num_heads,
+                    self.window_size * self.block_size, head_dim)
+            cls = (batch_size, self.num_heads, self.block_size, head_dim)
+            return {name: torch.zeros(shape, dtype=dtype, device=device)
+                    for name, shape in (("k_ring", ring), ("v_ring", ring),
+                                        ("k_cls", cls), ("v_cls", cls))}
+        shape = (batch_size, self.num_heads, max_length, head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def _ring_valid(self, index):
+        """[B, bs + ring] validity of [CLS store | ring] for per-row
+        positions index [B]. Ring slot s holds block
+        qb - ((qb % w - s) % w); an entry is attendable iff its absolute
+        position is <= index and its block >= 0. The [CLS] store is read
+        only once block 0 has left the ring band (qb >= w)."""
+        bs, w = self.block_size, self.window_size
+        ring_len = w * bs
+        qb = index // bs                                           # [B]
+        j = torch.arange(ring_len, device=index.device)
+        slot, offs = j // bs, j % bs
+        b_s = qb[:, None] - torch.remainder(
+            torch.remainder(qb[:, None], w) - slot[None, :], w)
+        pos = b_s * bs + offs[None, :]
+        ring_valid = (pos <= index[:, None]) & (b_s >= 0)
+        cls_valid = (qb >= w)[:, None].expand(index.shape[0], bs)
+        return torch.cat([cls_valid, ring_valid], dim=1)
+
+    def _decode_ring(self, q, k_t, v_t, cache: dict, index: int):
+        """Sliding-window decode against the block-ring cache, every row
+        at the same position `index` (int). Position index goes to ring
+        offset index % (window * bs) and, while index < bs, to the [CLS]
+        store. Equals the full-cache masked attention."""
+        bs = self.block_size
+        ring_idx = index % cache["k_ring"].shape[2]
+        dt = cache["k_ring"].dtype
+        cache["k_ring"][:, :, ring_idx] = k_t[:, :, 0].to(dt)
+        cache["v_ring"][:, :, ring_idx] = v_t[:, :, 0].to(dt)
+        if index < bs:
+            cache["k_cls"][:, :, index] = k_t[:, :, 0].to(dt)
+            cache["v_cls"][:, :, index] = v_t[:, :, 0].to(dt)
+        rows = q.shape[0]
+        valid = self._ring_valid(
+            torch.full((rows,), index, dtype=torch.int64, device=q.device))
+        k_all = torch.cat([cache["k_cls"], cache["k_ring"]], dim=2)
+        v_all = torch.cat([cache["v_cls"], cache["v_ring"]], dim=2)
+        out = dense_attention(q, k_all, v_all, valid[:, None, None, :])
+        return self._finalize(out), cache
+
+    def decode(self, x_t, cache: dict, index: int):
+        """One-token attention (x_t: [B, 1, D]) at position `index` (int)
+        against the block-ring cache."""
+        q, k_t, v_t = self._project(x_t, index)
+        if "k_ring" not in cache:
+            raise NotImplementedError("the scalar decode is ported for the "
+                                      "sparse ring cache only")
+        return self._decode_ring(q, k_t, v_t, cache, index)
+
+    def decode_rowwise(self, x_t, cache: dict, index):
+        """One-token attention with PER-ROW positions index [B] (int64):
+        each row writes its new K/V at its own position and attends its
+        own window. Per row this equals `decode` at that row's index."""
+        q, k_t, v_t = self._project(x_t, index)
+        k_new, v_new = k_t[:, :, 0], v_t[:, :, 0]
+        if "k_ring" in cache:
+            bs = self.block_size
+            ring_idx = torch.remainder(index, cache["k_ring"].shape[2])
+            row_cache_write(cache["k_ring"], ring_idx, k_new)
+            row_cache_write(cache["v_ring"], ring_idx, v_new)
+            cls_pos = torch.where(index < bs, index, bs)
+            row_cache_write(cache["k_cls"], cls_pos, k_new)
+            row_cache_write(cache["v_cls"], cls_pos, v_new)
+            valid = self._ring_valid(index)
+            k_all = torch.cat([cache["k_cls"], cache["k_ring"]], dim=2)
+            v_all = torch.cat([cache["v_cls"], cache["v_ring"]], dim=2)
+            out = dense_attention(q, k_all, v_all, valid[:, None, None, :])
+            return self._finalize(out), cache
+
+        row_cache_write(cache["k"], index, k_new)
+        row_cache_write(cache["v"], index, v_new)
+        positions = torch.arange(cache["k"].shape[2], device=index.device)
+        valid = positions[None, :] <= index[:, None]
+        if self.sparse:
+            qb = index // self.block_size
+            kb = positions // self.block_size
+            valid = valid & ((kb[None, :] > (qb[:, None] - self.window_size))
+                             | (kb[None, :] == 0))
+        out = dense_attention(q, cache["k"], cache["v"],
+                              valid[:, None, None, :])
+        return self._finalize(out), cache
+
+
+def fill_cache_row(cache: dict, row: int, k, v, length: int) -> dict:
+    """Write ONE row of a decode cache from full-prefix K/V, in place — the
+    bulk-prefill primitive: equals `length` sequential decode writes of
+    positions 0..length-1.
+
+    k, v: [H, Lp, Dh] head-major rotary K/V of the prefix, Lp >= length;
+    length: count of real positions. Pad positions never enter.
+    """
+    last = length - 1
+    if "k_ring" in cache:
+        ring_len = cache["k_ring"].shape[2]
+        bs = cache["k_cls"].shape[2]
+        dt = cache["k_ring"].dtype
+        o = torch.arange(ring_len, device=k.device)
+        # Final occupant of ring offset o after writes 0..last: the largest
+        # pos <= last with pos % ring_len == o (none when pos < 0).
+        pos_o = last - torch.remainder(last - o, ring_len)
+        sel = pos_o.clamp(0, k.shape[1] - 1)
+        ring_ok = (pos_o >= 0)[None, :, None]
+        cache["k_ring"][row] = torch.where(ring_ok, k[:, sel], 0).to(dt)
+        cache["v_ring"][row] = torch.where(ring_ok, v[:, sel], 0).to(dt)
+        c = torch.arange(bs, device=k.device)
+        cls_ok = (c <= last)[None, :, None]
+        csel = c.clamp(0, k.shape[1] - 1)
+        cache["k_cls"][row] = torch.where(cls_ok, k[:, csel], 0).to(dt)
+        cache["v_cls"][row] = torch.where(cls_ok, v[:, csel], 0).to(dt)
+        return cache
+    lp = min(k.shape[1], cache["k"].shape[2])
+    cache["k"][row, :, :lp] = k[:, :lp].to(cache["k"].dtype)
+    cache["v"][row, :, :lp] = v[:, :lp].to(cache["v"].dtype)
+    return cache

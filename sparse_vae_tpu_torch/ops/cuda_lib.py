@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under `csrc/` compile in ONE nvcc call into one shared library
+with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`), loaded
+with ctypes. Nothing here includes PyTorch's headers, so the build takes
+seconds. The library goes to `_build/` beside this package, named by a
+hash of the sources, and is built at first use: importing this module
+builds nothing and needs no nvcc.
+
+Each exported C function launches on the stream it is given and returns
+`cudaGetLastError()`; `check` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("swa_fwd.cu", "nucleus_select.cu")
+NVCC_TIMEOUT_S = 600
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, lengths, out, lse, batch, heads, seq_len, head_dim,
+    # block_size, window, causal, include_cls, scale, stream
+    "svt_swa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _F, _P],
+    # logits, noise (may be null), out, rows, vocab, top_p, temperature,
+    # num_iters, stream
+    "svt_nucleus_select": [_P, _P, _P, _I, _I, _F, _F, _I, _P],
+}
+
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float      # 0.0 when an already built library was reused
+    ptxas_log: str      # nvcc -Xptxas -v output (registers, smem, spills)
+
+
+_lock = threading.Lock()
+_lib = None
+build_info = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> BuildInfo:
+    """Compile every source in one nvcc call, unless a library built from
+    the same sources is already there."""
+    sources = [CSRC_DIR / name for name in SOURCES]
+    digest = hashlib.sha1()
+    for src in sources:
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"libsvt_kernels-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return BuildInfo(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=NVCC_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+    return BuildInfo(out, seconds, (res.stdout + res.stderr).strip())
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib, build_info
+    with _lock:
+        if _lib is None:
+            info = build()
+            lib = ctypes.CDLL(str(info.path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.svt_error_string.argtypes = [_I]
+            lib.svt_error_string.restype = ctypes.c_char_p
+            build_info, _lib = info, lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        name = _lib.svt_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({name})")

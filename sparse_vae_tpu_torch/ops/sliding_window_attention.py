@@ -1,0 +1,127 @@
+"""Sliding-window + [CLS] block-sparse attention
+(port of sparse_vae_tpu/ops/sliding_window_attention.py).
+
+`sliding_window_attention_plain` is the blocked computation of
+`sliding_window_attention_xla`: each query block gathers only its band key
+blocks plus block 0 for [CLS]. It is the plain version of the K1 kernel
+(ops/swa_kernel.py) and what CPU tensors run. The dispatcher
+`sliding_window_attention` sends CUDA tensors to the kernel and CPU tensors
+to the plain version.
+
+One deliberate difference from the reference: a query row with no valid
+key at all (a row whose kv_mask is all False) gives 0 here, where the
+reference's -1e9 fill averages the masked values. Such rows are padding
+and are never read.
+"""
+from __future__ import annotations
+
+
+import torch
+
+NEG_INF = -1e9
+
+
+def _band_indices(num_blocks: int, window_size: int, include_cls: bool,
+                  causal: bool = True, device=None):
+    """For each query block, the attended key block indices
+    [num_blocks, window_size (+1 cls)] clamped to range, and a parallel
+    bool marking real (non-clamped, non-duplicate) entries."""
+    q = torch.arange(num_blocks, device=device)[:, None]
+    if causal:
+        offsets = torch.arange(window_size, device=device) - (window_size - 1)
+    else:
+        left = (window_size + 1) // 2
+        offsets = torch.arange(window_size, device=device) - (left - 1)
+    k_idx = q + offsets[None, :]
+    valid = (k_idx >= 0) & (k_idx < num_blocks)
+    k_idx = k_idx.clamp(0, num_blocks - 1)
+    if include_cls:
+        cls_idx = torch.zeros((num_blocks, 1), dtype=k_idx.dtype,
+                              device=device)
+        # The [CLS] column is redundant when the band already covers block 0.
+        cls_valid = k_idx[:, :1] > 0
+        k_idx = torch.cat([cls_idx, k_idx], dim=1)
+        valid = torch.cat([cls_valid, valid], dim=1)
+    return k_idx, valid
+
+
+def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
+                                   window_size: int = 2,
+                                   block_size: int = 128,
+                                   causal: bool = True,
+                                   include_cls: bool = True,
+                                   return_lse: bool = False):
+    """Blocked sliding-window attention.
+
+    q/k/v: [B, H, L, D] with L % block_size == 0; kv_mask: [B, L] bool
+    (True = valid). Returns out [B, H, L, D] in v's dtype, and with
+    return_lse also the fp32 log-sum-exp [B, H, L] of the attended scores
+    (-inf for a row with no valid key). Scores and softmax are fp32; the
+    weights are cast to v's dtype before the value product, as in the
+    reference.
+    """
+    b, h, L, d = q.shape
+    if L % block_size:
+        raise ValueError(f"length {L} is not a multiple of {block_size}")
+    nb = L // block_size
+    k_idx, band_valid = _band_indices(nb, window_size, include_cls, causal,
+                                      q.device)
+    s = k_idx.shape[1]
+    flat_idx = k_idx.reshape(-1)
+
+    kb = k.reshape(b, h, nb, block_size, d)
+    vb = v.reshape(b, h, nb, block_size, d)
+    k_band = kb[:, :, flat_idx].reshape(b, h, nb, s, block_size, d)
+    v_band = vb[:, :, flat_idx].reshape(b, h, nb, s, block_size, d)
+    qb = q.reshape(b, h, nb, block_size, d)
+    scores = torch.einsum("bhnqd,bhnskd->bhnqsk", qb.float(),
+                          k_band.float()) * d ** -0.5
+
+    ar = torch.arange(block_size, device=q.device)
+    q_pos = torch.arange(nb, device=q.device)[:, None] * block_size + ar
+    k_pos = k_idx[:, :, None] * block_size + ar                # [nQ, S, bs]
+    mask = band_valid[:, None, :, None].expand(nb, block_size, s, block_size)
+    if causal:
+        mask = mask & (k_pos[:, None] <= q_pos[:, :, None, None])
+    mask = mask[None, None]                                  # [1,1,nQ,bs,S,bs]
+    if kv_mask is not None:
+        pad = kv_mask.reshape(b, nb, block_size)[:, flat_idx].reshape(
+            b, nb, s, block_size)
+        mask = mask & pad[:, None, :, None, :, :]
+
+    flat_mask = mask.reshape(*mask.shape[:4], s * block_size)
+    flat = scores.reshape(b, h, nb, block_size, s * block_size)
+    flat = flat.masked_fill(~flat_mask, NEG_INF)
+    weights = torch.softmax(flat, dim=-1)
+    has_key = flat_mask.any(dim=-1, keepdim=True)
+    weights = torch.where(has_key, weights, 0.0).to(v.dtype)
+    weights = weights.reshape(b, h, nb, block_size, s, block_size)
+    out = torch.einsum("bhnqsk,bhnskd->bhnqd", weights, v_band)
+    out = out.reshape(b, h, L, d)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(flat.masked_fill(~flat_mask, float("-inf")),
+                          dim=-1)
+    return out, lse.reshape(b, h, L)
+
+
+def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
+                             block_size: int = 128, causal: bool = True,
+                             include_cls: bool = True):
+    """Dispatcher: the K1 CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. kv_mask must be a right-padding prefix mask on the
+    kernel path (the kernel takes per-row valid lengths)."""
+    if q.is_cuda:
+        from .swa_kernel import swa_fwd
+        b, _, L, _ = q.shape
+        if kv_mask is None:
+            lengths = torch.full((b,), L, dtype=torch.int32, device=q.device)
+        else:
+            lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
+        out, _ = swa_fwd(q, k, v, lengths, window_size=window_size,
+                         block_size=block_size, causal=causal,
+                         include_cls=include_cls)
+        return out
+    return sliding_window_attention_plain(
+        q, k, v, kv_mask, window_size=window_size, block_size=block_size,
+        causal=causal, include_cls=include_cls)

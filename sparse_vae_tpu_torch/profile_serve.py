@@ -1,0 +1,130 @@
+"""Where the serving path's time goes on the card:
+
+    python -m sparse_vae_tpu_torch.profile_serve [run=real-prose-vae-r5]
+        [batch_size=64] [max_length=512] [prompt=256] [steps=64]
+
+Loads the run in its compute dtype on CUDA, bulk-prefills every row of a
+batch_size-row batch with a `prompt`-token random prompt (K1), then times
+decode slices of `steps` steps with every row live (nucleus sampling at
+temperature 1.0, top_p 0.9, repetition penalty 1.2, fused K4 selection):
+host-clock step time and tokens/s, and a torch.profiler window of 16 steps
+for the device time by kernel; the device's idle share is 1 - device time
+per step / unprofiled step time. Prints one JSON
+line last. Needs a card; there is no CPU mode.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _args(argv):
+    extra = dict(kv.split("=", 1) for kv in argv[1:])
+    return (extra.get("run", "real-prose-vae-r5"),
+            int(extra.get("batch_size", 64)),
+            int(extra.get("max_length", 512)),
+            int(extra.get("prompt", 256)), int(extra.get("steps", 64)))
+
+
+def main(argv) -> int:
+    from .checkpoint import load_run
+    from .models.generation import SamplingParams, init_row_decode_state
+    from .ops.attention import fill_cache_row
+    from .serving import make_slice_fn
+
+    if not torch.cuda.is_available():
+        print("profile_serve needs a CUDA card", file=sys.stderr)
+        return 1
+    run, b, ml, prompt, steps = _args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    model, hp, _ = load_run(run, device="cuda")
+    sampling = SamplingParams(temperature=1.0, top_p=0.9,
+                              repetition_penalty=1.2)
+    # end_token=-1: no row ends early, so every step runs all b rows.
+    slice_fn = make_slice_fn(model, sampling, -1, steps, True)
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+
+    with torch.inference_mode():
+        caches = model.init_caches(b, ml)
+        state = init_row_decode_state(
+            b, ml, 1, torch.Generator(device=dev).manual_seed(0))
+        z = torch.randn((b, 1, hp.latent_depth), device=dev)
+        lp = -(-(prompt + 1) // hp.attn_block_size) * hp.attn_block_size
+        prefill_s = []
+        for row in range(b):
+            ids = np.zeros((1, lp), np.int64)
+            ids[0, 0] = 1
+            ids[0, 1:1 + prompt] = rng.integers(3, hp.vocab_size, prompt)
+            ids_t = torch.tensor(ids, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, kvs = model.reconstruct_hidden(ids_t, z[row:row + 1],
+                                              return_kv=True)
+            for cache, (k, v) in zip(caches, kvs):
+                fill_cache_row(cache, row, k[0], v[0], prompt + 1)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            state.tokens[row, :1 + prompt] = torch.tensor(ids[0, :1 + prompt])
+        state.index[:] = prompt + 1
+
+        def decode():
+            """One slice from the post-prefill state; its wall seconds."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slice_fn(state, caches, z)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        decode()                                        # warm-up
+        wall = decode()
+        step_ms = 1e3 * wall / steps
+
+        from torch.profiler import ProfilerActivity, profile
+        window = 16
+        window_fn = make_slice_fn(model, sampling, -1, window, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            window_fn(state, caches, z)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+
+    print(f"card: {card}")
+    print(f"{'kernel':70s} {'calls':>6s} {'device ms/step':>14s}")
+    for e in top:
+        print(f"{e.key[:70]:70s} {e.count // window:6d} "
+              f"{e.self_device_time_total / 1e3 / window:14.4f}")
+    result = {
+        "card": card, "run": run, "batch_size": b, "max_length": ml,
+        "prompt": prompt, "steps": steps,
+        "prefill_ms_median": 1e3 * float(np.median(prefill_s[1:])),
+        "decode_step_ms": step_ms,
+        "tokens_per_s": b * steps / wall,
+        "profiled_step_ms": 1e3 * prof_wall / window,
+        "device_ms_per_step": device_us / 1e3 / window,
+        # Against the unprofiled step: the profiler slows the host, not
+        # the kernels.
+        "device_idle_share": 1.0 - device_us / 1e3 / window / step_ms,
+        "kernels_per_step": sum(e.count for e in events) / window,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

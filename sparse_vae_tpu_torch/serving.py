@@ -1,0 +1,48 @@
+"""Row-wise decode slices for continuous batching (port of the slice half
+of sparse_vae_tpu/serving.py).
+
+A slice runs at most `slice_steps` decode steps over a batch whose rows
+each sit at their own position; the host harvests finished rows and
+refills them between slices (server.py).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .models.generation import (RowDecodeState, SamplingParams,
+                                decode_loop_rowwise, prev_tokens_rowwise)
+
+
+def rowwise_family(module) -> bool:
+    """Whether `module` supports per-row decode; returns is_vae, which is
+    always True here: the port has the Transformer-VAE's row-wise step
+    only, and any other model raises."""
+    if not hasattr(type(module), "decode_step_z_rowwise"):
+        raise ValueError(
+            f"{type(module).__name__} has no row-wise decode step in the "
+            "port — continuous batching serves the Transformer-VAE")
+    return True
+
+
+def make_slice_fn(module, sampling: SamplingParams, end_token: int,
+                  slice_steps: int, fused_select: bool):
+    """The bounded decode slice of a Transformer-VAE:
+    slice_fn(state, caches, z, overrides) -> (state, caches), with z
+    [B, 1, latent_depth] per row. Caches are updated in place."""
+
+    @torch.inference_mode()
+    def slice_fn(state: RowDecodeState, caches, z,
+                 overrides: Optional[dict] = None):
+        def logits_fn(st: RowDecodeState, caches):
+            logits, caches = module.decode_step_z_rowwise(
+                prev_tokens_rowwise(st), caches, st.index - 1, z)
+            return logits.float(), caches
+
+        return decode_loop_rowwise(state, logits_fn, caches, sampling,
+                                   end_token, slice_steps,
+                                   fused_select=fused_select,
+                                   overrides=overrides)
+
+    return slice_fn

@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, and the serving engine on the card. Every test here carries the
+`gpu` marker and skips itself without a card.
+
+This file imports torch and the port only (no jax), so on the card it runs
+without the JAX set-up of tests/conftest.py: `python -m pytest
+tests/test_torch_cuda.py -q -m gpu --noconftest`. Tolerances as in chip_smoke.py:
+K1's out in bf16 (the plain version rounds the softmax weights to bf16, the
+kernel keeps them fp32), its lse in fp32 up to summation order; K4's tokens
+identical except on rows whose bisection mass sat within rounding of the
+target.
+"""
+import pytest
+import torch
+
+from sparse_vae_tpu_torch.models.generation import SamplingParams, gumbel_noise
+from sparse_vae_tpu_torch.models.transformer_vae import (
+    TransformerVAE, TransformerVAEHparams)
+from sparse_vae_tpu_torch.ops import select_kernel, swa_kernel
+from sparse_vae_tpu_torch.ops.sliding_window_attention import (
+    sliding_window_attention_plain)
+from sparse_vae_tpu_torch.server import ServeEngine
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_swa_kernel_matches_plain(cuda, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(window)
+    q, k, v = (torch.randn((2, 8, 640, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    lengths = torch.tensor([640, 300], dtype=torch.int32, device=cuda)
+    mask = torch.arange(640, device=cuda)[None, :] < lengths[:, None]
+    before = swa_kernel.launches
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, window_size=window,
+                                  causal=causal)
+    assert swa_kernel.launches == before + 1
+    ref, ref_lse = sliding_window_attention_plain(
+        q, k, v, mask, window_size=window, causal=causal, return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_swa_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 128, 64), device=cuda)
+    lengths = torch.full((1,), 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        swa_kernel.swa_fwd(q, q, q, lengths)               # fp32
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        swa_kernel.swa_fwd(qb, qb, qb, lengths, block_size=64)
+    qt = qb.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        swa_kernel.swa_fwd(qt, qt, qt, lengths)            # not contiguous
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_select_kernel_matches_plain(cuda, temperature):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    s = 4.0 * torch.randn((64, 32768), generator=gen, device=cuda)
+    noise = gumbel_noise(s.shape, gen)
+    got = select_kernel.nucleus_gumbel_argmax(
+        s, noise, top_p=0.9, temperature=temperature)
+    want, _, margin = select_kernel.select_rows_plain(
+        s, noise, top_p=0.9, temperature=temperature)
+    held = margin > 1e-4
+    assert torch.equal(got[held], want[held])
+    greedy = select_kernel.nucleus_gumbel_argmax(s, None, top_p=1.0)
+    assert torch.equal(greedy, s.argmax(dim=-1))
+
+
+@pytest.mark.gpu
+def test_engine_serves_on_the_card(cuda):
+    """A tiny bf16 model with the r5 head geometry (Dh 64, block 128) on
+    the card: prompts of >= 128 tokens go through K1, decoding through K4."""
+    torch.manual_seed(0)
+    hp = TransformerVAEHparams(d_model=128, num_heads=2, num_layers=2,
+                               latent_depth=8, vocab_size=512,
+                               attn_window_size=2, attn_block_size=128)
+    model = TransformerVAE(hp).to(cuda, torch.bfloat16).eval()
+    engine = ServeEngine(model, batch_size=4, max_length=512,
+                         sampling=SamplingParams(), slice_steps=16,
+                         fused_select=True, end_token=-1)
+    k1, k4 = swa_kernel.launches, select_kernel.launches
+    try:
+        prompt = list(range(3, 203))
+        outs = [engine.generate(20, seed=i,
+                                prompt_tokens=prompt if i % 2 else None,
+                                timeout=300) for i in range(4)]
+    finally:
+        engine.shutdown()
+    for i, out in enumerate(outs):
+        assert len(out) == (200 if i % 2 else 0) + 20
+    assert swa_kernel.launches > k1 and select_kernel.launches > k4

@@ -7,18 +7,28 @@ GPU:
 Phases, each timed:
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
                without CUDA;
-  2. build   — the CUDA kernels from csrc/, one nvcc call;
+  2. build   — the CUDA kernels from csrc/ in one nvcc call;
   3. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it, timed with CUDA
                events beside its bound and, for K1, beside PyTorch's
                scaled_dot_product_attention (a yardstick the port never
                calls);
+               The training kernels likewise: K2 (the attention backward)
+               and K3/K3b (the fused tied projection + CE, forward and
+               backward) against their plain versions, timed at the
+               training shapes beside a PyTorch yardstick;
   4. model   — the flagship real-prose-vae-r5 weights on the card in bf16:
                prefill logits against the fp32 CPU model on a fixed input;
   5. serve   — ServeEngine (batch 64, max_length 512, fused selection)
                answers requests, some with >= 128-token prompts so bulk
                prefill runs K1; every request must complete and both
-               kernels' launch counts, zeroed just before, must rise.
+               kernels' launch counts, zeroed just before, must rise;
+  6. train   — r5 in its training form (fp32 master weights, bf16
+               compute) at full width and depth takes optimizer steps on
+               [4, 4096] ragged random documents through K1, K2, K3 and
+               K3b (their counts, zeroed just before, must rise); step 1's
+               loss and all 165 gradients are held against the same step
+               in fp32 through the plain versions on the card.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: no result line.
 """
@@ -41,10 +51,14 @@ from sparse_vae_tpu_torch.checkpoint import load_run
 from sparse_vae_tpu_torch.models.base import SEP_ID
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise)
-from sparse_vae_tpu_torch.ops import cuda_lib, select_kernel, swa_kernel
+from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, select_kernel,
+                                      swa_kernel)
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
-    sliding_window_attention_plain)
+    sliding_window_attention_bwd_plain, sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
+from sparse_vae_tpu_torch.train import build as build_training
+from sparse_vae_tpu_torch.training.data import synthetic_batch
+from sparse_vae_tpu_torch.training.train_step import train_step
 
 RUN = "real-prose-vae-r5"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -65,6 +79,22 @@ K4_FLIP_MARGIN = 1e-4
 # Model: the bf16 card path against the fp32 CPU path after 6 layers.
 MODEL_MEAN_ABS_TOL = 0.25
 MODEL_ARGMAX_AGREE = 0.9
+# K2 and K3b: bf16 gradients against the fp32 plain versions, the largest
+# error relative to the largest entry: one bf16 rounding of each output
+# (2^-9) plus, in K3b, the rounding of the logit gradients to bf16 before
+# the products, as the JAX kernel rounds them.
+GRAD_REL_TOL = 1e-2
+# K3: fp32 lse and nll, summation order over 32,768 logits.
+K3_ATOL = 1e-4
+# Train: the bf16 kernel step against the fp32 plain step: the loss within
+# 0.1% relative (bf16 rounding of the activations; a fault in a share of
+# the tokens, such as mis-masked padding, moves it by more), and every one
+# of the 165 gradients at cosine >= 0.99.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_COS = 0.99
+# Document lengths of the [8, 12800] training-shape kernel timings: full
+# rows, the JAX train bench's traffic (bench.py: num_tokens = L).
+TRAIN_LENGTHS = [12800] * 8
 
 
 class Phase:
@@ -321,8 +351,271 @@ def serve_phase(model, requests, *, batch_size: int = 64,
     return stats
 
 
+def rel_err(got, want) -> float:
+    """Largest |got - want| relative to the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def band_pairs(L: int, lengths, window: int, block: int) -> int:
+    """Attended (query, key) pairs of the causal band + [CLS] pattern over
+    all rows, per head: what K1/K2 compute for this run's lengths."""
+    pos = torch.arange(L, device="cuda", dtype=torch.int64)
+    qb = pos // block
+    band_lo = (qb - window + 1).clamp_min(0) * block
+    total = 0
+    for n in lengths:
+        keys = (torch.minimum(pos, torch.tensor(n - 1, device="cuda"))
+                - band_lo + 1).clamp_min(0)
+        cls = torch.where(qb - window + 1 > 0, min(block, n), 0)
+        total += int((keys + cls).sum())
+    return total
+
+
+def k2_phase(b: int, L: int, lengths, seed: int, iters: int,
+             time_it: bool = False):
+    """K2 against its plain version; timed beside the plain version and
+    the backward of scaled_dot_product_attention under the band mask."""
+    h, d, window, block = 8, 64, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, L, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out, lse = swa_kernel.swa_fwd(q, k, v, lens)
+    got = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do)
+    torch.cuda.synchronize()
+    want = sliding_window_attention_bwd_plain(q, k, v, lens, lse, out, do)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    abs_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    del want
+    check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+          "K2 gradients are not finite")
+    check(max(errs) <= GRAD_REL_TOL,
+          f"K2 disagrees with its plain version: rel errors {errs}")
+    row = {"shape": [b, h, L, d], "lengths": list(lengths),
+           "max_abs_err": abs_err, "rel_errs_dq_dk_dv": errs}
+    if time_it:
+        row["ms"] = cuda_ms(lambda: swa_kernel.swa_bwd(
+            q, k, v, lens, lse, out, do), iters)
+        row["plain_ms"] = cuda_ms(lambda: sliding_window_attention_bwd_plain(
+            q, k, v, lens, lse, out, do), 2, warmup=1)
+        row["library_ms"] = sdpa_backward_ms(q, k, v, do, lens, window,
+                                             block)
+        pairs = band_pairs(L, lengths, window, block) * h
+        # 5 tensors read (q, k, v, out, do), lse and lengths, 3 written.
+        nbytes = 8 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4
+        # Per attended pair: s and dp recomputed, dq, dk, dv: 5 products
+        # of 64 multiply-adds.
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 10 * d * pairs,
+                                                 BF16_TENSOR_FLOPS)
+        row["pairs"] = pairs
+    print("K2 " + json.dumps(row), flush=True)
+    return row
+
+
+def sdpa_backward_ms(q, k, v, do, lens, window, block):
+    """Backward of F.scaled_dot_product_attention under the band mask (a
+    dense O(L^2) yardstick the port never calls): forward + backward
+    minus forward."""
+    L = q.shape[2]
+    mask = band_mask(L, lens, window, block, "cuda")
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qq, kk, vv), do)
+
+    try:
+        total = cuda_ms(fwd_bwd, 2, warmup=1)
+        fwd_only = cuda_ms(fwd, 2, warmup=1)
+    except torch.OutOfMemoryError:
+        print("K2 library yardstick: out of memory at this shape",
+              flush=True)
+        return None
+    finally:
+        del mask
+    return total - fwd_only
+
+
+def ce_inputs(t: int, seed: int, vocab: int = 32768, d: int = 512,
+              padded: int = 0):
+    """Tied-CE inputs; the last `padded` tokens are padding (label 0,
+    dnll 0), as the tail of a short document gives them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((t, d), generator=gen, device="cuda").to(torch.bfloat16)
+    table = (0.05 * torch.randn((vocab, d), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(vocab, generator=gen, device="cuda")
+    labels = torch.randint(1, vocab, (t,), generator=gen, device="cuda")
+    dnll = torch.full((t,), 1.0 / (t - padded), device="cuda")
+    labels[t - padded:] = 0
+    dnll[t - padded:] = 0.0
+    return g, table, bias, labels, dnll
+
+
+def k3_phase(t_check: int, t_time: int, seed: int):
+    """K3 and K3b against their plain versions at t_check tokens; timed at
+    t_time tokens beside the plain versions and F.linear +
+    F.cross_entropy forward and backward."""
+    g, table, bias, labels, dnll = ce_inputs(t_check, seed,
+                                             padded=t_check // 8)
+    nll, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    grads = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    torch.cuda.synchronize()
+    want_nll, want_lse = ce_kernel.tied_ce_fwd_plain(g, table, bias, labels)
+    want = ce_kernel.tied_ce_bwd_plain(g.float(), table.float(), bias,
+                                       labels, want_lse, dnll)
+    fwd_err = max((lse - want_lse).abs().max().item(),
+                  (nll - want_nll).abs().max().item())
+    bwd_errs = [rel_err(a, w) for a, w in zip(grads, want)]
+    bwd_abs = max((a.float() - w.float()).abs().max().item()
+                  for a, w in zip(grads, want))
+    check(bool(torch.isfinite(nll).all()), "K3 nll is not finite")
+    check(fwd_err <= K3_ATOL, f"K3 disagrees with its plain version: "
+          f"{fwd_err:.3g}")
+    check(all(bool(torch.isfinite(a.float()).all()) for a in grads),
+          "K3b gradients are not finite")
+    check(max(bwd_errs) <= GRAD_REL_TOL,
+          f"K3b disagrees with its plain version: rel errors {bwd_errs}")
+    del g, table, bias, labels, dnll, grads, want
+
+    g, table, bias, labels, dnll = ce_inputs(t_time, seed + 1)
+    t, vocab, d = g.shape[0], table.shape[0], g.shape[1]
+    _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    fwd_ms = cuda_ms(lambda: ce_kernel.tied_ce_fwd(g, table, bias, labels),
+                     5)
+    bwd_ms = cuda_ms(lambda: ce_kernel.tied_ce_bwd(g, table, bias, labels,
+                                                   lse, dnll), 3)
+    plain_fwd_ms = cuda_ms(lambda: ce_kernel.tied_ce_fwd_plain(
+        g, table, bias, labels), 1, warmup=1)
+    plain_bwd_ms = cuda_ms(lambda: ce_kernel.tied_ce_bwd_plain(
+        g, table, bias, labels, lse, dnll), 1, warmup=1)
+    lib_fwd_ms, lib_bwd_ms = ce_library_ms(g, table, bias, labels)
+    flops = 2 * t * vocab * d
+    in_bytes = g.numel() * 2 + table.numel() * 2 + vocab * 4 + t * 8
+    # K3: reads once, writes lse and nll; one product of 2 T V D.
+    fwd_bound = bound(in_bytes + 2 * t * 4, flops, BF16_TENSOR_FLOPS)
+    # K3b: reads the inputs, lse and dnll, writes dg, dE and dbias; the
+    # least work is the logits once and the two gradient products
+    # (3 x 2 T V D; the kernels recompute the logits twice, 4 x).
+    bwd_bound = bound(in_bytes + 2 * t * 4 + g.numel() * 2
+                      + table.numel() * 2 + vocab * 4, 3 * flops,
+                      BF16_TENSOR_FLOPS)
+    shape = [t, vocab, d]
+    k3 = {"shape": shape, "check_tokens": t_check, "max_abs_err": fwd_err,
+          "ms": fwd_ms, "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms,
+          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+    k3b = {"shape": shape, "check_tokens": t_check, "max_abs_err": bwd_abs,
+           "rel_errs_dg_dE_dbias": bwd_errs, "ms": bwd_ms,
+           "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
+           "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
+    print("K3 " + json.dumps(k3), flush=True)
+    print("K3b " + json.dumps(k3b), flush=True)
+    return k3, k3b
+
+
+def ce_library_ms(g, table, bias, labels):
+    """(forward ms, backward ms) of F.linear + F.cross_entropy on the same
+    inputs (bf16 logits, as autocast would give), a yardstick the port
+    never calls."""
+    gg, tt, bb = (x.detach().requires_grad_() for x in (g, table, bias))
+
+    def fwd():
+        logits = F.linear(gg, tt, bb.to(gg.dtype))
+        return F.cross_entropy(logits.float(), labels, reduction="sum")
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (gg, tt, bb))
+
+    try:
+        fwd_ms = cuda_ms(fwd, 2, warmup=1)
+        total = cuda_ms(fwd_bwd, 2, warmup=1)
+    except torch.OutOfMemoryError:
+        print("K3 library yardstick: out of memory at this shape",
+              flush=True)
+        return None, None
+    return fwd_ms, total - fwd_ms
+
+
+def train_phase(steps: int = 3, batch: int = 4, seq: int = 4096,
+                seed: int = 11) -> dict:
+    """r5 trains for `steps` optimizer steps on the card through the
+    kernels; step 1 is held against the fp32 plain step on the card."""
+    device = "cuda"
+    model, objective, optimizer, _ = build_training(RUN, device, 1, batch,
+                                                    seq)
+    rng = np.random.default_rng(seed)
+    vocab = model.hparams.vocab_size
+    batches = [synthetic_batch(rng, batch, seq, vocab, device=device)
+               for _ in range(steps)]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    noise = {"eps": torch.randn((batch, 1, model.hparams.latent_depth),
+                                generator=gen, device=device),
+             "mi": torch.randn((objective.mi_samples, batch,
+                                model.hparams.latent_depth),
+                               generator=gen, device=device)}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s, first_grads = [], [], None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(model, objective, optimizer, [batches[step]],
+                             step, [noise] if step == 0 else None, gen)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if step == 0:
+            first_grads = {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+            first_metrics = {k: float(v) for k, v in metrics.items()}
+    counts = {"swa_fwd": swa_kernel.launches,
+              "swa_bwd": swa_kernel.bwd_launches,
+              "tied_ce_fwd": ce_kernel.fwd_launches,
+              "tied_ce_bwd": ce_kernel.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
+    for name, n in counts.items():
+        check(n > 0, f"the train path never launched {name}")
+    del model, optimizer
+
+    ref, ref_objective, _, _ = build_training(RUN, device, 1, batch, seq,
+                                              use_kernels=False,
+                                              dtype=torch.float32)
+    ref_loss, _ = ref_objective.loss(ref, batches[0], 0, noise)
+    ref_loss.backward()
+    ref_loss = ref_loss.detach().item()
+    cos = {}
+    for name, p in ref.named_parameters():
+        a, w = first_grads[name].double(), p.grad.double()
+        cos[name] = float((a * w).sum() / (a.norm() * w.norm()).clamp_min(
+            1e-300))
+    del ref
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    check(len(cos) == 165, f"{len(cos)} gradients compared, not 165")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"train step 1 loss {losses[0]} vs fp32 plain {ref_loss}")
+    check(worst[0][1] >= TRAIN_GRAD_COS,
+          f"train step 1 gradients disagree with fp32 plain: {worst}")
+    stats = {"steps": steps, "batch": [batch, seq],
+             "real_tokens": [int(b["num_tokens"].sum()) for b in batches],
+             "losses": losses, "step_s": step_s, "step1": first_metrics,
+             "fp32_plain_loss": ref_loss, "loss_rel_err": loss_rel,
+             "min_grad_cosine": worst, "launches": counts,
+             "max_memory_allocated_bytes": peak}
+    print("train " + json.dumps(stats), flush=True)
+    return stats
+
+
 def reset_counts():
     swa_kernel.launches = 0
+    swa_kernel.bwd_launches = 0
+    ce_kernel.fwd_launches = 0
+    ce_kernel.bwd_launches = 0
     select_kernel.launches = 0
 
 
@@ -341,6 +634,12 @@ def main() -> int:
                            iters=50)
         k4_rows = [k4_phase(t, seed=3 + i, iters=200)
                    for i, t in enumerate((1.0, 0.7))]
+        k1_train = k1_phase(8, 12800, TRAIN_LENGTHS, seed=8, iters=5)
+        k2_phase(1, 512, [417], seed=4, iters=0)
+        k2_phase(4, 4096, [4096, 3001, 1500, 129], seed=5, iters=0)
+        k2_train = k2_phase(8, 12800, TRAIN_LENGTHS, seed=6, iters=5,
+                            time_it=True)
+        k3, k3b = k3_phase(16384, 102400, seed=7)
     with Phase("model"):
         model, _, _ = load_run(RUN, device="cuda")
         model_phase(model)
@@ -359,19 +658,33 @@ def main() -> int:
               "the serve path never launched K4")
         print("serve " + json.dumps({**stats, "launches": counts,
                                      "card": smi}), flush=True)
+        del model
+    with Phase("train"):
+        train = train_phase()
+        train_counts = train["launches"]
+
+    def timed(row):
+        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "shape")}
 
     kernels = [
         {"name": "swa_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
-         "launches": counts["swa_fwd"],
+         "launches": counts["swa_fwd"] + train_counts["swa_fwd"],
+         "launches_by_path": {"serve": counts["swa_fwd"],
+                              "train": train_counts["swa_fwd"]},
          **{k: k1_serve[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by",
                                      "library_ms")},
          "shape": k1_serve["shape"],
          "long": {k: k1_long[k] for k in ("shape", "max_abs_err", "ms",
                                           "plain_ms", "bound_ms",
-                                          "library_ms")}},
+                                          "library_ms")},
+         "train": {k: k1_train[k] for k in ("shape", "max_abs_err", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}},
         {"name": "nucleus_select", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/nucleus_select.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_select.py:128",
@@ -383,6 +696,18 @@ def main() -> int:
          "ulp_flip_rows": sum(r["ulp_flip_rows"] for r in k4_rows),
          "temperature_0.7": {k: k4_rows[1][k] for k in (
              "max_abs_err", "ms", "plain_ms")}},
+        {"name": "swa_bwd", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
+         "launches": train_counts["swa_bwd"], **timed(k2_train)},
+        {"name": "tied_ce_fwd", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
+         "launches": train_counts["tied_ce_fwd"], **timed(k3)},
+        {"name": "tied_ce_bwd", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
+         "launches": train_counts["tied_ce_bwd"], **timed(k3b)},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ Archive format (tools/archive_ckpt.py): one npz entry per flax param leaf,
 keyed by its '/'-joined path (`layer_0/attention/q_linear/kernel`); float
 leaves are stored as uint16 bf16 bit patterns under a `::bf16` key suffix.
 A flax Dense `kernel` is [in, out], the transpose of nn.Linear.weight; a
-LayerNorm `scale` and an Embed `embedding` are torch's `weight`.
+LayerNorm `scale` and an Embed `embedding` are torch's `weight`; a learned
+query bank `learned_queries` is a bare [1, n, D] parameter of the same
+name.
 
 Weights are converted in memory at load time; nothing converted is written.
 """
@@ -26,13 +28,14 @@ from .models.transformer_vae import TransformerVAE, TransformerVAEHparams
 REPO_ROOT = Path(__file__).resolve().parent.parent
 BF16_SUFFIX = "::bf16"
 
-# Leaves of modules this port does not have yet: the Perceiver encoder and
-# the posterior (serving draws z from the prior or takes it as input).
-UNPORTED_PREFIXES = ("encoder/", "q_of_z_given_x/")
+# Leaves of modules this port does not have yet: none; every leaf of the
+# flagship run maps to a parameter.
+UNPORTED_PREFIXES = ()
 
-_NUMBERED = {"layer": "decoder_layers", "z_projection": "z_projections"}
+_NUMBERED = {"layer": "decoder_layers", "z_projection": "z_projections",
+             "middle": "middle_layers"}
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-               "bias": "bias"}
+               "bias": "bias", "learned_queries": "learned_queries"}
 
 
 def decode_leaves(flat: dict) -> dict:
@@ -51,10 +54,11 @@ def decode_leaves(flat: dict) -> dict:
 
 def torch_key(path: str) -> tuple:
     """Map a flax leaf path to (state_dict key, transpose?)."""
-    parts = path.split("/")
-    head = re.fullmatch(r"(layer|z_projection)_(\d+)", parts[0])
-    if head:
-        parts = [_NUMBERED[head.group(1)], head.group(2)] + parts[1:]
+    parts = []
+    for part in path.split("/"):
+        numbered = re.fullmatch(r"(layer|z_projection|middle)_(\d+)", part)
+        parts += ([_NUMBERED[numbered.group(1)], numbered.group(2)]
+                  if numbered else [part])
     leaf = parts[-1]
     if len(parts) == 1:          # a bare parameter such as output_bias
         return leaf, False
@@ -64,7 +68,14 @@ def torch_key(path: str) -> tuple:
 
 
 def params_from_numpy(flat: dict, hparams: TransformerVAEHparams) -> dict:
-    """Archive entries -> a TransformerVAE state_dict of fp32 tensors.
+    """Archive entries -> a TransformerVAE state_dict of fp32 tensors
+    (`state_from_leaves` after decoding the bf16 bit patterns)."""
+    return state_from_leaves(decode_leaves(flat), hparams)
+
+
+def state_from_leaves(leaves: dict, hparams: TransformerVAEHparams) -> dict:
+    """{flax leaf path: array} -> a TransformerVAE state_dict of fp32
+    tensors.
 
     Every leaf either maps to a parameter of the model `hparams` describe,
     with that parameter's shape, or lies under one of UNPORTED_PREFIXES;
@@ -75,14 +86,15 @@ def params_from_numpy(flat: dict, hparams: TransformerVAEHparams) -> dict:
         expected = {k: tuple(v.shape)
                     for k, v in TransformerVAE(hparams).state_dict().items()}
     state = {}
-    for path, arr in decode_leaves(flat).items():
+    for path, arr in leaves.items():
         if path.startswith(UNPORTED_PREFIXES):
             continue
         key, transpose = torch_key(path)
         if key not in expected:
             raise KeyError(f"archive leaf {path!r} maps to {key!r}, which "
                            "the model has no parameter for")
-        arr = np.ascontiguousarray(arr.T if transpose else arr)
+        arr = np.ascontiguousarray(
+            np.asarray(arr).T if transpose else np.asarray(arr))
         if arr.shape != expected[key]:
             raise ValueError(f"{path!r}: archive shape {arr.shape}, model "
                              f"shape {expected[key]}")
@@ -105,18 +117,33 @@ def hparams_from_meta(meta: dict) -> TransformerVAEHparams:
         **{k: v for k, v in model_hp.items() if k in names})
 
 
-def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None):
+def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
+             train: bool = False, use_kernels: bool = True):
     """Load runs/<name>/ (meta.json + ckpt_bf16.npz) into a TransformerVAE
-    on `device`, in eval mode without grads. dtype defaults to the run's
-    compute dtype (bf16 for precision=bf16). Returns (model, hparams,
-    meta)."""
+    on `device`. Returns (model, hparams, meta).
+
+    Serving form (train=False): the whole model in `dtype`, default the
+    run's compute dtype (bf16 for precision=bf16), in eval mode without
+    grads. Training form (train=True): fp32 master parameters with grads,
+    computing in `dtype` (default the run's compute dtype), as the JAX
+    trainer keeps fp32 params under a bf16 compute dtype. use_kernels=False
+    routes attention and the loss through the plain PyTorch versions
+    (autograd) instead of the K1/K2 and K3/K3b Functions — the reference
+    path a kernel run is held against.
+    """
     device = resolve_device(device)
     run = REPO_ROOT / "runs" / name
     meta = json.loads((run / "meta.json").read_text())
     hp = hparams_from_meta(meta)
+    hp.use_pallas_kernel = hp.use_pallas_kernel and use_kernels
     with np.load(run / "ckpt_bf16.npz") as npz:
         state = params_from_numpy({k: npz[k] for k in npz.files}, hp)
     model = TransformerVAE(hp)
     model.load_state_dict(state, strict=True)
-    model = model.to(device=device, dtype=dtype or compute_dtype(hp.precision))
+    dtype = dtype or compute_dtype(hp.precision)
+    if train:
+        model = model.to(device=device, dtype=torch.float32)
+        model.compute_dtype = dtype
+        return model.train().requires_grad_(True), hp, meta
+    model = model.to(device=device, dtype=dtype)
     return model.eval().requires_grad_(False), hp, meta

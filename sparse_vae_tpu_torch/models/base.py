@@ -1,12 +1,25 @@
-"""Shared model hparams and device/dtype helpers.
+"""Shared model hparams, device/dtype helpers and the compute-dtype rule.
 
 Counterpart of sparse_vae_tpu/models/base.py: the LanguageModelHparams
-fields the serving slice reads, and `compute_dtype`.
+fields the port reads, and `compute_dtype`.
+
+The compute-dtype rule is flax's `dtype=` semantics: a module computes in
+the dtype of the activations it is given, whatever its parameters are
+stored in. For training the parameters (and the optimizer state) are fp32
+masters and the activations bf16, so `Linear` casts its weight and bias to
+bf16 at use, and `LayerNorm` normalises in fp32 and rounds its output to
+the activations' dtype. A model whose parameters are already in the
+activations' dtype (serving in bf16, or an fp32 reference) computes
+exactly as plain nn.Linear / nn.LayerNorm do.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
 
 VOCAB_SIZE = 2 ** 15
 
@@ -22,6 +35,12 @@ LAYER_NORM_EPS = 1e-6
 
 @dataclass
 class LanguageModelHparams:
+    grad_clip_threshold: float = 5.0
+    base_batch_size: int = 100_000       # sqrt-lr-scaling base
+    lr: float = 2e-4
+    lr_decay_steps: Optional[int] = 250_000
+    weight_decay: float = 0.01
+    lamb: bool = False
     vocab_size: int = VOCAB_SIZE
 
 
@@ -37,3 +56,24 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the dtype of its input: the weight and bias are cast
+    at use (flax Dense with `dtype=`)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm whose statistics and affine run in the wider of the
+    input's and the parameters' dtypes, with the output in the input's
+    dtype (flax LayerNorm with `dtype=`: fp32 statistics, bf16 out)."""
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt),
+                            self.eps).to(x.dtype)

@@ -1,0 +1,46 @@
+"""Perceiver encoder: a variable-length sequence -> a fixed set of latents
+(port of sparse_vae_tpu/models/perceiver.py, one device).
+
+The first layer's learned-query bank attends over the input; the middle
+layers self-attend over the latents and cross-attend back to the input;
+the bottleneck layer's bank compresses to `bottleneck_width` vectors.
+num_heads = d_model // 64. No layer is causal or sparse: every attention
+here is the dense masked path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch.nn as nn
+
+from .transformer_layer import TransformerLayer
+
+
+class Perceiver(nn.Module):
+    def __init__(self, num_layers: int, num_latents: int, d_model: int,
+                 bottleneck_width: Optional[int] = None):
+        super().__init__()
+        if num_layers < 2:
+            raise ValueError("the Perceiver needs at least two layers")
+        num_heads = max(1, d_model // 64)
+        self.first_layer = TransformerLayer(d_model, num_heads,
+                                            learned_queries=num_latents)
+        middle = num_layers - 1
+        self.bottleneck = None
+        if bottleneck_width:
+            self.bottleneck = TransformerLayer(
+                d_model, num_heads, learned_queries=bottleneck_width)
+            middle -= 1
+        self.middle_layers = nn.ModuleList([
+            TransformerLayer(d_model, num_heads, use_cross_attention=True)
+            for _ in range(max(middle, 0))])
+
+    def forward(self, x, mask=None):
+        """x: [B, L, D], mask: [B, L] (True = valid). Returns
+        [B, bottleneck_width or num_latents, D]."""
+        z = self.first_layer(x, mask)
+        for layer in self.middle_layers:
+            z = layer(z, context=x, context_mask=mask)
+        if self.bottleneck is not None:
+            z = self.bottleneck(z)
+        return z

@@ -1,45 +1,70 @@
 """Pre-LN transformer layer (port of sparse_vae_tpu/models/transformer_layer.py,
-dense-FFN self-attention layer): self-attention, then a 4x tanh-GELU FFN
-whose output projection has no bias. Dropout is not ported (the slice
-serves only).
+dense-FFN layer): self-attention, optional cross-attention (separate
+LayerNorms for the queries and the context), then a 4x tanh-GELU FFN whose
+output projection has no bias. A learned-query layer (the Perceiver's)
+keeps no residual around its attention: the query bank replaced x.
+Dropout is not ported: the VAE trains with it off, as the reference's
+trained runs did.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import Attention
-from .base import LAYER_NORM_EPS
+from .base import LAYER_NORM_EPS, LayerNorm, Linear
 
 
 class TransformerLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
                  sparse_self_attention: bool = False, window_size: int = 2,
-                 block_size: int = 128):
+                 block_size: int = 128, use_cross_attention: bool = False,
+                 learned_queries: Optional[int] = None,
+                 use_kernel: bool = True):
         super().__init__()
+        self.learned_queries = learned_queries
         self.attention = Attention(d_model, num_heads, causal=causal,
                                    sparse=sparse_self_attention,
                                    window_size=window_size,
-                                   block_size=block_size)
-        self.ffn_in = nn.Linear(d_model, 4 * d_model)
-        self.ffn_out = nn.Linear(4 * d_model, d_model, bias=False)
-        self.attn_layer_norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
-        self.ffn_layer_norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
+                                   block_size=block_size,
+                                   learned_queries=learned_queries,
+                                   use_kernel=use_kernel)
+        self.ffn_in = Linear(d_model, 4 * d_model)
+        self.ffn_out = Linear(4 * d_model, d_model, bias=False)
+        self.attn_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.ffn_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
+        self.use_cross_attention = use_cross_attention
+        if use_cross_attention:
+            self.cross_attention = Attention(d_model, num_heads,
+                                             use_kernel=use_kernel)
+            self.cross_attn_layer_norm = LayerNorm(d_model,
+                                                   eps=LAYER_NORM_EPS)
+            self.context_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
 
     def _ffn(self, x):
         y = self.ffn_layer_norm(x)
         y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))
         return x + y
 
-    def forward(self, x, mask=None, return_kv: bool = False):
-        """x: [B, L, D]; mask: [B, L] key-padding mask (True = valid).
-        With return_kv also returns the attention's head-major (k, v)."""
+    def forward(self, x, mask=None, return_kv: bool = False, context=None,
+                context_mask=None):
+        """x: [B, L, D]; mask: [B, L] key-padding mask (True = valid);
+        context: [B, Lc, D] for cross-attention, with context_mask
+        [B, Lc]. With return_kv also returns the attention's head-major
+        (k, v)."""
         y = self.attention(self.attn_layer_norm(x), kv_mask=mask,
                            return_kv=return_kv)
         if return_kv:
             y, kv = y
-            return self._ffn(x + y), kv
-        return self._ffn(x + y)
+        x = y if self.learned_queries else x + y
+        if self.use_cross_attention and context is not None:
+            ctx = self.context_layer_norm(context)
+            x = x + self.cross_attention(self.cross_attn_layer_norm(x),
+                                         kv_mask=context_mask, x_kv=ctx)
+        x = self._ffn(x)
+        return (x, kv) if return_kv else x
 
     def decode_rowwise(self, x_t, cache: dict, index):
         """One-token step at PER-ROW positions index [B]."""

@@ -1,9 +1,12 @@
-"""Decoder-only causal transformer language model: the pieces the VAE's
-serving path shares (port of sparse_vae_tpu/models/transformer_lm.py:
-`embed`, `pre_logits`, the tied `project` and `init_caches`).
+"""Decoder-only causal transformer language model: the pieces the VAE
+shares (port of sparse_vae_tpu/models/transformer_lm.py: `embed`,
+`pre_logits`, the tied `project`, `sequence_nll`, `shifted_labels` /
+`labels_for` and `init_caches`).
 
 Ported configurations: tied input/output embedding with
-d_embedding == d_model, dense FFNs, no cross-attention, one device.
+d_embedding == d_model, dense FFNs, no decoder cross-attention, one
+device. The model computes in `compute_dtype` (default: its parameters'
+dtype); models/base.py states the rule.
 """
 from __future__ import annotations
 
@@ -14,7 +17,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .base import LAYER_NORM_EPS, LanguageModelHparams
+from ..ops.ce_kernel import FusedTiedCrossEntropy
+from ..ops.cross_entropy import chunked_cross_entropy
+from .base import LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear
 from .transformer_layer import TransformerLayer
 
 
@@ -29,6 +34,8 @@ class TransformerHparams(LanguageModelHparams):
     attn_window_size: int = 2           # in attn_block_size blocks
     attn_block_size: int = 128
     sparse_self_attention: bool = True
+    loss_chunk_size: int = 0            # > 0: chunked projection + CE
+    use_pallas_kernel: bool = True      # here: the port's CUDA kernels
     precision: str = "fp32"
     tp_size: int = 1
     sp_size: int = 1
@@ -43,7 +50,8 @@ class TransformerHparams(LanguageModelHparams):
             "cross_attention": self.cross_attention,
             "tensor parallelism": self.tp_size > 1,
             "sequence parallelism": self.sp_size > 1,
-            "mixture-of-experts FFNs": self.num_experts > 1,
+            "mixture-of-experts FFNs (ROADMAP Queue 1 item 9)":
+                self.num_experts > 1,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -55,27 +63,35 @@ class TransformerLanguageModel(nn.Module):
         super().__init__()
         hparams.check_ported()
         hp = self.hparams = hparams
+        # None: compute in the parameters' dtype. Training sets bf16 over
+        # fp32 master parameters (checkpoint.load_run(train=True)).
+        self.compute_dtype: Optional[torch.dtype] = None
         self.input_embedding = nn.Embedding(hp.vocab_size, hp.d_model)
         self.decoder_layers = nn.ModuleList([
             TransformerLayer(hp.d_model, hp.num_heads, causal=True,
                              sparse_self_attention=hp.sparse_self_attention,
                              window_size=hp.attn_window_size,
-                             block_size=hp.attn_block_size)
+                             block_size=hp.attn_block_size,
+                             use_kernel=hp.use_pallas_kernel)
             for _ in range(hp.num_layers)])
-        self.head_dense = nn.Linear(hp.d_model, hp.d_model)
-        self.head_norm = nn.LayerNorm(hp.d_model, eps=LAYER_NORM_EPS)
+        self.head_dense = Linear(hp.d_model, hp.d_model)
+        self.head_norm = LayerNorm(hp.d_model, eps=LAYER_NORM_EPS)
         self.output_bias = nn.Parameter(torch.zeros(hp.vocab_size))
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.input_embedding.weight.dtype
+        return self.compute_dtype or self.input_embedding.weight.dtype
 
     @property
     def device(self) -> torch.device:
         return self.input_embedding.weight.device
 
     def embed(self, token_ids):
-        return self.input_embedding(token_ids)
+        return self.input_embedding(token_ids).to(self.dtype)
+
+    def table(self):
+        """The tied output table in the compute dtype."""
+        return self.input_embedding.weight.to(self.dtype)
 
     def pre_logits(self, h):
         """The head before the vocab projection: Dense -> GELU -> LN."""
@@ -85,8 +101,41 @@ class TransformerLanguageModel(nn.Module):
         """Head + tied output projection, [..., D] -> fp32 [..., V]. The
         product rounds to the compute dtype before the fp32 bias is added,
         as the reference's bf16 dot plus fp32 bias does."""
-        logits = F.linear(self.pre_logits(h), self.input_embedding.weight)
+        logits = F.linear(self.pre_logits(h), self.table())
         return logits.float() + self.output_bias.float()
+
+    def sequence_nll(self, hidden, labels):
+        """(nll_sum, token_count) over non-pad labels without [B, L, V]
+        logits. hidden: [B, L', D]; labels: [B, L'] (0 = pad).
+
+        With the kernels on (use_pallas_kernel, V % 1024 == 0, as the
+        reference gates its fused path): flatten, the head on [T, D], then
+        the fused tied CE (K3/K3b on the card, their plain versions on the
+        CPU). Otherwise the chunked projection + CE."""
+        hp = self.hparams
+        if hp.use_pallas_kernel and hp.vocab_size % 1024 == 0:
+            b, length, d = hidden.shape
+            g = self.pre_logits(hidden.reshape(b * length, d))
+            flat = labels.reshape(-1)
+            nll = FusedTiedCrossEntropy.apply(
+                g.contiguous(), self.table(), self.output_bias.float(),
+                flat)
+            mask = (flat != 0).float()
+            return (nll * mask).sum(), mask.sum()
+        return chunked_cross_entropy(hidden, self.project, labels,
+                                     hp.loss_chunk_size or 2048)
+
+    @staticmethod
+    def shifted_labels(token_ids):
+        """Next-token labels aligned with the full-length hidden states:
+        position t's label is token t+1, with [PAD] = 0 at the last
+        position."""
+        return F.pad(token_ids[:, 1:], (0, 1))
+
+    def labels_for(self, token_ids):
+        """Next-token labels for this module's layout (one device: the
+        end-padded shift)."""
+        return self.shifted_labels(token_ids)
 
     def init_caches(self, batch_size: int, max_length: int) -> list:
         return [layer.init_cache(batch_size, max_length, self.device,

@@ -1,29 +1,41 @@
-"""The flagship Transformer-VAE's decoder (port of
-sparse_vae_tpu/models/transformer_vae.py: the per-layer z projections,
-`reconstruct_hidden` and `decode_step_z_rowwise`).
+"""The flagship Transformer-VAE (port of
+sparse_vae_tpu/models/transformer_vae.py): the Perceiver encoder over the
+shared input embedding, the ConditionalGaussian posterior, the per-layer z
+projections, `reconstruct_hidden`, the training forwards (`__call__`,
+`forward_chunked_nll`) and `decode_step_z_rowwise`.
 
-z replaces position 0 ([CLS]) of every decoder layer's input. The Perceiver
-encoder and the posterior are not ported yet: the slice serves with z
-drawn from the prior or passed in.
+z replaces position 0 ([CLS]) of every decoder layer's input. The training
+forwards take the posterior noise eps (z = loc + scale * eps) or a
+torch.Generator to draw it from.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
+from .base import Linear
+from .conditional_gaussian import ConditionalGaussian
+from .perceiver import Perceiver
 from .transformer_lm import TransformerHparams, TransformerLanguageModel
 
 
 @dataclass
 class TransformerVAEHparams(TransformerHparams):
     latent_depth: int = 64
+    num_encoder_latents: int = 64
+    kl_annealing_steps: int = 0
+    kl_weight_start: float = 1.0
+    kl_weight_end: float = 1.0
+    train_mc_samples: int = 1
+    free_bits: float = 0.0
 
 
 def z_projection_module(hp: TransformerVAEHparams) -> nn.Linear:
     """One per-layer z-injection projection."""
-    return nn.Linear(hp.latent_depth, hp.d_model)
+    return Linear(hp.latent_depth, hp.d_model)
 
 
 class TransformerVAE(TransformerLanguageModel):
@@ -31,7 +43,22 @@ class TransformerVAE(TransformerLanguageModel):
         super().__init__(hparams)
         self.z_projections = nn.ModuleList([
             z_projection_module(hparams) for _ in range(hparams.num_layers)])
+        self.encoder = Perceiver(
+            num_layers=max(2, hparams.num_layers // 2),
+            num_latents=hparams.num_encoder_latents,
+            d_model=hparams.d_model, bottleneck_width=1)
+        self.q_of_z_given_x = ConditionalGaussian(hparams.latent_depth,
+                                                  hparams.d_model)
 
+    # -- encoder ------------------------------------------------------------
+    def encode(self, token_ids):
+        """token_ids [B, L] -> the encoder bottleneck [B, 1, d_model]."""
+        return self.encoder(self.embed(token_ids), mask=token_ids != 0)
+
+    def posterior(self, token_ids, get_kl: bool = False):
+        return self.q_of_z_given_x(self.encode(token_ids), get_kl=get_kl)
+
+    # -- decoder ------------------------------------------------------------
     def reconstruct_hidden(self, token_ids, z, return_kv: bool = False):
         """Decoder stack with z injected at position 0 of every layer.
         token_ids: [B, L] (0 = pad); z: [B, 1, latent_depth]. Returns the
@@ -53,6 +80,30 @@ class TransformerVAE(TransformerLanguageModel):
     def reconstruct(self, token_ids, z):
         return self.project(self.reconstruct_hidden(token_ids, z))
 
+    # -- training forwards --------------------------------------------------
+    def _posterior_and_z(self, token_ids, eps, generator):
+        q, kl = self.posterior(token_ids, get_kl=True)
+        return q, kl, q.sample(eps, generator)
+
+    def forward(self, token_ids, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """(logits [B, L, V] fp32, per-dim KL [B, 1, latent], posterior,
+        z) with z = loc + scale * eps, eps given or drawn from
+        `generator`."""
+        q, kl, z = self._posterior_and_z(token_ids, eps, generator)
+        return self.reconstruct(token_ids, z), kl, q, z
+
+    def forward_chunked_nll(self, token_ids,
+                            eps: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None):
+        """Training forward without [B, L, V] logits: (nll_sum,
+        token_count, per-dim KL, posterior, z)."""
+        q, kl, z = self._posterior_and_z(token_ids, eps, generator)
+        h = self.reconstruct_hidden(token_ids, z)
+        nll_sum, count = self.sequence_nll(h, self.labels_for(token_ids))
+        return nll_sum, count, kl, q, z
+
+    # -- serving ------------------------------------------------------------
     def decode_step_z_rowwise(self, token, caches: list, index, z):
         """One decode step at PER-ROW positions index [B]: rows at position
         0 take their z projection as the layer input. token: [B];

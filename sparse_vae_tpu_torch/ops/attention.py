@@ -2,11 +2,13 @@
 (port of sparse_vae_tpu/ops/attention.py, the parts the serving slice runs).
 
 Ported: the masks, `dense_attention`, head split/merge, and `Attention`'s
-projection, full-sequence self-attention (the blocked sparse path and the
-masked-dense fallback), the block-ring and dense decode caches with
-`_decode_ring` and `decode_rowwise`, plus `row_cache_write` and
-`fill_cache_row`. The packed-layout, sequence-parallel, tensor-parallel,
-learned-query, cross-attention and frontier-window branches are not ported.
+projection (with the learned-query bank), full-sequence self- and
+cross-attention (the blocked sparse path, its masked-dense fallback and
+the dense non-causal masked path the Perceiver takes), the block-ring and
+dense decode caches with `_decode_ring` and `decode_rowwise`, plus
+`row_cache_write` and `fill_cache_row`. The packed-layout,
+sequence-parallel, tensor-parallel and frontier-window branches are not
+ported.
 
 Unlike the reference, whose arrays are immutable, the decode caches are
 updated in place: a step writes one position per row instead of copying
@@ -14,9 +16,12 @@ every cache.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from ..models.base import Linear
 from .rotary import apply_rotary
 from .sliding_window_attention import sliding_window_attention
 
@@ -99,15 +104,21 @@ def merge_heads(x):
 
 
 class Attention(nn.Module):
-    """Rotary multi-head self-attention, optionally sliding-window sparse.
+    """Rotary multi-head attention, optionally sliding-window sparse.
 
     Rotary base: 2 * window_size * block_size on the sparse path, else
-    max_length (10,000), as in the reference.
+    max_length (10,000), as in the reference. With `learned_queries` = n a
+    bank of n learned queries [1, n, D] (no rotary) replaces the projected
+    queries, the Perceiver's pattern. use_kernel routes the sparse path
+    through the K1/K2 autograd Function (the JAX package's
+    use_pallas_kernel); off, autograd differentiates the plain forward.
     """
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
                  sparse: bool = False, window_size: int = 2,
-                 block_size: int = 128, max_length: int = 10_000):
+                 block_size: int = 128, max_length: int = 10_000,
+                 learned_queries: Optional[int] = None,
+                 use_kernel: bool = True):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be a multiple of num_heads")
@@ -115,10 +126,16 @@ class Attention(nn.Module):
         self.causal, self.sparse = causal, sparse
         self.window_size, self.block_size = window_size, block_size
         self.max_length = max_length
-        self.q_linear = nn.Linear(d_model, d_model)
-        self.k_linear = nn.Linear(d_model, d_model)
-        self.v_linear = nn.Linear(d_model, d_model)
-        self.output_linear = nn.Linear(d_model, d_model)
+        self.num_queries = learned_queries
+        self.use_kernel = use_kernel
+        if learned_queries:
+            self.learned_queries = nn.Parameter(
+                torch.randn(1, learned_queries, d_model))
+        else:
+            self.q_linear = Linear(d_model, d_model)
+        self.k_linear = Linear(d_model, d_model)
+        self.v_linear = Linear(d_model, d_model)
+        self.output_linear = Linear(d_model, d_model)
 
     @property
     def rotary_base(self) -> float:
@@ -126,12 +143,20 @@ class Attention(nn.Module):
             return float(2 * self.window_size * self.block_size)
         return float(self.max_length)
 
-    def _project(self, x, pos_offset=0):
-        """Head-major rotary q, k and plain v [B, H, L, Dh]."""
+    def _project(self, x, pos_offset=0, x_kv=None):
+        """Head-major rotary q, k and plain v [B, H, L, Dh]; queries from x
+        (or the learned bank), keys and values from x_kv (default x)."""
         h, base = self.num_heads, self.rotary_base
-        q = apply_rotary(split_heads(self.q_linear(x), h), base, pos_offset)
-        k = apply_rotary(split_heads(self.k_linear(x), h), base, pos_offset)
-        v = split_heads(self.v_linear(x), h)
+        x_kv = x if x_kv is None else x_kv
+        if self.num_queries:
+            bank = self.learned_queries.to(x_kv.dtype)
+            q = split_heads(bank.expand(x_kv.shape[0], -1, -1), h)
+        else:
+            q = apply_rotary(split_heads(self.q_linear(x), h), base,
+                             pos_offset)
+        k = apply_rotary(split_heads(self.k_linear(x_kv), h), base,
+                         pos_offset)
+        v = split_heads(self.v_linear(x_kv), h)
         return q, k, v
 
     def _finalize(self, out_heads):
@@ -141,26 +166,32 @@ class Attention(nn.Module):
     def _close(self, merged):
         return self.output_linear(merged)
 
-    def forward(self, x, kv_mask=None, return_kv: bool = False):
-        """Full-sequence self-attention. x: [B, L, D]; kv_mask: [B, L] bool
-        (True = valid key). With return_kv, also returns the head-major
-        rotary (k, v) — the bulk-prefill cache seed (fill_cache_row)."""
-        q, k, v = self._project(x)
-        length = q.shape[2]
+    def forward(self, x, kv_mask=None, return_kv: bool = False,
+                x_kv=None):
+        """Full-sequence attention. x: [B, Lq, D] queries (ignored with
+        learned queries); x_kv: [B, Lk, D] keys and values, default x;
+        kv_mask: [B, Lk] bool (True = valid key). With return_kv, also
+        returns the head-major rotary (k, v) — the bulk-prefill cache seed
+        (fill_cache_row)."""
+        q, k, v = self._project(x, x_kv=x_kv)
+        lq, lk = q.shape[2], k.shape[2]
+        own_queries = not self.num_queries
         mask = None
-        if self.sparse and length % self.block_size == 0:
+        if (self.sparse and own_queries and lq == lk
+                and lq % self.block_size == 0):
             out = sliding_window_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), kv_mask,
                 window_size=self.window_size, block_size=self.block_size,
-                causal=self.causal)
+                causal=self.causal, use_kernel=self.use_kernel)
         else:
-            if self.sparse:
+            if self.sparse and own_queries:
                 mask = sliding_window_token_mask(
-                    length, length, self.block_size, self.window_size,
-                    self.causal, device=x.device)[None, None]
-            elif self.causal:
-                ar = torch.arange(length, device=x.device)
-                mask = (ar[None, :] <= ar[:, None])[None, None]
+                    lq, lk, self.block_size, self.window_size,
+                    self.causal, device=k.device)[None, None]
+            elif self.causal and own_queries:
+                mask = (torch.arange(lk, device=k.device)[None, :]
+                        <= torch.arange(lq, device=k.device)[:, None]
+                        )[None, None]
             if kv_mask is not None:
                 pad = kv_mask[:, None, None, :]
                 mask = pad if mask is None else (mask & pad)

@@ -1,0 +1,172 @@
+"""K3 and K3b: the tied vocab projection fused with softmax cross-entropy,
+forward and backward, as CUDA kernels (csrc/tied_ce.cu), replacing
+sparse_vae_tpu/ops/pallas_ce.py::_fwd and ::_bwd.
+
+Logits = g @ table^T + bias over the tied input embedding table; the
+[T, V] logits never reach device memory on the kernel path. `tied_ce_fwd`
+and `tied_ce_bwd` launch the kernels for CUDA tensors and run the plain
+versions (`tied_ce_fwd_plain`, `tied_ce_bwd_plain`, over token chunks) for
+CPU tensors. `FusedTiedCrossEntropy` is the autograd Function around the
+pair, the counterpart of the JAX package's `fused_tied_cross_entropy`.
+
+As there, the label logit g . E[label] + bias[label] and the backward's
+-dnll * E[label] term are row gathers outside the kernels, in fp32: the
+two terms of dg nearly cancel for well-predicted tokens, so they meet in
+fp32 and round once.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+# Kernel launches in this process (raised only where a kernel launches):
+# K3 in `fwd_launches`, K3b (the dg and dE kernels of one backward) in
+# `bwd_launches`.
+fwd_launches = 0
+bwd_launches = 0
+
+D_MODEL = 512
+VOCAB_TILE = 64
+# Tokens per step of the plain versions (the JAX loss_chunk_size).
+PLAIN_CHUNK = 2048
+
+
+def _label_logit(g, table, bias, labels):
+    """Per-token fp32 logit of its label: g . E[label] + bias[label]."""
+    rows = table[labels].float()
+    return (g.float() * rows).sum(-1) + bias.float()[labels]
+
+
+def tied_ce_fwd_plain(g, table, bias, labels, chunk: int = PLAIN_CHUNK):
+    """(nll [T] fp32, lse [T] fp32) for logits = g table^T + bias, in
+    fp32, `chunk` tokens at a time."""
+    table32, bias32 = table.float(), bias.float()
+    lse = torch.cat([
+        torch.logsumexp(g[i:i + chunk].float() @ table32.T + bias32, dim=-1)
+        for i in range(0, g.shape[0], chunk)])
+    return lse - _label_logit(g, table, bias, labels), lse
+
+
+def tied_ce_bwd_plain(g, table, bias, labels, lse, dnll,
+                      chunk: int = PLAIN_CHUNK):
+    """(dg, dtable, dbias) of sum(nll * dnll), in fp32, `chunk` tokens at a
+    time: dlogits = (exp(logits - lse) - onehot(label)) * dnll. Returned in
+    the dtypes of g, table and bias."""
+    table32, bias32 = table.float(), bias.float()
+    dg = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    de = torch.zeros_like(table32)
+    db = torch.zeros_like(bias32)
+    for i in range(0, g.shape[0], chunk):
+        g32 = g[i:i + chunk].float()
+        logits = g32 @ table32.T + bias32
+        dl = torch.exp(logits - lse[i:i + chunk, None])
+        dl[torch.arange(g32.shape[0], device=g.device),
+           labels[i:i + chunk]] -= 1.0
+        dl *= dnll[i:i + chunk, None].float()
+        dg[i:i + chunk] = dl @ table32
+        de += dl.T @ g32
+        db += dl.sum(0)
+    return dg.to(g.dtype), de.to(table.dtype), db.to(bias.dtype)
+
+
+def _check(g, table, bias, labels):
+    if g.ndim != 2 or table.ndim != 2 or g.shape[1] != table.shape[1]:
+        raise ValueError(f"g must be [T, D] and table [V, D], got "
+                         f"{tuple(g.shape)}, {tuple(table.shape)}")
+    if bias.shape != table.shape[:1] or labels.shape != g.shape[:1]:
+        raise ValueError(f"bias must be [V] and labels [T], got "
+                         f"{tuple(bias.shape)}, {tuple(labels.shape)}")
+    if len({t.device for t in (g, table, bias, labels)}) != 1:
+        raise ValueError("inputs on several devices")
+
+
+def _check_cuda(kernel, g, table, bias):
+    if g.dtype != torch.bfloat16 or table.dtype != torch.bfloat16:
+        raise TypeError(f"the {kernel} kernel takes bf16 g and table")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"the {kernel} kernel takes an fp32 bias")
+    if g.shape[1] != D_MODEL or table.shape[0] % VOCAB_TILE:
+        raise ValueError(f"the {kernel} kernel takes D = {D_MODEL} and a "
+                         f"vocab that is a multiple of {VOCAB_TILE}, got "
+                         f"{tuple(table.shape)}")
+    if not all(t.is_contiguous() for t in (g, table, bias)):
+        raise ValueError(f"the {kernel} kernel takes contiguous inputs")
+
+
+def tied_ce_fwd(g, table, bias, labels):
+    """K3. g [T, D], table [V, D], bias [V], labels [T] (int) ->
+    (nll [T] fp32, lse [T] fp32). CUDA: bf16 g and table, fp32 bias,
+    D = 512, V % 64 == 0, contiguous."""
+    global fwd_launches
+    _check(g, table, bias, labels)
+    if not g.is_cuda:
+        return tied_ce_fwd_plain(g, table, bias, labels)
+    _check_cuda("K3", g, table, bias)
+    t, v = g.shape[0], table.shape[0]
+    lse = torch.empty(t, dtype=torch.float32, device=g.device)
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    code = lib.svt_tied_ce_fwd(g.data_ptr(), table.data_ptr(),
+                               bias.data_ptr(), lse.data_ptr(), t, v,
+                               g.shape[1], stream)
+    cuda_lib.check(code, "tied_ce_fwd")
+    fwd_launches += 1
+    return lse - _label_logit(g, table, bias, labels), lse
+
+
+def tied_ce_bwd(g, table, bias, labels, lse, dnll):
+    """K3b. (dg, dtable, dbias) of sum(nll * dnll) given the forward's lse
+    [T] fp32 and dnll [T] fp32, in the dtypes of g, table and bias."""
+    global bwd_launches
+    _check(g, table, bias, labels)
+    if lse.shape != labels.shape or dnll.shape != labels.shape:
+        raise ValueError("lse and dnll must be [T]")
+    if not g.is_cuda:
+        return tied_ce_bwd_plain(g, table, bias, labels, lse, dnll)
+    _check_cuda("K3b", g, table, bias)
+    if lse.dtype != torch.float32 or dnll.dtype != torch.float32:
+        raise TypeError("the K3b kernels take fp32 lse and dnll")
+    if not (lse.is_contiguous() and dnll.is_contiguous()):
+        raise ValueError("the K3b kernels take contiguous lse and dnll")
+    t, v = g.shape[0], table.shape[0]
+    labels32 = labels.to(torch.int32).contiguous()
+    dg = torch.empty((t, g.shape[1]), dtype=torch.float32, device=g.device)
+    de = torch.empty((v, g.shape[1]), dtype=torch.float32, device=g.device)
+    db = torch.empty(v, dtype=torch.float32, device=g.device)
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    code = lib.svt_tied_ce_dg(g.data_ptr(), table.data_ptr(),
+                              bias.data_ptr(), lse.data_ptr(),
+                              dnll.data_ptr(), dg.data_ptr(), t, v,
+                              g.shape[1], stream)
+    cuda_lib.check(code, "tied_ce_bwd (dg)")
+    code = lib.svt_tied_ce_de(g.data_ptr(), table.data_ptr(),
+                              bias.data_ptr(), lse.data_ptr(),
+                              dnll.data_ptr(), labels32.data_ptr(),
+                              de.data_ptr(), db.data_ptr(), t, v,
+                              g.shape[1], stream)
+    cuda_lib.check(code, "tied_ce_bwd (dE)")
+    bwd_launches += 1
+    dg -= dnll[:, None] * table[labels].float()
+    return dg.to(g.dtype), de.to(table.dtype), db
+
+
+class FusedTiedCrossEntropy(torch.autograd.Function):
+    """Per-token NLL of logits = g table^T + bias: K3 forward and K3b
+    backward for CUDA tensors, the plain versions for CPU tensors.
+    Differentiable in g, table and bias; labels (0 = pad) are not masked
+    here, the caller masks."""
+
+    @staticmethod
+    def forward(ctx, g, table, bias, labels):
+        nll, lse = tied_ce_fwd(g, table, bias, labels)
+        ctx.save_for_backward(g, table, bias, labels, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, dnll):
+        g, table, bias, labels, lse = ctx.saved_tensors
+        dg, de, db = tied_ce_bwd(g, table, bias, labels, lse,
+                                 dnll.float().contiguous())
+        return dg, de, db, None

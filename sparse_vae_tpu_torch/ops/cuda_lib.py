@@ -25,7 +25,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("swa_fwd.cu", "nucleus_select.cu")
+SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "tied_ce.cu", "nucleus_select.cu")
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -34,11 +34,21 @@ _SIGNATURES = {
     # block_size, window, causal, include_cls, scale, stream
     "svt_swa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _F, _P],
+    # q, k, v, lengths, lse, out, do, dq, dk, dv, delta, scratch, batch,
+    # heads, seq_len, head_dim, block_size, window, causal, include_cls,
+    # cls_chunk, scale, stream
+    "svt_swa_bwd": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # g, table, bias, lse, tokens, vocab, dim, stream
+    "svt_tied_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    # g, table, bias, lse, dnll, dg, tokens, vocab, dim, stream
+    "svt_tied_ce_dg": [_P] * 6 + [_I] * 3 + [_P],
+    # g, table, bias, lse, dnll, labels, de, dbias, tokens, vocab, dim,
+    # stream
+    "svt_tied_ce_de": [_P] * 8 + [_I] * 3 + [_P],
     # logits, noise (may be null), out, rows, vocab, top_p, temperature,
     # num_iters, stream
     "svt_nucleus_select": [_P, _P, _P, _I, _I, _F, _F, _I, _P],
 }
-
 
 
 @dataclass

@@ -4,9 +4,14 @@
 `sliding_window_attention_plain` is the blocked computation of
 `sliding_window_attention_xla`: each query block gathers only its band key
 blocks plus block 0 for [CLS]. It is the plain version of the K1 kernel
-(ops/swa_kernel.py) and what CPU tensors run. The dispatcher
-`sliding_window_attention` sends CUDA tensors to the kernel and CPU tensors
-to the plain version.
+(ops/swa_kernel.py::swa_fwd). `sliding_window_attention_bwd_plain` is the
+explicit blocked backward (p = exp(s - lse), delta = rowsum(do * o),
+ds = p * (dp - delta) * scale) and the plain version of the K2 kernel
+(ops/swa_kernel.py::swa_bwd). `SlidingWindowAttentionFn` wraps the pair as
+one autograd Function: the kernels for CUDA tensors, the plain versions for
+CPU tensors. The dispatcher `sliding_window_attention` goes through it, or
+through autograd of the plain forward when the caller turns the kernels off
+(the JAX package's `force_xla`).
 
 One deliberate difference from the reference: a query row with no valid
 key at all (a row whose kv_mask is all False) gives 0 here, where the
@@ -105,23 +110,117 @@ def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
     return out, lse.reshape(b, h, L)
 
 
+def _band_mask(b, nb, block_size, k_idx, band_valid, lengths, causal,
+               device):
+    """[B, 1, nQ, bs, S, bs] bool: band slot validity, the causal triangle
+    and the per-row valid key prefix."""
+    s = k_idx.shape[1]
+    ar = torch.arange(block_size, device=device)
+    q_pos = torch.arange(nb, device=device)[:, None] * block_size + ar
+    k_pos = k_idx[:, :, None] * block_size + ar                # [nQ, S, bs]
+    mask = band_valid[:, None, :, None].expand(nb, block_size, s, block_size)
+    if causal:
+        mask = mask & (k_pos[:, None] <= q_pos[:, :, None, None])
+    keys = k_pos[None] < lengths.to(torch.int64)[:, None, None, None]
+    return (mask[None] & keys[:, :, None])[:, None]
+
+
+def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
+                                       window_size: int = 2,
+                                       block_size: int = 128,
+                                       causal: bool = True,
+                                       include_cls: bool = True):
+    """Explicit blocked backward of `sliding_window_attention_plain` (the
+    JAX package's `_bwd_pallas` math), in fp32.
+
+    q/k/v/out/do: [B, H, L, D]; lengths: [B] valid key prefix; lse: the
+    forward's fp32 [B, H, L] (-inf for a row with no valid key). p is
+    exp(s - lse) where the mask allows and 0 elsewhere, chosen by select so
+    that a -inf lse never meets a masked score. Returns (dq, dk, dv) in the
+    dtypes of q, k and v.
+    """
+    b, h, L, d = q.shape
+    nb = L // block_size
+    scale = d ** -0.5
+    k_idx, band_valid = _band_indices(nb, window_size, include_cls, causal,
+                                      q.device)
+    s = k_idx.shape[1]
+    flat_idx = k_idx.reshape(-1)
+
+    def band(x):
+        return x.float().reshape(b, h, nb, block_size, d)[:, :, flat_idx] \
+            .reshape(b, h, nb, s, block_size, d)
+
+    k_band, v_band = band(k), band(v)
+    qb = q.float().reshape(b, h, nb, block_size, d)
+    dob = do.float().reshape(b, h, nb, block_size, d)
+    mask = _band_mask(b, nb, block_size, k_idx, band_valid, lengths, causal,
+                      q.device)
+    scores = torch.einsum("bhnqd,bhnskd->bhnqsk", qb, k_band) * scale
+    lse_b = lse.float().reshape(b, h, nb, block_size, 1, 1)
+    p = torch.where(mask, torch.exp(scores - lse_b), 0.0)
+    delta = (do.float() * out.float()).sum(-1).reshape(b, h, nb, block_size,
+                                                       1, 1)
+    dp = torch.einsum("bhnqd,bhnskd->bhnqsk", dob, v_band)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhnqsk,bhnskd->bhnqd", ds, k_band)
+    # Per (q block, slot) key-block gradients, then summed into their key
+    # blocks. Invalid slots carry p = ds = 0, so their clamped duplicate
+    # indices add nothing.
+    dk_band = torch.einsum("bhnqsk,bhnqd->bhnskd", ds, qb)
+    dv_band = torch.einsum("bhnqsk,bhnqd->bhnskd", p, dob)
+    dk = torch.zeros((b, h, nb, block_size, d), device=q.device)
+    dv = torch.zeros_like(dk)
+    dk.index_add_(2, flat_idx, dk_band.reshape(b, h, nb * s, block_size, d))
+    dv.index_add_(2, flat_idx, dv_band.reshape(b, h, nb * s, block_size, d))
+    return (dq.reshape(b, h, L, d).to(q.dtype),
+            dk.reshape(b, h, L, d).to(k.dtype),
+            dv.reshape(b, h, L, d).to(v.dtype))
+
+
+class SlidingWindowAttentionFn(torch.autograd.Function):
+    """Sliding-window + [CLS] attention with its backward: K1 forward and
+    K2 backward for CUDA tensors, the plain versions for CPU tensors.
+    lengths: [B] int32 valid key prefix per row."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, window_size, block_size, causal,
+                include_cls):
+        from .swa_kernel import swa_fwd
+        out, lse = swa_fwd(q, k, v, lengths, window_size=window_size,
+                           block_size=block_size, causal=causal,
+                           include_cls=include_cls)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        ctx.options = (window_size, block_size, causal, include_cls)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from .swa_kernel import swa_bwd
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        window_size, block_size, causal, include_cls = ctx.options
+        dq, dk, dv = swa_bwd(q, k, v, lengths, lse, out, do.contiguous(),
+                             window_size=window_size, block_size=block_size,
+                             causal=causal, include_cls=include_cls)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
                              block_size: int = 128, causal: bool = True,
-                             include_cls: bool = True):
-    """Dispatcher: the K1 CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. kv_mask must be a right-padding prefix mask on the
-    kernel path (the kernel takes per-row valid lengths)."""
-    if q.is_cuda:
-        from .swa_kernel import swa_fwd
-        b, _, L, _ = q.shape
-        if kv_mask is None:
-            lengths = torch.full((b,), L, dtype=torch.int32, device=q.device)
-        else:
-            lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
-        out, _ = swa_fwd(q, k, v, lengths, window_size=window_size,
-                         block_size=block_size, causal=causal,
-                         include_cls=include_cls)
-        return out
-    return sliding_window_attention_plain(
-        q, k, v, kv_mask, window_size=window_size, block_size=block_size,
-        causal=causal, include_cls=include_cls)
+                             include_cls: bool = True,
+                             use_kernel: bool = True):
+    """Dispatcher: `SlidingWindowAttentionFn` (K1/K2 for CUDA tensors, their
+    plain versions for CPU tensors), or autograd of the plain forward when
+    use_kernel is False. On the Function's path kv_mask must be a
+    right-padding prefix mask (the kernels take per-row valid lengths)."""
+    if not use_kernel:
+        return sliding_window_attention_plain(
+            q, k, v, kv_mask, window_size=window_size,
+            block_size=block_size, causal=causal, include_cls=include_cls)
+    b, _, L, _ = q.shape
+    if kv_mask is None:
+        lengths = torch.full((b,), L, dtype=torch.int32, device=q.device)
+    else:
+        lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
+    return SlidingWindowAttentionFn.apply(q, k, v, lengths, window_size,
+                                          block_size, causal, include_cls)

@@ -1,0 +1,155 @@
+"""Where the training step's time goes on the card:
+
+    python -m sparse_vae_tpu_torch.profile_train [run=real-prose-vae-r5]
+        [batch=8] [seq=12800] [accumulate=1] [steps=5] [profiled=3]
+
+Loads the run in its training form (fp32 master parameters, bf16 compute,
+kernels on) on CUDA and trains on the JAX train bench's traffic
+(bench.py): every row a full document of `seq` random ids, so every slot
+is a real token. After two warm-up steps it times `steps` optimizer steps
+of `accumulate` micro-batches of [batch, seq] on the host clock (each
+step ends in a synchronize): step time and real tokens/s. Then
+`profiled` more steps run under torch.profiler, as one window that
+starts and ends in a synchronize: the device time by kernel per step,
+and the device's idle share of that window, 1 - (union of the device's
+busy intervals) / (the window's wall time). The profiler slows the host,
+so the window's step time is printed beside the unprofiled one. Also
+reports max_memory_allocated over the run. Prints one JSON line last.
+Needs a card; there is no CPU mode.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+WINDOW = "profile_train.window"
+
+
+def _args(argv):
+    extra = dict(kv.split("=", 1) for kv in argv[1:])
+    return (extra.get("run", "real-prose-vae-r5"), int(extra.get("batch", 8)),
+            int(extra.get("seq", 12800)), int(extra.get("accumulate", 1)),
+            int(extra.get("steps", 5)), int(extra.get("profiled", 3)))
+
+
+def busy_share(events) -> tuple[float, float]:
+    """(window wall us, union of device busy us inside it) from the
+    profiler's events: the window is the host range named WINDOW."""
+    window = [e.time_range for e in events
+              if e.name == WINDOW and e.device_type
+              == torch.autograd.DeviceType.CPU]
+    if len(window) != 1:
+        raise RuntimeError(f"expected one {WINDOW} range, found "
+                           f"{len(window)}")
+    lo, hi = window[0].start, window[0].end
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation)
+    busy, end = 0.0, lo
+    for start, stop in spans:
+        start = max(start, end)
+        if stop > start:
+            busy += stop - start
+            end = stop
+    return hi - lo, busy
+
+
+def main(argv) -> int:
+    from .train import build
+    from .training.data import synthetic_batch
+    from .training.train_step import train_step
+
+    if not torch.cuda.is_available():
+        print("profile_train needs a CUDA card", file=sys.stderr)
+        return 1
+    run, b, seq, accumulate, steps, profiled = _args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    model, objective, optimizer, accumulate = build(run, dev, accumulate, b,
+                                                    seq)
+    rng = np.random.default_rng(0)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    vocab = model.hparams.vocab_size
+    batches = [[synthetic_batch(rng, b, seq, vocab, min_tokens=seq,
+                                device=dev)
+                for _ in range(accumulate)] for _ in range(2)]
+    slots = sum(int(mb["token_ids"].numel()) for mb in batches[0])
+    real = sum(int(mb["num_tokens"].sum()) for mb in batches[0])
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_step(i):
+        metrics = train_step(model, objective, optimizer, batches[i % 2], i,
+                             generator=generator)
+        return float(metrics["loss"])
+
+    def timed_step(i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = one_step(i)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss
+
+    for i in range(2):                                   # warm-up
+        timed_step(i)
+    walls, losses = zip(*(timed_step(i) for i in range(2, 2 + steps)))
+    step_s = float(np.median(walls))
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    first = 2 + steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            torch.cuda.synchronize()
+            for i in range(first, first + profiled):
+                one_step(i)
+            torch.cuda.synchronize()
+    window_us, busy_us = busy_share(prof.events())
+    # Device work only: kernels and copies, not the annotation ranges,
+    # which span kernels already counted.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    device_us = sum(e.self_device_time_total for e in kernels) / profiled
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+
+    print(f"card: {card}")
+    print(f"{'kernel':70s} {'calls/step':>10s} {'device ms/step':>14s}")
+    for e in top:
+        print(f"{e.key[:70]:70s} {e.count / profiled:10.1f} "
+              f"{e.self_device_time_total / 1e3 / profiled:14.3f}")
+    result = {
+        "card": card, "run": run, "batch": b, "seq": seq,
+        "accumulate": accumulate, "steps": steps,
+        "slots_per_step": slots, "real_tokens_per_step": real,
+        "step_ms_median": 1e3 * step_s,
+        "step_ms_all": [1e3 * w for w in walls],
+        "real_tokens_per_s": real / step_s,
+        "losses": list(losses),
+        "profiled_steps": profiled,
+        "profiled_step_ms": window_us / 1e3 / profiled,
+        "device_ms_per_step": device_us / 1e3,
+        "device_busy_ms_per_step": busy_us / 1e3 / profiled,
+        "device_idle_share": 1.0 - busy_us / window_us,
+        "kernels_per_step": sum(e.count for e in kernels) / profiled,
+        # [name, launches per step, device ms per step]; a list, since
+        # kernel names can share a long prefix.
+        "top_kernels": [[e.key[:120], e.count / profiled,
+                         e.self_device_time_total / 1e3 / profiled]
+                        for e in top],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -1,0 +1,135 @@
+"""The fused tied projection + cross-entropy (K3/K3b's plain versions and
+the autograd Function around them) and the chunked CE, against the JAX
+package.
+
+The same numpy inputs, made from a seed, go through the JAX functions and
+the port on the CPU in fp32: the Pallas kernels themselves in interpret
+mode at the JAX tests' tile sizes (tt=16, vt=128), and JAX's
+`chunked_cross_entropy` at the flagship's D = 512, V = 32,768 on a small
+token count.
+
+Tolerance: nll is a logsumexp over up to 32,768 fp32 logits of size ~10;
+summation order moves it by ~1e-6 relative, so 1e-5 relative and 1e-5
+absolute. Gradients sum up to 32,768 terms: 5e-5 absolute on values of
+order 1e-2..1, with 1e-4 relative.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparse_vae_tpu.ops.cross_entropy import (
+    chunked_cross_entropy as j_chunked)
+from sparse_vae_tpu.ops.pallas_ce import fused_tied_cross_entropy
+from sparse_vae_tpu_torch.ops import ce_kernel
+from sparse_vae_tpu_torch.ops.cross_entropy import (chunked_cross_entropy,
+                                                    token_nll)
+
+RTOL, ATOL = 1e-5, 1e-5
+G_RTOL, G_ATOL = 1e-4, 5e-5
+
+
+def _problem(seed, n=48, d=64, v=256):
+    rng = np.random.default_rng(seed)
+    g = (0.5 * rng.standard_normal((n, d))).astype(np.float32)
+    table = (0.5 * rng.standard_normal((v, d))).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(v)).astype(np.float32)
+    labels = rng.integers(0, v, size=n).astype(np.int32)
+    w = rng.standard_normal(n).astype(np.float32)
+    return g, table, bias, labels, w
+
+
+@pytest.mark.parametrize("n", [48, 13])
+def test_plain_matches_pallas_interpret(n):
+    """nll, dg, dE and dbias of the plain versions against the Pallas
+    kernels (interpret mode), aligned and unaligned token counts."""
+    g, table, bias, labels, w = _problem(n)
+    g, labels, w = g[:n], labels[:n], w[:n]
+
+    def f(g, table, bias):
+        nll = fused_tied_cross_entropy(g, table, bias, jnp.asarray(labels),
+                                       tt=16, vt=128, interpret=True)
+        return jnp.sum(nll * w), nll
+
+    (_, want), grads = jax.value_and_grad(f, argnums=(0, 1, 2),
+                                          has_aux=True)(
+        jnp.asarray(g), jnp.asarray(table), jnp.asarray(bias))
+    tg, tt, tb = (torch.from_numpy(a) for a in (g, table, bias))
+    tl = torch.from_numpy(labels).long()
+    nll, lse = ce_kernel.tied_ce_fwd(tg, tt, tb, tl)
+    np.testing.assert_allclose(nll.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    got = ce_kernel.tied_ce_bwd(tg, tt, tb, tl, lse, torch.from_numpy(w))
+    for name, a, b in zip(("dg", "dE", "dbias"), got, grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=G_RTOL,
+                                   atol=G_ATOL, err_msg=name)
+
+
+def test_function_matches_jax_chunked_at_flagship_width():
+    """FusedTiedCrossEntropy (plain versions on the CPU) against JAX's
+    chunked_cross_entropy at D = 512, V = 32,768: the summed NLL over
+    non-pad labels and its gradients in the hidden states, the table and
+    the bias."""
+    rng = np.random.default_rng(7)
+    b, length, d, v = 2, 64, 512, 32768
+    h = (0.05 * rng.standard_normal((b, length, d))).astype(np.float32)
+    table = (0.05 * rng.standard_normal((v, d))).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(v)).astype(np.float32)
+    labels = rng.integers(1, v, size=(b, length))
+    labels[1, 40:] = 0                                 # padding
+
+    def f(h, table, bias):
+        return j_chunked(h, lambda x: x @ table.T + bias,
+                         jnp.asarray(labels), chunk_size=32)
+
+    args = (jnp.asarray(h), jnp.asarray(table), jnp.asarray(bias))
+    (want_sum, want_count), grads = jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True)(*args)
+    th, tt, tb = (torch.from_numpy(a).requires_grad_()
+                  for a in (h, table, bias))
+    flat = torch.from_numpy(labels).reshape(-1)
+    nll = ce_kernel.FusedTiedCrossEntropy.apply(th.reshape(-1, d), tt, tb,
+                                                flat)
+    mask = (flat != 0).float()
+    total = (nll * mask).sum()
+    assert float(mask.sum()) == float(want_count)
+    np.testing.assert_allclose(total.item(), float(want_sum), rtol=RTOL)
+    got = torch.autograd.grad(total, (th, tt, tb))
+    for name, a, g in zip(("dh", "dE", "dbias"), got, grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(g), rtol=G_RTOL,
+                                   atol=G_ATOL, err_msg=name)
+
+
+def test_chunked_cross_entropy_matches_jax():
+    rng = np.random.default_rng(8)
+    b, length, d, v = 2, 50, 32, 300
+    h = rng.standard_normal((b, length, d)).astype(np.float32)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    labels = rng.integers(0, v, size=(b, length))
+    want = j_chunked(jnp.asarray(h), lambda x: x @ jnp.asarray(table).T,
+                     jnp.asarray(labels), chunk_size=16)
+    th = torch.from_numpy(h).requires_grad_()
+    got = chunked_cross_entropy(th, lambda x: x @ torch.from_numpy(table).T,
+                                torch.from_numpy(labels), chunk_size=16)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=RTOL)
+    assert float(got[1]) == float(want[1])
+    # Recomputed chunks give the same gradient as one dense pass.
+    dense = token_nll(th @ torch.from_numpy(table).T,
+                      torch.from_numpy(labels), reduce=False)[0].sum()
+    for a, c in zip(torch.autograd.grad(got[0], th),
+                    torch.autograd.grad(dense, th)):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=G_RTOL,
+                                   atol=G_ATOL)
+
+
+def test_wrappers_reject_bad_inputs():
+    g, table, bias, labels, w = (torch.from_numpy(a) for a in _problem(1))
+    labels = labels.long()
+    with pytest.raises(ValueError):
+        ce_kernel.tied_ce_fwd(g, table[:, :32], bias, labels)
+    with pytest.raises(ValueError):
+        ce_kernel.tied_ce_fwd(g, table, bias[:10], labels)
+    _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    with pytest.raises(ValueError):
+        ce_kernel.tied_ce_bwd(g, table, bias, labels, lse[:5], w)

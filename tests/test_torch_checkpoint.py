@@ -65,22 +65,49 @@ def torch_r5():
 
 
 def test_every_r5_leaf_is_accounted_for():
+    """All 165 leaves map to a parameter, the encoder's and the
+    posterior's included: none is skipped."""
     flat = r5_archive()
     assert len(flat) == 165
+    assert ckpt.UNPORTED_PREFIXES == ()
     hp = ckpt.hparams_from_meta(r5_meta())
     expected = set(TransformerVAE(hp).state_dict())
-    mapped, unported = set(), []
-    for key in flat:
-        path = key[:-len(ckpt.BF16_SUFFIX)]
-        if path.startswith(ckpt.UNPORTED_PREFIXES):
-            unported.append(path)
-        else:
-            mapped.add(ckpt.torch_key(path)[0])
+    mapped = {ckpt.torch_key(key[:-len(ckpt.BF16_SUFFIX)])[0]
+              for key in flat}
     assert mapped == expected
-    assert len(mapped) + len(unported) == 165
-    # Only the encoder and the posterior wait for a later slice.
-    assert {p.split("/")[0] for p in unported} == {"encoder",
-                                                   "q_of_z_given_x"}
+    assert len(mapped) == 165
+    assert {k.split(".")[0] for k in mapped} >= {"encoder",
+                                                 "q_of_z_given_x"}
+
+
+def test_encoder_leaf_names_map():
+    assert ckpt.torch_key("encoder/first_layer/attention/learned_queries") \
+        == ("encoder.first_layer.attention.learned_queries", False)
+    assert ckpt.torch_key("encoder/middle_0/cross_attention/q_linear/kernel") \
+        == ("encoder.middle_layers.0.cross_attention.q_linear.weight", True)
+    assert ckpt.torch_key("q_of_z_given_x/linear/bias") \
+        == ("q_of_z_given_x.linear.bias", False)
+
+
+def test_training_and_serving_forms():
+    """train=True: fp32 master parameters with grads, computing in the
+    run's bf16; the serving form stays bf16 without grads."""
+    model, hp, _ = ckpt.load_run("real-prose-vae-r5", device="cpu",
+                                 train=True)
+    params = list(model.parameters())
+    assert len(params) == 165
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in params)
+    assert model.dtype == torch.bfloat16
+    assert model.embed(torch.ones((1, 4), dtype=torch.long)).dtype \
+        == torch.bfloat16
+    serve, _, _ = ckpt.load_run("real-prose-vae-r5", device="cpu")
+    assert all(p.dtype == torch.bfloat16 and not p.requires_grad
+               for p in serve.parameters())
+    assert serve.dtype == torch.bfloat16
+    plain, _, _ = ckpt.load_run("real-prose-vae-r5", device="cpu",
+                                train=True, use_kernels=False)
+    assert not plain.hparams.use_pallas_kernel
+    assert hp.use_pallas_kernel
 
 
 def test_decoded_values_match_jax_decoding():

@@ -8,7 +8,11 @@ tests/test_torch_cuda.py -q -m gpu --noconftest`. Tolerances as in chip_smoke.py
 K1's out in bf16 (the plain version rounds the softmax weights to bf16, the
 kernel keeps them fp32), its lse in fp32 up to summation order; K4's tokens
 identical except on rows whose bisection mass sat within rounding of the
-target.
+target. K2's and K3b's gradients in bf16 against their fp32 plain
+versions relative to the largest entry (1e-2: one bf16 rounding of each
+output, and K3b's rounding of the logit gradients to bf16 before its
+products); K3's lse in fp32 up to summation order over 32,768 logits
+(1e-4 absolute).
 """
 import pytest
 import torch
@@ -16,10 +20,19 @@ import torch
 from sparse_vae_tpu_torch.models.generation import SamplingParams, gumbel_noise
 from sparse_vae_tpu_torch.models.transformer_vae import (
     TransformerVAE, TransformerVAEHparams)
-from sparse_vae_tpu_torch.ops import select_kernel, swa_kernel
+from sparse_vae_tpu_torch.ops import ce_kernel, select_kernel, swa_kernel
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
+    sliding_window_attention, sliding_window_attention_bwd_plain,
     sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
+
+GRAD_REL = 1e-2
+
+
+def _assert_rel(got, want, name):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= GRAD_REL * scale, f"{name}: {err:.3g} vs max {scale:.3g}"
 
 
 @pytest.fixture
@@ -102,3 +115,91 @@ def test_engine_serves_on_the_card(cuda):
     for i, out in enumerate(outs):
         assert len(out) == (200 if i % 2 else 0) + 20
     assert swa_kernel.launches > k1 and select_kernel.launches > k4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_swa_bwd_kernel_matches_plain(cuda, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(10 + window)
+    q, k, v, do = (torch.randn((2, 4, 1024, 64), generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    lengths = torch.tensor([1024, 333], dtype=torch.int32, device=cuda)
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, window_size=window,
+                                  causal=causal)
+    before = swa_kernel.bwd_launches
+    got = swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do,
+                             window_size=window, causal=causal)
+    assert swa_kernel.bwd_launches == before + 1
+    want = sliding_window_attention_bwd_plain(
+        q, k, v, lengths, lse, out, do, window_size=window, causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        _assert_rel(g, w, "d" + name)
+
+
+@pytest.mark.gpu
+def test_attention_on_the_card_has_a_gradient(cuda):
+    """The sparse attention's output on the card carries a grad_fn, and
+    backward() gives q, k and v the K2 gradients: non-zero and equal to
+    the plain backward's."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, 8, 512, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    mask = torch.arange(512, device=cuda)[None, :] < torch.tensor(
+        [[512], [200]], device=cuda)
+    out = sliding_window_attention(q, k, v, mask)
+    assert out.grad_fn is not None
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(out.dtype)
+    before = swa_kernel.bwd_launches
+    out.backward(do)
+    assert swa_kernel.bwd_launches == before + 1
+    lengths = mask.sum(-1, dtype=torch.int32)
+    with torch.no_grad():
+        o, lse = swa_kernel.swa_fwd(q, k, v, lengths)
+        want = sliding_window_attention_bwd_plain(q, k, v, lengths, lse, o,
+                                                  do)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        assert t.grad is not None and bool(t.grad.abs().sum() > 0)
+        _assert_rel(t.grad, w, "d" + name)
+
+
+@pytest.mark.gpu
+def test_tied_ce_kernels_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    t, v = 1000, 32768                      # t is not a tile multiple
+    g = (0.5 * torch.randn((t, 512), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    table = (0.5 * torch.randn((v, 512), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    bias = torch.randn(v, generator=gen, device=cuda)
+    labels = torch.randint(0, v, (t,), generator=gen, device=cuda)
+    dnll = torch.rand(t, generator=gen, device=cuda)
+    f0, b0 = ce_kernel.fwd_launches, ce_kernel.bwd_launches
+    nll, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    got = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    assert (ce_kernel.fwd_launches, ce_kernel.bwd_launches) == (f0 + 1,
+                                                               b0 + 1)
+    want_nll, want_lse = ce_kernel.tied_ce_fwd_plain(g, table, bias, labels)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(nll, want_nll, atol=1e-4, rtol=0)
+    want = ce_kernel.tied_ce_bwd_plain(g.float(), table.float(), bias,
+                                       labels, want_lse, dnll)
+    for name, a, b in zip(("dg", "dE", "dbias"), got, want):
+        _assert_rel(a, b, name)
+
+
+@pytest.mark.gpu
+def test_ce_kernels_reject_what_they_do_not_take(cuda):
+    g = torch.zeros((64, 512), device=cuda)
+    table = torch.zeros((128, 512), device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(128, device=cuda)
+    labels = torch.zeros(64, dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError):
+        ce_kernel.tied_ce_fwd(g, table, bias, labels)          # fp32 g
+    gb = g.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        ce_kernel.tied_ce_fwd(gb, table[:100], bias[:100], labels)  # V % 64
+    with pytest.raises(ValueError):
+        ce_kernel.tied_ce_fwd(gb[:, :256].contiguous(),
+                              table[:, :256].contiguous(), bias, labels)

@@ -29,6 +29,21 @@ Phases, each timed:
                K3b (their counts, zeroed just before, must rise); step 1's
                loss and all 165 gradients are held against the same step
                in fp32 through the plain versions on the card.
+The Dh = 128 geometry (bench.py --heads 4, built from the JAX
+initialisation with no archive; its decoder attention takes the packed
+layout):
+  7. kernels — K5 and K5b (the packed attention forward and backward)
+               against their fp32 plain versions at three shapes up to
+               [8, 12800, 4 * 128] on full rows, each timed beside its
+               bound and SDPA (forward and backward) under the band mask;
+  8. serve   — ServeEngine answers the same requests through bulk prefill
+               (K5) and fused selection (K4); the bf16 prefill logits are
+               held against the fp32 plain model on the card;
+  9. train   — 3 optimizer steps at [4, 4096] through K5, K5b, K3 and K3b
+               (K5 and K5b 6 launches a step), step 1 held against the fp32
+               plain step as in phase 6.
+No path may route a call to a plain version: on the card such a route
+raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises: no result line.
 """
@@ -47,15 +62,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparse_vae_tpu_torch.checkpoint import load_run
+from sparse_vae_tpu_torch.checkpoint import load_run, model_from_hparams
 from sparse_vae_tpu_torch.models.base import SEP_ID
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise)
 from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, select_kernel,
                                       swa_kernel)
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
-    sliding_window_attention_bwd_plain, sliding_window_attention_plain)
+    sliding_window_attention_bwd_plain,
+    sliding_window_attention_packed_bwd_plain,
+    sliding_window_attention_packed_plain, sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
+from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.train_step import train_step
@@ -95,6 +113,16 @@ TRAIN_GRAD_COS = 0.99
 # Document lengths of the [8, 12800] training-shape kernel timings: full
 # rows, the JAX train bench's traffic (bench.py: num_tokens = L).
 TRAIN_LENGTHS = [12800] * 8
+# The Dh = 128 model (bench.py --heads 4): its bf16 prefill logits against
+# the fp32 plain model on the card, the largest |difference| relative to
+# the largest |logit|: bf16 rounding of the activations through 6 layers
+# and the head, about 1e-2 on an H100 (0.0243 of a largest |logit| of
+# 2.37); the bound is three times that reading. Argmax agreement is not
+# held here: the logits of a freshly initialised model are nearly flat,
+# so which token is largest says little. K5/K5b's own checks carry the
+# weight for the kernels.
+MODEL_H4_REL_TOL = 3e-2
+H4_SEED = 0          # the torch.Generator of the Dh = 128 initialisation
 
 
 class Phase:
@@ -440,6 +468,85 @@ def sdpa_backward_ms(q, k, v, do, lens, window, block):
     return total - fwd_only
 
 
+def k5_phase(b: int, L: int, lengths, seed: int, iters: int,
+             heads: int = 4):
+    """K5 and K5b on packed [b, L, heads * 128] operands against their fp32
+    plain versions; timed beside the plain versions and SDPA forward and
+    backward under the band mask on the head-major transposes."""
+    d, window, block = 128, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, L, heads * d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out, lse = swa_kernel.swa_fwd_packed(q, k, v, lens, heads)
+    got = swa_kernel.swa_bwd_packed(q, k, v, lens, lse, out, do, heads)
+    torch.cuda.synchronize()
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    ref, ref_lse = sliding_window_attention_packed_plain(q32, k32, v32, lens,
+                                                         heads)
+    err = (out.float() - ref).abs()
+    lse_err = (lse - ref_lse).abs().max().item()
+    agree = bool((err <= K1_OUT_ATOL + K1_OUT_RTOL * ref.abs()).all())
+    del ref, ref_lse
+    check(bool(torch.isfinite(out.float()).all()), "K5 out is not finite")
+    check(agree, f"K5 out disagrees with its plain version: max "
+          f"{err.max():.3g}")
+    check(lse_err <= K1_LSE_ATOL, f"K5 lse disagrees: {lse_err:.3g}")
+    want = sliding_window_attention_packed_bwd_plain(
+        q32, k32, v32, lens, lse, out.float(), do.float(), heads)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    bwd_abs = max((g.float() - w).abs().max().item()
+                  for g, w in zip(got, want))
+    del want, q32, k32, v32
+    check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+          "K5b gradients are not finite")
+    check(max(errs) <= GRAD_REL_TOL,
+          f"K5b disagrees with its plain version: rel errors {errs}")
+    fwd = {"shape": [b, L, heads * d], "lengths": list(lengths),
+           "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err}
+    bwd = {"shape": [b, L, heads * d], "lengths": list(lengths),
+           "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs}
+    pairs = band_pairs(L, lengths, window, block) * heads
+    fwd["ms"] = cuda_ms(lambda: swa_kernel.swa_fwd_packed(
+        q, k, v, lens, heads), iters)
+    few = max(2, iters // 10)
+    fwd["plain_ms"] = cuda_ms(lambda: sliding_window_attention_packed_plain(
+        q, k, v, lens, heads), few, warmup=1)
+    heads_major = [t.view(b, L, heads, d).transpose(1, 2)
+                   for t in (q, k, v, do)]
+    mask = band_mask(L, lens, window, block, "cuda")
+    try:
+        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *heads_major[:3], attn_mask=mask), few, warmup=1)
+    except torch.OutOfMemoryError:
+        print("K5 library yardstick: out of memory at this shape",
+              flush=True)
+        fwd["library_ms"] = None
+    del mask
+    # q, k, v read and out written once (bf16), lse written, lengths
+    # read; per attended pair 2 products of d multiply-adds.
+    nbytes = 4 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4
+    fwd["bound_ms"], fwd["bound_by"] = bound(nbytes, 4 * d * pairs,
+                                             BF16_TENSOR_FLOPS)
+    bwd["ms"] = cuda_ms(lambda: swa_kernel.swa_bwd_packed(
+        q, k, v, lens, lse, out, do, heads), iters)
+    bwd["plain_ms"] = cuda_ms(
+        lambda: sliding_window_attention_packed_bwd_plain(
+            q, k, v, lens, lse, out, do, heads), few, warmup=1)
+    bwd["library_ms"] = sdpa_backward_ms(*heads_major, lens, window,
+                                         block)
+    # 5 tensors read (q, k, v, out, do), lse and lengths, 3 written;
+    # per pair s and dp recomputed, dq, dk, dv: 5 products.
+    nbytes = 8 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4
+    bwd["bound_ms"], bwd["bound_by"] = bound(nbytes, 10 * d * pairs,
+                                             BF16_TENSOR_FLOPS)
+    fwd["pairs"] = bwd["pairs"] = pairs
+    print("K5 " + json.dumps(fwd), flush=True)
+    print("K5b " + json.dumps(bwd), flush=True)
+    return fwd, bwd
+
+
 def ce_inputs(t: int, seed: int, vocab: int = 32768, d: int = 512,
               padded: int = 0):
     """Tied-CE inputs; the last `padded` tokens are padding (label 0,
@@ -540,13 +647,15 @@ def ce_library_ms(g, table, bias, labels):
     return fwd_ms, total - fwd_ms
 
 
-def train_phase(steps: int = 3, batch: int = 4, seq: int = 4096,
-                seed: int = 11) -> dict:
-    """r5 trains for `steps` optimizer steps on the card through the
-    kernels; step 1 is held against the fp32 plain step on the card."""
+def train_phase(make, expect: dict, steps: int = 3, batch: int = 4,
+                seq: int = 4096, seed: int = 11, name: str = "train") -> dict:
+    """The model of `make(use_kernels, dtype)` -> (model, objective,
+    optimizer) trains for `steps` optimizer steps on the card through the
+    kernels; step 1 is held against the fp32 plain step on the card.
+    expect: {counter: launches per step, or None for at least one}; every
+    other kernel counter and both plain_routes counters must stay 0."""
     device = "cuda"
-    model, objective, optimizer, _ = build_training(RUN, device, 1, batch,
-                                                    seq)
+    model, objective, optimizer = make(True, None)
     rng = np.random.default_rng(seed)
     vocab = model.hparams.vocab_size
     batches = [synthetic_batch(rng, batch, seq, vocab, device=device)
@@ -572,51 +681,111 @@ def train_phase(steps: int = 3, batch: int = 4, seq: int = 4096,
             first_grads = {n: p.grad.detach().clone()
                            for n, p in model.named_parameters()}
             first_metrics = {k: float(v) for k, v in metrics.items()}
-    counts = {"swa_fwd": swa_kernel.launches,
-              "swa_bwd": swa_kernel.bwd_launches,
-              "tied_ce_fwd": ce_kernel.fwd_launches,
-              "tied_ce_bwd": ce_kernel.bwd_launches}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
-    for name, n in counts.items():
-        check(n > 0, f"the train path never launched {name}")
+    check(all(np.isfinite(losses)), f"{name} losses not finite: {losses}")
+    check_counts(name, counts, {k: None if n is None else n * steps
+                                for k, n in expect.items()})
     del model, optimizer
 
-    ref, ref_objective, _, _ = build_training(RUN, device, 1, batch, seq,
-                                              use_kernels=False,
-                                              dtype=torch.float32)
+    ref, ref_objective, _ = make(False, torch.float32)
     ref_loss, _ = ref_objective.loss(ref, batches[0], 0, noise)
     ref_loss.backward()
     ref_loss = ref_loss.detach().item()
     cos = {}
-    for name, p in ref.named_parameters():
-        a, w = first_grads[name].double(), p.grad.double()
-        cos[name] = float((a * w).sum() / (a.norm() * w.norm()).clamp_min(
+    for pname, p in ref.named_parameters():
+        a, w = first_grads[pname].double(), p.grad.double()
+        cos[pname] = float((a * w).sum() / (a.norm() * w.norm()).clamp_min(
             1e-300))
     del ref
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
     loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     check(len(cos) == 165, f"{len(cos)} gradients compared, not 165")
     check(loss_rel <= TRAIN_LOSS_RTOL,
-          f"train step 1 loss {losses[0]} vs fp32 plain {ref_loss}")
+          f"{name} step 1 loss {losses[0]} vs fp32 plain {ref_loss}")
     check(worst[0][1] >= TRAIN_GRAD_COS,
-          f"train step 1 gradients disagree with fp32 plain: {worst}")
+          f"{name} step 1 gradients disagree with fp32 plain: {worst}")
     stats = {"steps": steps, "batch": [batch, seq],
              "real_tokens": [int(b["num_tokens"].sum()) for b in batches],
              "losses": losses, "step_s": step_s, "step1": first_metrics,
              "fp32_plain_loss": ref_loss, "loss_rel_err": loss_rel,
              "min_grad_cosine": worst, "launches": counts,
              "max_memory_allocated_bytes": peak}
-    print("train " + json.dumps(stats), flush=True)
+    print(f"{name} " + json.dumps(stats), flush=True)
     return stats
 
 
+def h4_model(use_kernels: bool = True, dtype=None, train: bool = False):
+    """The Dh = 128 model (bench.py --heads 4) from the JAX
+    initialisation drawn from a torch.Generator seeded H4_SEED."""
+    gen = torch.Generator().manual_seed(H4_SEED)
+    if train:
+        return build_from_hparams(bench_hparams(4), gen, "cuda", use_kernels,
+                                  dtype)[:3]
+    model, _ = model_from_hparams(bench_hparams(4), gen, device="cuda",
+                                  dtype=dtype, use_kernels=use_kernels)
+    return model
+
+
+def model_h4_phase(model, seed: int = 0, length: int = 256) -> dict:
+    """Prefill logits of the bf16 Dh = 128 model (K5) against the fp32
+    plain model on the card, on one fixed input."""
+    ref_model = h4_model(use_kernels=False, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, model.hparams.vocab_size, size=(1, length))
+    ids[0, 0] = 1
+    ids[0, 200:] = 0                                   # right padding
+    z = rng.standard_normal((1, 1, model.hparams.latent_depth))
+    ids_t = torch.tensor(ids, device="cuda")
+    z_t = torch.tensor(z, dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        got = model.reconstruct(ids_t, z_t).float()
+        ref = ref_model.reconstruct(ids_t, z_t)
+    del ref_model
+    real = ids_t[0] != 0
+    diff = (got - ref).abs()[0, real]
+    rel = (diff.max() / ref[0, real].abs().max()).item()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          "h4 model logits are not finite or have the wrong shape")
+    check(rel <= MODEL_H4_REL_TOL, f"h4 model logits rel err {rel:.3g}")
+    row = {"max_abs_err": diff.max().item(), "mean_abs_err":
+           diff.mean().item(), "max_abs_logit": ref[0, real].abs().max()
+           .item(), "rel_err": rel, "tokens": int(real.sum())}
+    print("model-h4 " + json.dumps(row), flush=True)
+    return row
+
+
+COUNTERS = {
+    "swa_fwd": (swa_kernel, "launches"),
+    "swa_bwd": (swa_kernel, "bwd_launches"),
+    "swa_fwd_packed": (swa_kernel, "packed_launches"),
+    "swa_bwd_packed": (swa_kernel, "packed_bwd_launches"),
+    "tied_ce_fwd": (ce_kernel, "fwd_launches"),
+    "tied_ce_bwd": (ce_kernel, "bwd_launches"),
+    "nucleus_select": (select_kernel, "launches"),
+    "swa_plain_routes": (swa_kernel, "plain_routes"),
+    "ce_plain_routes": (ce_kernel, "plain_routes"),
+}
+
+
 def reset_counts():
-    swa_kernel.launches = 0
-    swa_kernel.bwd_launches = 0
-    ce_kernel.fwd_launches = 0
-    ce_kernel.bwd_launches = 0
-    select_kernel.launches = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr)
+            for name, (module, attr) in COUNTERS.items()}
+
+
+def check_counts(path: str, counts: dict, expect: dict):
+    """expect: {counter: exact count, or None for at least one}; every
+    other counter, the plain_routes ones included, must be 0."""
+    for name, n in counts.items():
+        want = expect.get(name, 0)
+        ok = n > 0 if want is None else n == want
+        check(ok, f"the {path} path gave {name} = {n}, expected "
+              f"{'> 0' if want is None else want}")
 
 
 def main() -> int:
@@ -643,30 +812,58 @@ def main() -> int:
     with Phase("model"):
         model, _, _ = load_run(RUN, device="cuda")
         model_phase(model)
+    vocab = model.hparams.vocab_size
+    requests = make_requests(
+        vocab, prompt_lengths=[0, 127, 0, 200, 300, 0, 416, 150, 0, 255, 0,
+                               180],
+        max_tokens=[256, 128, 192, 160, 96, 64, 64, 256, 128, 200, 96, 160],
+        seed=7)
     with Phase("serve"):
-        vocab = model.hparams.vocab_size
-        requests = make_requests(
-            vocab, prompt_lengths=[0, 127, 0, 200, 300, 0, 416, 150, 0, 255,
-                                   0, 180],
-            max_tokens=[256, 128, 192, 160, 96, 64, 64, 256, 128, 200, 96,
-                        160], seed=7)
         stats = serve_phase(model, requests, before_traffic=reset_counts)
-        counts = {"swa_fwd": swa_kernel.launches,
-                  "nucleus_select": select_kernel.launches}
-        check(counts["swa_fwd"] > 0, "the serve path never launched K1")
-        check(counts["nucleus_select"] > 0,
-              "the serve path never launched K4")
+        counts = read_counts()
+        check_counts("serve", counts, {"swa_fwd": None,
+                                       "nucleus_select": None})
         print("serve " + json.dumps({**stats, "launches": counts,
                                      "card": smi}), flush=True)
         del model
     with Phase("train"):
-        train = train_phase()
-        train_counts = train["launches"]
+        train_counts = train_phase(
+            lambda kernels, dtype: build_training(
+                RUN, "cuda", 1, use_kernels=kernels, dtype=dtype)[:3],
+            {"swa_fwd": 6, "swa_bwd": 6, "tied_ce_fwd": 1,
+             "tied_ce_bwd": 1})["launches"]
+    with Phase("kernels-h4"):
+        k5_serve, k5b_serve = k5_phase(1, 512, [417], seed=12, iters=200)
+        k5_long, k5b_long = k5_phase(4, 4096, [4096, 3001, 1500, 129],
+                                     seed=13, iters=50)
+        k5_train, k5b_train = k5_phase(8, 12800, TRAIN_LENGTHS, seed=14,
+                                       iters=5)
+    with Phase("model-h4"):
+        model = h4_model()
+        model_h4_phase(model)
+    with Phase("serve-h4"):
+        stats = serve_phase(model, requests, before_traffic=reset_counts)
+        h4_counts = read_counts()
+        check_counts("serve-h4", h4_counts, {"swa_fwd_packed": None,
+                                             "nucleus_select": None})
+        print("serve-h4 " + json.dumps({**stats, "launches": h4_counts,
+                                        "card": smi}), flush=True)
+        del model
+    with Phase("train-h4"):
+        h4_train_counts = train_phase(
+            lambda kernels, dtype: h4_model(kernels, dtype, train=True),
+            {"swa_fwd_packed": 6, "swa_bwd_packed": 6, "tied_ce_fwd": 1,
+             "tied_ce_bwd": 1}, name="train-h4")["launches"]
 
     def timed(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "shape")}
+
+    def smaller(*rows):
+        return [{k: r[k] for k in ("shape", "lengths", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "library_ms")}
+                for r in rows]
 
     kernels = [
         {"name": "swa_fwd", "route": "cuda",
@@ -688,7 +885,9 @@ def main() -> int:
         {"name": "nucleus_select", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/nucleus_select.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_select.py:128",
-         "launches": counts["nucleus_select"],
+         "launches": counts["nucleus_select"] + h4_counts["nucleus_select"],
+         "launches_by_path": {"serve": counts["nucleus_select"],
+                              "serve-h4": h4_counts["nucleus_select"]},
          **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -703,11 +902,35 @@ def main() -> int:
         {"name": "tied_ce_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
-         "launches": train_counts["tied_ce_fwd"], **timed(k3)},
+         "launches": train_counts["tied_ce_fwd"]
+         + h4_train_counts["tied_ce_fwd"],
+         "launches_by_path": {"train": train_counts["tied_ce_fwd"],
+                              "train-h4": h4_train_counts["tied_ce_fwd"]},
+         **timed(k3)},
         {"name": "tied_ce_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
-         "launches": train_counts["tied_ce_bwd"], **timed(k3b)},
+         "launches": train_counts["tied_ce_bwd"]
+         + h4_train_counts["tied_ce_bwd"],
+         "launches_by_path": {"train": train_counts["tied_ce_bwd"],
+                              "train-h4": h4_train_counts["tied_ce_bwd"]},
+         **timed(k3b)},
+        {"name": "swa_fwd_packed", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_fwd_packed.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:590",
+         "launches": h4_counts["swa_fwd_packed"]
+         + h4_train_counts["swa_fwd_packed"],
+         "launches_by_path": {
+             "serve-h4": h4_counts["swa_fwd_packed"],
+             "train-h4": h4_train_counts["swa_fwd_packed"]},
+         **timed(k5_train), "smaller": smaller(k5_serve, k5_long)},
+        {"name": "swa_bwd_packed", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_bwd_packed.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:788",
+         "launches": h4_train_counts["swa_bwd_packed"],
+         "launches_by_path": {
+             "train-h4": h4_train_counts["swa_bwd_packed"]},
+         **timed(k5b_train), "smaller": smaller(k5b_serve, k5b_long)},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,7 @@
 """Checkpoint interop: the archived `runs/<name>/ckpt_bf16.npz` params and
-`runs/<name>/meta.json` hparams as a torch model.
+`runs/<name>/meta.json` hparams as a torch model (`load_run`), and a model
+built from hparams with the JAX package's initialisation and no archive
+(`model_from_hparams`).
 
 Archive format (tools/archive_ckpt.py): one npz entry per flax param leaf,
 keyed by its '/'-joined path (`layer_0/attention/q_linear/kernel`); float
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import json
 import re
-from dataclasses import fields
+from dataclasses import fields, replace
 from pathlib import Path
 from typing import Optional
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .models.base import compute_dtype, resolve_device
+from .models.init import init_parameters
 from .models.transformer_vae import TransformerVAE, TransformerVAEHparams
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
@@ -140,10 +143,32 @@ def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
         state = params_from_numpy({k: npz[k] for k in npz.files}, hp)
     model = TransformerVAE(hp)
     model.load_state_dict(state, strict=True)
-    dtype = dtype or compute_dtype(hp.precision)
+    return _in_form(model, device, dtype, train), hp, meta
+
+
+def model_from_hparams(hparams: TransformerVAEHparams,
+                       generator: torch.Generator, device="cuda",
+                       dtype: Optional[torch.dtype] = None,
+                       train: bool = False, use_kernels: bool = True):
+    """A TransformerVAE of `hparams` with the JAX package's initialisation
+    (models/init.py) drawn on the CPU from `generator` (a CPU generator),
+    then moved to `device` in the serving or training form of `load_run`.
+    Returns (model, hparams); the caller's hparams are not changed."""
+    device = resolve_device(device)
+    hp = replace(hparams,
+                 use_pallas_kernel=hparams.use_pallas_kernel and use_kernels)
+    model = init_parameters(TransformerVAE(hp), generator, hp.init_scale)
+    return _in_form(model, device, dtype, train), hp
+
+
+def _in_form(model: TransformerVAE, device, dtype, train: bool):
+    """Serving form (train=False): the whole model in `dtype`, default its
+    hparams' compute dtype, in eval mode without grads. Training form: fp32
+    master parameters with grads, computing in `dtype`."""
+    dtype = dtype or compute_dtype(model.hparams.precision)
     if train:
         model = model.to(device=device, dtype=torch.float32)
         model.compute_dtype = dtype
-        return model.train().requires_grad_(True), hp, meta
+        return model.train().requires_grad_(True)
     model = model.to(device=device, dtype=dtype)
-    return model.eval().requires_grad_(False), hp, meta
+    return model.eval().requires_grad_(False)

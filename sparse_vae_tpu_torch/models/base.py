@@ -1,7 +1,8 @@
 """Shared model hparams, device/dtype helpers and the compute-dtype rule.
 
 Counterpart of sparse_vae_tpu/models/base.py: the LanguageModelHparams
-fields the port reads, and `compute_dtype`.
+fields the port reads, and `compute_dtype` (its initialisers are in
+models/init.py).
 
 The compute-dtype rule is flax's `dtype=` semantics: a module computes in
 the dtype of the activations it is given, whatever its parameters are
@@ -36,6 +37,7 @@ LAYER_NORM_EPS = 1e-6
 @dataclass
 class LanguageModelHparams:
     grad_clip_threshold: float = 5.0
+    init_scale: Optional[float] = 0.02   # models/init.py
     base_batch_size: int = 100_000       # sqrt-lr-scaling base
     lr: float = 2e-4
     lr_decay_steps: Optional[int] = 250_000

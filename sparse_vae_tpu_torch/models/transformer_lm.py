@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import ce_kernel
 from ..ops.ce_kernel import FusedTiedCrossEntropy
 from ..ops.cross_entropy import chunked_cross_entropy
 from .base import LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear
@@ -108,12 +109,16 @@ class TransformerLanguageModel(nn.Module):
         """(nll_sum, token_count) over non-pad labels without [B, L, V]
         logits. hidden: [B, L', D]; labels: [B, L'] (0 = pad).
 
-        With the kernels on (use_pallas_kernel, V % 1024 == 0, as the
-        reference gates its fused path): flatten, the head on [T, D], then
-        the fused tied CE (K3/K3b on the card, their plain versions on the
-        CPU). Otherwise the chunked projection + CE."""
+        Where `ce_kernel.route` gives "kernel" (use_pallas_kernel, the
+        reference's gate V % 1024 == 0, and the kernels' D = 512): flatten,
+        the head on [T, D], then the fused tied CE (K3/K3b on the card,
+        their plain versions on the CPU). Otherwise the chunked projection
+        + CE; inside the gate at another width that runs on the CPU only
+        (`ce_kernel.take_plain_route`)."""
         hp = self.hparams
-        if hp.use_pallas_kernel and hp.vocab_size % 1024 == 0:
+        route = (ce_kernel.route(True, hp.vocab_size, hp.d_model)
+                 if hp.use_pallas_kernel else "outside")
+        if route == "kernel":
             b, length, d = hidden.shape
             g = self.pre_logits(hidden.reshape(b * length, d))
             flat = labels.reshape(-1)
@@ -122,6 +127,8 @@ class TransformerLanguageModel(nn.Module):
                 flat)
             mask = (flat != 0).float()
             return (nll * mask).sum(), mask.sum()
+        if route == "plain":
+            ce_kernel.take_plain_route(hidden.device, hp.d_model)
         return chunked_cross_entropy(hidden, self.project, labels,
                                      hp.loss_chunk_size or 2048)
 

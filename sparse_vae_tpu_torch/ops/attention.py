@@ -6,7 +6,8 @@ projection (with the learned-query bank), full-sequence self- and
 cross-attention (the blocked sparse path, its masked-dense fallback and
 the dense non-causal masked path the Perceiver takes), the block-ring and
 dense decode caches with `_decode_ring` and `decode_rowwise`, plus
-`row_cache_write` and `fill_cache_row`. The packed-layout,
+`row_cache_write` and `fill_cache_row`, and the packed-layout branch
+(Dh = 128: the projections feed K5/K5b without head-major copies). The
 sequence-parallel, tensor-parallel and frontier-window branches are not
 ported.
 
@@ -22,8 +23,11 @@ import torch
 import torch.nn as nn
 
 from ..models.base import Linear
+from . import swa_kernel
 from .rotary import apply_rotary
-from .sliding_window_attention import sliding_window_attention
+from .sliding_window_attention import (SlidingWindowAttentionPackedFn,
+                                       merge_heads, sliding_window_attention,
+                                       split_heads)
 
 NEG_INF = -1e9
 
@@ -93,25 +97,19 @@ def dense_attention(q, k, v, mask=None):
     return torch.matmul(weights, v)
 
 
-def split_heads(x, num_heads: int):
-    b, l, d = x.shape
-    return x.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
-
-
-def merge_heads(x):
-    b, h, l, d = x.shape
-    return x.transpose(1, 2).reshape(b, l, h * d)
-
-
 class Attention(nn.Module):
     """Rotary multi-head attention, optionally sliding-window sparse.
 
     Rotary base: 2 * window_size * block_size on the sparse path, else
     max_length (10,000), as in the reference. With `learned_queries` = n a
     bank of n learned queries [1, n, D] (no rotary) replaces the projected
-    queries, the Perceiver's pattern. use_kernel routes the sparse path
-    through the K1/K2 autograd Function (the JAX package's
-    use_pallas_kernel); off, autograd differentiates the plain forward.
+    queries, the Perceiver's pattern. use_kernel (the JAX package's
+    use_pallas_kernel) lets the blocked sparse path take a kernel family,
+    chosen by `swa_kernel.route`: the packed K5/K5b Function on the
+    [B, L, H * Dh] projections, or the head-major K1/K2 one; off, or
+    outside the JAX package's gates, autograd differentiates the plain
+    forward. Inside a gate at a shape no CUDA kernel takes, the plain
+    forward runs on the CPU and a CUDA input raises.
     """
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
@@ -166,6 +164,42 @@ class Attention(nn.Module):
     def _close(self, merged):
         return self.output_linear(merged)
 
+    def _route(self, lq: int, lk: int) -> Optional[str]:
+        """None for the dense masked path; else the blocked sparse path's
+        `swa_kernel.route` ("outside" with the kernels off)."""
+        if not (self.sparse and not self.num_queries and lq == lk
+                and lq % self.block_size == 0):
+            return None
+        if not self.use_kernel:
+            return "outside"
+        return swa_kernel.route(self.d_model // self.num_heads,
+                                self.block_size)
+
+    def _packed_forward(self, x, kv_mask, return_kv: bool):
+        """Self-attention through K5/K5b on the packed [B, L, H * Dh]
+        projections: rotary on a [B, L, H, Dh] view, as the reference
+        rotates split heads and merges them back. Only with return_kv are
+        head-major k/v made (the bulk-prefill cache seed)."""
+        b, length, d = x.shape
+        h, base = self.num_heads, self.rotary_base
+        q = apply_rotary(self.q_linear(x).view(b, length, h, d // h), base,
+                         seq_dim=-3)
+        k = apply_rotary(self.k_linear(x).view(b, length, h, d // h), base,
+                         seq_dim=-3)
+        v = self.v_linear(x)
+        if kv_mask is None:
+            lengths = torch.full((b,), length, dtype=torch.int32,
+                                 device=x.device)
+        else:
+            lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
+        out = SlidingWindowAttentionPackedFn.apply(
+            q.reshape(b, length, d), k.reshape(b, length, d), v, lengths, h,
+            self.window_size, self.block_size, self.causal, True)
+        y = self._close(out)
+        if not return_kv:
+            return y
+        return y, (k.transpose(1, 2), split_heads(v, h))
+
     def forward(self, x, kv_mask=None, return_kv: bool = False,
                 x_kv=None):
         """Full-sequence attention. x: [B, Lq, D] queries (ignored with
@@ -173,16 +207,23 @@ class Attention(nn.Module):
         kv_mask: [B, Lk] bool (True = valid key). With return_kv, also
         returns the head-major rotary (k, v) — the bulk-prefill cache seed
         (fill_cache_row)."""
+        route = self._route(x.shape[1],
+                            (x if x_kv is None else x_kv).shape[1])
+        if route == "packed":
+            return self._packed_forward(x, kv_mask, return_kv)
+        if route == "plain":
+            swa_kernel.take_plain_route(x.device,
+                                        self.d_model // self.num_heads,
+                                        self.block_size)
         q, k, v = self._project(x, x_kv=x_kv)
         lq, lk = q.shape[2], k.shape[2]
         own_queries = not self.num_queries
         mask = None
-        if (self.sparse and own_queries and lq == lk
-                and lq % self.block_size == 0):
+        if route is not None:
             out = sliding_window_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), kv_mask,
                 window_size=self.window_size, block_size=self.block_size,
-                causal=self.causal, use_kernel=self.use_kernel)
+                causal=self.causal, use_kernel=route == "head_major")
         else:
             if self.sparse and own_queries:
                 mask = sliding_window_token_mask(

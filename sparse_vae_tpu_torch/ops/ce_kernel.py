@@ -22,12 +22,48 @@ from . import cuda_lib
 
 # Kernel launches in this process (raised only where a kernel launches):
 # K3 in `fwd_launches`, K3b (the dg and dE kernels of one backward) in
-# `bwd_launches`.
+# `bwd_launches`. `plain_routes` counts CPU losses inside the JAX
+# package's fused-CE gate at a width the kernels do not take (`route` ==
+# "plain"); `take_plain_route` raises it.
 fwd_launches = 0
 bwd_launches = 0
+plain_routes = 0
 
 D_MODEL = 512
 VOCAB_TILE = 64
+
+
+def route(tied: bool, vocab_size: int, d_model: int) -> str:
+    """How a sequence loss with the kernels on is computed, as the JAX
+    package dispatches it (models/transformer_lm.py `sequence_nll`: the
+    fused kernel for a tied output table with V % 1024 == 0):
+
+    - "kernel": inside that gate at the K3/K3b instantiation (D = 512;
+      V % 1024 == 0 covers the kernels' V % 64);
+    - "plain": inside the gate at another width: the plain version on the
+      CPU, counted in `plain_routes`; on the card it raises
+      (`take_plain_route`);
+    - "outside": outside the gate: the plain chunked CE, as JAX takes its
+      chunked XLA path there.
+    """
+    if not (tied and vocab_size % 1024 == 0):
+        return "outside"
+    return "kernel" if d_model == D_MODEL else "plain"
+
+
+def take_plain_route(device: torch.device, d_model: int):
+    """Account for a loss that `route` gives "plain": on the CPU count it
+    in `plain_routes` (the caller then runs the plain version); on any
+    other device raise, as the JAX package runs its fused kernel at this
+    width and the port has no CUDA instantiation of it."""
+    global plain_routes
+    if device.type != "cpu":
+        raise NotImplementedError(
+            f"no CUDA instantiation of the fused tied CE kernels at d_model "
+            f"{d_model}: K3/K3b take D = {D_MODEL}")
+    plain_routes += 1
+
+
 # Tokens per step of the plain versions (the JAX loss_chunk_size).
 PLAIN_CHUNK = 2048
 

@@ -25,7 +25,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "tied_ce.cu", "nucleus_select.cu")
+SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_fwd_packed.cu",
+           "swa_bwd_packed.cu", "tied_ce.cu", "nucleus_select.cu")
+# Included by the sources; part of the library's hash.
+HEADERS = ("swa_packed.cuh",)
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -34,10 +37,14 @@ _SIGNATURES = {
     # block_size, window, causal, include_cls, scale, stream
     "svt_swa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _F, _P],
+    # The same for the packed layout (K5): q/k/v/out [B, L, H * D].
+    "svt_swa_fwd_packed": [_P] * 6 + [_I] * 8 + [_F, _P],
     # q, k, v, lengths, lse, out, do, dq, dk, dv, delta, scratch, batch,
     # heads, seq_len, head_dim, block_size, window, causal, include_cls,
     # cls_chunk, scale, stream
     "svt_swa_bwd": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # The same for the packed layout (K5b).
+    "svt_swa_bwd_packed": [_P] * 12 + [_I] * 9 + [_F, _P],
     # g, table, bias, lse, tokens, vocab, dim, stream
     "svt_tied_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
     # g, table, bias, lse, dnll, dg, tokens, vocab, dim, stream
@@ -78,7 +85,7 @@ def build() -> BuildInfo:
     the same sources is already there."""
     sources = [CSRC_DIR / name for name in SOURCES]
     digest = hashlib.sha1()
-    for src in sources:
+    for src in (*sources, *(CSRC_DIR / name for name in HEADERS)):
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libsvt_kernels-{digest.hexdigest()[:16]}.so"
     if out.exists():

@@ -13,6 +13,14 @@ CPU tensors. The dispatcher `sliding_window_attention` goes through it, or
 through autograd of the plain forward when the caller turns the kernels off
 (the JAX package's `force_xla`).
 
+The packed layout ([B, L, H * Dh], the projections' own, which the JAX
+package takes at Dh % 128 == 0): `sliding_window_attention_packed_plain`
+and `sliding_window_attention_packed_bwd_plain` are the head-major plain
+versions between head views, the oracle of the JAX package's packed tests
+and the plain versions of K5/K5b (ops/swa_kernel.py::swa_fwd_packed,
+::swa_bwd_packed); `SlidingWindowAttentionPackedFn` wraps them as
+`SlidingWindowAttentionFn` wraps K1/K2.
+
 One deliberate difference from the reference: a query row with no valid
 key at all (a row whose kv_mask is all False) gives 0 here, where the
 reference's -1e9 fill averages the masked values. Such rows are padding
@@ -178,6 +186,52 @@ def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
             dv.reshape(b, h, L, d).to(v.dtype))
 
 
+def split_heads(x, num_heads: int):
+    """[B, L, H * D] -> [B, H, L, D] (a view where the strides allow)."""
+    b, length, width = x.shape
+    return x.reshape(b, length, num_heads, width // num_heads).transpose(1, 2)
+
+
+def merge_heads(x):
+    """[B, H, L, D] -> [B, L, H * D]."""
+    b, h, length, d = x.shape
+    return x.transpose(1, 2).reshape(b, length, h * d)
+
+
+def sliding_window_attention_packed_plain(q, k, v, lengths, num_heads: int,
+                                          *, window_size: int = 2,
+                                          block_size: int = 128,
+                                          causal: bool = True,
+                                          include_cls: bool = True):
+    """`sliding_window_attention_plain` on packed operands: q/k/v
+    [B, L, H * D], lengths [B] valid key prefix. Returns (out
+    [B, L, H * D], lse [B, H, L] fp32), the packed forward's layouts."""
+    length = q.shape[1]
+    mask = (torch.arange(length, device=q.device)[None, :]
+            < lengths.to(torch.int64)[:, None])
+    out, lse = sliding_window_attention_plain(
+        *(split_heads(t, num_heads) for t in (q, k, v)), mask,
+        window_size=window_size, block_size=block_size, causal=causal,
+        include_cls=include_cls, return_lse=True)
+    return merge_heads(out), lse
+
+
+def sliding_window_attention_packed_bwd_plain(q, k, v, lengths, lse, out, do,
+                                              num_heads: int, *,
+                                              window_size: int = 2,
+                                              block_size: int = 128,
+                                              causal: bool = True,
+                                              include_cls: bool = True):
+    """`sliding_window_attention_bwd_plain` on packed operands: q/k/v/out/do
+    [B, L, H * D], lse [B, H, L]. Returns (dq, dk, dv) packed."""
+    grads = sliding_window_attention_bwd_plain(
+        *(split_heads(t, num_heads) for t in (q, k, v)), lengths, lse,
+        split_heads(out, num_heads), split_heads(do, num_heads),
+        window_size=window_size, block_size=block_size, causal=causal,
+        include_cls=include_cls)
+    return tuple(merge_heads(g) for g in grads)
+
+
 class SlidingWindowAttentionFn(torch.autograd.Function):
     """Sliding-window + [CLS] attention with its backward: K1 forward and
     K2 backward for CUDA tensors, the plain versions for CPU tensors.
@@ -224,3 +278,35 @@ def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
         lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
     return SlidingWindowAttentionFn.apply(q, k, v, lengths, window_size,
                                           block_size, causal, include_cls)
+
+
+class SlidingWindowAttentionPackedFn(torch.autograd.Function):
+    """Sliding-window + [CLS] attention on packed [B, L, H * D] operands
+    with its backward: K5 forward and K5b backward for CUDA tensors, the
+    packed plain versions for CPU tensors. lengths: [B] int32 valid key
+    prefix per row."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, num_heads, window_size, block_size,
+                causal, include_cls):
+        from .swa_kernel import swa_fwd_packed
+        out, lse = swa_fwd_packed(q, k, v, lengths, num_heads,
+                                  window_size=window_size,
+                                  block_size=block_size, causal=causal,
+                                  include_cls=include_cls)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        ctx.options = (num_heads, window_size, block_size, causal,
+                       include_cls)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from .swa_kernel import swa_bwd_packed
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        num_heads, window_size, block_size, causal, include_cls = ctx.options
+        dq, dk, dv = swa_bwd_packed(q, k, v, lengths, lse, out,
+                                    do.contiguous(), num_heads,
+                                    window_size=window_size,
+                                    block_size=block_size, causal=causal,
+                                    include_cls=include_cls)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -1,28 +1,85 @@
-"""K1 and K2: the sliding-window attention forward and backward as CUDA
-kernels (csrc/swa_fwd.cu, csrc/swa_bwd.cu), replacing
-sparse_vae_tpu/ops/pallas_kernels.py::_sliding_window_attention_fwd_pallas
-and ::_bwd_pallas.
+"""K1/K2 and K5/K5b: the sliding-window attention forward and backward as
+CUDA kernels, in the head-major layout (csrc/swa_fwd.cu, csrc/swa_bwd.cu,
+replacing sparse_vae_tpu/ops/pallas_kernels.py::
+_sliding_window_attention_fwd_pallas and ::_bwd_pallas) and in the packed
+[B, L, H * Dh] projection layout (csrc/swa_fwd_packed.cu,
+csrc/swa_bwd_packed.cu, replacing ::_sliding_window_attention_fwd_packed
+and ::_bwd_packed).
 
-`swa_fwd` and `swa_bwd` launch their kernels for CUDA tensors and run the
-plain versions (`sliding_window_attention_plain`,
-`sliding_window_attention_bwd_plain`) for CPU tensors. There is no other
-fallback: a CUDA tensor a kernel does not take raises.
+`route` decides up front which family a call takes, reproducing the JAX
+package's gates. Each wrapper launches its kernel for CUDA tensors and runs
+its plain version (ops/sliding_window_attention.py) for CPU tensors. There
+is no other fallback: a CUDA tensor a kernel does not take raises, and so
+does a CUDA call that `route` gives "plain" (`take_plain_route`), since the
+JAX package runs a kernel at that shape.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
-from .sliding_window_attention import (sliding_window_attention_bwd_plain,
-                                       sliding_window_attention_plain)
+from .sliding_window_attention import (
+    sliding_window_attention_bwd_plain,
+    sliding_window_attention_packed_bwd_plain,
+    sliding_window_attention_packed_plain, sliding_window_attention_plain,
+    split_heads)
 
 # Kernel launches in this process (raised only where a kernel launches):
-# K1 in `launches`, K2 in `bwd_launches`.
+# K1 in `launches`, K2 in `bwd_launches`, K5 in `packed_launches`, K5b in
+# `packed_bwd_launches`. `plain_routes` counts CPU attention calls inside
+# the JAX package's kernel gates at a shape no CUDA instantiation takes
+# (`route` == "plain"); `take_plain_route` raises it.
 launches = 0
 bwd_launches = 0
+packed_launches = 0
+packed_bwd_launches = 0
+plain_routes = 0
 
+# The CUDA instantiations: block 128, and Dh 64 head-major (K1/K2) or
+# Dh 128 packed (K5/K5b).
 BLOCK_SIZE = 128
 HEAD_DIM = 64
+PACKED_HEAD_DIM = 128
+
+
+def route(head_dim: int, block_size: int) -> str:
+    """The kernel family of one blocked sliding-window self-attention call
+    (sparse, its own queries, lq == lk, lq % block_size == 0, kernels on),
+    as the JAX package dispatches it:
+
+    - "packed": Dh % 128 == 0 and block % 128 == 0 (its
+      `Attention._packed_ok`), at the K5/K5b instantiation;
+    - "head_major": otherwise block % 128 == 0 and Dh % 8 == 0 (its
+      `sliding_window_attention` gate), at the K1/K2 instantiation;
+    - "plain": inside one of those gates but at a shape no CUDA kernel
+      takes (packed Dh != 128, head-major Dh != 64, block != 128): the
+      plain version on the CPU, counted in `plain_routes`; on the card it
+      raises (`take_plain_route`);
+    - "outside": outside both gates: the plain version, as JAX takes XLA
+      there.
+    """
+    if block_size % 128 == 0 and head_dim % 128 == 0:
+        at = (head_dim, block_size) == (PACKED_HEAD_DIM, BLOCK_SIZE)
+        return "packed" if at else "plain"
+    if block_size % 128 == 0 and head_dim % 8 == 0:
+        at = (head_dim, block_size) == (HEAD_DIM, BLOCK_SIZE)
+        return "head_major" if at else "plain"
+    return "outside"
+
+
+def take_plain_route(device: torch.device, head_dim: int, block_size: int):
+    """Account for a call that `route` gives "plain": on the CPU count it
+    in `plain_routes` (the caller then runs the plain version); on any
+    other device raise, as the JAX package runs a kernel at this shape and
+    the port has no CUDA instantiation of it."""
+    global plain_routes
+    if device.type != "cpu":
+        raise NotImplementedError(
+            f"no CUDA instantiation of the sliding-window attention kernels "
+            f"at head_dim {head_dim}, block_size {block_size}: K1/K2 take "
+            f"head-major Dh {HEAD_DIM}, K5/K5b packed Dh {PACKED_HEAD_DIM}, "
+            f"both block {BLOCK_SIZE}")
+    plain_routes += 1
 
 
 def _check(q, k, v, lengths, block_size: int, window_size: int):
@@ -43,15 +100,15 @@ def _check(q, k, v, lengths, block_size: int, window_size: int):
 
 
 def _check_cuda(kernel: str, tensors, lengths, head_dim: int,
-                block_size: int):
+                block_size: int, kernel_head_dim: int = HEAD_DIM):
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError(f"the {kernel} kernel takes bf16 tensors")
     if lengths.dtype != torch.int32:
         raise TypeError("lengths must be int32")
-    if head_dim != HEAD_DIM or block_size != BLOCK_SIZE:
-        raise ValueError(f"the {kernel} kernel takes head_dim {HEAD_DIM} "
-                         f"and block_size {BLOCK_SIZE}, got {head_dim} and "
-                         f"{block_size}")
+    if head_dim != kernel_head_dim or block_size != BLOCK_SIZE:
+        raise ValueError(f"the {kernel} kernel takes head_dim "
+                         f"{kernel_head_dim} and block_size {BLOCK_SIZE}, "
+                         f"got {head_dim} and {block_size}")
     if not all(t.is_contiguous() for t in (*tensors, lengths)):
         raise ValueError(f"the {kernel} kernel takes contiguous inputs")
 
@@ -154,3 +211,101 @@ def cls_chunks(num_blocks: int, window_size: int, causal: bool,
     if not include_cls or num_blocks <= left:
         return 0
     return -(-(num_blocks - left) // CLS_CHUNK)
+
+
+def _check_packed(q, k, v, lengths, num_heads: int, block_size: int,
+                  window_size: int) -> int:
+    """`_check` on head views of the packed operands; returns the head
+    dim."""
+    if q.ndim != 3 or q.shape[2] % num_heads:
+        raise ValueError(f"q must be [B, L, H * D] with H = {num_heads}, "
+                         f"got {tuple(q.shape)}")
+    _check(*(split_heads(t, num_heads) for t in (q, k, v)), lengths,
+           block_size, window_size)
+    return q.shape[2] // num_heads
+
+
+def swa_fwd_packed(q, k, v, lengths, num_heads: int, *, window_size: int = 2,
+                   block_size: int = 128, causal: bool = True,
+                   include_cls: bool = True):
+    """K5: sliding-window + [CLS] attention forward on packed operands.
+
+    q/k/v: [B, L, H * D], head h at columns h * D; lengths: [B] int32
+    valid key prefix per row. Returns (out [B, L, H * D] in q's dtype,
+    lse [B, H, L] fp32). CUDA: bf16, D = 128, block_size = 128,
+    contiguous.
+    """
+    global packed_launches
+    d = _check_packed(q, k, v, lengths, num_heads, block_size, window_size)
+    if not q.is_cuda:
+        return sliding_window_attention_packed_plain(
+            q, k, v, lengths, num_heads, window_size=window_size,
+            block_size=block_size, causal=causal, include_cls=include_cls)
+
+    _check_cuda("K5", (q, k, v), lengths, d, block_size, PACKED_HEAD_DIM)
+    b, L, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, num_heads, L), dtype=torch.float32,
+                      device=q.device)
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.svt_swa_fwd_packed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  lengths.data_ptr(), out.data_ptr(),
+                                  lse.data_ptr(), b, num_heads, L, d,
+                                  block_size, window_size, int(causal),
+                                  int(include_cls), d ** -0.5, stream)
+    cuda_lib.check(code, "swa_fwd_packed")
+    packed_launches += 1
+    return out, lse
+
+
+def swa_bwd_packed(q, k, v, lengths, lse, out, do, num_heads: int, *,
+                   window_size: int = 2, block_size: int = 128,
+                   causal: bool = True, include_cls: bool = True):
+    """K5b: the backward of `swa_fwd_packed`.
+
+    q/k/v/out/do: [B, L, H * D]; lengths: [B] int32; lse: [B, H, L] fp32
+    from `swa_fwd_packed`. Returns (dq, dk, dv) packed, in q's dtype.
+    delta = rowsum(do * out) per head is computed inside the dq kernel.
+    CUDA: bf16, D = 128, block_size = 128, contiguous.
+    """
+    global packed_bwd_launches
+    d = _check_packed(q, k, v, lengths, num_heads, block_size, window_size)
+    b, L, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out/do must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)}, {tuple(do.shape)}")
+    if lse.shape != (b, num_heads, L):
+        raise ValueError(f"lse must be {(b, num_heads, L)}, got "
+                         f"{tuple(lse.shape)}")
+    if len({t.device for t in (q, out, do, lse)}) != 1:
+        raise ValueError("inputs on several devices")
+    if not q.is_cuda:
+        return sliding_window_attention_packed_bwd_plain(
+            q, k, v, lengths, lse, out, do, num_heads,
+            window_size=window_size, block_size=block_size, causal=causal,
+            include_cls=include_cls)
+
+    _check_cuda("K5b", (q, k, v, out, do), lengths, d, block_size,
+                PACKED_HEAD_DIM)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("the K5b kernel takes a contiguous fp32 lse")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((b, num_heads, L), dtype=torch.float32,
+                        device=q.device)
+    chunks = cls_chunks(L // block_size, window_size, causal, include_cls)
+    scratch = torch.empty((2, b, num_heads, 1 + chunks, block_size, d),
+                          dtype=torch.float32, device=q.device)
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.svt_swa_bwd_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), scratch.data_ptr(),
+        b, num_heads, L, d, block_size, window_size, int(causal),
+        int(include_cls), CLS_CHUNK, d ** -0.5, stream)
+    cuda_lib.check(code, "swa_bwd_packed")
+    packed_bwd_launches += 1
+    return dq, dk, dv

@@ -8,9 +8,11 @@ batch_size-row batch with a `prompt`-token random prompt (K1), then times
 decode slices of `steps` steps with every row live (nucleus sampling at
 temperature 1.0, top_p 0.9, repetition penalty 1.2, fused K4 selection):
 host-clock step time and tokens/s, and a torch.profiler window of 16 steps
-for the device time by kernel; the device's idle share is 1 - device time
-per step / unprofiled step time. Prints one JSON
-line last. Needs a card; there is no CPU mode.
+that starts and ends in a synchronize: the device time by kernel, and the
+device's idle share of that window, 1 - (union of the device's busy
+intervals) / (the window's wall time), read as profile_train reads it
+(`busy_share`). Prints one JSON line last. Needs a card; there is no CPU
+mode.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import time
 
 import numpy as np
 import torch
+
+WINDOW = "profile_serve.window"
 
 
 def _args(argv):
@@ -35,6 +39,7 @@ def main(argv) -> int:
     from .checkpoint import load_run
     from .models.generation import SamplingParams, init_row_decode_state
     from .ops.attention import fill_cache_row
+    from .profile_train import busy_share
     from .serving import make_slice_fn
 
     if not torch.cuda.is_available():
@@ -88,18 +93,23 @@ def main(argv) -> int:
         wall = decode()
         step_ms = 1e3 * wall / steps
 
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
         window = 16
         window_fn = make_slice_fn(model, sampling, -1, window, True)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            window_fn(state, caches, z)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
+            with record_function(WINDOW):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                window_fn(state, caches, z)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+        window_us, busy_us = busy_share(prof.events(), WINDOW)
+        # Device work only: kernels and copies, not annotation ranges.
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
         device_us = sum(e.self_device_time_total for e in events)
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
 
@@ -116,9 +126,8 @@ def main(argv) -> int:
         "tokens_per_s": b * steps / wall,
         "profiled_step_ms": 1e3 * prof_wall / window,
         "device_ms_per_step": device_us / 1e3 / window,
-        # Against the unprofiled step: the profiler slows the host, not
-        # the kernels.
-        "device_idle_share": 1.0 - device_us / 1e3 / window / step_ms,
+        "device_busy_ms_per_step": busy_us / 1e3 / window,
+        "device_idle_share": 1.0 - busy_us / window_us,
         "kernels_per_step": sum(e.count for e in events) / window,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }

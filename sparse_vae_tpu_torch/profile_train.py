@@ -1,10 +1,15 @@
 """Where the training step's time goes on the card:
 
     python -m sparse_vae_tpu_torch.profile_train [run=real-prose-vae-r5]
-        [batch=8] [seq=12800] [accumulate=1] [steps=5] [profiled=3]
+        [heads=N] [batch=8] [seq=12800] [accumulate=1] [steps=5]
+        [profiled=3]
 
 Loads the run in its training form (fp32 master parameters, bf16 compute,
-kernels on) on CUDA and trains on the JAX train bench's traffic
+kernels on) on CUDA, or with `heads=N` builds the JAX train bench's model
+at N heads from the JAX initialisation with no archive (train.py
+`bench_hparams`; heads=4 is the Dh = 128 geometry, whose decoder
+attention runs the packed kernels K5/K5b), and trains on the JAX train
+bench's traffic
 (bench.py): every row a full document of `seq` random ids, so every slot
 is a real token. After two warm-up steps it times `steps` optimizer steps
 of `accumulate` micro-batches of [batch, seq] on the host clock (each
@@ -30,21 +35,33 @@ import torch
 WINDOW = "profile_train.window"
 
 
+KEYS = {"run", "heads", "batch", "seq", "accumulate", "steps", "profiled"}
+
+
 def _args(argv):
     extra = dict(kv.split("=", 1) for kv in argv[1:])
-    return (extra.get("run", "real-prose-vae-r5"), int(extra.get("batch", 8)),
-            int(extra.get("seq", 12800)), int(extra.get("accumulate", 1)),
-            int(extra.get("steps", 5)), int(extra.get("profiled", 3)))
+    unknown = set(extra) - KEYS
+    if unknown:
+        raise SystemExit(f"unknown keys {sorted(unknown)}; known: "
+                         f"{sorted(KEYS)}")
+    heads = int(extra["heads"]) if "heads" in extra else None
+    return (extra.get("run", "real-prose-vae-r5"), heads,
+            int(extra.get("batch", 8)), int(extra.get("seq", 12800)),
+            int(extra.get("accumulate", 1)), int(extra.get("steps", 5)),
+            int(extra.get("profiled", 3)))
 
 
-def busy_share(events) -> tuple[float, float]:
+def busy_share(events, window_name: str = WINDOW) -> tuple[float, float]:
     """(window wall us, union of device busy us inside it) from the
-    profiler's events: the window is the host range named WINDOW."""
+    profiler's events: the window is the one host range named
+    `window_name`, and the device's busy time is the union of its kernel
+    and copy intervals clipped to it (overlapping intervals count once).
+    profile_serve reads its idle share the same way."""
     window = [e.time_range for e in events
-              if e.name == WINDOW and e.device_type
+              if e.name == window_name and e.device_type
               == torch.autograd.DeviceType.CPU]
     if len(window) != 1:
-        raise RuntimeError(f"expected one {WINDOW} range, found "
+        raise RuntimeError(f"expected one {window_name} range, found "
                            f"{len(window)}")
     lo, hi = window[0].start, window[0].end
     spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
@@ -61,21 +78,25 @@ def busy_share(events) -> tuple[float, float]:
 
 
 def main(argv) -> int:
-    from .train import build
+    from .train import bench_hparams, build, build_from_hparams
     from .training.data import synthetic_batch
     from .training.train_step import train_step
 
     if not torch.cuda.is_available():
         print("profile_train needs a CUDA card", file=sys.stderr)
         return 1
-    run, b, seq, accumulate, steps, profiled = _args(argv)
+    run, heads, b, seq, accumulate, steps, profiled = _args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    model, objective, optimizer, accumulate = build(run, dev, accumulate, b,
-                                                    seq)
+    if heads is None:
+        model, objective, optimizer, accumulate = build(run, dev, accumulate)
+    else:
+        run = f"bench.py --heads {heads} (JAX initialisation, seed 0)"
+        model, objective, optimizer, _ = build_from_hparams(
+            bench_hparams(heads), torch.Generator().manual_seed(0), dev)
     rng = np.random.default_rng(0)
     generator = torch.Generator(device=dev).manual_seed(0)
     vocab = model.hparams.vocab_size

@@ -12,7 +12,7 @@ target. K2's and K3b's gradients in bf16 against their fp32 plain
 versions relative to the largest entry (1e-2: one bf16 rounding of each
 output, and K3b's rounding of the logit gradients to bf16 before its
 products); K3's lse in fp32 up to summation order over 32,768 logits
-(1e-4 absolute).
+(1e-4 absolute). K5 and K5b (the packed layout) as K1 and K2.
 """
 import pytest
 import torch
@@ -21,9 +21,12 @@ from sparse_vae_tpu_torch.models.generation import SamplingParams, gumbel_noise
 from sparse_vae_tpu_torch.models.transformer_vae import (
     TransformerVAE, TransformerVAEHparams)
 from sparse_vae_tpu_torch.ops import ce_kernel, select_kernel, swa_kernel
+from sparse_vae_tpu_torch.ops.attention import Attention
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
-    sliding_window_attention, sliding_window_attention_bwd_plain,
-    sliding_window_attention_plain)
+    SlidingWindowAttentionPackedFn, sliding_window_attention,
+    sliding_window_attention_bwd_plain,
+    sliding_window_attention_packed_bwd_plain,
+    sliding_window_attention_packed_plain, sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
 
 GRAD_REL = 1e-2
@@ -203,3 +206,89 @@ def test_ce_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         ce_kernel.tied_ce_fwd(gb[:, :256].contiguous(),
                               table[:, :256].contiguous(), bias, labels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 2])
+def test_swa_packed_kernels_match_plain(cuda, heads, causal, window):
+    """K5 and K5b on packed [B, L, H * 128] operands against their plain
+    versions; two and four heads, so a head-offset fault cannot hide."""
+    gen = torch.Generator(device=cuda).manual_seed(20 + window + heads)
+    q, k, v, do = (torch.randn((2, 640, heads * 128), generator=gen,
+                               device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    lengths = torch.tensor([640, 300], dtype=torch.int32, device=cuda)
+    f0, b0 = swa_kernel.packed_launches, swa_kernel.packed_bwd_launches
+    out, lse = swa_kernel.swa_fwd_packed(q, k, v, lengths, heads,
+                                         window_size=window, causal=causal)
+    got = swa_kernel.swa_bwd_packed(q, k, v, lengths, lse, out, do, heads,
+                                    window_size=window, causal=causal)
+    assert (swa_kernel.packed_launches,
+            swa_kernel.packed_bwd_launches) == (f0 + 1, b0 + 1)
+    ref, ref_lse = sliding_window_attention_packed_plain(
+        q, k, v, lengths, heads, window_size=window, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    want = sliding_window_attention_packed_bwd_plain(
+        q, k, v, lengths, lse, out, do, heads, window_size=window,
+        causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        _assert_rel(g, w, "d" + name)
+
+
+@pytest.mark.gpu
+def test_packed_attention_on_the_card_has_a_gradient(cuda):
+    """The packed Function's output on the card carries a grad_fn, and
+    backward() gives q, k and v K5b's gradients, equal to the plain
+    backward's."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((2, 512, 4 * 128), generator=gen, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    lengths = torch.tensor([512, 200], dtype=torch.int32, device=cuda)
+    out = SlidingWindowAttentionPackedFn.apply(q, k, v, lengths, 4, 2, 128,
+                                               True, True)
+    assert out.grad_fn is not None
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(out.dtype)
+    before = swa_kernel.packed_bwd_launches
+    out.backward(do)
+    assert swa_kernel.packed_bwd_launches == before + 1
+    with torch.no_grad():
+        o, lse = swa_kernel.swa_fwd_packed(q, k, v, lengths, 4)
+        want = sliding_window_attention_packed_bwd_plain(q, k, v, lengths,
+                                                         lse, o, do, 4)
+    for name, t, w in zip("qkv", (q, k, v), want):
+        assert t.grad is not None and bool(t.grad.abs().sum() > 0)
+        _assert_rel(t.grad, w, "d" + name)
+
+
+@pytest.mark.gpu
+def test_swa_packed_kernel_rejects_what_it_does_not_take(cuda):
+    lengths = torch.full((1,), 128, dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 128, 2 * 128), device=cuda)
+    with pytest.raises(TypeError):
+        swa_kernel.swa_fwd_packed(q, q, q, lengths, 2)          # fp32
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        swa_kernel.swa_fwd_packed(qb, qb, qb, lengths, 4)       # Dh 64
+
+
+@pytest.mark.gpu
+def test_plain_routes_raise_on_the_card(cuda):
+    """A sparse attention at Dh = 32 and a tied loss at D = 256 lie inside
+    the JAX package's kernel gates but have no CUDA instantiation: on the
+    card they raise instead of running the plain version."""
+    narrow = Attention(64, 2, causal=True, sparse=True).to(cuda)
+    with pytest.raises(NotImplementedError, match="head_dim 32"):
+        narrow(torch.zeros((1, 128, 64), device=cuda))
+    hp = TransformerVAEHparams(d_model=256, num_heads=2, num_layers=1,
+                               latent_depth=16, vocab_size=1024,
+                               num_encoder_latents=8)
+    model = TransformerVAE(hp).to(cuda)
+    with pytest.raises(NotImplementedError, match="d_model 256"):
+        model.sequence_nll(torch.zeros((1, 256, 256), device=cuda),
+                           torch.ones((1, 256), dtype=torch.int64,
+                                      device=cuda))

@@ -42,6 +42,26 @@ layout):
   9. train   — 3 optimizer steps at [4, 4096] through K5, K5b, K3 and K3b
                (K5 and K5b 6 launches a step), step 1 held against the fp32
                plain step as in phase 6.
+Sequence parallelism, r5 at the pg19 preset's document shape (one
+102,400-token document per micro-batch, 4 length shards of 25,600):
+ 10. kernels — K6 (the shard attention: K1/K2 with q_off plus the [CLS]
+               merge) forward and backward against its plain version on
+               the banded branch at the shard shape q [1, 8, 25600, 64]
+               over k_ext [1, 8, 25728, 64], on the square branch (shard
+               0), on ragged rows with a filler row, and at windows 1 and
+               3; timed beside its bound and SDPA over [CLS | k_ext] under
+               the boolean band mask (a yardstick the port never calls);
+ 11. sp-train — one unsharded kernel step of r5 on a seeded document
+               [1, 102400] (K1/K2 at [1, 8, 102400, 64]), then 4 ranks
+               spawned on this card (gloo: they share it) take the same
+               step with the same weights, document and eps, and 2 more;
+               the same pair again in fp32 through the plain versions.
+               fp32: all 165 summed gradients at cosine >= 0.99, loss to
+               1e-5; kernels: loss within 1e-3 relative, gradients at
+               cosine >= 0.99 wherever the unsharded kernel step is itself
+               that close to fp32 (see sp_train_phase); parameters bitwise
+               equal across ranks, K6 launched on ranks 1-3, K1/K2 on rank
+               0, K3/K3b on every rank.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -49,6 +69,7 @@ Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -66,15 +87,17 @@ from sparse_vae_tpu_torch.checkpoint import load_run, model_from_hparams
 from sparse_vae_tpu_torch.models.base import SEP_ID
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise)
-from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, select_kernel,
-                                      swa_kernel)
+from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
+                                      select_kernel, sp_kernel, swa_kernel)
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     sliding_window_attention_bwd_plain,
     sliding_window_attention_packed_bwd_plain,
     sliding_window_attention_packed_plain, sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
+from sparse_vae_tpu_torch.parallel.group import choose_backend, spawn
 from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
+from sparse_vae_tpu_torch.train import sp_pad_multiple, train_rank
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.train_step import train_step
 
@@ -123,6 +146,22 @@ TRAIN_LENGTHS = [12800] * 8
 # weight for the kernels.
 MODEL_H4_REL_TOL = 3e-2
 H4_SEED = 0          # the torch.Generator of the Dh = 128 initialisation
+# Sequence parallelism: the pg19 preset's document (102,400 tokens, batch
+# 1) over 4 length shards. K6's tolerances are K1's (out, lse) and K2's
+# (gradients); the sharded step against the unsharded kernel step as the
+# train phases hold the kernel step against the plain one.
+SP = 4
+SP_SEQ = 102400
+SP_SEED = 21
+# The fp32 plain sharded step against the fp32 plain unsharded one:
+# summation order only (both 13.867570877 on an H100).
+SP_FP32_LOSS_RTOL = 1e-5
+# Where the unsharded bf16 kernel step is itself below TRAIN_GRAD_COS
+# against the fp32 step (the encoder bottleneck's near-zero gradients at
+# 102,400 tokens: 0.699 on an H100), the sharded kernel step may be no
+# farther from fp32 than it, less this margin (bf16 noise of two
+# different summation orders: 0.696 was measured beside that 0.699).
+SP_NOISY_MARGIN = 0.05
 
 
 class Phase:
@@ -442,12 +481,13 @@ def k2_phase(b: int, L: int, lengths, seed: int, iters: int,
     return row
 
 
-def sdpa_backward_ms(q, k, v, do, lens, window, block):
-    """Backward of F.scaled_dot_product_attention under the band mask (a
-    dense O(L^2) yardstick the port never calls): forward + backward
-    minus forward."""
+def sdpa_backward_ms(q, k, v, do, lens, window, block, mask=None):
+    """Backward of F.scaled_dot_product_attention under the band mask, or
+    under `mask` when given (a dense O(L^2) yardstick the port never
+    calls): forward + backward minus forward."""
     L = q.shape[2]
-    mask = band_mask(L, lens, window, block, "cuda")
+    if mask is None:
+        mask = band_mask(L, lens, window, block, "cuda")
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd():
@@ -755,27 +795,294 @@ def model_h4_phase(model, seed: int = 0, length: int = 256) -> dict:
     return row
 
 
-COUNTERS = {
-    "swa_fwd": (swa_kernel, "launches"),
-    "swa_bwd": (swa_kernel, "bwd_launches"),
-    "swa_fwd_packed": (swa_kernel, "packed_launches"),
-    "swa_bwd_packed": (swa_kernel, "packed_bwd_launches"),
-    "tied_ce_fwd": (ce_kernel, "fwd_launches"),
-    "tied_ce_bwd": (ce_kernel, "bwd_launches"),
-    "nucleus_select": (select_kernel, "launches"),
-    "swa_plain_routes": (swa_kernel, "plain_routes"),
-    "ce_plain_routes": (ce_kernel, "plain_routes"),
-}
+reset_counts = launches.reset
+read_counts = launches.read
 
 
-def reset_counts():
-    for module, attr in COUNTERS.values():
-        setattr(module, attr, 0)
+def sp_mask(S: int, start: int, ext_lens, cls_lens, window: int,
+            block: int = 128):
+    """[B, 1, S, block + ctx + S] bool: what one shard's queries attend
+    in the key layout [CLS block | k_ext], the mask K6 applies (shard 0:
+    K1's band + [CLS] slot over its local keys, the [CLS] columns unused)."""
+    ctx = (window - 1) * block
+    i = torch.arange(S, device="cuda")
+    e = torch.arange(ctx + S, device="cuda")
+    t = start + i                                    # query positions
+    g = start - ctx + e                              # extended key positions
+    ext = torch.tensor(ext_lens, device="cuda")
+    if start == 0:
+        local = e - ctx
+        band = ((t[:, None] // block - local[None, :] // block < window)
+                | (local[None, :] // block == 0)) & (local[None, :] >= 0) \
+            & (local[None, :] <= t[:, None])
+        keys = (local[None, :] >= 0) & (local[None, :] < ext[:, None])
+        ext_mask = band[None] & keys[:, None, :]
+        cls_mask = torch.zeros((len(ext_lens), S, block), dtype=torch.bool,
+                               device="cuda")
+    else:
+        band = (g[None, :] // block > t[:, None] // block - window) \
+            & (g[None, :] <= t[:, None])
+        ext_mask = band[None] & (e[None, :] < ext[:, None])[:, None, :]
+        cls = torch.arange(block, device="cuda")[None, :] < torch.tensor(
+            cls_lens, device="cuda")[:, None]
+        cls_mask = cls[:, None, :].expand(-1, S, -1)
+    return torch.cat([cls_mask, ext_mask], dim=2)[:, None]
 
 
-def read_counts() -> dict:
-    return {name: getattr(module, attr)
-            for name, (module, attr) in COUNTERS.items()}
+def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
+             seed: int, h: int = 8, time_it: bool = False):
+    """K6 forward and backward (ops/sp_kernel.py: K1/K2 with q_off plus
+    the [CLS] merge) against its plain version on the same bf16 inputs;
+    filler rows (ext_len 0 and cls_len 0) must give out 0 and zero
+    gradients with no NaN. Timed beside its plain version and SDPA over
+    [CLS | k_ext] under the same mask when time_it."""
+    d, block = 64, 128
+    ctx = (window - 1) * block
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, do = randn(b, h, S, d), randn(b, h, S, d)
+    k_ext, v_ext = randn(b, h, ctx + S, d), randn(b, h, ctx + S, d)
+    cls_k, cls_v = randn(b, h, block, d), randn(b, h, block, d)
+    if start == 0:       # shard 0 receives a zero halo
+        k_ext[:, :, :ctx] = 0
+        v_ext[:, :, :ctx] = 0
+    ext_len = torch.tensor(ext_lens, dtype=torch.int32, device="cuda")
+    cls_len = torch.tensor(cls_lens, dtype=torch.int32, device="cuda")
+    args = (q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_len)
+    out, lse = sp_kernel.sp_fwd(*args, window, block)
+    grads = sp_kernel.sp_bwd(*args, out, lse, do, window, block)
+    torch.cuda.synchronize()
+    ref, ref_lse = sp_kernel.sp_fwd_plain(*args, window, block)
+    want = sp_kernel.sp_bwd_plain(*args, out, lse, do, window, block)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (out, *grads)),
+          "K6 out or gradients are not finite")
+    err = (out.float() - ref.float()).abs()
+    check(bool((err <= K1_OUT_ATOL + K1_OUT_RTOL * ref.float().abs()).all()),
+          f"K6 out disagrees with its plain version: max {err.max():.3g}")
+    check(torch.equal(torch.isinf(lse), torch.isinf(ref_lse)),
+          "K6 lse is -inf on other rows than its plain version's")
+    finite = torch.isfinite(ref_lse)
+    lse_err = (lse[finite] - ref_lse[finite]).abs().max().item()
+    check(lse_err <= K1_LSE_ATOL, f"K6 lse disagrees: {lse_err:.3g}")
+    errs = [rel_err(g, w) for g, w in zip(grads, want)]
+    abs_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(grads, want))
+    check(max(errs) <= GRAD_REL_TOL,
+          f"K6 gradients disagree with the plain version: {errs}")
+    filler = [r for r in range(b) if ext_lens[r] == 0 and cls_lens[r] == 0]
+    for r in filler:
+        check(bool((out[r] == 0).all()) and all(
+            bool((g[r] == 0).all()) for g in grads),
+            f"K6 filler row {r} is not zero")
+    row = {"shape": [b, h, S, d], "k_ext": list(k_ext.shape),
+           "start": start, "window": window, "ext_len": list(ext_lens),
+           "cls_len": list(cls_lens), "filler_rows": filler,
+           "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
+           "bwd_max_abs_err": abs_err,
+           "rel_errs_dq_dkext_dvext_dclsk_dclsv": errs}
+    if time_it:
+        mask = sp_mask(S, start, ext_lens, cls_lens, window, block)
+        pairs = int(mask.sum().item()) * h
+        keys = torch.cat([cls_k, k_ext], dim=2)
+        values = torch.cat([cls_v, v_ext], dim=2)
+        row["ms"] = cuda_ms(lambda: sp_kernel.sp_fwd(*args, window, block),
+                            10)
+        row["bwd_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd(
+            *args, out, lse, do, window, block), 10)
+        row["plain_ms"] = cuda_ms(lambda: sp_kernel.sp_fwd_plain(
+            *args, window, block), 2, warmup=1)
+        row["bwd_plain_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd_plain(
+            *args, out, lse, do, window, block), 2, warmup=1)
+        try:
+            row["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, keys, values, attn_mask=mask), 2, warmup=1)
+        except torch.OutOfMemoryError:
+            print("K6 library yardstick: out of memory", flush=True)
+            row["library_ms"] = None
+        row["bwd_library_ms"] = sdpa_backward_ms(q, keys, values, do, None,
+                                                 window, block, mask)
+        del mask, keys, values
+        lens_bytes = 2 * b * 4
+        # Forward: q, k_ext, v_ext, cls_k, cls_v read and out written
+        # (bf16), lse written (fp32); per attended pair 2 products of Dh
+        # multiply-adds.
+        io = (2 * q.numel() + 2 * k_ext.numel() + 2 * cls_k.numel()) * 2
+        row["bound_ms"], row["bound_by"] = bound(
+            io + lse.numel() * 4 + lens_bytes, 4 * d * pairs,
+            BF16_TENSOR_FLOPS)
+        # Backward: those inputs, out and do read, lse read, the five
+        # gradients written; per pair s and dp recomputed, dq, dk, dv.
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound(
+            2 * io + q.numel() * 2 + lse.numel() * 4 + lens_bytes,
+            10 * d * pairs, BF16_TENSOR_FLOPS)
+        row["pairs"] = pairs
+    print("K6 " + json.dumps(row), flush=True)
+    return row
+
+
+def cosines(got: dict, want: dict) -> dict:
+    out = {}
+    for name, w in want.items():
+        a, w = got[name].double(), w.double()
+        out[name] = float((a * w).sum() / (a.norm() * w.norm()).clamp_min(
+            1e-300))
+    return out
+
+
+def unsharded_sp_step(use_kernels: bool, dtype, noise=None):
+    """One unsharded step of r5 on the sp-train document [1, SP_SEQ]:
+    (loss, gradients on the CPU, launch counts, seconds, peak bytes,
+    noise). noise: the posterior noise, drawn from SP_SEED when None."""
+    model, objective, optimizer = build_training(
+        RUN, "cuda", 1, use_kernels=use_kernels, dtype=dtype)[:3]
+    hp = model.hparams
+    rng = np.random.default_rng(SP_SEED)
+    mb = synthetic_batch(rng, 1, SP_SEQ, hp.vocab_size,
+                         pad_to_multiple_of=sp_pad_multiple(hp, SP),
+                         device="cuda")
+    check(mb["token_ids"].shape == (1, SP_SEQ), "the document is padded")
+    if noise is None:
+        gen = torch.Generator(device="cuda").manual_seed(SP_SEED)
+        noise = {"eps": torch.randn((1, 1, hp.latent_depth), generator=gen,
+                                    device="cuda"),
+                 "mi": torch.randn((objective.mi_samples, 1,
+                                    hp.latent_depth), generator=gen,
+                                   device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = train_step(model, objective, optimizer, [mb], 0, [noise])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()}
+    out = (float(metrics["loss"]), grads, counts, seconds,
+           torch.cuda.max_memory_allocated(), noise)
+    del model, objective, optimizer, metrics, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_sp_steps(steps: int, noise: dict, use_kernels: bool = True,
+                     dtype=None) -> list:
+    """SP ranks spawned on the card take `steps` steps of r5 on the same
+    documents, the first with `noise`; their records, checked: every rank
+    on the card, one backend, the same losses and bitwise equal
+    parameters after every step."""
+    records = spawn(train_rank, SP, "cuda",
+                    (RUN, steps, 1, SP_SEQ, SP_SEED, 1,
+                     [{k: v.cpu() for k, v in noise.items()}], True, False,
+                     use_kernels, dtype), timeout=900)
+    check([r["rank"] for r in records] == list(range(SP)),
+          "a rank is missing")
+    check(all(r["device"].startswith("cuda") for r in records),
+          "a rank ran off the card")
+    check(len({r["backend"] for r in records}) == 1,
+          "the ranks disagree on the backend")
+    losses = [[m["loss"] for m in r["metrics"]] for r in records]
+    check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
+          f"the ranks' losses differ or are not finite: {losses}")
+    for step in range(steps):
+        check(len({r["param_digests"][step] for r in records}) == 1,
+              f"parameters differ across ranks after step {step + 1}")
+    return records
+
+
+def sp_train_phase(steps: int = 3) -> dict:
+    """r5's step on one [1, SP_SEQ] document, unsharded and over SP ranks
+    spawned on the card with the same weights, document and eps, each in
+    bf16 through the kernels and in fp32 through the plain versions; then
+    2 more sharded kernel steps.
+
+    The fp32 pair is held exactly (loss 1e-5 relative, all 165 gradients
+    at cosine >= 0.99). The kernel pair: loss within 1e-3 relative; a
+    gradient at cosine >= 0.99 with the unsharded kernel step wherever that
+    step is itself at >= 0.99 with the fp32 one, and elsewhere no farther
+    from the fp32 gradient than the unsharded kernel step less
+    SP_NOISY_MARGIN: a few tensors whose gradients are near zero (the
+    encoder bottleneck's, at this length) sit at bf16 noise in either
+    bf16 step, so the unsharded kernel step is no reference for them."""
+    a_loss, a_grads, a_counts, a_s, a_peak, noise = unsharded_sp_step(
+        True, None)
+    check_counts("sp-train unsharded", a_counts,
+                 {"swa_fwd": 6, "swa_bwd": 6, "tied_ce_fwd": 1,
+                  "tied_ce_bwd": 1})
+    c_loss, c_grads, _, c_s, _, _ = unsharded_sp_step(False, torch.float32,
+                                                      noise)
+    records = sharded_sp_steps(steps, noise)
+    plain = sharded_sp_steps(1, noise, False, torch.float32)
+
+    d_cos = cosines(plain[0]["grads"], c_grads)
+    d_loss = plain[0]["metrics"][0]["loss"]
+    check(len(d_cos) == 165, f"{len(d_cos)} gradients compared, not 165")
+    check(abs(d_loss - c_loss) <= SP_FP32_LOSS_RTOL * abs(c_loss),
+          f"fp32 sp step 1 loss {d_loss} vs unsharded {c_loss}")
+    check(min(d_cos.values()) >= TRAIN_GRAD_COS,
+          f"fp32 sp gradients disagree with the unsharded fp32 step: "
+          f"{sorted(d_cos.items(), key=lambda kv: kv[1])[:3]}")
+
+    losses = [m["loss"] for m in records[0]["metrics"]]
+    loss_rel = abs(losses[0] - a_loss) / abs(a_loss)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"sp step 1 loss {losses[0]} vs unsharded {a_loss}")
+    b_grads = records[0]["grads"]
+    ba_cos = cosines(b_grads, a_grads)
+    ac_cos = cosines(a_grads, c_grads)
+    bc_cos = cosines(b_grads, c_grads)
+    noisy = {n: {"unsharded_vs_fp32": ac_cos[n], "sp_vs_fp32": bc_cos[n],
+                 "sp_vs_unsharded": ba_cos[n]}
+             for n in ac_cos if ac_cos[n] < TRAIN_GRAD_COS}
+    held = {n: c for n, c in ba_cos.items() if n not in noisy}
+    check(len(ba_cos) == 165, f"{len(ba_cos)} gradients compared, not 165")
+    check(min(held.values()) >= TRAIN_GRAD_COS,
+          f"sp step 1 gradients disagree with the unsharded step: "
+          f"{sorted(held.items(), key=lambda kv: kv[1])[:3]}")
+    for n, c in noisy.items():
+        check(c["sp_vs_fp32"] >= c["unsharded_vs_fp32"] - SP_NOISY_MARGIN,
+              f"{n}: the sp step is farther from fp32 than the unsharded "
+              f"step: {c}")
+    for r in records:
+        c = r["launches"]
+        check(c["swa_plain_routes"] == 0 and c["ce_plain_routes"] == 0,
+              f"rank {r['rank']} took a plain route: {c}")
+        check(c["tied_ce_fwd"] > 0 and c["tied_ce_bwd"] > 0,
+              f"rank {r['rank']} ran no K3/K3b: {c}")
+        if r["rank"] == 0:
+            check(c["swa_fwd"] > 0 and c["swa_bwd"] > 0
+                  and c["sp_windowed_attention"] == 0,
+                  f"rank 0 ran no K1/K2 or ran K6: {c}")
+        else:
+            check(c["sp_windowed_attention"] > 0
+                  and c["sp_windowed_attention_bwd"] > 0
+                  and c["swa_fwd"] == 0 and c["swa_bwd"] == 0,
+                  f"rank {r['rank']} ran no K6 or ran K1/K2: {c}")
+    stats = {"sp": SP, "backend": records[0]["backend"],
+             "document": [1, SP_SEQ],
+             "unsharded": {"loss": a_loss, "step_s": a_s, "launches":
+                           a_counts, "max_memory_allocated_bytes": a_peak},
+             "losses": losses, "loss_rel_err": loss_rel,
+             "min_grad_cosine": sorted(held.items(),
+                                       key=lambda kv: kv[1])[:3],
+             "near_zero_gradients": noisy,
+             "fp32": {"unsharded_loss": c_loss, "sp_loss": d_loss,
+                      "unsharded_step_s": c_s,
+                      "min_grad_cosine": sorted(
+                          d_cos.items(), key=lambda kv: kv[1])[:3],
+                      "step_s_by_rank": [r["step_s"] for r in plain]},
+             "step_s_by_rank": [r["step_s"] for r in records],
+             "max_memory_allocated_by_rank": [
+                 r["max_memory_allocated"] for r in records],
+             "launches_by_rank": [r["launches"] for r in records]}
+    print("sp-train " + json.dumps(stats), flush=True)
+    return stats
 
 
 def check_counts(path: str, counts: dict, expect: dict):
@@ -854,6 +1161,26 @@ def main() -> int:
             lambda kernels, dtype: h4_model(kernels, dtype, train=True),
             {"swa_fwd_packed": 6, "swa_bwd_packed": 6, "tied_ce_fwd": 1,
              "tied_ce_bwd": 1}, name="train-h4")["launches"]
+    shard = SP_SEQ // SP
+    with Phase("kernels-sp"):
+        k6 = k6_phase(1, shard, shard, [shard + 128], [128], 2, seed=15,
+                      time_it=True)
+        k6_square = k6_phase(1, shard, 0, [shard], [128], 2, seed=16,
+                             time_it=True)
+        k6_phase(4, 4096, 8192, [4224, 3000, 129, 0], [128, 128, 128, 0], 2,
+                 seed=17)
+        k6_phase(4, 4096, 0, [4096, 2000, 1, 0], [128, 128, 128, 0], 2,
+                 seed=18)
+        for window, seed in ((1, 19), (3, 20)):
+            k6_phase(1, 1024, 1024, [(window - 1) * 128 + 1024], [128],
+                     window, seed=seed, h=2)
+    with Phase("sp-train"):
+        sp_stats = sp_train_phase()
+    sp_counts = sp_stats["launches_by_rank"]
+    sp_single = sp_stats["unsharded"]["launches"]
+
+    def sp_sum(name):
+        return sp_single[name] + sum(c[name] for c in sp_counts)
 
     def timed(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -869,9 +1196,11 @@ def main() -> int:
         {"name": "swa_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
-         "launches": counts["swa_fwd"] + train_counts["swa_fwd"],
+         "launches": counts["swa_fwd"] + train_counts["swa_fwd"]
+         + sp_sum("swa_fwd"),
          "launches_by_path": {"serve": counts["swa_fwd"],
-                              "train": train_counts["swa_fwd"]},
+                              "train": train_counts["swa_fwd"],
+                              "sp-train": sp_sum("swa_fwd")},
          **{k: k1_serve[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by",
                                      "library_ms")},
@@ -898,22 +1227,27 @@ def main() -> int:
         {"name": "swa_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
-         "launches": train_counts["swa_bwd"], **timed(k2_train)},
+         "launches": train_counts["swa_bwd"] + sp_sum("swa_bwd"),
+         "launches_by_path": {"train": train_counts["swa_bwd"],
+                              "sp-train": sp_sum("swa_bwd")},
+         **timed(k2_train)},
         {"name": "tied_ce_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
          "launches": train_counts["tied_ce_fwd"]
-         + h4_train_counts["tied_ce_fwd"],
+         + h4_train_counts["tied_ce_fwd"] + sp_sum("tied_ce_fwd"),
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
-                              "train-h4": h4_train_counts["tied_ce_fwd"]},
+                              "train-h4": h4_train_counts["tied_ce_fwd"],
+                              "sp-train": sp_sum("tied_ce_fwd")},
          **timed(k3)},
         {"name": "tied_ce_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
          "launches": train_counts["tied_ce_bwd"]
-         + h4_train_counts["tied_ce_bwd"],
+         + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd"),
          "launches_by_path": {"train": train_counts["tied_ce_bwd"],
-                              "train-h4": h4_train_counts["tied_ce_bwd"]},
+                              "train-h4": h4_train_counts["tied_ce_bwd"],
+                              "sp-train": sp_sum("tied_ce_bwd")},
          **timed(k3b)},
         {"name": "swa_fwd_packed", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd_packed.cu",
@@ -931,6 +1265,33 @@ def main() -> int:
          "launches_by_path": {
              "train-h4": h4_train_counts["swa_bwd_packed"]},
          **timed(k5b_train), "smaller": smaller(k5b_serve, k5b_long)},
+        {"name": "sp_windowed_attention", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
+         "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:1031",
+         "launches": sp_sum("sp_windowed_attention"),
+         "launches_by_rank": {"sp-train": [
+             c["sp_windowed_attention"] for c in sp_counts]},
+         **timed(k6), "square": {k: k6_square[k] for k in (
+             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "library_ms")}},
+        {"name": "sp_windowed_attention_bwd", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
+         "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:1057",
+         "launches": sp_sum("sp_windowed_attention_bwd"),
+         "launches_by_rank": {"sp-train": [
+             c["sp_windowed_attention_bwd"] for c in sp_counts]},
+         "shape": k6["shape"], "max_abs_err": k6["bwd_max_abs_err"],
+         "ms": k6["bwd_ms"], "plain_ms": k6["bwd_plain_ms"],
+         "bound_ms": k6["bwd_bound_ms"], "bound_by": k6["bwd_bound_by"],
+         "library_ms": k6["bwd_library_ms"],
+         "square": {"shape": k6_square["shape"],
+                    "max_abs_err": k6_square["bwd_max_abs_err"],
+                    "ms": k6_square["bwd_ms"],
+                    "plain_ms": k6_square["bwd_plain_ms"],
+                    "bound_ms": k6_square["bwd_bound_ms"],
+                    "library_ms": k6_square["bwd_library_ms"]}},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

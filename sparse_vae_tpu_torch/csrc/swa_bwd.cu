@@ -19,6 +19,17 @@
 // kernel rounds them; every sum is fp32, and dq, dk, dv [B, H, L, 64] bf16
 // are rounded once.
 //
+// The sequence-parallel form (K6's band backward): with q_off > 0, q, out
+// and do hold Lq rows and k, v hold Lk = Lq + q_off * 128 extended keys,
+// query block qb sitting at key block qb + q_off (K1's forward,
+// csrc/swa_fwd.cu). The dq grid walks the Lq / 128 query blocks; the dk/dv
+// grid walks all Lk / 128 key blocks, the halo blocks included, each over
+// the local query blocks whose band holds it (_band_q_for_k with q_off);
+// there is no [CLS] column. lse is the JOINT lse of the band and the
+// separately attended [CLS] block and out the merged output, so p = exp(s -
+// lse) is the exact partial probability and delta = rowsum(do * out) is
+// the whole row's.
+//
 // What bounds it. Per layer the pass reads q, k, v, out, do and lse and
 // writes dq, dk, dv: at [8, 8, 12800, 64] about 0.8 GB against ~0.15 TFLOP
 // of band arithmetic, ~190 FLOP per byte, under the H100's bf16 ridge of
@@ -218,8 +229,8 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, const int* __restrict__ lengths,
               __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-              int num_heads, int seq_len, int window, int causal,
-              int include_cls, float scale) {
+              int num_heads, int q_len, int key_len, int window, int causal,
+              int include_cls, int q_off, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + kTile;
@@ -227,12 +238,14 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* vs = ks + kTile;
   float* deltas = reinterpret_cast<float*>(vs + kTile);
 
-  const int qb = blockIdx.x;
+  const int qb = blockIdx.x + q_off;  // the query block on the key axis
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int num_blocks = seq_len / kBlock;
-  const size_t head = ((size_t)b * num_heads + h) * (size_t)seq_len;
-  const int q0 = qb * kBlock;
+  const int num_blocks = key_len / kBlock;
+  const size_t qhead = ((size_t)b * num_heads + h) * (size_t)q_len;
+  const size_t head = ((size_t)b * num_heads + h) * (size_t)key_len;
+  const int q0 = blockIdx.x * kBlock;  // local row of the block's first query
+  const int qk0 = qb * kBlock;         // its position on the key axis
   const int length = lengths[b];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -240,7 +253,7 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int tq = lane & 3;
 
   if (threadIdx.x < kBlock) {  // delta = rowsum(do * out) in fp32
-    const size_t row = (head + q0 + threadIdx.x) * kHeadDim;
+    const size_t row = (qhead + q0 + threadIdx.x) * kHeadDim;
     const __nv_bfloat162* d2 =
         reinterpret_cast<const __nv_bfloat162*>(dout + row);
     const __nv_bfloat162* o2 =
@@ -253,17 +266,19 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
       sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
     }
     deltas[threadIdx.x] = sum;
-    delta[head + q0 + threadIdx.x] = sum;
+    delta[qhead + q0 + threadIdx.x] = sum;
   }
-  stage(q + (head + q0) * kHeadDim, qs);
-  stage(dout + (head + q0) * kHeadDim, dos);
+  stage(q + (qhead + q0) * kHeadDim, qs);
+  stage(dout + (qhead + q0) * kHeadDim, dos);
   __syncthreads();
 
   uint32_t qa[4][4], da[4][4];
   load_rows(qs, warp * 16, qa);
   load_rows(dos, warp * 16, da);
-  const int row[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
-  const float lse_r[2] = {lse[head + row[0]], lse[head + row[1]]};
+  // Key-axis positions of the lane's two rows.
+  const int row[2] = {qk0 + warp * 16 + gq, qk0 + warp * 16 + gq + 8};
+  const float lse_r[2] = {lse[qhead + q0 + warp * 16 + gq],
+                          lse[qhead + q0 + warp * 16 + gq + 8]};
   const float del_r[2] = {deltas[warp * 16 + gq], deltas[warp * 16 + gq + 8]};
   float acc[8][4];
   zero(acc);
@@ -284,7 +299,7 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
     for (int c0 = 0; c0 < nkeys; c0 += kChunk) {
       // Warp-uniform: every key of the step lies after every row.
-      if (causal && key0 + c0 > q0 + warp * 16 + 15) continue;
+      if (causal && key0 + c0 > qk0 + warp * 16 + 15) continue;
       float s[kNt][4], dp[kNt][4];
       rows_dot(qa, ks, c0, s);
       rows_dot(da, vs, c0, dp);
@@ -302,7 +317,7 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
       acc_product(s, ks, c0, acc);
     }
   }
-  store_bf16(acc, dq + (head + q0 + warp * 16) * kHeadDim);
+  store_bf16(acc, dq + (qhead + q0 + warp * 16) * kHeadDim);
 }
 
 // One staged query block's contributions to a warp's 16 key rows:
@@ -392,15 +407,16 @@ swa_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                __nv_bfloat16* __restrict__ dk_out,
                __nv_bfloat16* __restrict__ dv_out,
                float* __restrict__ scratch, int batch, int num_heads,
-               int seq_len, int window, int causal, int cls_chunks,
-               float scale) {
+               int q_len, int key_len, int window, int causal, int q_off,
+               int cls_chunks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const KvSmem m = kv_smem(smem_raw);
   const int kb = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int num_blocks = seq_len / kBlock;
-  const size_t head = ((size_t)b * num_heads + h) * (size_t)seq_len;
+  const int num_q_blocks = q_len / kBlock;
+  const size_t qhead = ((size_t)b * num_heads + h) * (size_t)q_len;
+  const size_t head = ((size_t)b * num_heads + h) * (size_t)key_len;
   const int k0 = kb * kBlock;
   const int length = lengths[b];
   const int warp = threadIdx.x >> 5;
@@ -418,12 +434,15 @@ swa_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   if (k0 < length) {  // uniform: some key of this block is valid
     const int left = causal ? window : (window + 1) / 2;
     for (int slot = 0; slot < window; ++slot) {
-      const int qb = kb + left - window + slot;  // _band_q_for_k
-      if (qb < 0 || qb >= num_blocks) continue;
-      stage_queries(q, dout, lse, delta, head, qb * kBlock, m.qs, m.dos,
+      // _band_q_for_k: the local query block; its key-axis block is
+      // qb + q_off.
+      const int qb = kb + left - window + slot - q_off;
+      if (qb < 0 || qb >= num_q_blocks) continue;
+      stage_queries(q, dout, lse, delta, qhead, qb * kBlock, m.qs, m.dos,
                     m.lses, m.deltas);
-      accumulate_kv(ka, va, m.qs, m.dos, m.lses, m.deltas, qb * kBlock,
-                    k0 + warp * 16, length, causal, scale, dk, dv);
+      accumulate_kv(ka, va, m.qs, m.dos, m.lses, m.deltas,
+                    (qb + q_off) * kBlock, k0 + warp * 16, length, causal,
+                    scale, dk, dv);
     }
   }
   if (kb == 0 && cls_chunks > 0) {
@@ -517,15 +536,18 @@ extern "C" int svt_swa_bwd(const void* q, const void* k, const void* v,
                            const void* lengths, const void* lse,
                            const void* out, const void* dout, void* dq,
                            void* dk, void* dv, void* delta, void* scratch,
-                           int batch, int num_heads, int seq_len,
+                           int batch, int num_heads, int q_len, int key_len,
                            int head_dim, int block_size, int window,
-                           int causal, int include_cls, int cls_chunk,
-                           float scale, void* stream) {
-  if (head_dim != kHeadDim || block_size != kBlock || seq_len <= 0 ||
-      seq_len % kBlock != 0 || window < 1 || batch < 1 || num_heads < 1 ||
-      batch > 65535 || num_heads > 65535 || cls_chunk < 1)
+                           int causal, int include_cls, int q_off,
+                           int cls_chunk, float scale, void* stream) {
+  if (head_dim != kHeadDim || block_size != kBlock || q_len <= 0 ||
+      q_len % kBlock != 0 || q_off < 0 ||
+      key_len != q_len + q_off * kBlock || (include_cls && q_off) ||
+      window < 1 || batch < 1 || num_heads < 1 || batch > 65535 ||
+      num_heads > 65535 || cls_chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int num_blocks = seq_len / kBlock;
+  const int num_blocks = q_len / kBlock;
+  const int num_k_blocks = key_len / kBlock;
   const int left = causal ? window : (window + 1) / 2;
   const int cls_chunks = (include_cls && num_blocks > left)
                              ? (num_blocks - left + cls_chunk - 1) / cls_chunk
@@ -555,20 +577,21 @@ extern "C" int svt_swa_bwd(const void* q, const void* k, const void* v,
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   auto* scr = static_cast<float*>(scratch);
 
-  const dim3 grid(num_blocks, num_heads, batch);
-  swa_dq_kernel<<<grid, kThreads, kSmem, s>>>(
+  swa_dq_kernel<<<dim3(num_blocks, num_heads, batch), kThreads, kSmem, s>>>(
       qp, kp, vp, op, dop, lsep, lenp, static_cast<__nv_bfloat16*>(dq),
-      deltap, num_heads, seq_len, window, causal, include_cls, scale);
-  swa_dkv_kernel<<<grid, kThreads, kSmem, s>>>(
+      deltap, num_heads, q_len, key_len, window, causal, include_cls, q_off,
+      scale);
+  swa_dkv_kernel<<<dim3(num_k_blocks, num_heads, batch), kThreads, kSmem,
+                   s>>>(
       qp, kp, vp, dop, lsep, deltap, lenp, dkp, dvp, scr, batch, num_heads,
-      seq_len, window, causal, cls_chunks, scale);
-  if (cls_chunks > 0) {
+      q_len, key_len, window, causal, q_off, cls_chunks, scale);
+  if (cls_chunks > 0) {  // only when q_off == 0, so q_len == key_len
     const dim3 cgrid(cls_chunks, num_heads, batch);
     swa_dkv_cls_kernel<<<cgrid, kThreads, kSmem, s>>>(
-        qp, kp, vp, dop, lsep, deltap, lenp, scr, batch, num_heads, seq_len,
+        qp, kp, vp, dop, lsep, deltap, lenp, scr, batch, num_heads, q_len,
         window, causal, cls_chunk, cls_chunks, scale);
     swa_cls_reduce_kernel<<<dim3(num_heads, batch), kThreads, 0, s>>>(
-        scr, dkp, dvp, batch, num_heads, seq_len, cls_chunks);
+        scr, dkp, dvp, batch, num_heads, q_len, cls_chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,16 @@
 // 64] bf16 and lse [B, H, L] fp32. A row with no valid key gives out 0 and
 // lse -inf.
 //
+// The sequence-parallel form (K6's band part, replacing
+// sp_windowed_attention_pallas's calls of the same Pallas kernel with
+// q_off = window - 1): q holds Lq rows and k, v hold Lk = Lq + q_off * 128
+// extended keys [halo | local], so query block qb sits at key block
+// qb + q_off. Its band slots read key blocks qb + q_off - window + 1 ..
+// qb + q_off, the causal triangle compares positions on the key axis, and
+// lengths[b] counts valid extended keys. With q_off > 0 there is no [CLS]
+// slot (the caller attends the broadcast [CLS] block and merges). q_off = 0
+// is the square single-device case, unchanged.
+//
 // What bounds it. Each of q, k, v is read and out written once per query
 // block's band: at L = 512 (serve prefill) that is ~2 MB against ~0.3
 // GFLOP, and at L = 4096 the arithmetic intensity stays ~ 4 * 64 * 3 * 128
@@ -77,25 +87,28 @@ swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ v,
                const int* __restrict__ lengths,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-               int num_heads, int seq_len, int window, int causal,
-               int include_cls, float scale) {
+               int num_heads, int q_len, int key_len, int window,
+               int causal, int include_cls, int q_off, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = smem + kTileFloats;
 
-  const int qb = blockIdx.x;
+  const int qb = blockIdx.x + q_off;  // the query block on the key axis
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int num_blocks = seq_len / kBlock;
-  // Row offset of this (batch, head) in the [B, H, L] index space.
-  const size_t head = ((size_t)b * num_heads + h) * (size_t)seq_len;
-  const int row = qb * kBlock + threadIdx.x;
+  const int num_blocks = key_len / kBlock;
+  // Row offsets of this (batch, head) in the [B, H, Lq] and [B, H, Lk]
+  // index spaces.
+  const size_t qhead = ((size_t)b * num_heads + h) * (size_t)q_len;
+  const size_t head = ((size_t)b * num_heads + h) * (size_t)key_len;
+  const int qrow = blockIdx.x * kBlock + threadIdx.x;
+  const int row = qb * kBlock + threadIdx.x;  // its key-axis position
   const int length = lengths[b];
 
   float qr[kHeadDim];
   {
     const uint4* qp =
-        reinterpret_cast<const uint4*>(q + (head + row) * kHeadDim);
+        reinterpret_cast<const uint4*>(q + (qhead + qrow) * kHeadDim);
 #pragma unroll
     for (int i = 0; i < kHeadDim / 8; ++i) unpack8(qp[i], qr + 8 * i);
   }
@@ -178,7 +191,7 @@ swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  uint4* op = reinterpret_cast<uint4*>(out + (head + row) * kHeadDim);
+  uint4* op = reinterpret_cast<uint4*>(out + (qhead + qrow) * kHeadDim);
 #pragma unroll
   for (int i = 0; i < kHeadDim / 8; ++i) {
     uint4 packed;
@@ -192,7 +205,7 @@ swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
     op[i] = packed;
   }
-  lse[head + row] = l > 0.f ? m + logf(l) : -INFINITY;
+  lse[qhead + qrow] = l > 0.f ? m + logf(l) : -INFINITY;
 }
 
 }  // namespace
@@ -203,26 +216,28 @@ extern "C" const char* svt_error_string(int code) {
 
 extern "C" int svt_swa_fwd(const void* q, const void* k, const void* v,
                            const void* lengths, void* out, void* lse,
-                           int batch, int num_heads, int seq_len,
+                           int batch, int num_heads, int q_len, int key_len,
                            int head_dim, int block_size, int window,
-                           int causal, int include_cls, float scale,
-                           void* stream) {
-  if (head_dim != kHeadDim || block_size != kBlock || seq_len <= 0 ||
-      seq_len % kBlock != 0 || window < 1 || batch < 1 || num_heads < 1 ||
-      batch > 65535 || num_heads > 65535)
+                           int causal, int include_cls, int q_off,
+                           float scale, void* stream) {
+  if (head_dim != kHeadDim || block_size != kBlock || q_len <= 0 ||
+      q_len % kBlock != 0 || q_off < 0 ||
+      key_len != q_len + q_off * kBlock || (include_cls && q_off) ||
+      window < 1 || batch < 1 || num_heads < 1 || batch > 65535 ||
+      num_heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       swa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(seq_len / kBlock, num_heads, batch);
+  const dim3 grid(q_len / kBlock, num_heads, batch);
   swa_fwd_kernel<<<grid, kBlock, kSmemBytes,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), num_heads, seq_len, window, causal,
-      include_cls, scale);
+      static_cast<float*>(lse), num_heads, q_len, key_len, window, causal,
+      include_cls, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }

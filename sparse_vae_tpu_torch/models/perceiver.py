@@ -1,11 +1,17 @@
 """Perceiver encoder: a variable-length sequence -> a fixed set of latents
-(port of sparse_vae_tpu/models/perceiver.py, one device).
+(port of sparse_vae_tpu/models/perceiver.py).
 
 The first layer's learned-query bank attends over the input; the middle
 layers self-attend over the latents and cross-attend back to the input;
 the bottleneck layer's bank compresses to `bottleneck_width` vectors.
 num_heads = d_model // 64. No layer is causal or sparse: every attention
 here is the dense masked path.
+
+Sequence parallelism (`bind_seq_group`, parallel/sp.py): the input is
+sharded over the group and the latent set is the same on every rank. The
+first (learned-query) layer and the middle layers' cross-attention read
+the sharded document through the distributed softmax; the latent
+self-attention and the bottleneck run replicated on every rank.
 """
 from __future__ import annotations
 
@@ -32,8 +38,15 @@ class Perceiver(nn.Module):
                 d_model, num_heads, learned_queries=bottleneck_width)
             middle -= 1
         self.middle_layers = nn.ModuleList([
-            TransformerLayer(d_model, num_heads, use_cross_attention=True)
+            TransformerLayer(d_model, num_heads, use_cross_attention=True,
+                             sp_cross_only=True)
             for _ in range(max(middle, 0))])
+
+    def bind_seq_group(self, group):
+        """Bind the layers that read the sharded input to `group`."""
+        self.first_layer.bind_seq_group(group)
+        for layer in self.middle_layers:
+            layer.bind_seq_group(group)
 
     def forward(self, x, mask=None):
         """x: [B, L, D], mask: [B, L] (True = valid). Returns

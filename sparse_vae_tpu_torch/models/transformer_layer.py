@@ -5,6 +5,12 @@ output projection has no bias. A learned-query layer (the Perceiver's)
 keeps no residual around its attention: the query bank replaced x.
 Dropout is not ported: the VAE trains with it off, as the reference's
 trained runs did.
+
+Sequence parallelism (parallel/sp.py): `bind_seq_group` hands the group to
+the attention that reads the length-sharded document. With sp_cross_only
+(the Perceiver's middle layers) that is the cross-attention alone, whose
+queries, the latents, are the same on every rank; the self-attention then
+runs on those replicated latents.
 """
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ class TransformerLayer(nn.Module):
                  sparse_self_attention: bool = False, window_size: int = 2,
                  block_size: int = 128, use_cross_attention: bool = False,
                  learned_queries: Optional[int] = None,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, sp_cross_only: bool = False):
         super().__init__()
         self.learned_queries = learned_queries
+        self.sp_cross_only = sp_cross_only
         self.attention = Attention(d_model, num_heads, causal=causal,
                                    sparse=sparse_self_attention,
                                    window_size=window_size,
@@ -38,10 +45,18 @@ class TransformerLayer(nn.Module):
         self.use_cross_attention = use_cross_attention
         if use_cross_attention:
             self.cross_attention = Attention(d_model, num_heads,
-                                             use_kernel=use_kernel)
+                                             use_kernel=use_kernel,
+                                             sp_replicated_q=sp_cross_only)
             self.cross_attn_layer_norm = LayerNorm(d_model,
                                                    eps=LAYER_NORM_EPS)
             self.context_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
+
+    def bind_seq_group(self, group):
+        """Bind the attention that reads the sharded document to `group`."""
+        self.attention.seq_group = None if self.sp_cross_only else group
+        if self.use_cross_attention:
+            self.cross_attention.seq_group = (group if self.sp_cross_only
+                                              else None)
 
     def _ffn(self, x):
         y = self.ffn_layer_norm(x)

@@ -1,16 +1,17 @@
 """Decoder-only causal transformer language model: the pieces the VAE
 shares (port of sparse_vae_tpu/models/transformer_lm.py: `embed`,
-`pre_logits`, the tied `project`, `sequence_nll`, `shifted_labels` /
-`labels_for` and `init_caches`).
+`pre_logits`, the tied `project`, `sequence_nll`, `sequence_ll_rows`,
+`shifted_labels` / `labels_for` and `init_caches`).
 
 Ported configurations: tied input/output embedding with
 d_embedding == d_model, dense FFNs, no decoder cross-attention, one
-device. The model computes in `compute_dtype` (default: its parameters'
-dtype); models/base.py states the rule.
+device or a length axis sharded over a `seq` group (`bind_seq_group`,
+through parallel.sp.sp_localize). The model computes in `compute_dtype`
+(default: its parameters' dtype); models/base.py states the rule.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 
 from ..ops import ce_kernel
 from ..ops.ce_kernel import FusedTiedCrossEntropy
-from ..ops.cross_entropy import chunked_cross_entropy
+from ..ops.cross_entropy import chunked_nll_rows
 from .base import LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear
 from .transformer_layer import TransformerLayer
 
@@ -39,7 +40,7 @@ class TransformerHparams(LanguageModelHparams):
     use_pallas_kernel: bool = True      # here: the port's CUDA kernels
     precision: str = "fp32"
     tp_size: int = 1
-    sp_size: int = 1
+    sp_size: int = 1                    # set by parallel.sp.sp_localize
     num_experts: int = 0
 
     def check_ported(self):
@@ -50,7 +51,6 @@ class TransformerHparams(LanguageModelHparams):
             "untied output embedding": not self.tie_embedding_weights,
             "cross_attention": self.cross_attention,
             "tensor parallelism": self.tp_size > 1,
-            "sequence parallelism": self.sp_size > 1,
             "mixture-of-experts FFNs (ROADMAP Queue 1 item 9)":
                 self.num_experts > 1,
         }
@@ -63,7 +63,12 @@ class TransformerLanguageModel(nn.Module):
     def __init__(self, hparams: TransformerHparams):
         super().__init__()
         hparams.check_ported()
+        if hparams.sp_size != 1:
+            raise ValueError(
+                "build the model with sp_size 1 and bind it to a seq group "
+                "with parallel.sp.sp_localize, which sets sp_size")
         hp = self.hparams = hparams
+        self.seq_group = None       # a parallel.group.SeqGroup when bound
         # None: compute in the parameters' dtype. Training sets bf16 over
         # fp32 master parameters (checkpoint.load_run(train=True)).
         self.compute_dtype: Optional[torch.dtype] = None
@@ -78,6 +83,15 @@ class TransformerLanguageModel(nn.Module):
         self.head_dense = Linear(hp.d_model, hp.d_model)
         self.head_norm = LayerNorm(hp.d_model, eps=LAYER_NORM_EPS)
         self.output_bias = nn.Parameter(torch.zeros(hp.vocab_size))
+
+    def bind_seq_group(self, group):
+        """Shard the length axis over `group` (parallel/sp.py): the decoder
+        attention takes the halo / [CLS] path and the labels shift across
+        shards. The parameters do not change."""
+        self.seq_group = group
+        self.hparams = replace(self.hparams, sp_size=group.size)
+        for layer in self.decoder_layers:
+            layer.bind_seq_group(group)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -105,9 +119,9 @@ class TransformerLanguageModel(nn.Module):
         logits = F.linear(self.pre_logits(h), self.table())
         return logits.float() + self.output_bias.float()
 
-    def sequence_nll(self, hidden, labels):
-        """(nll_sum, token_count) over non-pad labels without [B, L, V]
-        logits. hidden: [B, L', D]; labels: [B, L'] (0 = pad).
+    def _nll_rows(self, hidden, labels):
+        """(per-row NLL sums [B], token_count) over non-pad labels without
+        [B, L, V] logits. hidden: [B, L', D]; labels: [B, L'] (0 = pad).
 
         Where `ce_kernel.route` gives "kernel" (use_pallas_kernel, the
         reference's gate V % 1024 == 0, and the kernels' D = 512): flatten,
@@ -126,11 +140,22 @@ class TransformerLanguageModel(nn.Module):
                 g.contiguous(), self.table(), self.output_bias.float(),
                 flat)
             mask = (flat != 0).float()
-            return (nll * mask).sum(), mask.sum()
+            return (nll * mask).reshape(b, length).sum(-1), mask.sum()
         if route == "plain":
             ce_kernel.take_plain_route(hidden.device, hp.d_model)
-        return chunked_cross_entropy(hidden, self.project, labels,
-                                     hp.loss_chunk_size or 2048)
+        return chunked_nll_rows(hidden, self.project, labels,
+                                hp.loss_chunk_size or 2048)
+
+    def sequence_nll(self, hidden, labels):
+        """(nll_sum, token_count) over non-pad labels without [B, L, V]
+        logits (`_nll_rows` summed)."""
+        rows, count = self._nll_rows(hidden, labels)
+        return rows.sum(), count
+
+    def sequence_ll_rows(self, hidden, labels):
+        """Per-row summed log p(labels | hidden) over non-pad labels, [B]
+        fp32 (the per-document statistic of the IWAE bound)."""
+        return -self._nll_rows(hidden, labels)[0]
 
     @staticmethod
     def shifted_labels(token_ids):
@@ -140,8 +165,12 @@ class TransformerLanguageModel(nn.Module):
         return F.pad(token_ids[:, 1:], (0, 1))
 
     def labels_for(self, token_ids):
-        """Next-token labels for this module's layout (one device: the
-        end-padded shift)."""
+        """Next-token labels for this module's layout: the end-padded
+        shift on one device; under sequence parallelism each shard's last
+        label is its right neighbour's first token."""
+        if self.seq_group is not None:
+            from ..parallel.sp import sp_shifted_labels
+            return sp_shifted_labels(token_ids, self.seq_group)
         return self.shifted_labels(token_ids)
 
     def init_caches(self, batch_size: int, max_length: int) -> list:

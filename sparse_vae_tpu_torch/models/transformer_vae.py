@@ -1,12 +1,17 @@
 """The flagship Transformer-VAE (port of
 sparse_vae_tpu/models/transformer_vae.py): the Perceiver encoder over the
 shared input embedding, the ConditionalGaussian posterior, the per-layer z
-projections, `reconstruct_hidden`, the training forwards (`__call__`,
-`forward_chunked_nll`) and `decode_step_z_rowwise`.
+projections, `reconstruct_hidden`, `reconstruct_ll`, the training
+forwards (`__call__`, `forward_chunked_nll`) and `decode_step_z_rowwise`.
 
 z replaces position 0 ([CLS]) of every decoder layer's input. The training
 forwards take the posterior noise eps (z = loc + scale * eps) or a
 torch.Generator to draw it from.
+
+Under sequence parallelism (`bind_seq_group`) absolute position 0 lives
+on shard 0 only: z replaces it there, and the other shards see z through
+the [CLS] block broadcast of the decoder attention, which also carries its
+gradient back. eps must be the same on every rank.
 """
 from __future__ import annotations
 
@@ -50,6 +55,10 @@ class TransformerVAE(TransformerLanguageModel):
         self.q_of_z_given_x = ConditionalGaussian(hparams.latent_depth,
                                                   hparams.d_model)
 
+    def bind_seq_group(self, group):
+        super().bind_seq_group(group)
+        self.encoder.bind_seq_group(group)
+
     # -- encoder ------------------------------------------------------------
     def encode(self, token_ids):
         """token_ids [B, L] -> the encoder bottleneck [B, 1, d_model]."""
@@ -66,10 +75,17 @@ class TransformerVAE(TransformerLanguageModel):
         head-major rotary (k, v), the bulk-prefill cache seed."""
         x = self.embed(token_ids)
         mask = token_ids != 0
+        # On a shard past the first, z does not enter here; selecting with
+        # a tensor keeps z in every rank's graph, so the encoder's backward
+        # collectives run on every rank.
+        first = (None if self.seq_group is None else
+                 torch.tensor(self.seq_group.rank == 0, device=x.device))
         kvs = []
         for proj, layer in zip(self.z_projections, self.decoder_layers):
             z_hidden = proj(z.to(x.dtype)).expand(x.shape[0], 1, x.shape[-1])
-            x = torch.cat([z_hidden, x[:, 1:]], dim=1)
+            injected = torch.cat([z_hidden, x[:, 1:]], dim=1)
+            x = injected if first is None else torch.where(first, injected,
+                                                           x)
             if return_kv:
                 x, kv = layer(x, mask, return_kv=True)
                 kvs.append(kv)
@@ -79,6 +95,18 @@ class TransformerVAE(TransformerLanguageModel):
 
     def reconstruct(self, token_ids, z):
         return self.project(self.reconstruct_hidden(token_ids, z))
+
+    def reconstruct_ll(self, token_ids, z):
+        """Per-document log p(x | z) [B] with the next-token shift, logits
+        never fully materialised. Under sequence parallelism each shard's
+        row sums cover its slice, and one sum over the shards makes the
+        global per-document value on every rank."""
+        h = self.reconstruct_hidden(token_ids, z)
+        ll = self.sequence_ll_rows(h, self.labels_for(token_ids))
+        if self.seq_group is not None:
+            from ..parallel.sp import sum_over_shards
+            ll = sum_over_shards(ll, self.seq_group)
+        return ll
 
     # -- training forwards --------------------------------------------------
     def _posterior_and_z(self, token_ids, eps, generator):

@@ -44,6 +44,12 @@ class VAEObjective:
     schedule, the free-bits floor and the mutual-information diagnostic
     (logged, not in the loss)."""
 
+    # Per-ROW statistics: the same on every shard of a length-sharded
+    # batch, so the sequence-parallel step counts them on shard 0 only
+    # (parallel/spmd.py). nll_sum and token_count are local to a shard.
+    ROW_SUMS = ("kl_sum", "raw_kl_sum", "marginal_kl_rows")
+    ROW_COUNTS = ("row_count",)
+
     def __init__(self, hparams, mutual_info_samples: int = 10):
         self.hp = hparams
         self.mi_samples = mutual_info_samples

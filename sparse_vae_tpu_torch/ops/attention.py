@@ -6,9 +6,11 @@ projection (with the learned-query bank), full-sequence self- and
 cross-attention (the blocked sparse path, its masked-dense fallback and
 the dense non-causal masked path the Perceiver takes), the block-ring and
 dense decode caches with `_decode_ring` and `decode_rowwise`, plus
-`row_cache_write` and `fill_cache_row`, and the packed-layout branch
-(Dh = 128: the projections feed K5/K5b without head-major copies). The
-sequence-parallel, tensor-parallel and frontier-window branches are not
+`row_cache_write` and `fill_cache_row`, the packed-layout branch
+(Dh = 128: the projections feed K5/K5b without head-major copies), and the
+sequence-parallel branch (`Attention._sp_call`, parallel/sp.py: the halo
+and [CLS] broadcast into K6, or the distributed softmax of replicated
+queries). The tensor-parallel and frontier-window branches are not
 ported.
 
 Unlike the reference, whose arrays are immutable, the decode caches are
@@ -23,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..models.base import Linear
-from . import swa_kernel
+from . import sp_kernel, swa_kernel
 from .rotary import apply_rotary
 from .sliding_window_attention import (SlidingWindowAttentionPackedFn,
                                        merge_heads, sliding_window_attention,
@@ -110,13 +112,19 @@ class Attention(nn.Module):
     outside the JAX package's gates, autograd differentiates the plain
     forward. Inside a gate at a shape no CUDA kernel takes, the plain
     forward runs on the CPU and a CUDA input raises.
+
+    Sequence parallelism: once `seq_group` is set (parallel.sp.sp_localize)
+    the keys are this rank's slice of a length-sharded document and
+    `_sp_call` runs instead. sp_replicated_q declares that the queries are
+    the same on every rank (a cross-attention from the Perceiver's
+    latents), which the distributed softmax needs.
     """
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
                  sparse: bool = False, window_size: int = 2,
                  block_size: int = 128, max_length: int = 10_000,
                  learned_queries: Optional[int] = None,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, sp_replicated_q: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be a multiple of num_heads")
@@ -126,6 +134,8 @@ class Attention(nn.Module):
         self.max_length = max_length
         self.num_queries = learned_queries
         self.use_kernel = use_kernel
+        self.sp_replicated_q = sp_replicated_q
+        self.seq_group = None       # a parallel.group.SeqGroup when bound
         if learned_queries:
             self.learned_queries = nn.Parameter(
                 torch.randn(1, learned_queries, d_model))
@@ -141,9 +151,10 @@ class Attention(nn.Module):
             return float(2 * self.window_size * self.block_size)
         return float(self.max_length)
 
-    def _project(self, x, pos_offset=0, x_kv=None):
+    def _project(self, x, pos_offset=0, x_kv=None, k_pos_offset=None):
         """Head-major rotary q, k and plain v [B, H, L, Dh]; queries from x
-        (or the learned bank), keys and values from x_kv (default x)."""
+        (or the learned bank) at pos_offset, keys and values from x_kv
+        (default x), the keys at k_pos_offset (default pos_offset)."""
         h, base = self.num_heads, self.rotary_base
         x_kv = x if x_kv is None else x_kv
         if self.num_queries:
@@ -153,7 +164,8 @@ class Attention(nn.Module):
             q = apply_rotary(split_heads(self.q_linear(x), h), base,
                              pos_offset)
         k = apply_rotary(split_heads(self.k_linear(x_kv), h), base,
-                         pos_offset)
+                         pos_offset if k_pos_offset is None
+                         else k_pos_offset)
         v = split_heads(self.v_linear(x_kv), h)
         return q, k, v
 
@@ -200,6 +212,88 @@ class Attention(nn.Module):
             return y
         return y, (k.transpose(1, 2), split_heads(v, h))
 
+    def _sp_call(self, x, kv_mask, x_kv):
+        """Sequence-parallel attention (parallel/sp.py): the keys are this
+        rank's slice of the length axis, at absolute positions
+        rank * S .. rank * S + S - 1.
+
+        - learned-query or replicated-query cross-attention: the
+          replicated queries over the sharded keys, combined by the
+          distributed softmax;
+        - sparse causal self-attention: one halo of the left neighbour's
+          trailing window - 1 blocks and one [CLS] block broadcast, then K6
+          (ops/sp_kernel.py) or, outside its gate, the blocked plain
+          `windowed_attention_ctx`; per-shard cost O(S * window), traffic
+          independent of the document's length.
+        """
+        from ..parallel.sp import (exchange_kv, halo_blocks, halo_from_left,
+                                   seq_parallel_cross_attention,
+                                   sum_over_shards, windowed_attention_ctx)
+        group = self.seq_group
+        x_kv = x if x_kv is None else x_kv
+        S = x_kv.shape[1]
+        start = group.rank * S
+        if self.num_queries or self.sp_replicated_q:
+            q, k, v = self._project(x, x_kv=x_kv, k_pos_offset=start)
+            out = seq_parallel_cross_attention(q, k, v, kv_mask, group)
+            return self._finalize(out)
+
+        if not (self.sparse and self.causal):
+            raise ValueError(
+                "sequence parallelism supports the sparse causal "
+                "sliding-window decoder (window-band halo) and "
+                "replicated-query cross/learned-query attention "
+                "(sp_replicated_q); this configuration "
+                f"(sparse={self.sparse}, causal={self.causal}) would sum "
+                "partials of sharded queries")
+        bs, ws = self.block_size, self.window_size
+        ctx = halo_blocks(ws) * bs
+        if S % bs:
+            raise ValueError(f"shard length {S} not a multiple of the "
+                             f"attention block size {bs}")
+        if S < ws * bs:
+            raise ValueError(
+                f"shard length {S} must cover the window span ({ws} x {bs} "
+                "tokens): one left-neighbour halo must suffice, and K6 "
+                "assumes block 0 is behind every non-first shard's band; "
+                "use fewer shards or a smaller window")
+        head_dim = self.d_model // self.num_heads
+        route = (sp_kernel.route(head_dim, bs) if self.use_kernel
+                 else "outside")
+        if route == "plain":
+            swa_kernel.take_plain_route(x.device, head_dim, bs)
+        q, k, v = self._project(x, pos_offset=start)
+        # The halo (a window-1 band has none) and shard 0's block 0, in one
+        # autograd node.
+        k_ext, v_ext, cls_k, cls_v = exchange_kv(k, v, ws, bs, group)
+        kv_mask_ext = cls_mask = None
+        if kv_mask is not None:   # integers: no gradient, no backward
+            m = kv_mask.to(torch.int32)
+            halo_m = (halo_from_left(m[:, -ctx:], group) if ctx
+                      else m[:, :0])
+            kv_mask_ext = torch.cat([halo_m, m], dim=1) > 0
+            cls_mask = sum_over_shards(
+                m[:, :bs] if group.rank == 0 else torch.zeros_like(
+                    m[:, :bs]), group) > 0
+        if route == "outside":
+            out = windowed_attention_ctx(
+                q, k_ext, v_ext, cls_k, cls_v, start, kv_mask_ext, cls_mask,
+                window_size=ws, block_size=bs)
+            return self._finalize(out)
+        rows = q.shape[0]
+        if kv_mask_ext is None:
+            ext_len = torch.full((rows,), S if start == 0 else ctx + S,
+                                 dtype=torch.int32, device=x.device)
+            cls_len = torch.full((rows,), bs, dtype=torch.int32,
+                                 device=x.device)
+        else:
+            ext_len = kv_mask_ext.sum(dim=1, dtype=torch.int32)
+            cls_len = cls_mask.sum(dim=1, dtype=torch.int32)
+        out = sp_kernel.sp_windowed_attention(
+            q.contiguous(), k_ext, v_ext, cls_k, cls_v, start, ext_len,
+            cls_len, ws, bs)
+        return self._finalize(out)
+
     def forward(self, x, kv_mask=None, return_kv: bool = False,
                 x_kv=None):
         """Full-sequence attention. x: [B, Lq, D] queries (ignored with
@@ -207,6 +301,11 @@ class Attention(nn.Module):
         kv_mask: [B, Lk] bool (True = valid key). With return_kv, also
         returns the head-major rotary (k, v) — the bulk-prefill cache seed
         (fill_cache_row)."""
+        if self.seq_group is not None:
+            if return_kv:
+                raise NotImplementedError("sequence-parallel attention "
+                                          "returns no decode cache seed")
+            return self._sp_call(x, kv_mask, x_kv)
         route = self._route(x.shape[1],
                             (x if x_kv is None else x_kv).shape[1])
         if route == "packed":

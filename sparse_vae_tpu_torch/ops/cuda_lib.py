@@ -33,17 +33,17 @@ NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, lengths, out, lse, batch, heads, seq_len, head_dim,
-    # block_size, window, causal, include_cls, scale, stream
-    "svt_swa_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _F, _P],
-    # The same for the packed layout (K5): q/k/v/out [B, L, H * D].
+    # q, k, v, lengths, out, lse, batch, heads, q_len, key_len, head_dim,
+    # block_size, window, causal, include_cls, q_off, scale, stream
+    "svt_swa_fwd": [_P] * 6 + [_I] * 10 + [_F, _P],
+    # The packed layout (K5): q/k/v/out [B, L, H * D], one seq_len, no
+    # q_off.
     "svt_swa_fwd_packed": [_P] * 6 + [_I] * 8 + [_F, _P],
     # q, k, v, lengths, lse, out, do, dq, dk, dv, delta, scratch, batch,
-    # heads, seq_len, head_dim, block_size, window, causal, include_cls,
-    # cls_chunk, scale, stream
-    "svt_swa_bwd": [_P] * 12 + [_I] * 9 + [_F, _P],
-    # The same for the packed layout (K5b).
+    # heads, q_len, key_len, head_dim, block_size, window, causal,
+    # include_cls, q_off, cls_chunk, scale, stream
+    "svt_swa_bwd": [_P] * 12 + [_I] * 11 + [_F, _P],
+    # The packed layout (K5b): as K2 before q_off, with one seq_len.
     "svt_swa_bwd_packed": [_P] * 12 + [_I] * 9 + [_F, _P],
     # g, table, bias, lse, tokens, vocab, dim, stream
     "svt_tied_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],

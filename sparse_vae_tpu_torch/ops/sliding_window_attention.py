@@ -7,7 +7,10 @@ blocks plus block 0 for [CLS]. It is the plain version of the K1 kernel
 (ops/swa_kernel.py::swa_fwd). `sliding_window_attention_bwd_plain` is the
 explicit blocked backward (p = exp(s - lse), delta = rowsum(do * o),
 ds = p * (dp - delta) * scale) and the plain version of the K2 kernel
-(ops/swa_kernel.py::swa_bwd). `SlidingWindowAttentionFn` wraps the pair as
+(ops/swa_kernel.py::swa_bwd). Both take `q_off`, the sequence-parallel
+form of the JAX package's band kernels (K6's band part): q holds Lq rows,
+k and v Lk = Lq + q_off * block extended keys, and query block i sits at
+key block i + q_off. `SlidingWindowAttentionFn` wraps the pair as
 one autograd Function: the kernels for CUDA tensors, the plain versions for
 CPU tensors. The dispatcher `sliding_window_attention` goes through it, or
 through autograd of the plain forward when the caller turns the kernels off
@@ -35,19 +38,22 @@ NEG_INF = -1e9
 
 
 def _band_indices(num_blocks: int, window_size: int, include_cls: bool,
-                  causal: bool = True, device=None):
-    """For each query block, the attended key block indices
-    [num_blocks, window_size (+1 cls)] clamped to range, and a parallel
-    bool marking real (non-clamped, non-duplicate) entries."""
-    q = torch.arange(num_blocks, device=device)[:, None]
+                  causal: bool = True, device=None, q_off: int = 0):
+    """For each of `num_blocks` query blocks, the attended key block
+    indices [num_blocks, window_size (+1 cls)] clamped to the
+    num_blocks + q_off key blocks, and a parallel bool marking real
+    (non-clamped, non-duplicate) entries. Query block i sits at key block
+    i + q_off (_slot_to_block with the shifted block)."""
+    num_k_blocks = num_blocks + q_off
+    q = torch.arange(num_blocks, device=device)[:, None] + q_off
     if causal:
         offsets = torch.arange(window_size, device=device) - (window_size - 1)
     else:
         left = (window_size + 1) // 2
         offsets = torch.arange(window_size, device=device) - (left - 1)
     k_idx = q + offsets[None, :]
-    valid = (k_idx >= 0) & (k_idx < num_blocks)
-    k_idx = k_idx.clamp(0, num_blocks - 1)
+    valid = (k_idx >= 0) & (k_idx < num_k_blocks)
+    k_idx = k_idx.clamp(0, num_k_blocks - 1)
     if include_cls:
         cls_idx = torch.zeros((num_blocks, 1), dtype=k_idx.dtype,
                               device=device)
@@ -58,32 +64,46 @@ def _band_indices(num_blocks: int, window_size: int, include_cls: bool,
     return k_idx, valid
 
 
+def _check_q_off(L: int, key_len: int, block_size: int, q_off: int,
+                 include_cls: bool) -> int:
+    """The query block count; raises unless Lq and Lk are block multiples
+    with Lk = Lq + q_off * block_size, and q_off > 0 has no [CLS] slot."""
+    if L % block_size:
+        raise ValueError(f"length {L} is not a multiple of {block_size}")
+    if q_off < 0 or key_len != L + q_off * block_size:
+        raise ValueError(f"key length {key_len} is not {L} + q_off "
+                         f"{q_off} x {block_size}")
+    if q_off and include_cls:
+        raise ValueError("q_off > 0 takes no [CLS] slot (include_cls)")
+    return L // block_size
+
+
 def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
                                    window_size: int = 2,
                                    block_size: int = 128,
                                    causal: bool = True,
                                    include_cls: bool = True,
-                                   return_lse: bool = False):
+                                   return_lse: bool = False,
+                                   q_off: int = 0):
     """Blocked sliding-window attention.
 
-    q/k/v: [B, H, L, D] with L % block_size == 0; kv_mask: [B, L] bool
-    (True = valid). Returns out [B, H, L, D] in v's dtype, and with
-    return_lse also the fp32 log-sum-exp [B, H, L] of the attended scores
-    (-inf for a row with no valid key). Scores and softmax are fp32; the
-    weights are cast to v's dtype before the value product, as in the
-    reference.
+    q: [B, H, L, D] with L % block_size == 0; k/v: [B, H, L + q_off *
+    block_size, D]; kv_mask: [B, Lk] bool (True = valid). Returns out
+    [B, H, L, D] in v's dtype, and with return_lse also the fp32
+    log-sum-exp [B, H, L] of the attended scores (-inf for a row with no
+    valid key). Scores and softmax are fp32; the weights are cast to v's
+    dtype before the value product, as in the reference.
     """
     b, h, L, d = q.shape
-    if L % block_size:
-        raise ValueError(f"length {L} is not a multiple of {block_size}")
-    nb = L // block_size
+    nb = _check_q_off(L, k.shape[2], block_size, q_off, include_cls)
+    nk = nb + q_off
     k_idx, band_valid = _band_indices(nb, window_size, include_cls, causal,
-                                      q.device)
+                                      q.device, q_off)
     s = k_idx.shape[1]
     flat_idx = k_idx.reshape(-1)
 
-    kb = k.reshape(b, h, nb, block_size, d)
-    vb = v.reshape(b, h, nb, block_size, d)
+    kb = k.reshape(b, h, nk, block_size, d)
+    vb = v.reshape(b, h, nk, block_size, d)
     k_band = kb[:, :, flat_idx].reshape(b, h, nb, s, block_size, d)
     v_band = vb[:, :, flat_idx].reshape(b, h, nb, s, block_size, d)
     qb = q.reshape(b, h, nb, block_size, d)
@@ -91,14 +111,15 @@ def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
                           k_band.float()) * d ** -0.5
 
     ar = torch.arange(block_size, device=q.device)
-    q_pos = torch.arange(nb, device=q.device)[:, None] * block_size + ar
+    q_pos = (torch.arange(nb, device=q.device)[:, None] + q_off) \
+        * block_size + ar
     k_pos = k_idx[:, :, None] * block_size + ar                # [nQ, S, bs]
     mask = band_valid[:, None, :, None].expand(nb, block_size, s, block_size)
     if causal:
         mask = mask & (k_pos[:, None] <= q_pos[:, :, None, None])
     mask = mask[None, None]                                  # [1,1,nQ,bs,S,bs]
     if kv_mask is not None:
-        pad = kv_mask.reshape(b, nb, block_size)[:, flat_idx].reshape(
+        pad = kv_mask.reshape(b, nk, block_size)[:, flat_idx].reshape(
             b, nb, s, block_size)
         mask = mask & pad[:, None, :, None, :, :]
 
@@ -119,12 +140,13 @@ def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
 
 
 def _band_mask(b, nb, block_size, k_idx, band_valid, lengths, causal,
-               device):
+               device, q_off: int = 0):
     """[B, 1, nQ, bs, S, bs] bool: band slot validity, the causal triangle
-    and the per-row valid key prefix."""
+    and the per-row valid key prefix (positions on the key axis)."""
     s = k_idx.shape[1]
     ar = torch.arange(block_size, device=device)
-    q_pos = torch.arange(nb, device=device)[:, None] * block_size + ar
+    q_pos = (torch.arange(nb, device=device)[:, None] + q_off) * block_size \
+        + ar
     k_pos = k_idx[:, :, None] * block_size + ar                # [nQ, S, bs]
     mask = band_valid[:, None, :, None].expand(nb, block_size, s, block_size)
     if causal:
@@ -137,33 +159,35 @@ def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
                                        window_size: int = 2,
                                        block_size: int = 128,
                                        causal: bool = True,
-                                       include_cls: bool = True):
+                                       include_cls: bool = True,
+                                       q_off: int = 0):
     """Explicit blocked backward of `sliding_window_attention_plain` (the
     JAX package's `_bwd_pallas` math), in fp32.
 
-    q/k/v/out/do: [B, H, L, D]; lengths: [B] valid key prefix; lse: the
-    forward's fp32 [B, H, L] (-inf for a row with no valid key). p is
-    exp(s - lse) where the mask allows and 0 elsewhere, chosen by select so
-    that a -inf lse never meets a masked score. Returns (dq, dk, dv) in the
-    dtypes of q, k and v.
+    q/out/do: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D];
+    lengths: [B] valid key prefix; lse: the forward's fp32 [B, H, L] (-inf
+    for a row with no valid key). p is exp(s - lse) where the mask allows
+    and 0 elsewhere, chosen by select so that a -inf lse never meets a
+    masked score. Returns (dq, dk, dv) in the dtypes of q, k and v.
     """
     b, h, L, d = q.shape
-    nb = L // block_size
+    nb = _check_q_off(L, k.shape[2], block_size, q_off, include_cls)
+    nk = nb + q_off
     scale = d ** -0.5
     k_idx, band_valid = _band_indices(nb, window_size, include_cls, causal,
-                                      q.device)
+                                      q.device, q_off)
     s = k_idx.shape[1]
     flat_idx = k_idx.reshape(-1)
 
     def band(x):
-        return x.float().reshape(b, h, nb, block_size, d)[:, :, flat_idx] \
+        return x.float().reshape(b, h, nk, block_size, d)[:, :, flat_idx] \
             .reshape(b, h, nb, s, block_size, d)
 
     k_band, v_band = band(k), band(v)
     qb = q.float().reshape(b, h, nb, block_size, d)
     dob = do.float().reshape(b, h, nb, block_size, d)
     mask = _band_mask(b, nb, block_size, k_idx, band_valid, lengths, causal,
-                      q.device)
+                      q.device, q_off)
     scores = torch.einsum("bhnqd,bhnskd->bhnqsk", qb, k_band) * scale
     lse_b = lse.float().reshape(b, h, nb, block_size, 1, 1)
     p = torch.where(mask, torch.exp(scores - lse_b), 0.0)
@@ -177,13 +201,13 @@ def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
     # indices add nothing.
     dk_band = torch.einsum("bhnqsk,bhnqd->bhnskd", ds, qb)
     dv_band = torch.einsum("bhnqsk,bhnqd->bhnskd", p, dob)
-    dk = torch.zeros((b, h, nb, block_size, d), device=q.device)
+    dk = torch.zeros((b, h, nk, block_size, d), device=q.device)
     dv = torch.zeros_like(dk)
     dk.index_add_(2, flat_idx, dk_band.reshape(b, h, nb * s, block_size, d))
     dv.index_add_(2, flat_idx, dv_band.reshape(b, h, nb * s, block_size, d))
     return (dq.reshape(b, h, L, d).to(q.dtype),
-            dk.reshape(b, h, L, d).to(k.dtype),
-            dv.reshape(b, h, L, d).to(v.dtype))
+            dk.reshape(b, h, nk * block_size, d).to(k.dtype),
+            dv.reshape(b, h, nk * block_size, d).to(v.dtype))
 
 
 def split_heads(x, num_heads: int):

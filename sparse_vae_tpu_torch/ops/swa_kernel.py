@@ -4,7 +4,9 @@ replacing sparse_vae_tpu/ops/pallas_kernels.py::
 _sliding_window_attention_fwd_pallas and ::_bwd_pallas) and in the packed
 [B, L, H * Dh] projection layout (csrc/swa_fwd_packed.cu,
 csrc/swa_bwd_packed.cu, replacing ::_sliding_window_attention_fwd_packed
-and ::_bwd_packed).
+and ::_bwd_packed). K1 and K2 also take `q_off`, the sequence-parallel
+form in which the JAX package's sp_windowed_attention_pallas (K6) calls
+the same two Pallas kernels: ops/sp_kernel.py builds K6 on them.
 
 `route` decides up front which family a call takes, reproducing the JAX
 package's gates. Each wrapper launches its kernel for CUDA tensors and runs
@@ -26,13 +28,17 @@ from .sliding_window_attention import (
 
 # Kernel launches in this process (raised only where a kernel launches):
 # K1 in `launches`, K2 in `bwd_launches`, K5 in `packed_launches`, K5b in
-# `packed_bwd_launches`. `plain_routes` counts CPU attention calls inside
-# the JAX package's kernel gates at a shape no CUDA instantiation takes
-# (`route` == "plain"); `take_plain_route` raises it.
+# `packed_bwd_launches`; K1 and K2 launched for K6's banded branch
+# (`sp=True`) in `sp_launches` and `sp_bwd_launches` instead.
+# `plain_routes` counts CPU attention calls inside the JAX package's
+# kernel gates at a shape no CUDA instantiation takes (`route` ==
+# "plain"); `take_plain_route` raises it.
 launches = 0
 bwd_launches = 0
 packed_launches = 0
 packed_bwd_launches = 0
+sp_launches = 0
+sp_bwd_launches = 0
 plain_routes = 0
 
 # The CUDA instantiations: block 128, and Dh 64 head-major (K1/K2) or
@@ -82,14 +88,20 @@ def take_plain_route(device: torch.device, head_dim: int, block_size: int):
     plain_routes += 1
 
 
-def _check(q, k, v, lengths, block_size: int, window_size: int):
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v must share one [B, H, L, D] shape, got "
+def _check(q, k, v, lengths, block_size: int, window_size: int,
+           q_off: int = 0, include_cls: bool = False):
+    b, h, L, d = q.shape if q.ndim == 4 else (0,) * 4
+    kv_shape = (b, h, L + q_off * block_size, d)
+    if q.ndim != 4 or tuple(k.shape) != kv_shape or v.shape != k.shape:
+        raise ValueError(f"q must be [B, H, L, D] and k/v [B, H, L + q_off "
+                         f"* block, D] with q_off {q_off}, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, _, L, _ = q.shape
     if L % block_size:
         raise ValueError(f"length {L} is not a multiple of {block_size}")
+    if q_off < 0 or (q_off and include_cls):
+        raise ValueError(f"q_off must be >= 0 and takes no [CLS] slot, got "
+                         f"q_off {q_off}, include_cls {include_cls}")
     if window_size < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
     if lengths.shape != (b,):
@@ -115,22 +127,25 @@ def _check_cuda(kernel: str, tensors, lengths, head_dim: int,
 
 def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
-            include_cls: bool = True):
+            include_cls: bool = True, q_off: int = 0, sp: bool = False):
     """Sliding-window + [CLS] attention forward.
 
-    q/k/v: [B, H, L, D]; lengths: [B] int32 valid key prefix per row.
-    Returns (out [B, H, L, D] in q's dtype, lse [B, H, L] fp32).
-    CUDA: bf16, D = 64, block_size = 128, contiguous.
+    q: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D] (q_off > 0:
+    query block i sits at key block i + q_off, no [CLS] slot); lengths: [B]
+    int32 valid key prefix per row. Returns (out [B, H, L, D] in q's
+    dtype, lse [B, H, L] fp32). CUDA: bf16, D = 64, block_size = 128,
+    contiguous. sp: the launch is K6's banded branch (ops/sp_kernel.py)
+    and counts as K6's.
     """
-    global launches
-    _check(q, k, v, lengths, block_size, window_size)
+    global launches, sp_launches
+    _check(q, k, v, lengths, block_size, window_size, q_off, include_cls)
     if not q.is_cuda:
-        L = q.shape[2]
-        mask = (torch.arange(L, device=q.device)[None, :]
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
                 < lengths.to(torch.int64)[:, None])
         return sliding_window_attention_plain(
             q, k, v, mask, window_size=window_size, block_size=block_size,
-            causal=causal, include_cls=include_cls, return_lse=True)
+            causal=causal, include_cls=include_cls, return_lse=True,
+            q_off=q_off)
 
     _check_cuda("K1", (q, k, v), lengths, q.shape[3], block_size)
     b, h, L, d = q.shape
@@ -140,25 +155,29 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.svt_swa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            lengths.data_ptr(), out.data_ptr(),
-                           lse.data_ptr(), b, h, L, d, block_size,
-                           window_size, int(causal), int(include_cls),
-                           d ** -0.5, stream)
+                           lse.data_ptr(), b, h, L, k.shape[2], d,
+                           block_size, window_size, int(causal),
+                           int(include_cls), q_off, d ** -0.5, stream)
     cuda_lib.check(code, "swa_fwd")
-    launches += 1
+    if sp:
+        sp_launches += 1
+    else:
+        launches += 1
     return out, lse
 
 
 def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
-            include_cls: bool = True):
+            include_cls: bool = True, q_off: int = 0, sp: bool = False):
     """Sliding-window + [CLS] attention backward.
 
-    q/k/v/out/do: [B, H, L, D]; lengths: [B] int32; lse: [B, H, L] fp32
-    from `swa_fwd` (-inf for a row with no valid key). Returns (dq, dk, dv)
-    in q's dtype. CUDA: bf16, D = 64, block_size = 128, contiguous.
+    q/out/do: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D];
+    lengths: [B] int32; lse: [B, H, L] fp32 from `swa_fwd` (-inf for a row
+    with no valid key). Returns (dq, dk, dv) in q's dtype. CUDA: bf16,
+    D = 64, block_size = 128, contiguous. sp: as in `swa_fwd`.
     """
-    global bwd_launches
-    _check(q, k, v, lengths, block_size, window_size)
+    global bwd_launches, sp_bwd_launches
+    _check(q, k, v, lengths, block_size, window_size, q_off, include_cls)
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out/do must be {tuple(q.shape)}, got "
                          f"{tuple(out.shape)}, {tuple(do.shape)}")
@@ -170,7 +189,8 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
     if not q.is_cuda:
         return sliding_window_attention_bwd_plain(
             q, k, v, lengths, lse, out, do, window_size=window_size,
-            block_size=block_size, causal=causal, include_cls=include_cls)
+            block_size=block_size, causal=causal, include_cls=include_cls,
+            q_off=q_off)
 
     _check_cuda("K2", (q, k, v, out, do), lengths, q.shape[3], block_size)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -191,11 +211,15 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
                            lengths.data_ptr(), lse.data_ptr(),
                            out.data_ptr(), do.data_ptr(), dq.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                           scratch.data_ptr(), b, h, L, d, block_size,
-                           window_size, int(causal), int(include_cls),
-                           CLS_CHUNK, d ** -0.5, stream)
+                           scratch.data_ptr(), b, h, L, k.shape[2], d,
+                           block_size, window_size, int(causal),
+                           int(include_cls), q_off, CLS_CHUNK, d ** -0.5,
+                           stream)
     cuda_lib.check(code, "swa_bwd")
-    bwd_launches += 1
+    if sp:
+        sp_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return dq, dk, dv
 
 

@@ -2,7 +2,7 @@
 
     python -m sparse_vae_tpu_torch.train transformer-vae <run-name>
         [steps=10] [batch=8] [seq=12800] [accumulate=<run's>] [seed=0]
-        [device=cuda]
+        [device=cuda] [sp=1]
 
 Loads runs/<run-name>/ in its training form (fp32 master parameters, the
 run's compute dtype) and takes `steps` optimizer steps of `accumulate`
@@ -13,6 +13,19 @@ clip on the cosine schedule, at the JAX trainer's lr (`run_lr`). Prints
 one JSON line of metrics per step. Validation, checkpoint saving and
 early stopping are not ported yet.
 
+sp=N > 1 shards the length axis over N ranks (sequence parallelism,
+parallel/): lengths are padded to a multiple of N * window * block, the
+kernels are built once here, and N ranks are spawned, rank r on
+cuda:{r % device_count} (or all on the CPU with device=cpu). Under
+torchrun (RANK and WORLD_SIZE set) this process is one rank of that
+group instead, on cuda:{LOCAL_RANK % device_count}. Every rank runs with
+the same weights and the same global batches, holding positions
+r * L / N .. (r + 1) * L / N - 1. The process group is NCCL when every
+rank has a card of its own and gloo otherwise (parallel/group.py); the
+chosen backend is printed. Every rank prints its own line per step
+({"rank", "step", "seconds", ...}); rank 0 also prints the step's
+metrics, the same on every rank.
+
 `build_from_hparams` builds a model with no archive instead: hparams plus
 the JAX package's initialisation, at `bench_hparams`, the JAX train
 bench's geometry.
@@ -20,10 +33,12 @@ bench's geometry.
 from __future__ import annotations
 
 import json
+import math
+import os
 import sys
 import time
 
-KEYS = {"steps", "batch", "seq", "accumulate", "seed", "device"}
+KEYS = {"steps", "batch", "seq", "accumulate", "seed", "device", "sp"}
 
 
 def run_lr(hp, meta: dict, accumulate: int) -> float:
@@ -93,6 +108,110 @@ def build_from_hparams(hparams, generator, device="cuda",
     return model, VAEObjective(hp), _optimizer(model, hp, hp.lr), 1
 
 
+def sp_pad_multiple(hp, sp: int, pad_to_multiple_of: int = 512) -> int:
+    """The row-length multiple of a batch sharded over `sp` ranks: every
+    shard a whole number of window bands (training/trainer.py of the JAX
+    package)."""
+    need = sp * hp.attn_window_size * hp.attn_block_size
+    return math.lcm(pad_to_multiple_of, need)
+
+
+def param_digest(model) -> str:
+    """sha256 of every parameter's bytes, in order: equal digests are
+    bitwise equal parameters."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    with torch.no_grad():
+        for p in model.parameters():
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def train_rank(group, name: str, steps: int, batch: int, seq: int,
+               seed: int = 0, accumulate=None, noise=None,
+               keep_grads: bool = False, report: bool = True,
+               use_kernels: bool = True, dtype=None) -> dict:
+    """One rank of a sequence-parallel run of runs/<name>: `steps` optimizer
+    steps on this rank's slice of seeded global batches (the same batches
+    on every rank, and the same as an unsharded run with this seed gives
+    at the padded length). noise: the first step's per-micro-batch
+    {"eps", "mi"}, or None to draw all noise from the seeded generator
+    (broadcast from rank 0). Returns the rank's record: metrics, step
+    seconds, launch counts, peak memory, a digest of the parameters after
+    each step and, with keep_grads on rank 0, the first step's summed
+    gradients on the CPU. use_kernels and dtype as for `build` (False and
+    fp32: the plain reference path)."""
+    import numpy as np
+    import torch
+
+    from .ops import launches
+    from .parallel.sp import shard_length, sp_localize
+    from .training.data import synthetic_batch
+    from .training.train_step import train_step
+
+    device = group.device
+    if device.type == "cpu":    # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // group.size))
+    if noise is not None:
+        noise = [{k: v.to(device) for k, v in n.items()} for n in noise]
+    model, objective, optimizer, accumulate = build(
+        name, device, accumulate, use_kernels=use_kernels, dtype=dtype)
+    sp_localize(model, group)
+    pad = sp_pad_multiple(model.hparams, group.size)
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    vocab = model.hparams.vocab_size
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    launches.reset()
+    record = {"rank": group.rank, "size": group.size,
+              "backend": group.backend, "device": str(device),
+              "metrics": [], "step_s": [], "param_digests": []}
+    for step in range(steps):
+        mbs = []
+        for _ in range(accumulate):
+            mb = synthetic_batch(rng, batch, seq, vocab,
+                                 pad_to_multiple_of=pad)
+            mbs.append({"token_ids": shard_length(mb["token_ids"], group)
+                        .contiguous().to(device),
+                        "num_tokens": mb["num_tokens"].to(device)})
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        metrics = train_step(model, objective, optimizer, mbs, step,
+                             noise if step == 0 else None, generator)
+        out = {k: float(v) for k, v in metrics.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        if keep_grads and step == 0 and group.rank == 0:
+            record["grads"] = {n: p.grad.detach().float().cpu()
+                               for n, p in model.named_parameters()}
+        record["metrics"].append(out)
+        record["step_s"].append(seconds)
+        record["param_digests"].append(param_digest(model))
+        if report:
+            line = {"rank": group.rank, "step": step, "seconds": seconds,
+                    "local_tokens": int(sum((m["token_ids"] != 0).sum()
+                                            for m in mbs))}
+            if device.type == "cuda":
+                line["max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated(device)
+            print(json.dumps(line), flush=True)
+            if group.rank == 0:
+                print(json.dumps({**out, "step": step, "seconds": seconds,
+                                  "tokens": batch * seq * accumulate,
+                                  "sp": group.size}), flush=True)
+    record["launches"] = launches.read()
+    if device.type == "cuda":
+        record["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device)
+    return record
+
+
 def main(args) -> int:
     import numpy as np
     import torch
@@ -116,6 +235,32 @@ def main(args) -> int:
     batch, seq = int(extra.get("batch", 8)), int(extra.get("seq", 12800))
     seed = int(extra.get("seed", 0))
     accumulate = int(extra["accumulate"]) if "accumulate" in extra else None
+    sp = int(extra.get("sp", 1))
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from .parallel.group import from_environment
+        group = from_environment(extra.get("device", "cuda"))
+        if group.rank == 0:
+            print(json.dumps({"sp": group.size, "backend": group.backend}),
+                  flush=True)
+        try:
+            train_rank(group, name, steps, batch, seq, seed, accumulate)
+        finally:
+            dist.destroy_process_group()
+        return 0
+    if sp > 1:
+        from .parallel.group import choose_backend, rank_device, spawn
+
+        device = rank_device(extra.get("device", "cuda"), 0)
+        if device.type == "cuda":
+            from .ops import cuda_lib
+            cuda_lib.library()      # built once, before the ranks start
+        print(json.dumps({"sp": sp, "backend": choose_backend(sp, device)}),
+              flush=True)
+        spawn(train_rank, sp, device.type,
+              (name, steps, batch, seq, seed, accumulate))
+        return 0
     model, objective, optimizer, accumulate = build(
         name, extra.get("device", "cuda"), accumulate)
     device = model.device

@@ -5,6 +5,12 @@ Each micro-batch's loss is its own composition of sums and counts; the
 step's gradient is the mean of the micro-batch gradients (Lightning's
 accumulation), `grad_norm` is the norm of that unclipped mean, and the
 metrics are averaged over the micro-batches.
+
+A model bound to a seq group (parallel.sp.sp_localize) takes the
+sequence-parallel step of parallel/spmd.py: each micro-batch is this
+rank's slice of the length axis, its loss the global composition of the
+all-reduced sums, and the gradients are summed over the group once,
+before the mean and the optimizer step.
 """
 from __future__ import annotations
 
@@ -17,21 +23,31 @@ def train_step(model, objective, optimizer, microbatches: Sequence[dict],
                step: int, noise: Optional[Sequence[dict]] = None,
                generator: Optional[torch.Generator] = None) -> dict:
     """Forward and backward over each micro-batch, then one optimizer
-    step. microbatches: [{"token_ids": [B, L], "num_tokens": [B]}, ...];
+    step. microbatches: [{"token_ids": [B, L], "num_tokens": [B]}, ...]
+    (under sequence parallelism token_ids is this rank's [B, L / n]);
     noise: one {"eps", "mi"} dict per micro-batch (models/vae.py), or None
     to draw from `generator`. Returns {name: fp32 scalar tensor}."""
+    group = getattr(model, "seq_group", None)
+    if group is not None:
+        from ..parallel import spmd
     k = len(microbatches)
     optimizer.zero_grad(set_to_none=True)
     totals = {}
     for i, mb in enumerate(microbatches):
-        loss, metrics = objective.loss(model, mb, step,
-                                       noise[i] if noise else None,
-                                       generator)
+        mb_noise = noise[i] if noise else None
+        if group is None:
+            loss, metrics = objective.loss(model, mb, step, mb_noise,
+                                           generator)
+        else:
+            loss, metrics = spmd.seq_loss(objective, model, mb, step,
+                                          mb_noise, generator, group)
         loss.backward()
         metrics["loss"] = loss
         for name, value in metrics.items():
             value = value.detach().float().to(loss.device)
             totals[name] = totals[name] + value if name in totals else value
+    if group is not None:
+        spmd.all_reduce_grads(model, group)
     if k > 1:
         for p in model.parameters():
             if p.grad is not None:

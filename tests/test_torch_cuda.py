@@ -12,7 +12,9 @@ target. K2's and K3b's gradients in bf16 against their fp32 plain
 versions relative to the largest entry (1e-2: one bf16 rounding of each
 output, and K3b's rounding of the logit gradients to bf16 before its
 products); K3's lse in fp32 up to summation order over 32,768 logits
-(1e-4 absolute). K5 and K5b (the packed layout) as K1 and K2.
+(1e-4 absolute). K5 and K5b (the packed layout) as K1 and K2. K6 (the
+sequence-parallel shard attention: K1/K2 with q_off plus the [CLS] merge)
+as K1 and K2, on both branches.
 """
 import pytest
 import torch
@@ -20,7 +22,8 @@ import torch
 from sparse_vae_tpu_torch.models.generation import SamplingParams, gumbel_noise
 from sparse_vae_tpu_torch.models.transformer_vae import (
     TransformerVAE, TransformerVAEHparams)
-from sparse_vae_tpu_torch.ops import ce_kernel, select_kernel, swa_kernel
+from sparse_vae_tpu_torch.ops import (ce_kernel, select_kernel, sp_kernel,
+                                      swa_kernel)
 from sparse_vae_tpu_torch.ops.attention import Attention
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     SlidingWindowAttentionPackedFn, sliding_window_attention,
@@ -292,3 +295,95 @@ def test_plain_routes_raise_on_the_card(cuda):
         model.sequence_nll(torch.zeros((1, 256, 256), device=cuda),
                            torch.ones((1, 256), dtype=torch.int64,
                                       device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_swa_kernels_with_q_off_match_plain(cuda, window):
+    """K1/K2 over extended keys (q_off = window - 1, no [CLS] slot), the
+    band part of K6, against their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(20 + window)
+    q_off = window - 1
+    q, do = (torch.randn((2, 4, 512, 64), generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, 4, 512 + 128 * q_off, 64), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([512 + 128 * q_off, 300], dtype=torch.int32,
+                           device=cuda)
+    before = (swa_kernel.launches, swa_kernel.sp_launches)
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, window_size=window,
+                                  include_cls=False, q_off=q_off)
+    # Called directly, K1 counts as K1; only K6 counts its launches as
+    # K6's.
+    assert (swa_kernel.launches, swa_kernel.sp_launches) == (
+        before[0] + 1, before[1])
+    mask = torch.arange(k.shape[2], device=cuda)[None, :] < lengths[:, None]
+    ref, ref_lse = sliding_window_attention_plain(
+        q, k, v, mask, window_size=window, include_cls=False,
+        return_lse=True, q_off=q_off)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=1e-5)
+    got = swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do,
+                             window_size=window, include_cls=False,
+                             q_off=q_off)
+    want = sliding_window_attention_bwd_plain(
+        q, k, v, lengths, lse, out, do, window_size=window,
+        include_cls=False, q_off=q_off)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        _assert_rel(g, w, "d" + name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 1024])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_sp_kernel_matches_plain(cuda, start, window):
+    """K6 on both branches (start 0: K1/K2 unchanged on the local keys;
+    start > 0: q_off plus the [CLS] merge), with ragged rows and a filler
+    row (no valid key: out 0, zero gradients, no NaN), through the
+    autograd Function, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(30 + window + start)
+    S, ctx = 512, 128 * (window - 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q, do = randn(3, 4, S, 64), randn(3, 4, S, 64)
+    k_ext, v_ext = randn(3, 4, ctx + S, 64), randn(3, 4, ctx + S, 64)
+    cls_k, cls_v = randn(3, 4, 128, 64), randn(3, 4, 128, 64)
+    full = S if start == 0 else ctx + S
+    ext_len = torch.tensor([full, full // 2, 0], dtype=torch.int32,
+                           device=cuda)
+    cls_len = torch.tensor([128, 100, 0], dtype=torch.int32, device=cuda)
+    leaves = [t.clone().requires_grad_()
+              for t in (q, k_ext, v_ext, cls_k, cls_v)]
+    counts = (swa_kernel.launches, swa_kernel.sp_launches,
+              swa_kernel.bwd_launches, swa_kernel.sp_bwd_launches)
+    out = sp_kernel.sp_windowed_attention(*leaves, start, ext_len, cls_len,
+                                          window, 128)
+    out.backward(do)
+    banded = start > 0
+    assert (swa_kernel.launches, swa_kernel.sp_launches,
+            swa_kernel.bwd_launches, swa_kernel.sp_bwd_launches) == (
+        counts[0] + (not banded), counts[1] + banded,
+        counts[2] + (not banded), counts[3] + banded)
+    args = (q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_len)
+    ref, _ = sp_kernel.sp_fwd_plain(*args, window, 128)
+    torch.testing.assert_close(out.detach().float(), ref.float(),
+                               atol=2e-2, rtol=2e-2)
+    _, lse = sp_kernel.sp_fwd(*args, window, 128)
+    want = sp_kernel.sp_bwd_plain(*args, out.detach(), lse, do, window, 128)
+    for name, t, w in zip(("dq", "dk_ext", "dv_ext", "dcls_k", "dcls_v"),
+                          leaves, want):
+        assert bool(torch.isfinite(t.grad.float()).all()), name
+        assert bool((t.grad[2] == 0).all()), name      # the filler row
+        if w.abs().max() > 0:
+            _assert_rel(t.grad, w, name)
+        else:
+            assert bool((t.grad == 0).all()), name
+    assert bool((out[2] == 0).all())

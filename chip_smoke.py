@@ -7,16 +7,22 @@ GPU:
 Phases, each timed:
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
                without CUDA;
-  2. build   — the CUDA kernels from csrc/ in one nvcc call;
+  2. build   — the CUDA kernels from csrc/ in one nvcc call; its
+               `ptxas info` lines (nvcc -Xptxas -v) give registers, spills
+               and static shared memory of every kernel;
   3. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it, timed with CUDA
                events beside its bound and, for K1, beside PyTorch's
                scaled_dot_product_attention (a yardstick the port never
-               calls);
+               calls); K1's rows also give its device time from
+               torch.profiler, without the wrapper's host cost;
                The training kernels likewise: K2 (the attention backward)
                and K3/K3b (the fused tied projection + CE, forward and
-               backward) against their plain versions, timed at the
-               training shapes beside a PyTorch yardstick;
+               backward) against their plain versions at the token counts
+               of the train, sp-train and [8, 12800] steps, timed at the
+               last beside a PyTorch yardstick; K3b must give
+               bit-identical gradients in two calls, and its row gives its
+               device time by part (dl, dg, dE, dbias, PyTorch's copies);
   4. model   — the flagship real-prose-vae-r5 weights on the card in bf16:
                prefill logits against the fp32 CPU model on a fixed input;
   5. serve   — ServeEngine (batch 64, max_length 512, fused selection)
@@ -107,10 +113,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
-# K1: out is compared in bf16, where the plain version rounds the softmax
-# weights to bf16 before the value product and the kernel keeps them fp32
-# (two bf16 roundings of values of order 1); lse is fp32 on both sides and
-# differs only by summation order.
+# K1: out is compared in bf16: both sides round the softmax weights to bf16
+# before the value product and the output to bf16 after it, in other
+# summation orders (bf16 roundings of values of order 1); lse is fp32 on
+# both sides and differs only by summation order.
 K1_OUT_ATOL, K1_OUT_RTOL = 2e-2, 2e-2
 K1_LSE_ATOL = 1e-3
 # K4: a row may choose differently only when its bisection mass sat within
@@ -200,6 +206,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> dict:
+    """Device milliseconds per call of fn() by kernel name, from
+    torch.profiler over `iters` calls after one warm-up call: what the card
+    spent, without the host's share of the call's time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def kernel_ms(times: dict, name: str) -> float:
+    """The device ms of the kernels whose name contains `name`."""
+    return sum(ms for key, ms in times.items() if name in key)
+
+
 def bound(nbytes: float, ops: float, op_rate: float):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / op_rate * 1e3
@@ -268,13 +296,17 @@ def k1_phase(b: int, L: int, lengths, seed: int, iters: int):
         max(3, iters // 10))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask), max(3, iters // 10))
+    device = kernel_ms(device_ms(lambda: swa_kernel.swa_fwd(
+        q, k, v, lens, window_size=window, block_size=block)),
+        "swa_fwd_kernel")
     pairs = int(mask.sum().item()) * h      # attended (query, key) pairs
     nbytes = 4 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4 * d * pairs, BF16_TENSOR_FLOPS)
     row = {"shape": [b, h, L, d], "lengths": list(lengths),
            "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "ms": ms, "device_ms": device, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
     print("K1 " + json.dumps(row), flush=True)
     return row
 
@@ -603,15 +635,28 @@ def ce_inputs(t: int, seed: int, vocab: int = 32768, d: int = 512,
     return g, table, bias, labels, dnll
 
 
-def k3_phase(t_check: int, t_time: int, seed: int):
-    """K3 and K3b against their plain versions at t_check tokens; timed at
-    t_time tokens beside the plain versions and F.linear +
-    F.cross_entropy forward and backward."""
-    g, table, bias, labels, dnll = ce_inputs(t_check, seed,
-                                             padded=t_check // 8)
+# K3 and K3b are held against their plain versions at the token counts
+# of the main paths, as (tokens, padding tokens at the tail): a train step
+# at [4, 4096] (one chunk of K3b), an sp-train rank's 25,600 (two chunks
+# of 12,800) and the [8, 12800] step's 102,400 (seven chunks of 14,720,
+# the last 14,080), where both are also timed. The last two tails end
+# inside a 128-token tile.
+CE_CHECKS = ((16384, 2048), (25600, 3261), (102400, 12861))
+
+
+def ce_check(g, table, bias, labels, dnll) -> dict:
+    """K3 and K3b against their plain versions on the same inputs (the
+    plain backward in fp32), and K3b's second call bit-identical to its
+    first; fails on a disagreement."""
+    t = g.shape[0]
     nll, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
     grads = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    again = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"K3b gives different gradients in two calls on the same inputs "
+          f"at T = {t}")
+    del again
     want_nll, want_lse = ce_kernel.tied_ce_fwd_plain(g, table, bias, labels)
     want = ce_kernel.tied_ce_bwd_plain(g.float(), table.float(), bias,
                                        labels, want_lse, dnll)
@@ -620,16 +665,32 @@ def k3_phase(t_check: int, t_time: int, seed: int):
     bwd_errs = [rel_err(a, w) for a, w in zip(grads, want)]
     bwd_abs = max((a.float() - w.float()).abs().max().item()
                   for a, w in zip(grads, want))
-    check(bool(torch.isfinite(nll).all()), "K3 nll is not finite")
-    check(fwd_err <= K3_ATOL, f"K3 disagrees with its plain version: "
-          f"{fwd_err:.3g}")
+    check(bool(torch.isfinite(nll).all()),
+          f"K3 nll is not finite at T = {t}")
+    check(fwd_err <= K3_ATOL, f"K3 disagrees with its plain version at "
+          f"T = {t}: {fwd_err:.3g}")
     check(all(bool(torch.isfinite(a.float()).all()) for a in grads),
-          "K3b gradients are not finite")
+          f"K3b gradients are not finite at T = {t}")
     check(max(bwd_errs) <= GRAD_REL_TOL,
-          f"K3b disagrees with its plain version: rel errors {bwd_errs}")
-    del g, table, bias, labels, dnll, grads, want
+          f"K3b disagrees with its plain version at T = {t}: rel errors "
+          f"{bwd_errs}")
+    return {"tokens": t, "chunk_tokens": ce_kernel.bwd_chunk(
+        t, table.shape[0]), "padding": int((dnll == 0).sum().item()),
+        "fwd_err": fwd_err, "bwd_abs_err": bwd_abs,
+        "rel_errs_dg_dE_dbias": bwd_errs}
 
-    g, table, bias, labels, dnll = ce_inputs(t_time, seed + 1)
+
+def k3_phase(seed: int):
+    """K3 and K3b against their plain versions at each of CE_CHECKS; timed
+    at the last of them beside the plain versions and F.linear +
+    F.cross_entropy forward and backward."""
+    checks = []
+    for i, (t, padded) in enumerate(CE_CHECKS):
+        g, table, bias, labels, dnll = ce_inputs(t, seed + i, padded=padded)
+        checks.append(ce_check(g, table, bias, labels, dnll))
+    fwd_err = max(c["fwd_err"] for c in checks)
+    bwd_abs = max(c["bwd_abs_err"] for c in checks)
+
     t, vocab, d = g.shape[0], table.shape[0], g.shape[1]
     _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
     fwd_ms = cuda_ms(lambda: ce_kernel.tied_ce_fwd(g, table, bias, labels),
@@ -641,24 +702,42 @@ def k3_phase(t_check: int, t_time: int, seed: int):
     plain_bwd_ms = cuda_ms(lambda: ce_kernel.tied_ce_bwd_plain(
         g, table, bias, labels, lse, dnll), 1, warmup=1)
     lib_fwd_ms, lib_bwd_ms = ce_library_ms(g, table, bias, labels)
+    fwd_device = kernel_ms(device_ms(lambda: ce_kernel.tied_ce_fwd(
+        g, table, bias, labels), 3), "tied_ce_kernel")
+    # K3b's parts on the device: the logit gradients (dl), the two
+    # gradient products, the dbias sum, and PyTorch's share (the E^T and
+    # g^T copies, the fp32 label-row term, the dtype casts).
+    bwd_times = device_ms(lambda: ce_kernel.tied_ce_bwd(
+        g, table, bias, labels, lse, dnll), 3)
+    parts = {"dl": kernel_ms(bwd_times, "ce_dl_kernel"),
+             "dg": kernel_ms(bwd_times, "ce_gemm_kernel<0>"),
+             "dE": kernel_ms(bwd_times, "ce_gemm_kernel<1>"),
+             "dbias": kernel_ms(bwd_times, "ce_dbias_kernel")}
+    parts["pytorch"] = sum(bwd_times.values()) - sum(parts.values())
     flops = 2 * t * vocab * d
     in_bytes = g.numel() * 2 + table.numel() * 2 + vocab * 4 + t * 8
     # K3: reads once, writes lse and nll; one product of 2 T V D.
     fwd_bound = bound(in_bytes + 2 * t * 4, flops, BF16_TENSOR_FLOPS)
     # K3b: reads the inputs, lse and dnll, writes dg, dE and dbias; the
     # least work is the logits once and the two gradient products
-    # (3 x 2 T V D; the kernels recompute the logits twice, 4 x).
+    # (3 x 2 T V D, what the kernels do).
     bwd_bound = bound(in_bytes + 2 * t * 4 + g.numel() * 2
                       + table.numel() * 2 + vocab * 4, 3 * flops,
                       BF16_TENSOR_FLOPS)
     shape = [t, vocab, d]
-    k3 = {"shape": shape, "check_tokens": t_check, "max_abs_err": fwd_err,
-          "ms": fwd_ms, "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms,
-          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
-    k3b = {"shape": shape, "check_tokens": t_check, "max_abs_err": bwd_abs,
-           "rel_errs_dg_dE_dbias": bwd_errs, "ms": bwd_ms,
-           "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms,
-           "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
+    check_tokens = [c["tokens"] for c in checks]
+    k3 = {"shape": shape, "check_tokens": check_tokens,
+          "max_abs_err": fwd_err,
+          "ms": fwd_ms, "device_ms": fwd_device, "plain_ms": plain_fwd_ms,
+          "library_ms": lib_fwd_ms, "bound_ms": fwd_bound[0],
+          "bound_by": fwd_bound[1]}
+    k3b = {"shape": shape, "check_tokens": check_tokens,
+           "max_abs_err": bwd_abs, "checks": checks, "bit_identical": True,
+           "ms": bwd_ms, "device_ms": sum(bwd_times.values()),
+           "parts_device_ms": parts, "chunk_tokens": ce_kernel.bwd_chunk(
+               t, vocab), "plain_ms": plain_bwd_ms,
+           "library_ms": lib_bwd_ms, "bound_ms": bwd_bound[0],
+           "bound_by": bwd_bound[1]}
     print("K3 " + json.dumps(k3), flush=True)
     print("K3b " + json.dumps(k3b), flush=True)
     return k3, k3b
@@ -891,6 +970,11 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
         values = torch.cat([cls_v, v_ext], dim=2)
         row["ms"] = cuda_ms(lambda: sp_kernel.sp_fwd(*args, window, block),
                             10)
+        # On the device: the whole call, and K1's kernel inside it (the
+        # band part; the rest is the [CLS] attention and merge).
+        times = device_ms(lambda: sp_kernel.sp_fwd(*args, window, block))
+        row["device_ms"] = sum(times.values())
+        row["k1_device_ms"] = kernel_ms(times, "swa_fwd_kernel")
         row["bwd_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block), 10)
         row["plain_ms"] = cuda_ms(lambda: sp_kernel.sp_fwd_plain(
@@ -1115,7 +1199,7 @@ def main() -> int:
         k2_phase(4, 4096, [4096, 3001, 1500, 129], seed=5, iters=0)
         k2_train = k2_phase(8, 12800, TRAIN_LENGTHS, seed=6, iters=5,
                             time_it=True)
-        k3, k3b = k3_phase(16384, 102400, seed=7)
+        k3, k3b = k3_phase(seed=7)
     with Phase("model"):
         model, _, _ = load_run(RUN, device="cuda")
         model_phase(model)
@@ -1201,16 +1285,17 @@ def main() -> int:
          "launches_by_path": {"serve": counts["swa_fwd"],
                               "train": train_counts["swa_fwd"],
                               "sp-train": sp_sum("swa_fwd")},
-         **{k: k1_serve[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by",
+         **{k: k1_serve[k] for k in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
          "shape": k1_serve["shape"],
          "long": {k: k1_long[k] for k in ("shape", "max_abs_err", "ms",
-                                          "plain_ms", "bound_ms",
-                                          "library_ms")},
+                                          "device_ms", "plain_ms",
+                                          "bound_ms", "library_ms")},
          "train": {k: k1_train[k] for k in ("shape", "max_abs_err", "ms",
-                                            "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}},
+                                            "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}},
         {"name": "nucleus_select", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/nucleus_select.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_select.py:128",
@@ -1239,16 +1324,18 @@ def main() -> int:
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
                               "train-h4": h4_train_counts["tied_ce_fwd"],
                               "sp-train": sp_sum("tied_ce_fwd")},
-         **timed(k3)},
+         **timed(k3), "device_ms": k3["device_ms"]},
         {"name": "tied_ce_bwd", "route": "cuda",
-         "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
+         "source": "sparse_vae_tpu_torch/csrc/tied_ce_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
          "launches": train_counts["tied_ce_bwd"]
          + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd"),
          "launches_by_path": {"train": train_counts["tied_ce_bwd"],
                               "train-h4": h4_train_counts["tied_ce_bwd"],
                               "sp-train": sp_sum("tied_ce_bwd")},
-         **timed(k3b)},
+         **timed(k3b), **{k: k3b[k] for k in (
+             "device_ms", "parts_device_ms", "chunk_tokens",
+             "bit_identical", "checks")}},
         {"name": "swa_fwd_packed", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd_packed.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:590",
@@ -1272,9 +1359,11 @@ def main() -> int:
          "launches": sp_sum("sp_windowed_attention"),
          "launches_by_rank": {"sp-train": [
              c["sp_windowed_attention"] for c in sp_counts]},
-         **timed(k6), "square": {k: k6_square[k] for k in (
-             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "library_ms")}},
+         **timed(k6), "device_ms": k6["device_ms"],
+         "k1_device_ms": k6["k1_device_ms"],
+         "square": {k: k6_square[k] for k in (
+             "shape", "max_abs_err", "ms", "device_ms", "k1_device_ms",
+             "plain_ms", "bound_ms", "library_ms")}},
         {"name": "sp_windowed_attention_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",

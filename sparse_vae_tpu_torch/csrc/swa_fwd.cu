@@ -12,9 +12,10 @@
 // ceil-left / floor-right around qb) plus the [CLS] block 0 when the band
 // does not already reach it. Keys at or past lengths[b] (the valid prefix of
 // row b) are masked, and so are keys after the query when causal. Scores are
-// fp32 q.k * scale; the softmax runs online in fp32. Outputs: out [B, H, L,
-// 64] bf16 and lse [B, H, L] fp32. A row with no valid key gives out 0 and
-// lse -inf.
+// fp32 q.k * scale; the softmax runs online in fp32, and the weights are
+// rounded to bf16 for the value product, as the Pallas kernel rounds them.
+// Outputs: out [B, H, L, 64] bf16 and lse [B, H, L] fp32. A row with no
+// valid key gives out 0 and lse -inf.
 //
 // The sequence-parallel form (K6's band part, replacing
 // sp_windowed_attention_pallas's calls of the same Pallas kernel with
@@ -24,64 +25,76 @@
 // qb + q_off, the causal triangle compares positions on the key axis, and
 // lengths[b] counts valid extended keys. With q_off > 0 there is no [CLS]
 // slot (the caller attends the broadcast [CLS] block and merges). q_off = 0
-// is the square single-device case, unchanged.
+// is the square single-device case.
 //
-// What bounds it. Each of q, k, v is read and out written once per query
-// block's band: at L = 512 (serve prefill) that is ~2 MB against ~0.3
-// GFLOP, and at L = 4096 the arithmetic intensity stays ~ 4 * 64 * 3 * 128
-// / (4 * 64 * 2) = 192 FLOP per byte for the band work — below the 295 of
-// the H100's bf16 tensor-core ridge, so the card's bound is bytes.
+// What bounds it. q, k, v are read and out written once: at [8, 8, 12800,
+// 64] that is 0.42 GB against ~0.08 TFLOP of band products (~190 FLOP per
+// byte, under the H100's bf16 ridge of ~295), so the card's bound is bytes.
+// At the serve shape [1, 8, 512, 64] the call is a few microseconds of work
+// and latency decides: how many CTAs run at once, and how long each one's
+// chain of dependent steps is.
 //
-// Design. On the TPU the grid walked (batch, q block) in order with all
-// heads in one step. Here blocks run in parallel and nothing carries
-// between them: one CTA per (q block, head, batch row), 128 threads, one
-// query row per thread. The thread keeps its q row and its 64 fp32
-// accumulators in registers. For each valid band slot the CTA stages the
-// 128-key K and V tiles in shared memory as fp32 (64 KB, dynamic), then
-// each thread walks the keys in chunks of 16: 16 scores, one rescale of
-// the accumulators by the chunk's new running max, then the p * V
-// accumulation. Invalid slots and keys past the valid prefix are skipped
-// at the CTA level. Plain FMA, no tensor cores: simple and right first;
-// wgmma / TMA tiling is later work.
+// Design. Every product is a bf16 mma.sync (m16n8k16) with fp32
+// accumulation, as in K5 (swa_fwd_packed.cu). One CTA per (64-row half of
+// a query block, head, batch row): 4 warps of 16 query rows, so the serve
+// shape runs 64 CTAs, and the causal diagonal splits at the half block
+// (the first half skips the diagonal block's last 64 keys). Each warp keeps
+// its Q rows as operand fragments in registers. The CTA walks the valid
+// band slots; the next slot's K and V tiles (bf16, rows padded to 72
+// elements so ldmatrix's eight row reads hit distinct banks) load with
+// cp.async into the other half of a double buffer while this one's are
+// used. For each 32-key step: S = Q K^T, the causal / length mask, an
+// online softmax with the running max and sum in registers (a row that has
+// seen no valid key keeps max -inf and contributes nothing), then
+// O += bf16(P) V with P passed from the accumulator layout straight into
+// the operand registers and V read by ldmatrix.trans. Steps whose keys all
+// lie after the warp's rows, and key blocks at or past lengths[b], are
+// skipped. 72 KB of shared memory: three CTAs per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;   // query rows per CTA == attention block
+using svt::cp_async16;
+using svt::ldsm_x4;
+using svt::ldsm_x4_t;
+using svt::mma16816;
+using svt::packf;
+
+constexpr int kBlock = 128;            // attention block (keys per slot)
+constexpr int kRows = 64;              // query rows per CTA
 constexpr int kHeadDim = 64;
-constexpr int kChunk = 16;    // keys per online-softmax step
-constexpr int kTileFloats = kBlock * kHeadDim;
-constexpr int kSmemBytes = 2 * kTileFloats * (int)sizeof(float);
+constexpr int kWarps = kRows / 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStride = kHeadDim + 8;  // smem row stride, bf16
+constexpr int kTile = kBlock * kStride;
+constexpr int kChunk = 32;             // keys per online-softmax step
+constexpr int kNt = kChunk / 8;        // mma n-tiles of a step
+constexpr int kDimTiles = kHeadDim / 8;
+constexpr int kSmemBytes = 2 * 2 * kTile * 2;  // K and V, double-buffered
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void unpack8(const uint4 u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+// One key block's K and V rows ([kBlock, 64] each, contiguous) into a
+// buffer of padded rows, one commit group.
+__device__ __forceinline__ void load_kv(const __nv_bfloat16* __restrict__ k,
+                                        const __nv_bfloat16* __restrict__ v,
+                                        __nv_bfloat16* ks,
+                                        __nv_bfloat16* vs) {
+  constexpr int kVec = kHeadDim / 8;
+  for (int i = threadIdx.x; i < kBlock * kVec; i += kThreads) {
+    const int r = i / kVec;
+    const int c = (i % kVec) * 8;
+    cp_async16(ks + r * kStride + c, k + r * kHeadDim + c);
+    cp_async16(vs + r * kStride + c, v + r * kHeadDim + c);
   }
 }
 
-// Copy one contiguous [kBlock, kHeadDim] bf16 tile into shared memory as
-// fp32; consecutive threads read consecutive 16-byte words.
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          float* __restrict__ dst) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  for (int i = threadIdx.x; i < kTileFloats / 8; i += kBlock) {
-    float f[8];
-    unpack8(s[i], f);
-    float4* d = reinterpret_cast<float4*>(dst + 8 * i);
-    d[0] = make_float4(f[0], f[1], f[2], f[3]);
-    d[1] = make_float4(f[4], f[5], f[6], f[7]);
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads)
 swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
@@ -89,123 +102,191 @@ swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                int num_heads, int q_len, int key_len, int window,
                int causal, int include_cls, int q_off, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = smem + kTileFloats;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
-  const int qb = blockIdx.x + q_off;  // the query block on the key axis
+  const int half = blockIdx.x & 1;
+  const int qb = (blockIdx.x >> 1) + q_off;  // query block on the key axis
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int num_blocks = key_len / kBlock;
-  // Row offsets of this (batch, head) in the [B, H, Lq] and [B, H, Lk]
-  // index spaces.
   const size_t qhead = ((size_t)b * num_heads + h) * (size_t)q_len;
   const size_t head = ((size_t)b * num_heads + h) * (size_t)key_len;
-  const int qrow = blockIdx.x * kBlock + threadIdx.x;
-  const int row = qb * kBlock + threadIdx.x;  // its key-axis position
   const int length = lengths[b];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int l8 = lane & 7;
+  const int lm = lane >> 3;
 
-  float qr[kHeadDim];
+  // This warp's 16 rows: q row index and key-axis position.
+  const int qrow0 = blockIdx.x * kRows + warp * 16;
+  const int pos0 = qb * kBlock + half * kRows + warp * 16;
+  const int pos[2] = {pos0 + gq, pos0 + gq + 8};
+
+  uint32_t qf[kHeadDim / 16][4];
   {
-    const uint4* qp =
-        reinterpret_cast<const uint4*>(q + (qhead + qrow) * kHeadDim);
+    const __nv_bfloat16* p = q + (qhead + qrow0 + gq) * kHeadDim + 2 * tq;
 #pragma unroll
-    for (int i = 0; i < kHeadDim / 8; ++i) unpack8(qp[i], qr + 8 * i);
+    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+      const __nv_bfloat16* c = p + ks * 16;
+      qf[ks][0] = *reinterpret_cast<const uint32_t*>(c);
+      qf[ks][1] = *reinterpret_cast<const uint32_t*>(c + 8 * kHeadDim);
+      qf[ks][2] = *reinterpret_cast<const uint32_t*>(c + 8);
+      qf[ks][3] = *reinterpret_cast<const uint32_t*>(c + 8 * kHeadDim + 8);
+    }
   }
-  float acc[kHeadDim];
-#pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc[d] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
 
   // _band_left / _slot_to_block: slot 0 is [CLS] (when included), the rest
-  // walk the band from its leftmost block.
-  const int left = causal ? window : (window + 1) / 2;
-  const int first_band = qb - (left - 1);
+  // walk the band from its leftmost block. A slot is used when its block
+  // exists and holds a valid key; the test is uniform over the CTA.
   const int slots = window + (include_cls ? 1 : 0);
-
-  for (int slot = 0; slot < slots; ++slot) {
+  auto key_block = [&](int slot) {
     int kb;
-    bool valid;
-    if (include_cls && slot == 0) {
-      kb = 0;
-      valid = first_band > 0;  // the band does not already reach block 0
-    } else {
-      kb = first_band + slot - (include_cls ? 1 : 0);
-      valid = kb >= 0 && kb < num_blocks;
-    }
-    const int key0 = kb * kBlock;
-    const int nkeys = min(kBlock, length - key0);
-    if (!valid || nkeys <= 0) continue;  // uniform over the CTA
+    const bool valid = svt::slot_block(qb, slot, window, causal,
+                                       include_cls, num_blocks, &kb);
+    return valid && kb * kBlock < length ? kb : -1;
+  };
+  auto next_slot = [&](int slot) {
+    while (slot < slots && key_block(slot) < 0) ++slot;
+    return slot;
+  };
 
-    __syncthreads();  // every thread is done with the previous tile
-    load_tile(k + (head + key0) * kHeadDim, ks);
-    load_tile(v + (head + key0) * kHeadDim, vs);
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};
+  float acc[kDimTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kDimTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  int cur = next_slot(0);
+  int buf = 0;
+  if (cur < slots) {
+    const size_t key0 = head + (size_t)key_block(cur) * kBlock;
+    load_kv(k + key0 * kHeadDim, v + key0 * kHeadDim, kv, kv + kTile);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  while (cur < slots) {
+    const int nxt = next_slot(cur + 1);
+    if (nxt < slots) {
+      const size_t key0 = head + (size_t)key_block(nxt) * kBlock;
+      __nv_bfloat16* dst = kv + (buf ^ 1) * 2 * kTile;
+      load_kv(k + key0 * kHeadDim, v + key0 * kHeadDim, dst, dst + kTile);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
 
-    for (int j0 = 0; j0 < nkeys; j0 += kChunk) {
-      float s[kChunk];
+    const __nv_bfloat16* ks = kv + buf * 2 * kTile;
+    const __nv_bfloat16* vs = ks + kTile;
+    const int key0 = key_block(cur) * kBlock;
+    const int nkeys = min(kBlock, length - key0);
+    for (int c0 = 0; c0 < nkeys; c0 += kChunk) {
+      // Warp-uniform: every key of the step lies after every row.
+      if (causal && key0 + c0 > pos0 + 15) break;
+      float s[kNt][4];
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) s[c] = 0.f;
+      for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-      for (int d = 0; d < kHeadDim; d += 4) {
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      // B = K rows: matrices (keys 0-7 | 8-15) x (dims 0-7 | 8-15).
+      const __nv_bfloat16* kr =
+          ks + (c0 + 8 * (lm >> 1) + l8) * kStride + 8 * (lm & 1);
 #pragma unroll
-        for (int c = 0; c < kChunk; ++c) {
-          const float4 kk =
-              *reinterpret_cast<const float4*>(ks + (j0 + c) * kHeadDim + d);
-          s[c] = fmaf(qr[d], kk.x, s[c]);
-          s[c] = fmaf(qr[d + 1], kk.y, s[c]);
-          s[c] = fmaf(qr[d + 2], kk.z, s[c]);
-          s[c] = fmaf(qr[d + 3], kk.w, s[c]);
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kNt / 2; ++np) {
+          uint32_t t[4];
+          ldsm_x4(t, kr + np * 16 * kStride + kk * 16);
+          mma16816(s[2 * np], qf[kk], t);
+          mma16816(s[2 * np + 1], qf[kk], t + 2);
         }
       }
-      float cmax = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c;
-        const bool ok = j < nkeys && (!causal || key0 + j <= row);
-        s[c] = ok ? s[c] * scale : -INFINITY;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      if (cmax == -INFINITY) continue;  // this row sees nothing here
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);  // 0 while m is still -inf
-      l *= alpha;
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) acc[d] *= alpha;
+        for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float p = expf(s[c] - m_new);  // masked keys give exactly 0
-        l += p;
+          for (int j = 0; j < 2; ++j) {
+            const int key = key0 + c0 + nt * 8 + 2 * tq + j;
+            const bool ok = key < length && (!causal || key <= pos[i]);
+            float& x = s[nt][2 * i + j];
+            x = ok ? x * sl2 : -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        // A row with no valid key so far keeps max -inf: exp2(-inf) = 0
+        // then gives p = 0 and leaves the (zero) sums as they are.
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[i] - m_use);
+        m[i] = m_new;
+        float sum = 0.f;
 #pragma unroll
-        for (int d = 0; d < kHeadDim; d += 4) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(vs + (j0 + c) * kHeadDim + d);
-          acc[d] = fmaf(p, vv.x, acc[d]);
-          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& x = s[nt][2 * i + j];
+            x = exp2f(x - m_use);
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int nt = 0; nt < kDimTiles; ++nt) {
+          acc[nt][2 * i] *= alpha;
+          acc[nt][2 * i + 1] *= alpha;
         }
       }
-      m = m_new;
+      // O += bf16(P) V; B = V read transposed: matrices (keys 0-7 | 8-15)
+      // x (dims 0-7 | 8-15).
+      const __nv_bfloat16* vr =
+          vs + (c0 + 8 * (lm & 1) + l8) * kStride + 8 * (lm >> 1);
+#pragma unroll
+      for (int kk = 0; kk < kNt / 2; ++kk) {
+        const uint32_t a[4] = {packf(s[2 * kk][0], s[2 * kk][1]),
+                               packf(s[2 * kk][2], s[2 * kk][3]),
+                               packf(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               packf(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < kDimTiles / 2; ++dp) {
+          uint32_t t[4];
+          ldsm_x4_t(t, vr + kk * 16 * kStride + dp * 16);
+          mma16816(acc[2 * dp], a, t);
+          mma16816(acc[2 * dp + 1], a, t + 2);
+        }
+      }
     }
+    __syncthreads();  // every warp is done with this buffer
+    cur = nxt;
+    buf ^= 1;
   }
 
-  uint4* op = reinterpret_cast<uint4*>(out + (qhead + qrow) * kHeadDim);
+  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                        l[1] > 0.f ? 1.f / l[1] : 0.f};
+  __nv_bfloat16* lo = out + (qhead + qrow0 + gq) * kHeadDim + 2 * tq;
+  __nv_bfloat16* hi = lo + 8 * kHeadDim;
 #pragma unroll
-  for (int i = 0; i < kHeadDim / 8; ++i) {
-    uint4 packed;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = 8 * i + 2 * j;
-      const float a = l > 0.f ? acc[d] / l : 0.f;
-      const float c = l > 0.f ? acc[d + 1] / l : 0.f;
-      h2[j] = __floats2bfloat162_rn(a, c);
-    }
-    op[i] = packed;
+  for (int nt = 0; nt < kDimTiles; ++nt) {
+    *reinterpret_cast<uint32_t*>(lo + nt * 8) =
+        packf(acc[nt][0] * inv[0], acc[nt][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(hi + nt * 8) =
+        packf(acc[nt][2] * inv[1], acc[nt][3] * inv[1]);
   }
-  lse[qhead + qrow] = l > 0.f ? m + logf(l) : -INFINITY;
+  if (tq == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lse[qhead + qrow0 + gq + 8 * i] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : -INFINITY;
+  }
 }
 
 }  // namespace
@@ -226,12 +307,12 @@ extern "C" int svt_swa_fwd(const void* q, const void* k, const void* v,
       window < 1 || batch < 1 || num_heads < 1 || batch > 65535 ||
       num_heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      swa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+  static svt::SmemLimit limit;
+  const cudaError_t err =
+      svt::raise_smem_limit(limit, swa_fwd_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(q_len / kBlock, num_heads, batch);
-  swa_fwd_kernel<<<grid, kBlock, kSmemBytes,
+  const dim3 grid(q_len / kRows, num_heads, batch);
+  swa_fwd_kernel<<<grid, kThreads, kSmemBytes,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

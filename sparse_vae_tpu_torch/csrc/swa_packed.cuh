@@ -19,7 +19,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace svt_packed {
+
+using svt::mma16816;
+using svt::packf;
+using svt::slot_block;
 
 constexpr int kBlock = 128;               // attention block == rows per CTA
 constexpr int kHeadDim = 128;
@@ -39,20 +45,6 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
                                           __nv_bfloat16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t packf(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // kBlock rows of one head into shared memory: src points at the head's
@@ -160,22 +152,6 @@ __device__ __forceinline__ void store_rows_f32(
     *reinterpret_cast<float2*>(lo + 8 * kHeadDim + nt * 8) =
         make_float2(acc[nt][2], acc[nt][3]);
   }
-}
-
-// Band slot -> key block (the Pallas kernels' _slot_to_block): slot 0 is
-// [CLS] when included, valid only when the band does not already reach
-// block 0.
-__device__ __forceinline__ bool slot_block(int qb, int slot, int window,
-                                           int causal, int include_cls,
-                                           int num_blocks, int* kb) {
-  const int left = causal ? window : (window + 1) / 2;
-  const int first_band = qb - (left - 1);
-  if (include_cls && slot == 0) {
-    *kb = 0;
-    return first_band > 0;
-  }
-  *kb = first_band + slot - (include_cls ? 1 : 0);
-  return *kb >= 0 && *kb < num_blocks;
 }
 
 }  // namespace svt_packed

@@ -1,0 +1,95 @@
+// Pieces shared by the hand-written kernels: the bf16 mma.sync (m16n8k16)
+// product with fp32 accumulation, ldmatrix and cp.async from and to shared
+// memory, the attention kernels' band map, and the host-side setting of a
+// kernel's dynamic shared memory limit.
+
+#pragma once
+
+#include <atomic>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace svt {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t packf(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8m..8m+7 give matrix m's rows): r[m] is each lane's pair of
+// matrix m in the mma.sync fragment layout; _t transposes each matrix.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  ldsm_x4_t(r, smem_u32(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+// Band slot -> key block (the Pallas kernels' _slot_to_block): slot 0 is
+// [CLS] when included, valid only when the band does not already reach
+// block 0.
+__device__ __forceinline__ bool slot_block(int qb, int slot, int window,
+                                           int causal, int include_cls,
+                                           int num_blocks, int* kb) {
+  const int left = causal ? window : (window + 1) / 2;
+  const int first_band = qb - (left - 1);
+  if (include_cls && slot == 0) {
+    *kb = 0;
+    return first_band > 0;
+  }
+  *kb = first_band + slot - (include_cls ? 1 : 0);
+  return *kb >= 0 && *kb < num_blocks;
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes` once per
+// device: the attribute belongs to the device that is current when it is
+// set. `limit` is the caller's record for that kernel, one per kernel.
+constexpr int kMaxDevices = 64;
+struct SmemLimit {
+  std::atomic<bool> set[kMaxDevices];
+};
+
+template <typename Kernel>
+cudaError_t raise_smem_limit(SmemLimit& limit, Kernel* kernel, int bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && limit.set[device].load()) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device < kMaxDevices) limit.set[device] = true;
+  return err;
+}
+
+}  // namespace svt

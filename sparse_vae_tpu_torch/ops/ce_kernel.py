@@ -1,13 +1,15 @@
 """K3 and K3b: the tied vocab projection fused with softmax cross-entropy,
-forward and backward, as CUDA kernels (csrc/tied_ce.cu), replacing
-sparse_vae_tpu/ops/pallas_ce.py::_fwd and ::_bwd.
+forward and backward, as CUDA kernels (csrc/tied_ce.cu, csrc/tied_ce_bwd.cu),
+replacing sparse_vae_tpu/ops/pallas_ce.py::_fwd and ::_bwd.
 
 Logits = g @ table^T + bias over the tied input embedding table; the
-[T, V] logits never reach device memory on the kernel path. `tied_ce_fwd`
-and `tied_ce_bwd` launch the kernels for CUDA tensors and run the plain
-versions (`tied_ce_fwd_plain`, `tied_ce_bwd_plain`, over token chunks) for
-CPU tensors. `FusedTiedCrossEntropy` is the autograd Function around the
-pair, the counterpart of the JAX package's `fused_tied_cross_entropy`.
+[T, V] logits never reach device memory on the kernel path (K3b keeps one
+chunk of bf16 logit gradients, at most DL_SCRATCH_BYTES, in scratch:
+`tied_ce_bwd_chunked`). `tied_ce_fwd` and `tied_ce_bwd` launch the kernels
+for CUDA tensors and run the plain versions (`tied_ce_fwd_plain`,
+`tied_ce_bwd_plain`, over token chunks) for CPU tensors.
+`FusedTiedCrossEntropy` is the autograd Function around the pair, the
+counterpart of the JAX package's `fused_tied_cross_entropy`.
 
 As there, the label logit g . E[label] + bias[label] and the backward's
 -dnll * E[label] term are row gathers outside the kernels, in fp32: the
@@ -21,7 +23,7 @@ import torch
 from . import cuda_lib
 
 # Kernel launches in this process (raised only where a kernel launches):
-# K3 in `fwd_launches`, K3b (the dg and dE kernels of one backward) in
+# K3 in `fwd_launches`, K3b (the chunked kernels of one backward) in
 # `bwd_launches`. `plain_routes` counts CPU losses inside the JAX
 # package's fused-CE gate at a width the kernels do not take (`route` ==
 # "plain"); `take_plain_route` raises it.
@@ -31,6 +33,10 @@ plain_routes = 0
 
 D_MODEL = 512
 VOCAB_TILE = 64
+# K3b: its output tiles are 128 tokens by 128 vocab rows, and its bf16
+# logit-gradient scratch [C, V] holds at most this many bytes.
+BWD_TILE = 128
+DL_SCRATCH_BYTES = 10**9
 
 
 def route(tied: bool, vocab_size: int, d_model: int) -> str:
@@ -153,7 +159,9 @@ def tied_ce_fwd(g, table, bias, labels):
 
 def tied_ce_bwd(g, table, bias, labels, lse, dnll):
     """K3b. (dg, dtable, dbias) of sum(nll * dnll) given the forward's lse
-    [T] fp32 and dnll [T] fp32, in the dtypes of g, table and bias."""
+    [T] fp32 and dnll [T] fp32, in the dtypes of g, table and bias. CUDA:
+    bf16 g and table, fp32 bias, lse and dnll, D = 512, V % 128 == 0,
+    contiguous; the kernels run through `tied_ce_bwd_chunked`."""
     global bwd_launches
     _check(g, table, bias, labels)
     if lse.shape != labels.shape or dnll.shape != labels.shape:
@@ -161,31 +169,148 @@ def tied_ce_bwd(g, table, bias, labels, lse, dnll):
     if not g.is_cuda:
         return tied_ce_bwd_plain(g, table, bias, labels, lse, dnll)
     _check_cuda("K3b", g, table, bias)
+    if table.shape[0] % BWD_TILE:
+        raise ValueError(f"the K3b kernels take a vocab that is a multiple "
+                         f"of {BWD_TILE}, got {table.shape[0]}")
     if lse.dtype != torch.float32 or dnll.dtype != torch.float32:
         raise TypeError("the K3b kernels take fp32 lse and dnll")
     if not (lse.is_contiguous() and dnll.is_contiguous()):
         raise ValueError("the K3b kernels take contiguous lse and dnll")
-    t, v = g.shape[0], table.shape[0]
-    labels32 = labels.to(torch.int32).contiguous()
-    dg = torch.empty((t, g.shape[1]), dtype=torch.float32, device=g.device)
-    de = torch.empty((v, g.shape[1]), dtype=torch.float32, device=g.device)
-    db = torch.empty(v, dtype=torch.float32, device=g.device)
-    lib = cuda_lib.library()
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    code = lib.svt_tied_ce_dg(g.data_ptr(), table.data_ptr(),
-                              bias.data_ptr(), lse.data_ptr(),
-                              dnll.data_ptr(), dg.data_ptr(), t, v,
-                              g.shape[1], stream)
-    cuda_lib.check(code, "tied_ce_bwd (dg)")
-    code = lib.svt_tied_ce_de(g.data_ptr(), table.data_ptr(),
-                              bias.data_ptr(), lse.data_ptr(),
-                              dnll.data_ptr(), labels32.data_ptr(),
-                              de.data_ptr(), db.data_ptr(), t, v,
-                              g.shape[1], stream)
-    cuda_lib.check(code, "tied_ce_bwd (dE)")
+    grads = tied_ce_bwd_chunked(g, table, bias, labels, lse, dnll)
     bwd_launches += 1
-    dg -= dnll[:, None] * table[labels].float()
-    return dg.to(g.dtype), de.to(table.dtype), db
+    return grads
+
+
+def bwd_chunk(tokens: int, vocab: int,
+              scratch_bytes: int = DL_SCRATCH_BYTES) -> int:
+    """Tokens per chunk of `tied_ce_bwd_chunked`: the fewest chunks whose
+    bf16 logit gradients [C, V] fit in `scratch_bytes`, balanced, C a
+    multiple of BWD_TILE (14,720 at T = 102,400, V = 32,768: 7 chunks)."""
+    tiles = -(-tokens // BWD_TILE)
+    fit = max(1, scratch_bytes // (BWD_TILE * vocab * 2))
+    chunks = -(-tiles // fit)
+    return -(-tiles // chunks) * BWD_TILE
+
+
+def tied_ce_bwd_chunked(g, table, bias, labels, lse, dnll,
+                        scratch_bytes: int = DL_SCRATCH_BYTES):
+    """K3b as the card computes it, chunk by chunk (`bwd_chunk` tokens).
+
+    For each chunk of tokens, in order: the logit gradients once,
+    dl = round((exp(logits - lse) - onehot(label)) * dnll) in g's dtype,
+    into a [C, V] scratch (`_bwd_dl`), then dg_c = dl E (`_bwd_dg`) and
+    dE += dl^T g_c (`_bwd_de`). dbias sums the unrounded terms' partials
+    per 128 tokens, in order (`_bwd_dbias`). dg's terms lack the onehot:
+    `_bwd_dl` also gives fix = round(p dnll) - round((p - 1) dnll) at each
+    token's label, so dl E + fix E[label] is their sum, and the fp32
+    gather below adds fix - dnll times E[label] (the -dnll E[label] term
+    of the JAX package's backward). CUDA tensors launch the kernels of
+    csrc/tied_ce_bwd.cu; CPU tensors run the same loop on plain products
+    in fp32. Returns (dg, dtable, dbias) in the dtypes of g, table and
+    bias.
+    """
+    t, d = g.shape
+    v = table.shape[0]
+    chunk = bwd_chunk(t, v, scratch_bytes)
+    tiles = -(-t // BWD_TILE)
+    f32 = {"dtype": torch.float32, "device": g.device}
+    dl = torch.empty((chunk, v), dtype=g.dtype, device=g.device)
+    part = torch.empty((tiles, v), **f32)
+    fix = torch.zeros(t, **f32)
+    dg = torch.empty((t, d), **f32)
+    de = torch.empty((v, d), **f32)
+    db = torch.empty(v, **f32)
+    if g.is_cuda:
+        # K-major operands for the two gradient products: E^T and g^T,
+        # the latter zero-filled to whole token tiles.
+        g_t = g.new_empty((d, tiles * BWD_TILE))
+        g_t[:, :t] = g.T
+        g_t[:, t:] = 0
+        table_t = table.T.contiguous()
+        kernel_labels = labels.to(torch.int32).contiguous()
+    else:
+        g_t, table_t, kernel_labels = g.T, table.T, labels
+    for c0 in range(0, t, chunk):
+        n = min(chunk, t - c0)
+        _bwd_dl(g, table, bias, kernel_labels, lse, dnll, dl, part, fix, c0,
+                n)
+        _bwd_dg(dl, table_t, dg, c0, n)
+        _bwd_de(dl, g_t, de, c0, n, t, accumulate=c0 > 0)
+    _bwd_dbias(part, db)
+    dg += (fix - dnll)[:, None] * table[labels].float()
+    return dg.to(g.dtype), de.to(table.dtype), db.to(bias.dtype)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _bwd_dl(g, table, bias, labels, lse, dnll, dl, part, fix, c0, n):
+    """Tokens [c0, c0 + n): dl[:n], zero rows up to the next token tile,
+    the dbias partials of its token tiles in `part`, and fix[c0:c0 + n]."""
+    if g.is_cuda:
+        code = cuda_lib.library().svt_tied_ce_bwd_dl(
+            g.data_ptr(), table.data_ptr(), bias.data_ptr(), lse.data_ptr(),
+            dnll.data_ptr(), labels.data_ptr(), dl.data_ptr(),
+            part.data_ptr(), fix.data_ptr(), g.shape[0], table.shape[0],
+            g.shape[1], c0, n, dl.shape[0], _stream(g))
+        cuda_lib.check(code, "tied_ce_bwd (dl)")
+        return
+    rows = slice(c0, c0 + n)
+    p = torch.exp(g[rows].float() @ table.float().T + bias.float()
+                  - lse[rows, None])
+    w = dnll[rows, None].float()
+    at = (torch.arange(n, device=g.device), labels[rows].long())
+    dg_term = (p[at] * w[:, 0]).to(dl.dtype).float()
+    p[at] -= 1.0
+    p *= w
+    rounded = p.to(dl.dtype)
+    fix[rows] = dg_term - rounded[at].float()
+    padded = -(-n // BWD_TILE) * BWD_TILE
+    dl[:n] = rounded
+    dl[n:padded] = 0
+    sums = torch.cat([p, p.new_zeros((padded - n, p.shape[1]))]).view(
+        -1, BWD_TILE, p.shape[1]).sum(1)
+    part[c0 // BWD_TILE:c0 // BWD_TILE + sums.shape[0]] = sums
+
+
+def _bwd_dg(dl, table_t, dg, c0, n):
+    """dg[c0:c0 + n] = dl[:n] E, with table_t = E^T [D, V]."""
+    if dl.is_cuda:
+        code = cuda_lib.library().svt_tied_ce_bwd_dg(
+            dl.data_ptr(), table_t.data_ptr(), dg.data_ptr(), dg.shape[0],
+            table_t.shape[1], dg.shape[1], c0, n, dl.shape[0], _stream(dl))
+        cuda_lib.check(code, "tied_ce_bwd (dg)")
+        return
+    dg[c0:c0 + n] = dl[:n].float() @ table_t.T.float()
+
+
+def _bwd_de(dl, g_t, de, c0, n, tokens, accumulate):
+    """dE = (or +=, when accumulate) dl[:n]^T g[c0:c0 + n], with g_t = g^T
+    [D, >= tokens]."""
+    if dl.is_cuda:
+        code = cuda_lib.library().svt_tied_ce_bwd_de(
+            dl.data_ptr(), g_t.data_ptr(), de.data_ptr(), tokens,
+            g_t.shape[1], de.shape[0], de.shape[1], c0, n, dl.shape[0],
+            int(accumulate), _stream(dl))
+        cuda_lib.check(code, "tied_ce_bwd (dE)")
+        return
+    prod = dl[:n].float().T @ g_t[:, c0:c0 + n].T.float()
+    if accumulate:
+        de += prod
+    else:
+        de.copy_(prod)
+
+
+def _bwd_dbias(part, db):
+    """dbias = the token tiles' partials summed in order."""
+    if part.is_cuda:
+        code = cuda_lib.library().svt_tied_ce_bwd_dbias(
+            part.data_ptr(), db.data_ptr(), part.shape[0], part.shape[1],
+            _stream(part))
+        cuda_lib.check(code, "tied_ce_bwd (dbias)")
+        return
+    db.copy_(part.sum(0))
 
 
 class FusedTiedCrossEntropy(torch.autograd.Function):

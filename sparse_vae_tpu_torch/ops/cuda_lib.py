@@ -26,9 +26,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_fwd_packed.cu",
-           "swa_bwd_packed.cu", "tied_ce.cu", "nucleus_select.cu")
+           "swa_bwd_packed.cu", "tied_ce.cu", "tied_ce_bwd.cu",
+           "nucleus_select.cu")
 # Included by the sources; part of the library's hash.
-HEADERS = ("swa_packed.cuh",)
+HEADERS = ("swa_packed.cuh", "tiles.cuh")
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,11 +48,17 @@ _SIGNATURES = {
     "svt_swa_bwd_packed": [_P] * 12 + [_I] * 9 + [_F, _P],
     # g, table, bias, lse, tokens, vocab, dim, stream
     "svt_tied_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
-    # g, table, bias, lse, dnll, dg, tokens, vocab, dim, stream
-    "svt_tied_ce_dg": [_P] * 6 + [_I] * 3 + [_P],
-    # g, table, bias, lse, dnll, labels, de, dbias, tokens, vocab, dim,
-    # stream
-    "svt_tied_ce_de": [_P] * 8 + [_I] * 3 + [_P],
+    # K3b, one token chunk at a time (ce_kernel.tied_ce_bwd_chunked):
+    # g, table, bias, lse, dnll, labels, dl, part, fix, tokens, vocab, dim,
+    # chunk0, rows, dl_rows, stream
+    "svt_tied_ce_bwd_dl": [_P] * 9 + [_I] * 6 + [_P],
+    # dl, table_t, dg, tokens, vocab, dim, chunk0, rows, dl_rows, stream
+    "svt_tied_ce_bwd_dg": [_P] * 3 + [_I] * 6 + [_P],
+    # dl, g_t, de, tokens, tokens_padded, vocab, dim, chunk0, rows,
+    # dl_rows, accumulate, stream
+    "svt_tied_ce_bwd_de": [_P] * 3 + [_I] * 8 + [_P],
+    # part, dbias, tiles, vocab, stream
+    "svt_tied_ce_bwd_dbias": [_P] * 2 + [_I] * 2 + [_P],
     # logits, noise (may be null), out, rows, vocab, top_p, temperature,
     # num_iters, stream
     "svt_nucleus_select": [_P, _P, _P, _I, _I, _F, _F, _I, _P],

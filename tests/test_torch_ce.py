@@ -133,3 +133,44 @@ def test_wrappers_reject_bad_inputs():
     _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
     with pytest.raises(ValueError):
         ce_kernel.tied_ce_bwd(g, table, bias, labels, lse[:5], w)
+
+
+@pytest.mark.parametrize("t, v, d, scratch", [
+    (300, 1024, 64, 128 * 1024 * 2),       # 3 chunks, the last of 44
+    (1000, 256, 32, 4 * 128 * 256 * 2),    # 2 chunks, the last of 488
+    (129, 512, 16, 10**9),                 # 1 chunk, past one token tile
+])
+def test_chunked_bwd_matches_plain(t, v, d, scratch):
+    """K3b's chunk loop (tied_ce_bwd_chunked), run on the CPU with its
+    plain parts, against tied_ce_bwd_plain in fp32: several chunks with a
+    partial last one, padding tokens (dnll 0), dl's onehot and the fix
+    term that takes it back out of dg."""
+    rng = np.random.default_rng(t + v)
+    g = torch.from_numpy((0.5 * rng.standard_normal((t, d))).astype(np.float32))
+    table = torch.from_numpy(
+        (0.5 * rng.standard_normal((v, d))).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(v)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, v, size=t))
+    dnll = torch.from_numpy(rng.random(t).astype(np.float32))
+    labels[-5:], dnll[-5:] = 0, 0.0
+    _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    got = ce_kernel.tied_ce_bwd_chunked(g, table, bias, labels, lse, dnll,
+                                        scratch_bytes=scratch)
+    want = ce_kernel.tied_ce_bwd_plain(g, table, bias, labels, lse, dnll)
+    for name, a, b in zip(("dg", "dE", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=G_RTOL,
+                                   atol=G_ATOL, err_msg=name)
+
+
+def test_bwd_chunk_bounds_the_scratch():
+    """Chunks are whole token tiles, balanced, and their bf16 logit
+    gradients fit the scratch bound: 7 chunks of 14,720 tokens at
+    T = 102,400, V = 32,768 under 1 GB."""
+    assert ce_kernel.bwd_chunk(102400, 32768) == 14720
+    for t, v in [(102400, 32768), (16384, 32768), (1000, 1024), (1, 128)]:
+        c = ce_kernel.bwd_chunk(t, v)
+        assert c % ce_kernel.BWD_TILE == 0
+        assert c * v * 2 <= max(ce_kernel.DL_SCRATCH_BYTES,
+                                ce_kernel.BWD_TILE * v * 2)
+        chunks = -(-t // c)
+        assert c - (chunks * c - t) > 0          # no empty last chunk

@@ -5,8 +5,9 @@ card, and the serving engine on the card. Every test here carries the
 This file imports torch and the port only (no jax), so on the card it runs
 without the JAX set-up of tests/conftest.py: `python -m pytest
 tests/test_torch_cuda.py -q -m gpu --noconftest`. Tolerances as in chip_smoke.py:
-K1's out in bf16 (the plain version rounds the softmax weights to bf16, the
-kernel keeps them fp32), its lse in fp32 up to summation order; K4's tokens
+K1's out in bf16 (both sides round the softmax weights and the output to
+bf16, in other summation orders), its lse in fp32 up to summation order;
+K4's tokens
 identical except on rows whose bisection mass sat within rounding of the
 target. K2's and K3b's gradients in bf16 against their fp32 plain
 versions relative to the largest entry (1e-2: one bf16 rounding of each
@@ -66,6 +67,55 @@ def test_swa_kernel_matches_plain(cuda, causal, window):
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_swa_kernel_without_cls_matches_plain(cuda, causal, window):
+    """K1 with include_cls off (the encoder's bidirectional layers and the
+    causal band alone) against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + window + causal)
+    q, k, v = (torch.randn((2, 4, 640, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    lengths = torch.tensor([640, 450], dtype=torch.int32, device=cuda)
+    mask = torch.arange(640, device=cuda)[None, :] < lengths[:, None]
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, window_size=window,
+                                  causal=causal, include_cls=False)
+    ref, ref_lse = sliding_window_attention_plain(
+        q, k, v, mask, window_size=window, causal=causal, include_cls=False,
+        return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("include_cls", [True, False])
+def test_swa_kernel_ragged_rows(cuda, causal, include_cls):
+    """K1 on ragged rows: a full row, one shorter than a block and a filler
+    row of length 0 (out 0, lse -inf, no NaN), against the plain version
+    on every row that sees a key."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + causal)
+    q, k, v = (torch.randn((3, 4, 512, 64), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    lengths = torch.tensor([512, 70, 0], dtype=torch.int32, device=cuda)
+    mask = torch.arange(512, device=cuda)[None, :] < lengths[:, None]
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, causal=causal,
+                                  include_cls=include_cls)
+    ref, ref_lse = sliding_window_attention_plain(
+        q, k, v, mask, causal=causal, include_cls=include_cls,
+        return_lse=True)
+    assert not bool(torch.isnan(out.float()).any())
+    assert bool((out[2] == 0).all())
+    assert bool(torch.isneginf(lse[2]).all())
+    seen = torch.isfinite(ref_lse)
+    assert torch.equal(seen, torch.isfinite(lse))
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3,
+                               rtol=1e-5)
 
 
 @pytest.mark.gpu
@@ -193,6 +243,61 @@ def test_tied_ce_kernels_match_plain(cuda):
                                        labels, want_lse, dnll)
     for name, a, b in zip(("dg", "dE", "dbias"), got, want):
         _assert_rel(a, b, name)
+
+
+def _ce_problem(cuda, t, v, padded, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    g = (0.5 * torch.randn((t, 512), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    table = (0.5 * torch.randn((v, 512), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    bias = torch.randn(v, generator=gen, device=cuda)
+    labels = torch.randint(0, v, (t,), generator=gen, device=cuda)
+    dnll = torch.rand(t, generator=gen, device=cuda)
+    labels[t - padded:] = 0                 # padding tokens: dnll 0
+    dnll[t - padded:] = 0.0
+    return g, table, bias, labels, dnll
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", [1024, 32768])
+def test_tied_ce_bwd_kernels_match_plain_and_repeat(cuda, vocab):
+    """K3b at a token count that is no multiple of the 128-token tile,
+    with padding tokens, against its fp32 plain version; two calls on the
+    same inputs give bit-identical gradients."""
+    g, table, bias, labels, dnll = _ce_problem(cuda, 1000, vocab, 100,
+                                               60 + vocab)
+    _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    before = ce_kernel.bwd_launches
+    got = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    again = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    assert ce_kernel.bwd_launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = ce_kernel.tied_ce_bwd_plain(g.float(), table.float(), bias,
+                                       labels, lse, dnll)
+    for name, a, b in zip(("dg", "dE", "dbias"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), name
+        _assert_rel(a, b, name)
+
+
+@pytest.mark.gpu
+def test_tied_ce_bwd_kernels_over_several_chunks(cuda):
+    """K3b's kernels over several token chunks with a partial last one
+    (a small scratch bound), against the one-chunk call: dE sums its
+    chunks in order, dg and dbias take each chunk's rows."""
+    g, table, bias, labels, dnll = _ce_problem(cuda, 3000, 2048, 37, 70)
+    _, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    one = ce_kernel.tied_ce_bwd_chunked(g, table, bias, labels, lse, dnll)
+    # 1024 tokens a chunk: 3 chunks, the last of 952.
+    several = ce_kernel.tied_ce_bwd_chunked(g, table, bias, labels, lse,
+                                            dnll, scratch_bytes=1024 * 2048 * 2)
+    want = ce_kernel.tied_ce_bwd_plain(g.float(), table.float(), bias,
+                                       labels, lse, dnll)
+    for name, a, b, w in zip(("dg", "dE", "dbias"), several, one, want):
+        _assert_rel(a, w, name)
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-5,
+                                   rtol=1e-2)
 
 
 @pytest.mark.gpu

@@ -20,9 +20,11 @@ Phases, each timed:
                and K3/K3b (the fused tied projection + CE, forward and
                backward) against their plain versions at the token counts
                of the train, sp-train and [8, 12800] steps, timed at the
-               last beside a PyTorch yardstick; K3b must give
-               bit-identical gradients in two calls, and its row gives its
-               device time by part (dl, dg, dE, dbias, PyTorch's copies);
+               last beside a PyTorch yardstick; K2, K3 and K3b must give
+               bit-identical results in two calls, and the K2 and K3b
+               rows give their device time by part (K2: dq, dk/dv with the
+               [CLS] partials, reduce, PyTorch; K3b: dl, dg, dE, dbias,
+               PyTorch's copies);
   4. model   — the flagship real-prose-vae-r5 weights on the card in bf16:
                prefill logits against the fp32 CPU model on a fixed input;
   5. serve   — ServeEngine (batch 64, max_length 512, fused selection)
@@ -482,7 +484,12 @@ def k2_phase(b: int, L: int, lengths, seed: int, iters: int,
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     out, lse = swa_kernel.swa_fwd(q, k, v, lens)
     got = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do)
+    again = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K2 gives different gradients in two calls on the same inputs "
+          f"at {[b, h, L, d]}")
+    del again
     want = sliding_window_attention_bwd_plain(q, k, v, lens, lse, out, do)
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     abs_err = max((g.float() - w.float()).abs().max().item()
@@ -493,10 +500,18 @@ def k2_phase(b: int, L: int, lengths, seed: int, iters: int,
     check(max(errs) <= GRAD_REL_TOL,
           f"K2 disagrees with its plain version: rel errors {errs}")
     row = {"shape": [b, h, L, d], "lengths": list(lengths),
-           "max_abs_err": abs_err, "rel_errs_dq_dk_dv": errs}
+           "max_abs_err": abs_err, "rel_errs_dq_dk_dv": errs,
+           "bit_identical": True}
     if time_it:
         row["ms"] = cuda_ms(lambda: swa_kernel.swa_bwd(
             q, k, v, lens, lse, out, do), iters)
+        # On the device, by part: dq (with delta), dk/dv (the band and the
+        # [CLS] partials, one launch), the [CLS] reduce, and PyTorch's
+        # allocations.
+        times = device_ms(lambda: swa_kernel.swa_bwd(
+            q, k, v, lens, lse, out, do), 5)
+        row["device_ms"] = sum(times.values())
+        row["parts_device_ms"] = k2_parts(times)
         row["plain_ms"] = cuda_ms(lambda: sliding_window_attention_bwd_plain(
             q, k, v, lens, lse, out, do), 2, warmup=1)
         row["library_ms"] = sdpa_backward_ms(q, k, v, do, lens, window,
@@ -511,6 +526,15 @@ def k2_phase(b: int, L: int, lengths, seed: int, iters: int,
         row["pairs"] = pairs
     print("K2 " + json.dumps(row), flush=True)
     return row
+
+
+def k2_parts(times: dict) -> dict:
+    """K2's device ms by kernel (csrc/swa_bwd.cu) from `device_ms`."""
+    parts = {"dq": kernel_ms(times, "swa_dq_kernel"),
+             "dkv": kernel_ms(times, "swa_dkv_kernel"),
+             "reduce": kernel_ms(times, "swa_cls_reduce_kernel")}
+    parts["pytorch"] = sum(times.values()) - sum(parts.values())
+    return parts
 
 
 def sdpa_backward_ms(q, k, v, do, lens, window, block, mask=None):
@@ -650,9 +674,14 @@ def ce_check(g, table, bias, labels, dnll) -> dict:
     first; fails on a disagreement."""
     t = g.shape[0]
     nll, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    nll2, lse2 = ce_kernel.tied_ce_fwd(g, table, bias, labels)
     grads = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
     again = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
     torch.cuda.synchronize()
+    check(torch.equal(nll, nll2) and torch.equal(lse, lse2),
+          f"K3 gives a different lse in two calls on the same inputs at "
+          f"T = {t}")
+    del nll2, lse2
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
           f"K3b gives different gradients in two calls on the same inputs "
           f"at T = {t}")
@@ -675,7 +704,10 @@ def ce_check(g, table, bias, labels, dnll) -> dict:
           f"K3b disagrees with its plain version at T = {t}: rel errors "
           f"{bwd_errs}")
     return {"tokens": t, "chunk_tokens": ce_kernel.bwd_chunk(
-        t, table.shape[0]), "padding": int((dnll == 0).sum().item()),
+        t, table.shape[0]), "fwd_vocab_splits": ce_kernel.fwd_splits(
+        t, table.shape[0], torch.cuda.get_device_properties(
+            0).multi_processor_count),
+        "padding": int((dnll == 0).sum().item()),
         "fwd_err": fwd_err, "bwd_abs_err": bwd_abs,
         "rel_errs_dg_dE_dbias": bwd_errs}
 
@@ -727,7 +759,8 @@ def k3_phase(seed: int):
     shape = [t, vocab, d]
     check_tokens = [c["tokens"] for c in checks]
     k3 = {"shape": shape, "check_tokens": check_tokens,
-          "max_abs_err": fwd_err,
+          "max_abs_err": fwd_err, "bit_identical": True,
+          "vocab_splits": [c["fwd_vocab_splits"] for c in checks],
           "ms": fwd_ms, "device_ms": fwd_device, "plain_ms": plain_fwd_ms,
           "library_ms": lib_fwd_ms, "bound_ms": fwd_bound[0],
           "bound_by": fwd_bound[1]}
@@ -977,6 +1010,13 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
         row["k1_device_ms"] = kernel_ms(times, "swa_fwd_kernel")
         row["bwd_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block), 10)
+        # The backward on the device, and K2's kernels inside it (the band
+        # part; the rest is the [CLS] backward in PyTorch).
+        times = device_ms(lambda: sp_kernel.sp_bwd(
+            *args, out, lse, do, window, block))
+        row["bwd_device_ms"] = sum(times.values())
+        parts = k2_parts(times)
+        row["bwd_k2_device_ms"] = sum(parts.values()) - parts["pytorch"]
         row["plain_ms"] = cuda_ms(lambda: sp_kernel.sp_fwd_plain(
             *args, window, block), 2, warmup=1)
         row["bwd_plain_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd_plain(
@@ -1315,7 +1355,8 @@ def main() -> int:
          "launches": train_counts["swa_bwd"] + sp_sum("swa_bwd"),
          "launches_by_path": {"train": train_counts["swa_bwd"],
                               "sp-train": sp_sum("swa_bwd")},
-         **timed(k2_train)},
+         **timed(k2_train), **{k: k2_train[k] for k in (
+             "device_ms", "parts_device_ms", "bit_identical")}},
         {"name": "tied_ce_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
@@ -1324,7 +1365,8 @@ def main() -> int:
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
                               "train-h4": h4_train_counts["tied_ce_fwd"],
                               "sp-train": sp_sum("tied_ce_fwd")},
-         **timed(k3), "device_ms": k3["device_ms"]},
+         **timed(k3), **{k: k3[k] for k in (
+             "device_ms", "bit_identical", "vocab_splits")}},
         {"name": "tied_ce_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
@@ -1363,7 +1405,7 @@ def main() -> int:
          "k1_device_ms": k6["k1_device_ms"],
          "square": {k: k6_square[k] for k in (
              "shape", "max_abs_err", "ms", "device_ms", "k1_device_ms",
-             "plain_ms", "bound_ms", "library_ms")}},
+             "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "sp_windowed_attention_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",
@@ -1372,14 +1414,19 @@ def main() -> int:
          "launches_by_rank": {"sp-train": [
              c["sp_windowed_attention_bwd"] for c in sp_counts]},
          "shape": k6["shape"], "max_abs_err": k6["bwd_max_abs_err"],
-         "ms": k6["bwd_ms"], "plain_ms": k6["bwd_plain_ms"],
+         "ms": k6["bwd_ms"], "device_ms": k6["bwd_device_ms"],
+         "k2_device_ms": k6["bwd_k2_device_ms"],
+         "plain_ms": k6["bwd_plain_ms"],
          "bound_ms": k6["bwd_bound_ms"], "bound_by": k6["bwd_bound_by"],
          "library_ms": k6["bwd_library_ms"],
          "square": {"shape": k6_square["shape"],
                     "max_abs_err": k6_square["bwd_max_abs_err"],
                     "ms": k6_square["bwd_ms"],
+                    "device_ms": k6_square["bwd_device_ms"],
+                    "k2_device_ms": k6_square["bwd_k2_device_ms"],
                     "plain_ms": k6_square["bwd_plain_ms"],
                     "bound_ms": k6_square["bwd_bound_ms"],
+                    "bound_by": k6_square["bwd_bound_by"],
                     "library_ms": k6_square["bwd_library_ms"]}},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

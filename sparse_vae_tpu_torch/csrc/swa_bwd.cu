@@ -31,197 +31,184 @@
 // the whole row's.
 //
 // What bounds it. Per layer the pass reads q, k, v, out, do and lse and
-// writes dq, dk, dv: at [8, 8, 12800, 64] about 0.8 GB against ~0.15 TFLOP
-// of band arithmetic, ~190 FLOP per byte, under the H100's bf16 ridge of
-// ~295, so the card's bound is bytes.
+// writes dq, dk, dv: at [8, 8, 12800, 64] about 0.84 GB against ~0.17
+// TFLOP of band + [CLS] arithmetic, ~200 FLOP per byte, under the H100's
+// bf16 ridge of ~295, so the card's bound is bytes.
 //
 // Design. Blocks run in parallel in no order, so the TPU's sequential grid
-// becomes four launches on one stream, each CTA 8 warps of 16 rows, every
-// product a bf16 mma.sync (m16n8k16) with fp32 accumulation, in steps of
-// 32 keys or queries; p and ds go from the accumulator layout straight
-// into the next product's operand registers:
-//   1. dq: one CTA per (q block, head, row); Q and dO stay in shared
-//      memory and in each warp's registers, and for each valid band slot
-//      the K and V tiles are staged: S = Q K^T, dP = dO V^T, dQ += dS K.
-//      It also computes delta for its rows and writes it out.
-//   2. dk/dv band: one CTA per (k block, head, row) with K and V resident,
-//      looping over the `window` query blocks whose band holds this key
-//      block (the inverse band map): S^T = K Q^T, dP^T = V dO^T,
-//      dV += P^T dO, dK += dS^T Q.
-//   3. [CLS] column: key block 0 is also attended by every query block
-//      past the band's left extent (98 blocks at L = 12,800). On the TPU
-//      those accumulated in order in scratch; here CTAs of CLS_CHUNK query
-//      blocks each write an fp32 partial, and the band part of block 0
-//      goes to fp32 scratch instead of the output.
-//   4. reduce: one CTA per (head, row) sums block 0's band part and the
-//      partials in a fixed order and rounds once: deterministic, no
-//      atomics.
-// Shared memory rows are padded to 72 bf16 so the fragment loads hit 32
-// distinct banks. mma.sync rather than wgmma/TMA: simple first.
+// becomes three launches on one stream. A CTA is two warpgroups, each
+// owning 64 of the block's 128 rows, and every product is a wgmma (bf16
+// in, fp32 accumulate) in steps of 32 keys or queries: S and dP
+// (m64n32k16) read both operands from shared memory, K-major; dQ = dS K,
+// dK = dS^T Q and dV = P^T dO (m64n64k16) take dS or P from registers,
+// straight from the accumulator layout as bf16, and K, Q or dO from the
+// same shared tiles read MN-major (the transposed-B form). Tiles are
+// 128 x 64 bf16, one 128-byte row per token, stored by cp.async in the
+// 128-byte swizzle that wgmma reads without bank conflicts; the next
+// tile's loads overlap this one's products (double buffers). Beside the
+// products, the per-element softmax work is what the warps issue most,
+// so it is kept short: exp2 on pre-scaled logits (ex2.approx), no mask
+// where a warpgroup-uniform test shows every key valid and causally
+// allowed (every step off the diagonal and the ragged end), and scale (a
+// power of two, 1/8) applied once to the dq and dk sums instead of to
+// every ds.
+//   1. dq: one CTA per (q block, head, row). delta = rowsum(do * out) for
+//      its 128 rows is computed by all 256 threads (two a row) while Q, dO
+//      and the first key block arrive, and written out for pass 2. Q and
+//      dO stay in shared memory; the valid band slots' K and V tiles
+//      stream through a double buffer: S = Q K^T, dP = dO V^T, dQ += dS K.
+//   2. dk/dv: one CTA per key block, with K and V resident, over the query
+//      blocks whose band holds it (the inverse band map), their Q, dO, lse
+//      and delta double-buffered: S^T = K Q^T, dP^T = V dO^T,
+//      dV += P^T dO, dK += dS^T Q. The same launch holds the [CLS] column:
+//      key block 0 is also attended by every query block past the band's
+//      left extent (98 blocks at L = 12,800); on the TPU those accumulated
+//      in order in scratch, here CTAs of cls_chunk query blocks each write
+//      an fp32 partial, and the band part of block 0 goes to fp32 scratch
+//      instead of the output. The [CLS] CTAs come first in the grid, so
+//      the longer ones start first.
+//   3. reduce: 16 CTAs per (head, row) sum block 0's band part and the
+//      partials in a fixed order and round once.
+// Every output tile has one owner and every sum a fixed order: no atomics,
+// and a second call is bit-identical. Dynamic shared memory: dq 99,328
+// bytes (+ 512 static), dk/dv 101,376 (kDqSmem, kKvSmem): 2 CTAs per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using svt::cp_async16;
+using svt::cp_async4;
+using svt::cp_async_commit;
+using svt::cp_async_wait;
+using svt::desc_sw128;
+using svt::ex2;
+using svt::fence_acc;
+using svt::fence_proxy_async;
+using svt::packf;
+using svt::wgmma_commit;
+using svt::wgmma_fence;
+using svt::wgmma_rs_n64_mn;
+using svt::wgmma_ss_n32;
+using svt::wgmma_ss_n64;
+using svt::wgmma_wait;
+
 constexpr int kBlock = 128;   // attention block == rows per CTA
-constexpr int kHeadDim = 64;
-constexpr int kWarps = kBlock / 16;     // 16 rows per warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStride = kHeadDim + 8;   // smem row stride, bf16
-constexpr int kTile = kBlock * kStride; // bf16 per staged tile
-constexpr int kChunk = 32;              // keys or queries per step
-constexpr int kNt = kChunk / 8;         // mma n-tiles per step
+constexpr int kHeadDim = 64;  // one 128-byte row
+constexpr int kThreads = 256;           // two warpgroups of 64 rows
+constexpr int kRowBytes = kHeadDim * 2;
+constexpr int kTileBytes = kBlock * kRowBytes;
+constexpr int kWgBytes = 64 * kRowBytes;  // a warpgroup's 64 rows
+constexpr int kChunk = 32;              // queries per dk/dv step
+constexpr int kKeyChunk = 64;           // keys per dq step
 constexpr int kTileFloats = kBlock * kHeadDim;
-constexpr int kSmem = 4 * kTile * 2 + 2 * kBlock * 4;
+// dq: Q, dO, then two buffers of [K | V].
+constexpr int kDqSmem = svt::kSwizzleAlign + 6 * kTileBytes;
+// dk/dv: K, V, then two buffers of [Q | dO | lse | delta].
+constexpr int kQBuf = 2 * kTileBytes + 2 * kBlock * 4;
+static_assert(kQBuf % svt::kSwizzleAlign == 0, "buffers stay 1024-aligned");
+constexpr int kKvSmem = svt::kSwizzleAlign + 2 * kTileBytes + 2 * kQBuf;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t packf(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A contiguous [kBlock, kHeadDim] bf16 tile into shared memory at stride
-// kStride.
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ src,
-                                      __nv_bfloat16* dst) {
-  for (int i = threadIdx.x; i < kBlock * kHeadDim / 8; i += kThreads) {
-    const int r = i / (kHeadDim / 8);
-    const int c = i % (kHeadDim / 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * kHeadDim + c * 8);
+// A contiguous [kBlock, 64] bf16 tile into shared memory in the 128-byte
+// swizzle (16-byte chunk c of row r at c ^ (r & 7)), by cp.async (this
+// thread's share).
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
+                                          unsigned char* dst) {
+  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
+    const int r = i >> 3;
+    const int c = i & 7;
+    cp_async16(dst + r * kRowBytes + ((c ^ (r & 7)) << 4),
+               src + r * kHeadDim + c * 8);
   }
 }
 
-// The A operand fragments of rows r0..r0+15 of a staged tile, all 64 dims.
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* t, int r0,
-                                          uint32_t (&a)[4][4]) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* p = t + (r0 + (lane >> 2)) * kStride + 2 * (lane & 3);
+// x[64 x 32] = A[64 rows at a] B[32 rows at b]^T over the 64 dims.
+__device__ __forceinline__ void product_n32(float (&x)[16],
+                                            const unsigned char* a,
+                                            const unsigned char* b) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = ld32(p + ks * 16);
-    a[ks][1] = ld32(p + 8 * kStride + ks * 16);
-    a[ks][2] = ld32(p + ks * 16 + 8);
-    a[ks][3] = ld32(p + 8 * kStride + ks * 16 + 8);
+  for (int k16 = 0; k16 < 4; ++k16)
+    wgmma_ss_n32(x, desc_sw128(a + 32 * k16), desc_sw128(b + 32 * k16),
+                 k16);
+}
+
+// x[64 x 64] = A[64 rows at a] B[64 rows at b]^T over the 64 dims.
+__device__ __forceinline__ void product_n64(float (&x)[32],
+                                            const unsigned char* a,
+                                            const unsigned char* b) {
+#pragma unroll
+  for (int k16 = 0; k16 < 4; ++k16)
+    wgmma_ss_n64(x, desc_sw128(a + 32 * k16), desc_sw128(b + 32 * k16),
+                 k16);
+}
+
+// acc[64 x 64] += bf16(w)[64 x N] T[N rows at t], w in the accumulator
+// layout of product_n32 / product_n64 (w[4n + 2i + e]: row 16 warp + gq +
+// 8i, column 8n + 2tq + e), which is the A register layout once packed by
+// k16 step.
+template <int N>
+__device__ __forceinline__ void product_acc(float (&acc)[32],
+                                            const float (&w)[N / 2],
+                                            const unsigned char* t) {
+#pragma unroll
+  for (int kq = 0; kq < N / 16; ++kq) {
+    const uint32_t a[4] = {packf(w[8 * kq], w[8 * kq + 1]),
+                           packf(w[8 * kq + 2], w[8 * kq + 3]),
+                           packf(w[8 * kq + 4], w[8 * kq + 5]),
+                           packf(w[8 * kq + 6], w[8 * kq + 7])};
+    wgmma_rs_n64_mn(acc, a, desc_sw128(t + 16 * kq * kRowBytes));
   }
 }
 
-// x[16 x 32] = A . T[c0 .. c0+31]^T over the 64 dims.
-__device__ __forceinline__ void rows_dot(const uint32_t (&a)[4][4],
-                                         const __nv_bfloat16* t, int c0,
-                                         float (&x)[kNt][4]) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* p = t + (c0 + (lane >> 2)) * kStride + 2 * (lane & 3);
+__device__ __forceinline__ void zero(float (&acc)[32]) {
 #pragma unroll
-  for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      const uint32_t b[2] = {ld32(p + nt * 8 * kStride + ks * 16),
-                             ld32(p + nt * 8 * kStride + ks * 16 + 8)};
-      mma16816(x[nt], a[ks], b);
-    }
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 }
 
-// acc[16 x 64] += bf16(w)[16 x 32] . T[c0 .. c0+31][0 .. 63], with w in
-// the accumulator layout of rows_dot.
-__device__ __forceinline__ void acc_product(const float (&w)[kNt][4],
-                                            const __nv_bfloat16* t, int c0,
-                                            float (&acc)[8][4]) {
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
+// The products sum ds / scale; scale is a power of two (64^-0.5 = 1/8),
+// so multiplying the sums by it once is exact and equals summing the
+// scaled terms.
+__device__ __forceinline__ void scale_acc(float (&acc)[32], float scale) {
 #pragma unroll
-  for (int kk = 0; kk < kNt / 2; ++kk) {
-    const uint32_t a[4] = {packf(w[2 * kk][0], w[2 * kk][1]),
-                           packf(w[2 * kk][2], w[2 * kk][3]),
-                           packf(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-                           packf(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-    const __nv_bfloat16* p = t + (c0 + kk * 16 + 2 * tq) * kStride + gq;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* c = p + nt * 8;
-      const uint32_t b[2] = {pack2(c[0], c[kStride]),
-                             pack2(c[8 * kStride], c[9 * kStride])};
-      mma16816(acc[nt], a, b);
-    }
-  }
+  for (int i = 0; i < 32; ++i) acc[i] *= scale;
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-}
-
-// A warp's 16 x 64 accumulator to rows r0, r0+8 (per lane group) of a
-// row-major [*, 64] output.
-__device__ __forceinline__ void store_bf16(const float (&acc)[8][4],
+// A warp's 16 x 64 slice of a warpgroup accumulator (acc[4n + 2i + e]:
+// row gq + 8i, column 8n + 2tq + e) to the rows at `rows` of a row-major
+// [*, 64] output.
+__device__ __forceinline__ void store_bf16(const float (&acc)[32],
                                            __nv_bfloat16* rows) {
   const int lane = threadIdx.x & 31;
   __nv_bfloat16* lo = rows + (lane >> 2) * kHeadDim + 2 * (lane & 3);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    *reinterpret_cast<uint32_t*>(lo + nt * 8) = packf(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<uint32_t*>(lo + 8 * kHeadDim + nt * 8) =
-        packf(acc[nt][2], acc[nt][3]);
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<uint32_t*>(lo + n * 8) =
+        packf(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(lo + 8 * kHeadDim + n * 8) =
+        packf(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-__device__ __forceinline__ void store_f32(const float (&acc)[8][4],
+__device__ __forceinline__ void store_f32(const float (&acc)[32],
                                           float* rows) {
   const int lane = threadIdx.x & 31;
   float* lo = rows + (lane >> 2) * kHeadDim + 2 * (lane & 3);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    *reinterpret_cast<float2*>(lo + nt * 8) = make_float2(acc[nt][0],
-                                                          acc[nt][1]);
-    *reinterpret_cast<float2*>(lo + 8 * kHeadDim + nt * 8) =
-        make_float2(acc[nt][2], acc[nt][3]);
+  for (int n = 0; n < 8; ++n) {
+    *reinterpret_cast<float2*>(lo + n * 8) =
+        make_float2(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<float2*>(lo + 8 * kHeadDim + n * 8) =
+        make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-// Band slot -> key block (K1's _slot_to_block): slot 0 is [CLS] when
-// included, valid only when the band does not already reach block 0.
-__device__ __forceinline__ bool slot_block(int qb, int slot, int window,
-                                           int causal, int include_cls,
-                                           int num_blocks, int* kb) {
-  const int left = causal ? window : (window + 1) / 2;
-  const int first_band = qb - (left - 1);
-  if (include_cls && slot == 0) {
-    *kb = 0;
-    return first_band > 0;
-  }
-  *kb = first_band + slot - (include_cls ? 1 : 0);
-  return *kb >= 0 && *kb < num_blocks;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
@@ -232,11 +219,10 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
               int num_heads, int q_len, int key_len, int window, int causal,
               int include_cls, int q_off, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kTile;
-  __nv_bfloat16* ks = dos + kTile;
-  __nv_bfloat16* vs = ks + kTile;
-  float* deltas = reinterpret_cast<float*>(vs + kTile);
+  unsigned char* qs = svt::align_smem(smem_raw);
+  unsigned char* dos = qs + kTileBytes;
+  unsigned char* kv = dos + kTileBytes;  // [2][K | V]
+  __shared__ float deltas[kBlock];
 
   const int qb = blockIdx.x + q_off;  // the query block on the key axis
   const int h = blockIdx.y;
@@ -247,126 +233,129 @@ swa_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = blockIdx.x * kBlock;  // local row of the block's first query
   const int qk0 = qb * kBlock;         // its position on the key axis
   const int length = lengths[b];
-  const int warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;
   const int tq = lane & 3;
 
-  if (threadIdx.x < kBlock) {  // delta = rowsum(do * out) in fp32
-    const size_t row = (qhead + q0 + threadIdx.x) * kHeadDim;
-    const __nv_bfloat162* d2 =
-        reinterpret_cast<const __nv_bfloat162*>(dout + row);
-    const __nv_bfloat162* o2 =
-        reinterpret_cast<const __nv_bfloat162*>(out + row);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < kHeadDim / 2; ++i) {
-      const float2 a = __bfloat1622float2(d2[i]);
-      const float2 c = __bfloat1622float2(o2[i]);
-      sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
-    }
-    deltas[threadIdx.x] = sum;
-    delta[qhead + q0 + threadIdx.x] = sum;
-  }
-  stage(q + (qhead + q0) * kHeadDim, qs);
-  stage(dout + (qhead + q0) * kHeadDim, dos);
-  __syncthreads();
+  // Band slots in use: the block exists and holds a valid key (uniform
+  // over the CTA).
+  const int slots = window + (include_cls ? 1 : 0);
+  auto key_block = [&](int slot) {
+    int kb;
+    const bool valid = svt::slot_block(qb, slot, window, causal,
+                                       include_cls, num_blocks, &kb);
+    return valid && kb * kBlock < length ? kb : -1;
+  };
+  auto next_slot = [&](int slot) {
+    while (slot < slots && key_block(slot) < 0) ++slot;
+    return slot;
+  };
+  auto load_kv = [&](int kb, unsigned char* dst) {
+    const size_t key0 = (head + (size_t)kb * kBlock) * kHeadDim;
+    load_tile(k + key0, dst);
+    load_tile(v + key0, dst + kTileBytes);
+  };
 
-  uint32_t qa[4][4], da[4][4];
-  load_rows(qs, warp * 16, qa);
-  load_rows(dos, warp * 16, da);
-  // Key-axis positions of the lane's two rows.
-  const int row[2] = {qk0 + warp * 16 + gq, qk0 + warp * 16 + gq + 8};
-  const float lse_r[2] = {lse[qhead + q0 + warp * 16 + gq],
-                          lse[qhead + q0 + warp * 16 + gq + 8]};
-  const float del_r[2] = {deltas[warp * 16 + gq], deltas[warp * 16 + gq + 8]};
-  float acc[8][4];
+  load_tile(q + (qhead + q0) * kHeadDim, qs);
+  load_tile(dout + (qhead + q0) * kHeadDim, dos);
+  int cur = next_slot(0);
+  if (cur < slots) load_kv(key_block(cur), kv);
+  cp_async_commit();
+
+  {  // delta = rowsum(do * out) in fp32: two threads a row, 32 dims each.
+    const int r = threadIdx.x >> 1;
+    const size_t off = (qhead + q0 + r) * kHeadDim + (threadIdx.x & 1) * 32;
+    const uint4* d4 = reinterpret_cast<const uint4*>(dout + off);
+    const uint4* o4 = reinterpret_cast<const uint4*>(out + off);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 dv4 = d4[i], ov4 = o4[i];
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv4);
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = __bfloat1622float2(dp[j]);
+        const float2 c = __bfloat1622float2(op[j]);
+        sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((threadIdx.x & 1) == 0) {
+      deltas[r] = sum;
+      delta[qhead + q0 + r] = sum;
+    }
+  }
+
+  // This thread's rows of the block: r0 and r0 + 8.
+  const int r0 = 64 * wg + 16 * warp + gq;
+  const int row[2] = {qk0 + r0, qk0 + r0 + 8};  // key-axis positions
+  const float lse_r[2] = {lse[qhead + q0 + r0], lse[qhead + q0 + r0 + 8]};
+  const float l2_r[2] = {lse_r[0] * kLog2e, lse_r[1] * kLog2e};
+  const float sl2 = scale * kLog2e;
+  const unsigned char* qa = qs + wg * kWgBytes;
+  const unsigned char* da = dos + wg * kWgBytes;
+  float acc[32];
   zero(acc);
 
-  const int slots = window + (include_cls ? 1 : 0);
-  for (int slot = 0; slot < slots; ++slot) {
-    int kb;
-    const bool valid = slot_block(qb, slot, window, causal, include_cls,
-                                  num_blocks, &kb);
-    const int key0 = kb * kBlock;
-    const int nkeys = min(kBlock, length - key0);
-    if (!valid || nkeys <= 0) continue;  // uniform over the CTA
-
-    __syncthreads();  // every warp is done with the previous tiles
-    stage(k + (head + key0) * kHeadDim, ks);
-    stage(v + (head + key0) * kHeadDim, vs);
+  int bi = 0;
+  while (cur < slots) {
+    const int nxt = next_slot(cur + 1);
+    if (nxt < slots) load_kv(key_block(nxt), kv + (bi ^ 1) * 2 * kTileBytes);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
     __syncthreads();
+    const float del_r[2] = {deltas[r0], deltas[r0 + 8]};
 
-    for (int c0 = 0; c0 < nkeys; c0 += kChunk) {
-      // Warp-uniform: every key of the step lies after every row.
-      if (causal && key0 + c0 > qk0 + warp * 16 + 15) continue;
-      float s[kNt][4], dp[kNt][4];
-      rows_dot(qa, ks, c0, s);
-      rows_dot(da, vs, c0, dp);
+    const unsigned char* ks = kv + bi * 2 * kTileBytes;
+    const unsigned char* vs = ks + kTileBytes;
+    const int key0 = key_block(cur) * kBlock;
+    const int nkeys = min(kBlock, length - key0);
+    for (int c0 = 0; c0 < nkeys; c0 += kKeyChunk) {
+      // Warpgroup-uniform: every key of the step lies after every row.
+      if (causal && key0 + c0 > qk0 + 64 * wg + 63) break;
+      float s[32], dp[32];
+      wgmma_fence();
+      product_n64(s, qa, ks + c0 * kRowBytes);   // S = Q K^T
+      product_n64(dp, da, vs + c0 * kRowBytes);  // dP = dO V^T
+      wgmma_commit();
+      // These products, and the previous step's dQ product, are done.
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      fence_acc(acc);
+      // ds / scale. Warpgroup-uniform: a step with every key valid and at
+      // or before every row needs no mask (its rows then have a finite
+      // lse).
+      const bool edge = key0 + c0 + kKeyChunk > length ||
+                        (causal && key0 + c0 + kKeyChunk - 1 > qk0 + 64 * wg);
 #pragma unroll
-      for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int key = key0 + c0 + nt * 8 + 2 * tq + (e & 1);
+      for (int j = 0; j < 32; ++j) {
+        const int i = (j >> 1) & 1;
+        float p = ex2(fmaf(s[j], sl2, -l2_r[i]));
+        if (edge) {
+          const int key = key0 + c0 + 8 * (j >> 2) + 2 * tq + (j & 1);
           const bool ok = key < length && lse_r[i] != -INFINITY &&
                           (!causal || key <= row[i]);
-          const float p = ok ? expf(s[nt][e] * scale - lse_r[i]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - del_r[i]) * scale;  // ds
+          p = ok ? p : 0.f;
         }
-      acc_product(s, ks, c0, acc);
-    }
-  }
-  store_bf16(acc, dq + (qhead + q0 + warp * 16) * kHeadDim);
-}
-
-// One staged query block's contributions to a warp's 16 key rows:
-// dv += P^T dO, dk += dS^T Q.
-__device__ __forceinline__ void accumulate_kv(
-    const uint32_t (&ka)[4][4], const uint32_t (&va)[4][4],
-    const __nv_bfloat16* qs, const __nv_bfloat16* dos, const float* lses,
-    const float* deltas, int q0, int key_first, int length, int causal,
-    float scale, float (&dk)[8][4], float (&dv)[8][4]) {
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int key[2] = {key_first + gq, key_first + gq + 8};
-  for (int c0 = 0; c0 < kBlock; c0 += kChunk) {
-    // Warp-uniform: every query of the step lies before every key.
-    if (causal && q0 + c0 + kChunk - 1 < key_first) continue;
-    float s[kNt][4], dp[kNt][4];
-    rows_dot(ka, qs, c0, s);
-    rows_dot(va, dos, c0, dp);
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + nt * 8 + 2 * tq + (e & 1);
-        const int kk = key[e >> 1];
-        const float l = lses[col];
-        const bool ok = kk < length && l != -INFINITY &&
-                        (!causal || kk <= q0 + col);
-        const float p = ok ? expf(s[nt][e] * scale - l) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - deltas[col]) * scale;  // ds
-        s[nt][e] = p;
+        s[j] = p * (dp[j] - del_r[i]);
       }
-    acc_product(s, dos, c0, dv);
-    acc_product(dp, qs, c0, dk);
+      wgmma_fence();
+      product_acc<kKeyChunk>(acc, s, ks + c0 * kRowBytes);  // dQ += dS K
+      wgmma_commit();  // in flight beside the next step's S and dP
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    __syncthreads();  // every warp is done with this buffer
+    cur = nxt;
+    bi ^= 1;
   }
-}
-
-__device__ __forceinline__ void stage_queries(
-    const __nv_bfloat16* q, const __nv_bfloat16* dout, const float* lse,
-    const float* delta, size_t head, int q0, __nv_bfloat16* qs,
-    __nv_bfloat16* dos, float* lses, float* deltas) {
-  __syncthreads();  // every warp is done with the previous block
-  stage(q + (head + q0) * kHeadDim, qs);
-  stage(dout + (head + q0) * kHeadDim, dos);
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) {
-    lses[i] = lse[head + q0 + i];
-    deltas[i] = delta[head + q0 + i];
-  }
-  __syncthreads();
+  scale_acc(acc, scale);
+  store_bf16(acc, dq + (qhead + q0 + 64 * wg + 16 * warp) * kHeadDim);
 }
 
 // fp32 [kBlock, kHeadDim] part `part` of the [CLS]-column scratch
@@ -380,23 +369,11 @@ __device__ __forceinline__ float* scratch_part(float* scratch, int which,
              (size_t)kTileFloats;
 }
 
-struct KvSmem {
-  __nv_bfloat16 *ks, *vs, *qs, *dos;
-  float *lses, *deltas;
-};
-
-__device__ __forceinline__ KvSmem kv_smem(unsigned char* raw) {
-  KvSmem m;
-  m.ks = reinterpret_cast<__nv_bfloat16*>(raw);
-  m.vs = m.ks + kTile;
-  m.qs = m.vs + kTile;
-  m.dos = m.qs + kTile;
-  m.lses = reinterpret_cast<float*>(m.dos + kTile);
-  m.deltas = m.lses + kBlock;
-  return m;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// The dk/dv pass and the [CLS] column. blockIdx.x < cls_chunks * H * B:
+// [CLS] chunk c of (h, b), key block 0 against query blocks
+// left + c * cls_chunk .. (partial 1 + c); past them: key block kb of
+// (h, b) against its band's query blocks.
+__global__ void __launch_bounds__(kThreads, 2)
 swa_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
@@ -408,126 +385,191 @@ swa_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                __nv_bfloat16* __restrict__ dv_out,
                float* __restrict__ scratch, int batch, int num_heads,
                int q_len, int key_len, int window, int causal, int q_off,
-               int cls_chunks, float scale) {
+               int cls_chunk, int cls_chunks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const KvSmem m = kv_smem(smem_raw);
-  const int kb = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  unsigned char* ks = svt::align_smem(smem_raw);
+  unsigned char* vs = ks + kTileBytes;
+  unsigned char* qbufs = vs + kTileBytes;
+
   const int num_q_blocks = q_len / kBlock;
+  const int num_k_blocks = key_len / kBlock;
+  const int cls_tasks = cls_chunks * num_heads * batch;
+  const bool cls = static_cast<int>(blockIdx.x) < cls_tasks;
+  int task = cls ? blockIdx.x : blockIdx.x - cls_tasks;
+  const int per_head = cls ? cls_chunks : num_k_blocks;
+  const int idx = task % per_head;  // [CLS] chunk or key block
+  task /= per_head;
+  const int h = task % num_heads;
+  const int b = task / num_heads;
+  const int kb = cls ? 0 : idx;
+  const int k0 = kb * kBlock;
   const size_t qhead = ((size_t)b * num_heads + h) * (size_t)q_len;
   const size_t head = ((size_t)b * num_heads + h) * (size_t)key_len;
-  const int k0 = kb * kBlock;
   const int length = lengths[b];
-  const int warp = threadIdx.x >> 5;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
 
-  stage(k + (head + k0) * kHeadDim, m.ks);
-  stage(v + (head + k0) * kHeadDim, m.vs);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_rows(m.ks, warp * 16, ka);
-  load_rows(m.vs, warp * 16, va);
-  float dk[8][4], dv[8][4];
+  // The local query blocks [lo, hi) this CTA visits: the band's
+  // (_band_q_for_k: local block kb + left - window + slot - q_off, its
+  // key-axis block kb + left - window + slot), or a [CLS] chunk's. None
+  // when no key of the block is valid.
+  const int left = causal ? window : (window + 1) / 2;
+  int lo, hi;
+  if (cls) {
+    lo = left + idx * cls_chunk;
+    hi = min(num_q_blocks, lo + cls_chunk);
+  } else {
+    lo = max(0, kb + left - window - q_off);
+    hi = min(num_q_blocks, kb + left - q_off);
+  }
+  if (k0 >= length) hi = lo;
+
+  auto load_queries = [&](int qb, int which) {
+    unsigned char* base = qbufs + which * kQBuf;
+    float* ls = reinterpret_cast<float*>(base + 2 * kTileBytes);
+    const size_t row0 = qhead + (size_t)qb * kBlock;
+    load_tile(q + row0 * kHeadDim, base);
+    load_tile(dout + row0 * kHeadDim, base + kTileBytes);
+    if (threadIdx.x < kBlock)
+      cp_async4(ls + threadIdx.x, lse + row0 + threadIdx.x);
+    else
+      cp_async4(ls + threadIdx.x, delta + row0 + threadIdx.x - kBlock);
+  };
+
+  load_tile(k + (head + k0) * kHeadDim, ks);
+  load_tile(v + (head + k0) * kHeadDim, vs);
+  if (lo < hi) load_queries(lo, 0);
+  cp_async_commit();
+
+  float dk[32], dv[32];
   zero(dk);
   zero(dv);
+  const float sl2 = scale * kLog2e;
+  const int r0 = 64 * wg + 16 * warp + gq;   // this thread's key rows
+  const int key[2] = {k0 + r0, k0 + r0 + 8};
+  const unsigned char* ka = ks + wg * kWgBytes;
+  const unsigned char* va = vs + wg * kWgBytes;
 
-  if (k0 < length) {  // uniform: some key of this block is valid
-    const int left = causal ? window : (window + 1) / 2;
-    for (int slot = 0; slot < window; ++slot) {
-      // _band_q_for_k: the local query block; its key-axis block is
-      // qb + q_off.
-      const int qb = kb + left - window + slot - q_off;
-      if (qb < 0 || qb >= num_q_blocks) continue;
-      stage_queries(q, dout, lse, delta, qhead, qb * kBlock, m.qs, m.dos,
-                    m.lses, m.deltas);
-      accumulate_kv(ka, va, m.qs, m.dos, m.lses, m.deltas,
-                    (qb + q_off) * kBlock, k0 + warp * 16, length, causal,
-                    scale, dk, dv);
+  for (int qb = lo, bi = 0; qb < hi; ++qb, bi ^= 1) {
+    if (qb + 1 < hi) load_queries(qb + 1, bi ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+
+    const unsigned char* qs = qbufs + bi * kQBuf;
+    const unsigned char* dos = qs + kTileBytes;
+    const float* lses = reinterpret_cast<const float*>(dos + kTileBytes);
+    const float* deltas = lses + kBlock;
+    const int qpos0 = (qb + q_off) * kBlock;  // key-axis position of query 0
+    for (int c0 = 0; c0 < kBlock; c0 += kChunk) {
+      // Warpgroup-uniform: every query of the step lies before every key.
+      if (causal && qpos0 + c0 + kChunk - 1 < k0 + 64 * wg) continue;
+      float s[16], dp[16];
+      wgmma_fence();
+      product_n32(s, ka, qs + c0 * kRowBytes);    // S^T = K Q^T
+      product_n32(dp, va, dos + c0 * kRowBytes);  // dP^T = V dO^T
+      wgmma_commit();
+      // These products, and the previous step's dV and dK products, are
+      // done.
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      fence_acc(dv);
+      fence_acc(dk);
+      // p and ds / scale. Warpgroup-uniform: a step with every key valid
+      // and at or before every query needs no mask (its queries then have
+      // a finite lse).
+      const bool edge = k0 + 64 * wg + 64 > length ||
+                        (causal && k0 + 64 * wg + 63 > qpos0 + c0);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = c0 + n * 8 + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(lses + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(deltas + col);
+        const float nl[2] = {-l2.x * kLog2e, -l2.y * kLog2e};
+        const float dd[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * n + e;
+          float p = ex2(fmaf(s[j], sl2, nl[e & 1]));
+          if (edge) {
+            const int kk = key[e >> 1];
+            const float l = (e & 1) ? l2.y : l2.x;
+            const bool ok = kk < length && l != -INFINITY &&
+                            (!causal || kk <= qpos0 + col + (e & 1));
+            p = ok ? p : 0.f;
+          }
+          dp[j] = p * (dp[j] - dd[e & 1]);
+          s[j] = p;
+        }
+      }
+      wgmma_fence();
+      product_acc<kChunk>(dv, s, dos + c0 * kRowBytes);  // dV += P^T dO
+      product_acc<kChunk>(dk, dp, qs + c0 * kRowBytes);  // dK += dS^T Q
+      wgmma_commit();  // in flight beside the next step's S^T and dP^T
     }
+    wgmma_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+    __syncthreads();  // every warp is done with this buffer
   }
+
+  const int row0 = 64 * wg + 16 * warp;
+  scale_acc(dk, scale);
   if (kb == 0 && cls_chunks > 0) {
-    // Block 0's band part joins the [CLS] partials in the reduce pass.
+    // Block 0's band part and the [CLS] partials meet in the reduce pass.
     const int parts = 1 + cls_chunks;
-    store_f32(dk, scratch_part(scratch, 0, batch, b, num_heads, h, parts, 0)
-                      + warp * 16 * kHeadDim);
-    store_f32(dv, scratch_part(scratch, 1, batch, b, num_heads, h, parts, 0)
-                      + warp * 16 * kHeadDim);
+    const int part = cls ? 1 + idx : 0;
+    store_f32(dk, scratch_part(scratch, 0, batch, b, num_heads, h, parts,
+                               part) + row0 * kHeadDim);
+    store_f32(dv, scratch_part(scratch, 1, batch, b, num_heads, h, parts,
+                               part) + row0 * kHeadDim);
     return;
   }
-  store_bf16(dk, dk_out + (head + k0 + warp * 16) * kHeadDim);
-  store_bf16(dv, dv_out + (head + k0 + warp * 16) * kHeadDim);
-}
-
-__global__ void __launch_bounds__(kThreads)
-swa_dkv_cls_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const int* __restrict__ lengths,
-                   float* __restrict__ scratch, int batch, int num_heads,
-                   int seq_len, int window, int causal, int cls_chunk,
-                   int cls_chunks, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const KvSmem m = kv_smem(smem_raw);
-  const int c = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int num_blocks = seq_len / kBlock;
-  const size_t head = ((size_t)b * num_heads + h) * (size_t)seq_len;
-  const int length = lengths[b];
-  const int warp = threadIdx.x >> 5;
-
-  stage(k + head * kHeadDim, m.ks);  // key block 0
-  stage(v + head * kHeadDim, m.vs);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_rows(m.ks, warp * 16, ka);
-  load_rows(m.vs, warp * 16, va);
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
-
-  const int left = causal ? window : (window + 1) / 2;
-  const int first = left + c * cls_chunk;
-  const int last = min(num_blocks, first + cls_chunk);
-  if (length > 0) {  // uniform
-    for (int qb = first; qb < last; ++qb) {
-      stage_queries(q, dout, lse, delta, head, qb * kBlock, m.qs, m.dos,
-                    m.lses, m.deltas);
-      accumulate_kv(ka, va, m.qs, m.dos, m.lses, m.deltas, qb * kBlock,
-                    warp * 16, length, causal, scale, dk, dv);
-    }
-  }
-  const int parts = 1 + cls_chunks;
-  store_f32(dk, scratch_part(scratch, 0, batch, b, num_heads, h, parts,
-                             1 + c) + warp * 16 * kHeadDim);
-  store_f32(dv, scratch_part(scratch, 1, batch, b, num_heads, h, parts,
-                             1 + c) + warp * 16 * kHeadDim);
+  store_bf16(dk, dk_out + (head + k0 + row0) * kHeadDim);
+  store_bf16(dv, dv_out + (head + k0 + row0) * kHeadDim);
 }
 
 // Key block 0 of every (head, row): band part + [CLS] partials, summed in
-// order, rounded once.
+// order, rounded once. blockIdx.x: dk or dv, and which kReduceSlice-float
+// slice of the block; four floats a thread.
+constexpr int kReduceSlice = 4 * kThreads;
 __global__ void __launch_bounds__(kThreads)
 swa_cls_reduce_kernel(const float* __restrict__ scratch,
                       __nv_bfloat16* __restrict__ dk_out,
                       __nv_bfloat16* __restrict__ dv_out, int batch,
                       int num_heads, int seq_len, int cls_chunks) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  constexpr int kSlices = kTileFloats / kReduceSlice;
+  const int which = blockIdx.x / kSlices;
+  const int i = (blockIdx.x % kSlices) * kReduceSlice + 4 * threadIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int parts = 1 + cls_chunks;
   const size_t head = ((size_t)b * num_heads + h) * (size_t)seq_len;
-  for (int which = 0; which < 2; ++which) {
-    const float* src = scratch_part(const_cast<float*>(scratch), which,
-                                    batch, b, num_heads, h, parts, 0);
-    __nv_bfloat16* dst = (which == 0 ? dk_out : dv_out) + head * kHeadDim;
-    for (int i = threadIdx.x; i < kTileFloats; i += kThreads) {
-      float sum = 0.f;
-      for (int p = 0; p < parts; ++p) sum += src[(size_t)p * kTileFloats + i];
-      dst[i] = __float2bfloat16_rn(sum);
-    }
+  const float* src = scratch_part(const_cast<float*>(scratch), which, batch,
+                                  b, num_heads, h, parts, 0) + i;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p = 0; p < parts; ++p) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(src + (size_t)p * kTileFloats);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
   }
+  __nv_bfloat16* dst = (which == 0 ? dk_out : dv_out) + head * kHeadDim + i;
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(sum.x, sum.y);
+  *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
+      __floats2bfloat162_rn(sum.z, sum.w);
+}
+
+bool power_of_two(float x) {
+  int e;
+  return x > 0.f && frexpf(x, &e) == 0.5f;
 }
 
 }  // namespace
@@ -544,7 +586,7 @@ extern "C" int svt_swa_bwd(const void* q, const void* k, const void* v,
       q_len % kBlock != 0 || q_off < 0 ||
       key_len != q_len + q_off * kBlock || (include_cls && q_off) ||
       window < 1 || batch < 1 || num_heads < 1 || batch > 65535 ||
-      num_heads > 65535 || cls_chunk < 1)
+      num_heads > 65535 || cls_chunk < 1 || !power_of_two(scale))
     return static_cast<int>(cudaErrorInvalidValue);
   const int num_blocks = q_len / kBlock;
   const int num_k_blocks = key_len / kBlock;
@@ -552,23 +594,19 @@ extern "C" int svt_swa_bwd(const void* q, const void* k, const void* v,
   const int cls_chunks = (include_cls && num_blocks > left)
                              ? (num_blocks - left + cls_chunk - 1) / cls_chunk
                              : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      swa_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const long long kv_ctas =
+      (long long)(cls_chunks + num_k_blocks) * num_heads * batch;
+  if (kv_ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  static svt::SmemLimit dq_limit, kv_limit;
+  cudaError_t err = svt::raise_smem_limit(dq_limit, swa_dq_kernel, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(swa_dkv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(swa_dkv_cls_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
+  err = svt::raise_smem_limit(kv_limit, swa_dkv_kernel, kKvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* op = static_cast<const __nv_bfloat16*>(out);
   const auto* dop = static_cast<const __nv_bfloat16*>(dout);
   const auto* lsep = static_cast<const float*>(lse);
   const auto* lenp = static_cast<const int*>(lengths);
@@ -577,21 +615,16 @@ extern "C" int svt_swa_bwd(const void* q, const void* k, const void* v,
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   auto* scr = static_cast<float*>(scratch);
 
-  swa_dq_kernel<<<dim3(num_blocks, num_heads, batch), kThreads, kSmem, s>>>(
-      qp, kp, vp, op, dop, lsep, lenp, static_cast<__nv_bfloat16*>(dq),
-      deltap, num_heads, q_len, key_len, window, causal, include_cls, q_off,
-      scale);
-  swa_dkv_kernel<<<dim3(num_k_blocks, num_heads, batch), kThreads, kSmem,
-                   s>>>(
+  swa_dq_kernel<<<dim3(num_blocks, num_heads, batch), kThreads, kDqSmem, s>>>(
+      qp, kp, vp, static_cast<const __nv_bfloat16*>(out), dop, lsep, lenp,
+      static_cast<__nv_bfloat16*>(dq), deltap, num_heads, q_len, key_len,
+      window, causal, include_cls, q_off, scale);
+  swa_dkv_kernel<<<static_cast<unsigned>(kv_ctas), kThreads, kKvSmem, s>>>(
       qp, kp, vp, dop, lsep, deltap, lenp, dkp, dvp, scr, batch, num_heads,
-      q_len, key_len, window, causal, q_off, cls_chunks, scale);
-  if (cls_chunks > 0) {  // only when q_off == 0, so q_len == key_len
-    const dim3 cgrid(cls_chunks, num_heads, batch);
-    swa_dkv_cls_kernel<<<cgrid, kThreads, kSmem, s>>>(
-        qp, kp, vp, dop, lsep, deltap, lenp, scr, batch, num_heads, q_len,
-        window, causal, cls_chunk, cls_chunks, scale);
-    swa_cls_reduce_kernel<<<dim3(num_heads, batch), kThreads, 0, s>>>(
+      q_len, key_len, window, causal, q_off, cls_chunk, cls_chunks, scale);
+  if (cls_chunks > 0)  // only when q_off == 0, so q_len == key_len
+    swa_cls_reduce_kernel<<<dim3(2 * kTileFloats / kReduceSlice, num_heads,
+                                 batch), kThreads, 0, s>>>(
         scr, dkp, dvp, batch, num_heads, q_len, cls_chunks);
-  }
   return static_cast<int>(cudaGetLastError());
 }

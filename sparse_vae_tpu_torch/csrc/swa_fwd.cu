@@ -168,7 +168,7 @@ swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const size_t key0 = head + (size_t)key_block(cur) * kBlock;
     load_kv(k + key0 * kHeadDim, v + key0 * kHeadDim, kv, kv + kTile);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  svt::cp_async_commit();
 
   while (cur < slots) {
     const int nxt = next_slot(cur + 1);
@@ -177,8 +177,8 @@ swa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       __nv_bfloat16* dst = kv + (buf ^ 1) * 2 * kTile;
       load_kv(k + key0 * kHeadDim, v + key0 * kHeadDim, dst, dst + kTile);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
+    svt::cp_async_commit();
+    svt::cp_async_wait<1>();
     __syncthreads();
 
     const __nv_bfloat16* ks = kv + buf * 2 * kTile;

@@ -14,226 +14,308 @@
 // bias[label]) is a gather done outside, in fp32, as in the JAX package.
 //
 // What bounds it. At T = 102,400, V = 32,768, D = 512 it is 2 T V D = 3.4
-// TFLOP against ~137 MB of inputs: operations, by far.
+// TFLOP against ~137 MB of inputs: operations, by far (3.5 ms at the bf16
+// peak).
 //
-// Design. A CTA keeps RT = kRows = 64 token rows of g resident in shared
-// memory and streams E through it in tiles of 64 rows, double-buffered
-// with cp.async. Each stream step computes X = R S^T on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate), 8 warps tiling the
-// RT x 64 block, then folds it into each row's online max and sum-exp.
-// The per-warp column partials (m, l) merge once at the end; every row
-// lives in one CTA, so there are no atomics. Operands reach the registers
-// by ldmatrix; shared memory rows are padded by 8 bf16 so its eight row
-// reads hit distinct banks.
+// Design: K3b's logits mainloop (ce_dl_kernel, csrc/tied_ce_bwd.cu) with
+// an online logsumexp for its epilogue. A CTA keeps 128 token rows of g
+// resident (128 KB, brought in by TMA in the 128-byte swizzle) and streams
+// the E rows of its vocab tiles of 128 through a ring of six 128 x 64
+// stages (16 KB each) with mbarriers. One thread of a producer warpgroup
+// issues the loads; two consumer warpgroups take the vocab tiles in turn
+// and take turns on the tensor cores (named barriers), each computing its
+// 128 x 128 tile of X = g E^T by wgmma (m64n128k16, bf16 in, fp32
+// accumulate), so one warpgroup's epilogue (bias, running max, sum of
+// exp2) overlaps the other's products. setmaxnreg gives the consumers 232
+// registers. Each thread keeps a running (max, sum) for each of its four
+// rows over its own columns; the four threads of a row, then the two
+// warpgroups, merge theirs once at the end. 231,528 bytes of dynamic
+// shared memory (kSmemBytes): one CTA per SM.
+//
+// The vocab axis splits over blockIdx.y when the 128-token row tiles alone
+// fill the SMs badly (the caller chooses the split: ce_kernel.fwd_splits);
+// each split writes its rows' (max, sum) partials and a second kernel
+// merges them in split order. Every value has one owner and every sum a
+// fixed order: no atomics, and a second call is bit-identical. Rows past T
+// read zeros (TMA's out-of-bounds fill) and are not written.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using svt::cp_async16;
-using svt::ldsm_x4;
-using svt::mma16816;
+using svt::align_smem;
+using svt::desc_sw128;
+using svt::ex2;
+using svt::fence_acc;
+using svt::make_map;
+using svt::mbar_arrive;
+using svt::mbar_expect_tx;
+using svt::mbar_fence_init;
+using svt::mbar_init;
+using svt::mbar_wait;
+using svt::tma_load;
+using svt::wgmma_commit;
+using svt::wgmma_fence;
+using svt::wgmma_ss128;
+using svt::wgmma_wait;
 
-constexpr int kDim = 512;               // model width D
-// Resident rows per CTA. 64 rather than 32 (both measured on the H100):
-// half the re-reads of the streamed matrix, 208 registers, no spills.
-constexpr int kRows = 64;
-constexpr int kRow = kDim + 8;          // smem row stride, bf16
-constexpr int kST = 64;                 // streamed rows per step
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kVec = kDim / 8;          // 16-byte vectors per row
+constexpr int kDim = 512;                 // model width D
+constexpr int kBK = 64;                   // depth per stage: one 128 B row
+constexpr int kRows = 128;                // resident token rows per CTA
+constexpr int kCols = 128;                // vocab rows per tile
+constexpr int kStages = 6;
+constexpr int kConsumers = 256;           // two warpgroups
+// A whole producer warpgroup (one thread of it issues the loads), so that
+// setmaxnreg can move its registers to the consumers: 3 x 128 x 168 =
+// 128 x 40 + 2 x 128 x 232.
+constexpr int kThreads = kConsumers + 128;
+constexpr int kGBytes = kRows * kDim * 2;
+constexpr int kStageBytes = kCols * kBK * 2;
+constexpr int kSmemBytes = svt::kSwizzleAlign + kGBytes +
+                           kStages * kStageBytes + (2 * kStages + 1) * 8 +
+                           kRows * 8;
+constexpr int kMaxSplits = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <int RT>
-constexpr int smem_bytes() {
-  return (RT * kRow + 2 * kST * kRow) * 2 + 2 * (kWarps / (RT / 16)) * RT * 4;
+// Two running (max, sum) pairs of one row, in log2 units, as one: the
+// first keeps the result. Symmetric, so both lanes of a shuffle agree.
+__device__ __forceinline__ void merge(float& m, float& l, float m2,
+                                      float l2) {
+  const float mx = fmaxf(m, m2);
+  l = l * ex2(m - mx) + l2 * ex2(m2 - mx);
+  m = mx;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + rows) of a [count, kDim] bf16 matrix into shared
-// memory at stride kRow; rows past `count` are zero-filled.
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ src,
-                                          int row0, int rows, int count,
-                                          __nv_bfloat16* dst) {
-  for (int i = threadIdx.x; i < rows * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = i % kVec;
-    __nv_bfloat16* d = dst + r * kRow + c * 8;
-    if (row0 + r < count)
-      cp_async16(d, src + (size_t)(row0 + r) * kDim + c * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// R: [r_count, kDim] token rows of g; S: [s_count, kDim] rows of E.
-// out: fp32 [r_count] lse.
-template <int RT>
+// Token rows [m0, m0 + 128) (blockIdx.x) against `tiles` vocab tiles of
+// 128 from v0 = blockIdx.y * tiles * 128. tg = g [T, 512] and te = E
+// [V, 512], both in 64 x 128 boxes. With one split the CTA writes lse;
+// otherwise part[blockIdx.y][t] = (max, sum) in log2 units.
 __global__ void __launch_bounds__(kThreads, 1)
-tied_ce_kernel(const __nv_bfloat16* __restrict__ R, int r_count,
-               const __nv_bfloat16* __restrict__ S, int s_count,
-               const float* __restrict__ bias, float* __restrict__ out) {
-  constexpr int WM = RT / 16;         // warp rows
-  constexpr int WN = kWarps / WM;     // warp columns
-  constexpr int WC = kST / WN;        // streamed rows per warp
-  constexpr int NT = WC / 8;          // mma n-tiles per warp
-
+tied_ce_kernel(const __grid_constant__ CUtensorMap tg,
+               const __grid_constant__ CUtensorMap te,
+               const float* __restrict__ bias, float* __restrict__ lse,
+               float2* __restrict__ part, int tokens, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* rs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ss0 = rs + RT * kRow;
-  __nv_bfloat16* ss1 = ss0 + kST * kRow;
-  float* stats = reinterpret_cast<float*>(ss1 + kST * kRow);
+  unsigned char* gs = align_smem(smem_raw);
+  unsigned char* ring = gs + kGBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* gfull = empty + kStages;
+  float2* red = reinterpret_cast<float2*>(gfull + 1);  // [kRows], wg 1's
+  const int m0 = blockIdx.x * kRows;
+  const int v0 = blockIdx.y * tiles * kCols;
+  constexpr int kSteps = kDim / kBK;      // stages per vocab tile
+  static_assert(kSteps == 8, "8 stages of depth 64 per vocab tile");
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;           // mma group (row within 8)
-  const int tq = lane & 3;            // thread within the group
-  const int l8 = lane & 7;            // ldmatrix: row within a matrix
-  const int lm = lane >> 3;           // ldmatrix: which of the 4 matrices
-  const int wm = warp / WN;
-  const int wn = warp % WN;
-  const int r0 = blockIdx.x * RT;     // first resident row of this CTA
-  const int n_steps = (s_count + kST - 1) / kST;
-
-  load_rows(R, r0, RT, r_count, rs);
-  load_rows(S, 0, kST, s_count, ss0);
-  cp_async_commit();
-
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int it = 0; it < n_steps; ++it) {
-    __nv_bfloat16* cur = (it & 1) ? ss1 : ss0;
-    if (it + 1 < n_steps) {
-      load_rows(S, (it + 1) * kST, kST, s_count, (it & 1) ? ss0 : ss1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
     }
-    __syncthreads();
-
-    // Phase A: this warp's 16 x WC block of X = R S^T.
-    float x[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
-    // A: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15); B: for each pair of
-    // n-tiles, (tile 0 | 1) x (k 0-7 | 8-15).
-    const __nv_bfloat16* ar =
-        rs + (wm * 16 + l8 + 8 * (lm & 1)) * kRow + 8 * (lm >> 1);
-    const __nv_bfloat16* br =
-        cur + (wn * WC + 8 * (lm >> 1) + l8) * kRow + 8 * (lm & 1);
-#pragma unroll 4
-    for (int k0 = 0; k0 < kDim; k0 += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, ar + k0);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, br + np * 16 * kRow + k0);
-        mma16816(x[2 * np], a, b);
-        mma16816(x[2 * np + 1], a, b + 2);
-      }
-    }
-
-    // x[nt][e]: resident row wm * 16 + gq + 8 (e / 2), streamed row
-    // s_base + nt * 8 + e % 2.
-    const int s_base = it * kST + wn * WC + 2 * tq;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float v = x[nt][2 * i + j] + bias[s_base + nt * 8 + j];
-          x[nt][2 * i + j] = v;
-          tmax = fmaxf(tmax, v);
-        }
-      const float m_new = fmaxf(m_run[i], quad_max(tmax));
-      float tsum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) tsum += __expf(x[nt][2 * i + j] - m_new);
-      l_run[i] = l_run[i] * __expf(m_run[i] - m_new) + quad_sum(tsum);
-      m_run[i] = m_new;
-    }
-    __syncthreads();  // this buffer is free for the next step
-  }
-
-  // Merge the WN column partials of each row.
-  float* sm = stats;
-  float* sl = stats + WN * RT;
-  if (tq == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int lr = wm * 16 + gq + 8 * i;
-      sm[wn * RT + lr] = m_run[i];
-      sl[wn * RT + lr] = l_run[i];
-    }
+    mbar_init(gfull, 1);
+    mbar_fence_init();
   }
   __syncthreads();
-  for (int lr = threadIdx.x; lr < RT; lr += kThreads) {
-    if (r0 + lr >= r_count) continue;
-    float m = -INFINITY;
-    for (int w = 0; w < WN; ++w) m = fmaxf(m, sm[w * RT + lr]);
-    float l = 0.f;
-    for (int w = 0; w < WN; ++w) l += sl[w * RT + lr] * __expf(sm[w * RT + lr] - m);
-    out[r0 + lr] = m + logf(l);
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(gfull, kGBytes);
+      for (int kb = 0; kb < kSteps; ++kb)
+        tma_load(gs + kb * (kGBytes / kSteps), &tg, gfull, kb * kBK, m0);
+      for (int q = 0; q < tiles * kSteps; ++q) {
+        const int s = q % kStages;
+        if (q >= kStages) mbar_wait(empty + s, ((q / kStages) - 1) & 1);
+        mbar_expect_tx(full + s, kStageBytes);
+        tma_load(ring + s * kStageBytes, &te, full + s, (q % kSteps) * kBK,
+                 v0 + (q / kSteps) * kCols);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+
+  // The running (max, sum) of this thread's four rows, hi = 2h + i: tile
+  // row 64h + 16 warp + gq + 8i, over this thread's columns.
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int hi = 0; hi < 4; ++hi) {
+    m_run[hi] = -INFINITY;
+    l_run[hi] = 0.f;
+  }
+  mbar_wait(gfull, 0);
+
+  for (int j = wg, k = 0; j < tiles; j += 2, ++k) {
+    // The warpgroups take turns on the tensor cores (named barriers 3 and
+    // 4: warpgroup w waits on 3 + w, the other one arrives there when its
+    // products are issued). The turns also keep the shared ring safe: a
+    // warpgroup waits on a stage only after every earlier phase of it
+    // has completed.
+    if (wg == 1 || k > 0)
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+    // acc[h][4n + 2i + e]: tile row 64h + 16 warp + gq + 8i, column
+    // vt + 8n + 2tq + e.
+    float acc[2][64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    for (int kb = 0; kb < kSteps; ++kb) {
+      const int q = j * kSteps + kb;
+      const int s = q % kStages;
+      mbar_wait(full + s, (q / kStages) & 1);
+      unsigned char* b = ring + s * kStageBytes;
+      unsigned char* a = gs + kb * (kGBytes / kSteps);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_ss128(acc[h],
+                      desc_sw128(a + h * (kGBytes / 16) + 32 * k16),
+                      desc_sw128(b + 32 * k16));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (kb > 0) mbar_arrive(empty + (q - 1) % kStages);
+    }
+    if (j + 1 < tiles)
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    mbar_arrive(empty + (j * kSteps + kSteps - 1) % kStages);
+
+    // Logits in log2 units, x log2(e) + bias log2(e); then each row's
+    // running max and sum of exp2, in a fixed order.
+    const int vt = v0 + j * kCols;
+    float bl[16][2];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float2 b2 =
+          *reinterpret_cast<const float2*>(bias + vt + 8 * n + 2 * tq);
+      bl[n][0] = b2.x * kLog2e;
+      bl[n][1] = b2.y * kLog2e;
+    }
+#pragma unroll
+    for (int hi = 0; hi < 4; ++hi) {
+      const int h = hi >> 1, c = 2 * (hi & 1);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = acc[h][4 * n + c + e];
+          x = fmaf(x, kLog2e, bl[n][e]);
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m_run[hi], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sum += ex2(acc[h][4 * n + c + e] - m_new);
+      l_run[hi] = l_run[hi] * ex2(m_run[hi] - m_new) + sum;
+      m_run[hi] = m_new;
+    }
+  }
+
+  // The four threads of each row, then the two warpgroups (warpgroup 1
+  // holds no tile when tiles == 1).
+#pragma unroll
+  for (int hi = 0; hi < 4; ++hi)
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+      merge(m_run[hi], l_run[hi],
+            __shfl_xor_sync(0xffffffffu, m_run[hi], off),
+            __shfl_xor_sync(0xffffffffu, l_run[hi], off));
+  const int row0 = 16 * warp + gq;
+  if (wg == 1 && tq == 0) {
+#pragma unroll
+    for (int hi = 0; hi < 4; ++hi)
+      red[row0 + 64 * (hi >> 1) + 8 * (hi & 1)] =
+          make_float2(m_run[hi], l_run[hi]);
+  }
+  asm volatile("bar.sync 5, 256;\n" ::: "memory");
+  if (wg == 0 && tq == 0) {
+#pragma unroll
+    for (int hi = 0; hi < 4; ++hi) {
+      const int r = row0 + 64 * (hi >> 1) + 8 * (hi & 1);
+      if (m0 + r >= tokens) continue;
+      float m = m_run[hi], l = l_run[hi];
+      if (tiles > 1) merge(m, l, red[r].x, red[r].y);
+      if (gridDim.y == 1)
+        lse[m0 + r] = (m + log2f(l)) * kLn2;
+      else
+        part[(size_t)blockIdx.y * tokens + m0 + r] = make_float2(m, l);
+    }
   }
 }
 
-template <int RT>
-int launch(const void* r, int r_count, const void* s, int s_count,
-           const void* bias, void* out, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<RT>();
-  static svt::SmemLimit limit;
-  const cudaError_t err =
-      svt::raise_smem_limit(limit, tied_ce_kernel<RT>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (r_count + RT - 1) / RT;
-  tied_ce_kernel<RT><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(r), r_count,
-      static_cast<const __nv_bfloat16*>(s), s_count,
-      static_cast<const float*>(bias), static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+// lse[t] from the splits' partials part[s][t], merged in split order.
+__global__ void tied_ce_merge_kernel(const float2* __restrict__ part,
+                                     float* __restrict__ lse, int tokens,
+                                     int splits) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= tokens) return;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[(size_t)s * tokens + t].x);
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 p = part[(size_t)s * tokens + t];
+    l += p.y * ex2(p.x - m);
+  }
+  lse[t] = (m + log2f(l)) * kLn2;
 }
 
-bool bad_shape(int tokens, int vocab, int dim) {
-  return tokens < 1 || vocab < kST || vocab % kST != 0 || dim != kDim;
+bool bad_shape(int tokens, int vocab, int dim, int splits) {
+  return tokens < 1 || dim != kDim || splits < 1 || splits > kMaxSplits ||
+         vocab < kCols * splits || vocab % (kCols * splits) != 0;
 }
 
 }  // namespace
 
 // g [tokens, 512] bf16, table [vocab, 512] bf16, bias [vocab] fp32 ->
-// lse [tokens] fp32.
+// lse [tokens] fp32, the vocab split `splits` ways; part [splits, tokens]
+// float2 is scratch (unused with one split).
 extern "C" int svt_tied_ce_fwd(const void* g, const void* table,
-                               const void* bias, void* lse, int tokens,
-                               int vocab, int dim, void* stream) {
-  if (bad_shape(tokens, vocab, dim)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<kRows>(g, tokens, table, vocab, bias, lse,
-                       static_cast<cudaStream_t>(stream));
+                               const void* bias, void* lse, void* part,
+                               int tokens, int vocab, int dim, int splits,
+                               void* stream) {
+  if (bad_shape(tokens, vocab, dim, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tg, te;
+  if (!make_map(&tg, g, kDim, tokens, kRows) ||
+      !make_map(&te, table, kDim, vocab, kCols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static svt::SmemLimit limit;
+  const cudaError_t err =
+      svt::raise_smem_limit(limit, tied_ce_kernel, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((tokens + kRows - 1) / kRows, splits);
+  tied_ce_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+      tg, te, static_cast<const float*>(bias), static_cast<float*>(lse),
+      static_cast<float2*>(part), tokens, vocab / (kCols * splits));
+  if (splits > 1)
+    tied_ce_merge_kernel<<<(tokens + 255) / 256, 256, 0, s>>>(
+        static_cast<const float2*>(part), static_cast<float*>(lse), tokens,
+        splits);
+  return static_cast<int>(cudaGetLastError());
 }

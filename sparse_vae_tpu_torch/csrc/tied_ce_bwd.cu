@@ -53,8 +53,10 @@
 // overlaps the other's products; setmaxnreg gives the consumers 232
 // registers; each 64-column half of a dl tile leaves by one TMA store from
 // a swizzled staging buffer (218,168 bytes of dynamic shared memory,
-// kDlSmemBytes). TMA descriptors come from
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (no -lcuda).
+// kDlSmemBytes). The TMA, mbarrier and wgmma helpers and the tensor maps
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda) are
+// csrc/hopper.cuh's, shared with K3 (csrc/tied_ce.cu), which runs the same
+// logits mainloop as ce_dl_kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -62,18 +64,34 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using svt::align_smem;
+using svt::desc_sw128;
+using svt::fence_acc;
 using svt::ldsm_x4_t;
+using svt::make_map;
+using svt::mbar_arrive;
+using svt::mbar_expect_tx;
+using svt::mbar_fence_init;
+using svt::mbar_init;
+using svt::mbar_wait;
 using svt::smem_u32;
+using svt::tma_load;
+using svt::wgmma_commit;
+using svt::wgmma_fence;
+using svt::wgmma_rs;
+using svt::wgmma_ss;
+using svt::wgmma_ss128;
+using svt::wgmma_wait;
 
 constexpr int kDim = 512;
 constexpr int kBK = 64;                  // depth per stage: one 128 B row
 constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // and a producer warp
-constexpr int kAlign = 1024;             // 128-byte swizzle atoms
+constexpr int kAlign = svt::kSwizzleAlign;
 
 // The gradient products (ce_gemm_kernel): 128 x 256 output tiles.
 constexpr int kBM = 128;
@@ -125,147 +143,6 @@ struct Params {
 };
 
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Wait until the barrier's phase differs from `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 2-D tensor map (inner coordinate c0, row c1) into shared
-// memory; completion is counted on `bar` in bytes.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows in the 128-byte
-// swizzle (as TMA writes it), 8-row groups 1024 bytes apart; the tile
-// starts 1024-aligned, a k16 step within it adds 32 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator accesses across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define SVT_ACC8(b)                                                   \
-  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),     \
-      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-#define SVT_ACC128 \
-  SVT_ACC8(0), SVT_ACC8(8), SVT_ACC8(16), SVT_ACC8(24), SVT_ACC8(32), \
-  SVT_ACC8(40), SVT_ACC8(48), SVT_ACC8(56), SVT_ACC8(64), SVT_ACC8(72), \
-  SVT_ACC8(80), SVT_ACC8(88), SVT_ACC8(96), SVT_ACC8(104), \
-  SVT_ACC8(112), SVT_ACC8(120)
-#define SVT_D128 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
-  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
-  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
-  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
-  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
-  "%127}"
-
-// d[64 x 256] += A[64 x 16] B[256 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SVT_D128
-      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : SVT_ACC128
-      : "l"(da), "l"(db), "r"(1));
-}
-// The same with A in registers (the mma.sync m16n8k16 A layout, warp w of
-// the warpgroup holding rows 16w .. 16w + 15).
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SVT_D128
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : SVT_ACC128
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#define SVT_ACC64 \
-  SVT_ACC8(0), SVT_ACC8(8), SVT_ACC8(16), SVT_ACC8(24), SVT_ACC8(32), \
-  SVT_ACC8(40), SVT_ACC8(48), SVT_ACC8(56)
-#define SVT_D64 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d[64 x 128] += A[64 x 16] B[128 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss128(float* d, uint64_t da,
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SVT_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : SVT_ACC64
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
-  return raw + ((kAlign - (smem_u32(raw) & (kAlign - 1))) & (kAlign - 1));
-}
-
 // The gradient products, one 128 x 256 fp32 output tile per CTA:
 //   kDg: dg[chunk0 + r] = dl[r] E; ta = dl [C, V], tb = E^T [512, V];
 //   kDe: dE (+)= dl^T g_c; ta = dl [C, V] in 64 x 64 boxes, A = dl^T
@@ -289,7 +166,7 @@ ce_gemm_kernel(const __grid_constant__ CUtensorMap ta,
       mbar_init(full + s, 1);
       mbar_init(empty + s, kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -429,7 +306,7 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
       mbar_init(empty + s, 128);
     }
     mbar_init(gfull, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -547,11 +424,9 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             // p = exp(x + bias - lse), x the product.
-            float pr;
-            asm("ex2.approx.ftz.f32 %0, %1;"
-                : "=f"(pr)
-                : "f"(fmaf(acc[hi >> 1][4 * nn + 2 * (hi & 1) + e],
-                           kLog2e, bl[e] + nlse[hi])));
+            const float pr =
+                svt::ex2(fmaf(acc[hi >> 1][4 * nn + 2 * (hi & 1) + e],
+                              kLog2e, bl[e] + nlse[hi]));
             const bool hit = label_r[hi] == col + e;
             de[e] = fmaf(pr, dnll_r[hi], hit ? -dnll_r[hi] : 0.f);
             p_label[hi] = hit ? pr : p_label[hi];
@@ -596,7 +471,7 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
       }
       // This half to the scratch by TMA, once every thread's writes are
       // visible to the async proxy.
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      svt::fence_proxy_async();
       asm volatile("bar.sync %0, 128;\n" ::"r"(bar_wg) : "memory");
       if (leader) {
         asm volatile(
@@ -635,48 +510,6 @@ __global__ void ce_dbias_kernel(const float* __restrict__ part,
   float s = 0.f;
   for (int i = 0; i < tiles; ++i) s += part[(size_t)i * vocab + v];
   dbias[v] = s;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major [rows, inner] bf16 matrix in boxes of 64 x box_rows, 128-byte
-// swizzle; reads past the edge fill zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int inner, int rows,
-              int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (!enc) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE>

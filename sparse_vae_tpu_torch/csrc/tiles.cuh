@@ -1,7 +1,8 @@
 // Pieces shared by the hand-written kernels: the bf16 mma.sync (m16n8k16)
 // product with fp32 accumulation, ldmatrix and cp.async from and to shared
-// memory, the attention kernels' band map, and the host-side setting of a
-// kernel's dynamic shared memory limit.
+// memory, exp2 by the special-function unit, the attention kernels' band
+// map, and the host-side setting of a kernel's dynamic shared memory
+// limit. The Hopper-only pieces (TMA, mbarriers, wgmma) are in hopper.cuh.
 
 #pragma once
 
@@ -20,6 +21,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t packf(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2^x by the special-function unit (ex2.approx, denormals flushed).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
@@ -54,6 +62,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+// Closes this thread's group of cp.async copies; cp_async_wait<N> waits
+// until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Band slot -> key block (the Pallas kernels' _slot_to_block): slot 0 is

@@ -32,7 +32,8 @@ bwd_launches = 0
 plain_routes = 0
 
 D_MODEL = 512
-VOCAB_TILE = 64
+# K3's vocab tiles: 128 rows of the table each.
+VOCAB_TILE = 128
 # K3b: its output tiles are 128 tokens by 128 vocab rows, and its bf16
 # logit-gradient scratch [C, V] holds at most this many bytes.
 BWD_TILE = 128
@@ -45,7 +46,7 @@ def route(tied: bool, vocab_size: int, d_model: int) -> str:
     fused kernel for a tied output table with V % 1024 == 0):
 
     - "kernel": inside that gate at the K3/K3b instantiation (D = 512;
-      V % 1024 == 0 covers the kernels' V % 64);
+      V % 1024 == 0 covers the kernels' V % 128);
     - "plain": inside the gate at another width: the plain version on the
       CPU, counted in `plain_routes`; on the card it raises
       (`take_plain_route`);
@@ -139,22 +140,59 @@ def _check_cuda(kernel, g, table, bias):
 def tied_ce_fwd(g, table, bias, labels):
     """K3. g [T, D], table [V, D], bias [V], labels [T] (int) ->
     (nll [T] fp32, lse [T] fp32). CUDA: bf16 g and table, fp32 bias,
-    D = 512, V % 64 == 0, contiguous."""
+    D = 512, V % 128 == 0, contiguous; the vocab split `fwd_splits` ways
+    over the card's SMs."""
     global fwd_launches
     _check(g, table, bias, labels)
     if not g.is_cuda:
         return tied_ce_fwd_plain(g, table, bias, labels)
     _check_cuda("K3", g, table, bias)
     t, v = g.shape[0], table.shape[0]
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    splits = fwd_splits(t, v, sms)
     lse = torch.empty(t, dtype=torch.float32, device=g.device)
+    # Each split's (max, sum) partials, merged in order by the kernel.
+    part = torch.empty((splits, t, 2) if splits > 1 else (0,),
+                       dtype=torch.float32, device=g.device)
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     code = lib.svt_tied_ce_fwd(g.data_ptr(), table.data_ptr(),
-                               bias.data_ptr(), lse.data_ptr(), t, v,
-                               g.shape[1], stream)
+                               bias.data_ptr(), lse.data_ptr(),
+                               part.data_ptr(), t, v, g.shape[1], splits,
+                               stream)
     cuda_lib.check(code, "tied_ce_fwd")
     fwd_launches += 1
     return lse - _label_logit(g, table, bias, labels), lse
+
+
+# K3's grid: CTAs of FWD_ROWS tokens, each over VOCAB_TILE-row tiles of a
+# 1/splits share of the vocab. A CTA's fixed cost (loading its 128 KB of
+# g, filling the pipeline, merging) is about FWD_CTA_COST_TILES tiles'
+# time.
+FWD_ROWS = 128
+FWD_MAX_SPLITS = 16
+FWD_CTA_COST_TILES = 2
+
+
+def fwd_splits(tokens: int, vocab: int, sms: int) -> int:
+    """Ways K3 splits the vocab: the power of two (at most FWD_MAX_SPLITS,
+    leaving each CTA at least two tiles, one for each of its consumer
+    warpgroups) whose grid of ceil(tokens / 128) x splits CTAs, one per SM
+    at a time, finishes soonest: waves x (tiles per CTA + a CTA's fixed
+    cost). 1 at 16,384 tokens (128 CTAs on 132 SMs), 8 at 25,600, 4 at
+    102,400 on an H100's 132 SMs."""
+    row_tiles = -(-tokens // FWD_ROWS)
+    tiles = vocab // VOCAB_TILE
+    best, best_cost = 1, None
+    splits = 1
+    while splits <= FWD_MAX_SPLITS and tiles % splits == 0 and (
+            splits == 1 or tiles // splits >= 2):
+        waves = -(-row_tiles * splits // sms)
+        cost = waves * (tiles // splits + FWD_CTA_COST_TILES)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = splits, cost
+        splits *= 2
+    return best
 
 
 def tied_ce_bwd(g, table, bias, labels, lse, dnll):

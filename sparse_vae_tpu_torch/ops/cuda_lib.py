@@ -29,7 +29,7 @@ SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_fwd_packed.cu",
            "swa_bwd_packed.cu", "tied_ce.cu", "tied_ce_bwd.cu",
            "nucleus_select.cu")
 # Included by the sources; part of the library's hash.
-HEADERS = ("swa_packed.cuh", "tiles.cuh")
+HEADERS = ("hopper.cuh", "swa_packed.cuh", "tiles.cuh")
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,8 +46,9 @@ _SIGNATURES = {
     "svt_swa_bwd": [_P] * 12 + [_I] * 11 + [_F, _P],
     # The packed layout (K5b): as K2 before q_off, with one seq_len.
     "svt_swa_bwd_packed": [_P] * 12 + [_I] * 9 + [_F, _P],
-    # g, table, bias, lse, tokens, vocab, dim, stream
-    "svt_tied_ce_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    # g, table, bias, lse, part (split partials), tokens, vocab, dim,
+    # splits, stream
+    "svt_tied_ce_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # K3b, one token chunk at a time (ce_kernel.tied_ce_bwd_chunked):
     # g, table, bias, lse, dnll, labels, dl, part, fix, tokens, vocab, dim,
     # chunk0, rows, dl_rows, stream

@@ -174,3 +174,34 @@ def test_bwd_chunk_bounds_the_scratch():
                                 ce_kernel.BWD_TILE * v * 2)
         chunks = -(-t // c)
         assert c - (chunks * c - t) > 0          # no empty last chunk
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+def test_fwd_splits_are_valid_grids(sms):
+    """K3's vocab split is a power of two that divides the vocab's
+    128-row tiles and leaves every CTA two tiles (one for each consumer
+    warpgroup), or is 1; and it is the split that finishes soonest by
+    the helper's own cost: waves x (tiles per CTA + a CTA's fixed cost)."""
+    for t in (1, 100, 1000, 16384, 25600, 102400):
+        for v in (128, 1024, 2048, 32768):
+            s = ce_kernel.fwd_splits(t, v, sms)
+            tiles = v // ce_kernel.VOCAB_TILE
+            assert s & (s - 1) == 0 and s <= ce_kernel.FWD_MAX_SPLITS
+            assert tiles % s == 0 and (s == 1 or tiles // s >= 2)
+            rows = -(-t // ce_kernel.FWD_ROWS)
+
+            def cost(n):
+                return -(-rows * n // sms) * (
+                    tiles // n + ce_kernel.FWD_CTA_COST_TILES)
+            others = [n for n in (1, 2, 4, 8, 16)
+                      if tiles % n == 0 and (n == 1 or tiles // n >= 2)]
+            assert cost(s) == min(cost(n) for n in others)
+
+
+def test_fwd_splits_at_the_main_paths_token_counts():
+    """On an H100's 132 SMs: one split at the train step's 16,384 tokens
+    (128 CTAs, one wave), 8 at an sp-train rank's 25,600 (200 row tiles
+    alone would leave most of a second wave idle), 4 at 102,400."""
+    assert ce_kernel.fwd_splits(16384, 32768, 132) == 1
+    assert ce_kernel.fwd_splits(25600, 32768, 132) == 8
+    assert ce_kernel.fwd_splits(102400, 32768, 132) == 4

@@ -13,7 +13,7 @@ target. K2's and K3b's gradients in bf16 against their fp32 plain
 versions relative to the largest entry (1e-2: one bf16 rounding of each
 output, and K3b's rounding of the logit gradients to bf16 before its
 products); K3's lse in fp32 up to summation order over 32,768 logits
-(1e-4 absolute). K5 and K5b (the packed layout) as K1 and K2. K6 (the
+(1e-4 absolute). K2 and K3 must also repeat bit for bit. K5 and K5b (the packed layout) as K1 and K2. K6 (the
 sequence-parallel shard attention: K1/K2 with q_off plus the [CLS] merge)
 as K1 and K2, on both branches.
 """
@@ -195,6 +195,58 @@ def test_swa_bwd_kernel_matches_plain(cuda, causal, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("include_cls", [True, False])
+def test_swa_bwd_kernel_repeats_on_ragged_rows(cuda, include_cls):
+    """K2 on rows of 129, 3001 and 4096 valid keys: two calls on the same
+    inputs give bit-identical gradients (no atomics, fixed summation
+    orders), and they match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + include_cls)
+    q, k, v, do = (torch.randn((3, 4, 4096, 64), generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    lengths = torch.tensor([129, 3001, 4096], dtype=torch.int32,
+                           device=cuda)
+    kw = {"include_cls": include_cls}
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+    got = swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do, **kw)
+    again = swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out,
+                                              do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        _assert_rel(g, w, "d" + name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_off", [0, 1])
+def test_swa_bwd_kernel_rows_without_a_valid_key(cuda, q_off):
+    """K2 without the [CLS] slot, where short rows leave whole query
+    blocks with no valid key (lse -inf): their dq rows are exactly 0 and
+    nothing is NaN; with q_off = 0 and with q_off > 0 (K6's band
+    backward), against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + q_off)
+    q, do = (torch.randn((3, 4, 1024, 64), generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((3, 4, 1024 + 128 * q_off, 64), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([200, 0, 1024 + 128 * q_off], dtype=torch.int32,
+                           device=cuda)
+    kw = {"include_cls": False, "q_off": q_off}
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+    empty = torch.isinf(lse)
+    assert bool(empty[0].any()) and bool(empty[1].all())
+    dq, dk, dv = swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do, **kw)
+    want = sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out,
+                                              do, **kw)
+    for name, g, w in zip("qkv", (dq, dk, dv), want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        _assert_rel(g, w, "d" + name)
+    assert bool((dq[empty] == 0).all())
+    assert bool((dk[1] == 0).all()) and bool((dv[1] == 0).all())
+
+
+@pytest.mark.gpu
 def test_attention_on_the_card_has_a_gradient(cuda):
     """The sparse attention's output on the card carries a grad_fn, and
     backward() gives q, k and v the K2 gradients: non-zero and equal to
@@ -243,6 +295,30 @@ def test_tied_ce_kernels_match_plain(cuda):
                                        labels, want_lse, dnll)
     for name, a, b in zip(("dg", "dE", "dbias"), got, want):
         _assert_rel(a, b, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,vocab", [(1000, 32768), (16383, 32768),
+                                     (1000, 1024), (16383, 2048)])
+def test_tied_ce_fwd_kernel_repeats_and_matches_plain(cuda, t, vocab):
+    """K3 at token counts that are no multiple of its 128-token tile and
+    fill at most one wave of 132 CTAs without a vocab split (16,383 <=
+    128 x 132), at V = 32,768 and at smaller vocabs inside the gate
+    (V % 1024 == 0), with and without the vocab split (1,000 tokens
+    split 16 or 4 ways): two calls give bit-identical lse and nll, and
+    both match the fp32 plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(t + vocab)
+    g = torch.randn((t, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    table = (0.05 * torch.randn((vocab, 512), generator=gen, device=cuda)
+             ).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(vocab, generator=gen, device=cuda)
+    labels = torch.randint(0, vocab, (t,), generator=gen, device=cuda)
+    nll, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    nll2, lse2 = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    assert torch.equal(nll, nll2) and torch.equal(lse, lse2)
+    want_nll, want_lse = ce_kernel.tied_ce_fwd_plain(g, table, bias, labels)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(nll, want_nll, atol=1e-4, rtol=0)
 
 
 def _ce_problem(cuda, t, v, padded, seed):

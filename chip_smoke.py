@@ -40,10 +40,13 @@ Phases, each timed:
 The Dh = 128 geometry (bench.py --heads 4, built from the JAX
 initialisation with no archive; its decoder attention takes the packed
 layout):
-  7. kernels — K5 and K5b (the packed attention forward and backward)
+  7. kernels — K5 and K5b (the packed attention forward and backward;
+               K5b is K2's kernels at Dh = 128 on the packed layout)
                against their fp32 plain versions at three shapes up to
                [8, 12800, 4 * 128] on full rows, each timed beside its
                bound and SDPA (forward and backward) under the band mask;
+               K5b bit-identical across two calls, its device time by
+               part as K2's;
   8. serve   — ServeEngine answers the same requests through bulk prefill
                (K5) and fused selection (K4); the bf16 prefill logits are
                held against the fp32 plain model on the card;
@@ -52,13 +55,18 @@ layout):
                plain step as in phase 6.
 Sequence parallelism, r5 at the pg19 preset's document shape (one
 102,400-token document per micro-batch, 4 length shards of 25,600):
- 10. kernels — K6 (the shard attention: K1/K2 with q_off plus the [CLS]
-               merge) forward and backward against its plain version on
-               the banded branch at the shard shape q [1, 8, 25600, 64]
-               over k_ext [1, 8, 25728, 64], on the square branch (shard
-               0), on ragged rows with a filler row, and at windows 1 and
-               3; timed beside its bound and SDPA over [CLS | k_ext] under
-               the boolean band mask (a yardstick the port never calls);
+ 10. kernels — K6 (the shard attention: K1 with q_off plus the [CLS]
+               merge; its backward one K2 launch with the broadcast [CLS]
+               block as a slot of its own) forward and backward against
+               its plain version on the banded branch at the shard shape
+               q [1, 8, 25600, 64] over k_ext [1, 8, 25728, 64], on the
+               square branch (shard 0), on ragged rows with a partial
+               [CLS] (77 keys) and a filler row, and at windows 1 and 3;
+               the backward bit-identical across two calls, and on a
+               banded shard its profiled launches all K2's (no cuBLAS or
+               aten matmul); timed beside its bound and SDPA over
+               [CLS | k_ext] under the boolean band mask (a yardstick the
+               port never calls);
  11. sp-train — one unsharded kernel step of r5 on a seeded document
                [1, 102400] (K1/K2 at [1, 8, 102400, 64]), then 4 ranks
                spawned on this card (gloo: they share it) take the same
@@ -91,6 +99,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sparse_vae_tpu_torch import profile_train
 from sparse_vae_tpu_torch.checkpoint import load_run, model_from_hparams
 from sparse_vae_tpu_torch.models.base import SEP_ID
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
@@ -211,18 +220,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_ms(fn, iters: int = 10) -> dict:
     """Device milliseconds per call of fn() by kernel name, from
     torch.profiler over `iters` calls after one warm-up call: what the card
-    spent, without the host's share of the call's time."""
+    spent, without the host's share of the call's time
+    (profile_train.per_call_device_ms, which tolerates a dropped kernel
+    record; a trace that lost more is taken again)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(profile_train.TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        times = profile_train.per_call_device_ms(averages, iters)
+        if times is not None:
+            return times
+        launched, recorded = profile_train.kernel_records(averages)
+        print(f"profiler trace incomplete: {recorded} kernel records for "
+              f"{launched} launches; taken again", flush=True)
+    raise AssertionError(f"the profiler dropped kernel records in "
+                         f"{profile_train.TRACE_ATTEMPTS} traces running")
 
 
 def kernel_ms(times: dict, name: str) -> float:
@@ -528,11 +546,16 @@ def k2_phase(b: int, L: int, lengths, seed: int, iters: int,
     return row
 
 
+# The kernels of csrc/swa_bwd.cu (K2, K5b and K6's backward).
+K2_KERNELS = {"dq": "swa_dq_kernel", "dkv": "swa_dkv_kernel",
+              "reduce": "swa_cls_reduce_kernel"}
+
+
 def k2_parts(times: dict) -> dict:
-    """K2's device ms by kernel (csrc/swa_bwd.cu) from `device_ms`."""
-    parts = {"dq": kernel_ms(times, "swa_dq_kernel"),
-             "dkv": kernel_ms(times, "swa_dkv_kernel"),
-             "reduce": kernel_ms(times, "swa_cls_reduce_kernel")}
+    """The device ms of csrc/swa_bwd.cu's kernels (K2, K5b) by part from
+    `device_ms`, and the rest (PyTorch's) beside them."""
+    parts = {part: kernel_ms(times, name)
+             for part, name in K2_KERNELS.items()}
     parts["pytorch"] = sum(times.values()) - sum(parts.values())
     return parts
 
@@ -577,7 +600,12 @@ def k5_phase(b: int, L: int, lengths, seed: int, iters: int,
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     out, lse = swa_kernel.swa_fwd_packed(q, k, v, lens, heads)
     got = swa_kernel.swa_bwd_packed(q, k, v, lens, lse, out, do, heads)
+    again = swa_kernel.swa_bwd_packed(q, k, v, lens, lse, out, do, heads)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K5b gives different gradients in two calls on the same inputs "
+          f"at {[b, L, heads * d]}")
+    del again
     q32, k32, v32 = q.float(), k.float(), v.float()
     ref, ref_lse = sliding_window_attention_packed_plain(q32, k32, v32, lens,
                                                          heads)
@@ -602,7 +630,8 @@ def k5_phase(b: int, L: int, lengths, seed: int, iters: int,
     fwd = {"shape": [b, L, heads * d], "lengths": list(lengths),
            "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err}
     bwd = {"shape": [b, L, heads * d], "lengths": list(lengths),
-           "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs}
+           "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
+           "bit_identical": True}
     pairs = band_pairs(L, lengths, window, block) * heads
     fwd["ms"] = cuda_ms(lambda: swa_kernel.swa_fwd_packed(
         q, k, v, lens, heads), iters)
@@ -627,6 +656,11 @@ def k5_phase(b: int, L: int, lengths, seed: int, iters: int,
                                              BF16_TENSOR_FLOPS)
     bwd["ms"] = cuda_ms(lambda: swa_kernel.swa_bwd_packed(
         q, k, v, lens, lse, out, do, heads), iters)
+    # On the device, by part, as K2's (the same kernels at Dh = 128).
+    times = device_ms(lambda: swa_kernel.swa_bwd_packed(
+        q, k, v, lens, lse, out, do, heads), 5)
+    bwd["device_ms"] = sum(times.values())
+    bwd["parts_device_ms"] = k2_parts(times)
     bwd["plain_ms"] = cuda_ms(
         lambda: sliding_window_attention_packed_bwd_plain(
             q, k, v, lens, lse, out, do, heads), few, warmup=1)
@@ -943,11 +977,14 @@ def sp_mask(S: int, start: int, ext_lens, cls_lens, window: int,
 
 def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
              seed: int, h: int = 8, time_it: bool = False):
-    """K6 forward and backward (ops/sp_kernel.py: K1/K2 with q_off plus
-    the [CLS] merge) against its plain version on the same bf16 inputs;
-    filler rows (ext_len 0 and cls_len 0) must give out 0 and zero
-    gradients with no NaN. Timed beside its plain version and SDPA over
-    [CLS | k_ext] under the same mask when time_it."""
+    """K6 forward and backward (ops/sp_kernel.py: K1 with q_off plus the
+    [CLS] merge; the backward one K2 call, the broadcast [CLS] block a
+    slot of it) against its plain version on the same bf16 inputs, the
+    backward bit-identical across two calls; filler rows (ext_len 0 and
+    cls_len 0) must give out 0 and zero gradients with no NaN. Timed
+    beside its plain version and SDPA over [CLS | k_ext] under the same
+    mask when time_it; then a banded shard's profiled backward must
+    launch K2's kernels only."""
     d, block = 64, 128
     ctx = (window - 1) * block
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -967,7 +1004,12 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
     args = (q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_len)
     out, lse = sp_kernel.sp_fwd(*args, window, block)
     grads = sp_kernel.sp_bwd(*args, out, lse, do, window, block)
+    again = sp_kernel.sp_bwd(*args, out, lse, do, window, block)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"K6's backward gives different gradients in two calls at "
+          f"start {start}, window {window}")
+    del again
     ref, ref_lse = sp_kernel.sp_fwd_plain(*args, window, block)
     want = sp_kernel.sp_bwd_plain(*args, out, lse, do, window, block)
     check(all(bool(torch.isfinite(t.float()).all()) for t in (out, *grads)),
@@ -995,7 +1037,8 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
            "cls_len": list(cls_lens), "filler_rows": filler,
            "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
            "bwd_max_abs_err": abs_err,
-           "rel_errs_dq_dkext_dvext_dclsk_dclsv": errs}
+           "rel_errs_dq_dkext_dvext_dclsk_dclsv": errs,
+           "bwd_bit_identical": True}
     if time_it:
         mask = sp_mask(S, start, ext_lens, cls_lens, window, block)
         pairs = int(mask.sum().item()) * h
@@ -1010,13 +1053,22 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
         row["k1_device_ms"] = kernel_ms(times, "swa_fwd_kernel")
         row["bwd_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block), 10)
-        # The backward on the device, and K2's kernels inside it (the band
-        # part; the rest is the [CLS] backward in PyTorch).
+        # The backward on the device, and K2's kernels inside it (on a
+        # banded shard all of it: the band and the broadcast [CLS] block
+        # in one K2 call).
         times = device_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block))
         row["bwd_device_ms"] = sum(times.values())
         parts = k2_parts(times)
         row["bwd_k2_device_ms"] = sum(parts.values()) - parts["pytorch"]
+        row["bwd_parts_device_ms"] = parts
+        if start > 0:
+            others = sorted(name for name in times if not any(
+                kernel in name for kernel in K2_KERNELS.values()))
+            check(not others, f"K6's backward on a banded shard launched "
+                  f"other kernels than K2's: {others}")
+            print(f"K6 backward on a banded shard: {len(times)} kernels, "
+                  f"all K2's (no cuBLAS or aten matmul)", flush=True)
         row["plain_ms"] = cuda_ms(lambda: sp_kernel.sp_fwd_plain(
             *args, window, block), 2, warmup=1)
         row["bwd_plain_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd_plain(
@@ -1291,7 +1343,7 @@ def main() -> int:
                       time_it=True)
         k6_square = k6_phase(1, shard, 0, [shard], [128], 2, seed=16,
                              time_it=True)
-        k6_phase(4, 4096, 8192, [4224, 3000, 129, 0], [128, 128, 128, 0], 2,
+        k6_phase(4, 4096, 8192, [4224, 3000, 129, 0], [128, 77, 128, 0], 2,
                  seed=17)
         k6_phase(4, 4096, 0, [4096, 2000, 1, 0], [128, 128, 128, 0], 2,
                  seed=18)
@@ -1388,12 +1440,14 @@ def main() -> int:
              "train-h4": h4_train_counts["swa_fwd_packed"]},
          **timed(k5_train), "smaller": smaller(k5_serve, k5_long)},
         {"name": "swa_bwd_packed", "route": "cuda",
-         "source": "sparse_vae_tpu_torch/csrc/swa_bwd_packed.cu",
+         "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:788",
          "launches": h4_train_counts["swa_bwd_packed"],
          "launches_by_path": {
              "train-h4": h4_train_counts["swa_bwd_packed"]},
-         **timed(k5b_train), "smaller": smaller(k5b_serve, k5b_long)},
+         **timed(k5b_train), **{k: k5b_train[k] for k in (
+             "device_ms", "parts_device_ms", "bit_identical")},
+         "smaller": smaller(k5b_serve, k5b_long)},
         {"name": "sp_windowed_attention", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",
@@ -1416,6 +1470,8 @@ def main() -> int:
          "shape": k6["shape"], "max_abs_err": k6["bwd_max_abs_err"],
          "ms": k6["bwd_ms"], "device_ms": k6["bwd_device_ms"],
          "k2_device_ms": k6["bwd_k2_device_ms"],
+         "parts_device_ms": k6["bwd_parts_device_ms"],
+         "bit_identical": k6["bwd_bit_identical"],
          "plain_ms": k6["bwd_plain_ms"],
          "bound_ms": k6["bwd_bound_ms"], "bound_by": k6["bwd_bound_by"],
          "library_ms": k6["bwd_library_ms"],

@@ -1,16 +1,16 @@
-// Shared pieces of K5 (swa_fwd_packed.cu) and K5b (swa_bwd_packed.cu): the
-// sliding-window + [CLS] attention on PACKED [B, L, H * 128] bf16 operands,
-// one head of one 128-row block per CTA, 8 warps of 16 rows, every product
-// a bf16 mma.sync (m16n8k16) with fp32 accumulation.
+// Pieces of K5 (swa_fwd_packed.cu): the sliding-window + [CLS] attention
+// forward on PACKED [B, L, H * 128] bf16 operands, one head of one 128-row
+// block per CTA, 8 warps of 16 rows, every product a bf16 mma.sync
+// (m16n8k16) with fp32 accumulation. (Its backward, K5b, is the Dh = 128
+// packed instantiation of K2's wgmma kernels in swa_bwd.cu.)
 //
 // A head's slice of a packed row starts at column h * 128 (256 bytes) and
 // the row stride is H * 128 bf16, so every 16-byte load of a row is
 // aligned. Tiles are staged into shared memory at a row stride of 136 bf16
 // (272 bytes): the 32-bit fragment loads of 8 rows x 4 words then hit 32
-// distinct banks. Unlike K2 (csrc/swa_bwd.cu, Dh = 64), no operand
-// fragments stay in registers across steps: at Dh = 128 a 16 x 128 fp32
-// accumulator alone takes 64 registers per thread, and the dk/dv pass holds
-// two of them, so the A operands are read from shared memory at each step.
+// distinct banks. No operand fragments stay in registers across steps: at
+// Dh = 128 a 16 x 128 fp32 accumulator alone takes 64 registers per
+// thread, so the A operands are read from shared memory at each step.
 
 #pragma once
 
@@ -35,7 +35,6 @@ constexpr int kStride = kHeadDim + 8;     // smem row stride, bf16
 constexpr int kTile = kBlock * kStride;   // bf16 per staged tile
 constexpr int kKSteps = kHeadDim / 16;    // mma k-steps over the head dim
 constexpr int kDimTiles = kHeadDim / 8;   // mma n-tiles over the head dim
-constexpr int kTileFloats = kBlock * kHeadDim;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -136,21 +135,6 @@ __device__ __forceinline__ void store_rows_bf16(
         packf(acc[nt][0] * scale[0], acc[nt][1] * scale[0]);
     *reinterpret_cast<uint32_t*>(hi + nt * 8) =
         packf(acc[nt][2] * scale[1], acc[nt][3] * scale[1]);
-  }
-}
-
-// A warp's 16 x 128 accumulator to rows of a contiguous [*, 128] fp32
-// buffer.
-__device__ __forceinline__ void store_rows_f32(
-    const float (&acc)[kDimTiles][4], float* rows) {
-  const int lane = threadIdx.x & 31;
-  float* lo = rows + (lane >> 2) * kHeadDim + 2 * (lane & 3);
-#pragma unroll
-  for (int nt = 0; nt < kDimTiles; ++nt) {
-    *reinterpret_cast<float2*>(lo + nt * 8) =
-        make_float2(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<float2*>(lo + 8 * kHeadDim + nt * 8) =
-        make_float2(acc[nt][2], acc[nt][3]);
   }
 }
 

@@ -25,9 +25,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_fwd_packed.cu",
-           "swa_bwd_packed.cu", "tied_ce.cu", "tied_ce_bwd.cu",
-           "nucleus_select.cu")
+SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_fwd_packed.cu", "tied_ce.cu",
+           "tied_ce_bwd.cu", "nucleus_select.cu")
 # Included by the sources; part of the library's hash.
 HEADERS = ("hopper.cuh", "swa_packed.cuh", "tiles.cuh")
 NVCC_TIMEOUT_S = 600
@@ -40,11 +39,13 @@ _SIGNATURES = {
     # The packed layout (K5): q/k/v/out [B, L, H * D], one seq_len, no
     # q_off.
     "svt_swa_fwd_packed": [_P] * 6 + [_I] * 8 + [_F, _P],
-    # q, k, v, lengths, lse, out, do, dq, dk, dv, delta, scratch, batch,
-    # heads, q_len, key_len, head_dim, block_size, window, causal,
-    # include_cls, q_off, cls_chunk, scale, stream
-    "svt_swa_bwd": [_P] * 12 + [_I] * 11 + [_F, _P],
-    # The packed layout (K5b): as K2 before q_off, with one seq_len.
+    # q, k, v, lengths, lse, out, do, cls_k, cls_v, cls_len, dq, dk, dv,
+    # dcls_k, dcls_v, delta, scratch, batch, heads, q_len, key_len,
+    # head_dim, block_size, window, causal, include_cls, q_off, cls_chunk,
+    # scale, stream
+    "svt_swa_bwd": [_P] * 17 + [_I] * 11 + [_F, _P],
+    # The packed layout (K5b): q, k, v, lengths, lse, out, do, dq, dk, dv,
+    # delta, scratch, then as K2 with one seq_len and no q_off.
     "svt_swa_bwd_packed": [_P] * 12 + [_I] * 9 + [_F, _P],
     # g, table, bias, lse, part (split partials), tokens, vocab, dim,
     # splits, stream

@@ -160,7 +160,7 @@ def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
                                        block_size: int = 128,
                                        causal: bool = True,
                                        include_cls: bool = True,
-                                       q_off: int = 0):
+                                       q_off: int = 0, cls=None):
     """Explicit blocked backward of `sliding_window_attention_plain` (the
     JAX package's `_bwd_pallas` math), in fp32.
 
@@ -169,9 +169,14 @@ def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
     for a row with no valid key). p is exp(s - lse) where the mask allows
     and 0 elsewhere, chosen by select so that a -inf lse never meets a
     masked score. Returns (dq, dk, dv) in the dtypes of q, k and v.
+    cls: (cls_k, cls_v, cls_len) in place of include_cls, the broadcast
+    [CLS] block of a banded shard (`cls_backward_plain`); then also
+    returns dcls_k and dcls_v.
     """
     b, h, L, d = q.shape
     nb = _check_q_off(L, k.shape[2], block_size, q_off, include_cls)
+    if cls is not None and include_cls:
+        raise ValueError("cls takes the place of include_cls")
     nk = nb + q_off
     scale = d ** -0.5
     k_idx, band_valid = _band_indices(nb, window_size, include_cls, causal,
@@ -205,9 +210,37 @@ def sliding_window_attention_bwd_plain(q, k, v, lengths, lse, out, do, *,
     dv = torch.zeros_like(dk)
     dk.index_add_(2, flat_idx, dk_band.reshape(b, h, nb * s, block_size, d))
     dv.index_add_(2, flat_idx, dv_band.reshape(b, h, nb * s, block_size, d))
-    return (dq.reshape(b, h, L, d).to(q.dtype),
-            dk.reshape(b, h, nk * block_size, d).to(k.dtype),
-            dv.reshape(b, h, nk * block_size, d).to(v.dtype))
+    grads = (dq.reshape(b, h, L, d).to(q.dtype),
+             dk.reshape(b, h, nk * block_size, d).to(k.dtype),
+             dv.reshape(b, h, nk * block_size, d).to(v.dtype))
+    if cls is None:
+        return grads
+    dq, dcls_k, dcls_v = cls_backward_plain(q, *cls, lse, out, do, grads[0])
+    return (dq, *grads[1:], dcls_k, dcls_v)
+
+
+def cls_backward_plain(q, cls_k, cls_v, cls_len, lse, out, do, dq):
+    """The broadcast [CLS] block's part of a banded shard's backward (the
+    JAX package's `_sp_bwd`, banded branch), every query attending the
+    [CLS] keys 0 .. cls_len - 1 under the JOINT lse and the merged out:
+    returns (dq plus the [CLS] term, dcls_k, dcls_v). As in JAX, ds and p
+    are rounded to the inputs' dtype before their products, and the term
+    is added to the band's already rounded dq; where the mask forbids, p
+    is chosen 0 so that a -inf lse never meets a score."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), cls_k.float().transpose(-1, -2)) * scale
+    col = torch.arange(cls_k.shape[2], device=q.device)
+    mask = (col[None, :] < cls_len.to(torch.int64)[:, None])[:, None, None]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    gf = do.float()
+    delta = (gf * out.float()).sum(dim=-1)                      # [B, H, S]
+    dp = torch.matmul(gf, cls_v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = (dq.float() + torch.matmul(ds.to(cls_k.dtype), cls_k).float()
+          ).to(q.dtype)
+    dcls_k = torch.matmul(ds.to(q.dtype).transpose(-1, -2), q)
+    dcls_v = torch.matmul(p.to(do.dtype).transpose(-1, -2), do)
+    return dq, dcls_k.to(cls_k.dtype), dcls_v.to(cls_v.dtype)
 
 
 def split_heads(x, num_heads: int):

@@ -13,13 +13,17 @@ attention family:
   holds block 0 with the [CLS] slot's guard against counting it twice,
   which the offset cannot express; dk_ext and dv_ext are zero over the
   halo rows and the [CLS] gradients are zero;
-- every other shard runs K1/K2 with q_off = window - 1 over the extended
-  keys with no [CLS] slot (csrc/swa_fwd.cu, csrc/swa_bwd.cu: query block i
-  at key block i + q_off), attends the [CLS] block in PyTorch
-  (`cls_attend`) and merges the two parts by logaddexp. The backward gives
-  the band kernel the JOINT lse and the merged output, so p = exp(s - lse)
-  is the exact partial probability and delta = rowsum(do * out) the whole
-  row's; the [CLS] part of the backward is PyTorch too.
+- every other shard runs K1 with q_off = window - 1 over the extended
+  keys with no [CLS] slot (csrc/swa_fwd.cu: query block i at key block
+  i + q_off), attends the [CLS] block in PyTorch (`cls_attend`) and merges
+  the two parts by logaddexp. The backward is one K2 call
+  (csrc/swa_bwd.cu) over the extended keys with the broadcast [CLS] block
+  as a slot with its own pointer, given the JOINT lse and the merged
+  output, so p = exp(s - lse) is the exact partial probability and delta
+  = rowsum(do * out) the whole row's; it returns all five gradients. Its
+  plain version (sliding_window_attention_bwd_plain with `cls`) adds the
+  [CLS] term as JAX's `_sp_bwd` does, to the band's dq already rounded to
+  bf16; the kernel sums both parts of dq in fp32 and rounds once.
 
 The shard index is a Python int on each rank, so the branch is a plain
 `if`. Rows with no valid key at all (a filler row: ext_len 0 and cls_len
@@ -134,25 +138,8 @@ def _backward(band_bwd, q, k_ext, v_ext, cls_k, cls_v, start, ext_len,
         return (dq, torch.cat([torch.zeros_like(halo), dk], dim=2),
                 torch.cat([torch.zeros_like(halo), dv], dim=2),
                 torch.zeros_like(cls_k), torch.zeros_like(cls_v))
-    dq, dk_ext, dv_ext = band_bwd(q, k_ext, v_ext, ext_len, lse, out, g,
-                                  include_cls=False, q_off=hb, sp=True, **kw)
-    # The [CLS] part under the JOINT normalisation (lse is the merged
-    # logsumexp); where the mask forbids, p is chosen 0 so that a -inf lse
-    # never meets a score.
-    scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), cls_k.float().transpose(-1, -2)) * scale
-    col = torch.arange(cls_k.shape[2], device=q.device)
-    mask = (col[None, :] < cls_len.to(torch.int64)[:, None])[:, None, None]
-    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    gf = g.float()
-    delta = (gf * out.float()).sum(dim=-1)                      # [B, H, S]
-    dp = torch.matmul(gf, cls_v.float().transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
-    dq = (dq.float() + torch.matmul(ds.to(cls_k.dtype), cls_k).float()
-          ).to(q.dtype)
-    dcls_k = torch.matmul(ds.to(q.dtype).transpose(-1, -2), q)
-    dcls_v = torch.matmul(p.to(g.dtype).transpose(-1, -2), g)
-    return dq, dk_ext, dv_ext, dcls_k.to(cls_k.dtype), dcls_v.to(cls_v.dtype)
+    return band_bwd(q, k_ext, v_ext, ext_len, lse, out, g, include_cls=False,
+                    q_off=hb, cls=(cls_k, cls_v, cls_len), sp=True, **kw)
 
 
 def sp_fwd(q, k_ext, v_ext, cls_k, cls_v, start: int, ext_len, cls_len,

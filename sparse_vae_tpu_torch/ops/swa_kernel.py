@@ -2,11 +2,13 @@
 CUDA kernels, in the head-major layout (csrc/swa_fwd.cu, csrc/swa_bwd.cu,
 replacing sparse_vae_tpu/ops/pallas_kernels.py::
 _sliding_window_attention_fwd_pallas and ::_bwd_pallas) and in the packed
-[B, L, H * Dh] projection layout (csrc/swa_fwd_packed.cu,
-csrc/swa_bwd_packed.cu, replacing ::_sliding_window_attention_fwd_packed
-and ::_bwd_packed). K1 and K2 also take `q_off`, the sequence-parallel
-form in which the JAX package's sp_windowed_attention_pallas (K6) calls
-the same two Pallas kernels: ops/sp_kernel.py builds K6 on them.
+[B, L, H * Dh] projection layout (csrc/swa_fwd_packed.cu, and K5b as the
+Dh = 128 packed instantiation of K2's kernels in csrc/swa_bwd.cu,
+replacing ::_sliding_window_attention_fwd_packed and ::_bwd_packed). K1
+and K2 also take `q_off`, the sequence-parallel form in which the JAX
+package's sp_windowed_attention_pallas (K6) calls the same two Pallas
+kernels, and K2 the broadcast [CLS] block of such a shard as a slot of its
+own (`cls`): ops/sp_kernel.py builds K6 on them.
 
 `route` decides up front which family a call takes, reproducing the JAX
 package's gates. Each wrapper launches its kernel for CUDA tensors and runs
@@ -89,7 +91,7 @@ def take_plain_route(device: torch.device, head_dim: int, block_size: int):
 
 
 def _check(q, k, v, lengths, block_size: int, window_size: int,
-           q_off: int = 0, include_cls: bool = False):
+           q_off: int = 0, include_cls: bool = False, cls=None):
     b, h, L, d = q.shape if q.ndim == 4 else (0,) * 4
     kv_shape = (b, h, L + q_off * block_size, d)
     if q.ndim != 4 or tuple(k.shape) != kv_shape or v.shape != k.shape:
@@ -102,6 +104,17 @@ def _check(q, k, v, lengths, block_size: int, window_size: int,
     if q_off < 0 or (q_off and include_cls):
         raise ValueError(f"q_off must be >= 0 and takes no [CLS] slot, got "
                          f"q_off {q_off}, include_cls {include_cls}")
+    if cls is not None:
+        cls_k, cls_v, cls_len = cls
+        if include_cls or cls_k.shape != (b, h, block_size, d) \
+                or cls_v.shape != cls_k.shape or cls_len.shape != (b,):
+            raise ValueError(f"cls takes no include_cls, cls_k/cls_v "
+                             f"{(b, h, block_size, d)} and cls_len [{b}], "
+                             f"got include_cls {include_cls}, "
+                             f"{tuple(cls_k.shape)}, {tuple(cls_v.shape)}, "
+                             f"{tuple(cls_len.shape)}")
+        if len({t.device for t in (q, cls_k, cls_v, cls_len)}) != 1:
+            raise ValueError("cls on another device than q")
     if window_size < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
     if lengths.shape != (b,):
@@ -168,16 +181,23 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
 
 def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
-            include_cls: bool = True, q_off: int = 0, sp: bool = False):
+            include_cls: bool = True, q_off: int = 0, cls=None,
+            sp: bool = False):
     """Sliding-window + [CLS] attention backward.
 
     q/out/do: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D];
     lengths: [B] int32; lse: [B, H, L] fp32 from `swa_fwd` (-inf for a row
-    with no valid key). Returns (dq, dk, dv) in q's dtype. CUDA: bf16,
-    D = 64, block_size = 128, contiguous. sp: as in `swa_fwd`.
+    with no valid key). Returns (dq, dk, dv) in q's dtype. cls: (cls_k,
+    cls_v [B, H, block_size, D], cls_len [B] int32) in place of
+    include_cls: the broadcast [CLS] block that every query of a banded
+    shard also attends (K6's backward), its valid keys cls_len, under the
+    joint lse and the merged out; then returns (dq, dk, dv, dcls_k,
+    dcls_v). CUDA: bf16, D = 64, block_size = 128, contiguous. sp: as in
+    `swa_fwd`.
     """
     global bwd_launches, sp_bwd_launches
-    _check(q, k, v, lengths, block_size, window_size, q_off, include_cls)
+    _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
+           cls)
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out/do must be {tuple(q.shape)}, got "
                          f"{tuple(out.shape)}, {tuple(do.shape)}")
@@ -190,51 +210,77 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
         return sliding_window_attention_bwd_plain(
             q, k, v, lengths, lse, out, do, window_size=window_size,
             block_size=block_size, causal=causal, include_cls=include_cls,
-            q_off=q_off)
+            q_off=q_off, cls=cls)
 
-    _check_cuda("K2", (q, k, v, out, do), lengths, q.shape[3], block_size)
+    broadcast = cls is not None
+    cls_k, cls_v, cls_len = cls if broadcast else (None,) * 3
+    tensors = (q, k, v, out, do) + ((cls_k, cls_v) if broadcast else ())
+    _check_cuda("K2", tensors, lengths, q.shape[3], block_size)
+    if broadcast and (cls_len.dtype != torch.int32
+                      or not cls_len.is_contiguous()):
+        raise TypeError("the K2 kernel takes a contiguous int32 cls_len")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("the K2 kernel takes a contiguous fp32 lse")
     b, h, L, d = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    dcls_k = torch.empty_like(cls_k) if broadcast else None
+    dcls_v = torch.empty_like(cls_v) if broadcast else None
     delta = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
-    chunks = cls_chunks(L // block_size, window_size, causal, include_cls)
-    # fp32 scratch for the [CLS] column's split reduction: the band part
-    # of key block 0, then one partial per chunk of query blocks.
-    scratch = torch.empty((2, b, h, 1 + chunks, block_size, d),
-                          dtype=torch.float32, device=q.device)
+    chunks = cls_chunks(L // block_size, window_size, causal,
+                        include_cls or broadcast, broadcast)
+    scratch = torch.empty((2, b, h, scratch_parts(chunks, broadcast),
+                           block_size, d), dtype=torch.float32,
+                          device=q.device)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.svt_swa_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           lengths.data_ptr(), lse.data_ptr(),
-                           out.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                           dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                           scratch.data_ptr(), b, h, L, k.shape[2], d,
-                           block_size, window_size, int(causal),
-                           int(include_cls), q_off, CLS_CHUNK, d ** -0.5,
-                           stream)
+    code = lib.svt_swa_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), do.data_ptr(), ptr(cls_k),
+        ptr(cls_v), ptr(cls_len), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), ptr(dcls_k), ptr(dcls_v), delta.data_ptr(),
+        scratch.data_ptr(), b, h, L, k.shape[2], d, block_size, window_size,
+        int(causal), int(include_cls or broadcast), q_off, CLS_CHUNK,
+        d ** -0.5, stream)
     cuda_lib.check(code, "swa_bwd")
     if sp:
         sp_bwd_launches += 1
     else:
         bwd_launches += 1
-    return dq, dk, dv
+    return (dq, dk, dv, dcls_k, dcls_v) if broadcast else (dq, dk, dv)
 
 
-# Query blocks per CTA in K2's [CLS]-column pass.
+# Query blocks per CTA in the [CLS]-column pass of K2 and K5b.
 CLS_CHUNK = 8
 
 
 def cls_chunks(num_blocks: int, window_size: int, causal: bool,
-               include_cls: bool) -> int:
-    """Chunks of query blocks that reach key block 0 only through the [CLS]
-    slot (blocks at or past the band's left extent)."""
+               include_cls: bool, broadcast: bool = False) -> int:
+    """Chunks of CLS_CHUNK query blocks that reach the [CLS] block only
+    through the [CLS] slot: for key block 0 the blocks at or past the
+    band's left extent; for the broadcast block of a banded shard all
+    `num_blocks` local query blocks. The kernels count the same
+    (csrc/swa_bwd.cu, `launch`)."""
+    if not include_cls:
+        return 0
+    if broadcast:
+        return -(-num_blocks // CLS_CHUNK)
     left = window_size if causal else (window_size + 1) // 2
-    if not include_cls or num_blocks <= left:
+    if num_blocks <= left:
         return 0
     return -(-(num_blocks - left) // CLS_CHUNK)
+
+
+def scratch_parts(chunks: int, broadcast: bool) -> int:
+    """fp32 [block, D] tiles per (dk or dv, row, head) of the [CLS]
+    scratch: one partial per chunk, after the band part of key block 0
+    unless [CLS] is the broadcast block."""
+    return chunks + (not broadcast)
 
 
 def _check_packed(q, k, v, lengths, num_heads: int, block_size: int,
@@ -320,7 +366,8 @@ def swa_bwd_packed(q, k, v, lengths, lse, out, do, num_heads: int, *,
     delta = torch.empty((b, num_heads, L), dtype=torch.float32,
                         device=q.device)
     chunks = cls_chunks(L // block_size, window_size, causal, include_cls)
-    scratch = torch.empty((2, b, num_heads, 1 + chunks, block_size, d),
+    scratch = torch.empty((2, b, num_heads, scratch_parts(chunks, False),
+                           block_size, d),
                           dtype=torch.float32, device=q.device)
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream

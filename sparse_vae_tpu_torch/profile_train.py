@@ -17,7 +17,10 @@ step ends in a synchronize): step time and real tokens/s. Then
 `profiled` more steps run under torch.profiler, as one window that
 starts and ends in a synchronize: the device time by kernel per step,
 and the device's idle share of that window, 1 - (union of the device's
-busy intervals) / (the window's wall time). The profiler slows the host,
+busy intervals) / (the window's wall time). The profiler has been seen
+to drop kernel records, so a window counts only when it holds a record
+for every kernel launch the runtime saw in it (`kernel_records`), and is
+otherwise profiled again. The profiler slows the host,
 so the window's step time is printed beside the unprofiled one. Also
 reports max_memory_allocated over the run. Prints one JSON line last.
 Needs a card; there is no CPU mode.
@@ -33,6 +36,8 @@ import numpy as np
 import torch
 
 WINDOW = "profile_train.window"
+TRACE_ATTEMPTS = 5
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
 KEYS = {"run", "heads", "batch", "seq", "accumulate", "steps", "profiled"}
@@ -75,6 +80,42 @@ def busy_share(events, window_name: str = WINDOW) -> tuple[float, float]:
             busy += stop - start
             end = stop
     return hi - lo, busy
+
+
+def kernel_records(averages) -> tuple[int, int]:
+    """(kernel launches the runtime saw, kernel records on the device) in
+    a trace's key_averages(). A trace that kept every kernel has at least
+    as many records as counted launches (a launch through an API not in
+    LAUNCH_CALLS adds a record and no count)."""
+    launched = sum(e.count for e in averages
+                   if e.key.startswith(LAUNCH_CALLS))
+    recorded = sum(e.count for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and not e.key.startswith(("Memcpy", "Memset")))
+    return launched, recorded
+
+
+def per_call_device_ms(averages, iters: int):
+    """Device ms per call by kernel name from the key_averages() of a trace
+    of `iters` identical calls, or None if the trace has lost too much.
+    The profiler drops a kernel record now and then (on an H100 with
+    torch 2.11 and CUDA 12.8: one of 15 in every trace of some
+    processes, a whole call's in others), so each name's time is its mean per record times its
+    launches per call, its record count over `iters` rounded: a record or
+    two missing leave that unchanged. None when those rounded counts fall
+    short of the kernel launches the runtime saw (`kernel_records`)."""
+    launched, _ = kernel_records(averages)
+    on_device = [e for e in averages
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation and e.count > 0]
+    per_call = {e.key: round(e.count / iters) for e in on_device}
+    kernels = sum(per_call[e.key] for e in on_device
+                  if not e.key.startswith(("Memcpy", "Memset")))
+    if kernels * iters < launched:
+        return None
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            * per_call[e.key] for e in on_device if per_call[e.key]}
 
 
 def main(argv) -> int:
@@ -126,17 +167,28 @@ def main(argv) -> int:
 
     from torch.profiler import ProfilerActivity, profile, record_function
     first = 2 + steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(WINDOW):
-            torch.cuda.synchronize()
-            for i in range(first, first + profiled):
-                one_step(i)
-            torch.cuda.synchronize()
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(WINDOW):
+                torch.cuda.synchronize()
+                for i in range(first, first + profiled):
+                    one_step(i)
+                torch.cuda.synchronize()
+        first += profiled
+        averages = prof.key_averages()
+        launched, recorded = kernel_records(averages)
+        if recorded >= launched:
+            break
+        print(f"profiler trace incomplete: {recorded} kernel records for "
+              f"{launched} launches; profiled again", flush=True)
+    else:
+        raise RuntimeError(f"the profiler dropped kernel records in "
+                           f"{TRACE_ATTEMPTS} windows running")
     window_us, busy_us = busy_share(prof.events())
     # Device work only: kernels and copies, not the annotation ranges,
     # which span kernels already counted.
-    kernels = [e for e in prof.key_averages()
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     device_us = sum(e.self_device_time_total for e in kernels) / profiled
@@ -161,6 +213,8 @@ def main(argv) -> int:
         "device_busy_ms_per_step": busy_us / 1e3 / profiled,
         "device_idle_share": 1.0 - busy_us / window_us,
         "kernels_per_step": sum(e.count for e in kernels) / profiled,
+        "kernel_launches_per_step": launched / profiled,
+        "profiled_windows": attempt + 1,
         # [name, launches per step, device ms per step]; a list, since
         # kernel names can share a long prefix.
         "top_kernels": [[e.key[:120], e.count / profiled,

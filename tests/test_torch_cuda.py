@@ -13,9 +13,11 @@ target. K2's and K3b's gradients in bf16 against their fp32 plain
 versions relative to the largest entry (1e-2: one bf16 rounding of each
 output, and K3b's rounding of the logit gradients to bf16 before its
 products); K3's lse in fp32 up to summation order over 32,768 logits
-(1e-4 absolute). K2 and K3 must also repeat bit for bit. K5 and K5b (the packed layout) as K1 and K2. K6 (the
-sequence-parallel shard attention: K1/K2 with q_off plus the [CLS] merge)
-as K1 and K2, on both branches.
+(1e-4 absolute). K2 and K3 must also repeat bit for bit. K5 and K5b (the packed layout) as K1 and K2, K5b also
+bit for bit across two calls. K6 (the sequence-parallel shard attention:
+K1 with q_off plus the [CLS] merge; its backward one K2 call with the
+broadcast [CLS] block as a slot of its own) as K1 and K2, on both
+branches, its backward bit for bit across two calls.
 """
 import pytest
 import torch
@@ -568,3 +570,79 @@ def test_sp_kernel_matches_plain(cuda, start, window):
         else:
             assert bool((t.grad == 0).all()), name
     assert bool((out[2] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_swa_bwd_packed_kernel_repeats_on_ragged_rows(cuda, heads, causal,
+                                                      window):
+    """K5b (K2's kernels at Dh = 128 on the packed layout) on rows of
+    1280, 1000, 129, 1 and 0 valid keys: two calls give bit-identical
+    gradients, they match the plain version, a row with no valid key
+    gets zero gradients, and nothing is NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(60 + 2 * window + causal
+                                                   + heads)
+    q, k, v, do = (torch.randn((5, 1280, heads * 128), generator=gen,
+                               device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    lengths = torch.tensor([1280, 1000, 129, 1, 0], dtype=torch.int32,
+                           device=cuda)
+    kw = {"window_size": window, "causal": causal}
+    out, lse = swa_kernel.swa_fwd_packed(q, k, v, lengths, heads, **kw)
+    before = swa_kernel.packed_bwd_launches
+    got = swa_kernel.swa_bwd_packed(q, k, v, lengths, lse, out, do, heads,
+                                    **kw)
+    again = swa_kernel.swa_bwd_packed(q, k, v, lengths, lse, out, do, heads,
+                                      **kw)
+    assert swa_kernel.packed_bwd_launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = sliding_window_attention_packed_bwd_plain(
+        q, k, v, lengths, lse, out, do, heads, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        _assert_rel(g, w, "d" + name)
+    for g in got:
+        assert bool((g[4] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls_len", [128, 77, 0])
+def test_sp_banded_backward_folds_cls_into_k2(cuda, cls_len):
+    """K6's backward on a banded shard at start 8192 is one K2 launch with
+    the broadcast [CLS] block as a slot: all five gradients against the
+    plain version (JAX's composition), with a full, a partial or no [CLS]
+    beside a filler row (no valid key: zero gradients, no NaN), and bit
+    for bit across two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(70 + cls_len)
+    S, ctx, start = 1024, 128, 8192
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q, do = randn(3, 4, S, 64), randn(3, 4, S, 64)
+    k_ext, v_ext = randn(3, 4, ctx + S, 64), randn(3, 4, ctx + S, 64)
+    cls_k, cls_v = randn(3, 4, 128, 64), randn(3, 4, 128, 64)
+    ext_len = torch.tensor([ctx + S, 700, 0], dtype=torch.int32, device=cuda)
+    cls_lens = torch.tensor([cls_len, 128, 0], dtype=torch.int32,
+                            device=cuda)
+    args = (q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_lens)
+    out, lse = sp_kernel.sp_fwd(*args, 2, 128)
+    before = (swa_kernel.bwd_launches, swa_kernel.sp_bwd_launches)
+    got = sp_kernel.sp_bwd(*args, out, lse, do, 2, 128)
+    again = sp_kernel.sp_bwd(*args, out, lse, do, 2, 128)
+    assert (swa_kernel.bwd_launches, swa_kernel.sp_bwd_launches) == (
+        before[0], before[1] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = sp_kernel.sp_bwd_plain(*args, out, lse, do, 2, 128)
+    for name, g, w in zip(("dq", "dk_ext", "dv_ext", "dcls_k", "dcls_v"),
+                          got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        assert bool((g[2] == 0).all()), name
+        _assert_rel(g, w, name)
+    if cls_len == 0:
+        assert bool((got[3][0] == 0).all()) and bool((got[4][0] == 0).all())

@@ -110,16 +110,19 @@ def _jax_grads(q, k, v, w, real, heads, window, causal):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
 
 
-@pytest.mark.parametrize("heads,window,causal", [(2, 2, True),
-                                                 (2, 2, False),
-                                                 (4, 1, True)])
-def test_packed_backward_and_function_match_jax_grad(heads, window, causal):
+@pytest.mark.parametrize("heads,window,causal,lengths", [
+    pytest.param(*case, (512, 333), id="-".join(map(str, case)))
+    for case in ((2, 2, True), (2, 2, False), (4, 1, True))] + [
+    # A row shorter than one block, at window 3.
+    pytest.param(2, 3, True, (512, 77), id="2-3-True-short")])
+def test_packed_backward_and_function_match_jax_grad(heads, window, causal,
+                                                     lengths):
     """K5b's plain version (given the plain forward's out and lse) and the
     autograd Function's wiring on the CPU both give jax.grad of the packed
     Pallas kernels; the Function never counts a kernel launch. L = 512, so
     the [CLS] column's beyond-band contributions run."""
     q, k, v, w, lens, real = _problem(30 + heads + window, heads, 512,
-                                      (512, 333))
+                                      lengths)
     want = _jax_grads(q, k, v, w, real, heads, window, causal)
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
     tw, tl = torch.from_numpy(w), torch.from_numpy(lens)
@@ -416,3 +419,32 @@ def test_busy_share_takes_the_union_of_overlapping_intervals(window):
     assert profile_train.busy_share(events, window) == (100, 40)
     with pytest.raises(RuntimeError):
         profile_train.busy_share(events[1:], window)
+
+
+def _average(key, count, device_ms=0.0, cuda=True):
+    kind = torch.autograd.DeviceType.CUDA if cuda else \
+        torch.autograd.DeviceType.CPU
+    return SimpleNamespace(key=key, count=count, device_type=kind,
+                           self_device_time_total=device_ms * 1e3,
+                           is_user_annotation=False)
+
+
+@pytest.mark.parametrize("dq_records,want", [
+    (5, {"dq": 0.5, "dkv": 0.6}),     # every record kept
+    (4, {"dq": 0.5, "dkv": 0.6}),     # one dropped: the same per call
+    (0, None),                        # a kernel's records all lost
+])
+def test_per_call_device_ms_tolerates_a_dropped_record(dq_records, want):
+    """Five calls of two kernels (10 launches the runtime saw): a dropped
+    record leaves each kernel's per-call time as its mean per record;
+    a trace missing a kernel altogether is refused."""
+    averages = [_average("cudaLaunchKernel", 10, cuda=False),
+                _average("dkv", 5, 3.0),
+                _average("Memcpy DtoD (Device -> Device)", 1, 0.01)]
+    if dq_records:
+        averages.append(_average("dq", dq_records, 0.5 * dq_records))
+    got = profile_train.per_call_device_ms(averages, 5)
+    if want is None:
+        assert got is None
+    else:
+        assert got == pytest.approx(want)

@@ -60,7 +60,8 @@ RANK_TIMEOUT_S = 300.0
 
 
 # -- K6 without ranks ------------------------------------------------------------
-def _k6_inputs(seed, start_blocks, pad, ws, B=2, H=2, S=64, D=8, bs=16):
+def _k6_inputs(seed, start_blocks, pad, ws, B=2, H=2, S=64, D=8, bs=16,
+               cls_lens=None):
     rng = np.random.default_rng(seed)
     ctx = halo_blocks(ws) * bs
     f32 = np.float32
@@ -71,7 +72,7 @@ def _k6_inputs(seed, start_blocks, pad, ws, B=2, H=2, S=64, D=8, bs=16):
                     for _ in range(2))
     ext_len = (rng.integers(ctx + S // 2, ctx + S, size=B) if pad
                else np.full(B, ctx + S)).astype(np.int32)
-    cls_len = np.full(B, bs, np.int32)
+    cls_len = np.array(cls_lens if cls_lens else [bs] * B, np.int32)
     if start_blocks == 0:
         # shard 0: the halo rows are invalid, ext_len counts LOCAL keys.
         ext_len = np.minimum(ext_len - ctx, S).astype(np.int32)
@@ -86,12 +87,18 @@ def _k6_inputs(seed, start_blocks, pad, ws, B=2, H=2, S=64, D=8, bs=16):
         cls_mask, cot, ctx, bs
 
 
-@pytest.mark.parametrize("start_blocks,pad,ws", [
-    (0, False, 2), (8, False, 2), (8, True, 2), (4, True, 2),
-    (8, False, 1), (8, False, 3)])
-def test_k6_matches_jax(start_blocks, pad, ws):
+@pytest.mark.parametrize("start_blocks,pad,ws,cls_lens", [
+    pytest.param(*case, None, id="-".join(map(str, case))) for case in (
+        (0, False, 2), (8, False, 2), (8, True, 2), (4, True, 2),
+        (8, False, 1), (8, False, 3))] + [
+    # A partial [CLS] on a banded shard: both rows short of the block,
+    # then one row with no [CLS] key beside a full one.
+    pytest.param(8, True, 2, (9, 13), id="8-True-2-cls9,13"),
+    pytest.param(8, False, 3, (0, 16), id="8-False-3-cls0,16")])
+def test_k6_matches_jax(start_blocks, pad, ws, cls_lens):
     (arrays, ext_len, cls_len, mask_ext, cls_mask, cot, ctx,
-     bs) = _k6_inputs(start_blocks + 17, start_blocks, pad, ws)
+     bs) = _k6_inputs(start_blocks + 17, start_blocks, pad, ws,
+                      cls_lens=cls_lens)
     start = start_blocks * bs
     # On shard 0 the [CLS] store IS the local block 0: derive it inside
     # the function, so that both sides (whose split of the gradient

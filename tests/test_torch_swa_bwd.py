@@ -140,3 +140,46 @@ def test_backward_wrapper_rejects_bad_inputs():
         swa_kernel.swa_bwd(q, k, v, lens, lse, out[:, :1], do)
     with pytest.raises(ValueError):
         swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, block_size=96)
+
+
+def test_backward_wrapper_rejects_a_cls_block_it_does_not_take():
+    """The broadcast [CLS] block (`cls`) takes the place of the in-band
+    [CLS] slot and must be [B, H, block, D] with cls_len [B]."""
+    q, k, v, do, lens, _ = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                            else a for a in _problem(6, L=256))
+    out, lse = swa_kernel.swa_fwd(q, k, v, lens, block_size=128,
+                                  include_cls=False)
+    cls = (k[:, :, :128], v[:, :, :128], torch.tensor([128, 7]))
+    with pytest.raises(ValueError, match="include_cls"):
+        swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, cls=cls)
+    with pytest.raises(ValueError, match="cls_k"):
+        swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, include_cls=False,
+                           cls=(cls[0][:, :, :64], cls[1], cls[2]))
+    with pytest.raises(ValueError, match="cls_len"):
+        swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, include_cls=False,
+                           cls=(cls[0], cls[1], cls[2][:1]))
+    grads = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do,
+                               include_cls=False, cls=cls)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape,
+                                        cls[0].shape, cls[1].shape]
+
+
+@pytest.mark.parametrize(
+    "num_blocks,window,causal,include_cls,broadcast,chunks,parts", [
+        (100, 2, True, True, False, 13, 14),   # (100 - 2) / 8, + band part
+        (100, 2, False, True, False, 13, 14),  # left 1: 99 / 8
+        (2, 2, True, True, False, 0, 1),       # the band reaches block 0
+        (100, 2, True, False, False, 0, 1),    # no [CLS]
+        (200, 2, True, True, True, 25, 25),    # a banded shard: all 200
+        (4, 1, True, True, True, 1, 1),        # window 1, q_off 0
+        (9, 3, True, True, True, 2, 2)])
+def test_cls_chunk_geometry(num_blocks, window, causal, include_cls,
+                            broadcast, chunks, parts):
+    """The [CLS] column's chunk count and scratch size that the wrappers
+    allocate, as csrc/swa_bwd.cu's `launch` counts them: for key block 0
+    the query blocks past the band's left extent, for the broadcast block
+    of a banded shard every local query block (no band part)."""
+    got = swa_kernel.cls_chunks(num_blocks, window, causal, include_cls,
+                                broadcast)
+    assert got == chunks
+    assert swa_kernel.scratch_parts(got, broadcast) == parts

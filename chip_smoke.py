@@ -7,9 +7,10 @@ GPU:
 Phases, each timed:
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
                without CUDA;
-  2. build   — the CUDA kernels from csrc/ in one nvcc call; its
-               `ptxas info` lines (nvcc -Xptxas -v) give registers, spills
-               and static shared memory of every kernel;
+  2. build   — the CUDA kernels from csrc/, one nvcc process per source,
+               all started together, then one link; the `ptxas info`
+               lines (nvcc -Xptxas -v) give registers, spills and static
+               shared memory of every kernel;
   3. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the serving path gives it, timed with CUDA
                events beside its bound and, for K1, beside PyTorch's
@@ -40,13 +41,14 @@ Phases, each timed:
 The Dh = 128 geometry (bench.py --heads 4, built from the JAX
 initialisation with no archive; its decoder attention takes the packed
 layout):
-  7. kernels — K5 and K5b (the packed attention forward and backward;
-               K5b is K2's kernels at Dh = 128 on the packed layout)
-               against their fp32 plain versions at three shapes up to
-               [8, 12800, 4 * 128] on full rows, each timed beside its
-               bound and SDPA (forward and backward) under the band mask;
-               K5b bit-identical across two calls, its device time by
-               part as K2's;
+  7. kernels — K5 and K5b (the packed attention forward and backward:
+               K1's kernel and K2's kernels at Dh = 128 on the packed
+               layout) against their fp32 plain versions at three shapes
+               up to [8, 12800, 4 * 128] on full rows, each timed by CUDA
+               events and by torch.profiler's device time beside its bound
+               and SDPA (forward and backward) under the band mask; K5b
+               bit-identical across two calls, its device time by part as
+               K2's;
   8. serve   — ServeEngine answers the same requests through bulk prefill
                (K5) and fused selection (K4); the bf16 prefill logits are
                held against the fp32 plain model on the card;
@@ -55,16 +57,17 @@ layout):
                plain step as in phase 6.
 Sequence parallelism, r5 at the pg19 preset's document shape (one
 102,400-token document per micro-batch, 4 length shards of 25,600):
- 10. kernels — K6 (the shard attention: K1 with q_off plus the [CLS]
-               merge; its backward one K2 launch with the broadcast [CLS]
-               block as a slot of its own) forward and backward against
-               its plain version on the banded branch at the shard shape
-               q [1, 8, 25600, 64] over k_ext [1, 8, 25728, 64], on the
-               square branch (shard 0), on ragged rows with a partial
+ 10. kernels — K6 (the shard attention: one K1 launch with q_off and the
+               broadcast [CLS] block as a slot of its own; its backward
+               one K2 launch set with the same slot) forward and backward
+               against its plain version on the banded branch at the shard
+               shape q [1, 8, 25600, 64] over k_ext [1, 8, 25728, 64], on
+               the square branch (shard 0), on ragged rows with a partial
                [CLS] (77 keys) and a filler row, and at windows 1 and 3;
                the backward bit-identical across two calls, and on a
-               banded shard its profiled launches all K2's (no cuBLAS or
-               aten matmul); timed beside its bound and SDPA over
+               banded shard the profiled forward K1's kernel alone and the
+               backward K2's kernels alone (no cuBLAS, no aten
+               elementwise); timed beside its bound and SDPA over
                [CLS | k_ext] under the boolean band mask (a yardstick the
                port never calls);
  11. sp-train — one unsharded kernel step of r5 on a seeded document
@@ -635,6 +638,8 @@ def k5_phase(b: int, L: int, lengths, seed: int, iters: int,
     pairs = band_pairs(L, lengths, window, block) * heads
     fwd["ms"] = cuda_ms(lambda: swa_kernel.swa_fwd_packed(
         q, k, v, lens, heads), iters)
+    fwd["device_ms"] = kernel_ms(device_ms(lambda: swa_kernel.swa_fwd_packed(
+        q, k, v, lens, heads)), "swa_fwd")
     few = max(2, iters // 10)
     fwd["plain_ms"] = cuda_ms(lambda: sliding_window_attention_packed_plain(
         q, k, v, lens, heads), few, warmup=1)
@@ -977,14 +982,14 @@ def sp_mask(S: int, start: int, ext_lens, cls_lens, window: int,
 
 def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
              seed: int, h: int = 8, time_it: bool = False):
-    """K6 forward and backward (ops/sp_kernel.py: K1 with q_off plus the
-    [CLS] merge; the backward one K2 call, the broadcast [CLS] block a
-    slot of it) against its plain version on the same bf16 inputs, the
-    backward bit-identical across two calls; filler rows (ext_len 0 and
-    cls_len 0) must give out 0 and zero gradients with no NaN. Timed
-    beside its plain version and SDPA over [CLS | k_ext] under the same
-    mask when time_it; then a banded shard's profiled backward must
-    launch K2's kernels only."""
+    """K6 forward and backward (ops/sp_kernel.py: one K1 call with q_off,
+    the backward one K2 call, the broadcast [CLS] block a slot of each)
+    against its plain version on the same bf16 inputs, the backward
+    bit-identical across two calls; filler rows (ext_len 0 and cls_len 0)
+    must give out 0 and zero gradients with no NaN. Timed beside its plain
+    version and SDPA over [CLS | k_ext] under the same mask when time_it;
+    then a banded shard's profiled forward must launch K1's kernel only
+    and its backward K2's kernels only."""
     d, block = 64, 128
     ctx = (window - 1) * block
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1010,6 +1015,10 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
           f"K6's backward gives different gradients in two calls at "
           f"start {start}, window {window}")
     del again
+    # The plain forward rounds the band's output to bf16 before the
+    # logaddexp merge with the [CLS] part, as JAX does; the kernel rounds
+    # the joint output once: about one bf16 rounding apart, inside K1's
+    # tolerance.
     ref, ref_lse = sp_kernel.sp_fwd_plain(*args, window, block)
     want = sp_kernel.sp_bwd_plain(*args, out, lse, do, window, block)
     check(all(bool(torch.isfinite(t.float()).all()) for t in (out, *grads)),
@@ -1046,11 +1055,19 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
         values = torch.cat([cls_v, v_ext], dim=2)
         row["ms"] = cuda_ms(lambda: sp_kernel.sp_fwd(*args, window, block),
                             10)
-        # On the device: the whole call, and K1's kernel inside it (the
-        # band part; the rest is the [CLS] attention and merge).
+        # On the device: the whole call, and K1's kernel inside it (on a
+        # banded shard all of it: the band and the broadcast [CLS] block
+        # in one launch).
         times = device_ms(lambda: sp_kernel.sp_fwd(*args, window, block))
         row["device_ms"] = sum(times.values())
         row["k1_device_ms"] = kernel_ms(times, "swa_fwd_kernel")
+        if start > 0:
+            others = sorted(name for name in times
+                            if "swa_fwd_kernel" not in name)
+            check(not others, f"K6's forward on a banded shard launched "
+                  f"other kernels than K1's: {others}")
+            print(f"K6 forward on a banded shard: {len(times)} kernel, "
+                  f"K1's (no cuBLAS, no aten elementwise)", flush=True)
         row["bwd_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block), 10)
         # The backward on the device, and K2's kernels inside it (on a
@@ -1365,7 +1382,8 @@ def main() -> int:
 
     def smaller(*rows):
         return [{k: r[k] for k in ("shape", "lengths", "max_abs_err", "ms",
-                                   "plain_ms", "bound_ms", "library_ms")}
+                                   "device_ms", "plain_ms", "bound_ms",
+                                   "library_ms")}
                 for r in rows]
 
     kernels = [
@@ -1431,14 +1449,15 @@ def main() -> int:
              "device_ms", "parts_device_ms", "chunk_tokens",
              "bit_identical", "checks")}},
         {"name": "swa_fwd_packed", "route": "cuda",
-         "source": "sparse_vae_tpu_torch/csrc/swa_fwd_packed.cu",
+         "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:590",
          "launches": h4_counts["swa_fwd_packed"]
          + h4_train_counts["swa_fwd_packed"],
          "launches_by_path": {
              "serve-h4": h4_counts["swa_fwd_packed"],
              "train-h4": h4_train_counts["swa_fwd_packed"]},
-         **timed(k5_train), "smaller": smaller(k5_serve, k5_long)},
+         **timed(k5_train), "device_ms": k5_train["device_ms"],
+         "smaller": smaller(k5_serve, k5_long)},
         {"name": "swa_bwd_packed", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:788",

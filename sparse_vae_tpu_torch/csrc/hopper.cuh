@@ -1,5 +1,5 @@
 // Hopper pieces shared by the tied-CE kernels (K3, csrc/tied_ce.cu; K3b,
-// csrc/tied_ce_bwd.cu) and the attention backward (K2, csrc/swa_bwd.cu):
+// csrc/tied_ce_bwd.cu) and the attention kernels (csrc/swa_tiles.cuh):
 // mbarriers, TMA loads of 2-D tensor maps into shared memory in the
 // 128-byte swizzle, wgmma descriptors and products (bf16 in, fp32
 // accumulate), and the host-side encoding of a tensor map through

@@ -1,8 +1,8 @@
-// Pieces shared by the hand-written kernels: the bf16 mma.sync (m16n8k16)
-// product with fp32 accumulation, ldmatrix and cp.async from and to shared
-// memory, exp2 by the special-function unit, the attention kernels' band
-// map, and the host-side setting of a kernel's dynamic shared memory
-// limit. The Hopper-only pieces (TMA, mbarriers, wgmma) are in hopper.cuh.
+// Pieces shared by the hand-written kernels: bf16 packing, ldmatrix and
+// cp.async from and to shared memory, exp2 by the special-function unit,
+// and the host-side setting of a kernel's dynamic shared memory limit. The
+// Hopper-only pieces (TMA, mbarriers, wgmma) are in hopper.cuh, the
+// attention kernels' tiles and band map in swa_tiles.cuh.
 
 #pragma once
 
@@ -30,32 +30,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Four 8x8 bf16 matrices from shared memory, one row address per lane
-// (lanes 8m..8m+7 give matrix m's rows): r[m] is each lane's pair of
-// matrix m in the mma.sync fragment layout; _t transposes each matrix.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+// (lanes 8m..8m+7 give matrix m's rows), each read transposed: r[m] is
+// each lane's pair of matrix m in the mma.sync fragment layout.
 __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  ldsm_x4_t(r, smem_u32(p));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -76,22 +58,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Band slot -> key block (the Pallas kernels' _slot_to_block): slot 0 is
-// [CLS] when included, valid only when the band does not already reach
-// block 0.
-__device__ __forceinline__ bool slot_block(int qb, int slot, int window,
-                                           int causal, int include_cls,
-                                           int num_blocks, int* kb) {
-  const int left = causal ? window : (window + 1) / 2;
-  const int first_band = qb - (left - 1);
-  if (include_cls && slot == 0) {
-    *kb = 0;
-    return first_band > 0;
-  }
-  *kb = first_band + slot - (include_cls ? 1 : 0);
-  return *kb >= 0 && *kb < num_blocks;
 }
 
 // Raises a kernel's dynamic shared memory limit to `bytes` once per

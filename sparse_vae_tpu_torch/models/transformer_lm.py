@@ -51,7 +51,7 @@ class TransformerHparams(LanguageModelHparams):
             "untied output embedding": not self.tie_embedding_weights,
             "cross_attention": self.cross_attention,
             "tensor parallelism": self.tp_size > 1,
-            "mixture-of-experts FFNs (ROADMAP Queue 1 item 9)":
+            "mixture-of-experts FFNs (sparse_vae_tpu/models/moe.py)":
                 self.num_experts > 1,
         }
         bad = [name for name, on in unported.items() if on]

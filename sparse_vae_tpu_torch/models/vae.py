@@ -56,11 +56,12 @@ class VAEObjective:
         if getattr(hparams, "train_mc_samples", 1) > 1:
             raise NotImplementedError(
                 "train_mc_samples > 1 (the IWAE/DReG bound) is not ported "
-                "yet: ROADMAP Queue 1 item 4")
+                "yet: sparse_vae_tpu/models/vae.py::iwae_dreg_loss and "
+                "VAEObjective._multi_sample_sums")
         if getattr(hparams, "num_experts", 0) > 1:
             raise NotImplementedError(
-                "mixture-of-experts losses are not ported yet: ROADMAP "
-                "Queue 1 item 9")
+                "mixture-of-experts losses are not ported yet: "
+                "sparse_vae_tpu/models/moe.py")
 
     def kl_weight(self, step) -> float:
         return kl_weight_schedule(step, self.hp.kl_weight_start,

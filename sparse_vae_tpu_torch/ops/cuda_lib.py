@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All sources under `csrc/` compile in ONE nvcc call into one shared library
+Each source under `csrc/` compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into one shared library
 with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`), loaded
 with ctypes. Nothing here includes PyTorch's headers, so the build takes
 seconds. The library goes to `_build/` beside this package, named by a
@@ -25,17 +26,18 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_fwd_packed.cu", "tied_ce.cu",
-           "tied_ce_bwd.cu", "nucleus_select.cu")
+SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "tied_ce.cu", "tied_ce_bwd.cu",
+           "nucleus_select.cu")
 # Included by the sources; part of the library's hash.
-HEADERS = ("hopper.cuh", "swa_packed.cuh", "tiles.cuh")
+HEADERS = ("hopper.cuh", "swa_tiles.cuh", "tiles.cuh")
 NVCC_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, lengths, out, lse, batch, heads, q_len, key_len, head_dim,
-    # block_size, window, causal, include_cls, q_off, scale, stream
-    "svt_swa_fwd": [_P] * 6 + [_I] * 10 + [_F, _P],
+    # q, k, v, lengths, cls_k, cls_v, cls_len, out, lse, batch, heads,
+    # q_len, key_len, head_dim, block_size, window, causal, include_cls,
+    # q_off, scale, stream
+    "svt_swa_fwd": [_P] * 9 + [_I] * 10 + [_F, _P],
     # The packed layout (K5): q/k/v/out [B, L, H * D], one seq_len, no
     # q_off.
     "svt_swa_fwd_packed": [_P] * 6 + [_I] * 8 + [_F, _P],
@@ -90,8 +92,9 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile every source in one nvcc call, unless a library built from
-    the same sources is already there."""
+    """Compile every source, each in its own nvcc process and all at once,
+    and link them, unless a library built from the same sources is
+    already there."""
     sources = [CSRC_DIR / name for name in SOURCES]
     digest = hashlib.sha1()
     for src in (*sources, *(CSRC_DIR / name for name in HEADERS)):
@@ -101,18 +104,37 @@ def build() -> BuildInfo:
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), *map(str, sources)]
+    flags = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True,
-                         timeout=NVCC_TIMEOUT_S)
+    procs = [subprocess.Popen([*flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    try:
+        logs = [proc.communicate(timeout=NVCC_TIMEOUT_S)[0] for proc in procs]
+        failed = [(src.name, proc.returncode, log) for src, proc, log
+                  in zip(sources, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({code}):\n{log}" for name, code, log in failed))
+        link = subprocess.run([*flags, "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True,
+                              text=True, timeout=NVCC_TIMEOUT_S)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (tmp, *objects):
+            path.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, (res.stdout + res.stderr).strip())
+    return BuildInfo(out, seconds, "\n".join(log.strip() for log in logs))
 
 
 def library() -> ctypes.CDLL:

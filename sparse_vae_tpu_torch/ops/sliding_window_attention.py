@@ -10,11 +10,14 @@ ds = p * (dp - delta) * scale) and the plain version of the K2 kernel
 (ops/swa_kernel.py::swa_bwd). Both take `q_off`, the sequence-parallel
 form of the JAX package's band kernels (K6's band part): q holds Lq rows,
 k and v Lk = Lq + q_off * block extended keys, and query block i sits at
-key block i + q_off. `SlidingWindowAttentionFn` wraps the pair as
-one autograd Function: the kernels for CUDA tensors, the plain versions for
-CPU tensors. The dispatcher `sliding_window_attention` goes through it, or
-through autograd of the plain forward when the caller turns the kernels off
-(the JAX package's `force_xla`).
+key block i + q_off; and `cls`, the broadcast [CLS] block that every query
+of a banded shard also attends (K6's [CLS] part): the forward attends it
+apart (`cls_attend`) and merges the two parts by logaddexp (`merge`), as
+the JAX package's `_sp_fwd_impl` does. `SlidingWindowAttentionFn` wraps
+the pair as one autograd Function: the kernels for CUDA tensors, the plain
+versions for CPU tensors. The dispatcher `sliding_window_attention` goes
+through it, or through autograd of the plain forward when the caller turns
+the kernels off (the JAX package's `force_xla`).
 
 The packed layout ([B, L, H * Dh], the projections' own, which the JAX
 package takes at Dh % 128 == 0): `sliding_window_attention_packed_plain`
@@ -84,7 +87,7 @@ def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
                                    causal: bool = True,
                                    include_cls: bool = True,
                                    return_lse: bool = False,
-                                   q_off: int = 0):
+                                   q_off: int = 0, cls=None):
     """Blocked sliding-window attention.
 
     q: [B, H, L, D] with L % block_size == 0; k/v: [B, H, L + q_off *
@@ -92,8 +95,21 @@ def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
     [B, H, L, D] in v's dtype, and with return_lse also the fp32
     log-sum-exp [B, H, L] of the attended scores (-inf for a row with no
     valid key). Scores and softmax are fp32; the weights are cast to v's
-    dtype before the value product, as in the reference.
+    dtype before the value product, as in the reference. cls: (cls_k,
+    cls_v [B, H, block_size, D], cls_len [B] valid keys) in place of
+    include_cls, the broadcast [CLS] block of a banded shard: the band's
+    (out, lse), out in v's dtype, merged with `cls_attend`'s by logaddexp;
+    lse is then the joint one.
     """
+    if cls is not None:
+        if include_cls:
+            raise ValueError("cls takes the place of include_cls")
+        out, lse = sliding_window_attention_plain(
+            q, k, v, kv_mask, window_size=window_size,
+            block_size=block_size, causal=causal, include_cls=False,
+            return_lse=True, q_off=q_off)
+        out, lse = merge(out, lse, *cls_attend(q, *cls), v.dtype)
+        return (out, lse) if return_lse else out
     b, h, L, d = q.shape
     nb = _check_q_off(L, k.shape[2], block_size, q_off, include_cls)
     nk = nb + q_off
@@ -137,6 +153,34 @@ def sliding_window_attention_plain(q, k, v, kv_mask=None, *,
     lse = torch.logsumexp(flat.masked_fill(~flat_mask, float("-inf")),
                           dim=-1)
     return out, lse.reshape(b, h, L)
+
+
+def cls_attend(q, cls_k, cls_v, cls_len):
+    """Attention of every query over the [CLS] key block (the JAX
+    package's `_cls_attend`): (out [B, H, S, D] fp32, lse [B, H, S] fp32),
+    out 0 and lse -inf where cls_len is 0."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), cls_k.float().transpose(-1, -2)) * scale
+    col = torch.arange(cls_k.shape[2], device=q.device)
+    mask = (col[None, :] < cls_len.to(torch.int64)[:, None])[:, None, None]
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    o = torch.matmul(p.to(cls_v.dtype), cls_v).float() \
+        / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+    return o, lse
+
+
+def merge(out_b, lse_b, out_c, lse_c, dtype):
+    """Flash merge of two normalised attention parts by logaddexp; a row
+    where both lse are -inf gives out 0 and lse -inf."""
+    lse = torch.logaddexp(lse_b, lse_c)
+    finite = torch.where(torch.isfinite(lse), lse, 0.0)
+    w_b = torch.exp(lse_b - finite)[..., None]
+    w_c = torch.exp(lse_c - finite)[..., None]
+    return (w_b * out_b.float() + w_c * out_c).to(dtype), lse
 
 
 def _band_mask(b, nb, block_size, k_idx, band_valid, lengths, causal,

@@ -13,22 +13,28 @@ attention family:
   holds block 0 with the [CLS] slot's guard against counting it twice,
   which the offset cannot express; dk_ext and dv_ext are zero over the
   halo rows and the [CLS] gradients are zero;
-- every other shard runs K1 with q_off = window - 1 over the extended
-  keys with no [CLS] slot (csrc/swa_fwd.cu: query block i at key block
-  i + q_off), attends the [CLS] block in PyTorch (`cls_attend`) and merges
-  the two parts by logaddexp. The backward is one K2 call
-  (csrc/swa_bwd.cu) over the extended keys with the broadcast [CLS] block
-  as a slot with its own pointer, given the JOINT lse and the merged
-  output, so p = exp(s - lse) is the exact partial probability and delta
-  = rowsum(do * out) the whole row's; it returns all five gradients. Its
-  plain version (sliding_window_attention_bwd_plain with `cls`) adds the
-  [CLS] term as JAX's `_sp_bwd` does, to the band's dq already rounded to
-  bf16; the kernel sums both parts of dq in fp32 and rounds once.
+- every other shard runs one K1 launch and one K2 launch set over the
+  extended keys with q_off = window - 1 (0 at window 1; query block i at
+  key block i + q_off), the broadcast [CLS] block a slot of each with its
+  own pointer (`cls`), masked by cls_len only and never causally. The
+  forward's online softmax spans the [CLS] block and the band, so it
+  gives the merged output and the JOINT lse in one pass
+  (csrc/swa_fwd.cu); the backward, given that lse and output, has p =
+  exp(s - lse) the exact partial probability and delta = rowsum(do * out)
+  the whole row's, and returns all five gradients (csrc/swa_bwd.cu).
+
+The plain versions keep JAX's composition: the forward's
+(sliding_window_attention_plain with `cls`) runs the band, attends the
+[CLS] block apart and merges the two by logaddexp, the band's output
+rounded to bf16 before the merge; the backward's
+(sliding_window_attention_bwd_plain with `cls`) adds the [CLS] term, as
+`_sp_bwd` does, to the band's dq already rounded to bf16. The kernels sum
+both parts in fp32 and round once, so on bf16 inputs they differ from the
+plain versions by about one bf16 rounding.
 
 The shard index is a Python int on each rank, so the branch is a plain
 `if`. Rows with no valid key at all (a filler row: ext_len 0 and cls_len
-0) give out 0, lse -inf and zero gradients, with no NaN: the merge and the
-[CLS] backward select where a -inf lse would meet another.
+0) give out 0, lse -inf and zero gradients, with no NaN.
 
 `SpWindowedAttentionFn` launches the kernels for CUDA tensors and runs the
 plain versions for CPU tensors (through ops/swa_kernel.py, which counts
@@ -66,40 +72,14 @@ def route(head_dim: int, block_size: int) -> str:
     return "outside"
 
 
-def cls_attend(q, cls_k, cls_v, cls_len):
-    """Attention of every query over the [CLS] key block: (out [B, H, S, D]
-    fp32, lse [B, H, S] fp32), out 0 and lse -inf where cls_len is 0."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), cls_k.float().transpose(-1, -2)) * scale
-    col = torch.arange(cls_k.shape[2], device=q.device)
-    mask = (col[None, :] < cls_len.to(torch.int64)[:, None])[:, None, None]
-    s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1)
-    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
-    l = p.sum(dim=-1)
-    o = torch.matmul(p.to(cls_v.dtype), cls_v).float() \
-        / l.clamp_min(1e-30)[..., None]
-    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
-    return o, lse
-
-
-def merge(out_b, lse_b, out_c, lse_c, dtype):
-    """Flash merge of two normalised attention parts by logaddexp; a row
-    where both lse are -inf gives out 0 and lse -inf."""
-    lse = torch.logaddexp(lse_b, lse_c)
-    finite = torch.where(torch.isfinite(lse), lse, 0.0)
-    w_b = torch.exp(lse_b - finite)[..., None]
-    w_c = torch.exp(lse_c - finite)[..., None]
-    return (w_b * out_b.float() + w_c * out_c).to(dtype), lse
-
-
 def _band_plain(q, k, v, lengths, *, window_size, block_size, causal,
-                include_cls, q_off, sp=False):
+                include_cls, q_off, cls=None, sp=False):
     mask = (torch.arange(k.shape[2], device=q.device)[None, :]
             < lengths.to(torch.int64)[:, None])
     return sliding_window_attention_plain(
         q, k, v, mask, window_size=window_size, block_size=block_size,
-        causal=causal, include_cls=include_cls, return_lse=True, q_off=q_off)
+        causal=causal, include_cls=include_cls, return_lse=True, q_off=q_off,
+        cls=cls)
 
 
 def _band_plain_bwd(*args, sp=False, **kwargs):
@@ -119,10 +99,8 @@ def _forward(band_fwd, q, k_ext, v_ext, cls_k, cls_v, start, ext_len,
     if start == 0:
         return band_fwd(q, _local(k_ext, ctx), _local(v_ext, ctx), ext_len,
                         include_cls=True, q_off=0, **kw)
-    out_b, lse_b = band_fwd(q, k_ext, v_ext, ext_len, include_cls=False,
-                            q_off=hb, sp=True, **kw)
-    out_c, lse_c = cls_attend(q, cls_k, cls_v, cls_len)
-    return merge(out_b, lse_b, out_c, lse_c, q.dtype)
+    return band_fwd(q, k_ext, v_ext, ext_len, include_cls=False, q_off=hb,
+                    cls=(cls_k, cls_v, cls_len), sp=True, **kw)
 
 
 def _backward(band_bwd, q, k_ext, v_ext, cls_k, cls_v, start, ext_len,
@@ -145,11 +123,12 @@ def _backward(band_bwd, q, k_ext, v_ext, cls_k, cls_v, start, ext_len,
 def sp_fwd(q, k_ext, v_ext, cls_k, cls_v, start: int, ext_len, cls_len,
            window_size: int, block_size: int):
     """(out [B, H, S, D] in q's dtype, lse [B, H, S] fp32) of one shard:
-    K1 (with q_off on shards past the first) for CUDA tensors, its plain
-    version for CPU tensors. q: [B, H, S, D] at positions start..; k_ext,
-    v_ext: [B, H, ctx + S, D]; cls_k, cls_v: [B, H, block, D]; ext_len:
-    [B] int32 valid extended keys (on shard 0 the LOCAL prefix: its halo
-    rows are never valid); cls_len: [B] int32 valid [CLS] keys."""
+    K1 (with q_off and the broadcast [CLS] slot on shards past the first)
+    for CUDA tensors, its plain version for CPU tensors. q: [B, H, S, D] at
+    positions start..; k_ext, v_ext: [B, H, ctx + S, D]; cls_k, cls_v:
+    [B, H, block, D]; ext_len: [B] int32 valid extended keys (on shard 0
+    the LOCAL prefix: its halo rows are never valid); cls_len: [B] int32
+    valid [CLS] keys."""
     return _forward(swa_kernel.swa_fwd, q, k_ext, v_ext, cls_k, cls_v,
                     start, ext_len, cls_len, window_size, block_size)
 

@@ -1,14 +1,15 @@
 """K1/K2 and K5/K5b: the sliding-window attention forward and backward as
-CUDA kernels, in the head-major layout (csrc/swa_fwd.cu, csrc/swa_bwd.cu,
-replacing sparse_vae_tpu/ops/pallas_kernels.py::
-_sliding_window_attention_fwd_pallas and ::_bwd_pallas) and in the packed
-[B, L, H * Dh] projection layout (csrc/swa_fwd_packed.cu, and K5b as the
-Dh = 128 packed instantiation of K2's kernels in csrc/swa_bwd.cu,
-replacing ::_sliding_window_attention_fwd_packed and ::_bwd_packed). K1
-and K2 also take `q_off`, the sequence-parallel form in which the JAX
-package's sp_windowed_attention_pallas (K6) calls the same two Pallas
-kernels, and K2 the broadcast [CLS] block of such a shard as a slot of its
-own (`cls`): ops/sp_kernel.py builds K6 on them.
+CUDA kernels, in the head-major layout (K1 and K2, replacing
+sparse_vae_tpu/ops/pallas_kernels.py::_sliding_window_attention_fwd_pallas
+and ::_bwd_pallas) and in the packed [B, L, H * Dh] projection layout (K5
+and K5b, replacing ::_sliding_window_attention_fwd_packed and
+::_bwd_packed). The forwards are instantiations of one templated kernel
+(csrc/swa_fwd.cu) and the backwards of one templated set (csrc/swa_bwd.cu),
+at Dh 64 head-major and Dh 128 packed. K1 and K2 also take `q_off`, the
+sequence-parallel form in which the JAX package's
+sp_windowed_attention_pallas (K6) calls the same two Pallas kernels, and
+the broadcast [CLS] block of such a shard as a slot of its own (`cls`):
+ops/sp_kernel.py builds K6 on them.
 
 `route` decides up front which family a call takes, reproducing the JAX
 package's gates. Each wrapper launches its kernel for CUDA tensors and runs
@@ -25,8 +26,7 @@ from . import cuda_lib
 from .sliding_window_attention import (
     sliding_window_attention_bwd_plain,
     sliding_window_attention_packed_bwd_plain,
-    sliding_window_attention_packed_plain, sliding_window_attention_plain,
-    split_heads)
+    sliding_window_attention_packed_plain, sliding_window_attention_plain)
 
 # Kernel launches in this process (raised only where a kernel launches):
 # K1 in `launches`, K2 in `bwd_launches`, K5 in `packed_launches`, K5b in
@@ -115,10 +115,17 @@ def _check(q, k, v, lengths, block_size: int, window_size: int,
                              f"{tuple(cls_len.shape)}")
         if len({t.device for t in (q, cls_k, cls_v, cls_len)}) != 1:
             raise ValueError("cls on another device than q")
+    _check_rows(q, k, v, lengths, window_size)
+
+
+def _check_rows(q, k, v, lengths, window_size: int):
+    """The checks that do not depend on the layout: the window, one valid
+    length per batch row, one device."""
     if window_size < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
-    if lengths.shape != (b,):
-        raise ValueError(f"lengths must be [{b}], got {tuple(lengths.shape)}")
+    if lengths.shape != (q.shape[0],):
+        raise ValueError(f"lengths must be [{q.shape[0]}], got "
+                         f"{tuple(lengths.shape)}")
     devices = {t.device for t in (q, k, v, lengths)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
@@ -138,39 +145,62 @@ def _check_cuda(kernel: str, tensors, lengths, head_dim: int,
         raise ValueError(f"the {kernel} kernel takes contiguous inputs")
 
 
+def _cls_tensors(kernel: str, cls):
+    """(cls_k, cls_v, cls_len) of a CUDA call, three Nones without `cls`;
+    raises on a cls_len the kernel does not take."""
+    if cls is None:
+        return None, None, None
+    if cls[2].dtype != torch.int32 or not cls[2].is_contiguous():
+        raise TypeError(f"the {kernel} kernel takes a contiguous int32 "
+                        f"cls_len")
+    return cls
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
-            include_cls: bool = True, q_off: int = 0, sp: bool = False):
+            include_cls: bool = True, q_off: int = 0, cls=None,
+            sp: bool = False):
     """Sliding-window + [CLS] attention forward.
 
     q: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D] (q_off > 0:
     query block i sits at key block i + q_off, no [CLS] slot); lengths: [B]
     int32 valid key prefix per row. Returns (out [B, H, L, D] in q's
-    dtype, lse [B, H, L] fp32). CUDA: bf16, D = 64, block_size = 128,
-    contiguous. sp: the launch is K6's banded branch (ops/sp_kernel.py)
-    and counts as K6's.
+    dtype, lse [B, H, L] fp32). cls: (cls_k, cls_v [B, H, block_size, D],
+    cls_len [B] int32) in place of include_cls: the broadcast [CLS] block
+    that every query of a banded shard also attends (K6's forward), its
+    valid keys cls_len; lse is then the joint one of the band and the
+    block. CUDA: bf16, D = 64, block_size = 128, contiguous. sp: the launch
+    is K6's banded branch (ops/sp_kernel.py) and counts as K6's.
     """
     global launches, sp_launches
-    _check(q, k, v, lengths, block_size, window_size, q_off, include_cls)
+    _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
+           cls)
     if not q.is_cuda:
         mask = (torch.arange(k.shape[2], device=q.device)[None, :]
                 < lengths.to(torch.int64)[:, None])
         return sliding_window_attention_plain(
             q, k, v, mask, window_size=window_size, block_size=block_size,
             causal=causal, include_cls=include_cls, return_lse=True,
-            q_off=q_off)
+            q_off=q_off, cls=cls)
 
-    _check_cuda("K1", (q, k, v), lengths, q.shape[3], block_size)
+    cls_k, cls_v, cls_len = _cls_tensors("K1", cls)
+    tensors = (q, k, v) + ((cls_k, cls_v) if cls is not None else ())
+    _check_cuda("K1", tensors, lengths, q.shape[3], block_size)
     b, h, L, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.svt_swa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           lengths.data_ptr(), out.data_ptr(),
-                           lse.data_ptr(), b, h, L, k.shape[2], d,
-                           block_size, window_size, int(causal),
-                           int(include_cls), q_off, d ** -0.5, stream)
+                           lengths.data_ptr(), _ptr(cls_k), _ptr(cls_v),
+                           _ptr(cls_len), out.data_ptr(), lse.data_ptr(), b,
+                           h, L, k.shape[2], d, block_size, window_size,
+                           int(causal), int(include_cls or cls is not None),
+                           q_off, d ** -0.5, stream)
     cuda_lib.check(code, "swa_fwd")
     if sp:
         sp_launches += 1
@@ -213,12 +243,9 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
             q_off=q_off, cls=cls)
 
     broadcast = cls is not None
-    cls_k, cls_v, cls_len = cls if broadcast else (None,) * 3
+    cls_k, cls_v, cls_len = _cls_tensors("K2", cls)
     tensors = (q, k, v, out, do) + ((cls_k, cls_v) if broadcast else ())
     _check_cuda("K2", tensors, lengths, q.shape[3], block_size)
-    if broadcast and (cls_len.dtype != torch.int32
-                      or not cls_len.is_contiguous()):
-        raise TypeError("the K2 kernel takes a contiguous int32 cls_len")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("the K2 kernel takes a contiguous fp32 lse")
     b, h, L, d = q.shape
@@ -234,16 +261,13 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
                            block_size, d), dtype=torch.float32,
                           device=q.device)
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     lib = cuda_lib.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.svt_swa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        lse.data_ptr(), out.data_ptr(), do.data_ptr(), ptr(cls_k),
-        ptr(cls_v), ptr(cls_len), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), ptr(dcls_k), ptr(dcls_v), delta.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), do.data_ptr(), _ptr(cls_k),
+        _ptr(cls_v), _ptr(cls_len), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _ptr(dcls_k), _ptr(dcls_v), delta.data_ptr(),
         scratch.data_ptr(), b, h, L, k.shape[2], d, block_size, window_size,
         int(causal), int(include_cls or broadcast), q_off, CLS_CHUNK,
         d ** -0.5, stream)
@@ -285,13 +309,18 @@ def scratch_parts(chunks: int, broadcast: bool) -> int:
 
 def _check_packed(q, k, v, lengths, num_heads: int, block_size: int,
                   window_size: int) -> int:
-    """`_check` on head views of the packed operands; returns the head
+    """`_check` for the packed operands, on their shapes (head views cost
+    more host time than the kernel at a serving shape); returns the head
     dim."""
-    if q.ndim != 3 or q.shape[2] % num_heads:
-        raise ValueError(f"q must be [B, L, H * D] with H = {num_heads}, "
-                         f"got {tuple(q.shape)}")
-    _check(*(split_heads(t, num_heads) for t in (q, k, v)), lengths,
-           block_size, window_size)
+    if q.ndim != 3 or q.shape[2] % num_heads or k.shape != q.shape \
+            or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be [B, L, H * D] with H = "
+                         f"{num_heads}, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[1] % block_size:
+        raise ValueError(f"length {q.shape[1]} is not a multiple of "
+                         f"{block_size}")
+    _check_rows(q, k, v, lengths, window_size)
     return q.shape[2] // num_heads
 
 

@@ -1,6 +1,6 @@
 """Seeded random training batches: the stand-in for the corpus pipeline
-until the tokenizer and sparse_vae_tpu/data/ are ported (ROADMAP Queue 1
-item 3), as the JAX package's bench.py trains on random ids.
+until the tokenizer and the corpus pipeline of sparse_vae_tpu/data/ are
+ported, as the JAX package's bench.py trains on random ids.
 
 Each row is one document: [CLS], random ids in [3, V), [SEP], then [PAD]
 (0). Lengths are ragged: row 0 fills the row, the others are drawn

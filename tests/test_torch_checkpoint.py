@@ -49,11 +49,12 @@ def jax_params_from_archive(flat):
     return params
 
 
-def jax_r5():
-    """(module, params) of the JAX flagship r5 model in fp32."""
+def jax_r5(precision: str = "fp32"):
+    """(module, params) of the JAX flagship r5 model computing in
+    `precision` ("fp32" or "bf16"; the params are fp32 either way)."""
     from sparse_vae_tpu import build_model
     hp = dict(r5_meta()["model_hparams"])
-    hp.update(precision="fp32", grad_checkpointing=False)
+    hp.update(precision=precision, grad_checkpointing=False)
     module, _, _ = build_model("transformer-vae", hp)
     return module, jax_params_from_archive(r5_archive())
 

@@ -15,9 +15,9 @@ output, and K3b's rounding of the logit gradients to bf16 before its
 products); K3's lse in fp32 up to summation order over 32,768 logits
 (1e-4 absolute). K2 and K3 must also repeat bit for bit. K5 and K5b (the packed layout) as K1 and K2, K5b also
 bit for bit across two calls. K6 (the sequence-parallel shard attention:
-K1 with q_off plus the [CLS] merge; its backward one K2 call with the
-broadcast [CLS] block as a slot of its own) as K1 and K2, on both
-branches, its backward bit for bit across two calls.
+one K1 launch and one K2 launch set with q_off and the broadcast [CLS]
+block as a slot of its own) as K1 and K2, on both branches, bit for bit
+across two calls.
 """
 import pytest
 import torch
@@ -526,8 +526,8 @@ def test_swa_kernels_with_q_off_match_plain(cuda, window):
 @pytest.mark.parametrize("window", [1, 2, 3])
 def test_sp_kernel_matches_plain(cuda, start, window):
     """K6 on both branches (start 0: K1/K2 unchanged on the local keys;
-    start > 0: q_off plus the [CLS] merge), with ragged rows and a filler
-    row (no valid key: out 0, zero gradients, no NaN), through the
+    start > 0: q_off and the broadcast [CLS] slot), with ragged rows and a
+    filler row (no valid key: out 0, zero gradients, no NaN), through the
     autograd Function, against the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(30 + window + start)
     S, ctx = 512, 128 * (window - 1)
@@ -646,3 +646,82 @@ def test_sp_banded_backward_folds_cls_into_k2(cuda, cls_len):
         _assert_rel(g, w, name)
     if cls_len == 0:
         assert bool((got[3][0] == 0).all()) and bool((got[4][0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 2, 3])
+@pytest.mark.parametrize("cls_len", [128, 77, 0])
+def test_swa_fwd_broadcast_cls_matches_plain(cuda, window, cls_len):
+    """K1's broadcast instantiation (K6's banded forward, q_off = window
+    - 1, 0 at window 1) on ragged rows: a full row, a short one, a row
+    with one valid key and a filler row (no valid key: out 0, lse -inf, no
+    NaN), against the plain version (the band, the [CLS] block attended
+    apart, merged by logaddexp); two calls bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(80 + window + cls_len)
+    S, q_off = 1024, window - 1
+    ctx = 128 * q_off
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q = randn(4, 4, S, 64)
+    k, v = randn(4, 4, ctx + S, 64), randn(4, 4, ctx + S, 64)
+    cls = (randn(4, 4, 128, 64), randn(4, 4, 128, 64),
+           torch.tensor([cls_len, 128, 0, 0], dtype=torch.int32,
+                        device=cuda))
+    lengths = torch.tensor([ctx + S, 700, 1, 0], dtype=torch.int32,
+                           device=cuda)
+    kw = {"window_size": window, "include_cls": False, "q_off": q_off,
+          "cls": cls}
+    before = (swa_kernel.launches, swa_kernel.sp_launches)
+    out, lse = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+    again, lse2 = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+    assert (swa_kernel.launches, swa_kernel.sp_launches) == (
+        before[0] + 2, before[1])
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    mask = torch.arange(k.shape[2], device=cuda)[None, :] < lengths[:, None]
+    ref, ref_lse = sliding_window_attention_plain(
+        q, k, v, mask, window_size=window, include_cls=False,
+        return_lse=True, q_off=q_off, cls=cls)
+    assert not bool(torch.isnan(out.float()).any())
+    assert bool((out[3] == 0).all()) and bool(torch.isneginf(lse[3]).all())
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_swa_fwd_packed_kernel_on_ragged_rows(cuda, heads, causal, window):
+    """K5 (the forward's Dh = 128 packed instantiation) on rows of 1280,
+    1000, 129, 1 and 0 valid keys against its plain version; the row with
+    no valid key gives out 0 and lse -inf, nothing is NaN, and two calls
+    agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(90 + 2 * window + causal
+                                                   + heads)
+    q, k, v = (torch.randn((5, 1280, heads * 128), generator=gen,
+                           device=cuda).to(torch.bfloat16) for _ in range(3))
+    lengths = torch.tensor([1280, 1000, 129, 1, 0], dtype=torch.int32,
+                           device=cuda)
+    kw = {"window_size": window, "causal": causal}
+    before = swa_kernel.packed_launches
+    out, lse = swa_kernel.swa_fwd_packed(q, k, v, lengths, heads, **kw)
+    again, lse2 = swa_kernel.swa_fwd_packed(q, k, v, lengths, heads, **kw)
+    assert swa_kernel.packed_launches == before + 2
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    ref, ref_lse = sliding_window_attention_packed_plain(
+        q, k, v, lengths, heads, **kw)
+    assert not bool(torch.isnan(out.float()).any())
+    assert bool((out[4] == 0).all()) and bool(torch.isneginf(lse[4]).all())
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
+                               rtol=1e-5)

@@ -448,3 +448,26 @@ def test_per_call_device_ms_tolerates_a_dropped_record(dq_records, want):
         assert got is None
     else:
         assert got == pytest.approx(want)
+
+
+def test_packed_wrappers_reject_shapes_they_do_not_take():
+    """The packed wrappers check [B, L, H * D] shapes themselves, without
+    head views: k and v as q, H dividing the width, L a multiple of the
+    block, one valid length per row, a window of at least one block."""
+    q = torch.zeros((2, 256, 4 * 16))
+    lens = torch.tensor([256, 100], dtype=torch.int32)
+    out, lse = swa_kernel.swa_fwd_packed(q, q, q, lens, 4)
+    assert out.shape == q.shape and lse.shape == (2, 4, 256)
+    for bad in ((q, q[:, :128], q, lens, 4), (q, q, q, lens, 3),
+                (q[0], q[0], q[0], lens, 4)):
+        with pytest.raises(ValueError, match="H \\* D"):
+            swa_kernel.swa_fwd_packed(*bad)
+    with pytest.raises(ValueError, match="multiple"):
+        swa_kernel.swa_fwd_packed(q[:, :200], q[:, :200], q[:, :200], lens,
+                                  4)
+    with pytest.raises(ValueError, match="lengths"):
+        swa_kernel.swa_fwd_packed(q, q, q, lens[:1], 4)
+    with pytest.raises(ValueError, match="window_size"):
+        swa_kernel.swa_fwd_packed(q, q, q, lens, 4, window_size=0)
+    with pytest.raises(ValueError, match="lse"):
+        swa_kernel.swa_bwd_packed(q, q, q, lens, lse[:, :2], out, out, 4)

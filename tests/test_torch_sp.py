@@ -36,7 +36,8 @@ from flax.core import unfreeze
 from flax.traverse_util import flatten_dict
 
 from sparse_vae_tpu import build_model
-from sparse_vae_tpu.ops.pallas_kernels import sp_windowed_attention_pallas
+from sparse_vae_tpu.ops.pallas_kernels import (_sp_fwd_impl,
+                                               sp_windowed_attention_pallas)
 from sparse_vae_tpu.parallel.sp import \
     windowed_attention_ctx as jax_windowed_attention_ctx
 from sparse_vae_tpu.parallel.spmd import make_train_step
@@ -178,6 +179,53 @@ def test_k6_filler_row_gives_zero_and_no_nan(start_blocks):
     torch.testing.assert_close(out[:1], out0)
     for t, s in zip(ta, solo):
         torch.testing.assert_close(t.grad[:1], s.grad)
+
+
+def _swa_fwd_cls(arrays, ext_len, cls_len, ws, bs):
+    """The port's K1 forward with the broadcast [CLS] slot on a banded
+    shard (the CPU runs its plain version): (out, lse)."""
+    q, k_ext, v_ext, cls_k, cls_v = (torch.tensor(x) for x in arrays)
+    return swa_kernel.swa_fwd(
+        q, k_ext, v_ext, torch.tensor(ext_len), window_size=ws,
+        block_size=bs, include_cls=False, q_off=halo_blocks(ws),
+        cls=(cls_k, cls_v, torch.tensor(cls_len)))
+
+
+@pytest.mark.parametrize("ws,cls_lens", [
+    (1, None), (2, None), (3, None), (2, (9, 13)), (3, (0, 16))])
+def test_swa_fwd_with_cls_matches_jax_kernel(ws, cls_lens):
+    """`swa_fwd(..., cls=...)`, K6's banded forward as one call (at window
+    1 q_off is 0 beside a broadcast block), against JAX's
+    `_sp_fwd_impl` (the band kernel in interpret mode, `_cls_attend` and
+    the logaddexp merge): out and the joint lse, on ragged rows with a
+    full, a partial or no [CLS]. Tolerance as K6's: 1e-5 (fp32, summation
+    order)."""
+    (arrays, ext_len, cls_len, _, _, _, _,
+     bs) = _k6_inputs(30 + ws, 8, True, ws, cls_lens=cls_lens)
+    want, want_lse = _sp_fwd_impl(
+        *(jnp.asarray(x) for x in arrays), jnp.asarray(8 * bs),
+        jnp.asarray(ext_len), jnp.asarray(cls_len), ws, bs, True)
+    out, lse = _swa_fwd_cls(arrays, ext_len, cls_len, ws, bs)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_swa_fwd_with_cls_filler_row_gives_zero_and_no_nan():
+    """Row 1 of a banded shard has no valid extended key and no valid
+    [CLS] key: out 0, lse -inf, no NaN, and row 0 is as if row 1 were
+    absent."""
+    (arrays, ext_len, cls_len, _, _, _, _,
+     bs) = _k6_inputs(6, 8, False, 2)
+    ext_len[1], cls_len[1] = 0, 0
+    out, lse = _swa_fwd_cls(arrays, ext_len, cls_len, 2, bs)
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[1] == 0).all()) and bool(torch.isneginf(lse[1]).all())
+    out0, lse0 = _swa_fwd_cls(tuple(x[:1] for x in arrays), ext_len[:1],
+                              cls_len[:1], 2, bs)
+    torch.testing.assert_close(out[:1], out0)
+    torch.testing.assert_close(lse[:1], lse0)
 
 
 # -- the multi-rank run ------------------------------------------------------------

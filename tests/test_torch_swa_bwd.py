@@ -164,6 +164,26 @@ def test_backward_wrapper_rejects_a_cls_block_it_does_not_take():
                                         cls[0].shape, cls[1].shape]
 
 
+def test_forward_wrapper_rejects_a_cls_block_it_does_not_take():
+    """The forward takes the broadcast [CLS] block (`cls`) as the backward
+    does: in place of the in-band [CLS] slot, [B, H, block, D] with
+    cls_len [B]; the same errors."""
+    q, k, v, _, lens, _ = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                           else a for a in _problem(7, L=256))
+    cls = (k[:, :, :128], v[:, :, :128], torch.tensor([128, 7]))
+    with pytest.raises(ValueError, match="include_cls"):
+        swa_kernel.swa_fwd(q, k, v, lens, cls=cls)
+    with pytest.raises(ValueError, match="cls_k"):
+        swa_kernel.swa_fwd(q, k, v, lens, include_cls=False,
+                           cls=(cls[0][:, :, :64], cls[1], cls[2]))
+    with pytest.raises(ValueError, match="cls_len"):
+        swa_kernel.swa_fwd(q, k, v, lens, include_cls=False,
+                           cls=(cls[0], cls[1], cls[2][:1]))
+    out, lse = swa_kernel.swa_fwd(q, k, v, lens, include_cls=False,
+                                  cls=cls)
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+
+
 @pytest.mark.parametrize(
     "num_blocks,window,causal,include_cls,broadcast,chunks,parts", [
         (100, 2, True, True, False, 13, 14),   # (100 - 2) / 8, + band part

@@ -15,6 +15,10 @@ Tolerances, each stated where it is used:
   measured below 2e-4 of the largest entry).
 - RAdam/LAMB: the step's scalars are fp64 on the host in the port and
   fp32 in JAX; 8 steps of lr-sized updates agree to 1e-6 absolute.
+- The ELBO in bf16 compute (fp32 master weights), as r5 was trained: the
+  two packages round to bf16 at other places, so neither is the other's
+  reference; each is held against JAX in fp32, and the port may be no
+  farther from it than JAX's own bf16, by the margins stated at the test.
 """
 import jax
 import jax.numpy as jnp
@@ -77,17 +81,23 @@ def r5_pair():
     return module, params, model
 
 
-def test_r5_elbo_and_every_gradient_match_jax(r5_pair):
-    """Full-width r5 in fp32 on tokens [2, 512] with ragged lengths and the
-    same eps: (nll_sum, count, kl_sum, raw_kl_sum) and the gradients of
-    all 165 parameters of the ELBO at step 100 (KL weight 0.145)."""
-    module, params, model = r5_pair
-    cls = type(module)
+# The ELBO of the r5 tests: ragged documents [2, 512] and the posterior
+# noise, made from seed 0, at step 100 (KL weight 0.145).
+ELBO_STEP = 100
+
+
+def _elbo_inputs():
     rng = np.random.default_rng(0)
     ids, num_tokens = _documents(rng, [512, 300], 512, 32768)
     eps = rng.standard_normal((2, 1, 64)).astype(np.float32)
+    return ids, num_tokens, eps
+
+
+def _jax_elbo(module, params, ids, num_tokens, eps):
+    """JAX's loss, (nll_sum, count, kl_sum, raw_kl_sum) and the gradient
+    of the loss by flax path."""
+    cls = type(module)
     jobj = JObjective(module.hparams)
-    step = 100
 
     def jax_loss(p):
         v = {"params": p}
@@ -102,26 +112,96 @@ def test_r5_elbo_and_every_gradient_match_jax(r5_pair):
         kl_sum, raw_sum, rows = j_kl_sums(raw_kl, jnp.asarray(num_tokens))
         sums = {"nll_sum": nll_sum, "kl_sum": kl_sum, "raw_kl_sum": raw_sum}
         loss, _ = jobj.compose_loss(
-            sums, {"token_count": count, "row_count": rows}, step)
+            sums, {"token_count": count, "row_count": rows}, ELBO_STEP)
         return loss, (nll_sum, count, kl_sum, raw_sum)
 
-    (_, want), grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+    (loss, sums), grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+    return float(loss), sums, _leaf_grads(grads)
 
+
+def _port_elbo(model, ids, num_tokens, eps):
+    """The port's loss and sums; leaves the gradients on the model."""
     model.zero_grad(set_to_none=True)
     objective = VAEObjective(model.hparams)
     batch = {"token_ids": torch.from_numpy(ids),
              "num_tokens": torch.from_numpy(num_tokens)}
     sums, counts = objective.loss_sums(model, batch,
                                        {"eps": torch.from_numpy(eps)})
-    loss, _ = objective.compose_loss(sums, counts, step)
+    loss, _ = objective.compose_loss(sums, counts, ELBO_STEP)
     loss.backward()
-    got = (sums["nll_sum"], counts["token_count"], sums["kl_sum"],
-           sums["raw_kl_sum"])
+    return loss.item(), (sums["nll_sum"], counts["token_count"],
+                         sums["kl_sum"], sums["raw_kl_sum"])
+
+
+@pytest.fixture(scope="module")
+def r5_elbo_fp32(r5_pair):
+    """JAX's fp32 ELBO of r5 on `_elbo_inputs`: (loss, sums, grads)."""
+    module, params, _ = r5_pair
+    return _jax_elbo(module, params, *_elbo_inputs())
+
+
+def test_r5_elbo_and_every_gradient_match_jax(r5_pair, r5_elbo_fp32):
+    """Full-width r5 in fp32 on tokens [2, 512] with ragged lengths and the
+    same eps: (nll_sum, count, kl_sum, raw_kl_sum) and the gradients of
+    all 165 parameters of the ELBO at step 100 (KL weight 0.145)."""
+    _, _, model = r5_pair
+    _, want, grads = r5_elbo_fp32
+    _, got = _port_elbo(model, *_elbo_inputs())
     for name, g, w in zip(("nll_sum", "count", "kl_sum", "raw_kl_sum"),
                           got, want):
         np.testing.assert_allclose(g.item(), float(w), rtol=SUM_RTOL,
                                    err_msg=name)
-    _assert_grads_match(model, _leaf_grads(grads))
+    _assert_grads_match(model, grads)
+
+
+# The port's bf16 ELBO may be farther from JAX's fp32 one than JAX's bf16
+# ELBO is by at most these margins: on the loss's relative error, and on
+# the smallest per-parameter gradient cosine (the smallest fall on the
+# encoder bottleneck, whose gradients are near zero). On this input JAX's
+# bf16 sits 1.8e-4 (loss) and 1 - 0.9936 (cosine) from fp32; the two
+# packages round at other places, so either may land nearer by chance,
+# and each margin is about half of JAX's own distance.
+BF16_LOSS_MARGIN = 1e-4
+BF16_COS_MARGIN = 3e-3
+
+
+def _cosines(grads: dict, want: dict) -> dict:
+    out = {}
+    for path, w in want.items():
+        a, b = grads[path].astype(np.float64), w.astype(np.float64)
+        out[path] = float((a * b).sum() / max(
+            np.linalg.norm(a) * np.linalg.norm(b), 1e-300))
+    return out
+
+
+def test_r5_bf16_elbo_is_as_close_to_fp32_as_jax_bf16(r5_elbo_fp32):
+    """r5 computing in bf16 over fp32 master weights, the form it was
+    trained in, in both packages on the inputs of the fp32 test: the
+    port's loss and its 165 gradients are no farther from JAX's fp32 ones
+    than JAX's bf16 loss and gradients are, within BF16_LOSS_MARGIN on the
+    loss's relative error and BF16_COS_MARGIN on the smallest gradient
+    cosine."""
+    ids, num_tokens, eps = _elbo_inputs()
+    loss32, _, grads32 = r5_elbo_fp32
+    module, params = jax_r5("bf16")
+    jax_loss, _, jax_grads = _jax_elbo(module, params, ids, num_tokens, eps)
+    model, _, _ = ckpt.load_run("real-prose-vae-r5", device="cpu",
+                                dtype=torch.bfloat16, train=True)
+    port_loss, _ = _port_elbo(model, ids, num_tokens, eps)
+    port_grads = {}
+    named = dict(model.named_parameters())
+    for path in grads32:
+        key, transpose = ckpt.torch_key(path)
+        g = named[key].grad.float().numpy()
+        port_grads[path] = g.T if transpose else g
+    assert len(port_grads) == len(named) == 165
+    jax_rel = abs(jax_loss - loss32) / abs(loss32)
+    port_rel = abs(port_loss - loss32) / abs(loss32)
+    jax_cos = min(_cosines(jax_grads, grads32).values())
+    port_cos = min(_cosines(port_grads, grads32).values())
+    assert np.isfinite(port_loss) and port_rel <= jax_rel + BF16_LOSS_MARGIN, \
+        (port_rel, jax_rel)
+    assert port_cos >= jax_cos - BF16_COS_MARGIN, (port_cos, jax_cos)
 
 
 def test_r5_perceiver_and_posterior_match_jax(r5_pair):
@@ -254,7 +334,7 @@ def test_two_microbatch_train_step_matches_jax():
 
 def test_multi_sample_training_is_not_ported():
     hp = TransformerVAEHparams(train_mc_samples=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="iwae_dreg_loss"):
         VAEObjective(hp)
 
 

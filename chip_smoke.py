@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sparse_vae_tpu_torch) on one NVIDIA
 GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k4-parent DIR]
 
 Phases, each timed:
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
@@ -25,7 +25,18 @@ Phases, each timed:
                bit-identical results in two calls, and the K2 and K3b
                rows give their device time by part (K2: dq, dk/dv with the
                [CLS] partials, reduce, PyTorch; K3b: dl, dg, dE, dbias,
-               PyTorch's copies);
+               PyTorch's copies); K4 (the selection) at the serving batch
+               [64, 32768] (T 1.0 and 0.7) and at a 512-token Jacobi
+               window's [512, 32768], by events and torch.profiler beside
+               its bound, and for correctness alone at [1, 512],
+               [133, 32768] and [3, 50000], without noise and at top_p
+               1e-3 too, every row bit-identical across two calls; its
+               two instantiations (a cluster of two CTAs a row, one CTA a
+               row) timed against each other at 16 to 2,048 rows;
+               with --k4-parent DIR, DIR's K4 (another checkout's
+               csrc/nucleus_select.cu) is built alone into this
+               checkout's _build/ and timed beside this one at the timed
+               shapes, in the order parent, this, this, parent;
   4. model   — the flagship real-prose-vae-r5 weights on the card in bf16:
                prefill logits against the fp32 CPU model on a fixed input;
   5. serve   — ServeEngine (batch 64, max_length 512, fused selection)
@@ -88,11 +99,14 @@ Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import gc
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # The run writes nothing into the checkout but the kernel library
 # (sparse_vae_tpu_torch/_build/): no bytecode caches either.
@@ -334,46 +348,187 @@ def k1_phase(b: int, L: int, lengths, seed: int, iters: int):
     return row
 
 
-def k4_phase(temperature: float, seed: int, iters: int, n: int = 64,
-             vocab: int = 32768, top_p: float = 0.9):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    # Peaked like a language model's logits, so the nucleus is a small set.
-    s = 4.0 * torch.randn((n, vocab), generator=gen, device="cuda")
-    noise = gumbel_noise((n, vocab), gen)
-    got = select_kernel.nucleus_gumbel_argmax(
-        s, noise, top_p=top_p, temperature=temperature)
-    torch.cuda.synchronize()
-    ref, thresh, margin = select_kernel.select_rows_plain(
-        s, noise, top_p=top_p, temperature=temperature)
+class ParentK4:
+    """Another tree's K4 (`--k4-parent DIR`): DIR's csrc/nucleus_select.cu
+    built alone into this checkout's _build/k4_parent/ (DIR is only read)
+    and called through the same C entry, so that a run can time it beside
+    this tree's kernel on the same card."""
+
+    def __init__(self, root: str):
+        src = (Path(root).resolve() / "sparse_vae_tpu_torch" / "csrc"
+               / "nucleus_select.cu")
+        out = cuda_lib.BUILD_DIR / "k4_parent" / "libk4_parent.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cuda_lib._nvcc(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17",
+                        "-O3", "-Xcompiler", "-fPIC", "-shared", "-I",
+                        str(src.parent), "-o", str(out), str(src)],
+                       check=True, timeout=cuda_lib.NVCC_TIMEOUT_S)
+        self.fn = ctypes.CDLL(str(out)).svt_nucleus_select
+        self.fn.argtypes = cuda_lib._SIGNATURES["svt_nucleus_select"]
+        self.fn.restype = ctypes.c_int
+
+    def __call__(self, s, noise, top_p: float, temperature: float):
+        out = torch.empty(s.shape[0], dtype=torch.int64, device=s.device)
+        code = self.fn(s.data_ptr(),
+                       None if noise is None else noise.data_ptr(),
+                       out.data_ptr(), s.shape[0], s.shape[1], top_p,
+                       temperature, select_kernel.NUM_ITERS,
+                       torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the parent's K4 failed: CUDA error {code}")
+        return out
+
+
+def k4_on(cluster: int):
+    """This tree's K4 on one instantiation (`svt_nucleus_select_on`: 2 a
+    cluster of two CTAs a row, 1 one CTA a row), outside the wrapper and
+    its launch count."""
+    fn = cuda_lib.library().svt_nucleus_select_on
+
+    def call(s, noise, top_p: float, temperature: float):
+        out = torch.empty(s.shape[0], dtype=torch.int64, device=s.device)
+        code = fn(s.data_ptr(), None if noise is None else noise.data_ptr(),
+                  out.data_ptr(), s.shape[0], s.shape[1], top_p,
+                  temperature, select_kernel.NUM_ITERS, cluster,
+                  torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"K4 on instantiation {cluster} failed: CUDA "
+              f"error {code}")
+        return out
+    return call
+
+
+def k4_agrees(got, s, noise, kw: dict):
+    """K4's choices against the plain version's: a row may differ only
+    where its bisection margin is below K4_FLIP_MARGIN or its chosen
+    token's p sits on the threshold. Returns (the rows excused, the largest
+    index difference on the others, the tokens the plain version keeps)."""
+    n = s.shape[0]
+    ref, thresh, margin = select_kernel.select_rows_plain(s, noise, **kw)
     differ = (got != ref).nonzero().flatten().tolist()
-    scaled = s / temperature if temperature != 1.0 else s
+    t = kw["temperature"]
+    scaled = s / t if t != 1.0 and t > 0.0 else s
     p_un = torch.exp(scaled - scaled.amax(dim=-1, keepdim=True))
     flips = []
     for r in differ:
-        on_edge = any(abs(p_un[r, t].item() - thresh[r].item())
+        on_edge = any(abs(p_un[r, i].item() - thresh[r].item())
                       <= 1e-5 * thresh[r].item()
-                      for t in (int(got[r]), int(ref[r])))
+                      for i in (int(got[r]), int(ref[r])))
         if margin[r].item() < K4_FLIP_MARGIN or on_edge:
             flips.append(r)
     check(len(flips) == len(differ),
-          f"K4 disagrees with its plain version on rows "
+          f"K4 at {list(s.shape)} disagrees with its plain version on rows "
           f"{sorted(set(differ) - set(flips))}")
-    held = torch.ones(n, dtype=torch.bool, device="cuda")
+    held = torch.ones(n, dtype=torch.bool, device=s.device)
     held[flips] = False
     max_err = (got[held] - ref[held]).abs().max().item() if held.any() \
         else 0.0
-    ms = cuda_ms(lambda: select_kernel.nucleus_gumbel_argmax(
-        s, noise, top_p=top_p, temperature=temperature), iters)
-    plain_ms = cuda_ms(lambda: select_kernel.nucleus_gumbel_argmax_plain(
-        s, noise, top_p=top_p, temperature=temperature), max(3, iters // 10))
-    ops = n * vocab * (3 * select_kernel.NUM_ITERS + 8)
-    bound_ms, bound_by = bound(2 * s.numel() * 4 + n * 8, ops, FP32_FLOPS)
+    kept = int(((p_un >= thresh[:, None]) | (p_un == 1.0)).sum().item())
+    return flips, max_err, kept
+
+
+def k4_bound(s, noise, top_p: float, temperature: float, kept: int):
+    """K4's least time on these inputs. Bytes: every logit once, the noise
+    of the kept tokens only (all of it without a nucleus), one int64 a
+    row. Operations as the function computes them: a divide an element
+    when T != 1; with a nucleus max, subtract, exp and sum, a compare and
+    a bin add an element at each histogram level, two compares to keep,
+    then a noise add and a compare a kept token; without one, a noise add
+    and a compare an element."""
+    n, v = s.shape
+    nucleus = 0.0 < top_p < 1.0
+    noise_bytes = 0 if noise is None else 4 * (kept if nucleus else n * v)
+    nbytes = 4 * n * v + noise_bytes + 8 * n
+    per_element = int(temperature != 1.0 and temperature > 0.0)
+    if nucleus:
+        levels = min(3, -(-select_kernel.NUM_ITERS // 8))
+        ops = n * v * (per_element + 6 + 2 * levels) + 2 * kept
+    else:
+        ops = n * v * (per_element + 1 + (noise is not None))
+    return bound(nbytes, ops, FP32_FLOPS)
+
+
+def k4_phase(temperature: float, seed: int, iters: int, n: int = 64,
+             vocab: int = 32768, top_p: float = 0.9,
+             with_noise: bool = True, parent: ParentK4 | None = None):
+    """K4 against its plain version, and bit for bit across two calls;
+    with iters > 0 also timed by events and torch.profiler beside its
+    bound, and beside `parent` in the order parent, this, this, parent."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # Peaked like a language model's logits, so the nucleus is a small set.
+    s = 4.0 * torch.randn((n, vocab), generator=gen, device="cuda")
+    noise = gumbel_noise((n, vocab), gen) if with_noise else None
+    kw = {"top_p": top_p, "temperature": temperature}
+    got = select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+    again = select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K4 at {[n, vocab]} gave other choices "
+          f"in a second call on the same inputs")
+    flips, max_err, kept = k4_agrees(got, s, noise, kw)
     row = {"shape": [n, vocab], "temperature": temperature, "top_p": top_p,
-           "max_abs_err": max_err, "ulp_flip_rows": len(flips),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "noise": with_noise, "max_abs_err": max_err,
+           "ulp_flip_rows": len(flips), "bit_identical": True,
+           "kept_tokens": kept}
+    if iters:
+        def kernel():
+            return select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+
+        ms = cuda_ms(kernel, iters)
+        device = kernel_ms(device_ms(kernel), "nucleus_select")
+        plain_ms = cuda_ms(lambda: select_kernel.nucleus_gumbel_argmax_plain(
+            s, noise, **kw), max(3, iters // 10))
+        bound_ms, bound_by = k4_bound(s, noise, top_p, temperature, kept)
+        row.update({"ms": ms, "device_ms": device, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        if parent is not None:
+            def old():
+                return parent(s, noise, top_p, temperature)
+
+            turns = (("parent", old), ("this", kernel), ("this", kernel),
+                     ("parent", old))
+            timed = [(name, cuda_ms(fn, iters),
+                      kernel_ms(device_ms(fn), "nucleus_select"))
+                     for name, fn in turns]
+            row["pccp"] = {
+                "order": [name for name, _, _ in timed],
+                "ms": [ms for _, ms, _ in timed],
+                "device_ms": [dev for _, _, dev in timed]}
+            for key, at in (("ms", 1), ("device_ms", 2)):
+                row[f"parent_{key}"] = (timed[0][at] + timed[3][at]) / 2
     print("K4 " + json.dumps(row), flush=True)
     return row
+
+
+def k4_instantiations(seed: int, iters: int,
+                      rows=(16, 64, 100, 512, 2048)):
+    """K4's two instantiations timed against each other on the same inputs
+    ([rows, 32768], T 1.0, noise, top_p 0.9; turns cluster, one CTA, one
+    CTA, cluster), each held against the plain version: the measurement
+    behind svt_nucleus_select's rule (a cluster while 2 rows <= SMs)."""
+    kw = {"top_p": 0.9, "temperature": 1.0}
+    table = {}
+    for i, n in enumerate(rows):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        s = 4.0 * torch.randn((n, 32768), generator=gen, device="cuda")
+        noise = gumbel_noise(s.shape, gen)
+        entry = {}
+        calls = {name: functools.partial(k4_on(cluster), s, noise, **kw)
+                 for name, cluster in (("cluster", 2), ("one_cta", 1))}
+        for name, call in calls.items():
+            flips, _, _ = k4_agrees(call(), s, noise, kw)
+            entry[name] = {"ulp_flip_rows": len(flips), "ms": [],
+                           "device_ms": []}
+        for name in ("cluster", "one_cta", "one_cta", "cluster"):
+            call = calls[name]
+            entry[name]["ms"].append(cuda_ms(call, iters))
+            entry[name]["device_ms"].append(
+                kernel_ms(device_ms(call), "nucleus_select"))
+        for name in ("cluster", "one_cta"):
+            for key in ("ms", "device_ms"):
+                entry[name][key] = sum(entry[name][key]) / 2
+        table[str(n)] = entry
+    print("K4 instantiations " + json.dumps(table), flush=True)
+    return table
 
 
 def model_phase(model, seed: int = 0, length: int = 256):
@@ -1288,21 +1443,37 @@ def check_counts(path: str, counts: dict, expect: dict):
               f"{'> 0' if want is None else want}")
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if argv and (len(argv) != 2 or argv[0] != "--k4-parent"):
+        print("usage: chip_smoke.py [--k4-parent DIR]", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     with Phase("device"):
         smi = device_phase()
     with Phase("build"):
         build_phase()
+        parent = ParentK4(argv[1]) if argv else None
     with Phase("kernels"):
         k1_serve = k1_phase(1, 512, [417], seed=1, iters=200)
         k1_long = k1_phase(4, 4096, [4096, 3001, 1500, 129], seed=2,
                            iters=50)
-        k4_rows = [k4_phase(t, seed=3 + i, iters=200)
+        # K4 at the serving batch (a row over a cluster of two CTAs), at a
+        # 512-token Jacobi window's rows (one CTA a row), its two
+        # instantiations against each other, then correctness alone at one
+        # row, past the SM count and at a V that is no power of two.
+        k4_rows = [k4_phase(t, seed=3 + i, iters=200, parent=parent)
                    for i, t in enumerate((1.0, 0.7))]
+        k4_wide = k4_phase(1.0, seed=9, iters=50, n=512, parent=parent)
+        k4_split = k4_instantiations(seed=12, iters=50)
+        k4_checks = [
+            k4_phase(1.0, seed=30 + 3 * i + j, iters=0, n=n, vocab=v,
+                     top_p=top_p, with_noise=with_noise)
+            for i, (n, v) in enumerate(((1, 512), (133, 32768), (3, 50000)))
+            for j, (with_noise, top_p) in enumerate(
+                ((True, 0.9), (False, 0.9), (True, 1e-3)))]
         k1_train = k1_phase(8, 12800, TRAIN_LENGTHS, seed=8, iters=5)
         k2_phase(1, 512, [417], seed=4, iters=0)
         k2_phase(4, 4096, [4096, 3001, 1500, 129], seed=5, iters=0)
@@ -1412,13 +1583,28 @@ def main() -> int:
          "launches": counts["nucleus_select"] + h4_counts["nucleus_select"],
          "launches_by_path": {"serve": counts["nucleus_select"],
                               "serve-h4": h4_counts["nucleus_select"]},
-         **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by",
+         **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "device_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},
          "shape": k4_rows[0]["shape"],
-         "ulp_flip_rows": sum(r["ulp_flip_rows"] for r in k4_rows),
+         "ulp_flip_rows": sum(r["ulp_flip_rows"]
+                              for r in (*k4_rows, k4_wide, *k4_checks)),
+         "bit_identical": all(r["bit_identical"]
+                              for r in (*k4_rows, k4_wide, *k4_checks)),
          "temperature_0.7": {k: k4_rows[1][k] for k in (
-             "max_abs_err", "ms", "plain_ms")}},
+             "max_abs_err", "ms", "device_ms", "plain_ms")},
+         "rows_512": {k: k4_wide[k] for k in (
+             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+         "parent": None if parent is None else {
+             name: {k: r[k] for k in ("parent_ms", "parent_device_ms",
+                                      "pccp")}
+             for name, r in (("t1.0", k4_rows[0]), ("t0.7", k4_rows[1]),
+                             ("rows_512", k4_wide))},
+         "checks": [{k: r[k] for k in ("shape", "noise", "top_p",
+                                       "ulp_flip_rows")}
+                    for r in k4_checks],
+         "instantiations": k4_split},
         {"name": "swa_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
@@ -1514,4 +1700,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -64,8 +64,10 @@ _SIGNATURES = {
     # part, dbias, tiles, vocab, stream
     "svt_tied_ce_bwd_dbias": [_P] * 2 + [_I] * 2 + [_P],
     # logits, noise (may be null), out, rows, vocab, top_p, temperature,
-    # num_iters, stream
+    # num_iters, stream; the same with the instantiation (cluster 0, 1, 2)
+    # before the stream
     "svt_nucleus_select": [_P, _P, _P, _I, _I, _F, _F, _I, _P],
+    "svt_nucleus_select_on": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
 }
 
 

@@ -7,8 +7,20 @@ plain version (`nucleus_gumbel_argmax_plain`, the port of `_select_tile`)
 for CPU tensors. The Gumbel noise is an input drawn by the caller from an
 explicit torch.Generator (models/generation.py).
 
-The kernel and the plain version sum the bisection masses in different
-orders, so a row whose kept mass sits within rounding of top_p * z at some
+The kernel computes each p = exp(s - m) once and replays the bisection's
+first 24 steps from three 256-bin histograms of floor(p * 2^(8l + 8)),
+l = 0, 1, 2: every mid of those steps is a multiple of 2^-24, so p >= mid
+is an integer comparison there and the steps make the bisection's own
+decisions (tests/test_torch_select.py replays the scheme on the CPU).
+Its masses are fixed-point sums (units of 2^-40), so the same inputs give
+bit-identical choices. The select reads the logits and noise of the kept
+tokens only. A row is split over a cluster of two CTAs while each CTA
+can have an SM of its own (2 N <= SMs, the serving batch) or one CTA
+cannot hold the row (V > 2^15); else one CTA of 1024 threads takes a
+row.
+
+The kernel and the plain version round the bisection masses differently,
+so a row whose kept mass sits within rounding of top_p * z at some
 bisection step can keep a slightly different set of tokens
 (sparse_vae_tpu/ops/pallas_select.py notes the same for its two paths).
 `select_rows_plain` reports each row's smallest margin so that a check can
@@ -86,8 +98,8 @@ def nucleus_gumbel_argmax(s, noise: Optional[torch.Tensor] = None, *,
 
     s: [N, V] already-penalised logits; noise: optional [N, V] Gumbel
     noise (None: the argmax of the filtered logits). Returns [N] int64.
-    CUDA: fp32, contiguous, V % 4 == 0 and V * 4 bytes within one CTA's
-    shared memory.
+    CUDA: fp32, contiguous, 16-byte aligned, V % 4 == 0 and V * 4 bytes
+    within one CTA's shared memory.
     """
     global launches
     if s.ndim != 2:
@@ -104,6 +116,8 @@ def nucleus_gumbel_argmax(s, noise: Optional[torch.Tensor] = None, *,
         raise TypeError("the K4 kernel takes fp32 logits and noise")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the K4 kernel takes contiguous inputs")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the K4 kernel reads 16-byte aligned rows")
     n, v = s.shape
     if v % 4 or v * 4 > 227 * 1024 - 512:
         raise ValueError(f"the K4 kernel takes V % 4 == 0 and "

@@ -9,7 +9,7 @@ K1's out in bf16 (both sides round the softmax weights and the output to
 bf16, in other summation orders), its lse in fp32 up to summation order;
 K4's tokens
 identical except on rows whose bisection mass sat within rounding of the
-target. K2's and K3b's gradients in bf16 against their fp32 plain
+target, and bit for bit across two calls. K2's and K3b's gradients in bf16 against their fp32 plain
 versions relative to the largest entry (1e-2: one bf16 rounding of each
 output, and K3b's rounding of the logit gradients to bf16 before its
 products); K3's lse in fp32 up to summation order over 32,768 logits
@@ -136,18 +136,90 @@ def test_swa_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("temperature", [1.0, 0.7])
-def test_select_kernel_matches_plain(cuda, temperature):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    s = 4.0 * torch.randn((64, 32768), generator=gen, device=cuda)
-    noise = gumbel_noise(s.shape, gen)
-    got = select_kernel.nucleus_gumbel_argmax(
-        s, noise, top_p=0.9, temperature=temperature)
-    want, _, margin = select_kernel.select_rows_plain(
-        s, noise, top_p=0.9, temperature=temperature)
+@pytest.mark.parametrize("top_p", [0.9, 1.0, 1e-3])
+@pytest.mark.parametrize("with_noise", [True, False])
+@pytest.mark.parametrize("vocab", [512, 32768, 50000])
+@pytest.mark.parametrize("rows", [1, 64, 133, 512])
+def test_select_kernel_matches_plain(cuda, rows, vocab, with_noise, top_p,
+                                     temperature):
+    """K4 on both of its instantiations (a row over a cluster of two CTAs
+    at 1 and 64 rows, one CTA a row at 133 and 512; V = 50,000 always
+    takes the cluster), with the nucleus on,
+    off (top_p 1) and down to the max alone (1e-3): two calls give the
+    same choices bit for bit, and they are the plain version's on every
+    row whose margin is above 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * rows + vocab)
+    s = 4.0 * torch.randn((rows, vocab), generator=gen, device=cuda)
+    noise = gumbel_noise(s.shape, gen) if with_noise else None
+    kw = {"top_p": top_p, "temperature": temperature}
+    got = select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+    again = select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+    assert torch.equal(got, again)
+    want, _, margin = select_kernel.select_rows_plain(s, noise, **kw)
     held = margin > 1e-4
     assert torch.equal(got[held], want[held])
-    greedy = select_kernel.nucleus_gumbel_argmax(s, None, top_p=1.0)
-    assert torch.equal(greedy, s.argmax(dim=-1))
+    if noise is None and top_p == 1.0:
+        assert torch.equal(got, s.argmax(dim=-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_iters", [0, 8, 20, 30])
+@pytest.mark.parametrize("vocab", [32768, 50000])
+@pytest.mark.parametrize("rows", [64, 512])
+def test_select_kernel_takes_any_num_iters(cuda, rows, vocab, num_iters):
+    """Fewer steps than 24 end inside a level (20: 8 + 8 + 4) or take
+    none (0: every token kept); past 24 the fp32 mid rounds and the kernel
+    runs plain bisection steps. Each as the plain version, bit for bit
+    across two calls, on both instantiations (a cluster at 64 rows and
+    at V = 50,000, one CTA a row at 512 rows of 32,768)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + vocab + num_iters)
+    s = 4.0 * torch.randn((rows, vocab), generator=gen, device=cuda)
+    noise = gumbel_noise(s.shape, gen)
+    got = select_kernel.nucleus_gumbel_argmax(s, noise, num_iters=num_iters)
+    again = select_kernel.nucleus_gumbel_argmax(s, noise,
+                                                num_iters=num_iters)
+    assert torch.equal(got, again)
+    want, _, margin = select_kernel.select_rows_plain(s, noise,
+                                                      num_iters=num_iters)
+    held = margin > 1e-4
+    assert torch.equal(got[held], want[held])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_p", [0.9, 1.0])
+@pytest.mark.parametrize("vocab", [32768, 50000])
+@pytest.mark.parametrize("rows", [1, 512])
+def test_select_kernel_gives_index_0_when_every_value_is_minus_inf(
+        cuda, rows, vocab, top_p):
+    """-inf noise on every token of the even rows, the kept ones included:
+    every val there is -inf and the choice is index 0, as in
+    _select_tile; the odd rows are ordinary. On both instantiations (a
+    cluster at 1 row and at V = 50,000, one CTA a row at 512 rows of
+    32,768)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + vocab)
+    s = 4.0 * torch.randn((rows, vocab), generator=gen, device=cuda)
+    noise = gumbel_noise(s.shape, gen)
+    noise[::2] = float("-inf")
+    got = select_kernel.nucleus_gumbel_argmax(s, noise, top_p=top_p)
+    want, _, margin = select_kernel.select_rows_plain(s, noise, top_p=top_p)
+    assert bool((want[::2] == 0).all()) and bool((got[::2] == 0).all())
+    held = margin > 1e-4
+    assert torch.equal(got[held], want[held])
+
+
+@pytest.mark.gpu
+def test_select_kernel_rejects_what_it_does_not_take(cuda):
+    s = torch.zeros((2, 512), device=cuda)
+    with pytest.raises(TypeError):
+        select_kernel.nucleus_gumbel_argmax(s.double())
+    with pytest.raises(ValueError):
+        select_kernel.nucleus_gumbel_argmax(s[:, :510])    # not contiguous
+    flat = torch.zeros(2 * 512 + 1, device=cuda)
+    with pytest.raises(ValueError):
+        select_kernel.nucleus_gumbel_argmax(flat[1:].view(2, 512))
+    with pytest.raises(ValueError):
+        select_kernel.nucleus_gumbel_argmax(torch.zeros((1, 60000),
+                                                        device=cuda))
 
 
 @pytest.mark.gpu

@@ -51,6 +51,23 @@ def test_plain_matches_pallas_interpret(temperature, top_p):
     _assert_same_choices(got, want, margin)
 
 
+@pytest.mark.parametrize("top_p", [0.9, 1.0])
+def test_plain_gives_index_0_where_every_value_is_minus_inf(top_p):
+    """-inf noise on every token of rows 0 and 2: the reference chooses
+    index 0 there, and so does the plain version (the CUDA kernel is held
+    to the same in tests/test_torch_cuda.py)."""
+    s = _logits(5, 4, 512)
+    noise = _gumbel(6, s.shape)
+    noise[::2] = -np.inf
+    want = j_select(jnp.asarray(s), jnp.asarray(noise), top_p=top_p,
+                    interpret=True)
+    got, _, margin = select_kernel.select_rows_plain(
+        torch.from_numpy(s), torch.from_numpy(noise), top_p=top_p)
+    assert (np.asarray(want)[::2] == 0).all()
+    assert (got.numpy()[::2] == 0).all()
+    _assert_same_choices(got, want, margin)
+
+
 @pytest.mark.parametrize("with_noise", [True, False])
 def test_plain_matches_jnp_path_at_serving_width(with_noise):
     """64 rows x 32,768 logits, the serving shape, on the jnp path of the
@@ -77,6 +94,92 @@ def test_wrapper_runs_plain_on_cpu_and_never_counts():
         select_kernel.nucleus_gumbel_argmax(s[0])
     with pytest.raises(ValueError):
         select_kernel.nucleus_gumbel_argmax(s, s[:2])
+
+
+def _peaked_rows(seed, n=16, v=2048):
+    """Logit rows from flat to sharply peaked, two with a dominant token."""
+    rng = np.random.default_rng(seed)
+    scales = np.array([1, 2, 3, 4, 6, 8, 12, 16] * (n // 8))[:, None]
+    s = scales * rng.standard_normal((n, v))
+    s[: 2, 7] += 12.0
+    return s.astype(np.float32)
+
+
+def _replay_lo(p, weight, decide, num_iters):
+    """The K4 kernel's bisection: level l bins the p inside the bracket
+    [a 2^-8l, (a + 1) 2^-8l) by floor(p 2^(8l + 8)) into 256 bins, sums
+    the mass above it, and replays up to 8 steps from the bins (bin 0 is
+    never asked for). Returns lo."""
+    a, levels = 0, min(3, -(-num_iters // 8))
+    for level in range(levels):
+        q = np.floor(p * 2.0 ** (8 * level + 8))
+        first = a * 256
+        above = weight[q >= first + 256].sum()
+        inside = (q > first) & (q < first + 256)
+        bins = np.bincount((q[inside] - first).astype(np.int64),
+                           weights=weight[inside], minlength=256)
+        lo_c, hi_c = 0, 256
+        for _ in range(min(8, num_iters - 8 * level)):
+            c = (lo_c + hi_c) // 2
+            mass = above + bins[c:hi_c].sum()
+            if decide(mass):
+                lo_c = c
+            else:
+                hi_c, above = c, mass
+        a = a * 256 + lo_c
+    return a * 2.0 ** (-8 * levels)
+
+
+def _bisection_lo(p, weight, decide, num_iters):
+    lo, hi = 0.0, 1.0
+    for _ in range(num_iters):
+        mid = (lo + hi) * 0.5
+        if decide(weight[p >= mid].sum()):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.parametrize("masses", ["float64", "fixed"])
+@pytest.mark.parametrize("top_p", [0.5, 0.9, 0.999])
+@pytest.mark.parametrize("num_iters", [8, 16, 20, 24])
+def test_histogram_replay_reaches_the_bisection_threshold(num_iters, top_p,
+                                                          masses):
+    """K4's exactness argument, where the CPU can check it: with max p = 1
+    every mid of the first 24 steps is a multiple of 2^-24, so the level
+    replay makes the bisection's decisions and reaches its lo bit for bit,
+    on float64 masses and on the kernel's own fixed-point ones (integers
+    in units of 2^-40, compared in fp32). Its kept set is
+    select_rows_plain's on every row whose margin is not below 1e-5."""
+    s = torch.from_numpy(_peaked_rows(12))
+    p32 = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    _, thresh, margin = select_kernel.select_rows_plain(
+        s, top_p=top_p, num_iters=num_iters)
+    kept = (p32 >= thresh[:, None]) | (p32 == 1.0)
+    held = 0
+    for r in range(s.shape[0]):
+        p = p32[r].double().numpy()
+        if masses == "float64":
+            weight = p
+            target = top_p * p.sum()
+
+            def decide(mass):
+                return mass >= target
+        else:
+            weight = np.rint(p * 2.0 ** 40)
+            z = np.float32(weight.sum() * 2.0 ** -40)
+            target32 = np.float32(np.float32(top_p) * z)
+
+            def decide(mass):
+                return np.float32(mass * 2.0 ** -40) >= target32
+        lo = _replay_lo(p, weight, decide, num_iters)
+        assert lo == _bisection_lo(p, weight, decide, num_iters), r
+        if margin[r] >= 1e-5:
+            held += 1
+            keep = torch.from_numpy((p >= lo) | (p == 1.0))
+            assert torch.equal(keep, kept[r]), r
+    assert held > 0
 
 
 def test_gumbel_transform_matches_jax():

@@ -92,6 +92,26 @@ Sequence parallelism, r5 at the pg19 preset's document shape (one
                that close to fp32 (see sp_train_phase); parameters bitwise
                equal across ranks, K6 launched on ranks 1-3, K1/K2 on rank
                0, K3/K3b on every rank.
+The trainer loop (training/trainer.py) on bucketed document batches: a
+stand-in corpus of 200 seeded documents of ids (no tokenizer needed),
+lengths log-uniform over r5's 512-50,000 tokens, through the
+data module's prepare_corpus, length buckets and accumulation groups;
+the model from the JAX initialisation, configured by cli.assemble_config
+on a run's meta.json:
+ 12. fit     — r5's hparams (tokens_per_batch 100,000, accumulate 2): 6
+               steps of fit, validating and saving at steps 3 and 6,
+               through K1, K2, K3 and K3b (their counts from the groups
+               and validation batches fit ran); validation through the
+               kernels against the plain versions on the same parameters
+               and noise (val_nll and val_kl within 0.1%); the step-3
+               checkpoint restored bit for bit and one step from it equal
+               to the same step from the saved state; export_archive then
+               load_run(<dir>): serving logits equal to the trained
+               model's own; the shapes fed, real tokens/s, validation and
+               checkpoint seconds and peak memory printed;
+ 13. fit-pg19 — pg19-fb8's hparams (102,400-token concatenated streams,
+               tokens_per_batch 102,912, accumulate 4): 2 steps and one
+               validation, every group [4, 1, 102400].
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -99,12 +119,14 @@ Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -117,12 +139,18 @@ import torch
 import torch.nn.functional as F
 
 from sparse_vae_tpu_torch import profile_train
-from sparse_vae_tpu_torch.checkpoint import load_run, model_from_hparams
-from sparse_vae_tpu_torch.models.base import SEP_ID
+from sparse_vae_tpu_torch.checkpoint import (export_archive, load_run,
+                                             model_from_hparams,
+                                             serving_form)
+from sparse_vae_tpu_torch.cli import assemble_config, build_hparams
+from sparse_vae_tpu_torch.data.datasets import TokenizedCorpus
+from sparse_vae_tpu_torch.data.text_data_module import TextDataModule
+from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise)
 from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
                                       select_kernel, sp_kernel, swa_kernel)
+from sparse_vae_tpu_torch.ops import sliding_window_attention as swa_plain
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     sliding_window_attention_bwd_plain,
     sliding_window_attention_packed_bwd_plain,
@@ -134,6 +162,7 @@ from sparse_vae_tpu_torch.train import build as build_training
 from sparse_vae_tpu_torch.train import sp_pad_multiple, train_rank
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.train_step import train_step
+from sparse_vae_tpu_torch.training.trainer import Trainer, defer_accum_groups
 
 RUN = "real-prose-vae-r5"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -195,7 +224,9 @@ SP_FP32_LOSS_RTOL = 1e-5
 # 102,400 tokens: 0.699 on an H100), the sharded kernel step may be no
 # farther from fp32 than it, less this margin (bf16 noise of two
 # different summation orders: 0.696 was measured beside that 0.699).
-SP_NOISY_MARGIN = 0.05
+# The fit phases hold the kernel step against the bf16 plain step in the
+# same way where that step is itself below TRAIN_GRAD_COS.
+NOISY_GRAD_MARGIN = 0.05
 
 
 class Phase:
@@ -1355,7 +1386,7 @@ def sp_train_phase(steps: int = 3) -> dict:
     gradient at cosine >= 0.99 with the unsharded kernel step wherever that
     step is itself at >= 0.99 with the fp32 one, and elsewhere no farther
     from the fp32 gradient than the unsharded kernel step less
-    SP_NOISY_MARGIN: a few tensors whose gradients are near zero (the
+    NOISY_GRAD_MARGIN: a few tensors whose gradients are near zero (the
     encoder bottleneck's, at this length) sit at bf16 noise in either
     bf16 step, so the unsharded kernel step is no reference for them."""
     a_loss, a_grads, a_counts, a_s, a_peak, noise = unsharded_sp_step(
@@ -1394,7 +1425,7 @@ def sp_train_phase(steps: int = 3) -> dict:
           f"sp step 1 gradients disagree with the unsharded step: "
           f"{sorted(held.items(), key=lambda kv: kv[1])[:3]}")
     for n, c in noisy.items():
-        check(c["sp_vs_fp32"] >= c["unsharded_vs_fp32"] - SP_NOISY_MARGIN,
+        check(c["sp_vs_fp32"] >= c["unsharded_vs_fp32"] - NOISY_GRAD_MARGIN,
               f"{n}: the sp step is farther from fp32 than the unsharded "
               f"step: {c}")
     for r in records:
@@ -1430,6 +1461,521 @@ def sp_train_phase(steps: int = 3) -> dict:
                  r["max_memory_allocated"] for r in records],
              "launches_by_rank": [r["launches"] for r in records]}
     print("sp-train " + json.dumps(stats), flush=True)
+    return stats
+
+
+# -- fit: the trainer loop on bucketed document batches --------------------
+
+REPO = Path(__file__).resolve().parent
+PG19_RUN = "real-prose-pg19-fb8"
+FIT_DOCS = 200       # documents of the stand-in corpus
+FIT_SEED = 23
+FIT_STEPS = 6        # r5: validation and a checkpoint at steps 3 and 6
+FIT_EVERY = 3
+PG19_STEPS = 2       # pg19-fb8: one validation, at step 2
+PG19_STREAM = 102400
+# The stand-in of the validation held against the plain versions: each
+# document repeats one seeded segment of VAL_PERIOD ids, so a trained model
+# predicts a token from its copy one period back, inside the attention
+# band, and val_nll depends on the band
+# (tests/test_torch_trainer.py::
+# test_the_stand_in_validation_sees_the_attention_band). On uniform ids
+# it depends on it far less: the mean over uniform targets stays near
+# ln V whatever the attention gives.
+VAL_PERIOD = 100
+# The plain loss holds a chunk's fp32 logits [rows x chunk, V] and their
+# gradient; the chunk runs along the length, so a group of many short
+# rows (65 rows of 1,536 tokens, padded to one chunk of 2,048: 16 GiB of
+# logits) would not fit beside the activations. The plain references of the fit phases
+# take chunks of at most this many tokens (the summation order aside,
+# the same loss).
+PLAIN_CE_TOKENS = 16384
+# The run shows that the check can fail: the plain validation with the
+# band's older block dropped must move val_nll by at least VAL_POWER times
+# TRAIN_LOSS_RTOL.
+VAL_POWER = 10
+
+
+def fit_corpus(n_docs: int, min_tokens: int, max_tokens: int, vocab: int,
+               seed: int, period=None) -> TokenizedCorpus:
+    """A stand-in for a tokenized corpus, as training/data.py's batches
+    stand in for a corpus's: the phase does not count on a tokenizer
+    library on the card's machine, so the documents are ids, each [CLS],
+    ids uniform in [3, vocab) (with `period`, one segment of that many
+    such ids, repeated), then [SEP], of lengths log-uniform over
+    [min_tokens, max_tokens], with num_bytes = 4 x tokens. They go through
+    the data module's steps after tokenization
+    (TextDataModule.prepare_corpus) and its batching as a tokenized corpus
+    does."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.round(np.exp(rng.uniform(
+        np.log(min_tokens), np.log(max_tokens), size=n_docs))),
+        min_tokens, max_tokens).astype(np.int64)
+    docs = []
+    for n in lengths:
+        if period is None:
+            doc = rng.integers(3, vocab, size=n).astype(np.uint16)
+        else:
+            doc = np.resize(rng.integers(3, vocab, size=period).astype(
+                np.uint16), n)
+        doc[0], doc[-1] = CLS_ID, SEP_ID
+        docs.append(doc)
+    return TokenizedCorpus(docs=docs, num_bytes=4 * lengths)
+
+
+def cpu_state(state: dict) -> dict:
+    """A CPU copy of Trainer.state(...)."""
+    opt = state["optimizer"]
+    return {"params": {k: v.detach().cpu().clone()
+                       for k, v in state["params"].items()},
+            "optimizer": {"count": opt["count"],
+                          "exp_avg": [m.cpu().clone()
+                                      for m in opt["exp_avg"]],
+                          "exp_avg_sq": [v.cpu().clone()
+                                         for v in opt["exp_avg_sq"]]},
+            "step": state["step"], "generator": state["generator"].clone()}
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    """Bit for bit: params, both moments, counts, step, generator."""
+    return (a["step"] == b["step"]
+            and torch.equal(a["generator"], b["generator"])
+            and a["params"].keys() == b["params"].keys()
+            and all(torch.equal(a["params"][k], b["params"][k])
+                    for k in a["params"])
+            and a["optimizer"]["count"] == b["optimizer"]["count"]
+            and all(len(a["optimizer"][n]) == len(b["optimizer"][n])
+                    and all(torch.equal(x, y) for x, y in zip(
+                        a["optimizer"][n], b["optimizer"][n]))
+                    for n in ("exp_avg", "exp_avg_sq")))
+
+
+class FitTrainer(Trainer):
+    """The Trainer, recording what fit does: each group's shape, real
+    tokens, seconds (between synchronisations), loss and grad_norm, and
+    the first group of each shape; each validation's seconds and batches;
+    each checkpoint's seconds; and a CPU copy of the state saved at
+    `capture_step`."""
+
+    def __init__(self, *args, capture_step=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.capture_step = capture_step
+        self.steps, self.validations, self.saves = [], [], []
+        self.groups = {}
+        self.captured = None
+
+    def _step(self, model, optimizer, stacked, step, generator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.groups.setdefault(tuple(stacked["token_ids"].shape), stacked)
+        metrics = super()._step(model, optimizer, stacked, step, generator)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        self.steps.append({"shape": list(stacked["token_ids"].shape),
+                           "real_tokens": int(stacked["num_tokens"].sum()),
+                           "seconds": time.perf_counter() - t0,
+                           "loss": loss, "grad_norm": grad_norm})
+        return metrics
+
+    def validate(self, model, generator=None, max_batches=None, step=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().validate(model, generator, max_batches, step)
+        limit = max_batches or self.thp.limit_val_batches
+        n = len(self._val_batches)
+        self.validations.append({
+            "step": step, "seconds": time.perf_counter() - t0,
+            "batches": n if limit is None else min(n, limit), **out})
+        return out
+
+    def _save(self, model, optimizer, step, generator, best=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super()._save(model, optimizer, step, generator, best)
+        self.saves.append({"step": step, "best": best,
+                           "seconds": time.perf_counter() - t0})
+        if step == self.capture_step and self.captured is None:
+            self.captured = cpu_state(self.state(model, optimizer, step,
+                                                 generator))
+
+
+def run_step(run: str, microbatches: list, use_kernels: bool, dtype,
+             noise=None, seed: int = 0):
+    """One optimizer step of runs/<run>'s trained weights in the training
+    form on `microbatches`: (loss, gradients on the CPU, launch counts,
+    noise, hparams). noise: one {"eps", "mi"} dict a micro-batch, drawn
+    from `seed` when None. Through the plain versions the loss's chunks
+    take at most PLAIN_CE_TOKENS tokens."""
+    model, objective, optimizer = build_training(
+        run, "cuda", len(microbatches), use_kernels=use_kernels,
+        dtype=dtype)[:3]
+    hp = model.hparams
+    if not use_kernels:
+        rows = microbatches[0]["token_ids"].shape[0]
+        hp.loss_chunk_size = max(1, min(hp.loss_chunk_size or 2048,
+                                        PLAIN_CE_TOKENS // rows))
+    if noise is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        noise = []
+        for mb in microbatches:
+            rows = mb["token_ids"].shape[0]
+            noise.append({
+                "eps": torch.randn((rows, 1, hp.latent_depth),
+                                   generator=gen, device="cuda"),
+                "mi": torch.randn((objective.mi_samples, rows,
+                                   hp.latent_depth), generator=gen,
+                                  device="cuda")})
+    reset_counts()
+    metrics = train_step(model, objective, optimizer, microbatches, 0, noise)
+    loss = float(metrics["loss"])
+    counts = read_counts()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()}
+    del model, objective, optimizer, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, grads, counts, noise, hp
+
+
+def fit_group_check(run: str, stacked: dict, seed: int) -> dict:
+    """train_phase's check on a group that fit fed: one optimizer step of
+    runs/<run>'s trained weights in the training form on the group
+    [k, rows, L], in bf16 through the kernels, against the same step with
+    the same noise in fp32 through the plain versions: the loss within
+    TRAIN_LOSS_RTOL and each of the 165 gradients at cosine >=
+    TRAIN_GRAD_COS. A gradient below that passes only as sp_train_phase's
+    near-zero gradients do: where the same step in bf16 through the plain
+    versions is below TRAIN_GRAD_COS too (the bf16 noise of a gradient
+    near zero, no kernel's), and the kernel step is no farther from fp32
+    than that step less NOISY_GRAD_MARGIN."""
+    k, rows, length = stacked["token_ids"].shape
+    name = f"fit {run} group {[k, rows, length]}"
+    mbs = [{key: torch.from_numpy(arr[i]).to("cuda", torch.int64)
+            for key, arr in stacked.items()} for i in range(k)]
+    loss, grads, counts, noise, hp = run_step(run, mbs, True, None,
+                                              seed=seed)
+    check_counts(name, counts, {
+        "swa_fwd": hp.num_layers * k, "swa_bwd": hp.num_layers * k,
+        "tied_ce_fwd": k, "tied_ce_bwd": k})
+    ref_loss, ref_grads, ref_counts, _, _ = run_step(
+        run, mbs, False, torch.float32, noise)
+    check_counts(f"{name} fp32 plain", ref_counts, {})
+    cos = cosines(grads, ref_grads)
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    check(len(cos) == 165, f"{len(cos)} gradients compared, not 165")
+    check(np.isfinite(loss) and loss_rel <= TRAIN_LOSS_RTOL,
+          f"{name}: loss {loss} vs fp32 plain {ref_loss}")
+    noisy = {n: {"kernels_vs_fp32": c} for n, c in cos.items()
+             if c < TRAIN_GRAD_COS}
+    if noisy:
+        _, plain_grads, _, _, _ = run_step(run, mbs, False, None, noise)
+        plain_cos = cosines(plain_grads, ref_grads)
+        for n, c in noisy.items():
+            c["bf16_plain_vs_fp32"] = plain_cos[n]
+            check(plain_cos[n] < TRAIN_GRAD_COS
+                  and c["kernels_vs_fp32"]
+                  >= plain_cos[n] - NOISY_GRAD_MARGIN,
+                  f"{name}: {n} disagrees with fp32 plain: {c}")
+    held = {n: c for n, c in cos.items() if n not in noisy}
+    return {"group": [k, rows, length],
+            "real_tokens": int(stacked["num_tokens"].sum()),
+            "loss": loss, "fp32_plain_loss": ref_loss,
+            "loss_rel_err": loss_rel,
+            "min_grad_cosine": sorted(held.items(),
+                                      key=lambda kv: kv[1])[:3],
+            "near_zero_gradients": noisy}
+
+
+@contextlib.contextmanager
+def band_without_older_block():
+    """The plain attention with each query block's older band block
+    dropped: a K1 with a wrong band, which the validation check must
+    tell from the right one."""
+    real = swa_plain._band_indices
+
+    def cut(num_blocks, window_size, include_cls, causal=True, device=None,
+            q_off=0):
+        k_idx, valid = real(num_blocks, window_size, include_cls, causal,
+                            device, q_off)
+        valid = valid.clone()
+        valid[:, int(include_cls)] = False
+        return k_idx, valid
+
+    swa_plain._band_indices = cut
+    try:
+        yield
+    finally:
+        swa_plain._band_indices = real
+
+
+def validate_against_plain(n_docs: int, log_root: Path) -> dict:
+    """Trainer.validate of r5's trained weights in the training form,
+    through the kernels against the plain versions (the same bf16
+    compute, parameters and noise), on the validation split of a stand-in
+    corpus whose documents repeat a segment of VAL_PERIOD ids: val_nll
+    within TRAIN_LOSS_RTOL, K1 and K3 launched once a layer and once a
+    batch. The run shows that this can fail a wrong kernel: the plain
+    validation with the band's older block dropped must move val_nll by
+    at least VAL_POWER x TRAIN_LOSS_RTOL. val_kl is not compared: the
+    encoder runs no kernel."""
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    cfg = assemble_config("transformer-vae", [], base_meta=meta)
+    data = TextDataModule(cfg.data)
+    data.prepare_corpus(fit_corpus(
+        n_docs, data_hp["min_tokens_per_sample"],
+        data_hp["max_tokens_per_sample"],
+        meta["model_hparams"]["vocab_size"], FIT_SEED + 1,
+        period=VAL_PERIOD))
+    model, objective, _, _ = build_training(RUN, "cuda", 1)
+    trainer = Trainer(model.hparams, objective, data, cfg.trainer, name=RUN,
+                      log_root=log_root, enable_logging=False,
+                      device="cuda")
+    reset_counts()
+    got = trainer.validate(model, step=FIT_STEPS)
+    counts = read_counts()
+    limit = trainer.thp.limit_val_batches
+    batches = len(trainer._val_batches)
+    batches = batches if limit is None else min(batches, limit)
+    check_counts("validate", counts, {
+        "swa_fwd": model.hparams.num_layers * batches,
+        "tied_ce_fwd": batches})
+    del model
+    plain = build_training(RUN, "cuda", 1, use_kernels=False)[0]
+    reset_counts()
+    want = trainer.validate(plain, step=FIT_STEPS)
+    with band_without_older_block():
+        cut = trainer.validate(plain, step=FIT_STEPS)
+    check_counts("validate plain", read_counts(), {})
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(got["val_nll"] - want["val_nll"]) / abs(want["val_nll"])
+    power = abs(cut["val_nll"] - want["val_nll"]) / abs(want["val_nll"])
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"validation, kernels {got} vs plain {want}")
+    check(power >= VAL_POWER * TRAIN_LOSS_RTOL,
+          f"the stand-in cannot tell a band without its older block: "
+          f"val_nll {cut['val_nll']} vs {want['val_nll']}")
+    return {"batches": batches, "kernels": got, "plain": want,
+            "plain_band_cut": cut, "val_nll_rel_err": rel,
+            "band_cut_rel_change": power}
+
+
+def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
+            log_root: Path, capture_step=None):
+    """Trainer.fit of the Transformer-VAE from the JAX initialisation,
+    configured by cli.assemble_config with runs/<run>/meta.json as the
+    base and `dotlist` on top, on `corpus` through prepare_corpus, for
+    `steps` steps, validating every `val_step` steps. Checks the stop,
+    the finite losses and grad norms, and the launch counts of the groups
+    and validations fit ran; returns (trainer, outcome, counts, peak bytes,
+    seconds)."""
+    meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
+    cfg = assemble_config("transformer-vae", dotlist, base_meta=meta)
+    data = TextDataModule(cfg.data)
+    data.prepare_corpus(corpus)
+    k = cfg.trainer.accumulate_grad_batches
+    # val_every = int(num_batches * val_check_interval / k) = val_step.
+    vci = (val_step + 0.5) * k / max(1, data.num_batches("train"))
+    cfg = assemble_config("transformer-vae", dotlist + [
+        f"trainer.val_check_interval={vci!r}",
+        f"trainer.max_steps={steps}"], base_meta=meta)
+    overrides = dict(cfg.model_overrides)
+    overrides.setdefault("vocab_size", cfg.data.vocab_size)
+    hp, objective = build_hparams("transformer-vae", overrides)
+    trainer = FitTrainer(hp, objective, data, cfg.trainer, name=run,
+                         log_root=log_root, device="cuda",
+                         capture_step=capture_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outcome = trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(trainer.val_every == val_step,
+          f"{run}: validation every {trainer.val_every} steps, not "
+          f"{val_step}")
+    check((outcome.step, outcome.stopped_reason) == (steps, "max_steps"),
+          f"{run}: fit stopped at {outcome.step}: {outcome.stopped_reason}")
+    check(len(trainer.steps) == steps, f"{run}: {len(trainer.steps)} steps")
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+              for s in trainer.steps),
+          f"{run}: a loss or grad_norm is not finite: {trainer.steps}")
+    check(all(np.isfinite(v[name]) for v in trainer.validations
+              for name in ("val_nll", "val_kl", "val_bpb", "val_loss")),
+          f"{run}: a validation metric is not finite")
+    check([v["step"] for v in trainer.validations]
+          == list(range(val_step, steps + 1, val_step)),
+          f"{run}: validated at {[v['step'] for v in trainer.validations]}")
+    layers = hp.num_layers
+    micro = k * steps
+    val_batches = sum(v["batches"] for v in trainer.validations)
+    check_counts(f"fit {run}", counts, {
+        "swa_fwd": layers * (micro + val_batches),
+        "swa_bwd": layers * micro,
+        "tied_ce_fwd": micro + val_batches, "tied_ce_bwd": micro})
+    return trainer, outcome, counts, peak, seconds
+
+
+def fit_stats(trainer, counts, peak, seconds, smi) -> dict:
+    steps = trainer.steps
+    later = steps[1:] or steps
+    return {
+        "steps": len(steps),
+        "shapes_fed": sorted({tuple(s["shape"]) for s in steps}),
+        "step_s": [s["seconds"] for s in steps],
+        "real_tokens": [s["real_tokens"] for s in steps],
+        "real_tokens_per_s": sum(s["real_tokens"] for s in steps)
+        / sum(s["seconds"] for s in steps),
+        "real_tokens_per_s_after_step_1":
+            sum(s["real_tokens"] for s in later)
+            / sum(s["seconds"] for s in later),
+        "losses": [s["loss"] for s in steps],
+        "grad_norms": [s["grad_norm"] for s in steps],
+        "validations": trainer.validations, "saves": trainer.saves,
+        "fit_s": seconds, "launches": counts,
+        "max_memory_allocated_bytes": peak, "card": smi}
+
+
+def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS) -> dict:
+    """r5's geometry and data hparams (runs/real-prose-vae-r5/meta.json
+    as the base: d_model 512, 6 + 3 layers, tokens_per_batch 100,000,
+    accumulate 2, documents of 512-50,000 tokens, bf16) trained by fit
+    for FIT_STEPS steps from the JAX initialisation on the stand-in
+    corpus, validating and saving every FIT_EVERY steps, with depth
+    decoder layers when given. Then, each raising on failure:
+    - validation through the kernels equals fit's own at that step bit
+      for bit;
+    - the step-FIT_EVERY checkpoint restores the state fit saved, bit for
+      bit, and one step from it equals the same step from the saved
+      state, bit for bit;
+    - export_archive, then load_run(<dir>) in the serving form: logits on
+      2 x 256 tokens equal to the trained model's own serving form;
+    - the first group of each shape fit fed, held against the plain
+      versions (fit_group_check) on r5's trained weights;
+    - validation of r5's trained weights through the kernels against the
+      plain versions (validate_against_plain)."""
+    dotlist = [f"trainer.checkpoint_every_n_steps={FIT_EVERY}",
+               "trainer.log_every_n_steps=1"]
+    if depth is not None:
+        dotlist.append(f"model.num_layers={depth}")
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(n_docs, data_hp["min_tokens_per_sample"],
+                        data_hp["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        trainer, outcome, counts, peak, seconds = fit_run(
+            RUN, dotlist, corpus, FIT_STEPS, FIT_EVERY, Path(tmp),
+            capture_step=FIT_EVERY)
+        stats = fit_stats(trainer, counts, peak, seconds, smi)
+        model, hp = outcome.model, trainer.hp
+
+        got = Trainer.validate(trainer, model, step=FIT_STEPS)
+        own = {k: trainer.validations[-1][k] for k in got}
+        check(got == own, f"validation at step {FIT_STEPS} is not fit's: "
+              f"{got} vs {own}")
+
+        saved = trainer.captured
+        check(saved is not None and saved["step"] == FIT_EVERY,
+              "no state was captured at the checkpoint")
+        restored, restored_opt = trainer.init_state(
+            torch.Generator().manual_seed(1))
+        restored_gen = torch.Generator(device="cuda")
+        check(trainer.restore(restored, restored_opt, restored_gen,
+                              step=FIT_EVERY) == FIT_EVERY,
+              "the checkpoint's step")
+        check(states_equal(cpu_state(trainer.state(
+            restored, restored_opt, FIT_EVERY, restored_gen)), saved),
+            "the restored state is not the saved one")
+        twin, twin_opt = trainer.init_state(torch.Generator().manual_seed(2))
+        twin.load_state_dict(saved["params"])
+        twin_opt.load_state_tensors(saved["optimizer"])
+        twin_gen = torch.Generator(device="cuda")
+        twin_gen.set_state(saved["generator"])
+        group = next(defer_accum_groups(
+            trainer.data.epoch_batches("train", seed=FIT_SEED),
+            trainer.thp.accumulate_grad_batches, {}))[0]
+        Trainer._step(trainer, restored, restored_opt, group, FIT_EVERY,
+                      restored_gen)
+        Trainer._step(trainer, twin, twin_opt, group, FIT_EVERY, twin_gen)
+        check(states_equal(
+            cpu_state(trainer.state(restored, restored_opt, FIT_EVERY + 1,
+                                    restored_gen)),
+            cpu_state(trainer.state(twin, twin_opt, FIT_EVERY + 1,
+                                    twin_gen))),
+            "a step from the restored state differs from the same step "
+            "from the saved state")
+        stats["resume"] = {"step": FIT_EVERY, "group": list(
+            group["token_ids"].shape), "bit_identical": True}
+        del restored, restored_opt, twin, twin_opt
+
+        t0 = time.perf_counter()
+        out = export_archive(model, trainer.meta(), Path(tmp) / "archive",
+                             step=outcome.step)
+        export_s = time.perf_counter() - t0
+        served, _, _ = load_run(str(out), device="cuda")
+        own_form = serving_form(model)
+        gen = torch.Generator(device="cuda").manual_seed(FIT_SEED)
+        ids = torch.randint(3, hp.vocab_size, (2, 256), generator=gen,
+                            device="cuda")
+        ids[:, 0] = CLS_ID
+        eps = torch.randn((2, 1, hp.latent_depth), generator=gen,
+                          device="cuda")
+        with torch.no_grad():
+            a, b = served(ids, eps)[0], own_form(ids, eps)[0]
+        check(torch.equal(a, b), "the archive's serving logits differ from "
+              f"the trained model's: {(a - b).abs().max().item()}")
+        stats["archive"] = {"export_s": export_s, "logits_equal": True,
+                            "shape": list(a.shape)}
+        groups = [trainer.groups[shape] for shape in sorted(trainer.groups)]
+        del served, own_form, model, outcome, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["groups_against_plain"] = [
+            fit_group_check(RUN, group, FIT_SEED + i)
+            for i, group in enumerate(groups)]
+        stats["validate_against_plain"] = validate_against_plain(
+            n_docs, Path(tmp))
+    print("fit " + json.dumps(stats), flush=True)
+    return stats
+
+
+def fit_pg19_phase(smi: str) -> dict:
+    """pg19-fb8's data regime (runs/real-prose-pg19-fb8/meta.json as the
+    base: concatenated 102,400-token streams, tokens_per_batch 102,912,
+    accumulate 4, free bits 8.0) on the same stand-in corpus: PG19_STEPS
+    steps and one validation; every group fed is [4, 1, 102400] (the
+    exact-bucket rule: no padding to 114,688), and that group is held
+    against the plain versions on pg19-fb8's trained weights
+    (fit_group_check)."""
+    meta = json.loads((REPO / "runs" / PG19_RUN / "meta.json").read_text())
+    r5_data = json.loads((REPO / "runs" / RUN / "meta.json").read_text())[
+        "data_hparams"]
+    corpus = fit_corpus(FIT_DOCS, r5_data["min_tokens_per_sample"],
+                        r5_data["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        trainer, outcome, counts, peak, seconds = fit_run(
+            PG19_RUN, ["trainer.log_every_n_steps=1"], corpus, PG19_STEPS,
+            PG19_STEPS, Path(tmp))
+        check(all(s["shape"] == [4, 1, PG19_STREAM] for s in trainer.steps),
+              f"pg19 fed {[s['shape'] for s in trainer.steps]}")
+        check(len(trainer.validations) == 1, "pg19: one validation")
+        stats = fit_stats(trainer, counts, peak, seconds, smi)
+        groups = list(trainer.groups.values())
+        del trainer, outcome
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["groups_against_plain"] = [fit_group_check(PG19_RUN, group,
+                                                     FIT_SEED)
+                                     for group in groups]
+    print("fit-pg19 " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -1542,9 +2088,16 @@ def main(argv) -> int:
         sp_stats = sp_train_phase()
     sp_counts = sp_stats["launches_by_rank"]
     sp_single = sp_stats["unsharded"]["launches"]
+    with Phase("fit"):
+        fit_counts = fit_r5_phase(smi)["launches"]
+    with Phase("fit-pg19"):
+        pg19_counts = fit_pg19_phase(smi)["launches"]
 
     def sp_sum(name):
         return sp_single[name] + sum(c[name] for c in sp_counts)
+
+    def fit_paths(name):
+        return {"fit": fit_counts[name], "fit-pg19": pg19_counts[name]}
 
     def timed(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -1562,10 +2115,11 @@ def main(argv) -> int:
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
          "launches": counts["swa_fwd"] + train_counts["swa_fwd"]
-         + sp_sum("swa_fwd"),
+         + sp_sum("swa_fwd") + sum(fit_paths("swa_fwd").values()),
          "launches_by_path": {"serve": counts["swa_fwd"],
                               "train": train_counts["swa_fwd"],
-                              "sp-train": sp_sum("swa_fwd")},
+                              "sp-train": sp_sum("swa_fwd"),
+                              **fit_paths("swa_fwd")},
          **{k: k1_serve[k] for k in ("max_abs_err", "ms", "device_ms",
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -1608,29 +2162,35 @@ def main(argv) -> int:
         {"name": "swa_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
-         "launches": train_counts["swa_bwd"] + sp_sum("swa_bwd"),
+         "launches": train_counts["swa_bwd"] + sp_sum("swa_bwd")
+         + sum(fit_paths("swa_bwd").values()),
          "launches_by_path": {"train": train_counts["swa_bwd"],
-                              "sp-train": sp_sum("swa_bwd")},
+                              "sp-train": sp_sum("swa_bwd"),
+                              **fit_paths("swa_bwd")},
          **timed(k2_train), **{k: k2_train[k] for k in (
              "device_ms", "parts_device_ms", "bit_identical")}},
         {"name": "tied_ce_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
          "launches": train_counts["tied_ce_fwd"]
-         + h4_train_counts["tied_ce_fwd"] + sp_sum("tied_ce_fwd"),
+         + h4_train_counts["tied_ce_fwd"] + sp_sum("tied_ce_fwd")
+         + sum(fit_paths("tied_ce_fwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
                               "train-h4": h4_train_counts["tied_ce_fwd"],
-                              "sp-train": sp_sum("tied_ce_fwd")},
+                              "sp-train": sp_sum("tied_ce_fwd"),
+                              **fit_paths("tied_ce_fwd")},
          **timed(k3), **{k: k3[k] for k in (
              "device_ms", "bit_identical", "vocab_splits")}},
         {"name": "tied_ce_bwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/tied_ce_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
          "launches": train_counts["tied_ce_bwd"]
-         + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd"),
+         + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd")
+         + sum(fit_paths("tied_ce_bwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_bwd"],
                               "train-h4": h4_train_counts["tied_ce_bwd"],
-                              "sp-train": sp_sum("tied_ce_bwd")},
+                              "sp-train": sp_sum("tied_ce_bwd"),
+                              **fit_paths("tied_ce_bwd")},
          **timed(k3b), **{k: k3b[k] for k in (
              "device_ms", "parts_device_ms", "chunk_tokens",
              "bit_identical", "checks")}},

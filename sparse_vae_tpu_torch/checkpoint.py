@@ -1,7 +1,8 @@
 """Checkpoint interop: the archived `runs/<name>/ckpt_bf16.npz` params and
-`runs/<name>/meta.json` hparams as a torch model (`load_run`), and a model
+`runs/<name>/meta.json` hparams as a torch model (`load_run`), a model
 built from hparams with the JAX package's initialisation and no archive
-(`model_from_hparams`).
+(`model_from_hparams`), and the reverse, a model written as such an
+archive (`export_archive`, the layout of tools/archive_ckpt.py's export).
 
 Archive format (tools/archive_ckpt.py): one npz entry per flax param leaf,
 keyed by its '/'-joined path (`layer_0/attention/q_linear/kernel`); float
@@ -11,11 +12,12 @@ LayerNorm `scale` and an Embed `embedding` are torch's `weight`; a learned
 query bank `learned_queries` is a bare [1, n, D] parameter of the same
 name.
 
-Weights are converted in memory at load time; nothing converted is written.
+Weights are converted in memory at load time; `load_run` writes nothing.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 from dataclasses import fields, replace
 from pathlib import Path
@@ -37,6 +39,8 @@ UNPORTED_PREFIXES = ()
 
 _NUMBERED = {"layer": "decoder_layers", "z_projection": "z_projections",
              "middle": "middle_layers"}
+_WEIGHT_KINDS = ((torch.nn.Linear, "kernel"), (torch.nn.LayerNorm, "scale"),
+                 (torch.nn.Embedding, "embedding"))
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "learned_queries": "learned_queries"}
 
@@ -108,6 +112,66 @@ def state_from_leaves(leaves: dict, hparams: TransformerVAEHparams) -> dict:
     return state
 
 
+def flax_path(model: torch.nn.Module, key: str) -> tuple:
+    """The inverse of `torch_key`: a state_dict key of `model` to (flax
+    leaf path, transpose?). The leaf's name follows its module's type: an
+    nn.Linear weight is a `kernel` (transposed), a LayerNorm's a `scale`,
+    an Embedding's an `embedding`."""
+    *prefix, leaf = key.split(".")
+    owner = model.get_submodule(".".join(prefix))
+    kind = leaf
+    if leaf == "weight":
+        kinds = [name for cls, name in _WEIGHT_KINDS
+                 if isinstance(owner, cls)]
+        if not kinds:
+            raise KeyError(f"no flax leaf kind for {key!r}")
+        kind = kinds[0]
+    parts, numbered = [], {v: k for k, v in _NUMBERED.items()}
+    it = iter(prefix)
+    for part in it:
+        parts.append(f"{numbered[part]}_{next(it)}" if part in numbered
+                     else part)
+    return "/".join(parts + [kind]), kind == "kernel"
+
+
+def export_archive(model: torch.nn.Module, meta: dict, out_dir,
+                   step: int = 0) -> Path:
+    """Write `model` as an archive `load_run(out_dir)` reads:
+    ckpt_bf16.npz (each parameter under its flax leaf path with the
+    `::bf16` suffix, its value rounded to bf16 (to nearest, ties to even)
+    and stored as the uint16 bit pattern, Dense kernels transposed back to
+    [in, out]), meta.json (`meta`) and ckpt_meta.json (experiment, name,
+    step, each leaf's dtype, meta). Returns out_dir."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    arrays, dtypes = {}, {}
+    with torch.no_grad():
+        for key, value in model.state_dict().items():
+            path, transpose = flax_path(model, key)
+            value = value.detach().to(device="cpu", dtype=torch.bfloat16)
+            value = value.T if transpose else value
+            arrays[path + BF16_SUFFIX] = value.contiguous().view(
+                torch.int16).numpy().view(np.uint16)
+            dtypes[path] = "float32"
+    np.savez_compressed(out_dir / "ckpt_bf16.npz", **arrays)
+    (out_dir / "meta.json").write_text(json.dumps(meta, indent=2) + "\n")
+    (out_dir / "ckpt_meta.json").write_text(json.dumps(
+        {"experiment": meta.get("experiment"), "name": meta.get("name"),
+         "step": int(step), "dtypes": dtypes, "meta": meta},
+        indent=2) + "\n")
+    return out_dir
+
+
+def run_directory(name) -> Path:
+    """`name` itself when it is a path (absolute, or holding a separator),
+    such as an archive `export_archive` wrote; else runs/<name>/ of the
+    repo, whatever the working directory holds."""
+    path = Path(name)
+    if path.is_absolute() or "/" in str(name) or os.sep in str(name):
+        return path
+    return REPO_ROOT / "runs" / str(name)
+
+
 def hparams_from_meta(meta: dict) -> TransformerVAEHparams:
     """The run's model hparams, keeping the fields this port reads."""
     if meta.get("experiment") != "transformer-vae":
@@ -122,8 +186,9 @@ def hparams_from_meta(meta: dict) -> TransformerVAEHparams:
 
 def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
              train: bool = False, use_kernels: bool = True):
-    """Load runs/<name>/ (meta.json + ckpt_bf16.npz) into a TransformerVAE
-    on `device`. Returns (model, hparams, meta).
+    """Load runs/<name>/ (meta.json + ckpt_bf16.npz), or the archive
+    directory `name` (`run_directory`), into a TransformerVAE on `device`.
+    Returns (model, hparams, meta).
 
     Serving form (train=False): the whole model in `dtype`, default the
     run's compute dtype (bf16 for precision=bf16), in eval mode without
@@ -135,7 +200,7 @@ def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
     path a kernel run is held against.
     """
     device = resolve_device(device)
-    run = REPO_ROOT / "runs" / name
+    run = run_directory(name)
     meta = json.loads((run / "meta.json").read_text())
     hp = hparams_from_meta(meta)
     hp.use_pallas_kernel = hp.use_pallas_kernel and use_kernels
@@ -159,6 +224,16 @@ def model_from_hparams(hparams: TransformerVAEHparams,
                  use_pallas_kernel=hparams.use_pallas_kernel and use_kernels)
     model = init_parameters(TransformerVAE(hp), generator, hp.init_scale)
     return _in_form(model, device, dtype, train), hp
+
+
+def serving_form(model: TransformerVAE) -> TransformerVAE:
+    """A copy of `model` (say, a training form) in the serving form of
+    `load_run`: every parameter rounded to its hparams' compute dtype,
+    eval mode, no grads."""
+    import copy
+    served = copy.deepcopy(model)
+    served.compute_dtype = None
+    return _in_form(served, model.device, None, train=False)
 
 
 def _in_form(model: TransformerVAE, device, dtype, train: bool):

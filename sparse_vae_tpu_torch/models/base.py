@@ -1,8 +1,8 @@
 """Shared model hparams, device/dtype helpers and the compute-dtype rule.
 
-Counterpart of sparse_vae_tpu/models/base.py: the LanguageModelHparams
-fields the port reads, and `compute_dtype` (its initialisers are in
-models/init.py).
+Counterpart of sparse_vae_tpu/models/base.py: LanguageModelHparams, field
+for field (so a run's meta.json and a preset read the same in both
+packages), and `compute_dtype` (its initialisers are in models/init.py).
 
 The compute-dtype rule is flax's `dtype=` semantics: a module computes in
 the dtype of the activations it is given, whatever its parameters are
@@ -41,6 +41,10 @@ class LanguageModelHparams:
     base_batch_size: int = 100_000       # sqrt-lr-scaling base
     lr: float = 2e-4
     lr_decay_steps: Optional[int] = 250_000
+    start_token: Optional[int] = None    # None: the data's [CLS]
+    end_token: Optional[int] = None
+    early_stopping_metric: str = "val_nll"
+    log_samples: bool = True
     weight_decay: float = 0.01
     lamb: bool = False
     vocab_size: int = VOCAB_SIZE

@@ -31,17 +31,30 @@ class TransformerHparams(LanguageModelHparams):
     d_model: int = 512
     num_heads: int = 8
     num_layers: int = 6
+    # Read by the Transformer LM family; the VAE trains without dropout
+    # in both packages.
+    input_dropout: float = 0.0
     tie_embedding_weights: bool = True
     cross_attention: bool = False
+    # Rematerialisation (the JAX package's jax.checkpoint policy): read,
+    # not applied; it trades memory for time and changes no value.
+    grad_checkpointing: bool = False
+    separate_context_embedding: bool = True
     attn_window_size: int = 2           # in attn_block_size blocks
     attn_block_size: int = 128
     sparse_self_attention: bool = True
     loss_chunk_size: int = 0            # > 0: chunked projection + CE
     use_pallas_kernel: bool = True      # here: the port's CUDA kernels
     precision: str = "fp32"
+    remat_policy: str = "full"
     tp_size: int = 1
     sp_size: int = 1                    # set by parallel.sp.sp_localize
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
+    moe_zloss_weight: float = 1e-3
+    ep_size: int = 1
 
     def check_ported(self):
         """Raise for a configuration this port does not run yet."""
@@ -53,6 +66,8 @@ class TransformerHparams(LanguageModelHparams):
             "tensor parallelism": self.tp_size > 1,
             "mixture-of-experts FFNs (sparse_vae_tpu/models/moe.py)":
                 self.num_experts > 1,
+            "expert parallelism (sparse_vae_tpu/parallel/ep.py)":
+                self.ep_size > 1,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:

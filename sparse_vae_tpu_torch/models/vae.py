@@ -1,6 +1,7 @@
 """The continuous VAE's ELBO objective (port of sparse_vae_tpu/models/vae.py:
 `kl_sums`, `normalized_kl` and `VAEObjective`'s single-sample ELBO with
-KL annealing and free bits, plus the mutual-information diagnostic).
+KL annealing and free bits, the mutual-information diagnostic, and the
+validation statistics `eval_stats` / `reduce_eval`).
 
 As in the reference, `loss_sums` returns numerator sums and count
 denominators, and `compose_loss` divides them: the loss stays linear in
@@ -14,7 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.cross_entropy import token_nll
+from ..ops.cross_entropy import bits_per_byte, token_nll
 from ..utils.distributions import DiagonalGaussian
 from ..utils.math_utils import marginal_kl
 from ..utils.schedules import kl_weight_schedule
@@ -125,3 +126,41 @@ class VAEObjective:
     def loss(self, model, batch, step, noise=None, generator=None):
         sums, counts = self.loss_sums(model, batch, noise, generator)
         return self.compose_loss(sums, counts, step)
+
+    def eval_stats(self, model, batch: dict, noise: Optional[dict] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Validation sums of one batch {"token_ids", "num_tokens",
+        "num_bytes"}, the model's forward with z = loc + scale * eps (eps
+        from noise["eps"] or drawn from `generator`), to be summed over
+        batches and reduced by `reduce_eval`. The KL is the raw one, free
+        bits aside. Call under torch.no_grad."""
+        ids, num_tokens = batch["token_ids"], batch["num_tokens"]
+        eps = (noise or {}).get("eps")
+        if self.hp.loss_chunk_size:
+            nll_sum, token_count, raw_kl, _, _ = model.forward_chunked_nll(
+                ids, eps, generator)
+        else:
+            logits, raw_kl, _, _ = model(ids, eps, generator)
+            nll, mask = token_nll(logits[:, :-1], ids[:, 1:], reduce=False)
+            nll_sum, token_count = nll.sum(), mask.sum()
+        kl, _ = normalized_kl(raw_kl, num_tokens)
+        real_rows = (num_tokens > 0).sum()
+        return {"nll_sum": nll_sum, "token_count": token_count,
+                "byte_count": batch["num_bytes"].sum().float(),
+                "kl_weighted_rows": kl * real_rows,
+                "row_count": real_rows.float()}
+
+    @staticmethod
+    def reduce_eval(stats: Dict[str, float]) -> Dict[str, float]:
+        """val_nll (per token), val_bpb (bits per byte), val_kl (per
+        token, averaged over documents) and val_loss = val_nll + val_kl
+        from `eval_stats` summed over the validation batches."""
+        tokens = max(stats["token_count"], 1.0)
+        nll = stats["nll_sum"] / tokens
+        kl = stats["kl_weighted_rows"] / max(stats["row_count"], 1.0)
+        return {"val_nll": nll,
+                "val_bpb": bits_per_byte(stats["nll_sum"],
+                                         stats["byte_count"]),
+                "val_kl": kl,
+                "val_loss": nll + kl}

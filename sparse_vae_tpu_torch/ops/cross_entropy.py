@@ -1,5 +1,5 @@
 """Token-level cross-entropy losses (port of
-sparse_vae_tpu/ops/cross_entropy.py): `token_nll` and
+sparse_vae_tpu/ops/cross_entropy.py): `token_nll`, `bits_per_byte` and
 `chunked_cross_entropy`, the projection + CE over sequence chunks that
 never holds more than one chunk's logits, and `chunked_nll_rows`, its
 per-row sums. They are the plain yardstick of
@@ -8,6 +8,7 @@ kernels are on.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -24,6 +25,12 @@ def token_nll(logits, labels, reduce: bool = True):
     if not reduce:
         return nll * mask, mask
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def bits_per_byte(nll_sum: float, num_bytes: float) -> float:
+    """A summed token NLL in nats as bits per byte of the raw text:
+    nll_sum / num_bytes / ln 2."""
+    return nll_sum / max(num_bytes, 1.0) / math.log(2.0)
 
 
 def _chunk_loss(project_fn, h, y):

@@ -1,17 +1,33 @@
-"""Train the flagship Transformer-VAE on the port:
+"""Train the flagship Transformer-VAE on the port, in one of two forms.
+
+The training run, the JAX package's `train.py` CLI:
+
+    python -m sparse_vae_tpu_torch.train transformer-vae
+        [model.k=v ...] [data.k=v ...] [trainer.k=v ...] [preset=<name>]
+        [name=<run>] [from_checkpoint=<run>] [no_log=true]
+        [anomaly_detection=true] [device=cuda]
+
+assembles the configuration (cli.py: defaults, the dotlist, a preset),
+prepares the corpus (data/: tokenizer, token cache, length buckets) and
+runs `Trainer.fit` (training/trainer.py) from the JAX initialisation:
+validation, early stopping and checkpoints under
+sparse-vae-logs/transformer-vae/<name>/. from_checkpoint=<run> resumes
+that run with its saved hparams as the base. It is selected when the
+argument after the experiment is absent or holds a `=`.
+
+The step run on an archived model's weights:
 
     python -m sparse_vae_tpu_torch.train transformer-vae <run-name>
         [steps=10] [batch=8] [seq=12800] [accumulate=<run's>] [seed=0]
         [device=cuda] [sp=1]
 
-Loads runs/<run-name>/ in its training form (fp32 master parameters, the
+loads runs/<run-name>/ in its training form (fp32 master parameters, the
 run's compute dtype) and takes `steps` optimizer steps of `accumulate`
 micro-batches of [batch, seq] seeded random token ids with ragged
-document lengths (training/data.py; the corpus pipeline is not ported
-yet). The optimizer is the run's: RAdam (or LAMB) behind the global-norm
-clip on the cosine schedule, at the JAX trainer's lr (`run_lr`). Prints
-one JSON line of metrics per step. Validation, checkpoint saving and
-early stopping are not ported yet.
+document lengths (training/data.py, the train bench's stand-in for a
+corpus). The optimizer is the run's: RAdam (or LAMB) behind the
+global-norm clip on the cosine schedule, at the JAX trainer's lr
+(`run_lr`). Prints one JSON line of metrics per step.
 
 sp=N > 1 shards the length axis over N ranks (sequence parallelism,
 parallel/): lengths are padded to a multiple of N * window * block, the
@@ -212,6 +228,47 @@ def train_rank(group, name: str, steps: int, batch: int, seq: int,
     return record
 
 
+def fit_main(experiment: str, args) -> int:
+    """The training run: `args` is the dotlist after the experiment, with
+    device=<device> (default cuda) among it."""
+    import torch
+
+    from .cli import (assemble_config, build_data, build_hparams,
+                      seed_everything)
+    from .training.checkpointing import load_run_meta
+    from .training.trainer import Trainer
+
+    device = "cuda"
+    dotlist = []
+    for item in args:
+        if item.startswith("device="):
+            device = item.split("=", 1)[1]
+        else:
+            dotlist.append(item)
+    cfg = assemble_config(experiment, dotlist)
+    if cfg.from_checkpoint:
+        meta = load_run_meta(experiment, cfg.name)
+        if meta:
+            cfg = assemble_config(experiment, dotlist, base_meta=meta)
+    seed_everything(cfg.trainer.seed)
+    if cfg.anomaly_detection:
+        torch.autograd.set_detect_anomaly(True)
+
+    print(f"Training {experiment}...", flush=True)
+    data = build_data(cfg)
+    overrides = dict(cfg.model_overrides)
+    overrides.setdefault("vocab_size", cfg.data.vocab_size)
+    hparams, objective = build_hparams(experiment, overrides)
+    trainer = Trainer(hparams, objective, data, cfg.trainer,
+                      experiment=experiment, name=cfg.name,
+                      enable_logging=not cfg.no_log, device=device)
+    outcome = trainer.fit(resume=cfg.from_checkpoint is not None)
+    print(f"Done: step={outcome.step} stopped={outcome.stopped_reason} "
+          f"best {hparams.early_stopping_metric}={outcome.best_metric}",
+          flush=True)
+    return 0
+
+
 def main(args) -> int:
     import numpy as np
     import torch
@@ -219,9 +276,11 @@ def main(args) -> int:
     from .training.data import synthetic_batch
     from .training.train_step import train_step
 
-    if len(args) < 3:
+    if len(args) < 2:
         print(__doc__)
         return 1
+    if len(args) == 2 or "=" in args[2]:
+        return fit_main(args[1], args[2:])
     experiment, name = args[1], args[2]
     if experiment != "transformer-vae":
         raise SystemExit(f"model {experiment!r} is not ported; "

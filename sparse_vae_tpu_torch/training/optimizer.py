@@ -52,6 +52,28 @@ class RAdam(torch.optim.Optimizer):
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
 
+    def state_tensors(self) -> dict:
+        """{"count": steps taken, "exp_avg": [...], "exp_avg_sq": [...]},
+        the moments in parameter order (empty before the first step): the
+        whole state of the optimizer, the lr being a function of count."""
+        params = [p for p in self._params() if self.state[p]]
+        return {"count": self.count,
+                "exp_avg": [self.state[p]["exp_avg"] for p in params],
+                "exp_avg_sq": [self.state[p]["exp_avg_sq"] for p in params]}
+
+    def load_state_tensors(self, state: dict):
+        """Restore what `state_tensors` gave, copied into new tensors on
+        each parameter's device."""
+        params = self._params()
+        if state["exp_avg"] and len(state["exp_avg"]) != len(params):
+            raise ValueError(f"{len(state['exp_avg'])} moments for "
+                             f"{len(params)} parameters")
+        self.state.clear()
+        for p, m, v in zip(params, state["exp_avg"], state["exp_avg_sq"]):
+            self.state[p]["exp_avg"] = m.to(p.device, copy=True)
+            self.state[p]["exp_avg_sq"] = v.to(p.device, copy=True)
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, closure=None):
         params = self._params()

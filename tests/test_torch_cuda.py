@@ -797,3 +797,30 @@ def test_swa_fwd_packed_kernel_on_ragged_rows(cuda, heads, causal, window):
                                rtol=2e-2)
     torch.testing.assert_close(lse[finite], ref_lse[finite], atol=1e-3,
                                rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fit_on_bucketed_documents_at_r5_width(cuda):
+    """chip_smoke.py's fit phase at 2 decoder layers on 60 documents: r5's
+    width and data hparams, 6 steps of Trainer.fit on bucketed groups
+    through K1, K2, K3 and K3b (launch counts from the groups and
+    validation batches fed), the checkpoint restored bit for bit and one
+    step from it equal to the same step from the saved state, and the
+    exported archive serving the trained model's logits; then, on r5's
+    trained weights at full depth, the first step of each group shape fed
+    against the fp32 plain step (loss within 0.1%, gradients at cosine
+    >= 0.99), and validation through the kernels within 0.1% of the plain
+    versions on documents that repeat a segment, where a band without its
+    older block moves val_nll by 1% or more. Every check raises inside
+    the phase."""
+    import chip_smoke
+    stats = chip_smoke.fit_r5_phase("pytest", depth=2, n_docs=60)
+    assert stats["steps"] == chip_smoke.FIT_STEPS
+    assert stats["resume"]["bit_identical"]
+    assert stats["archive"]["logits_equal"]
+    assert [g["group"] for g in stats["groups_against_plain"]] == [
+        list(shape) for shape in stats["shapes_fed"]]
+    val = stats["validate_against_plain"]
+    assert val["val_nll_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert val["band_cut_rel_change"] >= (chip_smoke.VAL_POWER
+                                          * chip_smoke.TRAIN_LOSS_RTOL)

@@ -112,6 +112,32 @@ on a run's meta.json:
  13. fit-pg19 — pg19-fb8's hparams (102,400-token concatenated streams,
                tokens_per_batch 102,912, accumulate 4): 2 steps and one
                validation, every group [4, 1, 102400].
+Evaluation (models/vae.py's estimators, test.py), on documents that
+repeat a 100-id segment, each through the kernels against the plain
+versions on the same eps:
+ 14. eval    — estimate_log_prob_iw of r5's trained weights on 4 ragged
+               rows of up to 12,800 tokens, 8 samples in 2 chunks (16
+               stacked rows a call; K1 6 x 2, K3 2 launches): the
+               per-token IWAE NLL within 0.1% of the plain versions',
+               where the plain run without the band's older block must
+               move it by 1% or more; token-samples/s printed, and the
+               time of test.py's default (100 samples in 100 chunks) on
+               [8, 12800];
+ 15. eval-pg19 — the same on pg19-fb8's weights at one 102,400-token
+               document, 4 samples in 4 chunks; its power check drops the
+               query's own band block (pg19-fb8 hardly reads the older
+               one on these documents);
+ 16. dreg    — K3/K3b alone at 102,400 tokens with the DReG kind of
+               upstream gradient (w~ / num_tokens, a value per sample and
+               document), then one r5 step with train_mc_samples 4 over
+               [2, 12800] (102,400 token rows; K1 12, K2 6, K3 2, K3b 1)
+               against the fp32 plain step as the train phases hold
+               theirs, the bf16 plain step's distance from it beside,
+               then 3 timed steps (seconds, real tokens/s, memory);
+ 17. test-entry — `sparse_vae_tpu_torch.test`'s main on the checkpoint
+               the fit phase saved, with its stand-in corpus, 8 samples
+               in 2 chunks: a finite, positive average, K1 and K3
+               launched once a layer and once per chunk of every batch.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -139,12 +165,16 @@ import torch
 import torch.nn.functional as F
 
 from sparse_vae_tpu_torch import profile_train
+from sparse_vae_tpu_torch import test as test_entry
 from sparse_vae_tpu_torch.checkpoint import (export_archive, load_run,
                                              model_from_hparams,
                                              serving_form)
 from sparse_vae_tpu_torch.cli import assemble_config, build_hparams
 from sparse_vae_tpu_torch.data.datasets import TokenizedCorpus
-from sparse_vae_tpu_torch.data.text_data_module import TextDataModule
+from sparse_vae_tpu_torch.data.text_data_module import (
+    TextDataModule, TextDataModuleHparams)
+from sparse_vae_tpu_torch.data.tokenizer import (tokenizer_cache_path,
+                                                 train_tokenizer)
 from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise)
@@ -156,7 +186,7 @@ from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     sliding_window_attention_packed_bwd_plain,
     sliding_window_attention_packed_plain, sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
-from sparse_vae_tpu_torch.parallel.group import choose_backend, spawn
+from sparse_vae_tpu_torch.parallel.group import spawn
 from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
 from sparse_vae_tpu_torch.train import sp_pad_multiple, train_rank
@@ -1486,9 +1516,9 @@ VAL_PERIOD = 100
 # The plain loss holds a chunk's fp32 logits [rows x chunk, V] and their
 # gradient; the chunk runs along the length, so a group of many short
 # rows (65 rows of 1,536 tokens, padded to one chunk of 2,048: 16 GiB of
-# logits) would not fit beside the activations. The plain references of the fit phases
-# take chunks of at most this many tokens (the summation order aside,
-# the same loss).
+# logits) would not fit beside the activations. The plain references
+# of the fit and evaluation phases take chunks of at most this many
+# tokens (the summation order aside, the same loss).
 PLAIN_CE_TOKENS = 16384
 # The run shows that the check can fail: the plain validation with the
 # band's older block dropped must move val_nll by at least VAL_POWER times
@@ -1599,32 +1629,50 @@ class FitTrainer(Trainer):
                                                  generator))
 
 
+def plain_chunk(hp, rows: int) -> int:
+    """The plain loss's chunk along the length for `rows` rows a call:
+    at most PLAIN_CE_TOKENS tokens of fp32 logits at a time."""
+    return max(1, min(hp.loss_chunk_size or 2048, PLAIN_CE_TOKENS // rows))
+
+
+def step_noise(hp, objective, microbatches: list, seed: int) -> list:
+    """One noise dict a micro-batch, drawn from `seed`: {"eps": [rows, 1,
+    latent], "mi": [mi_samples, rows, latent]}, or with train_mc_samples
+    K > 1 (the IWAE/DReG bound) {"eps": [K, rows, 1, latent]}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = []
+    for mb in microbatches:
+        rows = mb["token_ids"].shape[0]
+        if hp.train_mc_samples > 1:
+            noise.append({"eps": torch.randn(
+                (hp.train_mc_samples, rows, 1, hp.latent_depth),
+                generator=gen, device="cuda")})
+            continue
+        noise.append({
+            "eps": torch.randn((rows, 1, hp.latent_depth), generator=gen,
+                               device="cuda"),
+            "mi": torch.randn((objective.mi_samples, rows, hp.latent_depth),
+                              generator=gen, device="cuda")})
+    return noise
+
+
 def run_step(run: str, microbatches: list, use_kernels: bool, dtype,
-             noise=None, seed: int = 0):
+             noise=None, seed: int = 0, mc_samples: int = 1):
     """One optimizer step of runs/<run>'s trained weights in the training
-    form on `microbatches`: (loss, gradients on the CPU, launch counts,
-    noise, hparams). noise: one {"eps", "mi"} dict a micro-batch, drawn
-    from `seed` when None. Through the plain versions the loss's chunks
-    take at most PLAIN_CE_TOKENS tokens."""
+    form on `microbatches`, with train_mc_samples `mc_samples`: (loss,
+    gradients on the CPU, launch counts, noise, hparams). noise: as
+    step_noise gives it, drawn from `seed` when None. Through the plain
+    versions the loss's chunks take at most PLAIN_CE_TOKENS tokens."""
     model, objective, optimizer = build_training(
         run, "cuda", len(microbatches), use_kernels=use_kernels,
         dtype=dtype)[:3]
     hp = model.hparams
+    hp.train_mc_samples = mc_samples     # the objective reads the same hp
     if not use_kernels:
         rows = microbatches[0]["token_ids"].shape[0]
-        hp.loss_chunk_size = max(1, min(hp.loss_chunk_size or 2048,
-                                        PLAIN_CE_TOKENS // rows))
+        hp.loss_chunk_size = plain_chunk(hp, mc_samples * rows)
     if noise is None:
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        noise = []
-        for mb in microbatches:
-            rows = mb["token_ids"].shape[0]
-            noise.append({
-                "eps": torch.randn((rows, 1, hp.latent_depth),
-                                   generator=gen, device="cuda"),
-                "mi": torch.randn((objective.mi_samples, rows,
-                                   hp.latent_depth), generator=gen,
-                                  device="cuda")})
+        noise = step_noise(hp, objective, microbatches, seed)
     reset_counts()
     metrics = train_step(model, objective, optimizer, microbatches, 0, noise)
     loss = float(metrics["loss"])
@@ -1637,28 +1685,23 @@ def run_step(run: str, microbatches: list, use_kernels: bool, dtype,
     return loss, grads, counts, noise, hp
 
 
-def fit_group_check(run: str, stacked: dict, seed: int) -> dict:
-    """train_phase's check on a group that fit fed: one optimizer step of
-    runs/<run>'s trained weights in the training form on the group
-    [k, rows, L], in bf16 through the kernels, against the same step with
-    the same noise in fp32 through the plain versions: the loss within
-    TRAIN_LOSS_RTOL and each of the 165 gradients at cosine >=
-    TRAIN_GRAD_COS. A gradient below that passes only as sp_train_phase's
-    near-zero gradients do: where the same step in bf16 through the plain
-    versions is below TRAIN_GRAD_COS too (the bf16 noise of a gradient
-    near zero, no kernel's), and the kernel step is no farther from fp32
-    than that step less NOISY_GRAD_MARGIN."""
-    k, rows, length = stacked["token_ids"].shape
-    name = f"fit {run} group {[k, rows, length]}"
-    mbs = [{key: torch.from_numpy(arr[i]).to("cuda", torch.int64)
-            for key, arr in stacked.items()} for i in range(k)]
-    loss, grads, counts, noise, hp = run_step(run, mbs, True, None,
-                                              seed=seed)
-    check_counts(name, counts, {
-        "swa_fwd": hp.num_layers * k, "swa_bwd": hp.num_layers * k,
-        "tied_ce_fwd": k, "tied_ce_bwd": k})
+def step_against_plain(run: str, mbs: list, name: str, seed: int,
+                       expect: dict, mc_samples: int = 1) -> dict:
+    """One optimizer step of runs/<run>'s trained weights in the training
+    form on the micro-batches `mbs`, in bf16 through the kernels (launch
+    counts `expect`), against the same step with the same noise in fp32
+    through the plain versions: the loss within TRAIN_LOSS_RTOL and each
+    of the 165 gradients at cosine >= TRAIN_GRAD_COS. A gradient below
+    that passes only as sp_train_phase's near-zero gradients do: where
+    the same step in bf16 through the plain versions is below
+    TRAIN_GRAD_COS too (the bf16 noise of a gradient near zero, no
+    kernel's), and the kernel step is no farther from fp32 than that step
+    less NOISY_GRAD_MARGIN."""
+    loss, grads, counts, noise, hp = run_step(
+        run, mbs, True, None, seed=seed, mc_samples=mc_samples)
+    check_counts(name, counts, expect)
     ref_loss, ref_grads, ref_counts, _, _ = run_step(
-        run, mbs, False, torch.float32, noise)
+        run, mbs, False, torch.float32, noise, mc_samples=mc_samples)
     check_counts(f"{name} fp32 plain", ref_counts, {})
     cos = cosines(grads, ref_grads)
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
@@ -1668,7 +1711,8 @@ def fit_group_check(run: str, stacked: dict, seed: int) -> dict:
     noisy = {n: {"kernels_vs_fp32": c} for n, c in cos.items()
              if c < TRAIN_GRAD_COS}
     if noisy:
-        _, plain_grads, _, _, _ = run_step(run, mbs, False, None, noise)
+        _, plain_grads, _, _, _ = run_step(run, mbs, False, None, noise,
+                                           mc_samples=mc_samples)
         plain_cos = cosines(plain_grads, ref_grads)
         for n, c in noisy.items():
             c["bf16_plain_vs_fp32"] = plain_cos[n]
@@ -1677,20 +1721,39 @@ def fit_group_check(run: str, stacked: dict, seed: int) -> dict:
                   >= plain_cos[n] - NOISY_GRAD_MARGIN,
                   f"{name}: {n} disagrees with fp32 plain: {c}")
     held = {n: c for n, c in cos.items() if n not in noisy}
-    return {"group": [k, rows, length],
-            "real_tokens": int(stacked["num_tokens"].sum()),
-            "loss": loss, "fp32_plain_loss": ref_loss,
+    return {"loss": loss, "fp32_plain_loss": ref_loss,
             "loss_rel_err": loss_rel,
             "min_grad_cosine": sorted(held.items(),
                                       key=lambda kv: kv[1])[:3],
-            "near_zero_gradients": noisy}
+            "near_zero_gradients": noisy, "launches": counts}
+
+
+def fit_group_check(run: str, stacked: dict, seed: int) -> dict:
+    """train_phase's check on a group [k, rows, L] that fit fed:
+    step_against_plain on runs/<run>'s trained weights, K1/K2 once a
+    layer and K3/K3b once a micro-batch."""
+    k, rows, length = stacked["token_ids"].shape
+    name = f"fit {run} group {[k, rows, length]}"
+    mbs = [{key: torch.from_numpy(arr[i]).to("cuda", torch.int64)
+            for key, arr in stacked.items()} for i in range(k)]
+    layers = json.loads((REPO / "runs" / run / "meta.json").read_text())[
+        "model_hparams"]["num_layers"]
+    held = step_against_plain(run, mbs, name, seed, {
+        "swa_fwd": layers * k, "swa_bwd": layers * k,
+        "tied_ce_fwd": k, "tied_ce_bwd": k})
+    return {"group": [k, rows, length],
+            "real_tokens": int(stacked["num_tokens"].sum()),
+            **{key: held[key] for key in (
+                "loss", "fp32_plain_loss", "loss_rel_err",
+                "min_grad_cosine", "near_zero_gradients")}}
 
 
 @contextlib.contextmanager
-def band_without_older_block():
-    """The plain attention with each query block's older band block
-    dropped: a K1 with a wrong band, which the validation check must
-    tell from the right one."""
+def band_without_block(which: str = "older"):
+    """The plain attention with one block of each query block's band
+    dropped, "older" (the band's oldest) or "current" (the query's own
+    block): a K1 with a wrong band, which a check on the plain versions
+    must tell from the right one."""
     real = swa_plain._band_indices
 
     def cut(num_blocks, window_size, include_cls, causal=True, device=None,
@@ -1698,7 +1761,9 @@ def band_without_older_block():
         k_idx, valid = real(num_blocks, window_size, include_cls, causal,
                             device, q_off)
         valid = valid.clone()
-        valid[:, int(include_cls)] = False
+        column = int(include_cls) + (window_size - 1 if which == "current"
+                                     else 0)
+        valid[:, column] = False
         return k_idx, valid
 
     swa_plain._band_indices = cut
@@ -1744,7 +1809,7 @@ def validate_against_plain(n_docs: int, log_root: Path) -> dict:
     plain = build_training(RUN, "cuda", 1, use_kernels=False)[0]
     reset_counts()
     want = trainer.validate(plain, step=FIT_STEPS)
-    with band_without_older_block():
+    with band_without_block("older"):
         cut = trainer.validate(plain, step=FIT_STEPS)
     check_counts("validate plain", read_counts(), {})
     del plain
@@ -1842,7 +1907,8 @@ def fit_stats(trainer, counts, peak, seconds, smi) -> dict:
         "max_memory_allocated_bytes": peak, "card": smi}
 
 
-def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS) -> dict:
+def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS,
+                 log_root=None) -> dict:
     """r5's geometry and data hparams (runs/real-prose-vae-r5/meta.json
     as the base: d_model 512, 6 + 3 layers, tokens_per_batch 100,000,
     accumulate 2, documents of 512-50,000 tokens, bf16) trained by fit
@@ -1859,7 +1925,9 @@ def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS) -> dict:
     - the first group of each shape fit fed, held against the plain
       versions (fit_group_check) on r5's trained weights;
     - validation of r5's trained weights through the kernels against the
-      plain versions (validate_against_plain)."""
+      plain versions (validate_against_plain).
+    The run's checkpoints go under `log_root` (kept for test_entry_phase)
+    or a temporary directory."""
     dotlist = [f"trainer.checkpoint_every_n_steps={FIT_EVERY}",
                "trainer.log_every_n_steps=1"]
     if depth is not None:
@@ -1869,9 +1937,12 @@ def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS) -> dict:
     corpus = fit_corpus(n_docs, data_hp["min_tokens_per_sample"],
                         data_hp["max_tokens_per_sample"],
                         meta["model_hparams"]["vocab_size"], FIT_SEED)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+    with contextlib.ExitStack() as stack:
+        if log_root is None:
+            log_root = Path(stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="chip_smoke_fit_")))
         trainer, outcome, counts, peak, seconds = fit_run(
-            RUN, dotlist, corpus, FIT_STEPS, FIT_EVERY, Path(tmp),
+            RUN, dotlist, corpus, FIT_STEPS, FIT_EVERY, log_root,
             capture_step=FIT_EVERY)
         stats = fit_stats(trainer, counts, peak, seconds, smi)
         model, hp = outcome.model, trainer.hp
@@ -1916,7 +1987,7 @@ def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS) -> dict:
         del restored, restored_opt, twin, twin_opt
 
         t0 = time.perf_counter()
-        out = export_archive(model, trainer.meta(), Path(tmp) / "archive",
+        out = export_archive(model, trainer.meta(), log_root / "archive",
                              step=outcome.step)
         export_s = time.perf_counter() - t0
         served, _, _ = load_run(str(out), device="cuda")
@@ -1941,7 +2012,7 @@ def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS) -> dict:
             fit_group_check(RUN, group, FIT_SEED + i)
             for i, group in enumerate(groups)]
         stats["validate_against_plain"] = validate_against_plain(
-            n_docs, Path(tmp))
+            n_docs, log_root)
     print("fit " + json.dumps(stats), flush=True)
     return stats
 
@@ -1976,6 +2047,349 @@ def fit_pg19_phase(smi: str) -> dict:
                                                      FIT_SEED)
                                      for group in groups]
     print("fit-pg19 " + json.dumps(stats), flush=True)
+    return stats
+
+
+# -- evaluation: the IWAE estimator, DReG training, the test entry ----------
+
+# eval: r5's trained weights on 4 ragged rows of 12,800 tokens, 8 samples
+# in 2 chunks (each chunk one reconstruct_ll over 16 stacked rows);
+# eval-pg19: pg19-fb8's on one 102,400-token document, 4 samples in 4
+# chunks; both on documents that repeat a VAL_PERIOD-id segment, through
+# the kernels against the plain versions on the same eps.
+EVAL_LENGTHS = [12800, 11001, 7500, 3001]
+EVAL_SAMPLES, EVAL_ITERS = 8, 2
+PG19_EVAL_LENGTHS = [PG19_STREAM]
+PG19_EVAL_SAMPLES, PG19_EVAL_ITERS = 4, 4
+EVAL_SEED = 29
+# The band cut each evaluation's power check makes: r5 predicts a token
+# from its copy one period back (older band block), pg19-fb8 hardly does
+# (its IWAE NLL moved 0.06% without the older block, 3% without the
+# query's own block, at [2, 2048] on the CPU:
+# tests/test_torch_eval.py::test_the_stand_in_iwae_sees_the_attention_band).
+EVAL_CUTS = {RUN: "older", PG19_RUN: "current"}
+# dreg: one r5 step with train_mc_samples 4 over a [2, 12800] micro-batch:
+# K * B * L = 102,400 token rows, the [8, 12800] train step's.
+DREG_SAMPLES = 4
+DREG_LENGTHS = [12800, 9731]
+DREG_TIMED_STEPS = 3
+# test-entry: sparse_vae_tpu_torch.test on fit's checkpoint.
+TEST_SAMPLES, TEST_ITERS = 8, 2
+
+
+def segment_documents(lengths, width: int, vocab: int, seed: int,
+                      period: int = VAL_PERIOD, device="cuda") -> dict:
+    """{"token_ids": [B, width], "num_tokens": [B]} on `device`: row b is
+    [CLS], one seeded segment of `period` ids in [3, vocab) repeated, and
+    [SEP] at lengths[b] - 1, then padding (fit_corpus's documents); a
+    row of length 0 is all padding."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((len(lengths), width), np.int64)
+    for row, n in enumerate(lengths):
+        if n:
+            ids[row, :n] = np.resize(rng.integers(3, vocab, size=period), n)
+            ids[row, 0], ids[row, n - 1] = CLS_ID, SEP_ID
+    return {"token_ids": torch.from_numpy(ids).to(device),
+            "num_tokens": torch.tensor([int(n) for n in lengths],
+                                       device=device)}
+
+
+def iwae_run(run: str, batches: list, num_samples: int, num_iter: int,
+             eps: list, use_kernels: bool, cut=None, repeats: int = 0
+             ) -> dict:
+    """test.batch_nll (the IWAE NLL per token over a batch's rows) of
+    runs/<run>'s trained weights in the training form on each of
+    `batches` with its `eps`, through the kernels or the plain versions
+    (the loss in chunks of at most PLAIN_CE_TOKENS tokens), under the band
+    cut `cut` (band_without_block's argument) if given; `repeats` more
+    passes over the batches are timed. Returns the nlls, the launch counts
+    and seconds of the first pass, the timed passes' seconds and the peak
+    memory."""
+    model = build_training(run, "cuda", 1, use_kernels=use_kernels)[0]
+    band = band_without_block(cut) if cut else contextlib.nullcontext()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    with torch.no_grad(), band:
+        for i in range(1 + repeats):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nlls = []
+            for batch, e in zip(batches, eps):
+                if not use_kernels:
+                    model.hparams.loss_chunk_size = plain_chunk(
+                        model.hparams,
+                        num_samples // num_iter * batch["token_ids"].shape[0])
+                nlls.append(test_entry.batch_nll(model, batch, num_samples,
+                                                 num_iter, eps=e))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                counts, first = read_counts(), nlls
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"nll": first, "launches": counts, "first_s": seconds[0],
+            "timed_s": seconds[1:], "max_memory_allocated_bytes": peak}
+
+
+def iwae_against_plain(run: str, batches: list, num_samples: int,
+                       num_iter: int, seed: int, name: str,
+                       repeats: int = 0):
+    """iwae_run of runs/<run>'s trained weights on `batches` (documents
+    that repeat a segment) through the kernels, K1 once a layer and K3
+    once a chunk of samples for each batch, against the plain versions on
+    the same eps, drawn from `seed`: each batch's IWAE NLL per token
+    within TRAIN_LOSS_RTOL. The plain run with the band cut EVAL_CUTS[run]
+    must move each by VAL_POWER x that or more. Returns the kernels', the
+    plain and the cut runs, and each batch's relative error and change."""
+    hp = json.loads((REPO / "runs" / run / "meta.json").read_text())[
+        "model_hparams"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    eps = [torch.randn((num_samples, b["token_ids"].shape[0], 1,
+                        hp["latent_depth"]), generator=gen, device="cuda")
+           for b in batches]
+    got = iwae_run(run, batches, num_samples, num_iter, eps, True,
+                   repeats=repeats)
+    check_counts(name, got["launches"], {
+        "swa_fwd": hp["num_layers"] * num_iter * len(batches),
+        "tied_ce_fwd": num_iter * len(batches)})
+    want = iwae_run(run, batches, num_samples, num_iter, eps, False)
+    cut = iwae_run(run, batches, num_samples, num_iter, eps, False,
+                   cut=EVAL_CUTS[run])
+    for r in (want, cut):
+        check_counts(f"{name} plain", r["launches"], {})
+    rel = [abs(g - w) / abs(w) for g, w in zip(got["nll"], want["nll"])]
+    power = [abs(c - w) / abs(w) for c, w in zip(cut["nll"], want["nll"])]
+    for b, g, w, c, r, m in zip(batches, got["nll"], want["nll"],
+                                cut["nll"], rel, power):
+        shape = list(b["token_ids"].shape)
+        check(np.isfinite(g) and r <= TRAIN_LOSS_RTOL,
+              f"{name} {shape}: IWAE NLL through the kernels {g} vs plain "
+              f"{w}")
+        check(m >= VAL_POWER * TRAIN_LOSS_RTOL,
+              f"{name} {shape}: the plain IWAE without the band's "
+              f"{EVAL_CUTS[run]} block moves by {m:.3g} only: {c} vs {w}")
+    return got, want, cut, rel, power
+
+
+def test_default_timing(run: str, lengths, seed: int) -> dict:
+    """The time of test.py's default, 100 samples in 100 chunks, on one
+    batch of segment_documents of `lengths` through the kernels (timed
+    only: eval_phase holds the same path against the plain versions)."""
+    meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
+    batch = segment_documents(lengths, max(lengths),
+                              meta["model_hparams"]["vocab_size"], seed)
+    model = build_training(run, "cuda", 1)[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        nll = test_entry.batch_nll(model, batch, 100, 100, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lengths": list(lengths), "num_samples": 100, "num_iter": 100,
+            "nll": nll, "seconds": seconds,
+            "token_samples_per_s": sum(lengths) * 100 / seconds}
+
+
+def eval_phase(run: str, lengths, num_samples: int, num_iter: int,
+               smi: str, name: str, default_lengths=None) -> dict:
+    """estimate_log_prob_iw of runs/<run>'s trained weights on
+    segment_documents of `lengths`, held against the plain versions
+    (iwae_against_plain). Prints the token-samples per second (real
+    tokens x samples / s) over all the timed kernel calls, the best call's
+    beside it, and, with default_lengths, the time of test.py's default on
+    a batch of those lengths (test_default_timing)."""
+    hp = json.loads((REPO / "runs" / run / "meta.json").read_text())[
+        "model_hparams"]
+    batch = segment_documents(lengths, max(lengths), hp["vocab_size"],
+                              EVAL_SEED)
+    got, want, cut, rel, power = iwae_against_plain(
+        run, [batch], num_samples, num_iter, EVAL_SEED, name, repeats=2)
+    token_samples = sum(lengths) * num_samples
+    timed = got["timed_s"]
+    stats = {"run": run, "rows": len(lengths), "lengths": list(lengths),
+             "num_samples": num_samples, "num_iter": num_iter,
+             "stacked_rows": num_samples // num_iter * len(lengths),
+             "nll_kernels": got["nll"][0], "nll_plain": want["nll"][0],
+             "nll_rel_err": rel[0], "band_cut": EVAL_CUTS[run],
+             "nll_plain_band_cut": cut["nll"][0],
+             "band_cut_rel_change": power[0],
+             "first_s": got["first_s"], "timed_s": timed,
+             "token_samples": token_samples,
+             "token_samples_per_s": token_samples * len(timed) / sum(timed),
+             "token_samples_per_s_best": token_samples / min(timed),
+             "plain_s": want["first_s"],
+             "max_memory_allocated_bytes": got["max_memory_allocated_bytes"],
+             "launches": got["launches"], "card": smi}
+    if default_lengths:
+        stats["test_default"] = test_default_timing(run, default_lengths,
+                                                    EVAL_SEED + 2)
+    print(f"{name} " + json.dumps(stats), flush=True)
+    return stats
+
+
+def nonuniform_ce_check(rows: int, length: int, k: int, seed: int) -> dict:
+    """K3 and K3b against their plain versions (ce_check) at K * rows *
+    length tokens with the DReG step's kind of upstream gradient: dnll of
+    document b under sample j is w~[j, b] / num_tokens[b], w~ a softmax
+    over the samples, 0 on the padding at each document's tail."""
+    t = k * rows * length
+    g, table, bias, labels, _ = ce_inputs(t, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = torch.randint(length // 2, length + 1, (rows,), generator=gen,
+                            device="cuda")
+    w = torch.softmax(4.0 * torch.randn((k, rows), generator=gen,
+                                        device="cuda"), dim=0)
+    pos = torch.arange(length, device="cuda")
+    real = (pos[None, :] < lengths[:, None]).repeat(k, 1)      # [k*rows, L]
+    dnll = ((w / lengths).reshape(-1)[:, None] * real).reshape(-1)
+    labels = torch.where(real.reshape(-1), labels, 0)
+    out = ce_check(g, table, bias, labels, dnll.float().contiguous())
+    out["dnll_range"] = [dnll[dnll > 0].min().item(), dnll.max().item()]
+    return out
+
+
+def dreg_phase(smi: str, lengths=None, samples: int = DREG_SAMPLES,
+               timed_steps: int = DREG_TIMED_STEPS) -> dict:
+    """One optimizer step of r5's trained weights with train_mc_samples
+    `samples` (the IWAE bound with the DReG gradient) over one micro-batch
+    of segment_documents, through the kernels (K1 twice a layer: the
+    weights pass without gradients and the gradient pass; K2 once a
+    layer; K3 twice; K3b once, with dnll = w~ / num_tokens, a different
+    value for each sample of each document) against the fp32 plain step
+    (step_against_plain). Before it, K3/K3b alone on that kind of dnll
+    (nonuniform_ce_check); after it, `timed_steps` steps through the
+    kernels from a fresh model, each timed between synchronisations, with
+    their peak memory (the first also takes the fresh model's
+    allocations: the rate is given over all and after step 1, as fit's)."""
+    lengths = lengths or DREG_LENGTHS
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    hp = meta["model_hparams"]
+    ce = nonuniform_ce_check(len(lengths), max(lengths), samples, EVAL_SEED)
+    batch = segment_documents(lengths, max(lengths), hp["vocab_size"],
+                              EVAL_SEED + 1)
+    layers = hp["num_layers"]
+    held = step_against_plain(
+        RUN, [batch], f"dreg K={samples} {[len(lengths), max(lengths)]}",
+        EVAL_SEED, {"swa_fwd": 2 * layers, "swa_bwd": layers,
+                    "tied_ce_fwd": 2, "tied_ce_bwd": 1},
+        mc_samples=samples)
+
+    model, objective, optimizer = build_training(RUN, "cuda", 1)[:3]
+    model.hparams.train_mc_samples = samples
+    noise = step_noise(model.hparams, objective, [batch], EVAL_SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for step in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(train_step(model, objective, optimizer, [batch], step,
+                         noise)["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del model, objective, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = sum(lengths)
+    later = step_s[1:] or step_s
+    stats = {"shape": [len(lengths), max(lengths)], "lengths": list(lengths),
+             "train_mc_samples": samples,
+             "token_rows": samples * len(lengths) * max(lengths), **held,
+             "step_s": step_s, "max_memory_allocated_bytes": peak,
+             "real_tokens_per_s": real * len(step_s) / sum(step_s),
+             "real_tokens_per_s_after_step_1":
+                 real * len(later) / sum(later),
+             "nonuniform_ce": ce, "card": smi}
+    print("dreg " + json.dumps(stats), flush=True)
+    return stats
+
+
+def test_entry_phase(smi: str, log_root: Path, n_docs: int = FIT_DOCS
+                     ) -> dict:
+    """`python -m sparse_vae_tpu_torch.test transformer-vae <r5 fit run>
+    num_samples=TEST_SAMPLES num_iter=TEST_ITERS`, as `test.main` run in
+    the directory that holds `log_root` (a sparse-vae-logs directory),
+    on the checkpoint fit_r5_phase saved there. Its data is what the
+    run's data hparams resolve to there: the token cache, into which the
+    phase saves fit's stand-in corpus, and a tokenizer, for which it
+    saves one trained on a line of text (the entry reads nothing of it
+    but its byte lengths, for a bits-per-byte that it does not report).
+    The average must be finite and positive, with K1 once a layer and K3
+    once a chunk of samples for every test batch with a real row. The
+    entry's model is fit's, six steps from a random start, whose NLL on
+    uniform ids is near ln V whatever the kernels compute; so each of
+    those batches, at its shape and row lengths, is then held against
+    the plain versions as documents that repeat a segment on r5's trained
+    weights (iwae_against_plain)."""
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(n_docs, data_hp["min_tokens_per_sample"],
+                        data_hp["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    saved = json.loads((log_root / "transformer-vae" / RUN / "checkpoints"
+                        / "meta.json").read_text())
+    layers = saved["model_hparams"]["num_layers"]
+    with contextlib.chdir(log_root.parent):
+        data = TextDataModule(TextDataModuleHparams(**saved["data_hparams"]))
+        corpus.save(data._token_cache_path())
+        train_tokenizer(
+            iter(["A stand-in tokenizer for the token cache."]),
+            data.hparams.vocab_size,
+            save_path=tokenizer_cache_path(data.hparams.dataset_name))
+        data.prepare_corpus(corpus)
+        batches = [b for b in data.epoch_batches("test", seed=0)
+                   if (np.asarray(b.num_tokens) > 0).any()]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        average = test_entry.main(
+            ["test", "transformer-vae", RUN, f"num_samples={TEST_SAMPLES}",
+             f"num_iter={TEST_ITERS}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    check(np.isfinite(average) and average > 0,
+          f"test entry: average {average}")
+    check_counts("test-entry", counts, {
+        "swa_fwd": layers * TEST_ITERS * len(batches),
+        "tied_ce_fwd": TEST_ITERS * len(batches)})
+    held = [segment_documents(b.num_tokens, b.token_ids.shape[1],
+                              meta["model_hparams"]["vocab_size"],
+                              EVAL_SEED + 3 + i)
+            for i, b in enumerate(batches)]
+    got, want, cut, rel, power = iwae_against_plain(
+        RUN, held, TEST_SAMPLES, TEST_ITERS, EVAL_SEED + 3,
+        "test-entry held")
+    tokens = sum(int(np.asarray(b.num_tokens).sum()) for b in batches)
+    stats = {"average": average, "batches": len(batches),
+             "shapes": [list(b.token_ids.shape) for b in batches],
+             "real_tokens": tokens, "num_samples": TEST_SAMPLES,
+             "num_iter": TEST_ITERS, "seconds_with_load": seconds,
+             "max_memory_allocated_bytes": peak, "launches": counts,
+             "against_plain": {
+                 "nll_kernels": got["nll"], "nll_plain": want["nll"],
+                 "nll_rel_err": rel, "band_cut": EVAL_CUTS[RUN],
+                 "band_cut_rel_change": power,
+                 "ce_tokens_a_call": [
+                     TEST_SAMPLES // TEST_ITERS * int(np.prod(
+                         b.token_ids.shape)) for b in batches]},
+             "card": smi}
+    print("test-entry " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -2088,16 +2502,34 @@ def main(argv) -> int:
         sp_stats = sp_train_phase()
     sp_counts = sp_stats["launches_by_rank"]
     sp_single = sp_stats["unsharded"]["launches"]
-    with Phase("fit"):
-        fit_counts = fit_r5_phase(smi)["launches"]
-    with Phase("fit-pg19"):
-        pg19_counts = fit_pg19_phase(smi)["launches"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        fit_logs = Path(tmp) / "sparse-vae-logs"
+        with Phase("fit"):
+            fit_counts = fit_r5_phase(smi, log_root=fit_logs)["launches"]
+        with Phase("fit-pg19"):
+            pg19_counts = fit_pg19_phase(smi)["launches"]
+        with Phase("eval"):
+            eval_counts = eval_phase(RUN, EVAL_LENGTHS, EVAL_SAMPLES,
+                                     EVAL_ITERS, smi, "eval",
+                                     default_lengths=TRAIN_LENGTHS
+                                     )["launches"]
+        with Phase("eval-pg19"):
+            eval_pg19_counts = eval_phase(
+                PG19_RUN, PG19_EVAL_LENGTHS, PG19_EVAL_SAMPLES,
+                PG19_EVAL_ITERS, smi, "eval-pg19")["launches"]
+        with Phase("dreg"):
+            dreg_counts = dreg_phase(smi)["launches"]
+        with Phase("test-entry"):
+            test_counts = test_entry_phase(smi, fit_logs)["launches"]
 
     def sp_sum(name):
         return sp_single[name] + sum(c[name] for c in sp_counts)
 
     def fit_paths(name):
-        return {"fit": fit_counts[name], "fit-pg19": pg19_counts[name]}
+        """The launches of the trainer-loop and evaluation paths."""
+        return {"fit": fit_counts[name], "fit-pg19": pg19_counts[name],
+                "eval": eval_counts[name], "eval-pg19": eval_pg19_counts[name],
+                "dreg": dreg_counts[name], "test-entry": test_counts[name]}
 
     def timed(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",

@@ -1,8 +1,10 @@
 """Token-level cross-entropy losses (port of
 sparse_vae_tpu/ops/cross_entropy.py): `token_nll`, `bits_per_byte` and
 `chunked_cross_entropy`, the projection + CE over sequence chunks that
-never holds more than one chunk's logits, and `chunked_nll_rows`, its
-per-row sums. They are the plain yardstick of
+never holds more than one chunk's logits, `chunked_nll_rows`, its
+per-row sums, and the per-document log-likelihoods of the IWAE bound,
+`sequence_log_likelihood` (from logits) and
+`chunked_sequence_log_likelihood` (chunked). They are the plain yardstick of
 the fused K3/K3b path (ops/ce_kernel.py), which the model takes when the
 kernels are on.
 """
@@ -75,3 +77,18 @@ def chunked_cross_entropy(hidden, project_fn: Callable, labels,
     summed over the rows."""
     rows, count = chunked_nll_rows(hidden, project_fn, labels, chunk_size)
     return rows.sum(), count
+
+
+def chunked_sequence_log_likelihood(hidden, project_fn: Callable, labels,
+                                    chunk_size: int = 2048) -> torch.Tensor:
+    """Per-row summed log p(labels) [B] over non-pad labels without
+    [B, L, V] logits: `chunked_nll_rows`' row sums, negated."""
+    return -chunked_nll_rows(hidden, project_fn, labels, chunk_size)[0]
+
+
+def sequence_log_likelihood(logits, labels):
+    """Per-sequence summed log p(labels) [...] from logits [..., L, V] and
+    labels [..., L], label 0 (padding) contributing 0."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    ll = log_probs.gather(-1, labels[..., None])[..., 0]
+    return torch.where(labels != 0, ll, 0.0).sum(-1)

@@ -6,8 +6,12 @@ training/train_step.py calls these when its model is bound to a seq group
 (parallel.sp.sp_localize):
 
 - `SeqOnceObjective` counts the objective's per-ROW statistics
-  (ROW_SUMS / ROW_COUNTS: KL, row counts) on shard 0 only, since they are
-  the same on every shard; token sums stay local. It needs the chunked
+  (ROW_SUMS / ROW_COUNTS: KL, the IWAE bound's sums, row counts) on
+  shard 0 only, since they are the same on every shard; token sums stay
+  local. The IWAE bound is not linear in a shard's partial
+  log-likelihoods, so its per-document log p(x | z) is summed over the
+  shards inside `reconstruct_ll` before the bound, which is then a per-row
+  statistic like the KL. It needs the chunked
   loss: the full-logits branch shifts labels locally and would mislabel
   the shard boundaries.
 - `seq_loss` differentiates the LOCAL sums with the cotangent taken at the
@@ -59,13 +63,17 @@ def seq_noise(objective, model, batch: dict, noise, generator,
               group: SeqGroup) -> dict:
     """The posterior noise of one micro-batch, the same on every rank:
     what `noise` gives, and draws from `generator` broadcast from rank 0
-    for what it lacks."""
+    for what it lacks. With train_mc_samples K > 1, eps [K, rows, 1,
+    latent] alone: every shard of a row must decode the same K samples of
+    z, or the sum of reconstruct_ll over the shards mixes samples."""
     noise = dict(noise or {})
     rows = batch["token_ids"].shape[0]
     latent = model.hparams.latent_depth
     device = batch["token_ids"].device
-    shapes = {"eps": (rows, 1, latent),
-              "mi": (objective.mi_samples, rows, latent)}
+    k = getattr(objective.hp, "train_mc_samples", 1)
+    shapes = ({"eps": (k, rows, 1, latent)} if k > 1 else
+              {"eps": (rows, 1, latent),
+               "mi": (objective.mi_samples, rows, latent)})
     for name, shape in shapes.items():
         if name not in noise:
             drawn = torch.randn(shape, generator=generator, device=device)

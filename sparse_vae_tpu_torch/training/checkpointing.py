@@ -53,6 +53,16 @@ def latest_checkpoint_step(ckpt_dir: Path) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def get_checkpoint_path_for_name(experiment: str, name: str,
+                                 root: Optional[Path] = None) -> Path:
+    """The newest step directory of a run."""
+    ckpt_dir = checkpoints_dir(experiment, name, root)
+    step = latest_checkpoint_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
+    return ckpt_dir / f"step_{step}"
+
+
 class CheckpointManager:
     def __init__(self, experiment: str, name: str,
                  root: Optional[Path] = None, keep: int = 3):

@@ -1,4 +1,5 @@
-"""Diagonal Gaussian (port of sparse_vae_tpu/utils/distributions.py).
+"""Diagonal Gaussian (port of sparse_vae_tpu/utils/distributions.py), the
+standard normal's log density and the analytic KL to it.
 
 Sampling takes its noise explicitly — an `eps` tensor or a
 torch.Generator — because the JAX and torch random streams never agree:
@@ -17,6 +18,10 @@ _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 class DiagonalGaussian(NamedTuple):
     loc: torch.Tensor
     scale: torch.Tensor
+
+    @property
+    def variance(self):
+        return self.scale.square()
 
     def sample(self, eps: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None):
@@ -38,6 +43,12 @@ def gaussian_from_params(mu, logvar) -> DiagonalGaussian:
     Nothing is clamped, as in the reference: a degenerate scale gives an
     inf KL and a non-finite loss the trainer can see."""
     return DiagonalGaussian(loc=mu, scale=torch.exp(0.5 * logvar))
+
+
+def standard_normal_log_prob(z):
+    """log N(z; 0, I) summed over the last axis."""
+    d = z.shape[-1]
+    return -0.5 * z.square().sum(-1) - _LOG_SQRT_2PI * d
 
 
 def standard_normal_kl(mu, logvar):

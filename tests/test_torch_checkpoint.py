@@ -187,7 +187,8 @@ def test_package_imports_nothing_of_jax():
     the JAX package and tools blocked, and the tokenizer library too (the
     data modules import it inside the functions that train or load a
     tokenizer only), and check that the corpus pipeline, the trainer and
-    the CLI are among the modules imported."""
+    the CLI, the evaluation entry and its estimators are among the modules
+    imported."""
     code = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "sparse_vae_tpu",
@@ -201,7 +202,8 @@ for name in names:
 for name in ("data.batching", "data.datasets", "data.local_corpus",
              "data.native", "data.text_data_module", "data.tokenizer",
              "utils.config", "utils.metrics", "hparam_presets", "cli",
-             "training.checkpointing", "training.trainer", "train"):
+             "training.checkpointing", "training.trainer", "train",
+             "test", "utils.math_utils", "models.vae"):
     assert "sparse_vae_tpu_torch." + name in names, name
 import chip_smoke
 bad = [m for m in sys.modules

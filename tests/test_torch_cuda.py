@@ -17,7 +17,9 @@ products); K3's lse in fp32 up to summation order over 32,768 logits
 bit for bit across two calls. K6 (the sequence-parallel shard attention:
 one K1 launch and one K2 launch set with q_off and the broadcast [CLS]
 block as a slot of its own) as K1 and K2, on both branches, bit for bit
-across two calls.
+across two calls. The evaluation paths (the IWAE estimator and the DReG
+step) as chip_smoke.py's eval and dreg phases hold them, at smaller
+shapes.
 """
 import pytest
 import torch
@@ -800,7 +802,36 @@ def test_swa_fwd_packed_kernel_on_ragged_rows(cuda, heads, causal, window):
 
 
 @pytest.mark.gpu
-def test_fit_on_bucketed_documents_at_r5_width(cuda):
+@pytest.mark.parametrize("run", ["real-prose-vae-r5", "real-prose-pg19-fb8"])
+def test_iwae_through_the_kernels_matches_plain(cuda, run):
+    """chip_smoke.py's eval phase at [2, 4096] ragged, 4 samples in 2
+    chunks, on the run's trained weights: the IWAE NLL per token through
+    K1 and K3 within 0.1% of the plain versions, the plain run with the
+    EVAL_CUTS band block dropped 1% or more away, K1 once a layer and K3
+    once a chunk."""
+    import chip_smoke
+    stats = chip_smoke.eval_phase(run, [4096, 3001], 4, 2, "pytest", "eval")
+    assert stats["nll_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert stats["launches"]["tied_ce_fwd"] == 2
+
+
+@pytest.mark.gpu
+def test_dreg_step_through_the_kernels_matches_plain(cuda):
+    """chip_smoke.py's dreg phase at [2, 4096] ragged with K = 2: K3/K3b
+    alone on a per-sample, per-document dnll, then r5's DReG step through
+    K1, K2, K3 and K3b against the fp32 plain step (loss within 0.1%,
+    gradients at cosine >= 0.99 or the near-zero rule)."""
+    import chip_smoke
+    stats = chip_smoke.dreg_phase("pytest", lengths=[4096, 3001], samples=2,
+                                  timed_steps=1)
+    assert stats["loss_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert stats["launches"]["tied_ce_bwd"] == 1
+    assert max(stats["nonuniform_ce"]["rel_errs_dg_dE_dbias"]) <= (
+        chip_smoke.GRAD_REL_TOL)
+
+
+@pytest.mark.gpu
+def test_fit_on_bucketed_documents_at_r5_width(cuda, tmp_path):
     """chip_smoke.py's fit phase at 2 decoder layers on 60 documents: r5's
     width and data hparams, 6 steps of Trainer.fit on bucketed groups
     through K1, K2, K3 and K3b (launch counts from the groups and
@@ -811,10 +842,16 @@ def test_fit_on_bucketed_documents_at_r5_width(cuda):
     against the fp32 plain step (loss within 0.1%, gradients at cosine
     >= 0.99), and validation through the kernels within 0.1% of the plain
     versions on documents that repeat a segment, where a band without its
-    older block moves val_nll by 1% or more. Every check raises inside
-    the phase."""
+    older block moves val_nll by 1% or more; then the `test` entry on
+    the run's checkpoint and corpus (test_entry_phase: a finite, positive
+    average, K1 and K3 once a layer and once a chunk of every batch; each
+    of its batch shapes held against the plain versions on r5's trained
+    weights, the NLL within 0.1%, a band without its older block 1% or
+    more away). Every check raises inside the phase."""
     import chip_smoke
-    stats = chip_smoke.fit_r5_phase("pytest", depth=2, n_docs=60)
+    logs = tmp_path / "sparse-vae-logs"
+    stats = chip_smoke.fit_r5_phase("pytest", depth=2, n_docs=60,
+                                    log_root=logs)
     assert stats["steps"] == chip_smoke.FIT_STEPS
     assert stats["resume"]["bit_identical"]
     assert stats["archive"]["logits_equal"]
@@ -824,3 +861,9 @@ def test_fit_on_bucketed_documents_at_r5_width(cuda):
     assert val["val_nll_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
     assert val["band_cut_rel_change"] >= (chip_smoke.VAL_POWER
                                           * chip_smoke.TRAIN_LOSS_RTOL)
+    entry = chip_smoke.test_entry_phase("pytest", logs, n_docs=60)
+    assert entry["average"] > 0 and entry["launches"]["swa_fwd"] == (
+        2 * chip_smoke.TEST_ITERS * entry["batches"])
+    held = entry["against_plain"]
+    assert len(held["nll_rel_err"]) == entry["batches"]
+    assert max(held["nll_rel_err"]) <= chip_smoke.TRAIN_LOSS_RTOL

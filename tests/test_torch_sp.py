@@ -17,8 +17,9 @@ ops/sp_kernel.py) against the JAX package on the CPU.
   parameters rtol 2e-4, atol 2e-6, as tests/test_sp.py), and the
   single-process step against JAX's (metrics 2e-5 relative + 2e-6, params
   1e-6, as tests/test_torch_train.py), at block 16 (the blocked plain
-  path), at block 128 with Dh 64 (the K6 route's plain version) and with
-  free bits.
+  path), at block 128 with Dh 64 (the K6 route's plain version), with
+  free bits, and on the multi-sample IWAE/DReG bound (train_mc_samples
+  3; train_iwae_log_prob 1e-5 as tests/test_sp.py).
 - The guard rails.
 
 The ranks run tests/torch_sp_worker.py, which imports no JAX; they meet
@@ -251,7 +252,19 @@ CASES = {
     # version, and K1/K2's route in the single-process step.
     "block128": (dict(d_model=128, attn_block_size=128), 1, 2, 1024, 31),
     "free_bits": (dict(free_bits=0.25), 1, 2, 256, 5),
+    # The multi-sample IWAE/DReG bound (tests/test_sp.py
+    # test_dreg_train_step_exact): every shard decodes the same 3 samples
+    # of z and reconstruct_ll sums each document over the shards.
+    "dreg": (dict(train_mc_samples=3), 1, 2, 256, 21),
 }
+
+# The step's metrics each case's checks compare.
+ELBO_METRICS = ("loss", "train_nll", "train_kl", "grad_norm")
+DREG_METRICS = ("loss", "train_iwae_log_prob", "grad_norm")
+
+
+def _metrics(name):
+    return DREG_METRICS if name == "dreg" else ELBO_METRICS
 
 
 def _batch(rng, k, b, L, vocab):
@@ -292,6 +305,12 @@ def _prepare(name):
     noise = []
     for r, ids in zip(jax.random.split(key, k), tokens):
         drop, sample, mi = jax.random.split(r, 3)
+        if jhp.train_mc_samples > 1:
+            # iwae_dreg_loss's draw: normal(sample, (K, *loc.shape)).
+            eps = jax.random.normal(sample, (jhp.train_mc_samples, b, 1,
+                                             jhp.latent_depth))
+            noise.append({"eps": torch.tensor(np.array(eps))})
+            continue
         q, _, z = module.apply({"params": params}, jnp.asarray(ids),
                                rngs={"dropout": drop, "sample": sample},
                                method=cls.posterior_and_z)
@@ -406,7 +425,7 @@ def test_cross_attention_combine_matches_dense(sp_run):
 @pytest.mark.parametrize("name", list(CASES))
 def test_single_process_step_matches_jax(sp_run, name):
     got, want = sp_run["single"][name], sp_run["jax"][name]
-    for metric in ("loss", "train_nll", "train_kl", "grad_norm"):
+    for metric in _metrics(name):
         np.testing.assert_allclose(got["metrics"][metric],
                                    want["metrics"][metric], rtol=2e-5,
                                    atol=2e-6, err_msg=metric)
@@ -428,9 +447,14 @@ def test_sp_step_matches_single_process(sp_run, name):
     for rec in steps:
         np.testing.assert_allclose(rec["metrics"]["loss"],
                                    single["metrics"]["loss"], rtol=1e-5)
-        np.testing.assert_allclose(rec["metrics"]["train_kl"],
-                                   single["metrics"]["train_kl"],
-                                   rtol=1e-4, atol=1e-7)
+        if name == "dreg":
+            np.testing.assert_allclose(
+                rec["metrics"]["train_iwae_log_prob"],
+                single["metrics"]["train_iwae_log_prob"], rtol=1e-5)
+        else:
+            np.testing.assert_allclose(rec["metrics"]["train_kl"],
+                                       single["metrics"]["train_kl"],
+                                       rtol=1e-4, atol=1e-7)
         for key, want in single["params"].items():
             torch.testing.assert_close(rec["params"][key], want, rtol=2e-4,
                                        atol=2e-6, msg=key)

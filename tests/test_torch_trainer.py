@@ -548,7 +548,7 @@ def test_the_stand_in_validation_sees_the_attention_band():
     TRAIN_LOSS_RTOL, on documents that repeat a segment of VAL_PERIOD ids
     (fit_corpus with a period). There val_nll depends on the attention
     band: on the plain path in fp32, dropping each query block's older
-    band block (band_without_older_block, the cut the card run also
+    band block (band_without_block("older"), the cut the card run also
     makes) moves val_nll by at least VAL_POWER x TRAIN_LOSS_RTOL, so the
     check can fail a K1 with a wrong band."""
     import chip_smoke as cs
@@ -565,7 +565,7 @@ def test_the_stand_in_validation_sees_the_attention_band():
              "num_bytes": torch.from_numpy(corpus.num_bytes)}
 
     def val_nll(cut):
-        with torch.no_grad(), (cs.band_without_older_block() if cut
+        with torch.no_grad(), (cs.band_without_block("older") if cut
                                else contextlib.nullcontext()):
             stats = objective.eval_stats(model, batch, {"eps": eps})
         return float(stats["nll_sum"] / stats["token_count"])

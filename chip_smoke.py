@@ -138,6 +138,45 @@ versions on the same eps:
                the fit phase saved, with its stand-in corpus, 8 samples
                in 2 chunks: a finite, positive average, K1 and K3
                launched once a layer and once per chunk of every batch.
+The Transformer LM family: draft-tlm-r5 (trained weights; d_model 256, 4
+heads, 2 dense causal layers) and real-prose-lm-r4's geometry (meta
+only; d_model 512, 8 heads, 6 dense layers; the JAX initialisation).
+Phase 18 runs right after phase 3, beside the other kernel checks (a
+process that has run many profiled phases has seen torch.profiler drop
+the same records in every retake); phases 19-22 run last:
+ 18. lm-kernels — K3/K3b at their D = 256 instantiation against their
+               plain versions at 16,384 and 50,176 tokens with padding
+               tails, bit-identical across two calls, timed at 50,176
+               beside F.linear + F.cross_entropy; K1/K2 on the dense
+               causal route (a causal band of L / 128 = 28 blocks, no
+               [CLS] slot) at [14, 8, 3584, 64] on full rows and
+               [13, 4, 3584, 64] on ragged ones, against their plain
+               versions, bit-identical across two calls, timed beside SDPA
+               with is_causal, forward and backward, with the bound;
+ 19. lm-serve — draft-tlm-r5's bf16 logits at [1, 512] (the dense route)
+               against the fp32 CPU model; 12 requests through
+               ServeEngine at batch 64, max_length 512, four of them
+               bulk-prefilled at 512 positions (K1 once a layer each),
+               selection through K4;
+ 20. lm-train — one bf16 step of draft-tlm-r5 at [13, 3584] and one of
+               the r4 geometry at [4, 3584] through K1/K2 on the dense
+               route and K3/K3b, each against the fp32 plain step on the
+               same batch and dropout masks (loss 0.1%, every gradient at
+               cosine >= 0.99 or the near-zero rule);
+ 21. lm-fit  — Trainer.fit at r4's meta.json hparams from the JAX
+               initialisation, 4 steps on the stand-in corpus (documents
+               of 512-3,125 ids padded to 512), validating and saving at
+               steps 2 and 4; the last validation through the kernels
+               against the plain versions (val_nll 0.1%); draft-tlm-r5 on
+               documents of its own text at the validation batches'
+               shapes against the plain versions, where cutting the plain
+               attention to the diagonal block must move the NLL of the
+               queries at the first 8 positions of each block by 1% or
+               more;
+ 22. lm-test-entry — `sparse_vae_tpu_torch.test transformer-lm` on
+               lm-fit's checkpoint: a finite, positive average, K1 once a
+               layer and K3 once a batch; each of its batch shapes held
+               as phase 21 holds draft-tlm-r5.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -180,6 +219,7 @@ from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise)
 from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
                                       select_kernel, sp_kernel, swa_kernel)
+from sparse_vae_tpu_torch.ops import attention as tattn
 from sparse_vae_tpu_torch.ops import sliding_window_attention as swa_plain
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     sliding_window_attention_bwd_plain,
@@ -189,7 +229,8 @@ from sparse_vae_tpu_torch.server import ServeEngine
 from sparse_vae_tpu_torch.parallel.group import spawn
 from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
-from sparse_vae_tpu_torch.train import sp_pad_multiple, train_rank
+from sparse_vae_tpu_torch.train import (run_hparams, sp_pad_multiple,
+                                       train_rank)
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.train_step import train_step
 from sparse_vae_tpu_torch.training.trainer import Trainer, defer_accum_groups
@@ -967,13 +1008,15 @@ def ce_check(g, table, bias, labels, dnll) -> dict:
         "rel_errs_dg_dE_dbias": bwd_errs}
 
 
-def k3_phase(seed: int):
-    """K3 and K3b against their plain versions at each of CE_CHECKS; timed
-    at the last of them beside the plain versions and F.linear +
-    F.cross_entropy forward and backward."""
+def k3_phase(seed: int, ce_checks=CE_CHECKS, d: int = 512,
+             label: str = ""):
+    """K3 and K3b at model width `d` against their plain versions at each
+    of `ce_checks`; timed at the last of them beside the plain versions
+    and F.linear + F.cross_entropy forward and backward."""
     checks = []
-    for i, (t, padded) in enumerate(CE_CHECKS):
-        g, table, bias, labels, dnll = ce_inputs(t, seed + i, padded=padded)
+    for i, (t, padded) in enumerate(ce_checks):
+        g, table, bias, labels, dnll = ce_inputs(t, seed + i, d=d,
+                                                 padded=padded)
         checks.append(ce_check(g, table, bias, labels, dnll))
     fwd_err = max(c["fwd_err"] for c in checks)
     bwd_abs = max(c["bwd_abs_err"] for c in checks)
@@ -997,8 +1040,8 @@ def k3_phase(seed: int):
     bwd_times = device_ms(lambda: ce_kernel.tied_ce_bwd(
         g, table, bias, labels, lse, dnll), 3)
     parts = {"dl": kernel_ms(bwd_times, "ce_dl_kernel"),
-             "dg": kernel_ms(bwd_times, "ce_gemm_kernel<0>"),
-             "dE": kernel_ms(bwd_times, "ce_gemm_kernel<1>"),
+             "dg": kernel_ms(bwd_times, "ce_gemm_kernel<0,"),
+             "dE": kernel_ms(bwd_times, "ce_gemm_kernel<1,"),
              "dbias": kernel_ms(bwd_times, "ce_dbias_kernel")}
     parts["pytorch"] = sum(bwd_times.values()) - sum(parts.values())
     flops = 2 * t * vocab * d
@@ -1026,8 +1069,8 @@ def k3_phase(seed: int):
                t, vocab), "plain_ms": plain_bwd_ms,
            "library_ms": lib_bwd_ms, "bound_ms": bwd_bound[0],
            "bound_by": bwd_bound[1]}
-    print("K3 " + json.dumps(k3), flush=True)
-    print("K3b " + json.dumps(k3b), flush=True)
+    print(f"K3{label} " + json.dumps(k3), flush=True)
+    print(f"K3b{label} " + json.dumps(k3b), flush=True)
     return k3, k3b
 
 
@@ -1829,27 +1872,31 @@ def validate_against_plain(n_docs: int, log_root: Path) -> dict:
 
 def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
             log_root: Path, capture_step=None):
-    """Trainer.fit of the Transformer-VAE from the JAX initialisation,
-    configured by cli.assemble_config with runs/<run>/meta.json as the
-    base and `dotlist` on top, on `corpus` through prepare_corpus, for
-    `steps` steps, validating every `val_step` steps. Checks the stop,
-    the finite losses and grad norms, and the launch counts of the groups
-    and validations fit ran; returns (trainer, outcome, counts, peak bytes,
-    seconds)."""
+    """Trainer.fit of the run's family (the Transformer-VAE or the
+    Transformer LM) from the JAX initialisation, configured by
+    cli.assemble_config with runs/<run>/meta.json as the base and
+    `dotlist` on top, on `corpus` through prepare_corpus, for `steps`
+    steps, validating every `val_step` steps. Checks the stop, the finite
+    losses and grad norms, and the launch counts of the groups and
+    validations fit ran (K1/K2 on the sliding-window or the dense causal
+    route, as the model's attention is); returns (trainer, outcome,
+    counts, peak bytes, seconds)."""
     meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
-    cfg = assemble_config("transformer-vae", dotlist, base_meta=meta)
+    experiment = meta["experiment"]
+    cfg = assemble_config(experiment, dotlist, base_meta=meta)
     data = TextDataModule(cfg.data)
     data.prepare_corpus(corpus)
     k = cfg.trainer.accumulate_grad_batches
     # val_every = int(num_batches * val_check_interval / k) = val_step.
     vci = (val_step + 0.5) * k / max(1, data.num_batches("train"))
-    cfg = assemble_config("transformer-vae", dotlist + [
+    cfg = assemble_config(experiment, dotlist + [
         f"trainer.val_check_interval={vci!r}",
         f"trainer.max_steps={steps}"], base_meta=meta)
     overrides = dict(cfg.model_overrides)
     overrides.setdefault("vocab_size", cfg.data.vocab_size)
-    hp, objective = build_hparams("transformer-vae", overrides)
-    trainer = FitTrainer(hp, objective, data, cfg.trainer, name=run,
+    hp, objective = build_hparams(experiment, overrides)
+    trainer = FitTrainer(hp, objective, data, cfg.trainer,
+                         experiment=experiment, name=run,
                          log_root=log_root, device="cuda",
                          capture_step=capture_step)
     gc.collect()
@@ -1871,8 +1918,10 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
               for s in trainer.steps),
           f"{run}: a loss or grad_norm is not finite: {trainer.steps}")
+    names = ("val_nll", "val_bpb", "val_loss") + (
+        ("val_kl",) if experiment == "transformer-vae" else ())
     check(all(np.isfinite(v[name]) for v in trainer.validations
-              for name in ("val_nll", "val_kl", "val_bpb", "val_loss")),
+              for name in names),
           f"{run}: a validation metric is not finite")
     check([v["step"] for v in trainer.validations]
           == list(range(val_step, steps + 1, val_step)),
@@ -1880,10 +1929,13 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     layers = hp.num_layers
     micro = k * steps
     val_batches = sum(v["batches"] for v in trainer.validations)
+    route = "" if hp.sparse_self_attention else "_dense"
+    width = "_d256" if hp.d_model == 256 else ""
     check_counts(f"fit {run}", counts, {
-        "swa_fwd": layers * (micro + val_batches),
-        "swa_bwd": layers * micro,
-        "tied_ce_fwd": micro + val_batches, "tied_ce_bwd": micro})
+        f"swa_fwd{route}": layers * (micro + val_batches),
+        f"swa_bwd{route}": layers * micro,
+        f"tied_ce_fwd{width}": micro + val_batches,
+        f"tied_ce_bwd{width}": micro})
     return trainer, outcome, counts, peak, seconds
 
 
@@ -2393,6 +2445,544 @@ def test_entry_phase(smi: str, log_root: Path, n_docs: int = FIT_DOCS
     return stats
 
 
+# -- the Transformer LM family ----------------------------------------------
+
+# draft-tlm-r5: trained weights, d_model 256, 4 heads (Dh 64), 2 dense
+# causal layers; real-prose-lm-r4: meta.json only, d_model 512, 8 heads,
+# 6 dense causal layers, built from the JAX initialisation. Both: vocab
+# 32,768, documents of 512-3,125 tokens padded to 512, tokens_per_batch
+# 50,000 (micro-batches up to [13, 3584]).
+LM_RUN = "draft-tlm-r5"
+LM_GEOMETRY = "real-prose-lm-r4"
+# K3/K3b at the LM's D = 256: a 16,384-token call and the preset's
+# 50,000-token micro-batch as [14, 3584] (50,176 slots), each with a
+# padding tail that ends inside a 128-token tile.
+LM_CE_CHECKS = ((16384, 2048), (50176, 6173))
+# The dense causal route: K1/K2 at a causal band of L / 128 blocks (28 at
+# 3,584) without a [CLS] slot. The r4 geometry's heads on full rows, and
+# draft-tlm-r5's on ragged rows.
+LM_DENSE_LENGTHS = [3584, 3584, 3101, 3000, 2560, 2049, 1800, 1537, 1024,
+                    700, 513, 300, 129]
+# draft-tlm-r5's micro-batch shape (its meta: 50,000 tokens a batch, the
+# longest bucket 3,584 wide) and the r4 geometry's step shape for the
+# fp32 plain reference, whose masked dense attention holds [B, H, L, L]
+# fp32 scores a layer for the backward (6 layers x 8 heads at [4, 3584]:
+# ~30 GB; at [13, 3584] it would not fit).
+LM_TRAIN_SHAPES = {LM_RUN: (13, 3584), LM_GEOMETRY: (4, 3584)}
+LM_FIT_STEPS = 4     # r4 geometry: validation and a checkpoint at 2 and 4
+LM_FIT_EVERY = 2
+# The documents of the checks on draft-tlm-r5's weights are its own text:
+# LM_POOL rows of LM_POOL_LEN ids that it samples at temperature 1 from
+# [CLS], read on across rows. It does not copy a repeated segment (a
+# repeat of 100 uniform ids moved its NLL by 4.5e-5 under the cut below)
+# and reads mostly its last ~16 tokens, so the power check looks where a
+# band that stopped at the query's own block would bite: the NLL of the
+# queries at the first LM_NEAR positions of every block past the first.
+# The plain run with the attention cut to the diagonal block must move
+# that NLL by LM_CUT_POWER or more (8.2% on the CPU in fp32 at 1,024
+# tokens, the whole NLL 0.8%).
+LM_POOL, LM_POOL_LEN, LM_POOL_SEED = 16, 1024, 53
+LM_NEAR = 8
+LM_CUT_POWER = 1e-2
+
+
+def dense_pairs(L: int, lengths) -> int:
+    """Attended (query, key) pairs of causal attention over a row's valid
+    keys, per head, summed over the rows: each query at position i reads
+    keys 0 .. min(i, n - 1)."""
+    return sum(n * (n + 1) // 2 + (L - n) * n for n in lengths)
+
+
+def sdpa_causal_ms(q, k, v, do, iters: int):
+    """(forward ms, backward ms) of F.scaled_dot_product_attention with
+    is_causal (every key valid: a yardstick the port never calls)."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qq, kk, vv), do)
+
+    fwd_ms = cuda_ms(fwd, iters)
+    return fwd_ms, cuda_ms(fwd_bwd, iters) - fwd_ms
+
+
+def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int):
+    """K1 and K2 on the dense causal route (window L / 128, no [CLS] slot)
+    against their plain versions: out within K1's tolerances, lse within
+    K1_LSE_ATOL, gradients within GRAD_REL_TOL of the largest entry, both
+    bit-identical across two calls; timed beside the plain versions and
+    SDPA with is_causal, with the bound."""
+    d, block = 64, 128
+    kw = dict(window_size=L // block, block_size=block, causal=True,
+              include_cls=False)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, L, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    key_mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    out, lse = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
+    out2, lse2 = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
+    grads = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
+                               **kw)
+    again = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
+                               **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out, out2) and torch.equal(lse, lse2)
+          and all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"dense K1/K2 differ in two calls at {[b, h, L, d]}")
+    del out2, lse2, again
+    ref, ref_lse = sliding_window_attention_plain(q, k, v, key_mask,
+                                                  return_lse=True, **kw)
+    err = (out.float() - ref.float()).abs()
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()),
+          "dense K1 out is not finite")
+    check(bool((err <= K1_OUT_ATOL + K1_OUT_RTOL * ref.float().abs()).all()),
+          f"dense K1 disagrees with its plain version: max {err.max():.3g}")
+    check(lse_err <= K1_LSE_ATOL, f"dense K1 lse disagrees: {lse_err:.3g}")
+    fwd_err = err.max().item()
+    del ref, ref_lse, err
+    want = sliding_window_attention_bwd_plain(q, k, v, lens, lse, out, do,
+                                              **kw)
+    errs = [rel_err(g, w) for g, w in zip(grads, want)]
+    bwd_abs = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(grads, want))
+    del want
+    check(max(errs) <= GRAD_REL_TOL,
+          f"dense K2 disagrees with its plain version: {errs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def fwd():
+        return swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
+
+    def bwd():
+        return swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
+                                  **kw)
+
+    pairs = dense_pairs(L, lengths) * h
+    lib_fwd, lib_bwd = sdpa_causal_ms(q, k, v, do, max(3, iters // 2))
+    fwd_bound = bound(4 * q.numel() * 2 + lse.numel() * 4 + b * 4,
+                      4 * d * pairs, BF16_TENSOR_FLOPS)
+    bwd_bound = bound(8 * q.numel() * 2 + lse.numel() * 4 + b * 4,
+                      10 * d * pairs, BF16_TENSOR_FLOPS)
+    shape = [b, h, L, d]
+    k1 = {"shape": shape, "lengths": list(lengths), "window": L // block,
+          "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+          "bit_identical": True, "ms": cuda_ms(fwd, iters),
+          "device_ms": kernel_ms(device_ms(fwd), "swa_fwd_kernel"),
+          "plain_ms": cuda_ms(lambda: sliding_window_attention_plain(
+              q, k, v, key_mask, **kw), 1, warmup=1),
+          "library": "F.scaled_dot_product_attention(is_causal=True)",
+          "library_ms": lib_fwd, "bound_ms": fwd_bound[0],
+          "bound_by": fwd_bound[1], "pairs": pairs}
+    times = device_ms(bwd, 5)
+    k2 = {"shape": shape, "lengths": list(lengths), "window": L // block,
+          "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
+          "bit_identical": True, "ms": cuda_ms(bwd, iters),
+          "device_ms": sum(times.values()),
+          "parts_device_ms": k2_parts(times),
+          "plain_ms": cuda_ms(lambda: sliding_window_attention_bwd_plain(
+              q, k, v, lens, lse, out, do, **kw), 1, warmup=1),
+          "library": "the backward of F.scaled_dot_product_attention("
+                     "is_causal=True)",
+          "library_ms": lib_bwd, "bound_ms": bwd_bound[0],
+          "bound_by": bwd_bound[1], "pairs": pairs}
+    print("K1 dense " + json.dumps(k1), flush=True)
+    print("K2 dense " + json.dumps(k2), flush=True)
+    return k1, k2
+
+
+def lm_kernels_phase() -> dict:
+    """K3/K3b at D = 256 (LM_CE_CHECKS) and K1/K2 on the dense causal
+    route at the r4 geometry's [14, 8, 3584, 64] on full rows and
+    draft-tlm-r5's [13, 4, 3584, 64] on ragged ones."""
+    k3, k3b = k3_phase(41, LM_CE_CHECKS, d=256, label=" D=256")
+    full = dense_phase(14, 8, 3584, [3584] * 14, seed=43, iters=5)
+    ragged = dense_phase(13, 4, 3584, LM_DENSE_LENGTHS, seed=44, iters=5)
+    return {"k3": k3, "k3b": k3b, "k1": full[0], "k2": full[1],
+            "k1_ragged": ragged[0], "k2_ragged": ragged[1]}
+
+
+def lm_serve_phase(smi: str) -> dict:
+    """draft-tlm-r5 on the card in bf16: prefill logits at [1, 512] (the
+    dense route: K1 once a layer) against the fp32 CPU model (the masked
+    dense path); then 12 requests through ServeEngine at batch 64,
+    max_length 512, four with prompts long enough to bulk-prefill at 512
+    positions (K1 once a layer each; shorter prompts pad to 128-384 and
+    take the masked dense path), selection through K4."""
+    model, hp, _ = load_run(LM_RUN, device="cuda")
+    cpu_model, _, _ = load_run(LM_RUN, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(45)
+    ids = torch.tensor(rng.integers(3, hp.vocab_size, size=(1, 512)))
+    ids[0, 0] = CLS_ID
+    reset_counts()
+    with torch.inference_mode():
+        got = model(ids.cuda()).float().cpu()
+        torch.cuda.synchronize()
+        check_counts("lm-serve logits", read_counts(),
+                     {"swa_fwd_dense": hp.num_layers})
+        ref = cpu_model(ids)
+    del cpu_model
+    diff = (got - ref).abs()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+          "draft logits are not finite or have the wrong shape")
+    check(diff.mean().item() <= MODEL_MEAN_ABS_TOL,
+          f"draft logits mean abs err {diff.mean():.3g}")
+    check(agree >= MODEL_ARGMAX_AGREE, f"draft argmax agreement {agree:.3f}")
+    prompts = [0, 127, 0, 400, 300, 0, 450, 150, 0, 420, 0, 390]
+    requests = make_requests(
+        hp.vocab_size, prompt_lengths=prompts,
+        max_tokens=[256, 128, 192, 96, 96, 64, 48, 256, 128, 80, 96, 100],
+        seed=46)
+    stats = serve_phase(model, requests, before_traffic=reset_counts)
+    counts = read_counts()
+    long_prompts = sum(1 + p > 384 for p in prompts)
+    check_counts("lm-serve", counts, {
+        "swa_fwd_dense": hp.num_layers * long_prompts,
+        "nucleus_select": None})
+    stats.update(logits={"max_abs_err": diff.max().item(),
+                         "mean_abs_err": diff.mean().item(),
+                         "argmax_agreement": agree},
+                 prefills_at_512=long_prompts, launches=counts, card=smi)
+    print("lm-serve " + json.dumps(stats), flush=True)
+    return stats
+
+
+def lm_builder(name: str):
+    """make(use_kernels, dtype) -> (model, objective, optimizer) in the
+    training form: runs/<name>'s trained weights, or for LM_GEOMETRY its
+    meta.json hparams from the JAX initialisation (seed 0)."""
+    if name == LM_GEOMETRY:
+        hp = run_hparams(LM_GEOMETRY)
+        return lambda kernels, dtype: build_from_hparams(
+            hp, torch.Generator().manual_seed(0), "cuda",
+            use_kernels=kernels, dtype=dtype)[:3]
+    return lambda kernels, dtype: build_training(
+        name, "cuda", 1, use_kernels=kernels, dtype=dtype)[:3]
+
+
+def lm_step(make, mbs: list, use_kernels: bool, dtype, seed: int):
+    """One optimizer step of make(use_kernels, dtype)'s LM on `mbs`, its
+    dropout masks drawn from a generator seeded `seed` (the same masks on
+    every path): (loss, gradients on the CPU, launch counts, seconds)."""
+    model, objective, optimizer = make(use_kernels, dtype)
+    if not use_kernels:
+        model.hparams.loss_chunk_size = plain_chunk(
+            model.hparams, mbs[0]["token_ids"].shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(train_step(model, objective, optimizer, mbs, 0, None,
+                            gen)["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    grads = {n: p.grad.detach().float().cpu()
+             for n, p in model.named_parameters()}
+    del model, objective, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, grads, counts, seconds
+
+
+def lm_train_phase(smi: str) -> dict:
+    """One bf16 step of draft-tlm-r5 (trained weights) at its micro-batch
+    shape and one of the r4 geometry (JAX initialisation) through K1/K2 on
+    the dense route and K3/K3b at their widths, each against the fp32
+    plain step on the same batch and dropout masks: the loss within
+    TRAIN_LOSS_RTOL, every gradient at cosine >= TRAIN_GRAD_COS or, below
+    it, as step_against_plain allows a near-zero one."""
+    out = {}
+    for i, name in enumerate((LM_RUN, LM_GEOMETRY)):
+        make = lm_builder(name)
+        rows, width = LM_TRAIN_SHAPES[name]
+        rng = np.random.default_rng(47 + i)
+        mbs = [synthetic_batch(rng, rows, width, 32768, device="cuda")]
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads, counts, seconds = lm_step(make, mbs, True, None, 48 + i)
+        peak = torch.cuda.max_memory_allocated()
+        layers, width = (2, "_d256") if name == LM_RUN else (6, "")
+        check_counts(f"lm-train {name}", counts, {
+            "swa_fwd_dense": layers, "swa_bwd_dense": layers,
+            f"tied_ce_fwd{width}": 1, f"tied_ce_bwd{width}": 1})
+        ref_loss, ref_grads, ref_counts, _ = lm_step(make, mbs, False,
+                                                     torch.float32, 48 + i)
+        check_counts(f"lm-train {name} fp32 plain", ref_counts, {})
+        cos = cosines(grads, ref_grads)
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        check(len(cos) == 15 * layers + 6,
+              f"{len(cos)} gradients compared for {name}")
+        check(np.isfinite(loss) and loss_rel <= TRAIN_LOSS_RTOL,
+              f"lm-train {name}: loss {loss} vs fp32 plain {ref_loss}")
+        noisy = {n: {"kernels_vs_fp32": c} for n, c in cos.items()
+                 if c < TRAIN_GRAD_COS}
+        if noisy:
+            _, plain_grads, _, _ = lm_step(make, mbs, False, None, 48 + i)
+            plain_cos = cosines(plain_grads, ref_grads)
+            for n, c in noisy.items():
+                c["bf16_plain_vs_fp32"] = plain_cos[n]
+                check(plain_cos[n] < TRAIN_GRAD_COS
+                      and c["kernels_vs_fp32"]
+                      >= plain_cos[n] - NOISY_GRAD_MARGIN,
+                      f"lm-train {name}: {n} disagrees with fp32 plain: {c}")
+        held = {n: c for n, c in cos.items() if n not in noisy}
+        out[name] = {
+            "batch": [rows, width],
+            "real_tokens": int(mbs[0]["num_tokens"].sum()),
+            "loss": loss, "fp32_plain_loss": ref_loss,
+            "loss_rel_err": loss_rel, "gradients": len(cos),
+            "min_grad_cosine": sorted(held.items(),
+                                      key=lambda kv: kv[1])[:3],
+            "near_zero_gradients": noisy, "step_s_first": seconds,
+            "max_memory_allocated_bytes": peak, "launches": counts}
+    out["card"] = smi
+    print("lm-train " + json.dumps(out), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def attention_cut_to_diagonal_block(block: int = 128):
+    """The plain dense attention with each query reading only the keys of
+    its own block: a K1 with a wrong band, which a check on the plain
+    versions must tell from the right one."""
+    real = tattn.dense_attention
+
+    def cut(q, k, v, mask=None):
+        if q.shape[2] == k.shape[2] > 1:
+            pos = torch.arange(q.shape[2], device=q.device)
+            own = (pos[:, None] // block) == (pos[None, :] // block)
+            mask = own if mask is None else mask & own
+        return real(q, k, v, mask)
+
+    tattn.dense_attention = cut
+    try:
+        yield
+    finally:
+        tattn.dense_attention = real
+
+
+def lm_nll(model, objective, batches: list) -> dict:
+    """The NLL per real token over `batches` through objective.eval_stats
+    ("nll") and each batch's ("per_batch"); and the NLL of the queries at
+    the first LM_NEAR positions of every 128-token block past the first
+    ("near", "near_per_batch"), through the model's sequence_nll with the
+    other labels masked: one more forward a batch."""
+    sums, near = [], []
+    with torch.no_grad():
+        for batch in batches:
+            stats = objective.eval_stats(model, batch)
+            sums.append((float(stats["nll_sum"]),
+                         float(stats["token_count"])))
+            ids = batch["token_ids"]
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            keep = ((pos % 128) < LM_NEAR) & (pos >= 128)
+            labels = torch.where(keep, model.labels_for(ids), 0)
+            s, n = model.sequence_nll(model.forward_hidden(ids), labels)
+            near.append((float(s), max(float(n), 1.0)))
+    return {"nll": sum(s for s, _ in sums) / sum(n for _, n in sums),
+            "per_batch": [s / n for s, n in sums],
+            "near": sum(s for s, _ in near) / sum(n for _, n in near),
+            "near_per_batch": [s / n for s, n in near]}
+
+
+def lm_against_plain(batches: list, name: str) -> dict:
+    """draft-tlm-r5's trained weights in the training form (bf16 compute)
+    on `batches` through the kernels (K1 on the dense route once a layer,
+    K3 once a batch, each twice: lm_nll) against the plain versions at
+    the same precision: each batch's NLL and its block-start NLL within
+    TRAIN_LOSS_RTOL; and the plain run with the attention cut to the
+    diagonal block must move the block-start NLL by LM_CUT_POWER or
+    more."""
+    model, objective, _, _ = build_training(LM_RUN, "cuda", 1)
+    reset_counts()
+    got = lm_nll(model, objective, batches)
+    check_counts(f"{name} kernels", read_counts(), {
+        "swa_fwd_dense": 2 * model.hparams.num_layers * len(batches),
+        "tied_ce_fwd_d256": 2 * len(batches)})
+    del model
+    plain, objective, _, _ = build_training(LM_RUN, "cuda", 1,
+                                            use_kernels=False)
+    plain.hparams.loss_chunk_size = plain_chunk(
+        plain.hparams, max(b["token_ids"].shape[0] for b in batches))
+    reset_counts()
+    want = lm_nll(plain, objective, batches)
+    with attention_cut_to_diagonal_block():
+        cut = lm_nll(plain, objective, batches)
+    check_counts(f"{name} plain", read_counts(), {})
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    rels = [abs(a - b) / abs(b) for a, b in zip(
+        got["per_batch"] + got["near_per_batch"],
+        want["per_batch"] + want["near_per_batch"])]
+    power = abs(cut["near"] - want["near"]) / abs(want["near"])
+    check(max(rels) <= TRAIN_LOSS_RTOL,
+          f"{name}: NLL through the kernels {got} vs plain {want}")
+    check(power >= LM_CUT_POWER,
+          f"{name}: the diagonal-block cut moves the block-start NLL by "
+          f"{power:.3g} only: {cut['near']} vs {want['near']}")
+    return {"nll_kernels": got["nll"], "nll_plain": want["nll"],
+            "near_nll_kernels": got["near"], "near_nll_plain": want["near"],
+            "nll_rel_errs": rels, "cut_near_nll": cut["near"],
+            "cut_nll": cut["nll"], "cut_rel_change_near": power,
+            "cut_rel_change": abs(cut["nll"] - want["nll"])
+            / abs(want["nll"])}
+
+
+@functools.lru_cache(maxsize=None)
+def lm_sample_pool() -> np.ndarray:
+    """[LM_POOL, LM_POOL_LEN] ids that draft-tlm-r5 (the serving form on
+    the card) samples from [CLS] at temperature 1, ids 0-2 excluded, one
+    decode_step at a time."""
+    model, _, _ = load_run(LM_RUN, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(LM_POOL_SEED)
+    caches = model.init_caches(LM_POOL, LM_POOL_LEN)
+    tok = torch.full((LM_POOL,), CLS_ID, dtype=torch.int64, device="cuda")
+    out = []
+    with torch.inference_mode():
+        for i in range(LM_POOL_LEN):
+            logits, caches = model.decode_step(tok, caches, i)
+            logits[:, :3] = float("-inf")
+            tok = torch.multinomial(torch.softmax(logits.float(), -1), 1,
+                                    generator=gen)[:, 0]
+            out.append(tok)
+    return torch.stack(out, 1).cpu().numpy()
+
+
+def lm_model_batch(num_tokens, width: int, offset: int) -> dict:
+    """{"token_ids", "num_tokens", "num_bytes"} on the card: row b is
+    [CLS], draft-tlm-r5's own text (lm_sample_pool read on from `offset`,
+    wrapping), and [SEP] at num_tokens[b] - 1, then padding;
+    num_bytes = 4 x tokens."""
+    flat = lm_sample_pool().reshape(-1)
+    lengths = [int(n) for n in num_tokens]
+    ids = np.zeros((len(lengths), width), np.int64)
+    for row, n in enumerate(lengths):
+        if n:
+            ids[row, :n] = np.take(flat, np.arange(offset, offset + n),
+                                   mode="wrap")
+            ids[row, 0], ids[row, n - 1] = CLS_ID, SEP_ID
+            offset += n
+    num = torch.tensor(lengths, device="cuda")
+    return {"token_ids": torch.from_numpy(ids).to("cuda"),
+            "num_tokens": num, "num_bytes": 4 * num}
+
+
+def lm_fit_phase(smi: str, log_root: Path) -> dict:
+    """real-prose-lm-r4's meta.json hparams (d_model 512, 8 heads, 6 dense
+    layers, tokens_per_batch 50,000, accumulate 2, documents of 512-3,125
+    tokens padded to 512, bf16; grad_checkpointing read, not applied)
+    trained by fit for LM_FIT_STEPS steps from the JAX initialisation on
+    the stand-in corpus, validating and saving every LM_FIT_EVERY steps
+    (checkpoints under `log_root`, for lm_test_entry_phase); its last
+    validation through the kernels against the plain versions on fit's
+    parameters (val_nll within TRAIN_LOSS_RTOL); then draft-tlm-r5's
+    trained weights on documents of its own text at the shapes and row
+    lengths of fit's validation batches, through the kernels against the
+    plain versions, with the diagonal-block cut (lm_against_plain)."""
+    meta = json.loads((REPO / "runs" / LM_GEOMETRY / "meta.json"
+                       ).read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(FIT_DOCS, data_hp["min_tokens_per_sample"],
+                        data_hp["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    trainer, outcome, counts, peak, seconds = fit_run(
+        LM_GEOMETRY, [f"trainer.checkpoint_every_n_steps={LM_FIT_EVERY}",
+                      "trainer.log_every_n_steps=1"], corpus, LM_FIT_STEPS,
+        LM_FIT_EVERY, log_root)
+    stats = fit_stats(trainer, counts, peak, seconds, smi)
+    model, hp = outcome.model, trainer.hp
+    got = Trainer.validate(trainer, model, step=LM_FIT_STEPS)
+    plain, _ = model_from_hparams(hp, torch.Generator(), "cuda", train=True,
+                                  use_kernels=False)
+    plain.load_state_dict(model.state_dict())
+    del model, outcome
+    reset_counts()
+    want = Trainer.validate(trainer, plain, step=LM_FIT_STEPS)
+    check_counts("lm-fit validate plain", read_counts(), {})
+    rel = abs(got["val_nll"] - want["val_nll"]) / abs(want["val_nll"])
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"lm-fit validation, kernels {got} vs plain {want}")
+    stats["validate_against_plain"] = {"kernels": got, "plain": want,
+                                       "val_nll_rel_err": rel}
+    val_batches = [{k: torch.from_numpy(np.asarray(v)).to("cuda",
+                                                         torch.int64)
+                    for k, v in b._asdict().items()}
+                   for b in trainer._val_batches]
+    del plain, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["draft_against_plain"] = lm_against_plain(
+        [lm_model_batch(b["num_tokens"].tolist(), b["token_ids"].shape[1],
+                        1000 * i) for i, b in enumerate(val_batches)],
+        "lm-fit draft validation")
+    print("lm-fit " + json.dumps(stats), flush=True)
+    return stats
+
+
+def lm_test_entry_phase(smi: str, log_root: Path) -> dict:
+    """`python -m sparse_vae_tpu_torch.test transformer-lm <r4 fit run>`
+    as test.main in the directory holding `log_root`, on the checkpoint
+    lm_fit_phase saved there (its corpus and a stand-in tokenizer saved
+    where the run's data hparams look for them, as test_entry_phase
+    does): a finite, positive average, K1 on the dense route once a layer
+    and K3 once a batch for every test batch with a real row. Then each
+    of those batches, at its shape and row lengths, becomes documents of
+    draft-tlm-r5's own text (lm_model_batch) held on its trained weights
+    against the plain versions (lm_against_plain)."""
+    meta = json.loads((REPO / "runs" / LM_GEOMETRY / "meta.json"
+                       ).read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(FIT_DOCS, data_hp["min_tokens_per_sample"],
+                        data_hp["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    saved = json.loads((log_root / "transformer-lm" / LM_GEOMETRY
+                        / "checkpoints" / "meta.json").read_text())
+    layers = saved["model_hparams"]["num_layers"]
+    with contextlib.chdir(log_root.parent):
+        data = TextDataModule(TextDataModuleHparams(**saved["data_hparams"]))
+        corpus.save(data._token_cache_path())
+        train_tokenizer(
+            iter(["A stand-in tokenizer for the token cache."]),
+            data.hparams.vocab_size,
+            save_path=tokenizer_cache_path(data.hparams.dataset_name))
+        data.prepare_corpus(corpus)
+        batches = [b for b in data.epoch_batches("test", seed=0)
+                   if (np.asarray(b.num_tokens) > 0).any()]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        average = test_entry.main(["test", "transformer-lm", LM_GEOMETRY])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    check(np.isfinite(average) and average > 0,
+          f"lm test entry: average {average}")
+    check_counts("lm-test-entry", counts, {
+        "swa_fwd_dense": layers * len(batches),
+        "tied_ce_fwd": len(batches)})
+    held = lm_against_plain(
+        [lm_model_batch(b.num_tokens, b.token_ids.shape[1], 777 * i)
+         for i, b in enumerate(batches)], "lm-test-entry held")
+    stats = {"average": average, "batches": len(batches),
+             "shapes": [list(b.token_ids.shape) for b in batches],
+             "real_tokens": sum(int(np.asarray(b.num_tokens).sum())
+                                for b in batches),
+             "seconds_with_load": seconds,
+             "max_memory_allocated_bytes": peak, "launches": counts,
+             "against_plain": held, "card": smi}
+    print("lm-test-entry " + json.dumps(stats), flush=True)
+    return stats
+
+
 def check_counts(path: str, counts: dict, expect: dict):
     """expect: {counter: exact count, or None for at least one}; every
     other counter, the plain_routes ones included, must be 0."""
@@ -2440,6 +3030,8 @@ def main(argv) -> int:
         k2_train = k2_phase(8, 12800, TRAIN_LENGTHS, seed=6, iters=5,
                             time_it=True)
         k3, k3b = k3_phase(seed=7)
+    with Phase("lm-kernels"):
+        lm_k = lm_kernels_phase()
     with Phase("model"):
         model, _, _ = load_run(RUN, device="cuda")
         model_phase(model)
@@ -2521,6 +3113,19 @@ def main(argv) -> int:
             dreg_counts = dreg_phase(smi)["launches"]
         with Phase("test-entry"):
             test_counts = test_entry_phase(smi, fit_logs)["launches"]
+    with Phase("lm-serve"):
+        lm_serve_counts = lm_serve_phase(smi)["launches"]
+    with Phase("lm-train"):
+        lm_train = lm_train_phase(smi)
+    lm_train_counts = {name: sum(lm_train[run]["launches"][name]
+                                 for run in (LM_RUN, LM_GEOMETRY))
+                       for name in lm_serve_counts}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        lm_logs = Path(tmp) / "sparse-vae-logs"
+        with Phase("lm-fit"):
+            lm_fit_counts = lm_fit_phase(smi, lm_logs)["launches"]
+        with Phase("lm-test-entry"):
+            lm_test_counts = lm_test_entry_phase(smi, lm_logs)["launches"]
 
     def sp_sum(name):
         return sp_single[name] + sum(c[name] for c in sp_counts)
@@ -2530,6 +3135,23 @@ def main(argv) -> int:
         return {"fit": fit_counts[name], "fit-pg19": pg19_counts[name],
                 "eval": eval_counts[name], "eval-pg19": eval_pg19_counts[name],
                 "dreg": dreg_counts[name], "test-entry": test_counts[name]}
+
+    def lm_paths(name):
+        """The launches of the Transformer LM's paths."""
+        return {"lm-serve": lm_serve_counts[name],
+                "lm-train": lm_train_counts[name],
+                "lm-fit": lm_fit_counts[name],
+                "lm-test-entry": lm_test_counts[name]}
+
+    def lm_row(name, counter, source, replaces, row, extra):
+        by_path = lm_paths(counter)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "shape")},
+                **extra}
 
     def timed(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -2606,11 +3228,14 @@ def main(argv) -> int:
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
          "launches": train_counts["tied_ce_fwd"]
          + h4_train_counts["tied_ce_fwd"] + sp_sum("tied_ce_fwd")
-         + sum(fit_paths("tied_ce_fwd").values()),
+         + sum(fit_paths("tied_ce_fwd").values())
+         + sum(lm_paths("tied_ce_fwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
                               "train-h4": h4_train_counts["tied_ce_fwd"],
                               "sp-train": sp_sum("tied_ce_fwd"),
-                              **fit_paths("tied_ce_fwd")},
+                              **fit_paths("tied_ce_fwd"),
+                              **lm_paths("tied_ce_fwd")},
+         "instantiation": "D = 512",
          **timed(k3), **{k: k3[k] for k in (
              "device_ms", "bit_identical", "vocab_splits")}},
         {"name": "tied_ce_bwd", "route": "cuda",
@@ -2618,11 +3243,14 @@ def main(argv) -> int:
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
          "launches": train_counts["tied_ce_bwd"]
          + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd")
-         + sum(fit_paths("tied_ce_bwd").values()),
+         + sum(fit_paths("tied_ce_bwd").values())
+         + sum(lm_paths("tied_ce_bwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_bwd"],
                               "train-h4": h4_train_counts["tied_ce_bwd"],
                               "sp-train": sp_sum("tied_ce_bwd"),
-                              **fit_paths("tied_ce_bwd")},
+                              **fit_paths("tied_ce_bwd"),
+                              **lm_paths("tied_ce_bwd")},
+         "instantiation": "D = 512",
          **timed(k3b), **{k: k3b[k] for k in (
              "device_ms", "parts_device_ms", "chunk_tokens",
              "bit_identical", "checks")}},
@@ -2681,6 +3309,39 @@ def main(argv) -> int:
                     "bound_ms": k6_square["bwd_bound_ms"],
                     "bound_by": k6_square["bwd_bound_by"],
                     "library_ms": k6_square["bwd_library_ms"]}},
+        lm_row("swa_fwd_dense", "swa_fwd_dense",
+               "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
+               "sparse_vae_tpu/ops/pallas_kernels.py:152", lm_k["k1"], {
+                   "wrapper": "sparse_vae_tpu_torch/ops/attention.py "
+                              "(the dense causal route, window L / 128)",
+                   "also_replaces": "the JAX library flash_attention "
+                                    "call, sparse_vae_tpu/ops/"
+                                    "attention.py:472",
+                   "library": lm_k["k1"]["library"],
+                   "ragged": {k: lm_k["k1_ragged"][k] for k in (
+                       "shape", "max_abs_err", "ms", "device_ms",
+                       "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}}),
+        lm_row("swa_bwd_dense", "swa_bwd_dense",
+               "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
+               "sparse_vae_tpu/ops/pallas_kernels.py:337", lm_k["k2"], {
+                   "library": lm_k["k2"]["library"],
+                   "parts_device_ms": lm_k["k2"]["parts_device_ms"],
+                   "ragged": {k: lm_k["k2_ragged"][k] for k in (
+                       "shape", "max_abs_err", "ms", "device_ms",
+                       "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}}),
+        lm_row("tied_ce_fwd", "tied_ce_fwd_d256",
+               "sparse_vae_tpu_torch/csrc/tied_ce.cu",
+               "sparse_vae_tpu/ops/pallas_ce.py:143", lm_k["k3"], {
+                   "instantiation": "D = 256",
+                   "vocab_splits": lm_k["k3"]["vocab_splits"]}),
+        lm_row("tied_ce_bwd", "tied_ce_bwd_d256",
+               "sparse_vae_tpu_torch/csrc/tied_ce_bwd.cu",
+               "sparse_vae_tpu/ops/pallas_ce.py:177", lm_k["k3b"], {
+                   "instantiation": "D = 256",
+                   "parts_device_ms": lm_k["k3b"]["parts_device_ms"],
+                   "checks": lm_k["k3b"]["checks"]}),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

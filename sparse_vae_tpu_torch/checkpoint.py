@@ -3,6 +3,9 @@
 built from hparams with the JAX package's initialisation and no archive
 (`model_from_hparams`), and the reverse, a model written as such an
 archive (`export_archive`, the layout of tools/archive_ckpt.py's export).
+Two families: the Transformer-VAE (`transformer-vae` runs,
+TransformerVAEHparams) and the Transformer LM (`transformer-lm` runs,
+TransformerHparams); `model_class` picks the module from the hparams.
 
 Archive format (tools/archive_ckpt.py): one npz entry per flax param leaf,
 keyed by its '/'-joined path (`layer_0/attention/q_linear/kernel`); float
@@ -28,14 +31,29 @@ import torch
 
 from .models.base import compute_dtype, resolve_device
 from .models.init import init_parameters
+from .models.transformer_lm import (TransformerHparams,
+                                    TransformerLanguageModel)
 from .models.transformer_vae import TransformerVAE, TransformerVAEHparams
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 BF16_SUFFIX = "::bf16"
 
 # Leaves of modules this port does not have yet: none; every leaf of the
-# flagship run maps to a parameter.
+# archived runs maps to a parameter.
 UNPORTED_PREFIXES = ()
+
+# The experiments this port loads: experiment -> (hparams class, module).
+FAMILIES = {"transformer-vae": (TransformerVAEHparams, TransformerVAE),
+            "transformer-lm": (TransformerHparams, TransformerLanguageModel)}
+
+
+def model_class(hparams) -> type:
+    """The module of `hparams`: a TransformerVAE for TransformerVAEHparams,
+    a TransformerLanguageModel for plain TransformerHparams."""
+    for hp_cls, module in FAMILIES.values():
+        if type(hparams) is hp_cls:
+            return module
+    raise TypeError(f"no ported model takes {type(hparams).__name__}")
 
 _NUMBERED = {"layer": "decoder_layers", "z_projection": "z_projections",
              "middle": "middle_layers"}
@@ -74,15 +92,18 @@ def torch_key(path: str) -> tuple:
     return ".".join(parts[:-1] + [_LEAF_NAMES[leaf]]), leaf == "kernel"
 
 
-def params_from_numpy(flat: dict, hparams: TransformerVAEHparams) -> dict:
-    """Archive entries -> a TransformerVAE state_dict of fp32 tensors
-    (`state_from_leaves` after decoding the bf16 bit patterns)."""
+def params_from_numpy(flat: dict, hparams) -> dict:
+    """Archive entries -> the state_dict of `hparams`' model
+    (`model_class`) in fp32 tensors (`state_from_leaves` after decoding
+    the bf16 bit patterns)."""
     return state_from_leaves(decode_leaves(flat), hparams)
 
 
-def state_from_leaves(leaves: dict, hparams: TransformerVAEHparams) -> dict:
-    """{flax leaf path: array} -> a TransformerVAE state_dict of fp32
-    tensors.
+def state_from_leaves(leaves: dict, hparams) -> dict:
+    """{flax leaf path: array} -> the state_dict of `hparams`' model
+    (`model_class`: a TransformerVAE or a TransformerLanguageModel) in
+    fp32 tensors. JAX parameters as numpy arrays cross into the port
+    here.
 
     Every leaf either maps to a parameter of the model `hparams` describe,
     with that parameter's shape, or lies under one of UNPORTED_PREFIXES;
@@ -90,8 +111,8 @@ def state_from_leaves(leaves: dict, hparams: TransformerVAEHparams) -> dict:
     no leaf gives raises too.
     """
     with torch.device("meta"):
-        expected = {k: tuple(v.shape)
-                    for k, v in TransformerVAE(hparams).state_dict().items()}
+        template = model_class(hparams)(hparams)
+    expected = {k: tuple(v.shape) for k, v in template.state_dict().items()}
     state = {}
     for path, arr in leaves.items():
         if path.startswith(UNPORTED_PREFIXES):
@@ -172,23 +193,27 @@ def run_directory(name) -> Path:
     return REPO_ROOT / "runs" / str(name)
 
 
-def hparams_from_meta(meta: dict) -> TransformerVAEHparams:
-    """The run's model hparams, keeping the fields this port reads."""
-    if meta.get("experiment") != "transformer-vae":
+def hparams_from_meta(meta: dict):
+    """The run's model hparams (TransformerVAEHparams for a transformer-vae
+    run, TransformerHparams for a transformer-lm one), keeping the fields
+    this port reads."""
+    experiment = meta.get("experiment")
+    if experiment not in FAMILIES:
         raise NotImplementedError(
-            f"experiment {meta.get('experiment')!r} is not ported; only "
-            "transformer-vae is")
-    names = {f.name for f in fields(TransformerVAEHparams)}
+            f"experiment {experiment!r} is not ported; "
+            f"{' and '.join(sorted(FAMILIES))} are")
+    hp_cls = FAMILIES[experiment][0]
+    names = {f.name for f in fields(hp_cls)}
     model_hp = meta["model_hparams"]
-    return TransformerVAEHparams(
-        **{k: v for k, v in model_hp.items() if k in names})
+    return hp_cls(**{k: v for k, v in model_hp.items() if k in names})
 
 
 def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
              train: bool = False, use_kernels: bool = True):
     """Load runs/<name>/ (meta.json + ckpt_bf16.npz), or the archive
-    directory `name` (`run_directory`), into a TransformerVAE on `device`.
-    Returns (model, hparams, meta).
+    directory `name` (`run_directory`), into its model (a TransformerVAE
+    or a TransformerLanguageModel) on `device`. Returns (model, hparams,
+    meta).
 
     Serving form (train=False): the whole model in `dtype`, default the
     run's compute dtype (bf16 for precision=bf16), in eval mode without
@@ -206,27 +231,28 @@ def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
     hp.use_pallas_kernel = hp.use_pallas_kernel and use_kernels
     with np.load(run / "ckpt_bf16.npz") as npz:
         state = params_from_numpy({k: npz[k] for k in npz.files}, hp)
-    model = TransformerVAE(hp)
+    model = model_class(hp)(hp)
     model.load_state_dict(state, strict=True)
     return _in_form(model, device, dtype, train), hp, meta
 
 
-def model_from_hparams(hparams: TransformerVAEHparams,
-                       generator: torch.Generator, device="cuda",
+def model_from_hparams(hparams, generator: torch.Generator, device="cuda",
                        dtype: Optional[torch.dtype] = None,
                        train: bool = False, use_kernels: bool = True):
-    """A TransformerVAE of `hparams` with the JAX package's initialisation
-    (models/init.py) drawn on the CPU from `generator` (a CPU generator),
-    then moved to `device` in the serving or training form of `load_run`.
-    Returns (model, hparams); the caller's hparams are not changed."""
+    """The model of `hparams` (`model_class`) with the JAX package's
+    initialisation (models/init.py) drawn on the CPU from `generator` (a
+    CPU generator), then moved to `device` in the serving or training form
+    of `load_run`. Returns (model, hparams); the caller's hparams are not
+    changed."""
     device = resolve_device(device)
     hp = replace(hparams,
                  use_pallas_kernel=hparams.use_pallas_kernel and use_kernels)
-    model = init_parameters(TransformerVAE(hp), generator, hp.init_scale)
+    model = init_parameters(model_class(hp)(hp), generator, hp.init_scale)
     return _in_form(model, device, dtype, train), hp
 
 
-def serving_form(model: TransformerVAE) -> TransformerVAE:
+def serving_form(model: TransformerLanguageModel
+                 ) -> TransformerLanguageModel:
     """A copy of `model` (say, a training form) in the serving form of
     `load_run`: every parameter rounded to its hparams' compute dtype,
     eval mode, no grads."""
@@ -236,7 +262,7 @@ def serving_form(model: TransformerVAE) -> TransformerVAE:
     return _in_form(served, model.device, None, train=False)
 
 
-def _in_form(model: TransformerVAE, device, dtype, train: bool):
+def _in_form(model: TransformerLanguageModel, device, dtype, train: bool):
     """Serving form (train=False): the whole model in `dtype`, default its
     hparams' compute dtype, in eval mode without grads. Training form: fp32
     master parameters with grads, computing in `dtype`."""

@@ -19,12 +19,12 @@ from .data.text_data_module import TextDataModule, TextDataModuleHparams
 from .hparam_presets import hparam_presets
 from .utils.config import TrainerHparams, merge_into_dataclass, parse_dotlist
 
-# The JAX package's model families and the module each lives in; this
-# package builds the Transformer-VAE.
+# The JAX package's model families and, for those this package does not
+# build yet, the module each lives in; it builds the Transformer-VAE and
+# the Transformer LM.
 FAMILIES = {"lstm-lm": "sparse_vae_tpu/models/lstm_lm.py",
             "lstm-vae": "sparse_vae_tpu/models/lstm_vae.py",
-            "transformer-lm": "sparse_vae_tpu/models/transformer_lm.py "
-                              "with training/objectives.py ARObjective",
+            "transformer-lm": None,
             "transformer-vae": None}
 
 
@@ -93,13 +93,22 @@ def build_hparams(experiment: str, model_hparams_overrides=None):
     if FAMILIES[experiment] is not None:
         raise NotImplementedError(
             f"model {experiment!r} is not ported ({FAMILIES[experiment]}); "
-            "transformer-vae is")
-    from .models.transformer_vae import TransformerVAEHparams
-    from .models.vae import VAEObjective
-
-    hparams = merge_into_dataclass(TransformerVAEHparams(),
+            "transformer-vae and transformer-lm are")
+    from .checkpoint import FAMILIES as MODELS
+    hparams = merge_into_dataclass(MODELS[experiment][0](),
                                    model_hparams_overrides or {})
-    return hparams, VAEObjective(hparams)
+    return hparams, objective_for(hparams)
+
+
+def objective_for(hparams):
+    """The training objective of `hparams`' family: VAEObjective for a
+    Transformer-VAE, ARObjective for a Transformer LM."""
+    from .models.transformer_vae import TransformerVAEHparams
+    if isinstance(hparams, TransformerVAEHparams):
+        from .models.vae import VAEObjective
+        return VAEObjective(hparams)
+    from .training.objectives import ARObjective
+    return ARObjective(hparams)
 
 
 def build_data(cfg: CLIConfig) -> TextDataModule:

@@ -6,31 +6,36 @@
 // tied_ce_fwd_plain. The backward (K3b, pallas_ce.py::_bwd) is
 // csrc/tied_ce_bwd.cu.
 //
-// What it computes. g [T, 512] bf16 (the decoder's pre-logits), the tied
-// table E [V, 512] bf16 (the input embedding), bias [V] fp32. Logits
-// x = g E^T + bias are fp32 (the bf16 products summed in fp32, then the
-// fp32 bias) and never leave the chip: lse[t] = logsumexp_v x[t, v]
-// (online max and sum of exp). The label logit (nll = lse - g . E[label] -
-// bias[label]) is a gather done outside, in fp32, as in the JAX package.
+// What it computes. g [T, D] bf16 (the decoder's pre-logits), the tied
+// table E [V, D] bf16 (the input embedding), bias [V] fp32, at the model
+// widths D = 512 (the Transformer-VAE) and D = 256 (the draft Transformer
+// LM), one instantiation each. Logits x = g E^T + bias are fp32 (the bf16
+// products summed in fp32, then the fp32 bias) and never leave the chip:
+// lse[t] = logsumexp_v x[t, v] (online max and sum of exp). The label logit
+// (nll = lse - g . E[label] - bias[label]) is a gather done outside, in
+// fp32, as in the JAX package.
 //
 // What bounds it. At T = 102,400, V = 32,768, D = 512 it is 2 T V D = 3.4
 // TFLOP against ~137 MB of inputs: operations, by far (3.5 ms at the bf16
-// peak).
+// peak). At D = 256 the operations halve and the bytes barely move, still
+// operations by ~90x.
 //
 // Design: K3b's logits mainloop (ce_dl_kernel, csrc/tied_ce_bwd.cu) with
 // an online logsumexp for its epilogue. A CTA keeps 128 token rows of g
-// resident (128 KB, brought in by TMA in the 128-byte swizzle) and streams
-// the E rows of its vocab tiles of 128 through a ring of six 128 x 64
-// stages (16 KB each) with mbarriers. One thread of a producer warpgroup
-// issues the loads; two consumer warpgroups take the vocab tiles in turn
-// and take turns on the tensor cores (named barriers), each computing its
-// 128 x 128 tile of X = g E^T by wgmma (m64n128k16, bf16 in, fp32
-// accumulate), so one warpgroup's epilogue (bias, running max, sum of
-// exp2) overlaps the other's products. setmaxnreg gives the consumers 232
-// registers. Each thread keeps a running (max, sum) for each of its four
-// rows over its own columns; the four threads of a row, then the two
-// warpgroups, merge theirs once at the end. 231,528 bytes of dynamic
-// shared memory (kSmemBytes): one CTA per SM.
+// resident (128 x D bf16, brought in by TMA in the 128-byte swizzle as
+// D / 64 boxes of 128 x 64) and streams the E rows of its vocab tiles of
+// 128 through a ring of 128 x 64 stages (16 KB each) with mbarriers: six
+// stages at D = 512, ten at D = 256, whose resident g takes half the
+// shared memory. One thread of a producer warpgroup issues the loads; two
+// consumer warpgroups take the vocab tiles in turn and take turns on the
+// tensor cores (named barriers), each computing its 128 x 128 tile of
+// X = g E^T by wgmma (m64n128k16, bf16 in, fp32 accumulate), so one
+// warpgroup's epilogue (bias, running max, sum of exp2) overlaps the
+// other's products. setmaxnreg gives the consumers 232 registers. Each
+// thread keeps a running (max, sum) for each of its four rows over its own
+// columns; the four threads of a row, then the two warpgroups, merge
+// theirs once at the end. 231,528 (D = 512) and 231,592 (D = 256) bytes
+// of dynamic shared memory (Geometry::kSmemBytes): one CTA per SM.
 //
 // The vocab axis splits over blockIdx.y when the 128-token row tiles alone
 // fill the SMs badly (the caller chooses the split: ce_kernel.fwd_splits);
@@ -65,21 +70,31 @@ using svt::wgmma_fence;
 using svt::wgmma_ss128;
 using svt::wgmma_wait;
 
-constexpr int kDim = 512;                 // model width D
 constexpr int kBK = 64;                   // depth per stage: one 128 B row
 constexpr int kRows = 128;                // resident token rows per CTA
 constexpr int kCols = 128;                // vocab rows per tile
-constexpr int kStages = 6;
 constexpr int kConsumers = 256;           // two warpgroups
 // A whole producer warpgroup (one thread of it issues the loads), so that
 // setmaxnreg can move its registers to the consumers: 3 x 128 x 168 =
 // 128 x 40 + 2 x 128 x 232.
 constexpr int kThreads = kConsumers + 128;
-constexpr int kGBytes = kRows * kDim * 2;
+constexpr int kBoxBytes = kRows * kBK * 2;   // one 128 x 64 box of g
+constexpr int kHalfBytes = kBoxBytes / 2;    // its 64-row half
 constexpr int kStageBytes = kCols * kBK * 2;
-constexpr int kSmemBytes = svt::kSwizzleAlign + kGBytes +
-                           kStages * kStageBytes + (2 * kStages + 1) * 8 +
-                           kRows * 8;
+
+// The shared memory of the model width D: the resident g rows, then as
+// many ring stages as fit beside them.
+template <int D>
+struct Geometry {
+  static_assert(D % kBK == 0, "D is a multiple of the stage depth");
+  static constexpr int kSteps = D / kBK;  // stages per vocab tile
+  static constexpr int kGBytes = kRows * D * 2;
+  static constexpr int kStages = D == 512 ? 6 : 10;
+  static constexpr int kSmemBytes = svt::kSwizzleAlign + kGBytes +
+                                    kStages * kStageBytes +
+                                    (2 * kStages + 1) * 8 + kRows * 8;
+  static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
+};
 constexpr int kMaxSplits = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -94,14 +109,19 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2,
 }
 
 // Token rows [m0, m0 + 128) (blockIdx.x) against `tiles` vocab tiles of
-// 128 from v0 = blockIdx.y * tiles * 128. tg = g [T, 512] and te = E
-// [V, 512], both in 64 x 128 boxes. With one split the CTA writes lse;
+// 128 from v0 = blockIdx.y * tiles * 128. tg = g [T, D] and te = E
+// [V, D], both in 64 x 128 boxes. With one split the CTA writes lse;
 // otherwise part[blockIdx.y][t] = (max, sum) in log2 units.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 tied_ce_kernel(const __grid_constant__ CUtensorMap tg,
                const __grid_constant__ CUtensorMap te,
                const float* __restrict__ bias, float* __restrict__ lse,
                float2* __restrict__ part, int tokens, int tiles) {
+  using G = Geometry<D>;
+  constexpr int kStages = G::kStages;
+  constexpr int kGBytes = G::kGBytes;
+  constexpr int kSteps = G::kSteps;       // stages per vocab tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* gs = align_smem(smem_raw);
   unsigned char* ring = gs + kGBytes;
@@ -111,8 +131,6 @@ tied_ce_kernel(const __grid_constant__ CUtensorMap tg,
   float2* red = reinterpret_cast<float2*>(gfull + 1);  // [kRows], wg 1's
   const int m0 = blockIdx.x * kRows;
   const int v0 = blockIdx.y * tiles * kCols;
-  constexpr int kSteps = kDim / kBK;      // stages per vocab tile
-  static_assert(kSteps == 8, "8 stages of depth 64 per vocab tile");
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -129,7 +147,7 @@ tied_ce_kernel(const __grid_constant__ CUtensorMap tg,
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(gfull, kGBytes);
       for (int kb = 0; kb < kSteps; ++kb)
-        tma_load(gs + kb * (kGBytes / kSteps), &tg, gfull, kb * kBK, m0);
+        tma_load(gs + kb * kBoxBytes, &tg, gfull, kb * kBK, m0);
       for (int q = 0; q < tiles * kSteps; ++q) {
         const int s = q % kStages;
         if (q >= kStages) mbar_wait(empty + s, ((q / kStages) - 1) & 1);
@@ -178,7 +196,7 @@ tied_ce_kernel(const __grid_constant__ CUtensorMap tg,
       const int s = q % kStages;
       mbar_wait(full + s, (q / kStages) & 1);
       unsigned char* b = ring + s * kStageBytes;
-      unsigned char* a = gs + kb * (kGBytes / kSteps);
+      unsigned char* a = gs + kb * kBoxBytes;
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       wgmma_fence();
@@ -187,7 +205,7 @@ tied_ce_kernel(const __grid_constant__ CUtensorMap tg,
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           wgmma_ss128(acc[h],
-                      desc_sw128(a + h * (kGBytes / 16) + 32 * k16),
+                      desc_sw128(a + h * kHalfBytes + 32 * k16),
                       desc_sw128(b + 32 * k16));
       wgmma_commit();
       wgmma_wait<1>();
@@ -284,35 +302,51 @@ __global__ void tied_ce_merge_kernel(const float2* __restrict__ part,
   lse[t] = (m + log2f(l)) * kLn2;
 }
 
-bool bad_shape(int tokens, int vocab, int dim, int splits) {
-  return tokens < 1 || dim != kDim || splits < 1 || splits > kMaxSplits ||
+bool bad_shape(int tokens, int vocab, int splits) {
+  return tokens < 1 || splits < 1 || splits > kMaxSplits ||
          vocab < kCols * splits || vocab % (kCols * splits) != 0;
+}
+
+// The D instantiation's launch, with its own once-per-device shared-memory
+// limit.
+template <int D>
+cudaError_t launch(const void* g, const void* table, const float* bias,
+                   float* lse, float2* part, int tokens, int vocab,
+                   int splits, cudaStream_t s) {
+  using G = Geometry<D>;
+  CUtensorMap tg, te;
+  if (!make_map(&tg, g, D, tokens, kRows) ||
+      !make_map(&te, table, D, vocab, kCols))
+    return cudaErrorInvalidValue;
+  static svt::SmemLimit limit;
+  const cudaError_t err =
+      svt::raise_smem_limit(limit, tied_ce_kernel<D>, G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tokens + kRows - 1) / kRows, splits);
+  tied_ce_kernel<D><<<grid, kThreads, G::kSmemBytes, s>>>(
+      tg, te, bias, lse, part, tokens, vocab / (kCols * splits));
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// g [tokens, 512] bf16, table [vocab, 512] bf16, bias [vocab] fp32 ->
-// lse [tokens] fp32, the vocab split `splits` ways; part [splits, tokens]
-// float2 is scratch (unused with one split).
+// g [tokens, dim] bf16, table [vocab, dim] bf16, bias [vocab] fp32 ->
+// lse [tokens] fp32, dim 256 or 512, the vocab split `splits` ways; part
+// [splits, tokens] float2 is scratch (unused with one split).
 extern "C" int svt_tied_ce_fwd(const void* g, const void* table,
                                const void* bias, void* lse, void* part,
                                int tokens, int vocab, int dim, int splits,
                                void* stream) {
-  if (bad_shape(tokens, vocab, dim, splits))
+  if (bad_shape(tokens, vocab, splits) || (dim != 256 && dim != 512))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tg, te;
-  if (!make_map(&tg, g, kDim, tokens, kRows) ||
-      !make_map(&te, table, kDim, vocab, kCols))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static svt::SmemLimit limit;
-  const cudaError_t err =
-      svt::raise_smem_limit(limit, tied_ce_kernel, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((tokens + kRows - 1) / kRows, splits);
-  tied_ce_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      tg, te, static_cast<const float*>(bias), static_cast<float*>(lse),
-      static_cast<float2*>(part), tokens, vocab / (kCols * splits));
+  const auto b = static_cast<const float*>(bias);
+  const auto l = static_cast<float*>(lse);
+  const auto pt = static_cast<float2*>(part);
+  const cudaError_t err =
+      dim == 256 ? launch<256>(g, table, b, l, pt, tokens, vocab, splits, s)
+                 : launch<512>(g, table, b, l, pt, tokens, vocab, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1)
     tied_ce_merge_kernel<<<(tokens + 255) / 256, 256, 0, s>>>(
         static_cast<const float2*>(part), static_cast<float*>(lse), tokens,

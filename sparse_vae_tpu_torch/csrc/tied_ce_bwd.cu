@@ -6,9 +6,11 @@
 // sparse_vae_tpu_torch/ops/ce_kernel.py::tied_ce_bwd_plain; the chunk loop
 // that drives these kernels is ce_kernel.py::tied_ce_bwd_chunked.
 //
-// What it computes. g [T, 512] bf16, the tied table E [V, 512] bf16, bias
+// What it computes. g [T, D] bf16, the tied table E [V, D] bf16, bias
 // [V] fp32, labels [T], the forward's lse [T] and the incoming dnll [T]
-// fp32 (0 on padding). With x = g E^T + bias in fp32 and p = exp(x - lse):
+// fp32 (0 on padding), at the model widths D = 512 (the Transformer-VAE)
+// and D = 256 (the draft Transformer LM), one instantiation each. With
+// x = g E^T + bias in fp32 and p = exp(x - lse):
 //   dg[t] = sum_v bf16(p dnll[t]) E[v]                 (fp32 out),
 //   dE[v] = sum_t bf16((p - [label t == v]) dnll[t]) g[t]  (fp32 out),
 //   dbias[v] = the same sum of the unrounded terms.
@@ -18,7 +20,7 @@
 // What bounds it. At T = 102,400, V = 32,768, D = 512 the least work is
 // the logits once and the two gradient products: 3 x 2 T V D = 10.3 TFLOP,
 // against ~0.4 GB of inputs and outputs: operations, by far (10.4 ms at
-// the bf16 peak).
+// the bf16 peak). At D = 256 the operations halve: still operations.
 //
 // Design (a): the logits once, per token chunk. D = 512 makes a 128 x 512
 // fp32 accumulator the whole register file of an SM, so one kernel cannot
@@ -26,7 +28,7 @@
 // chunk of C tokens go to a bf16 scratch once and two products read them
 // (design (b), two kernels that each recompute the logits, does 4 products
 // where this does 3, for ~3 x T V 2 bytes of scratch traffic):
-//   ce_dl_kernel: X = g_c E^T (K = 512) and, in the epilogue, dl =
+//   ce_dl_kernel: X = g_c E^T (K = D) and, in the epilogue, dl =
 //        bf16((p - onehot) dnll) into the [C, V] scratch, the per-128-token
 //        column sums of the unrounded terms (dbias partials), and for each
 //        token fix[t] = bf16(p dnll) - bf16((p - 1) dnll) at its label, so
@@ -46,17 +48,20 @@
 // warpgroups issue the products and keep one stage's products in flight
 // while releasing the stage before. ce_gemm_kernel: 128 x 256 output
 // tiles (m64n256k16 per warpgroup), four 48 KB stages, one CTA per SM
-// (197,696 bytes of dynamic shared memory, kGemmSmemBytes).
+// (197,696 bytes of dynamic shared memory, kGemmSmemBytes); at D = 256
+// the output is one column tile wide.
 // ce_dl_kernel: 128 token rows of g stay resident while 16 vocab tiles of
-// 128 stream through; the two warpgroups take the tiles in turn and take
-// turns on the tensor cores (named barriers), so one's exp / dl epilogue
-// overlaps the other's products; setmaxnreg gives the consumers 232
-// registers; each 64-column half of a dl tile leaves by one TMA store from
-// a swizzled staging buffer (218,168 bytes of dynamic shared memory,
-// kDlSmemBytes). The TMA, mbarrier and wgmma helpers and the tensor maps
-// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda) are
-// csrc/hopper.cuh's, shared with K3 (csrc/tied_ce.cu), which runs the same
-// logits mainloop as ce_dl_kernel.
+// 128 stream through a ring of 128 x 64 stages (three at D = 512, seven
+// at D = 256, whose resident g takes half the shared memory); the two
+// warpgroups take the tiles in turn and take turns on the tensor cores
+// (named barriers), so one's exp / dl epilogue overlaps the other's
+// products; setmaxnreg gives the consumers 232 registers; each 64-column
+// half of a dl tile leaves by one TMA store from a swizzled staging buffer (218,168 and
+// 218,232 bytes of dynamic shared memory at D = 512 and 256,
+// DlGeometry::kSmemBytes). The TMA, mbarrier and wgmma helpers and the
+// tensor maps (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no
+// -lcuda) are csrc/hopper.cuh's, shared with K3 (csrc/tied_ce.cu), which
+// runs the same logits mainloop as ce_dl_kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,7 +92,6 @@ using svt::wgmma_ss;
 using svt::wgmma_ss128;
 using svt::wgmma_wait;
 
-constexpr int kDim = 512;
 constexpr int kBK = 64;                  // depth per stage: one 128 B row
 constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // and a producer warp
@@ -106,24 +110,36 @@ constexpr int kGemmSmemBytes =
 enum Mode { kDg = 0, kDe = 1 };
 
 // The logit gradients (ce_dl_kernel): a CTA keeps 128 token rows of g
-// resident (128 KB) and streams the E rows of up to kDlMaxTiles vocab
-// tiles of 128 through a ring of 128 x 64 stages; its two consumer
+// resident (128 x D bf16) and streams the E rows of up to kDlMaxTiles
+// vocab tiles of 128 through a ring of 128 x 64 stages; its two consumer
 // warpgroups take the vocab tiles in turn, and each stores its dl tile
 // through a 128 x 64 staging buffer, one half at a time.
 constexpr int kDlRows = 128;
 constexpr int kDlCols = 128;
-constexpr int kDlStages = 3;
 constexpr int kDlMaxTiles = 16;            // vocab tiles per CTA at most
 // A whole producer warpgroup (one thread of it issues the loads), so that
 // setmaxnreg can move its registers to the consumers: 3 x 128 x 168 =
 // 128 x 40 + 2 x 128 x 232.
 constexpr int kDlThreads = kConsumers + 128;
-constexpr int kGBytes = kDlRows * kDim * 2;
+constexpr int kBoxBytes = kDlRows * kBK * 2;   // one 128 x 64 box of g
+constexpr int kHalfBytes = kBoxBytes / 2;      // its 64-row half
 constexpr int kDlStageBytes = kDlCols * kBK * 2;
 constexpr int kDlOutBytes = kDlRows * 64 * 2;  // half a dl tile, staged
-constexpr int kDlSmemBytes = kAlign + kGBytes + 2 * kDlOutBytes +
-                             kDlStages * kDlStageBytes +
-                             (2 * kDlStages + 1) * 8 + 2 * 4 * kDlCols * 4;
+
+// ce_dl_kernel's shared memory at the model width D: the resident g rows,
+// the staging buffers, then as many ring stages as fit.
+template <int D>
+struct DlGeometry {
+  static_assert(D % kBK == 0, "D is a multiple of the stage depth");
+  static constexpr int kSteps = D / kBK;   // stages per vocab tile
+  static constexpr int kGBytes = kDlRows * D * 2;
+  static constexpr int kStages = D == 512 ? 3 : 7;
+  static constexpr int kSmemBytes = kAlign + kGBytes + 2 * kDlOutBytes +
+                                    kStages * kDlStageBytes +
+                                    (2 * kStages + 1) * 8 +
+                                    2 * 4 * kDlCols * 4;
+  static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
+};
 
 struct Params {
   const float* bias;     // [V]            (ce_dl_kernel)
@@ -133,7 +149,7 @@ struct Params {
   __nv_bfloat16* dl;     // [C, V] scratch
   float* part;           // [ceil(T / 128), V] dbias partials
   float* fix;            // [T]
-  float* out;            // dg [T, 512] (kDg) or dE [V, 512] (kDe)
+  float* out;            // dg [T, D] (kDg) or dE [V, D] (kDe)
   int vocab;
   int chunk0;            // first token of the chunk
   int rows;              // tokens of the chunk
@@ -144,13 +160,13 @@ struct Params {
 
 
 // The gradient products, one 128 x 256 fp32 output tile per CTA:
-//   kDg: dg[chunk0 + r] = dl[r] E; ta = dl [C, V], tb = E^T [512, V];
+//   kDg: dg[chunk0 + r] = dl[r] E; ta = dl [C, V], tb = E^T [D, V];
 //   kDe: dE (+)= dl^T g_c; ta = dl [C, V] in 64 x 64 boxes, A = dl^T
-//        read by ldmatrix.trans; tb = g^T [512, T'] (T' = T rounded up to
+//        read by ldmatrix.trans; tb = g^T [D, T'] (T' = T rounded up to
 //        128, zero-filled).
-// blockIdx.x walks the 2 column tiles of the 512-wide output, so the CTAs
-// of one row panel run together.
-template <int MODE>
+// blockIdx.x walks the D / 256 column tiles of the D-wide output, so the
+// CTAs of one row panel run together.
+template <int MODE, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 ce_gemm_kernel(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb, const Params p) {
@@ -256,7 +272,7 @@ ce_gemm_kernel(const __grid_constant__ CUtensorMap ta,
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (MODE == kDg && r >= p.rows) continue;
-    float* row = p.out + (size_t)(MODE == kDg ? p.chunk0 + r : r) * kDim;
+    float* row = p.out + (size_t)(MODE == kDg ? p.chunk0 + r : r) * D;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       float2* o = reinterpret_cast<float2*>(row + n0 + 8 * j + 2 * tq);
@@ -273,19 +289,24 @@ ce_gemm_kernel(const __grid_constant__ CUtensorMap ta,
 
 // The logit gradients of one chunk: token rows [m0, m0 + 128) of the
 // chunk (blockIdx.x) against p.tiles vocab tiles of 128 from v0
-// (blockIdx.y). tg = g [T, 512] in 64 x 128 boxes, te = E [V, 512] in
+// (blockIdx.y). tg = g [T, D] in 64 x 128 boxes, te = E [V, D] in
 // 64 x 128 boxes, tdl = dl [C, V] in 64 x 128 boxes (stores). The producer
-// loads the g rows once, then each vocab tile's 8 stages in order;
+// loads the g rows once, then each vocab tile's D / 64 stages in order;
 // warpgroup w takes tiles w, w + 2, ... and the two take turns on the
 // tensor cores, so one's exp / dl epilogue runs beside the other's
 // products. The epilogue writes each 64-column half of the bf16 dl tile
 // into shared memory in the 128-byte swizzle and one thread stores it
 // with TMA; it also writes fix at each token's label and the tile's
 // column sums of the unrounded terms into part.
+template <int D>
 __global__ void __launch_bounds__(kDlThreads, 1)
 ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
              const __grid_constant__ CUtensorMap te,
              const __grid_constant__ CUtensorMap tdl, const Params p) {
+  using G = DlGeometry<D>;
+  constexpr int kDlStages = G::kStages;
+  constexpr int kGBytes = G::kGBytes;
+  constexpr int kSteps = G::kSteps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* gs = align_smem(smem_raw);
   unsigned char* staged = gs + kGBytes;             // [2][128 x 64] bf16
@@ -297,8 +318,7 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
   float* red = reinterpret_cast<float*>(gfull + 1);  // [2][4][128]
   const int m0 = blockIdx.x * kDlRows;
   const int v0 = blockIdx.y * p.tiles * kDlCols;
-  const int steps = p.tiles * (kDim / kBK);
-  static_assert(kDim / kBK == 8, "8 stages of depth 64 per vocab tile");
+  const int steps = p.tiles * kSteps;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDlStages; ++s) {
@@ -316,15 +336,14 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(gfull, kGBytes);
-      for (int kb = 0; kb < kDim / kBK; ++kb)
-        tma_load(gs + kb * (kGBytes / 8), &tg, gfull, kb * kBK,
-                 p.chunk0 + m0);
+      for (int kb = 0; kb < kSteps; ++kb)
+        tma_load(gs + kb * kBoxBytes, &tg, gfull, kb * kBK, p.chunk0 + m0);
       for (int q = 0; q < steps; ++q) {
         const int s = q % kDlStages;
         if (q >= kDlStages) mbar_wait(empty + s, ((q / kDlStages) - 1) & 1);
         mbar_expect_tx(full + s, kDlStageBytes);
-        tma_load(ring + s * kDlStageBytes, &te, full + s, (q & 7) * kBK,
-                 v0 + (q >> 3) * kDlCols);
+        tma_load(ring + s * kDlStageBytes, &te, full + s,
+                 (q % kSteps) * kBK, v0 + (q / kSteps) * kDlCols);
       }
     }
     return;
@@ -373,12 +392,12 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-    for (int kb = 0; kb < kDim / kBK; ++kb) {
-      const int q = j * (kDim / kBK) + kb;
+    for (int kb = 0; kb < kSteps; ++kb) {
+      const int q = j * kSteps + kb;
       const int s = q % kDlStages;
       mbar_wait(full + s, (q / kDlStages) & 1);
       unsigned char* b = ring + s * kDlStageBytes;
-      unsigned char* a = gs + kb * (kGBytes / 8);
+      unsigned char* a = gs + kb * kBoxBytes;
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       wgmma_fence();
@@ -387,7 +406,7 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           wgmma_ss128(acc[h],
-                      desc_sw128(a + h * (kGBytes / 16) + 32 * k16),
+                      desc_sw128(a + h * kHalfBytes + 32 * k16),
                       desc_sw128(b + 32 * k16));
       wgmma_commit();
       wgmma_wait<1>();
@@ -400,7 +419,7 @@ ce_dl_kernel(const __grid_constant__ CUtensorMap tg,
     wgmma_wait<0>();
     fence_acc(acc[0]);
     fence_acc(acc[1]);
-    mbar_arrive(empty + (j * (kDim / kBK) + 7) % kDlStages);
+    mbar_arrive(empty + (j * kSteps + kSteps - 1) % kDlStages);
 
     const int vt = v0 + j * kDlCols;
     float p_label[4] = {0.f, 0.f, 0.f, 0.f};
@@ -512,15 +531,15 @@ __global__ void ce_dbias_kernel(const float* __restrict__ part,
   dbias[v] = s;
 }
 
-template <int MODE>
+template <int MODE, int D>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, const Params& p,
            dim3 grid, cudaStream_t stream) {
   static svt::SmemLimit limit;
   const cudaError_t err =
-      svt::raise_smem_limit(limit, ce_gemm_kernel<MODE>, kGemmSmemBytes);
+      svt::raise_smem_limit(limit, ce_gemm_kernel<MODE, D>, kGemmSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_gemm_kernel<MODE><<<grid, kThreads, kGemmSmemBytes, stream>>>(ta, tb,
-                                                                  p);
+  ce_gemm_kernel<MODE, D><<<grid, kThreads, kGemmSmemBytes, stream>>>(
+      ta, tb, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,18 +547,69 @@ constexpr int kBadValue = static_cast<int>(cudaErrorInvalidValue);
 
 bool bad_chunk(int tokens, int vocab, int dim, int chunk0, int rows,
                int dl_rows) {
-  return tokens < 1 || vocab < kBM || vocab % kBM != 0 || dim != kDim ||
-         chunk0 < 0 || chunk0 % kBM != 0 || rows < 1 ||
-         chunk0 + rows > tokens || dl_rows % kBM != 0 ||
+  return tokens < 1 || vocab < kBM || vocab % kBM != 0 ||
+         (dim != 256 && dim != 512) || chunk0 < 0 || chunk0 % kBM != 0 ||
+         rows < 1 || chunk0 + rows > tokens || dl_rows % kBM != 0 ||
          (rows + kBM - 1) / kBM * kBM > dl_rows;
+}
+
+// ce_dl_kernel<D> over chunk [chunk0, chunk0 + rows): the tensor maps, the
+// vocab tiles per CTA (the largest divisor of V / 128 up to kDlMaxTiles)
+// and the launch.
+template <int D>
+int launch_dl(const void* g, const void* table, void* dl, Params p,
+              int tokens, int dl_rows, cudaStream_t stream) {
+  using G = DlGeometry<D>;
+  CUtensorMap tg, te, tdl;
+  if (!make_map(&tg, g, D, tokens, kDlRows) ||
+      !make_map(&te, table, D, p.vocab, kDlCols) ||
+      !make_map(&tdl, dl, p.vocab, dl_rows, kDlRows))
+    return kBadValue;
+  int tiles = kDlMaxTiles;
+  while ((p.vocab / kDlCols) % tiles) --tiles;
+  p.tiles = tiles;
+  static svt::SmemLimit limit;
+  const cudaError_t err =
+      svt::raise_smem_limit(limit, ce_dl_kernel<D>, G::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.rows + kDlRows - 1) / kDlRows,
+                  p.vocab / (kDlCols * tiles));
+  ce_dl_kernel<D><<<grid, kDlThreads, G::kSmemBytes, stream>>>(tg, te, tdl,
+                                                              p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dg[chunk0 .. chunk0 + rows) = dl[:rows] E at width D.
+template <int D>
+int launch_dg(const void* dl, const void* table_t, Params p, int dl_rows,
+              cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, dl, p.vocab, dl_rows, kBM) ||
+      !make_map(&tb, table_t, p.vocab, D, kBN))
+    return kBadValue;
+  p.num_k = p.vocab / kBK;
+  return launch<kDg, D>(ta, tb, p, dim3(D / kBN, (p.rows + kBM - 1) / kBM),
+                        stream);
+}
+
+// dE (+)= dl[:rows']^T g_c at width D.
+template <int D>
+int launch_de(const void* dl, const void* g_t, Params p, int tokens_padded,
+              int dl_rows, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, dl, p.vocab, dl_rows, 64) ||
+      !make_map(&tb, g_t, tokens_padded, D, kBN))
+    return kBadValue;
+  p.num_k = (p.rows + kBM - 1) / kBM * (kBM / kBK);
+  return launch<kDe, D>(ta, tb, p, dim3(D / kBN, p.vocab / kBM), stream);
 }
 
 }  // namespace
 
-// Chunk [chunk0, chunk0 + rows) of g: dl [dl_rows, V] bf16 (rows past the
-// chunk's last token, up to its last 128-row tile, are written 0), the
-// dbias partials of its token tiles in part [ceil(T / 128), V] fp32, and
-// fix[t] for its tokens.
+// Chunk [chunk0, chunk0 + rows) of g [tokens, dim] (dim 256 or 512): dl
+// [dl_rows, V] bf16 (rows past the chunk's last token, up to its last
+// 128-row tile, are written 0), the dbias partials of its token tiles in
+// part [ceil(T / 128), V] fp32, and fix[t] for its tokens.
 extern "C" int svt_tied_ce_bwd_dl(const void* g, const void* table,
                                   const void* bias, const void* lse,
                                   const void* dnll, const void* labels,
@@ -547,14 +617,6 @@ extern "C" int svt_tied_ce_bwd_dl(const void* g, const void* table,
                                   int tokens, int vocab, int dim, int chunk0,
                                   int rows, int dl_rows, void* stream) {
   if (bad_chunk(tokens, vocab, dim, chunk0, rows, dl_rows)) return kBadValue;
-  CUtensorMap tg, te, tdl;
-  if (!make_map(&tg, g, kDim, tokens, kDlRows) ||
-      !make_map(&te, table, kDim, vocab, kDlCols) ||
-      !make_map(&tdl, dl, vocab, dl_rows, kDlRows))
-    return kBadValue;
-  // Vocab tiles per CTA: the largest divisor of V / 64 up to kDlMaxTiles.
-  int tiles = kDlMaxTiles;
-  while ((vocab / kDlCols) % tiles) --tiles;
   Params p{};
   p.bias = static_cast<const float*>(bias);
   p.lse = static_cast<const float*>(lse);
@@ -566,40 +628,30 @@ extern "C" int svt_tied_ce_bwd_dl(const void* g, const void* table,
   p.vocab = vocab;
   p.chunk0 = chunk0;
   p.rows = rows;
-  p.tiles = tiles;
-  static svt::SmemLimit limit;
-  const cudaError_t err =
-      svt::raise_smem_limit(limit, ce_dl_kernel, kDlSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((rows + kDlRows - 1) / kDlRows,
-                  vocab / (kDlCols * tiles));
-  ce_dl_kernel<<<grid, kDlThreads, kDlSmemBytes,
-                 static_cast<cudaStream_t>(stream)>>>(tg, te, tdl, p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dim == 256 ? launch_dl<256>(g, table, dl, p, tokens, dl_rows, s)
+                    : launch_dl<512>(g, table, dl, p, tokens, dl_rows, s);
 }
 
-// dg[chunk0 .. chunk0 + rows) = dl[:rows] E, fp32; table_t = E^T [512, V].
+// dg[chunk0 .. chunk0 + rows) = dl[:rows] E, fp32; table_t = E^T
+// [dim, V].
 extern "C" int svt_tied_ce_bwd_dg(const void* dl, const void* table_t,
                                   void* dg, int tokens, int vocab, int dim,
                                   int chunk0, int rows, int dl_rows,
                                   void* stream) {
   if (bad_chunk(tokens, vocab, dim, chunk0, rows, dl_rows)) return kBadValue;
-  CUtensorMap ta, tb;
-  if (!make_map(&ta, dl, vocab, dl_rows, kBM) ||
-      !make_map(&tb, table_t, vocab, kDim, kBN))
-    return kBadValue;
   Params p{};
   p.out = static_cast<float*>(dg);
   p.vocab = vocab;
   p.chunk0 = chunk0;
   p.rows = rows;
-  p.num_k = vocab / kBK;
-  return launch<kDg>(ta, tb, p, dim3(kDim / kBN, (rows + kBM - 1) / kBM),
-                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dim == 256 ? launch_dg<256>(dl, table_t, p, dl_rows, s)
+                    : launch_dg<512>(dl, table_t, p, dl_rows, s);
 }
 
 // dE (+)= dl[:rows']^T g[chunk0 .. chunk0 + rows'), rows' = rows rounded
-// up to 128; g_t = g^T [512, tokens_padded] with zero columns past T.
+// up to 128; g_t = g^T [dim, tokens_padded] with zero columns past T.
 extern "C" int svt_tied_ce_bwd_de(const void* dl, const void* g_t, void* de,
                                   int tokens, int tokens_padded, int vocab,
                                   int dim, int chunk0, int rows, int dl_rows,
@@ -608,19 +660,16 @@ extern "C" int svt_tied_ce_bwd_de(const void* dl, const void* g_t, void* de,
       tokens_padded % kBM != 0 ||
       tokens_padded < (tokens + kBM - 1) / kBM * kBM)
     return kBadValue;
-  CUtensorMap ta, tb;
-  if (!make_map(&ta, dl, vocab, dl_rows, 64) ||
-      !make_map(&tb, g_t, tokens_padded, kDim, kBN))
-    return kBadValue;
   Params p{};
   p.out = static_cast<float*>(de);
   p.vocab = vocab;
   p.chunk0 = chunk0;
   p.rows = rows;
-  p.num_k = (rows + kBM - 1) / kBM * (kBM / kBK);
   p.accumulate = accumulate;
-  return launch<kDe>(ta, tb, p, dim3(kDim / kBN, vocab / kBM),
-                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dim == 256
+             ? launch_de<256>(dl, g_t, p, tokens_padded, dl_rows, s)
+             : launch_de<512>(dl, g_t, p, tokens_padded, dl_rows, s);
 }
 
 // dbias [V] from the partials of `tiles` token tiles.

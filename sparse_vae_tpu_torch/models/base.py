@@ -50,6 +50,16 @@ class LanguageModelHparams:
     vocab_size: int = VOCAB_SIZE
 
 
+def dropout(x, p: float, generator: Optional[torch.Generator] = None):
+    """flax's Dropout in training: each value kept with probability 1 - p
+    and scaled by 1 / (1 - p), the mask drawn (fp32 uniforms of x's shape)
+    from `generator` (None: torch's default one)."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
+
 def compute_dtype(precision: str) -> torch.dtype:
     return torch.bfloat16 if precision == "bf16" else torch.float32
 

@@ -3,8 +3,10 @@ dense-FFN layer): self-attention, optional cross-attention (separate
 LayerNorms for the queries and the context), then a 4x tanh-GELU FFN whose
 output projection has no bias. A learned-query layer (the Perceiver's)
 keeps no residual around its attention: the query bank replaced x.
-Dropout is not ported: the VAE trains with it off, as the reference's
-trained runs did.
+The FFN output's dropout (the reference's rate 0.1) applies only to a
+forward called with deterministic=False and a generator: the Transformer
+LM's training forward, as the JAX package's ARObjective runs it. The VAE
+trains without it in both packages.
 
 Sequence parallelism (parallel/sp.py): `bind_seq_group` hands the group to
 the attention that reads the length-sharded document. With sp_cross_only
@@ -20,7 +22,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import Attention
-from .base import LAYER_NORM_EPS, LayerNorm, Linear
+from .base import LAYER_NORM_EPS, LayerNorm, Linear, dropout
+
+# The reference's dropout on the FFN output (transformer_layer.py).
+DROPOUT_RATE = 0.1
 
 
 class TransformerLayer(nn.Module):
@@ -31,6 +36,7 @@ class TransformerLayer(nn.Module):
                  use_kernel: bool = True, sp_cross_only: bool = False):
         super().__init__()
         self.learned_queries = learned_queries
+        self.dropout_rate = DROPOUT_RATE
         self.sp_cross_only = sp_cross_only
         self.attention = Attention(d_model, num_heads, causal=causal,
                                    sparse=sparse_self_attention,
@@ -58,17 +64,21 @@ class TransformerLayer(nn.Module):
             self.cross_attention.seq_group = (group if self.sp_cross_only
                                               else None)
 
-    def _ffn(self, x):
+    def _ffn(self, x, deterministic: bool = True, generator=None):
         y = self.ffn_layer_norm(x)
         y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))
+        if not deterministic:
+            y = dropout(y, self.dropout_rate, generator)
         return x + y
 
     def forward(self, x, mask=None, return_kv: bool = False, context=None,
-                context_mask=None):
+                context_mask=None, deterministic: bool = True,
+                generator=None):
         """x: [B, L, D]; mask: [B, L] key-padding mask (True = valid);
         context: [B, Lc, D] for cross-attention, with context_mask
         [B, Lc]. With return_kv also returns the attention's head-major
-        (k, v)."""
+        (k, v). deterministic False: the FFN output's dropout, its mask
+        drawn from `generator`."""
         y = self.attention(self.attn_layer_norm(x), kv_mask=mask,
                            return_kv=return_kv)
         if return_kv:
@@ -78,8 +88,14 @@ class TransformerLayer(nn.Module):
             ctx = self.context_layer_norm(context)
             x = x + self.cross_attention(self.cross_attn_layer_norm(x),
                                          kv_mask=context_mask, x_kv=ctx)
-        x = self._ffn(x)
+        x = self._ffn(x, deterministic, generator)
         return (x, kv) if return_kv else x
+
+    def decode(self, x_t, cache: dict, index: int):
+        """One-token step, every row at position `index` (int)."""
+        y, cache = self.attention.decode(self.attn_layer_norm(x_t), cache,
+                                         index)
+        return self._ffn(x_t + y), cache
 
     def decode_rowwise(self, x_t, cache: dict, index):
         """One-token step at PER-ROW positions index [B]."""

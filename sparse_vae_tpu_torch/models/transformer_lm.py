@@ -1,13 +1,22 @@
-"""Decoder-only causal transformer language model: the pieces the VAE
-shares (port of sparse_vae_tpu/models/transformer_lm.py: `embed`,
+"""Decoder-only causal transformer language model (port of
+sparse_vae_tpu/models/transformer_lm.py): `embed` with the input dropout,
 `pre_logits`, the tied `project`, `sequence_nll`, `sequence_ll_rows`,
-`shifted_labels` / `labels_for` and `init_caches`).
+`shifted_labels` / `labels_for`, `forward_hidden` (with the head-major
+rotary K/V of every layer for a bulk prefill), the full forward
+(`__call__`), `init_caches`, and the decode steps `decode_step` (every
+row at one position) and `decode_step_rowwise` (per-row positions, the
+continuous-batching step). The Transformer-VAE builds on it.
 
 Ported configurations: tied input/output embedding with
-d_embedding == d_model, dense FFNs, no decoder cross-attention, one
-device or a length axis sharded over a `seq` group (`bind_seq_group`,
-through parallel.sp.sp_localize). The model computes in `compute_dtype`
-(default: its parameters' dtype); models/base.py states the rule.
+d_embedding == d_model, dense FFNs, no decoder cross-attention, sparse
+(sliding-window) or dense causal self-attention (ops/attention.py routes
+the dense one through K1/K2 inside the JAX package's flash-attention
+gate), one device or, for the Transformer-VAE, a length axis sharded
+over a `seq` group (`bind_seq_group`, through parallel.sp.sp_localize).
+The model computes in `compute_dtype` (default: its parameters' dtype);
+models/base.py states the rule. The sampling loops, the speculative and
+parallel generators and the draft-model interface raise, naming the JAX
+function each needs (`UNPORTED`).
 """
 from __future__ import annotations
 
@@ -21,7 +30,8 @@ import torch.nn.functional as F
 from ..ops import ce_kernel
 from ..ops.ce_kernel import FusedTiedCrossEntropy
 from ..ops.cross_entropy import chunked_nll_rows
-from .base import LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear
+from .base import (LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear,
+                   dropout)
 from .transformer_layer import TransformerLayer
 
 
@@ -74,7 +84,46 @@ class TransformerHparams(LanguageModelHparams):
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
+# Methods of the JAX package's model that this port does not have yet:
+# name -> what it needs (ROADMAP.md Queue 1).
+UNPORTED = {
+    "sample": "the scalar decode loop (models/generation.py decode_loop), "
+              "ROADMAP.md Queue 1 item 4",
+    "sample_resumable": "the scalar decode loop (models/generation.py "
+                        "decode_loop), ROADMAP.md Queue 1 item 4",
+    "draft_propose": "speculative decoding (models/spec_decode.py), "
+                     "ROADMAP.md Queue 1 item 5",
+    "draft_init_state": "speculative decoding (models/spec_decode.py), "
+                        "ROADMAP.md Queue 1 item 5",
+    "decode_chunk": "speculative decoding (models/spec_decode.py), "
+                    "ROADMAP.md Queue 1 item 5",
+    "commit_chunk": "speculative decoding (models/spec_decode.py), "
+                    "ROADMAP.md Queue 1 item 5",
+    "frontier_generate": "models/parallel_decode.py, ROADMAP.md Queue 1 "
+                         "item 5",
+    "speculative_generate": "models/parallel_decode.py, ROADMAP.md Queue 1 "
+                            "item 5",
+    "spec_draft_generate": "models/spec_decode.py, ROADMAP.md Queue 1 "
+                           "item 5",
+    "parallel_generate": "models/parallel_decode.py, ROADMAP.md Queue 1 "
+                         "item 5",
+}
+
+
+def _unported(name: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__}.{name} is not ported yet "
+            f"({self.JAX_MODULE}); it needs {UNPORTED[name]}")
+    method.__name__ = name
+    method.__doc__ = f"Not ported: raises NotImplementedError ({name})."
+    return method
+
+
 class TransformerLanguageModel(nn.Module):
+    # The JAX module this class ports (named by the unported methods).
+    JAX_MODULE = "sparse_vae_tpu/models/transformer_lm.py"
+
     def __init__(self, hparams: TransformerHparams):
         super().__init__()
         hparams.check_ported()
@@ -116,8 +165,15 @@ class TransformerLanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.input_embedding.weight.device
 
-    def embed(self, token_ids):
-        return self.input_embedding(token_ids).to(self.dtype)
+    def embed(self, token_ids, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None):
+        """Token embeddings in the compute dtype; with deterministic False
+        the input dropout (hparams.input_dropout, base.dropout) draws its
+        mask from `generator`."""
+        x = self.input_embedding(token_ids).to(self.dtype)
+        if deterministic:
+            return x
+        return dropout(x, self.hparams.input_dropout, generator)
 
     def table(self):
         """The tied output table in the compute dtype."""
@@ -139,7 +195,8 @@ class TransformerLanguageModel(nn.Module):
         [B, L, V] logits. hidden: [B, L', D]; labels: [B, L'] (0 = pad).
 
         Where `ce_kernel.route` gives "kernel" (use_pallas_kernel, the
-        reference's gate V % 1024 == 0, and the kernels' D = 512): flatten,
+        reference's gate V % 1024 == 0, and a kernel width, D in
+        ce_kernel.D_MODELS): flatten,
         the head on [T, D], then the fused tied CE (K3/K3b on the card,
         their plain versions on the CPU). Otherwise the chunked projection
         + CE; inside the gate at another width that runs on the CPU only
@@ -189,6 +246,59 @@ class TransformerLanguageModel(nn.Module):
         return self.shifted_labels(token_ids)
 
     def init_caches(self, batch_size: int, max_length: int) -> list:
+        """Each layer's decode cache: the block ring when sparse, the
+        dense [B, H, max_length, Dh] buffers otherwise."""
         return [layer.init_cache(batch_size, max_length, self.device,
                                  self.dtype)
                 for layer in self.decoder_layers]
+
+    # -- the Transformer LM's own forwards ---------------------------------
+    def forward_hidden(self, token_ids, deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None,
+                       return_kv: bool = False):
+        """The decoder stack's output [B, L, D] before the head (the
+        chunked-loss entry point). token_ids: [B, L] (0 = pad, the key
+        mask); deterministic False applies the input dropout and each
+        layer's FFN dropout, their masks drawn from `generator` in that
+        order. With return_kv also each layer's head-major rotary (k, v),
+        the bulk-prefill cache seed."""
+        x = self.embed(token_ids, deterministic, generator)
+        mask = token_ids != 0
+        kvs = []
+        for layer in self.decoder_layers:
+            out = layer(x, mask, return_kv=return_kv,
+                        deterministic=deterministic, generator=generator)
+            if return_kv:
+                x, kv = out
+                kvs.append(kv)
+            else:
+                x = out
+        return (x, kvs) if return_kv else x
+
+    def forward(self, token_ids, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Logits [B, L, V] fp32 of the teacher-forced forward."""
+        return self.project(self.forward_hidden(token_ids, deterministic,
+                                                generator))
+
+    def decode_step(self, token, caches: list, index: int):
+        """One decode step, every row at position `index` (int): token
+        [B] -> (fp32 logits [B, V], caches). Caches update in place."""
+        x = self.embed(token[:, None])
+        for layer, cache in zip(self.decoder_layers, caches):
+            x, _ = layer.decode(x, cache, index)
+        return self.project(x[:, 0]), caches
+
+    def decode_step_rowwise(self, token, caches: list, index):
+        """One decode step at PER-ROW positions index [B] (the
+        continuous-batching step, serving.py): token [B] -> (fp32 logits
+        [B, V], caches). Caches update in place."""
+        x = self.embed(token[:, None])
+        for layer, cache in zip(self.decoder_layers, caches):
+            x, _ = layer.decode_rowwise(x, cache, index)
+        return self.project(x[:, 0]), caches
+
+
+for _name in UNPORTED:
+    setattr(TransformerLanguageModel, _name, _unported(_name))
+del _name

@@ -44,6 +44,8 @@ def z_projection_module(hp: TransformerVAEHparams) -> nn.Linear:
 
 
 class TransformerVAE(TransformerLanguageModel):
+    JAX_MODULE = "sparse_vae_tpu/models/transformer_vae.py"
+
     def __init__(self, hparams: TransformerVAEHparams):
         super().__init__(hparams)
         self.z_projections = nn.ModuleList([

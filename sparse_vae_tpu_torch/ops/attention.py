@@ -3,9 +3,10 @@
 
 Ported: the masks, `dense_attention`, head split/merge, and `Attention`'s
 projection (with the learned-query bank), full-sequence self- and
-cross-attention (the blocked sparse path, its masked-dense fallback and
-the dense non-causal masked path the Perceiver takes), the block-ring and
-dense decode caches with `_decode_ring` and `decode_rowwise`, plus
+cross-attention (the blocked sparse path, its masked-dense fallback, the
+dense causal path and the dense non-causal masked path the Perceiver
+takes), the block-ring and dense decode caches with `decode` (one
+position for every row), `_decode_ring` and `decode_rowwise`, plus
 `row_cache_write` and `fill_cache_row`, the packed-layout branch
 (Dh = 128: the projections feed K5/K5b without head-major copies), and the
 sequence-parallel branch (`Attention._sp_call`, parallel/sp.py: the halo
@@ -32,6 +33,8 @@ from .sliding_window_attention import (SlidingWindowAttentionPackedFn,
                                        split_heads)
 
 NEG_INF = -1e9
+# The JAX package's dense causal kernel gate: lq a multiple of this.
+DENSE_KERNEL_MULTIPLE = 512
 
 
 def row_cache_write(buf, idx, val):
@@ -113,6 +116,18 @@ class Attention(nn.Module):
     forward. Inside a gate at a shape no CUDA kernel takes, the plain
     forward runs on the CPU and a CUDA input raises.
 
+    Dense causal self-attention (sparse=False, causal, its own queries: the
+    Transformer LM's runs and a Transformer-VAE built with
+    sparse_self_attention=False, such as the dense-benchmark preset's)
+    takes the JAX package's flash-attention gate: use_kernel, lq == lk and
+    lq % 512 == 0. There the JAX package calls the JAX library's Pallas
+    flash attention on the TPU; here the same function is K1/K2 at a causal
+    band of lq / 128 blocks of 128 without a [CLS] slot, which is dense
+    causal attention with the key mask as per-row lengths (`_dense_route`;
+    its launches count in `swa_kernel`'s dense counters). Outside that
+    gate the masked dense path runs, as in JAX. At pad query positions the
+    two paths differ, as JAX's two do: the losses mask those positions.
+
     Sequence parallelism: once `seq_group` is set (parallel.sp.sp_localize)
     the keys are this rank's slice of a length-sharded document and
     `_sp_call` runs instead. sp_replicated_q declares that the queries are
@@ -177,8 +192,12 @@ class Attention(nn.Module):
         return self.output_linear(merged)
 
     def _route(self, lq: int, lk: int) -> Optional[str]:
-        """None for the dense masked path; else the blocked sparse path's
+        """None for the dense masked path; "dense" or "dense_plain" for the
+        dense causal gate (`_dense_route`); else the blocked sparse path's
         `swa_kernel.route` ("outside" with the kernels off)."""
+        dense = self._dense_route(lq, lk)
+        if dense is not None:
+            return dense
         if not (self.sparse and not self.num_queries and lq == lk
                 and lq % self.block_size == 0):
             return None
@@ -186,6 +205,20 @@ class Attention(nn.Module):
             return "outside"
         return swa_kernel.route(self.d_model // self.num_heads,
                                 self.block_size)
+
+    def _dense_route(self, lq: int, lk: int) -> Optional[str]:
+        """The dense causal gate of the JAX package (ops/attention.py: its
+        flash-attention branch): dense, causal, its own queries, kernels
+        on, lq == lk and lq % DENSE_KERNEL_MULTIPLE == 0. Inside it
+        "dense" at K1/K2's head-major Dh, else "dense_plain" (the plain
+        version on the CPU; `take_plain_route` raises on the card). None
+        outside it."""
+        if not (not self.sparse and self.causal and not self.num_queries
+                and self.use_kernel and lq == lk
+                and lq % DENSE_KERNEL_MULTIPLE == 0):
+            return None
+        head_dim = self.d_model // self.num_heads
+        return "dense" if head_dim == swa_kernel.HEAD_DIM else "dense_plain"
 
     def _packed_forward(self, x, kv_mask, return_kv: bool):
         """Self-attention through K5/K5b on the packed [B, L, H * Dh]
@@ -310,15 +343,22 @@ class Attention(nn.Module):
                             (x if x_kv is None else x_kv).shape[1])
         if route == "packed":
             return self._packed_forward(x, kv_mask, return_kv)
-        if route == "plain":
-            swa_kernel.take_plain_route(x.device,
-                                        self.d_model // self.num_heads,
-                                        self.block_size)
+        block = swa_kernel.BLOCK_SIZE   # the dense route's band block
+        if route in ("plain", "dense_plain"):
+            swa_kernel.take_plain_route(
+                x.device, self.d_model // self.num_heads,
+                block if route == "dense_plain" else self.block_size)
         q, k, v = self._project(x, x_kv=x_kv)
         lq, lk = q.shape[2], k.shape[2]
         own_queries = not self.num_queries
         mask = None
-        if route is not None:
+        if route in ("dense", "dense_plain"):
+            # Dense causal attention as a causal band of every block.
+            out = sliding_window_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), kv_mask,
+                window_size=lq // block, block_size=block, causal=True,
+                include_cls=False, dense=True)
+        elif route is not None:
             out = sliding_window_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), kv_mask,
                 window_size=self.window_size, block_size=self.block_size,
@@ -397,13 +437,23 @@ class Attention(nn.Module):
         return self._finalize(out), cache
 
     def decode(self, x_t, cache: dict, index: int):
-        """One-token attention (x_t: [B, 1, D]) at position `index` (int)
-        against the block-ring cache."""
+        """One-token attention (x_t: [B, 1, D]) at position `index` (int),
+        every row at it: against the block-ring cache when sparse, else the
+        dense cache, whose position `index` is written and whose positions
+        <= index are attended."""
         q, k_t, v_t = self._project(x_t, index)
-        if "k_ring" not in cache:
-            raise NotImplementedError("the scalar decode is ported for the "
-                                      "sparse ring cache only")
-        return self._decode_ring(q, k_t, v_t, cache, index)
+        if "k_ring" in cache:
+            return self._decode_ring(q, k_t, v_t, cache, index)
+        cache["k"][:, :, index] = k_t[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, :, index] = v_t[:, :, 0].to(cache["v"].dtype)
+        positions = torch.arange(cache["k"].shape[2], device=q.device)
+        valid = positions <= index
+        if self.sparse:
+            qb, kb = index // self.block_size, positions // self.block_size
+            valid = valid & ((kb > qb - self.window_size) | (kb == 0))
+        out = dense_attention(q, cache["k"], cache["v"],
+                              valid[None, None, None, :])
+        return self._finalize(out), cache
 
     def decode_rowwise(self, x_t, cache: dict, index):
         """One-token attention with PER-ROW positions index [B] (int64):

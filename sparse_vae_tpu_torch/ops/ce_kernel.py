@@ -24,14 +24,19 @@ from . import cuda_lib
 
 # Kernel launches in this process (raised only where a kernel launches):
 # K3 in `fwd_launches`, K3b (the chunked kernels of one backward) in
-# `bwd_launches`. `plain_routes` counts CPU losses inside the JAX
+# `bwd_launches`, at D = 512; at D = 256 in `fwd_launches_d256` and
+# `bwd_launches_d256` instead. `plain_routes` counts CPU losses inside the JAX
 # package's fused-CE gate at a width the kernels do not take (`route` ==
 # "plain"); `take_plain_route` raises it.
 fwd_launches = 0
 bwd_launches = 0
+fwd_launches_d256 = 0
+bwd_launches_d256 = 0
 plain_routes = 0
 
-D_MODEL = 512
+# The model widths the kernels are instantiated at: the Transformer-VAE's
+# and the Transformer LM's (csrc/tied_ce.cu, csrc/tied_ce_bwd.cu).
+D_MODELS = (256, 512)
 # K3's vocab tiles: 128 rows of the table each.
 VOCAB_TILE = 128
 # K3b: its output tiles are 128 tokens by 128 vocab rows, and its bf16
@@ -45,8 +50,8 @@ def route(tied: bool, vocab_size: int, d_model: int) -> str:
     package dispatches it (models/transformer_lm.py `sequence_nll`: the
     fused kernel for a tied output table with V % 1024 == 0):
 
-    - "kernel": inside that gate at the K3/K3b instantiation (D = 512;
-      V % 1024 == 0 covers the kernels' V % 128);
+    - "kernel": inside that gate at a K3/K3b instantiation (D in
+      D_MODELS; V % 1024 == 0 covers the kernels' V % 128);
     - "plain": inside the gate at another width: the plain version on the
       CPU, counted in `plain_routes`; on the card it raises
       (`take_plain_route`);
@@ -55,7 +60,7 @@ def route(tied: bool, vocab_size: int, d_model: int) -> str:
     """
     if not (tied and vocab_size % 1024 == 0):
         return "outside"
-    return "kernel" if d_model == D_MODEL else "plain"
+    return "kernel" if d_model in D_MODELS else "plain"
 
 
 def take_plain_route(device: torch.device, d_model: int):
@@ -67,7 +72,7 @@ def take_plain_route(device: torch.device, d_model: int):
     if device.type != "cpu":
         raise NotImplementedError(
             f"no CUDA instantiation of the fused tied CE kernels at d_model "
-            f"{d_model}: K3/K3b take D = {D_MODEL}")
+            f"{d_model}: K3/K3b take D in {D_MODELS}")
     plain_routes += 1
 
 
@@ -129,9 +134,9 @@ def _check_cuda(kernel, g, table, bias):
         raise TypeError(f"the {kernel} kernel takes bf16 g and table")
     if bias.dtype != torch.float32:
         raise TypeError(f"the {kernel} kernel takes an fp32 bias")
-    if g.shape[1] != D_MODEL or table.shape[0] % VOCAB_TILE:
-        raise ValueError(f"the {kernel} kernel takes D = {D_MODEL} and a "
-                         f"vocab that is a multiple of {VOCAB_TILE}, got "
+    if g.shape[1] not in D_MODELS or table.shape[0] % VOCAB_TILE:
+        raise ValueError(f"the {kernel} kernel takes D in {D_MODELS} and "
+                         f"a vocab that is a multiple of {VOCAB_TILE}, got "
                          f"{tuple(table.shape)}")
     if not all(t.is_contiguous() for t in (g, table, bias)):
         raise ValueError(f"the {kernel} kernel takes contiguous inputs")
@@ -140,9 +145,9 @@ def _check_cuda(kernel, g, table, bias):
 def tied_ce_fwd(g, table, bias, labels):
     """K3. g [T, D], table [V, D], bias [V], labels [T] (int) ->
     (nll [T] fp32, lse [T] fp32). CUDA: bf16 g and table, fp32 bias,
-    D = 512, V % 128 == 0, contiguous; the vocab split `fwd_splits` ways
-    over the card's SMs."""
-    global fwd_launches
+    D in D_MODELS, V % 128 == 0, contiguous; the vocab split `fwd_splits`
+    ways over the card's SMs."""
+    global fwd_launches, fwd_launches_d256
     _check(g, table, bias, labels)
     if not g.is_cuda:
         return tied_ce_fwd_plain(g, table, bias, labels)
@@ -161,14 +166,18 @@ def tied_ce_fwd(g, table, bias, labels):
                                part.data_ptr(), t, v, g.shape[1], splits,
                                stream)
     cuda_lib.check(code, "tied_ce_fwd")
-    fwd_launches += 1
+    if g.shape[1] == 256:
+        fwd_launches_d256 += 1
+    else:
+        fwd_launches += 1
     return lse - _label_logit(g, table, bias, labels), lse
 
 
 # K3's grid: CTAs of FWD_ROWS tokens, each over VOCAB_TILE-row tiles of a
-# 1/splits share of the vocab. A CTA's fixed cost (loading its 128 KB of
-# g, filling the pipeline, merging) is about FWD_CTA_COST_TILES tiles'
-# time.
+# 1/splits share of the vocab. A CTA's fixed cost (loading its 128 x D
+# of g, filling the pipeline, merging) is about FWD_CTA_COST_TILES tiles'
+# time at either width: a tile's products and the g rows both scale with
+# D.
 FWD_ROWS = 128
 FWD_MAX_SPLITS = 16
 FWD_CTA_COST_TILES = 2
@@ -198,9 +207,9 @@ def fwd_splits(tokens: int, vocab: int, sms: int) -> int:
 def tied_ce_bwd(g, table, bias, labels, lse, dnll):
     """K3b. (dg, dtable, dbias) of sum(nll * dnll) given the forward's lse
     [T] fp32 and dnll [T] fp32, in the dtypes of g, table and bias. CUDA:
-    bf16 g and table, fp32 bias, lse and dnll, D = 512, V % 128 == 0,
-    contiguous; the kernels run through `tied_ce_bwd_chunked`."""
-    global bwd_launches
+    bf16 g and table, fp32 bias, lse and dnll, D in D_MODELS, V % 128 ==
+    0, contiguous; the kernels run through `tied_ce_bwd_chunked`."""
+    global bwd_launches, bwd_launches_d256
     _check(g, table, bias, labels)
     if lse.shape != labels.shape or dnll.shape != labels.shape:
         raise ValueError("lse and dnll must be [T]")
@@ -215,7 +224,10 @@ def tied_ce_bwd(g, table, bias, labels, lse, dnll):
     if not (lse.is_contiguous() and dnll.is_contiguous()):
         raise ValueError("the K3b kernels take contiguous lse and dnll")
     grads = tied_ce_bwd_chunked(g, table, bias, labels, lse, dnll)
-    bwd_launches += 1
+    if g.shape[1] == 256:
+        bwd_launches_d256 += 1
+    else:
+        bwd_launches += 1
     return grads
 
 
@@ -223,7 +235,9 @@ def bwd_chunk(tokens: int, vocab: int,
               scratch_bytes: int = DL_SCRATCH_BYTES) -> int:
     """Tokens per chunk of `tied_ce_bwd_chunked`: the fewest chunks whose
     bf16 logit gradients [C, V] fit in `scratch_bytes`, balanced, C a
-    multiple of BWD_TILE (14,720 at T = 102,400, V = 32,768: 7 chunks)."""
+    multiple of BWD_TILE (14,720 at T = 102,400, V = 32,768: 7 chunks).
+    The scratch holds logit gradients only, so the chunk does not depend
+    on D."""
     tiles = -(-tokens // BWD_TILE)
     fit = max(1, scratch_bytes // (BWD_TILE * vocab * 2))
     chunks = -(-tiles // fit)

@@ -16,8 +16,12 @@ COUNTERS = {
     "swa_bwd_packed": (swa_kernel, "packed_bwd_launches"),  # K5b
     "sp_windowed_attention": (swa_kernel, "sp_launches"),   # K6
     "sp_windowed_attention_bwd": (swa_kernel, "sp_bwd_launches"),
+    "swa_fwd_dense": (swa_kernel, "dense_launches"),        # K1, dense
+    "swa_bwd_dense": (swa_kernel, "dense_bwd_launches"),    # K2, dense
     "tied_ce_fwd": (ce_kernel, "fwd_launches"),             # K3
     "tied_ce_bwd": (ce_kernel, "bwd_launches"),             # K3b
+    "tied_ce_fwd_d256": (ce_kernel, "fwd_launches_d256"),   # K3, D = 256
+    "tied_ce_bwd_d256": (ce_kernel, "bwd_launches_d256"),   # K3b, D = 256
     "nucleus_select": (select_kernel, "launches"),          # K4
     "swa_plain_routes": (swa_kernel, "plain_routes"),
     "ce_plain_routes": (ce_kernel, "plain_routes"),

@@ -336,38 +336,42 @@ def sliding_window_attention_packed_bwd_plain(q, k, v, lengths, lse, out, do,
 class SlidingWindowAttentionFn(torch.autograd.Function):
     """Sliding-window + [CLS] attention with its backward: K1 forward and
     K2 backward for CUDA tensors, the plain versions for CPU tensors.
-    lengths: [B] int32 valid key prefix per row."""
+    lengths: [B] int32 valid key prefix per row. dense: the call is the
+    dense causal route (ops/attention.py), whose launches count apart."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window_size, block_size, causal,
-                include_cls):
+                include_cls, dense=False):
         from .swa_kernel import swa_fwd
         out, lse = swa_fwd(q, k, v, lengths, window_size=window_size,
                            block_size=block_size, causal=causal,
-                           include_cls=include_cls)
+                           include_cls=include_cls, dense=dense)
         ctx.save_for_backward(q, k, v, lengths, out, lse)
-        ctx.options = (window_size, block_size, causal, include_cls)
+        ctx.options = (window_size, block_size, causal, include_cls, dense)
         return out
 
     @staticmethod
     def backward(ctx, do):
         from .swa_kernel import swa_bwd
         q, k, v, lengths, out, lse = ctx.saved_tensors
-        window_size, block_size, causal, include_cls = ctx.options
+        window_size, block_size, causal, include_cls, dense = ctx.options
         dq, dk, dv = swa_bwd(q, k, v, lengths, lse, out, do.contiguous(),
                              window_size=window_size, block_size=block_size,
-                             causal=causal, include_cls=include_cls)
-        return dq, dk, dv, None, None, None, None, None
+                             causal=causal, include_cls=include_cls,
+                             dense=dense)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
                              block_size: int = 128, causal: bool = True,
                              include_cls: bool = True,
-                             use_kernel: bool = True):
+                             use_kernel: bool = True, dense: bool = False):
     """Dispatcher: `SlidingWindowAttentionFn` (K1/K2 for CUDA tensors, their
     plain versions for CPU tensors), or autograd of the plain forward when
     use_kernel is False. On the Function's path kv_mask must be a
-    right-padding prefix mask (the kernels take per-row valid lengths)."""
+    right-padding prefix mask (the kernels take per-row valid lengths).
+    dense: the dense causal route (a causal band of every block, no [CLS]
+    slot), counted apart from the sliding-window launches."""
     if not use_kernel:
         return sliding_window_attention_plain(
             q, k, v, kv_mask, window_size=window_size,
@@ -378,7 +382,8 @@ def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
     else:
         lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
     return SlidingWindowAttentionFn.apply(q, k, v, lengths, window_size,
-                                          block_size, causal, include_cls)
+                                          block_size, causal, include_cls,
+                                          dense)
 
 
 class SlidingWindowAttentionPackedFn(torch.autograd.Function):

@@ -31,7 +31,9 @@ from .sliding_window_attention import (
 # Kernel launches in this process (raised only where a kernel launches):
 # K1 in `launches`, K2 in `bwd_launches`, K5 in `packed_launches`, K5b in
 # `packed_bwd_launches`; K1 and K2 launched for K6's banded branch
-# (`sp=True`) in `sp_launches` and `sp_bwd_launches` instead.
+# (`sp=True`) in `sp_launches` and `sp_bwd_launches` instead, and for the
+# dense causal route (`dense=True`, ops/attention.py) in `dense_launches`
+# and `dense_bwd_launches`.
 # `plain_routes` counts CPU attention calls inside the JAX package's
 # kernel gates at a shape no CUDA instantiation takes (`route` ==
 # "plain"); `take_plain_route` raises it.
@@ -41,6 +43,8 @@ packed_launches = 0
 packed_bwd_launches = 0
 sp_launches = 0
 sp_bwd_launches = 0
+dense_launches = 0
+dense_bwd_launches = 0
 plain_routes = 0
 
 # The CUDA instantiations: block 128, and Dh 64 head-major (K1/K2) or
@@ -163,7 +167,7 @@ def _ptr(t) -> int:
 def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
             include_cls: bool = True, q_off: int = 0, cls=None,
-            sp: bool = False):
+            sp: bool = False, dense: bool = False):
     """Sliding-window + [CLS] attention forward.
 
     q: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D] (q_off > 0:
@@ -174,9 +178,11 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
     that every query of a banded shard also attends (K6's forward), its
     valid keys cls_len; lse is then the joint one of the band and the
     block. CUDA: bf16, D = 64, block_size = 128, contiguous. sp: the launch
-    is K6's banded branch (ops/sp_kernel.py) and counts as K6's.
+    is K6's banded branch (ops/sp_kernel.py) and counts as K6's; dense: it
+    is the dense causal route (ops/attention.py) and counts in
+    `dense_launches`.
     """
-    global launches, sp_launches
+    global launches, sp_launches, dense_launches
     _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
            cls)
     if not q.is_cuda:
@@ -204,6 +210,8 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
     cuda_lib.check(code, "swa_fwd")
     if sp:
         sp_launches += 1
+    elif dense:
+        dense_launches += 1
     else:
         launches += 1
     return out, lse
@@ -212,7 +220,7 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
 def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
             include_cls: bool = True, q_off: int = 0, cls=None,
-            sp: bool = False):
+            sp: bool = False, dense: bool = False):
     """Sliding-window + [CLS] attention backward.
 
     q/out/do: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D];
@@ -222,10 +230,10 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
     include_cls: the broadcast [CLS] block that every query of a banded
     shard also attends (K6's backward), its valid keys cls_len, under the
     joint lse and the merged out; then returns (dq, dk, dv, dcls_k,
-    dcls_v). CUDA: bf16, D = 64, block_size = 128, contiguous. sp: as in
-    `swa_fwd`.
+    dcls_v). CUDA: bf16, D = 64, block_size = 128, contiguous. sp and
+    dense: as in `swa_fwd`.
     """
-    global bwd_launches, sp_bwd_launches
+    global bwd_launches, sp_bwd_launches, dense_bwd_launches
     _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
            cls)
     if out.shape != q.shape or do.shape != q.shape:
@@ -274,6 +282,8 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
     cuda_lib.check(code, "swa_bwd")
     if sp:
         sp_bwd_launches += 1
+    elif dense:
+        dense_bwd_launches += 1
     else:
         bwd_launches += 1
     return (dq, dk, dv, dcls_k, dcls_v) if broadcast else (dq, dk, dv)

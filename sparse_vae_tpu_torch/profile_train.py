@@ -1,14 +1,19 @@
 """Where the training step's time goes on the card:
 
     python -m sparse_vae_tpu_torch.profile_train [run=real-prose-vae-r5]
-        [heads=N] [batch=8] [seq=12800] [accumulate=1] [steps=5]
-        [profiled=3]
+        [heads=N | geometry=<run>] [batch=8] [seq=12800] [accumulate=1]
+        [steps=5] [profiled=3]
 
-Loads the run in its training form (fp32 master parameters, bf16 compute,
-kernels on) on CUDA, or with `heads=N` builds the JAX train bench's model
-at N heads from the JAX initialisation with no archive (train.py
-`bench_hparams`; heads=4 is the Dh = 128 geometry, whose decoder
-attention runs the packed kernels K5/K5b), and trains on the JAX train
+Loads the run (a Transformer-VAE or a Transformer LM run with weights)
+in its training form (fp32 master parameters, bf16 compute, kernels on)
+on CUDA, or with `heads=N` builds the JAX train bench's model at N heads
+from the JAX initialisation with no archive (train.py `bench_hparams`;
+heads=4 is the Dh = 128 geometry, whose decoder attention runs the
+packed kernels K5/K5b), or with `geometry=<run>` the model of that run's
+meta.json hparams from the JAX initialisation (train.py `run_hparams`:
+`geometry=real-prose-lm-r4 batch=14 seq=3584` is the dense Transformer
+LM at the preset's 50,000-token batches on full rows, K1/K2 on the dense
+causal route and K3/K3b at D = 512), and trains on the JAX train
 bench's traffic
 (bench.py): every row a full document of `seq` random ids, so every slot
 is a real token. After two warm-up steps it times `steps` optimizer steps
@@ -40,7 +45,8 @@ TRACE_ATTEMPTS = 5
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
-KEYS = {"run", "heads", "batch", "seq", "accumulate", "steps", "profiled"}
+KEYS = {"run", "heads", "geometry", "batch", "seq", "accumulate", "steps",
+        "profiled"}
 
 
 def _args(argv):
@@ -50,7 +56,10 @@ def _args(argv):
         raise SystemExit(f"unknown keys {sorted(unknown)}; known: "
                          f"{sorted(KEYS)}")
     heads = int(extra["heads"]) if "heads" in extra else None
+    if heads is not None and "geometry" in extra:
+        raise SystemExit("give heads= or geometry=, not both")
     return (extra.get("run", "real-prose-vae-r5"), heads,
+            extra.get("geometry"),
             int(extra.get("batch", 8)), int(extra.get("seq", 12800)),
             int(extra.get("accumulate", 1)), int(extra.get("steps", 5)),
             int(extra.get("profiled", 3)))
@@ -119,20 +128,24 @@ def per_call_device_ms(averages, iters: int):
 
 
 def main(argv) -> int:
-    from .train import bench_hparams, build, build_from_hparams
+    from .train import bench_hparams, build, build_from_hparams, run_hparams
     from .training.data import synthetic_batch
     from .training.train_step import train_step
 
     if not torch.cuda.is_available():
         print("profile_train needs a CUDA card", file=sys.stderr)
         return 1
-    run, heads, b, seq, accumulate, steps, profiled = _args(argv)
+    run, heads, geometry, b, seq, accumulate, steps, profiled = _args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    if heads is None:
+    if geometry is not None:
+        run = f"{geometry}'s hparams (JAX initialisation, seed 0)"
+        model, objective, optimizer, _ = build_from_hparams(
+            run_hparams(geometry), torch.Generator().manual_seed(0), dev)
+    elif heads is None:
         model, objective, optimizer, accumulate = build(run, dev, accumulate)
     else:
         run = f"bench.py --heads {heads} (JAX initialisation, seed 0)"

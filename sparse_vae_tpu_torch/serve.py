@@ -1,12 +1,14 @@
 """Online generation server on the port:
 
-    python -m sparse_vae_tpu_torch.serve transformer-vae <run-name>
+    python -m sparse_vae_tpu_torch.serve {transformer-vae|transformer-lm}
+        <run-name>
         [port=8600] [batch_size=64] [max_length=512] [slice_steps=64]
         [fused_select=1] [temperature=1.0] [top_p=0.9] [top_k=0]
         [repetition_penalty=1.2] [device=cuda]
 
-Loads runs/<run-name>/ and serves it behind the continuous-batching HTTP
-API (server.py). The keys are the JAX package's serve.py keys, except
+Loads runs/<run-name>/ (a run of that experiment: real-prose-vae-r5,
+draft-tlm-r5, ...) and serves it behind the continuous-batching HTTP API
+(server.py). The keys are the JAX package's serve.py keys, except
 `step` and `params_dtype`: the archive holds one set of params, cast to the
 run's compute dtype. Requests carry "prompt_tokens" ids; text prompts wait
 for the tokenizer.
@@ -32,9 +34,6 @@ def main(args) -> int:
         print(__doc__)
         return 1
     experiment, name = args[1], args[2]
-    if experiment != "transformer-vae":
-        raise SystemExit(f"model {experiment!r} is not ported; "
-                         "transformer-vae is")
     extra = dict(kv.split("=", 1) for kv in args[3:])
     unknown = set(extra) - KEYS
     if unknown:
@@ -46,7 +45,10 @@ def main(args) -> int:
     slice_steps = int(extra.get("slice_steps", 64))
     fused_select = extra.get("fused_select", "1") == "1"
 
-    model, _, _ = load_run(name, device=extra.get("device", "cuda"))
+    model, _, meta = load_run(name, device=extra.get("device", "cuda"))
+    if meta.get("experiment") != experiment:
+        raise SystemExit(f"run {name!r} is a {meta.get('experiment')!r} "
+                         f"run, not {experiment!r}")
     sampling = SamplingParams(
         temperature=float(extra.get("temperature", 1.0)),
         top_p=float(extra.get("top_p", 0.9)),

@@ -6,14 +6,19 @@ RowDecodeState and the KV caches — and runs bounded decode slices; HTTP
 handler threads only enqueue requests and wait on futures:
 
   client ->  POST /v1/generate {"max_tokens": .., "seed": ..}   (blocks)
-  engine ->  admit queued requests into dead rows (fresh z, per-row
-             row_max), run one <= slice_steps slice, harvest finished
-             rows, resolve their futures.
+  engine ->  admit queued requests into dead rows (fresh z for a VAE,
+             per-row row_max), run one <= slice_steps slice, harvest
+             finished rows, resolve their futures.
 
-Requests may carry a prompt as "prompt_tokens" ids. A prompt of at least
-`bulk_prefill_min` positions fills its row's caches with ONE teacher-forced
-forward (`fill_cache_row`), which runs the K1 sliding-window kernel on the
-card; a shorter prompt is forced token by token through the decode path.
+It serves the Transformer-VAE (each request draws its z) and the
+Transformer LM (no z). Requests may carry a prompt as "prompt_tokens"
+ids. A prompt of at least `bulk_prefill_min` positions fills its row's
+caches with ONE teacher-forced forward (`fill_cache_row`), padded to
+max(16, attn_block_size) positions as in the JAX package; on the card it
+runs K1 where the attention's kernel gate admits the padded length (the
+sliding-window path at a block multiple, the dense causal path at a
+multiple of 512); a shorter prompt is forced token by token through the
+decode path.
 Text prompts ("prompt") need a tokenizer, which the port does not have yet.
 
 Endpoints:
@@ -82,10 +87,10 @@ class ServeEngine:
         # Per-request overrides ride the slice as [B] tensors, except under
         # the fused selection kernel, which takes scalar parameters.
         self._use_overrides = not fused_select
-        rowwise_family(module)
+        self.is_vae = rowwise_family(module)
         self._slice_fn = make_slice_fn(module, sampling, end_token,
                                        slice_steps, fused_select)
-        self._latent = module.hparams.latent_depth
+        self._latent = getattr(module.hparams, "latent_depth", 0)
         # Prompts of >= bulk_prefill_min positions are prefilled by one
         # forward, padded to a block multiple so the sparse forward takes
         # its blocked path.
@@ -192,9 +197,13 @@ class ServeEngine:
 
     # -- worker thread ---------------------------------------------------
     def _prefill(self, caches, row: int, ids, length: int, z):
-        """Bulk prefill: one teacher-forced forward, then fill_cache_row
-        writes the admitted row of every layer's cache."""
-        _, kvs = self.module.reconstruct_hidden(ids, z, return_kv=True)
+        """Bulk prefill: one teacher-forced forward (z injected for a VAE),
+        then fill_cache_row writes the admitted row of every layer's
+        cache."""
+        if self.is_vae:
+            _, kvs = self.module.reconstruct_hidden(ids, z, return_kv=True)
+        else:
+            _, kvs = self.module.forward_hidden(ids, return_kv=True)
         for cache, (k, v) in zip(caches, kvs):
             fill_cache_row(cache, row, k[0], v[0], length)
 
@@ -280,7 +289,8 @@ class ServeEngine:
                 rp_h[row] = (s.repetition_penalty
                              if req.repetition_penalty is None
                              else req.repetition_penalty)
-                z_h[row] = self._draw_z(req.seed)
+                if self.is_vae:
+                    z_h[row] = self._draw_z(req.seed)
                 if 1 + p >= self.bulk_prefill_min:
                     # One forward fills positions 0..p; decoding resumes at
                     # p + 1.
@@ -304,7 +314,7 @@ class ServeEngine:
                     live=on_device(self._live_host), rng=state.rng,
                     row_max=on_device(row_max_h),
                     prompt_len=on_device(prompt_len_h))
-                z = on_device(z_h)
+                z = on_device(z_h) if self.is_vae else None
                 if self._use_overrides:
                     overrides = {"temperature": on_device(temp_h),
                                  "top_p": on_device(topp_h),

@@ -16,28 +16,37 @@ from .models.generation import (RowDecodeState, SamplingParams,
 
 
 def rowwise_family(module) -> bool:
-    """Whether `module` supports per-row decode; returns is_vae, which is
-    always True here: the port has the Transformer-VAE's row-wise step
-    only, and any other model raises."""
-    if not hasattr(type(module), "decode_step_z_rowwise"):
+    """Whether `module` supports per-row decode (continuous batching, the
+    serving engine); returns is_vae: True for the Transformer-VAE
+    (`decode_step_z_rowwise`), False for the Transformer LM
+    (`decode_step_rowwise`). Any other model raises."""
+    is_vae = hasattr(type(module), "decode_step_z_rowwise")
+    if not is_vae and not hasattr(type(module), "decode_step_rowwise"):
         raise ValueError(
-            f"{type(module).__name__} has no row-wise decode step in the "
-            "port — continuous batching serves the Transformer-VAE")
-    return True
+            f"{type(module).__name__} has no row-wise decode step — "
+            "continuous batching serves the transformer families")
+    return is_vae
 
 
 def make_slice_fn(module, sampling: SamplingParams, end_token: int,
                   slice_steps: int, fused_select: bool):
-    """The bounded decode slice of a Transformer-VAE:
+    """The bounded decode slice of a Transformer-VAE or a Transformer LM:
     slice_fn(state, caches, z, overrides) -> (state, caches), with z
-    [B, 1, latent_depth] per row. Caches are updated in place."""
+    [B, 1, latent_depth] per row for the VAE and None for the LM. Caches
+    are updated in place."""
+    is_vae = rowwise_family(module)
 
     @torch.inference_mode()
     def slice_fn(state: RowDecodeState, caches, z,
                  overrides: Optional[dict] = None):
         def logits_fn(st: RowDecodeState, caches):
-            logits, caches = module.decode_step_z_rowwise(
-                prev_tokens_rowwise(st), caches, st.index - 1, z)
+            prev, pos = prev_tokens_rowwise(st), st.index - 1
+            if is_vae:
+                logits, caches = module.decode_step_z_rowwise(
+                    prev, caches, pos, z)
+            else:
+                logits, caches = module.decode_step_rowwise(prev, caches,
+                                                            pos)
             return logits.float(), caches
 
         return decode_loop_rowwise(state, logits_fn, caches, sampling,

@@ -1,5 +1,6 @@
-"""Importance-weighted NLL over the test split (the port of the JAX
-package's test.py):
+"""The test split's NLL (the port of the JAX package's test.py):
+importance-weighted for the Transformer-VAE, plain for the Transformer
+LM:
 
     python -m sparse_vae_tpu_torch.test <experiment> <run-name>
         [data.k=v ...] [num_samples=N] [num_iter=M] [step=<N>|best]
@@ -12,14 +13,18 @@ unless `step` says otherwise) and iterates the test split of its data
 `epoch_batches("test", seed=0)`). For each batch with a real row it
 prints the IWAE NLL per token, averaged over the batch's real
 documents, and the running average; then the average over the batches.
-Each document's log p(x) is `estimate_log_prob_iw` over num_samples
-posterior samples in num_iter chunks (100 x 100 by default, the
-reference's transformer_vae.py:76), through `reconstruct_ll`: no
-[B, L, V] logits. Batch i's noise comes from a generator seeded with i.
+For the Transformer-VAE each document's log p(x) is
+`estimate_log_prob_iw` over num_samples posterior samples in num_iter
+chunks (100 x 100 by default, the reference's transformer_vae.py:76),
+through `reconstruct_ll`: no [B, L, V] logits. Batch i's noise comes from
+a generator seeded with i. For the Transformer LM a batch's NLL per token
+is its ARObjective.eval_stats, nll_sum over token_count (num_samples and
+num_iter are read and unused, as in the JAX package, where num_iter
+defaults to 20 outside the Transformer-VAE).
 
-It runs on the card unless device=cpu is given. The Transformer LM and
-the LSTM families are not ported: they raise NotImplementedError naming
-the reference code they need.
+It runs on the card unless device=cpu is given. The LSTM families are not
+ported: they raise NotImplementedError naming the reference code they
+need.
 """
 from __future__ import annotations
 
@@ -32,10 +37,6 @@ import torch
 from .models.vae import estimate_log_prob_iw
 
 UNPORTED = {
-    "transformer-lm": "ARObjective.eval_stats "
-                      "(sparse_vae_tpu/training/objectives.py:27) and the "
-                      "Transformer LM "
-                      "(sparse_vae_tpu/models/transformer_lm.py)",
     "lstm-lm": "ARObjective.eval_stats "
                "(sparse_vae_tpu/training/objectives.py:27) and the LSTM LM "
                "(sparse_vae_tpu/models/lstm_lm.py)",
@@ -59,6 +60,14 @@ def batch_nll(model, batch: dict, num_samples: int, num_iter: int,
     return float(per_tok.mean())
 
 
+def lm_batch_nll(model, objective, batch: dict) -> float:
+    """The NLL per real token of one batch through a language model's
+    objective: eval_stats' nll_sum over its token_count. Call under
+    torch.no_grad()."""
+    stats = objective.eval_stats(model, batch)
+    return float(stats["nll_sum"]) / max(float(stats["token_count"]), 1.0)
+
+
 def main(args) -> float:
     """args: sys.argv. Returns the average."""
     from . import load_checkpoint_for_name
@@ -73,11 +82,13 @@ def main(args) -> float:
     extra = dict(kv.split("=", 1) for kv in args[3:])
     device = extra.pop("device", "cuda")
     num_samples = int(extra.pop("num_samples", 100))
-    num_iter = int(extra.pop("num_iter", 100))
+    num_iter = int(extra.pop("num_iter",
+                             100 if experiment == "transformer-vae" else 20))
     step = extra.pop("step", None)  # None: the newest; "best"; or a step
 
-    model, _, _, _, meta = load_checkpoint_for_name(
+    model, _, objective, _, meta = load_checkpoint_for_name(
         experiment, name, step=step, device=device)
+    is_vae = experiment.endswith("vae")
     data_dot = [f"data.{k.removeprefix('data.')}={v}"
                 for k, v in extra.items()]
     cfg = assemble_config(experiment, data_dot)
@@ -93,9 +104,13 @@ def main(args) -> float:
             arrays = {k: torch.from_numpy(np.asarray(v)).to(model.device,
                                                             torch.int64)
                       for k, v in batch._asdict().items()}
-            generator = torch.Generator(device=model.device).manual_seed(i)
-            nll = batch_nll(model, arrays, num_samples, num_iter,
-                            generator=generator)
+            if is_vae:
+                generator = torch.Generator(
+                    device=model.device).manual_seed(i)
+                nll = batch_nll(model, arrays, num_samples, num_iter,
+                                generator=generator)
+            else:
+                nll = lm_batch_nll(model, objective, arrays)
             losses.append(nll)
             print(f"batch {i}: last={nll:.4f} "
                   f"avg={sum(losses) / len(losses):.4f}", flush=True)

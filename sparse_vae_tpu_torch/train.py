@@ -1,8 +1,9 @@
-"""Train the flagship Transformer-VAE on the port, in one of two forms.
+"""Train the Transformer-VAE or the Transformer LM on the port, in one of
+two forms.
 
 The training run, the JAX package's `train.py` CLI:
 
-    python -m sparse_vae_tpu_torch.train transformer-vae
+    python -m sparse_vae_tpu_torch.train {transformer-vae|transformer-lm}
         [model.k=v ...] [data.k=v ...] [trainer.k=v ...] [preset=<name>]
         [name=<run>] [from_checkpoint=<run>] [no_log=true]
         [anomaly_detection=true] [device=cuda]
@@ -11,18 +12,20 @@ assembles the configuration (cli.py: defaults, the dotlist, a preset),
 prepares the corpus (data/: tokenizer, token cache, length buckets) and
 runs `Trainer.fit` (training/trainer.py) from the JAX initialisation:
 validation, early stopping and checkpoints under
-sparse-vae-logs/transformer-vae/<name>/. from_checkpoint=<run> resumes
+sparse-vae-logs/<experiment>/<name>/. from_checkpoint=<run> resumes
 that run with its saved hparams as the base. It is selected when the
 argument after the experiment is absent or holds a `=`.
 
 The step run on an archived model's weights:
 
-    python -m sparse_vae_tpu_torch.train transformer-vae <run-name>
-        [steps=10] [batch=8] [seq=12800] [accumulate=<run's>] [seed=0]
-        [device=cuda] [sp=1]
+    python -m sparse_vae_tpu_torch.train {transformer-vae|transformer-lm}
+        <run-name> [steps=10] [batch=8] [seq=12800] [accumulate=<run's>]
+        [seed=0] [device=cuda] [sp=1]
 
-loads runs/<run-name>/ in its training form (fp32 master parameters, the
-run's compute dtype) and takes `steps` optimizer steps of `accumulate`
+loads runs/<run-name>/ (a run of that experiment, such as
+real-prose-vae-r5 or draft-tlm-r5) in its training form (fp32 master
+parameters, the run's compute dtype) with its objective (the ELBO or the
+next-token NLL) and takes `steps` optimizer steps of `accumulate`
 micro-batches of [batch, seq] seeded random token ids with ragged
 document lengths (training/data.py, the train bench's stand-in for a
 corpus). The optimizer is the run's: RAdam (or LAMB) behind the
@@ -30,13 +33,13 @@ global-norm clip on the cosine schedule, at the JAX trainer's lr
 (`run_lr`). Prints one JSON line of metrics per step.
 
 sp=N > 1 shards the length axis over N ranks (sequence parallelism,
-parallel/): lengths are padded to a multiple of N * window * block, the
-kernels are built once here, and N ranks are spawned, rank r on
-cuda:{r % device_count} (or all on the CPU with device=cpu). Under
-torchrun (RANK and WORLD_SIZE set) this process is one rank of that
-group instead, on cuda:{LOCAL_RANK % device_count}. Every rank runs with
-the same weights and the same global batches, holding positions
-r * L / N .. (r + 1) * L / N - 1. The process group is NCCL when every
+parallel/; the Transformer-VAE only): lengths are padded to a multiple
+of N * window * block, the kernels are built once here, and N ranks are
+spawned, rank r on cuda:{r % device_count} (or all on the CPU with
+device=cpu). Under torchrun (RANK and WORLD_SIZE set) this process is
+one rank of that group instead, on cuda:{LOCAL_RANK % device_count}.
+Every rank runs with the same weights and the same global batches,
+holding positions r * L / N .. (r + 1) * L / N - 1. The process group is NCCL when every
 rank has a card of its own and gloo otherwise (parallel/group.py); the
 chosen backend is printed. Every rank prints its own line per step
 ({"rank", "step", "seconds", ...}); rank 0 also prints the step's
@@ -44,7 +47,8 @@ metrics, the same on every rank.
 
 `build_from_hparams` builds a model with no archive instead: hparams plus
 the JAX package's initialisation, at `bench_hparams`, the JAX train
-bench's geometry.
+bench's geometry, or at a run's meta.json hparams (`run_hparams`: such
+as real-prose-lm-r4, which has no weights).
 """
 from __future__ import annotations
 
@@ -78,11 +82,12 @@ def _optimizer(model, hp, lr: float):
 
 def build(name: str, device="cuda", accumulate=None,
           use_kernels: bool = True, dtype=None):
-    """(model, objective, optimizer, accumulate) for runs/<name> on
-    `device`, the optimizer at `run_lr`; accumulate defaults to the run's
-    accumulate_grad_batches."""
+    """(model, objective, optimizer, accumulate) for runs/<name> (a
+    Transformer-VAE with VAEObjective or a Transformer LM with
+    ARObjective) on `device`, the optimizer at `run_lr`; accumulate
+    defaults to the run's accumulate_grad_batches."""
     from .checkpoint import load_run
-    from .models.vae import VAEObjective
+    from .cli import objective_for
 
     model, hp, meta = load_run(name, device=device, dtype=dtype, train=True,
                                use_kernels=use_kernels)
@@ -90,7 +95,7 @@ def build(name: str, device="cuda", accumulate=None,
         accumulate = meta.get("trainer_hparams", {}).get(
             "accumulate_grad_batches", 1)
     optimizer = _optimizer(model, hp, run_lr(hp, meta, accumulate))
-    return model, VAEObjective(hp), optimizer, accumulate
+    return model, objective_for(hp), optimizer, accumulate
 
 
 def bench_hparams(num_heads: int = 4):
@@ -109,6 +114,15 @@ def bench_hparams(num_heads: int = 4):
         lr=3e-4, lr_decay_steps=250_000, grad_clip_threshold=150.0)
 
 
+def run_hparams(name: str):
+    """The model hparams of runs/<name>/meta.json (a run with or without
+    weights)."""
+    from .checkpoint import hparams_from_meta, run_directory
+
+    meta = json.loads((run_directory(name) / "meta.json").read_text())
+    return hparams_from_meta(meta)
+
+
 def build_from_hparams(hparams, generator, device="cuda",
                        use_kernels: bool = True, dtype=None):
     """(model, objective, optimizer, 1) for a model with no archive:
@@ -116,12 +130,12 @@ def build_from_hparams(hparams, generator, device="cuda",
     torch.Generator), in the training form of `build`, the optimizer at
     hparams.lr as bench.py gives it."""
     from .checkpoint import model_from_hparams
-    from .models.vae import VAEObjective
+    from .cli import objective_for
 
     model, hp = model_from_hparams(hparams, generator, device=device,
                                    dtype=dtype, train=True,
                                    use_kernels=use_kernels)
-    return model, VAEObjective(hp), _optimizer(model, hp, hp.lr), 1
+    return model, objective_for(hp), _optimizer(model, hp, hp.lr), 1
 
 
 def sp_pad_multiple(hp, sp: int, pad_to_multiple_of: int = 512) -> int:
@@ -282,9 +296,12 @@ def main(args) -> int:
     if len(args) == 2 or "=" in args[2]:
         return fit_main(args[1], args[2:])
     experiment, name = args[1], args[2]
-    if experiment != "transformer-vae":
-        raise SystemExit(f"model {experiment!r} is not ported; "
-                         "transformer-vae is")
+    from .checkpoint import run_directory
+    run_experiment = json.loads((run_directory(name) / "meta.json")
+                                .read_text()).get("experiment")
+    if run_experiment != experiment:
+        raise SystemExit(f"run {name!r} is a {run_experiment!r} run, not "
+                         f"{experiment!r}")
     extra = dict(kv.split("=", 1) for kv in args[3:])
     unknown = set(extra) - KEYS
     if unknown:
@@ -295,6 +312,12 @@ def main(args) -> int:
     seed = int(extra.get("seed", 0))
     accumulate = int(extra["accumulate"]) if "accumulate" in extra else None
     sp = int(extra.get("sp", 1))
+    sharded = sp > 1 or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
+    if sharded and experiment != "transformer-vae":
+        raise NotImplementedError(
+            f"{experiment} over a seq group (sparse_vae_tpu/training/"
+            "objectives.py ARObjective with sp_size > 1, parallel/spmd.py) "
+            "is not ported yet; sp=N trains the Transformer-VAE")
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         import torch.distributed as dist
 

@@ -5,9 +5,10 @@ A host loop around `train_step`: one optimizer step per group of
 `accumulate_grad_batches` micro-batches of one (rows, L) shape, the lr
 scaled by the square root of the tokens a step takes and decayed on the
 cosine schedule, validation every `val_check_interval` of an epoch
-(token-weighted val_nll, val_bpb, val_kl, val_loss), early stopping armed
-after the KL annealing, checkpoints every N steps and at the best
-validation metric, and the `lr_schedule_complete` and `max_steps` stops.
+(token-weighted val_nll, val_bpb, val_loss and, for a VAE, val_kl), early
+stopping armed after the KL annealing, checkpoints every N steps and at
+the best validation metric, and the `lr_schedule_complete` and `max_steps`
+stops.
 
 Batches are numpy on the host (data/batching.py); a group is copied to the
 device once and split into its micro-batches there. Each group's shape is
@@ -237,7 +238,8 @@ class Trainer:
             step = self.restore(model, optimizer, generator)
         if self.hp.log_samples:
             print("fit: samples and train_bleu are not logged: "
-                  "TransformerVAE.sample is not ported", flush=True)
+                  f"{type(model).__name__}.sample is not ported",
+                  flush=True)
         if self.hp.grad_checkpointing:
             print(f"fit: grad_checkpointing (remat_policy="
                   f"{self.hp.remat_policy!r}) is not applied: remat is not "

@@ -187,8 +187,9 @@ def test_package_imports_nothing_of_jax():
     the JAX package and tools blocked, and the tokenizer library too (the
     data modules import it inside the functions that train or load a
     tokenizer only), and check that the corpus pipeline, the trainer and
-    the CLI, the evaluation entry and its estimators are among the modules
-    imported."""
+    the CLI, the evaluation entry and its estimators, the language-model
+    objective and the LM's entry points (train, test, serve,
+    profile_train) are among the modules imported."""
     code = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "sparse_vae_tpu",
@@ -203,7 +204,9 @@ for name in ("data.batching", "data.datasets", "data.local_corpus",
              "data.native", "data.text_data_module", "data.tokenizer",
              "utils.config", "utils.metrics", "hparam_presets", "cli",
              "training.checkpointing", "training.trainer", "train",
-             "test", "utils.math_utils", "models.vae"):
+             "test", "utils.math_utils", "models.vae",
+             "training.objectives", "models.transformer_lm", "serve",
+             "server", "serving", "profile_train"):
     assert "sparse_vae_tpu_torch." + name in names, name
 import chip_smoke
 bad = [m for m in sys.modules

@@ -19,7 +19,9 @@ one K1 launch and one K2 launch set with q_off and the broadcast [CLS]
 block as a slot of its own) as K1 and K2, on both branches, bit for bit
 across two calls. The evaluation paths (the IWAE estimator and the DReG
 step) as chip_smoke.py's eval and dreg phases hold them, at smaller
-shapes.
+shapes. K3/K3b at the Transformer LM's D = 256 as at 512, and K1/K2 on
+the dense causal route (a causal band of every block, no [CLS] slot) as
+K1 and K2.
 """
 import pytest
 import torch
@@ -463,9 +465,86 @@ def test_ce_kernels_reject_what_they_do_not_take(cuda):
     gb = g.to(torch.bfloat16)
     with pytest.raises(ValueError):
         ce_kernel.tied_ce_fwd(gb, table[:100], bias[:100], labels)  # V % 64
-    with pytest.raises(ValueError):
-        ce_kernel.tied_ce_fwd(gb[:, :256].contiguous(),
-                              table[:, :256].contiguous(), bias, labels)
+    with pytest.raises(ValueError):                            # D = 384
+        ce_kernel.tied_ce_fwd(gb[:, :384].contiguous(),
+                              table[:, :384].contiguous(), bias, labels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,vocab,padded", [(1000, 32768, 100),
+                                            (16383, 32768, 0),
+                                            (3000, 2048, 37)])
+def test_tied_ce_kernels_at_the_lm_width(cuda, t, vocab, padded):
+    """K3 and K3b at D = 256 (the Transformer LM's instantiation) against
+    their fp32 plain versions, token counts off the 128-token tile, with
+    and without the vocab split and padding; both repeat bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(t + vocab)
+    g = (0.5 * torch.randn((t, 256), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    table = (0.5 * torch.randn((vocab, 256), generator=gen, device=cuda)
+             ).to(torch.bfloat16)
+    bias = torch.randn(vocab, generator=gen, device=cuda)
+    labels = torch.randint(0, vocab, (t,), generator=gen, device=cuda)
+    dnll = torch.rand(t, generator=gen, device=cuda)
+    labels[t - padded:] = 0
+    dnll[t - padded:] = 0.0
+    f0, b0 = ce_kernel.fwd_launches_d256, ce_kernel.bwd_launches_d256
+    nll, lse = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    nll2, lse2 = ce_kernel.tied_ce_fwd(g, table, bias, labels)
+    got = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    again = ce_kernel.tied_ce_bwd(g, table, bias, labels, lse, dnll)
+    assert (ce_kernel.fwd_launches_d256,
+            ce_kernel.bwd_launches_d256) == (f0 + 2, b0 + 2)
+    assert torch.equal(nll, nll2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want_nll, want_lse = ce_kernel.tied_ce_fwd_plain(g, table, bias, labels)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(nll, want_nll, atol=1e-4, rtol=0)
+    want = ce_kernel.tied_ce_bwd_plain(g.float(), table.float(), bias,
+                                       labels, want_lse, dnll)
+    for name, a, b in zip(("dg", "dE", "dbias"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), name
+        _assert_rel(a, b, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [512, 1536])
+def test_dense_route_kernels_match_plain(cuda, length):
+    """K1 and K2 on the dense causal route (a causal band of every block,
+    no [CLS] slot) on ragged rows against their plain versions, counted in
+    the dense counters; the dense causal Attention takes that route on the
+    card and has a gradient."""
+    gen = torch.Generator(device=cuda).manual_seed(length)
+    q, k, v, do = (torch.randn((3, 2, length, 64), generator=gen,
+                               device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    lens = torch.tensor([length, length - 200, 129], dtype=torch.int32,
+                        device=cuda)
+    mask = torch.arange(length, device=cuda)[None, :] < lens[:, None]
+    kw = dict(window_size=length // 128, block_size=128, causal=True,
+              include_cls=False)
+    f0, b0 = swa_kernel.dense_launches, swa_kernel.dense_bwd_launches
+    out, lse = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
+    grads = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
+                               **kw)
+    assert (swa_kernel.dense_launches,
+            swa_kernel.dense_bwd_launches) == (f0 + 1, b0 + 1)
+    ref, ref_lse = sliding_window_attention_plain(q, k, v, mask,
+                                                  return_lse=True, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    want = sliding_window_attention_bwd_plain(q, k, v, lens, lse, out, do,
+                                              **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        _assert_rel(a, b, name)
+
+    attn = Attention(128, 2, causal=True, sparse=False).to(cuda)
+    x = torch.randn((2, length, 128), device=cuda, requires_grad=True)
+    f0 = swa_kernel.dense_launches
+    attn(x.to(torch.bfloat16), kv_mask=mask[:2]).float().sum().backward()
+    assert swa_kernel.dense_launches == f0 + 1
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 @pytest.mark.gpu
@@ -538,18 +617,22 @@ def test_swa_packed_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_plain_routes_raise_on_the_card(cuda):
-    """A sparse attention at Dh = 32 and a tied loss at D = 256 lie inside
-    the JAX package's kernel gates but have no CUDA instantiation: on the
-    card they raise instead of running the plain version."""
+    """A sparse attention at Dh = 32, a dense causal one at Dh = 128 and a
+    tied loss at D = 384 lie inside the JAX package's kernel gates but
+    have no CUDA instantiation: on the card they raise instead of running
+    the plain version."""
     narrow = Attention(64, 2, causal=True, sparse=True).to(cuda)
     with pytest.raises(NotImplementedError, match="head_dim 32"):
         narrow(torch.zeros((1, 128, 64), device=cuda))
-    hp = TransformerVAEHparams(d_model=256, num_heads=2, num_layers=1,
+    wide = Attention(256, 2, causal=True, sparse=False).to(cuda)
+    with pytest.raises(NotImplementedError, match="head_dim 128"):
+        wide(torch.zeros((1, 512, 256), device=cuda))
+    hp = TransformerVAEHparams(d_model=384, num_heads=2, num_layers=1,
                                latent_depth=16, vocab_size=1024,
                                num_encoder_latents=8)
     model = TransformerVAE(hp).to(cuda)
-    with pytest.raises(NotImplementedError, match="d_model 256"):
-        model.sequence_nll(torch.zeros((1, 256, 256), device=cuda),
+    with pytest.raises(NotImplementedError, match="d_model 384"):
+        model.sequence_nll(torch.zeros((1, 256, 384), device=cuda),
                            torch.ones((1, 256), dtype=torch.int64,
                                       device=cuda))
 

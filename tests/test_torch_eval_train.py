@@ -301,8 +301,7 @@ def test_test_entry_matches_jax_test_py_logic(tiny_run, capsys,
 
 
 @pytest.mark.parametrize("experiment,names", [
-    ("transformer-lm", "ARObjective"), ("lstm-lm", "ARObjective"),
-    ("lstm-vae", "lstm_vae.py")])
+    ("lstm-lm", "ARObjective"), ("lstm-vae", "lstm_vae.py")])
 def test_test_entry_refuses_the_unported_families(experiment, names):
     from sparse_vae_tpu_torch import test as entry
     with pytest.raises(NotImplementedError, match=names):

@@ -318,14 +318,15 @@ def test_ce_route_table():
     d_draft, v_draft = _draft_tlm_widths()
     assert d_draft == 256
     assert ce_kernel.route(True, 32768, 512) == "kernel"        # r5, heads 4
-    assert ce_kernel.route(True, v_draft, d_draft) == "plain"   # draft-tlm
+    assert ce_kernel.route(True, v_draft, d_draft) == "kernel"  # draft-tlm
+    assert ce_kernel.route(True, 32768, 384) == "plain"         # no kernel
     assert ce_kernel.route(True, 1000, 512) == "outside"        # V % 1024
     assert ce_kernel.route(False, 32768, 512) == "outside"      # untied
 
 
 def test_plain_routes_are_counted_where_the_module_takes_them():
     """A Dh = 32 sparse attention (inside JAX's head-major gate, no CUDA
-    instantiation) and a D = 256 tied loss each raise their plain_routes
+    instantiation) and a D = 384 tied loss each raise their plain_routes
     counter once per call; an r5-shaped attention does not."""
     torch.manual_seed(0)
     x = torch.randn(1, 128, 64)
@@ -337,12 +338,12 @@ def test_plain_routes_are_counted_where_the_module_takes_them():
         r5_like(torch.randn(1, 128, 512))
     assert swa_kernel.plain_routes == before + 1
 
-    hp = TransformerVAEHparams(**_small_vae_hparams())
+    hp = TransformerVAEHparams(**{**_small_vae_hparams(), "d_model": 384})
     model = TransformerVAE(hp)
     ids = torch.randint(3, 1024, (1, 256))
     before_ce = ce_kernel.plain_routes
     with torch.no_grad():
-        model.sequence_nll(torch.randn(1, 256, 256), ids)
+        model.sequence_nll(torch.randn(1, 256, 384), ids)
     assert ce_kernel.plain_routes == before_ce + 1
 
 
@@ -366,15 +367,28 @@ def test_plain_attention_route_raises_off_the_cpu(d_model, heads, block,
 
 
 def test_plain_ce_route_raises_off_the_cpu():
-    """A tied loss at D = 256 (draft-tlm-r5's width) off the CPU raises
-    instead of taking the chunked plain CE."""
-    model = TransformerVAE(TransformerVAEHparams(**_small_vae_hparams()))
+    """A tied loss at a width with no K3/K3b instantiation (D = 384) off
+    the CPU raises instead of taking the chunked plain CE."""
+    model = TransformerVAE(TransformerVAEHparams(
+        **{**_small_vae_hparams(), "d_model": 384}))
     before = ce_kernel.plain_routes
-    with pytest.raises(NotImplementedError, match="d_model 256"):
+    with pytest.raises(NotImplementedError, match="d_model 384"):
         model.sequence_nll(
-            torch.empty(1, 256, 256, device="meta"),
+            torch.empty(1, 256, 384, device="meta"),
             torch.zeros(1, 256, dtype=torch.int64, device="meta"))
     assert ce_kernel.plain_routes == before
+
+
+@pytest.mark.parametrize("d_model,route", [(256, "kernel"), (512, "kernel"),
+                                           (384, "plain"), (128, "plain")])
+def test_ce_route_takes_the_instantiated_widths(d_model, route):
+    """K3/K3b are instantiated at D = 256 (the Transformer LM) and 512 (the
+    Transformer-VAE); another width inside the JAX package's gate is a
+    plain route (CPU only), and outside the gate the chunked CE runs."""
+    assert ce_kernel.D_MODELS == (256, 512)
+    assert ce_kernel.route(True, 32768, d_model) == route
+    assert ce_kernel.route(True, 1000, d_model) == "outside"
+    assert ce_kernel.route(False, 32768, d_model) == "outside"
 
 
 # -- the lr and the profilers' busy share --------------------------------------

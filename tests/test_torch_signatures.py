@@ -47,6 +47,27 @@ def test_signature_matches_the_c_prototype(name):
     assert got == want, f"{name}: ctypes {got}, C {want}"
 
 
+@pytest.mark.parametrize("name", ["svt_tied_ce_fwd", "svt_tied_ce_bwd_dl",
+                                  "svt_tied_ce_bwd_dg", "svt_tied_ce_bwd_de"])
+def test_tied_ce_entries_take_the_model_width(name):
+    """K3/K3b's entries take the model width as their `int dim` argument
+    and dispatch it to the D = 256 and D = 512 instantiations
+    (ce_kernel.D_MODELS)."""
+    from sparse_vae_tpu_torch.ops import ce_kernel
+    texts = {src: (cuda_lib.CSRC_DIR / src).read_text()
+             for src in ("tied_ce.cu", "tied_ce_bwd.cu")}
+    for src, text in texts.items():
+        match = {fn: params for fn, params in PROTOTYPE.findall(text)}
+        if name in match:
+            params = [" ".join(p.split()) for p in match[name].split(",")]
+            assert "int dim" in params
+            for width in ce_kernel.D_MODELS:
+                assert f"<{width}>" in text and f"dim == {width}" in \
+                    text.replace("dim != ", "dim == ")
+            return
+    raise AssertionError(f"{name} not found")
+
+
 def test_every_exported_function_has_a_signature():
     exported = set(_prototypes())
     assert exported and exported == set(cuda_lib._SIGNATURES)

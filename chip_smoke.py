@@ -26,9 +26,10 @@ Phases, each timed:
                rows give their device time by part (K2: dq, dk/dv with the
                [CLS] partials, reduce, PyTorch; K3b: dl, dg, dE, dbias,
                PyTorch's copies); K4 (the selection) at the serving batch
-               [64, 32768] (T 1.0 and 0.7) and at a 512-token Jacobi
-               window's [512, 32768], by events and torch.profiler beside
-               its bound, and for correctness alone at [1, 512],
+               [64, 32768] (T 1.0 and 0.7), at a 512-token Jacobi
+               window's [512, 32768] and at the mass-sampling batch
+               [1000, 32768], by events and torch.profiler beside its
+               bound, and for correctness alone at [1, 512],
                [133, 32768] and [3, 50000], without noise and at top_p
                1e-3 too, every row bit-identical across two calls; its
                two instantiations (a cluster of two CTAs a row, one CTA a
@@ -177,6 +178,29 @@ the same records in every retake); phases 19-22 run last:
                lm-fit's checkpoint: a finite, positive average, K1 once a
                layer and K3 once a batch; each of its batch shapes held
                as phase 21 holds draft-tlm-r5.
+Sampling (models/generation.py's lockstep loop, serving.py's continuous
+batching, the `sample` entry, the trainer's sampling callback), each in
+a temporary working directory with a stand-in tokenizer (the checks read
+ids):
+ 23. sample  — `sparse_vae_tpu_torch.sample transformer-vae
+               real-prose-vae-r5`: one lockstep batch of 1000 x 512 (K4
+               at [1000, 32768] once a step) and 2,000 documents through
+               1,000 continuously refilled rows, each saving its dataset;
+               new tokens/s and document lengths printed; the lockstep
+               batch again with every K4 choice held against the plain
+               selection on the same penalised logits and noise (the
+               entry's documents again), K4 timed on one step's logits,
+               a profiled window of lockstep steps; at 64 x 128 the
+               lockstep and continuous documents of one seed and z
+               equal;
+ 24. sample-lm — the same, without the profile, for draft-tlm-r5 at 64
+               rows and 128 documents; then Trainer.fit of its hparams for 2 steps
+               with the sampling callback at step 2: an
+               unconditional_sample record, no train_bleu, no
+               sampling_error;
+ 25. sample-long — pg19-fb8's sample_resumable at batch 1, max_length
+               102,400, no end token: 1,024 positions in one call and in
+               two slices of 512, the buffers bit for bit.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -208,15 +232,19 @@ from sparse_vae_tpu_torch import test as test_entry
 from sparse_vae_tpu_torch.checkpoint import (export_archive, load_run,
                                              model_from_hparams,
                                              serving_form)
-from sparse_vae_tpu_torch.cli import assemble_config, build_hparams
+from sparse_vae_tpu_torch import sample as sample_entry
+from sparse_vae_tpu_torch.batch_generation import batch_generate_samples
+from sparse_vae_tpu_torch.cli import (assemble_config, build_hparams,
+                                      make_sample_fns)
 from sparse_vae_tpu_torch.data.datasets import TokenizedCorpus
 from sparse_vae_tpu_torch.data.text_data_module import (
     TextDataModule, TextDataModuleHparams)
 from sparse_vae_tpu_torch.data.tokenizer import (tokenizer_cache_path,
                                                  train_tokenizer)
 from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
+from sparse_vae_tpu_torch.models import generation
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
-                                                    gumbel_noise)
+                                                    gumbel_noise, prior_z)
 from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
                                       select_kernel, sp_kernel, swa_kernel)
 from sparse_vae_tpu_torch.ops import attention as tattn
@@ -226,6 +254,7 @@ from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     sliding_window_attention_packed_bwd_plain,
     sliding_window_attention_packed_plain, sliding_window_attention_plain)
 from sparse_vae_tpu_torch.server import ServeEngine
+from sparse_vae_tpu_torch.serving import continuous_batch_sample
 from sparse_vae_tpu_torch.parallel.group import spawn
 from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
@@ -602,7 +631,7 @@ def k4_phase(temperature: float, seed: int, iters: int, n: int = 64,
 
 
 def k4_instantiations(seed: int, iters: int,
-                      rows=(16, 64, 100, 512, 2048)):
+                      rows=(16, 64, 100, 512, 1000, 2048)):
     """K4's two instantiations timed against each other on the same inputs
     ([rows, 32768], T 1.0, noise, top_p 0.9; turns cluster, one CTA, one
     CTA, cluster), each held against the plain version: the measurement
@@ -1871,7 +1900,7 @@ def validate_against_plain(n_docs: int, log_root: Path) -> dict:
 
 
 def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
-            log_root: Path, capture_step=None):
+            log_root: Path, capture_step=None, sample_every=None):
     """Trainer.fit of the run's family (the Transformer-VAE or the
     Transformer LM) from the JAX initialisation, configured by
     cli.assemble_config with runs/<run>/meta.json as the base and
@@ -1880,7 +1909,10 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     losses and grad norms, and the launch counts of the groups and
     validations fit ran (K1/K2 on the sliding-window or the dense causal
     route, as the model's attention is); returns (trainer, outcome,
-    counts, peak bytes, seconds)."""
+    counts, peak bytes, seconds). With `sample_every`, fit runs the
+    sampling callback of cli.make_sample_fns every that many steps (the
+    working directory must hold the run's tokenizer), its selection
+    through K4."""
     meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
     experiment = meta["experiment"]
     cfg = assemble_config(experiment, dotlist, base_meta=meta)
@@ -1895,10 +1927,15 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     overrides = dict(cfg.model_overrides)
     overrides.setdefault("vocab_size", cfg.data.vocab_size)
     hp, objective = build_hparams(experiment, overrides)
+    callbacks = {}
+    if sample_every is not None:
+        cfg.trainer.sample_every_n_steps = sample_every
+        callbacks = dict(zip(("sample_fn", "reconstruct_fn"),
+                             make_sample_fns(experiment, objective)))
     trainer = FitTrainer(hp, objective, data, cfg.trainer,
                          experiment=experiment, name=run,
                          log_root=log_root, device="cuda",
-                         capture_step=capture_step)
+                         capture_step=capture_step, **callbacks)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1931,11 +1968,13 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     val_batches = sum(v["batches"] for v in trainer.validations)
     route = "" if hp.sparse_self_attention else "_dense"
     width = "_d256" if hp.d_model == 256 else ""
-    check_counts(f"fit {run}", counts, {
-        f"swa_fwd{route}": layers * (micro + val_batches),
-        f"swa_bwd{route}": layers * micro,
-        f"tied_ce_fwd{width}": micro + val_batches,
-        f"tied_ce_bwd{width}": micro})
+    expect = {f"swa_fwd{route}": layers * (micro + val_batches),
+              f"swa_bwd{route}": layers * micro,
+              f"tied_ce_fwd{width}": micro + val_batches,
+              f"tied_ce_bwd{width}": micro}
+    if sample_every is not None:
+        expect["nucleus_select"] = None
+    check_counts(f"fit {run}", counts, expect)
     return trainer, outcome, counts, peak, seconds
 
 
@@ -2983,6 +3022,348 @@ def lm_test_entry_phase(smi: str, log_root: Path) -> dict:
     return stats
 
 
+# -- sampling: the lockstep loop, continuous batching, resumable slices ----
+
+# sample: r5 at the reference's mass-sampling batch (1000 x 512; the
+# reference's 700,000 documents are cut to one lockstep batch and 2,000
+# continuous documents), its lockstep and continuous documents equal at
+# SAMPLE_SMALL; sample-lm: draft-tlm-r5 at a smaller count; sample-long:
+# pg19-fb8 at batch 1 over LONG_STEPS of its 102,400 positions, in two
+# slices and in one call.
+SAMPLE_BATCH, SAMPLE_LEN, SAMPLE_DOCS = 1000, 512, 2000
+LM_SAMPLE_BATCH, LM_SAMPLE_DOCS = 64, 128
+SAMPLE_SMALL = (64, 128)
+SAMPLE_SEED = 61
+LONG_STEPS, LONG_SLICES = 1024, 2
+VOCAB = 32768           # every archived run's
+K4_CAPTURE_STEP = 100   # the lockstep step whose K4 inputs are timed
+
+
+class K4Held:
+    """Holds every K4 choice of a sampling run against the plain
+    selection on the same penalised logits and noise (k4_agrees): it
+    stands in for the wrapper where models/generation.py calls it, calls
+    the wrapper, then the plain version (which counts no launch). Keeps
+    the inputs of step `capture_step` for timing."""
+
+    def __init__(self, capture_step=None):
+        self.capture_step = capture_step
+        self.steps, self.rows, self.flips, self.max_err = 0, 0, 0, 0.0
+        self.captured = None
+
+    def __call__(self, s, noise, **kw):
+        got = select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+        flips, err, kept = k4_agrees(got, s, noise, kw)
+        self.steps += 1
+        self.rows += s.shape[0]
+        self.flips += len(flips)
+        self.max_err = max(self.max_err, err)
+        if self.steps == self.capture_step:
+            self.captured = (s.clone(), noise.clone(), dict(kw), kept)
+        return got
+
+    @contextlib.contextmanager
+    def patched(self):
+        wrapper = generation.nucleus_gumbel_argmax
+        generation.nucleus_gumbel_argmax = self
+        try:
+            yield self
+        finally:
+            generation.nucleus_gumbel_argmax = wrapper
+
+    def stats(self) -> dict:
+        return {"steps": self.steps, "rows": self.rows,
+                "ulp_flip_rows": self.flips, "max_abs_err": self.max_err}
+
+
+def stand_in_tokenizer(run: str):
+    """A tokenizer trained on one line, saved in the working directory
+    where runs/<run>'s data hparams look for it (the entries decode ids
+    with it; the checks read ids only)."""
+    meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    train_tokenizer(iter(["A stand-in tokenizer for the sampled ids."]),
+                    data_hp["vocab_size"],
+                    save_path=tokenizer_cache_path(data_hp["dataset_name"]))
+
+
+def doc_stats(docs) -> dict:
+    lengths = np.array([len(d) for d in docs])
+    ended = np.array([len(d) > 0 and d[-1] == SEP_ID for d in docs])
+    return {"documents": len(docs), "mean_length": float(lengths.mean()),
+            "median_length": float(np.median(lengths)),
+            "max_length": int(lengths.max()),
+            "ended_share": float(ended.mean())}
+
+
+def unpadded(doc):
+    doc = np.asarray(doc)
+    return doc[doc != 0]
+
+
+def entry_run(name: str, experiment: str, run: str, args: list) -> tuple:
+    """`python -m sparse_vae_tpu_torch.sample <experiment> <run> <args>`
+    as sample.main in the working directory, the counts zeroed just
+    before it and read just after: (its result, the counts, peak bytes)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = sample_entry.main(["sample", experiment, run, *args])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(out["documents"]) == int(args[0].split("=")[1]),
+          f"{name}: {len(out['documents'])} documents")
+    check(all(((d >= 0) & (d < VOCAB)).all() for d in out["documents"]),
+          f"{name}: a token id out of range")
+    print(f"{name} " + json.dumps({
+        **doc_stats(out["documents"]), "new_tokens": out["new_tokens"],
+        "seconds": out["seconds"],
+        "new_tokens_per_s": out["new_tokens"] / out["seconds"],
+        "splits": out["splits"], "launches": counts,
+        "max_memory_allocated_bytes": peak}), flush=True)
+    return out, counts, peak
+
+
+def lockstep_steps(docs, max_length: int) -> int:
+    """The lockstep loop's steps for these trimmed documents: up to the
+    longest document's end token, at most max_length - 2."""
+    return min(max(len(d) for d in docs), max_length - 2)
+
+
+def k4_on_logits(held: K4Held) -> dict:
+    """K4 timed on the captured step's real logits and noise beside the
+    plain version and its bound."""
+    check(held.captured is not None,
+          f"no K4 inputs at step {held.capture_step}")
+    s, noise, kw, kept = held.captured
+
+    def kernel():
+        return select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+
+    ms = cuda_ms(kernel, 50)
+    device = kernel_ms(device_ms(kernel), "nucleus_select")
+    plain_ms = cuda_ms(lambda: select_kernel.nucleus_gumbel_argmax_plain(
+        s, noise, **kw), 5)
+    bound_ms, bound_by = k4_bound(s, noise, kw["top_p"],
+                                  kw["temperature"], kept)
+    return {"shape": list(s.shape), "step": held.capture_step,
+            "kept_tokens": kept, "ms": ms, "device_ms": device,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+SAMPLE_WINDOW = "chip_smoke.sample_window"
+
+
+def lockstep_profile(model, batch: int, warm: int = 16,
+                     steps: int = 16) -> dict:
+    """Where a lockstep sampling step's time goes at `batch` rows, every
+    row live (no end token): `warm` positions, then a torch.profiler
+    window of `steps` more that starts and ends in a synchronize: the
+    host-clock step, the device's busy time a step and idle share
+    (profile_train.busy_share), kernels a step, and the largest kernels'
+    device ms a step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    latent = getattr(model.hparams, "latent_depth", 0)
+    zs = (prior_z(SAMPLE_SEED, batch, latent, model.device),) if latent \
+        else ()
+    kw = {"end_token": -1}
+    state, caches = model.sample_resumable(
+        SAMPLE_SEED, SAMPLE_LEN, batch, *zs, max_steps=warm, **kw)[:2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(SAMPLE_WINDOW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.sample_resumable(SAMPLE_SEED, SAMPLE_LEN, batch, *zs,
+                                   state=state, caches=caches,
+                                   max_steps=steps, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    window_us, busy_us = profile_train.busy_share(prof.events(),
+                                                  SAMPLE_WINDOW)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"rows": batch, "steps": steps, "step_ms": 1e3 * wall / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / window_us,
+            "kernels_per_step": sum(e.count for e in events) / steps,
+            "top_device_ms_per_step": {
+                e.key[:80]: e.self_device_time_total / 1e3 / steps
+                for e in top}}
+
+
+def sampling_phase(smi: str, name: str, experiment: str, run: str,
+                   batch: int, docs: int, profiled: bool) -> dict:
+    """The `sample` entry on runs/<run> in a temporary working directory:
+    one lockstep batch of `batch` x SAMPLE_LEN (K4 at [batch, 32768] each
+    step: its launches are the loop's steps), then `docs` documents
+    through `batch` continuously refilled rows (continuous=1); each saves
+    its dataset. Then the lockstep batch again with every K4 choice held
+    against the plain selection (K4Held), which must give the entry's
+    documents; K4 timed on one of its steps' logits; with `profiled`, a
+    profiled window of lockstep steps at `batch` rows
+    (lockstep_profile); and at
+    SAMPLE_SMALL the lockstep and continuous documents of one seed and z
+    equal."""
+    stats = {"card": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sample_") as tmp, \
+            contextlib.chdir(tmp):
+        stand_in_tokenizer(run)
+        lock, counts, peak = entry_run(
+            name, experiment, run,
+            [f"num_samples={batch}", f"batch_size={batch}",
+             f"max_length={SAMPLE_LEN}"])
+        steps = lockstep_steps(lock["documents"], SAMPLE_LEN)
+        check_counts(name, counts, {"nucleus_select": steps})
+        cont, cont_counts, cont_peak = entry_run(
+            f"{name}-continuous", experiment, run,
+            [f"num_samples={docs}", f"batch_size={batch}",
+             f"max_length={SAMPLE_LEN}", "continuous=1"])
+        check_counts(f"{name} continuous", cont_counts,
+                     {"nucleus_select": None})
+        check(cont["splits"] == {"train": docs - docs // 10,
+                                 "test": docs // 10},
+              f"{name}: splits {cont['splits']}")
+    for key, out, c, p in (("lockstep", lock, counts, peak),
+                           ("continuous", cont, cont_counts, cont_peak)):
+        stats[key] = {**doc_stats(out["documents"]),
+                      "new_tokens": out["new_tokens"],
+                      "seconds": out["seconds"],
+                      "new_tokens_per_s": out["new_tokens"] / out["seconds"],
+                      "launches": c, "max_memory_allocated_bytes": p}
+    stats["lockstep"]["steps"] = steps
+    stats["lockstep"]["step_ms"] = 1e3 * lock["seconds"] / steps
+
+    model, _, _ = load_run(run, device="cuda")
+    held = K4Held(capture_step=K4_CAPTURE_STEP)
+    with held.patched():
+        again = model.sample(0, SAMPLE_LEN, batch)
+        torch.cuda.synchronize()
+    check(held.steps == steps, f"{name}: {held.steps} held steps")
+    trimmed = batch_generate_samples(lambda i: again, batch, SAMPLE_LEN,
+                                     progress=False)
+    check(all(np.array_equal(a, b) for a, b in
+              zip(trimmed, lock["documents"])),
+          f"{name}: the held run gave other documents than the entry")
+    stats["k4_held"] = held.stats()
+    stats["k4_on_logits"] = k4_on_logits(held)
+    del held
+    if profiled:
+        stats["profile"] = lockstep_profile(model, batch)
+
+    b, ml = SAMPLE_SMALL
+    latent = getattr(model.hparams, "latent_depth", 0)
+    z = prior_z(SAMPLE_SEED, b, latent, model.device) if latent else None
+    args = (SAMPLE_SEED, ml, b) + ((z,) if latent else ())
+    small = batch_generate_samples(
+        lambda i: model.sample(*args), b, ml, progress=False)
+    small_cont = continuous_batch_sample(
+        model, SAMPLE_SEED, b, ml, b, slice_steps=32, z_pool=z)
+    check(all(np.array_equal(unpadded(x), unpadded(y))
+              for x, y in zip(small, small_cont)),
+          f"{name}: lockstep and continuous documents differ at "
+          f"{list(SAMPLE_SMALL)}")
+    stats["small_equal"] = {"shape": list(SAMPLE_SMALL),
+                            **doc_stats(small_cont)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{name} " + json.dumps(stats), flush=True)
+    return stats
+
+
+def lm_callback_phase(smi: str) -> dict:
+    """Trainer.fit of draft-tlm-r5's hparams from the JAX initialisation,
+    2 steps on the stand-in corpus with the sampling callback of
+    cli.make_sample_fns at step 2 (one sample of 511 positions at batch
+    1: K4's cluster instantiation): an `unconditional_sample` text, no
+    `train_bleu` or reconstruction (an LM reconstructs nothing), and no
+    `sampling_error`."""
+    meta = json.loads((REPO / "runs" / LM_RUN / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(FIT_DOCS, data_hp["min_tokens_per_sample"],
+                        data_hp["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cb_") as tmp, \
+            contextlib.chdir(tmp):
+        stand_in_tokenizer(LM_RUN)
+        trainer, outcome, counts, peak, seconds = fit_run(
+            LM_RUN, [], corpus, 2, 2, Path(tmp) / "sparse-vae-logs",
+            sample_every=2)
+        records = [json.loads(x) for x in (trainer.run_dir
+                                           / "metrics.jsonl")
+                   .read_text().splitlines()]
+        del trainer, outcome
+    texts = {key: [r["step"] for r in records if key in r]
+             for key in ("text_unconditional_sample", "text_reconstruction",
+                         "train_bleu", "text_sampling_error")}
+    check(texts["text_sampling_error"] == [],
+          f"lm callback: sampling_error {records}")
+    check(texts["text_unconditional_sample"] == [2]
+          and not texts["text_reconstruction"] and not texts["train_bleu"],
+          f"lm callback: records at {texts}")
+    stats = {"fit_s": seconds, "records": texts, "launches": counts,
+             "max_memory_allocated_bytes": peak, "card": smi}
+    print("lm-callback " + json.dumps(stats), flush=True)
+    return stats
+
+
+def sample_long_phase(smi: str) -> dict:
+    """pg19-fb8 (bf16) `sample_resumable` at batch 1 and max_length
+    102,400 (K4's cluster instantiation), without an end token:
+    LONG_STEPS positions in one call, then in LONG_SLICES slices from the
+    same seed and z: the token buffers bit for bit. The decode ring holds
+    two 128-token blocks, so the run overwrites it LONG_STEPS / 256
+    times."""
+    model, _, _ = load_run(PG19_RUN, device="cuda")
+    kw = {"end_token": -1}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    one, _, z = model.sample_resumable(SAMPLE_SEED, PG19_STREAM, 1,
+                                       max_steps=LONG_STEPS, **kw)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_counts("sample-long", counts, {"nucleus_select": LONG_STEPS})
+    state = caches = None
+    t0 = time.perf_counter()
+    for _ in range(LONG_SLICES):
+        state, caches, z = model.sample_resumable(
+            SAMPLE_SEED, PG19_STREAM, 1, z, state=state, caches=caches,
+            max_steps=LONG_STEPS // LONG_SLICES, **kw)
+    torch.cuda.synchronize()
+    sliced_s = time.perf_counter() - t0
+    check(one.index == state.index == LONG_STEPS + 1,
+          f"sample-long: positions {one.index}, {state.index}")
+    check(torch.equal(one.tokens, state.tokens),
+          "sample-long: the slices differ from the one-shot call")
+    written = one.tokens[0, 1:LONG_STEPS + 1]
+    check(bool(((written >= 0) & (written < VOCAB)).all()),
+          "sample-long: a token id out of range")
+    stats = {"max_length": PG19_STREAM, "positions": LONG_STEPS,
+             "slices": LONG_SLICES, "one_call_s": one_s,
+             "step_ms": 1e3 * one_s / LONG_STEPS,
+             "sliced_s": sliced_s,
+             "distinct_tokens": int(written.unique().numel()),
+             "launches": counts, "max_memory_allocated_bytes": peak,
+             "card": smi}
+    del model, one, state, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("sample-long " + json.dumps(stats), flush=True)
+    return stats
+
+
 def check_counts(path: str, counts: dict, expect: dict):
     """expect: {counter: exact count, or None for at least one}; every
     other counter, the plain_routes ones included, must be 0."""
@@ -3017,6 +3398,8 @@ def main(argv) -> int:
         k4_rows = [k4_phase(t, seed=3 + i, iters=200, parent=parent)
                    for i, t in enumerate((1.0, 0.7))]
         k4_wide = k4_phase(1.0, seed=9, iters=50, n=512, parent=parent)
+        k4_mass = k4_phase(1.0, seed=10, iters=50, n=SAMPLE_BATCH,
+                           parent=parent)
         k4_split = k4_instantiations(seed=12, iters=50)
         k4_checks = [
             k4_phase(1.0, seed=30 + 3 * i + j, iters=0, n=n, vocab=v,
@@ -3126,6 +3509,24 @@ def main(argv) -> int:
             lm_fit_counts = lm_fit_phase(smi, lm_logs)["launches"]
         with Phase("lm-test-entry"):
             lm_test_counts = lm_test_entry_phase(smi, lm_logs)["launches"]
+    with Phase("sample"):
+        sample_stats = sampling_phase(smi, "sample", "transformer-vae", RUN,
+                                      SAMPLE_BATCH, SAMPLE_DOCS,
+                                      profiled=True)
+    with Phase("sample-lm"):
+        lm_sample_stats = sampling_phase(smi, "sample-lm", "transformer-lm",
+                                         LM_RUN, LM_SAMPLE_BATCH,
+                                         LM_SAMPLE_DOCS, profiled=False)
+        lm_callback_counts = lm_callback_phase(smi)["launches"]
+    with Phase("sample-long"):
+        long_stats = sample_long_phase(smi)
+    sample_counts = {
+        "sample": sample_stats["lockstep"]["launches"],
+        "sample-continuous": sample_stats["continuous"]["launches"],
+        "sample-lm": lm_sample_stats["lockstep"]["launches"],
+        "sample-lm-continuous": lm_sample_stats["continuous"]["launches"],
+        "lm-callback": lm_callback_counts,
+        "sample-long": long_stats["launches"]}
 
     def sp_sum(name):
         return sp_single[name] + sum(c[name] for c in sp_counts)
@@ -3141,7 +3542,8 @@ def main(argv) -> int:
         return {"lm-serve": lm_serve_counts[name],
                 "lm-train": lm_train_counts[name],
                 "lm-fit": lm_fit_counts[name],
-                "lm-test-entry": lm_test_counts[name]}
+                "lm-test-entry": lm_test_counts[name],
+                "lm-callback": lm_callback_counts[name]}
 
     def lm_row(name, counter, source, replaces, row, extra):
         by_path = lm_paths(counter)
@@ -3164,6 +3566,11 @@ def main(argv) -> int:
                                    "library_ms")}
                 for r in rows]
 
+    k4_paths = {"serve": counts["nucleus_select"],
+                "serve-h4": h4_counts["nucleus_select"],
+                "lm-serve": lm_serve_counts["nucleus_select"],
+                **{path: c["nucleus_select"]
+                   for path, c in sample_counts.items()}}
     kernels = [
         {"name": "swa_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
@@ -3188,27 +3595,34 @@ def main(argv) -> int:
         {"name": "nucleus_select", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/nucleus_select.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_select.py:128",
-         "launches": counts["nucleus_select"] + h4_counts["nucleus_select"],
-         "launches_by_path": {"serve": counts["nucleus_select"],
-                              "serve-h4": h4_counts["nucleus_select"]},
+         "launches": sum(k4_paths.values()),
+         "launches_by_path": k4_paths,
          **{k: k4_rows[0][k] for k in ("max_abs_err", "ms", "device_ms",
                                        "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},
          "shape": k4_rows[0]["shape"],
-         "ulp_flip_rows": sum(r["ulp_flip_rows"]
-                              for r in (*k4_rows, k4_wide, *k4_checks)),
-         "bit_identical": all(r["bit_identical"]
-                              for r in (*k4_rows, k4_wide, *k4_checks)),
+         "ulp_flip_rows": sum(r["ulp_flip_rows"] for r in (
+             *k4_rows, k4_wide, k4_mass, *k4_checks)),
+         "bit_identical": all(r["bit_identical"] for r in (
+             *k4_rows, k4_wide, k4_mass, *k4_checks)),
          "temperature_0.7": {k: k4_rows[1][k] for k in (
              "max_abs_err", "ms", "device_ms", "plain_ms")},
          "rows_512": {k: k4_wide[k] for k in (
              "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")},
+         "rows_1000": {k: k4_mass[k] for k in (
+             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+         "r5_logits_1000": sample_stats["k4_on_logits"],
+         "sampled_steps_held": {
+             "sample": sample_stats["k4_held"],
+             "sample-lm": lm_sample_stats["k4_held"]},
          "parent": None if parent is None else {
              name: {k: r[k] for k in ("parent_ms", "parent_device_ms",
                                       "pccp")}
              for name, r in (("t1.0", k4_rows[0]), ("t0.7", k4_rows[1]),
-                             ("rows_512", k4_wide))},
+                             ("rows_512", k4_wide),
+                             ("rows_1000", k4_mass))},
          "checks": [{k: r[k] for k in ("shape", "noise", "top_p",
                                        "ulp_flip_rows")}
                     for r in k4_checks],

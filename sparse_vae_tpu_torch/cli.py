@@ -3,10 +3,10 @@
 Code defaults, then the command-line dotlist, then a named preset (merged
 after the dotlist, so a preset's values win, as in the JAX package), plus
 the top-level flags preset, from_checkpoint, name, no_log and
-anomaly_detection. The JAX package's platform set-up
-(`apply_platform_env`) has no counterpart: the device is an argument of
-the entry points here. Its `make_sample_fns` waits for
-TransformerVAE.sample.
+anomaly_detection; the tokenizer of a trained run (`tokenizer_for_run`)
+and the trainer's sampling callbacks (`make_sample_fns`). The JAX
+package's platform set-up (`apply_platform_env`) has no counterpart: the
+device is an argument of the entry points here.
 """
 from __future__ import annotations
 
@@ -115,6 +115,50 @@ def build_data(cfg: CLIConfig) -> TextDataModule:
     dm = TextDataModule(cfg.data)
     dm.prepare_data()
     return dm
+
+
+def tokenizer_for_run(experiment: str, meta: dict):
+    """The tokenizer a trained run used, from the run's recorded data
+    hparams (meta.json): the one cached in the working directory under
+    the run's dataset name, else one trained on that dataset's texts, as
+    the run's data module resolves it. Unlike the JAX package's, it does
+    not prepare the corpus: the tokenizer is all an entry needs."""
+    if experiment not in FAMILIES:
+        raise ValueError(f"Unrecognized model type '{experiment}'")
+    return TextDataModule(TextDataModuleHparams(
+        **meta.get("data_hparams", {}))).tokenizer
+
+
+def make_sample_fns(experiment: str, objective, max_len: int = 512):
+    """(sample_fn, reconstruct_fn) for the Trainer's sampling callback:
+    sample_fn(model, seed, step) -> tokens [1, max_len - 1] or None;
+    reconstruct_fn(model, seed, batch, step) -> tokens or None, batch a
+    TextBatch. A VAE refuses to sample while the annealed kl_weight is
+    below 1; reconstruction decodes the batch's first document from its
+    posterior mean at temperature 0.7 (an LM reconstructs nothing).
+    Nucleus selection goes through K4 (`sample`'s default)."""
+    from .models.generation import SamplingParams
+
+    is_vae = experiment.endswith("vae")
+
+    def sample_fn(model, seed: int, step: int = 0):
+        if is_vae and float(objective.kl_weight(step)) < 1.0:
+            return None
+        return model.sample(seed, max_len, 1)
+
+    def reconstruct_fn(model, seed: int, batch, step: int = 0):
+        if not is_vae:
+            return None
+        import torch
+        tokens = torch.as_tensor(np.asarray(batch.token_ids[:1]),
+                                 dtype=torch.int64, device=model.device)
+        with torch.no_grad():
+            posterior = model.posterior(tokens)
+        length = min(max_len, int(batch.num_tokens[0]) + 16)
+        return model.sample(seed, length, 1, posterior.loc[:1],
+                            SamplingParams(temperature=0.7))
+
+    return sample_fn, reconstruct_fn
 
 
 def seed_everything(seed: int = 7295):

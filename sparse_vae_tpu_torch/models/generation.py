@@ -1,11 +1,20 @@
-"""Per-row decoding state machine (port of the row-wise half of
+"""Batched decoding state machines (port of
 sparse_vae_tpu/models/generation.py).
 
-Every row of the batch sits at its own position, so a serving loop can
-harvest finished rows and refill them between bounded decode slices.
+The lockstep loop (`DecodeState`, `decode_loop`) moves every row of the
+batch one position a step from [CLS]: `sample` and `sample_resumable` of
+both transformer families and the mass-sampling path run on it. Finished
+rows keep flowing through the step and write [PAD]. The position is a
+host int, the same for every row.
+
+The row-wise loop (`RowDecodeState`, `decode_loop_rowwise`) gives every
+row its own position, so a serving loop can harvest finished rows and
+refill them between bounded decode slices (serving.py, server.py).
+
 Random draws come from an explicit torch.Generator held in the state: the
 Gumbel noise for a sampled step is drawn as uniforms and transformed, so a
-test can hand the same noise to the JAX reference and to this port.
+test can hand the same noise to the JAX reference and to this port
+(`noise=` of process_logits and process_logits_rowwise).
 """
 from __future__ import annotations
 
@@ -15,6 +24,27 @@ from typing import Optional
 import torch
 
 from ..ops.select_kernel import nucleus_gumbel_argmax
+from ..utils.seeds import derived_seed
+
+
+# The streams of a sampling seed (utils.seeds.derived_seed keys).
+Z_STREAM, DECODE_STREAM = 0, 1
+
+
+def decode_generator(seed: int, device) -> torch.Generator:
+    """The decode noise's generator of sampling seed `seed`, on `device`."""
+    return torch.Generator(device=device).manual_seed(
+        derived_seed(seed, DECODE_STREAM))
+
+
+def prior_z(seed: int, batch_size: int, latent_depth: int, device,
+            *keys: int):
+    """z ~ N(0, I) [batch_size, 1, latent_depth] fp32 on `device`, drawn on
+    the CPU from sampling seed `seed` (and `keys`, e.g. a document
+    number), so that every device gets the same z."""
+    gen = torch.Generator().manual_seed(derived_seed(seed, Z_STREAM, *keys))
+    return torch.randn((batch_size, 1, latent_depth),
+                       generator=gen).to(device)
 
 
 @dataclass(frozen=True)
@@ -25,6 +55,40 @@ class SamplingParams:
     temperature: float = 1.0
     repetition_penalty: float = 1.2
     repetition_window: int = 512
+
+
+@dataclass
+class DecodeState:
+    tokens: torch.Tensor   # [B, max_len] int64 output buffer; [CLS] at 0
+    index: int             # next position to write, the same for every row
+    live: torch.Tensor     # [B] bool: still-generating rows
+    rng: torch.Generator   # on the state's device
+
+
+def init_decode_state(batch_size: int, max_length: int, start_token: int,
+                      rng: torch.Generator) -> DecodeState:
+    tokens = torch.zeros((batch_size, max_length), dtype=torch.int64,
+                         device=rng.device)
+    tokens[:, 0] = start_token
+    return DecodeState(tokens=tokens, index=1,
+                       live=torch.ones(batch_size, dtype=torch.bool,
+                                       device=rng.device), rng=rng)
+
+
+def prev_tokens(state: DecodeState):
+    """[B] most recently generated token."""
+    return state.tokens[:, state.index - 1]
+
+
+def apply_repetition_penalty(logits, tokens, index: int, penalty: float,
+                             window: int):
+    """apply_repetition_penalty_rowwise with every row at `index`: the
+    slice starts at max(index - window, 0), clamped to max_len - window as
+    JAX's dynamic slice clamps it."""
+    rows = torch.full((tokens.shape[0],), index, dtype=torch.int64,
+                      device=tokens.device)
+    return apply_repetition_penalty_rowwise(logits, tokens, rows, penalty,
+                                            window)
 
 
 @dataclass
@@ -138,8 +202,7 @@ def _is_greedy(params: SamplingParams) -> bool:
     return params.temperature <= 0.0 or params.top_k == 1
 
 
-def _select_token(logits, noise, params: SamplingParams,
-                  fused: bool = False):
+def _select_token(logits, noise, params: SamplingParams, fused: bool):
     """Shared token selection: temperature, top-k, nucleus (bisection or
     the fused K4 kernel), greedy. logits: [B, V] -> [B] int64; noise:
     [B, V] Gumbel noise, unused (and may be None) when greedy."""
@@ -158,9 +221,45 @@ def _select_token(logits, noise, params: SamplingParams,
     return torch.argmax(logits + noise, dim=-1)
 
 
+def process_logits(logits, state: DecodeState, params: SamplingParams,
+                   end_token: int, fused: bool = True,
+                   noise=None) -> DecodeState:
+    """One lockstep decode step on the logits [B, V] for position
+    state.index: penalise, select (through K4 where the params are
+    nucleus-only, as the JAX package's fused path; fused=False takes the
+    bisection of its unfused path), write the token
+    (finished rows write [PAD]) and advance. noise: optional [B, V]
+    Gumbel noise; by default it is drawn from state.rng when the step
+    samples. The token buffer is written in place."""
+    if noise is None and not _is_greedy(params):
+        noise = gumbel_noise(logits.shape, state.rng)
+    if params.repetition_penalty > 1.0:
+        logits = apply_repetition_penalty(
+            logits, state.tokens, state.index, params.repetition_penalty,
+            params.repetition_window)
+    token = torch.where(state.live, _select_token(logits, noise, params,
+                                                  fused), 0)
+    state.tokens[:, state.index] = token
+    max_len = state.tokens.shape[-1]
+    live = state.live & (token != end_token) & (state.index + 1 < max_len)
+    return replace(state, index=state.index + 1, live=live)
+
+
+def should_continue(state: DecodeState) -> bool:
+    """Whether another lockstep step runs: a free position before the
+    buffer's last and a live row (one host synchronisation)."""
+    return (state.index < state.tokens.shape[-1] - 1
+            and bool(state.live.any()))
+
+
+def final_output(state: DecodeState):
+    """The token buffer without the start token: [B, max_len - 1]."""
+    return state.tokens[:, 1:]
+
+
 def process_logits_rowwise(logits, state: RowDecodeState,
                            params: SamplingParams, end_token: int,
-                           fused: bool = False,
+                           fused: bool = True,
                            overrides: Optional[dict] = None,
                            noise=None) -> RowDecodeState:
     """One decode step: penalise, select, write each row's token at its
@@ -209,7 +308,7 @@ def process_logits_rowwise(logits, state: RowDecodeState,
 
 def decode_loop_rowwise(state: RowDecodeState, logits_fn, carry,
                         params: SamplingParams, end_token: int,
-                        max_steps: int, fused_select: bool = False,
+                        max_steps: int, fused_select: bool = True,
                         overrides: Optional[dict] = None):
     """Bounded per-row decode slice: at most `max_steps` steps, stopping
     early once no row is live. logits_fn(state, carry) -> (logits,
@@ -221,4 +320,22 @@ def decode_loop_rowwise(state: RowDecodeState, logits_fn, carry,
         state = process_logits_rowwise(logits, state, params, end_token,
                                        fused=fused_select,
                                        overrides=overrides)
+    return state, carry
+
+
+def decode_loop(state: DecodeState, logits_fn, carry,
+                params: SamplingParams, end_token: int,
+                max_steps: Optional[int] = None,
+                fused_select: bool = True):
+    """Lockstep AR decode: logits_fn(state, carry) -> (logits [B, V] fp32,
+    carry) and a step, until every row has emitted `end_token` or the
+    buffer is full. max_steps bounds this call to that many positions and
+    leaves the returned (state, carry) resumable by calling again: a run
+    in slices gives the one-shot result (long documents decode as a host
+    loop of bounded calls)."""
+    stop = None if max_steps is None else state.index + max_steps
+    while should_continue(state) and (stop is None or state.index < stop):
+        logits, carry = logits_fn(state, carry)
+        state = process_logits(logits, state, params, end_token,
+                               fused=fused_select)
     return state, carry

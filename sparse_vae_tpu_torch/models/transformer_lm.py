@@ -3,9 +3,11 @@ sparse_vae_tpu/models/transformer_lm.py): `embed` with the input dropout,
 `pre_logits`, the tied `project`, `sequence_nll`, `sequence_ll_rows`,
 `shifted_labels` / `labels_for`, `forward_hidden` (with the head-major
 rotary K/V of every layer for a bulk prefill), the full forward
-(`__call__`), `init_caches`, and the decode steps `decode_step` (every
+(`__call__`), `init_caches`, the decode steps `decode_step` (every
 row at one position) and `decode_step_rowwise` (per-row positions, the
-continuous-batching step). The Transformer-VAE builds on it.
+continuous-batching step), and the lockstep sampling loops `sample` and
+`sample_resumable` (models/generation.py). The Transformer-VAE builds
+on it.
 
 Ported configurations: tied input/output embedding with
 d_embedding == d_model, dense FFNs, no decoder cross-attention, sparse
@@ -14,9 +16,15 @@ the dense one through K1/K2 inside the JAX package's flash-attention
 gate), one device or, for the Transformer-VAE, a length axis sharded
 over a `seq` group (`bind_seq_group`, through parallel.sp.sp_localize).
 The model computes in `compute_dtype` (default: its parameters' dtype);
-models/base.py states the rule. The sampling loops, the speculative and
-parallel generators and the draft-model interface raise, naming the JAX
-function each needs (`UNPORTED`).
+models/base.py states the rule. The speculative and parallel generators
+and the draft-model interface raise, naming the JAX function each needs
+(`UNPORTED`).
+
+Sampling takes an int seed: the decode noise comes from a generator on
+the model's device seeded from (seed, DECODE_STREAM), and the
+Transformer-VAE's prior z from a CPU generator seeded from (seed,
+Z_STREAM) (`generation.decode_generator`, `generation.prior_z`), as the
+JAX package splits its key into a z key and a decode key.
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ from ..ops.ce_kernel import FusedTiedCrossEntropy
 from ..ops.cross_entropy import chunked_nll_rows
 from .base import (LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear,
                    dropout)
+from .generation import (DecodeState, SamplingParams, decode_generator,
+                         decode_loop, final_output, init_decode_state,
+                         prev_tokens)
 from .transformer_layer import TransformerLayer
 
 
@@ -87,10 +98,6 @@ class TransformerHparams(LanguageModelHparams):
 # Methods of the JAX package's model that this port does not have yet:
 # name -> what it needs (ROADMAP.md Queue 1).
 UNPORTED = {
-    "sample": "the scalar decode loop (models/generation.py decode_loop), "
-              "ROADMAP.md Queue 1 item 4",
-    "sample_resumable": "the scalar decode loop (models/generation.py "
-                        "decode_loop), ROADMAP.md Queue 1 item 4",
     "draft_propose": "speculative decoding (models/spec_decode.py), "
                      "ROADMAP.md Queue 1 item 5",
     "draft_init_state": "speculative decoding (models/spec_decode.py), "
@@ -297,6 +304,49 @@ class TransformerLanguageModel(nn.Module):
         for layer, cache in zip(self.decoder_layers, caches):
             x, _ = layer.decode_rowwise(x, cache, index)
         return self.project(x[:, 0]), caches
+
+    # -- sampling -----------------------------------------------------------
+    def _lockstep_logits(self, state: DecodeState, caches: list):
+        """decode_loop's logits_fn: the step at the state's last token."""
+        return self.decode_step(prev_tokens(state), caches, state.index - 1)
+
+    @torch.no_grad()
+    def sample(self, seed: int, max_length: int, batch_size: int = 1,
+               sampling: SamplingParams = SamplingParams(),
+               start_token: int = 1, end_token: int = 2,
+               fused_select: bool = True):
+        """AR sampling from [CLS] through the lockstep loop: tokens
+        [batch_size, max_length - 1] without the start token; finished
+        rows are [PAD] after their end token. Nucleus-only params select
+        through K4 (one read of the [B, V] logits a step);
+        fused_select=False takes the top_p_filter bisection instead, the
+        JAX package's unfused path."""
+        state, _ = self.sample_resumable(seed, max_length, batch_size,
+                                         sampling, start_token, end_token,
+                                         fused_select=fused_select)
+        return final_output(state)
+
+    @torch.no_grad()
+    def sample_resumable(self, seed: int, max_length: int,
+                         batch_size: int = 1,
+                         sampling: SamplingParams = SamplingParams(),
+                         start_token: int = 1, end_token: int = 2,
+                         state: Optional[DecodeState] = None,
+                         caches: Optional[list] = None,
+                         max_steps: Optional[int] = None,
+                         fused_select: bool = True):
+        """Bounded-slice sampling: at most max_steps positions this call;
+        pass the returned (state, caches) back in to go on (seed is read
+        only when state is None). Slices give the one-shot result."""
+        if state is None:
+            state = init_decode_state(
+                batch_size, max_length, start_token,
+                decode_generator(seed, self.device))
+        if caches is None:
+            caches = self.init_caches(batch_size, max_length)
+        return decode_loop(state, self._lockstep_logits, caches, sampling,
+                           end_token, max_steps=max_steps,
+                           fused_select=fused_select)
 
 
 for _name in UNPORTED:

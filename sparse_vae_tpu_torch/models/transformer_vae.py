@@ -2,7 +2,9 @@
 sparse_vae_tpu/models/transformer_vae.py): the Perceiver encoder over the
 shared input embedding, the ConditionalGaussian posterior, the per-layer z
 projections, `reconstruct_hidden`, `reconstruct_ll`, the training
-forwards (`__call__`, `forward_chunked_nll`) and `decode_step_z_rowwise`.
+forwards (`__call__`, `forward_chunked_nll`), the decode steps
+`decode_step_z` (every row at one position) and `decode_step_z_rowwise`,
+and the lockstep sampling loops `sample` and `sample_resumable`.
 
 z replaces position 0 ([CLS]) of every decoder layer's input. The training
 forwards take the posterior noise eps (z = loc + scale * eps) or a
@@ -23,6 +25,9 @@ import torch.nn as nn
 
 from .base import Linear
 from .conditional_gaussian import ConditionalGaussian
+from .generation import (DecodeState, SamplingParams, decode_generator,
+                         decode_loop, final_output, init_decode_state,
+                         prev_tokens, prior_z)
 from .perceiver import Perceiver
 from .transformer_lm import TransformerHparams, TransformerLanguageModel
 
@@ -133,7 +138,74 @@ class TransformerVAE(TransformerLanguageModel):
         nll_sum, count = self.sequence_nll(h, self.labels_for(token_ids))
         return nll_sum, count, kl, q, z
 
-    # -- serving ------------------------------------------------------------
+    # -- sampling and serving ----------------------------------------------
+    def decode_step_z(self, token, caches: list, index: int, z):
+        """One decode step, every row at position `index` (int), z's
+        projection replacing each layer's input at index 0. token: [B];
+        z: [B, 1, latent_depth]. Returns (fp32 logits [B, V], caches);
+        the caches update in place."""
+        x = self.embed(token[:, None])
+        for proj, layer, cache in zip(self.z_projections,
+                                      self.decoder_layers, caches):
+            if index == 0:
+                x = proj(z.to(x.dtype)).expand(x.shape[0], 1, x.shape[-1])
+            x, _ = layer.decode(x, cache, index)
+        return self.project(x[:, 0]), caches
+
+    @torch.no_grad()
+    def sample(self, seed: int, max_length: int, batch_size: int = 1,
+               z: Optional[torch.Tensor] = None,
+               sampling: SamplingParams = SamplingParams(),
+               start_token: int = 1, end_token: int = 2,
+               fused_select: bool = True):
+        """Unconditional (z ~ N(0, I) from `seed`, `generation.prior_z`)
+        or conditional (z given) generation through the lockstep loop:
+        tokens [batch_size, max_length - 1] without the start token. The
+        refusal to sample while kl_weight < 1 lives in the trainer's
+        callback (cli.make_sample_fns). fused_select: see
+        TransformerLanguageModel.sample."""
+        state, _, _ = self.sample_resumable(
+            seed, max_length, batch_size, z, sampling, start_token,
+            end_token, fused_select=fused_select)
+        return final_output(state)
+
+    @torch.no_grad()
+    def sample_resumable(self, seed: int, max_length: int,
+                         batch_size: int = 1,
+                         z: Optional[torch.Tensor] = None,
+                         sampling: SamplingParams = SamplingParams(),
+                         start_token: int = 1, end_token: int = 2,
+                         state: Optional[DecodeState] = None,
+                         caches: Optional[list] = None,
+                         max_steps: Optional[int] = None,
+                         fused_select: bool = True):
+        """Bounded-slice sampling for long documents (pg19's 102,400
+        tokens): at most max_steps positions this call; returns (state,
+        caches, z) to pass back in. A resumed call needs the first call's
+        z. Slices give the one-shot result; the sparse cache stays
+        O(window) whatever max_length is."""
+        if z is None:
+            if state is not None:
+                raise ValueError("a resumed sample_resumable call needs "
+                                 "the first call's z")
+            z = prior_z(seed, batch_size, self.hparams.latent_depth,
+                        self.device)
+        if state is None:
+            state = init_decode_state(
+                batch_size, max_length, start_token,
+                decode_generator(seed, self.device))
+        if caches is None:
+            caches = self.init_caches(batch_size, max_length)
+
+        def logits_fn(st: DecodeState, caches):
+            return self.decode_step_z(prev_tokens(st), caches,
+                                      st.index - 1, z)
+
+        state, caches = decode_loop(state, logits_fn, caches, sampling,
+                                    end_token, max_steps=max_steps,
+                                    fused_select=fused_select)
+        return state, caches, z
+
     def decode_step_z_rowwise(self, token, caches: list, index, z):
         """One decode step at PER-ROW positions index [B]: rows at position
         0 take their z projection as the layer input. token: [B];

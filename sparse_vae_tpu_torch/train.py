@@ -11,8 +11,10 @@ The training run, the JAX package's `train.py` CLI:
 assembles the configuration (cli.py: defaults, the dotlist, a preset),
 prepares the corpus (data/: tokenizer, token cache, length buckets) and
 runs `Trainer.fit` (training/trainer.py) from the JAX initialisation:
-validation, early stopping and checkpoints under
-sparse-vae-logs/<experiment>/<name>/. from_checkpoint=<run> resumes
+validation, early stopping, checkpoints under
+sparse-vae-logs/<experiment>/<name>/, and every
+trainer.sample_every_n_steps a sample and, for a VAE, a reconstruction
+with its BLEU (cli.make_sample_fns). from_checkpoint=<run> resumes
 that run with its saved hparams as the base. It is selected when the
 argument after the experiment is absent or holds a `=`.
 
@@ -248,7 +250,7 @@ def fit_main(experiment: str, args) -> int:
     import torch
 
     from .cli import (assemble_config, build_data, build_hparams,
-                      seed_everything)
+                      make_sample_fns, seed_everything)
     from .training.checkpointing import load_run_meta
     from .training.trainer import Trainer
 
@@ -273,9 +275,11 @@ def fit_main(experiment: str, args) -> int:
     overrides = dict(cfg.model_overrides)
     overrides.setdefault("vocab_size", cfg.data.vocab_size)
     hparams, objective = build_hparams(experiment, overrides)
+    sample_fn, reconstruct_fn = make_sample_fns(experiment, objective)
     trainer = Trainer(hparams, objective, data, cfg.trainer,
                       experiment=experiment, name=cfg.name,
-                      enable_logging=not cfg.no_log, device=device)
+                      enable_logging=not cfg.no_log, device=device,
+                      sample_fn=sample_fn, reconstruct_fn=reconstruct_fn)
     outcome = trainer.fit(resume=cfg.from_checkpoint is not None)
     print(f"Done: step={outcome.step} stopped={outcome.stopped_reason} "
           f"best {hparams.early_stopping_metric}={outcome.best_metric}",

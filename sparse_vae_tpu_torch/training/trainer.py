@@ -7,8 +7,11 @@ scaled by the square root of the tokens a step takes and decayed on the
 cosine schedule, validation every `val_check_interval` of an epoch
 (token-weighted val_nll, val_bpb, val_loss and, for a VAE, val_kl), early
 stopping armed after the KL annealing, checkpoints every N steps and at
-the best validation metric, and the `lr_schedule_complete` and `max_steps`
-stops.
+the best validation metric, the sampling callback every
+`sample_every_n_steps` (an unconditional sample and, for a VAE, the
+reconstruction of the last batch's first document with its BLEU-2 as
+`train_bleu`, when `log_samples` and the callbacks are given), and the
+`lr_schedule_complete` and `max_steps` stops.
 
 Batches are numpy on the host (data/batching.py); a group is copied to the
 device once and split into its micro-batches there. Each group's shape is
@@ -17,9 +20,10 @@ short rows to one long one.
 
 Random streams, each a function of the seed: the initialisation draws
 from a CPU torch.Generator, the ELBO noise from a generator on the device
-whose state the checkpoints carry, and validation at step s from a
+whose state the checkpoints carry, validation at step s from a
 generator seeded from (seed, s), so two validations of the same
-parameters at the same step agree bit for bit.
+parameters at the same step agree bit for bit, and the sampling callback
+at step s from the sampling seed derived from (seed, s).
 
 Resuming restores the parameters, the optimizer, the step and the noise
 generator, and then does what the JAX trainer does: the data stream starts
@@ -32,7 +36,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -41,8 +45,10 @@ from ..checkpoint import model_from_hparams
 from ..data.text_data_module import TextDataModule
 from ..models.base import resolve_device
 from ..utils.config import TrainerHparams, to_dict
+from ..utils.math_utils import bleu_score_corpus
 from ..utils.metrics import MetricsWriter
 from ..utils.schedules import scaled_lr
+from ..utils.seeds import derived_seed
 from .checkpointing import CheckpointManager, run_dir
 from .optimizer import make_optimizer
 from .train_step import train_step
@@ -57,14 +63,8 @@ class TrainOutcome:
     metrics_history: list
 
 
-def derived_seed(seed: int, *keys: int) -> int:
-    """A 64-bit seed for the stream named by `keys` under `seed`."""
-    return int(np.random.SeedSequence([seed, *keys]).generate_state(
-        1, np.uint64)[0])
-
-
 # The streams under the run's seed (derived_seed keys).
-INIT_STREAM, NOISE_STREAM, VALIDATION_STREAM = 0, 1, 2
+INIT_STREAM, NOISE_STREAM, VALIDATION_STREAM, SAMPLING_STREAM = 0, 1, 2, 3
 
 
 def stack_microbatches(batches: list) -> dict:
@@ -136,6 +136,8 @@ class Trainer:
         log_root: Optional[Path] = None,
         enable_logging: bool = True,
         device="cuda",
+        sample_fn: Optional[Callable] = None,
+        reconstruct_fn: Optional[Callable] = None,
     ):
         self.hp = model_hparams
         self.objective = objective
@@ -145,6 +147,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.experiment = experiment
         self.name = name
+        self.sample_fn = sample_fn
+        self.reconstruct_fn = reconstruct_fn
         self._pending_groups: Dict[tuple, list] = {}
         self._val_batches: Optional[list] = None
 
@@ -224,6 +228,56 @@ class Trainer:
         return {k: float(v) for k, v in
                 self.objective.reduce_eval(totals).items()}
 
+    # -- sampling callback --------------------------------------------------
+    def _sampling_callback(self, model, step: int, last_batch):
+        """With log_samples and a callback: up to two unconditional
+        samples as `unconditional_sample` texts, and the reconstruction of
+        `last_batch`'s first document (cli.make_sample_fns) with its BLEU-2
+        against the original as `train_bleu` and both texts as
+        `reconstruction`. A sampling exception is logged as
+        `sampling_error`, and training goes on."""
+        if not self.hp.log_samples or (self.sample_fn is None
+                                       and self.reconstruct_fn is None):
+            return
+        tokenizer = self.data.tokenizer
+        seed = derived_seed(self.thp.seed, SAMPLING_STREAM, step)
+
+        def decode(rows):
+            return [tokenizer.decode([int(t) for t in row if t != 0])
+                    for row in np.asarray(torch.as_tensor(rows).cpu())]
+
+        if self.sample_fn is not None:
+            try:
+                tokens = self.sample_fn(model, seed, step=step)
+            except Exception as e:  # sampling must never stop training
+                self.writer.text("sampling_error", repr(e), step)
+                tokens = None
+            if tokens is not None:
+                for text in decode(tokens)[:2]:
+                    self.writer.text("unconditional_sample", text, step)
+
+        if self.reconstruct_fn is not None and last_batch is not None:
+            try:
+                recon = self.reconstruct_fn(model, seed, last_batch,
+                                            step=step)
+            except Exception as e:
+                self.writer.text("sampling_error", repr(e), step)
+                recon = None
+            if recon is not None:
+                original = last_batch.token_ids[0][
+                    :int(last_batch.num_tokens[0])]
+                original_str = tokenizer.decode(
+                    [int(t) for t in original if t != 0])
+                recon_strs = decode(recon)
+                bleu = bleu_score_corpus(
+                    [s.split(" ") for s in recon_strs],
+                    [[original_str.split(" ")]] * len(recon_strs), max_n=2)
+                self.writer.scalar("train_bleu", bleu, step)
+                msg = "**Original**:  \n" + original_str
+                for i, s in enumerate(recon_strs, start=1):
+                    msg += f"  \n**Reconstruction {i}**:  \n" + s
+                self.writer.text("reconstruction", msg, step)
+
     # -- the loop -----------------------------------------------------------
     def fit(self, max_epochs: int = 10 ** 9,
             resume: bool = False) -> TrainOutcome:
@@ -236,10 +290,6 @@ class Trainer:
         self._pending_groups = {}
         if resume and self.ckpt is not None:
             step = self.restore(model, optimizer, generator)
-        if self.hp.log_samples:
-            print("fit: samples and train_bleu are not logged: "
-                  f"{type(model).__name__}.sample is not ported",
-                  flush=True)
         if self.hp.grad_checkpointing:
             print(f"fit: grad_checkpointing (remat_policy="
                   f"{self.hp.remat_policy!r}) is not applied: remat is not "
@@ -264,7 +314,7 @@ class Trainer:
         profile_start, profiler = (3 if step < 3 else step + 2), None
 
         for epoch in range(max_epochs):
-            for stacked, _ in self._accum_groups(seed + epoch):
+            for stacked, batch in self._accum_groups(seed + epoch):
                 tokens_seen += int(stacked["num_tokens"].sum())
                 metrics = self._step(model, optimizer, stacked, step,
                                      generator)
@@ -282,6 +332,9 @@ class Trainer:
                     elapsed = max(time.time() - t0, 1e-6)
                     logged["tokens_per_sec"] = tokens_seen / elapsed
                     self.writer.scalars(logged, step)
+
+                if step % self.thp.sample_every_n_steps == 0:
+                    self._sampling_callback(model, step, batch)
 
                 if (self.ckpt is not None
                         and step % self.thp.checkpoint_every_n_steps == 0):

@@ -2,7 +2,9 @@
 path): one JSON object a line in ``<run dir>/metrics.jsonl``,
 {"t": unix time, "step": step, <name>: value} for a scalar, with the
 JAX package's names (train_nll, train_kl, kl_weight, train_mc_mutual_info, loss,
-grad_norm, tokens_per_sec, val_nll, val_bpb, val_kl, val_loss, ...).
+grad_norm, tokens_per_sec, val_nll, val_bpb, val_kl, val_loss,
+train_bleu, ...), and {"t", "step", "text_<tag>": content} for a text
+(unconditional_sample, reconstruction, sampling_error).
 """
 from __future__ import annotations
 
@@ -35,6 +37,11 @@ class MetricsWriter:
     def scalars(self, metrics: dict, step: int):
         for k, v in metrics.items():
             self.scalar(k, v, step)
+
+    def text(self, tag: str, content: str, step: int):
+        if self.enabled:
+            self._write({"t": time.time(), "step": step,
+                         "text_" + tag: content})
 
     def close(self):
         if self._jsonl is not None:

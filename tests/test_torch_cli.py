@@ -133,14 +133,17 @@ def test_train_cli_trains_validates_checkpoints_and_resumes(tmp_path,
                                                             monkeypatch,
                                                             capsys):
     """`python -m sparse_vae_tpu_torch.train transformer-vae <dotlist>` on
-    the CPU: 3 steps with validation and checkpoints, then
-    from_checkpoint= takes the run on to step 5 with its saved hparams."""
+    the CPU: 3 steps with validation, checkpoints and, at step 2, the
+    sampling callback (a sample, a reconstruction and its train_bleu),
+    then from_checkpoint= takes the run on to step 5 with its saved
+    hparams."""
     monkeypatch.chdir(tmp_path)
     assert train.main(["train", "transformer-vae", *TINY,
-                       "trainer.max_steps=3", "name=cli"]) == 0
+                       "trainer.max_steps=3", "name=cli",
+                       "trainer.sample_every_n_steps=2"]) == 0
     out = capsys.readouterr().out
     assert "Done: step=3 stopped=max_steps" in out
-    assert "TransformerVAE.sample is not ported" in out
+    assert "not ported" not in out
     run = tmp_path / "sparse-vae-logs" / "transformer-vae" / "cli"
     ckpts = run / "checkpoints"
     # Every 2 steps, at the end, and at the best validation (step 1).
@@ -152,6 +155,10 @@ def test_train_cli_trains_validates_checkpoints_and_resumes(tmp_path,
     assert meta["trainer_hparams"]["max_steps"] == 3
     records = _records(run)
     assert {r["step"] for r in records if "val_nll" in r} == {1, 2, 3}
+    for key in ("text_unconditional_sample", "text_reconstruction",
+                "train_bleu"):
+        assert [r["step"] for r in records if key in r] == [2], key
+    assert not [r for r in records if "text_sampling_error" in r]
     assert (tmp_path / "sparse-vae-pretrained" / "tokenizers"
             / "synthetic.json").exists()
 

@@ -21,7 +21,9 @@ across two calls. The evaluation paths (the IWAE estimator and the DReG
 step) as chip_smoke.py's eval and dreg phases hold them, at smaller
 shapes. K3/K3b at the Transformer LM's D = 256 as at 512, and K1/K2 on
 the dense causal route (a causal band of every block, no [CLS] slot) as
-K1 and K2.
+K1 and K2. K4 at the mass-sampling batch [1000, 32768], and the
+lockstep decode step (`decode_step_z`) bit for bit the row-wise one at
+every row's position.
 """
 import pytest
 import torch
@@ -209,6 +211,53 @@ def test_select_kernel_gives_index_0_when_every_value_is_minus_inf(
     assert bool((want[::2] == 0).all()) and bool((got[::2] == 0).all())
     held = margin > 1e-4
     assert torch.equal(got[held], want[held])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_select_kernel_at_the_mass_sampling_batch(cuda, temperature):
+    """K4 at [1000, 32768], the sample entry's batch (one CTA a row), as
+    test_select_kernel_matches_plain holds it, with floors: on an NVIDIA
+    H100 80GB HBM3 at 700 W, 478 of these rows clear the margin at T 1.0
+    and 959 at T 0.7, and no row differs. So at least 450 and 900 rows
+    must be held, and at most 10 rows (1%) may differ below the
+    margin."""
+    gen = torch.Generator(device=cuda).manual_seed(1000)
+    s = 4.0 * torch.randn((1000, 32768), generator=gen, device=cuda)
+    noise = gumbel_noise(s.shape, gen)
+    kw = {"top_p": 0.9, "temperature": temperature}
+    got = select_kernel.nucleus_gumbel_argmax(s, noise, **kw)
+    assert torch.equal(got, select_kernel.nucleus_gumbel_argmax(s, noise,
+                                                                **kw))
+    want, _, margin = select_kernel.select_rows_plain(s, noise, **kw)
+    held = margin > 1e-4
+    assert torch.equal(got[held], want[held])
+    assert int(held.sum()) >= {1.0: 450, 0.7: 900}[temperature]
+    assert int((got != want).sum()) <= 10
+
+
+@pytest.mark.gpu
+def test_decode_step_z_is_the_rowwise_step_on_the_card(cuda):
+    """A tiny bf16 Transformer-VAE with r5's head geometry (Dh 64, block
+    128, window 2): decode_step_z at each index of 300 equals
+    decode_step_z_rowwise with every row at that index, bit for bit,
+    through the ring's wrap at 256."""
+    torch.manual_seed(0)
+    hp = TransformerVAEHparams(d_model=128, num_heads=2, num_layers=2,
+                               latent_depth=8, vocab_size=512,
+                               attn_window_size=2, attn_block_size=128)
+    model = TransformerVAE(hp).to(cuda, torch.bfloat16).eval()
+    b, ml = 4, 300
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn((b, 1, 8), generator=gen, device=cuda)
+    toks = torch.randint(3, 512, (ml, b), generator=gen, device=cuda)
+    one, rows = model.init_caches(b, ml), model.init_caches(b, ml)
+    with torch.inference_mode():
+        for i in range(ml):
+            got, one = model.decode_step_z(toks[i], one, i, z)
+            want, rows = model.decode_step_z_rowwise(
+                toks[i], rows, torch.full((b,), i, device=cuda), z)
+            assert torch.equal(got, want), i
 
 
 @pytest.mark.gpu

@@ -431,8 +431,6 @@ def test_unported_methods_name_what_they_need():
     for name, needs in (("draft_propose", "spec_decode"),
                         ("decode_chunk", "spec_decode"),
                         ("commit_chunk", "spec_decode"),
-                        ("sample", "decode_loop"),
-                        ("sample_resumable", "decode_loop"),
                         ("frontier_generate", "parallel_decode"),
                         ("speculative_generate", "parallel_decode"),
                         ("parallel_generate", "parallel_decode")):

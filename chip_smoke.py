@@ -27,13 +27,14 @@ Phases, each timed:
                [CLS] partials, reduce, PyTorch; K3b: dl, dg, dE, dbias,
                PyTorch's copies); K4 (the selection) at the serving batch
                [64, 32768] (T 1.0 and 0.7), at a 512-token Jacobi
-               window's [512, 32768] and at the mass-sampling batch
-               [1000, 32768], by events and torch.profiler beside its
-               bound, and for correctness alone at [1, 512],
+               window's [512, 32768], at the mass-sampling batch
+               [1000, 32768] and at 8 such windows' [4096, 32768], by
+               events and torch.profiler beside its bound, and for
+               correctness alone at [1, 512],
                [133, 32768] and [3, 50000], without noise and at top_p
                1e-3 too, every row bit-identical across two calls; its
                two instantiations (a cluster of two CTAs a row, one CTA a
-               row) timed against each other at 16 to 2,048 rows;
+               row) timed against each other at 16 to 4,096 rows;
                with --k4-parent DIR, DIR's K4 (another checkout's
                csrc/nucleus_select.cu) is built alone into this
                checkout's _build/ and timed beside this one at the timed
@@ -201,6 +202,31 @@ ids):
  25. sample-long — pg19-fb8's sample_resumable at batch 1, max_length
                102,400, no end token: 1,024 positions in one call and in
                two slices of 512, the buffers bit for bit.
+Parallel and speculative decoding (models/parallel_decode.py,
+models/spec_decode.py) through the `gen_bench` entry's rows, end token
+-1, so that every mode makes seq - 1 tokens; passes, seconds and
+launches of every mode printed:
+ 26. decode-r5 — r5 at batch 1 x 1,024: greedy ar, frontier (window
+               512), frontier_draft3 and jacobi_full (chunk 128; sparse K1
+               6 launches an iteration), each held against ar: where one
+               differs, AR's two leading logits at the first differing
+               position lie within GREEDY_TIE_MARGIN; sampled (top_p 0.9,
+               penalty 1.2) frontier, frontier_fused (K4 at [512, 32768]
+               once a pass) and speculative_draft3; frontier_fused again
+               at batch 8 x 512 (K4 at [4096, 32768]); both fused runs
+               again
+               with every K4 choice held against the plain selection, the
+               same tokens and passes;
+ 27. decode-spec — r5 verifying draft-tlm-r5's 8-token drafts
+               (spec_draft_generate) at batch 1 x 512, greedy (held
+               against decode-r5's AR) and sampled: passes, accepted
+               drafts, tokens per pass; then the `sample` entry with
+               spec_draft=transformer-lm:draft-tlm-r5 for 2 documents of
+               128;
+ 28. decode-lm — draft-tlm-r5's full-document Jacobi at batch 1 x 512:
+               greedy (K1's dense route, 2 launches an iteration) held
+               against its ar, and sampled with fused_select (K4 on every
+               dirty chunk of 128), every K4 choice held.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -229,8 +255,8 @@ import torch.nn.functional as F
 
 from sparse_vae_tpu_torch import profile_train
 from sparse_vae_tpu_torch import test as test_entry
-from sparse_vae_tpu_torch.checkpoint import (export_archive, load_run,
-                                             model_from_hparams,
+from sparse_vae_tpu_torch.checkpoint import (export_archive, load_draft,
+                                             load_run, model_from_hparams,
                                              serving_form)
 from sparse_vae_tpu_torch import sample as sample_entry
 from sparse_vae_tpu_torch.batch_generation import batch_generate_samples
@@ -242,7 +268,8 @@ from sparse_vae_tpu_torch.data.text_data_module import (
 from sparse_vae_tpu_torch.data.tokenizer import (tokenizer_cache_path,
                                                  train_tokenizer)
 from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
-from sparse_vae_tpu_torch.models import generation
+from sparse_vae_tpu_torch import gen_bench
+from sparse_vae_tpu_torch.models import generation, parallel_decode
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise, prior_z)
 from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
@@ -631,7 +658,7 @@ def k4_phase(temperature: float, seed: int, iters: int, n: int = 64,
 
 
 def k4_instantiations(seed: int, iters: int,
-                      rows=(16, 64, 100, 512, 1000, 2048)):
+                      rows=(16, 64, 100, 512, 1000, 2048, 4096)):
     """K4's two instantiations timed against each other on the same inputs
     ([rows, 32768], T 1.0, noise, top_p 0.9; turns cluster, one CTA, one
     CTA, cluster), each held against the plain version: the measurement
@@ -3064,12 +3091,17 @@ class K4Held:
 
     @contextlib.contextmanager
     def patched(self):
+        """Stand in for the wrapper where the lockstep loop
+        (models/generation.py) and the parallel decoders
+        (models/parallel_decode.py) call it."""
         wrapper = generation.nucleus_gumbel_argmax
         generation.nucleus_gumbel_argmax = self
+        parallel_decode.nucleus_gumbel_argmax = self
         try:
             yield self
         finally:
             generation.nucleus_gumbel_argmax = wrapper
+            parallel_decode.nucleus_gumbel_argmax = wrapper
 
     def stats(self) -> dict:
         return {"steps": self.steps, "rows": self.rows,
@@ -3364,6 +3396,278 @@ def sample_long_phase(smi: str) -> dict:
     return stats
 
 
+# Parallel and speculative decoding (phases 26-28): r5 at batch 1 over
+# DECODE_SEQ positions without an end token, so that every mode makes
+# DECODE_SEQ - 1 tokens (gen_bench's rows, window DECODE_WINDOW, drafts of
+# DECODE_DRAFT-grams); the fused frontier again at DECODE_ROWS rows over
+# DECODE_WIDE_SEQ; draft-tlm-r5 as r5's draft at DECODE_SPEC_K tokens a
+# pass over DECODE_SPEC_SEQ; the `sample` entry's spec_draft= for
+# DECODE_SPEC_DOCS documents of DECODE_SPEC_LEN; draft-tlm-r5's own
+# full-document Jacobi at DECODE_LM_SEQ. The batch-8 frontier, the draft
+# runs and the entry's documents are cut to these lengths for the run's
+# time (PERF.md): at 1,024 positions the three phases took 322 s.
+DECODE_SEQ, DECODE_WINDOW, DECODE_DRAFT, DECODE_ROWS = 1024, 512, 3, 8
+DECODE_WIDE_SEQ = 512
+DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 512
+DECODE_SPEC_DOCS, DECODE_SPEC_LEN = 2, 128
+DECODE_LM_SEQ = 512
+DRAFT_SPEC = f"transformer-lm:{LM_RUN}"
+# A greedy mode may part from AR only where AR's choice was a near tie:
+# at the first differing position AR's two leading logits (from the
+# teacher-forced forward over AR's tokens) lie within this many units.
+# The window pass, the chunk peek and the full forward reduce in other
+# orders than the ring decode step, in bf16 through every layer: r5's
+# bf16 logits sit 0.25 from fp32 on average (MODEL_MEAN_ABS_TOL), so two
+# bf16 paths can order logits that close either way.
+GREEDY_TIE_MARGIN = 0.25
+
+
+def leading_gap(model, tokens, z, position: int) -> float:
+    """AR's two leading logits' gap at `position` of its buffer [1, L]
+    (start token first), from the teacher-forced forward."""
+    with torch.no_grad():
+        buf = tokens.to(model.device)
+        hidden = (model.reconstruct_hidden(buf, z) if z is not None
+                  else model.forward_hidden(buf))
+        top = model.project(hidden[:, position]).topk(2, dim=-1).values
+    return float(top[0, 0] - top[0, 1])
+
+
+def held_against_ar(name: str, model, ar, got, z=None) -> dict:
+    """A greedy mode's tokens [1, L - 1] against AR's: the count that
+    differ and the first such position, where AR's two leading logits must
+    lie within GREEDY_TIE_MARGIN."""
+    first = gen_bench.first_mismatch(ar, got)
+    out = {"mismatch_tokens": int((ar != got).sum()),
+           "first_mismatch": first}
+    if first is not None:
+        buf = F.pad(ar, (1, 0), value=CLS_ID)
+        out["leading_gap"] = leading_gap(model, buf, z, first)
+        check(out["leading_gap"] < GREEDY_TIE_MARGIN,
+              f"{name}: parts from AR at {first}, where AR's two leading "
+              f"logits are {out['leading_gap']:.4f} apart")
+    return out
+
+
+def counted(record: dict):
+    """gen_bench.run_mode's `timed` hook: each row's launch counts, zeroed
+    just before it and read just after."""
+    def wrap(name, fn):
+        def run():
+            reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            record[name] = read_counts()
+            return out
+        return run
+    return wrap
+
+
+def total(*count_dicts) -> dict:
+    """Every counter summed over the runs' count dicts."""
+    return {name: sum(c[name] for c in count_dicts)
+            for name in launches.COUNTERS}
+
+
+def mode_stats(runs: dict, counts: dict) -> dict:
+    """Each row's passes, seconds, tokens a pass, accepted drafts and
+    non-zero launch counts."""
+    return {name: {"passes": r["passes"], "seconds": r["seconds"],
+                   "tokens_per_pass": (r["tokens"].shape[1]
+                                       / max(r["passes"], 1)),
+                   "accepted": r["accepted"],
+                   "launches": {k: v for k, v in counts[name].items() if v}}
+            for name, r in runs.items()}
+
+
+def decode_r5_phase(smi: str) -> dict:
+    """r5's parallel decoders through gen_bench's rows at batch 1 x
+    DECODE_SEQ: greedy ar, frontier, frontier_draft3 and jacobi_full
+    (sparse K1, 6 launches an iteration), each greedy mode held against
+    ar (held_against_ar); sampled frontier, frontier_fused (K4 at
+    [512, 32768] once a pass) and speculative_draft3; frontier_fused again
+    at DECODE_ROWS rows over DECODE_WIDE_SEQ (K4 at [4096, 32768]).
+    Both fused runs are run
+    again with every K4 choice held against the plain selection (K4Held)
+    and must give the same tokens and passes."""
+    model, hp, _ = load_run(RUN, device="cuda")
+    z = prior_z(gen_bench.Z_SEED, DECODE_ROWS, hp.latent_depth,
+                model.device)
+    one = gen_bench.Bench(model, seq=DECODE_SEQ, window=DECODE_WINDOW,
+                          draft=DECODE_DRAFT, z=z)
+    wide = gen_bench.Bench(model, seq=DECODE_WIDE_SEQ, batch=DECODE_ROWS,
+                           window=DECODE_WINDOW, draft=DECODE_DRAFT, z=z)
+    spec = f"speculative_draft{DECODE_DRAFT}"
+    counts = {"greedy": {}, "sampled": {}, "wide": {}}
+    greedy_row, greedy = gen_bench.run_mode(
+        one, gen_bench.GREEDY, "greedy", check=True, full=True,
+        timed=counted(counts["greedy"]))
+    sampled_row, sampled = gen_bench.run_mode(
+        one, gen_bench.SAMPLED, "sampled",
+        names=["frontier", "frontier_fused", spec],
+        timed=counted(counts["sampled"]))
+    _, wide_runs = gen_bench.run_mode(
+        wide, gen_bench.SAMPLED, "sampled", names=["frontier_fused"],
+        timed=counted(counts["wide"]))
+    ar = greedy["ar"]["tokens"]
+    check(ar.shape == (1, DECODE_SEQ - 1)
+          and bool((ar[0, :-1] != 0).all()),
+          f"decode-r5: AR made {int((ar != 0).sum())} tokens")
+    held = {name: held_against_ar(f"decode-r5 {name}", model, ar,
+                                  run["tokens"], z[:1])
+            for name, run in greedy.items() if name != "ar"}
+    jacobi_k1 = 6 * greedy["jacobi_full"]["passes"]
+    for name, c in counts["greedy"].items():
+        check_counts(f"decode-r5 greedy {name}", c,
+                     {"swa_fwd": jacobi_k1} if name == "jacobi_full"
+                     else {})
+    for name, c in counts["sampled"].items():
+        check_counts(f"decode-r5 sampled {name}", c, {
+            "nucleus_select": sampled[name]["passes"]}
+            if name == "frontier_fused" else {})
+    check_counts("decode-r5 sampled frontier_fused wide",
+                 counts["wide"]["frontier_fused"],
+                 {"nucleus_select": wide_runs["frontier_fused"]["passes"]})
+    k4_held = {}
+    for bench, runs in ((one, sampled), (wide, wide_runs)):
+        holder = K4Held()
+        with holder.patched():
+            tokens, passes, _ = gen_bench.rows(
+                bench, gen_bench.SAMPLED)["frontier_fused"]()
+        torch.cuda.synchronize()
+        check(torch.equal(tokens.cpu(), runs["frontier_fused"]["tokens"])
+              and passes == runs["frontier_fused"]["passes"]
+              and holder.steps == passes,
+              f"decode-r5: the held fused frontier at {bench.batch} rows "
+              "differs from the timed one")
+        k4_held[f"rows_{bench.batch}"] = holder.stats()
+    stats = {"card": smi, "seq": DECODE_SEQ, "window": DECODE_WINDOW,
+             "wide_seq": DECODE_WIDE_SEQ,
+             "greedy": mode_stats(greedy, counts["greedy"]),
+             "greedy_held_against_ar": held,
+             "sampled": mode_stats(sampled, counts["sampled"]),
+             f"sampled_rows_{DECODE_ROWS}": mode_stats(wide_runs,
+                                                       counts["wide"]),
+             "gen_bench_rows": [greedy_row, sampled_row],
+             "k4_held": k4_held,
+             "launches": total(*counts["greedy"].values(),
+                               *counts["sampled"].values(),
+                               *counts["wide"].values())}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("decode-r5 " + json.dumps(stats), flush=True)
+    return {**stats, "ar_tokens": ar, "z": z[:1]}
+
+
+def decode_spec_phase(smi: str, ar, z) -> dict:
+    """Draft-model speculative sampling, r5 verifying draft-tlm-r5's
+    DECODE_SPEC_K-token drafts at batch 1 x DECODE_SPEC_SEQ (gen_bench's
+    spec_model row), greedy (held against the prefix of decode-r5's AR
+    tokens: greedy AR's first positions do not depend on its length) and
+    sampled; then the `sample` entry with spec_draft= for
+    DECODE_SPEC_DOCS documents. Neither path launches a kernel: the chunk
+    peek, the draft's dense decode steps and the [1, V] selections are
+    plain tensor code."""
+    model, _, _ = load_run(RUN, device="cuda")
+    # The shorter run's last slot is the exhaustion slot ([PAD]).
+    ar = F.pad(ar[:, :DECODE_SPEC_SEQ - 2], (0, 1))
+    bench = gen_bench.Bench(model, seq=DECODE_SPEC_SEQ, z=z,
+                            spec_k=DECODE_SPEC_K,
+                            spec=load_draft(DRAFT_SPEC, DECODE_SPEC_K,
+                                            model.device))
+    row = f"spec_model_k{DECODE_SPEC_K}"
+    stats = {"card": smi, "seq": DECODE_SPEC_SEQ, "k": DECODE_SPEC_K}
+    jsons = []
+    all_counts = []
+    for label, sampling in (("greedy", gen_bench.GREEDY),
+                            ("sampled", gen_bench.SAMPLED)):
+        counts = {}
+        json_row, runs = gen_bench.run_mode(bench, sampling, label,
+                                            names=[row],
+                                            timed=counted(counts))
+        check_counts(f"decode-spec {label}", counts[row], {})
+        all_counts.append(counts[row])
+        jsons.append(json_row)
+        stats[label] = mode_stats(runs, counts)[row]
+        if label == "greedy":
+            stats["greedy_held_against_ar"] = held_against_ar(
+                f"decode-spec {row}", model, ar, runs[row]["tokens"], z)
+    stats["gen_bench_rows"] = jsons
+    del model, bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as tmp, \
+            contextlib.chdir(tmp):
+        stand_in_tokenizer(RUN)
+        out, counts, peak = entry_run(
+            "decode-spec-entry", "transformer-vae", RUN,
+            [f"num_samples={DECODE_SPEC_DOCS}", "batch_size=1",
+             f"max_length={DECODE_SPEC_LEN}", f"spec_draft={DRAFT_SPEC}",
+             f"spec_k={DECODE_SPEC_K}"])
+    check_counts("decode-spec entry", counts, {})
+    stats["launches"] = total(*all_counts, counts)
+    stats["entry"] = {**doc_stats(out["documents"]),
+                      "new_tokens": out["new_tokens"],
+                      "seconds": out["seconds"],
+                      "max_memory_allocated_bytes": peak}
+    print("decode-spec " + json.dumps(stats), flush=True)
+    return stats
+
+
+def decode_lm_phase(smi: str) -> dict:
+    """draft-tlm-r5's full-document Jacobi at batch 1 x DECODE_LM_SEQ:
+    gen_bench's greedy ar and jacobi_full (chunk 128; K1's dense route, 2
+    launches an iteration), jacobi_full held against ar; then sampled with
+    fused_select (K4 at [128, 32768] on every dirty chunk), every K4
+    choice held against the plain selection."""
+    model, _, _ = load_run(LM_RUN, device="cuda")
+    bench = gen_bench.Bench(model, seq=DECODE_LM_SEQ)
+    counts = {}
+    json_row, greedy = gen_bench.run_mode(
+        bench, gen_bench.GREEDY, "greedy", names=["ar", "jacobi_full"],
+        timed=counted(counts))
+    check_counts("decode-lm ar", counts["ar"], {})
+    check_counts("decode-lm jacobi_full", counts["jacobi_full"],
+                 {"swa_fwd_dense": 2 * greedy["jacobi_full"]["passes"]})
+    held = held_against_ar("decode-lm jacobi_full", model,
+                           greedy["ar"]["tokens"],
+                           greedy["jacobi_full"]["tokens"])
+    holder = K4Held()
+    reset_counts()
+    t0 = time.perf_counter()
+    with holder.patched():
+        tokens, passes = model.parallel_generate(
+            gen_bench.SEED, DECODE_LM_SEQ, 1, gen_bench.SAMPLED,
+            end_token=-1, chunk_size=gen_bench.JACOBI_CHUNK,
+            fused_select=True)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_counts = read_counts()
+    check_counts("decode-lm fused", fused_counts,
+                 {"swa_fwd_dense": 2 * passes,
+                  "nucleus_select": holder.steps})
+    check(tokens.shape == (1, DECODE_LM_SEQ - 1) and holder.steps > 0,
+          f"decode-lm: fused Jacobi {tuple(tokens.shape)}, "
+          f"{holder.steps} K4 calls")
+    stats = {"card": smi, "seq": DECODE_LM_SEQ,
+             "greedy": mode_stats(greedy, counts),
+             "greedy_held_against_ar": held,
+             "sampled_fused": {"passes": passes, "seconds": fused_s,
+                               "tokens_per_pass": (DECODE_LM_SEQ - 1)
+                               / passes,
+                               "launches": {k: v for k, v in
+                                            fused_counts.items() if v},
+                               "k4_held": holder.stats()},
+             "gen_bench_row": json_row,
+             "launches": total(*counts.values(), fused_counts)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("decode-lm " + json.dumps(stats), flush=True)
+    return stats
+
+
 def check_counts(path: str, counts: dict, expect: dict):
     """expect: {counter: exact count, or None for at least one}; every
     other counter, the plain_routes ones included, must be 0."""
@@ -3400,6 +3704,9 @@ def main(argv) -> int:
         k4_wide = k4_phase(1.0, seed=9, iters=50, n=512, parent=parent)
         k4_mass = k4_phase(1.0, seed=10, iters=50, n=SAMPLE_BATCH,
                            parent=parent)
+        # The fused frontier's rows at DECODE_ROWS windows of 512.
+        k4_frontier = k4_phase(1.0, seed=11, iters=20,
+                               n=DECODE_ROWS * DECODE_WINDOW, parent=parent)
         k4_split = k4_instantiations(seed=12, iters=50)
         k4_checks = [
             k4_phase(1.0, seed=30 + 3 * i + j, iters=0, n=n, vocab=v,
@@ -3520,6 +3827,13 @@ def main(argv) -> int:
         lm_callback_counts = lm_callback_phase(smi)["launches"]
     with Phase("sample-long"):
         long_stats = sample_long_phase(smi)
+    with Phase("decode-r5"):
+        decode_r5 = decode_r5_phase(smi)
+    with Phase("decode-spec"):
+        decode_spec = decode_spec_phase(smi, decode_r5["ar_tokens"],
+                                        decode_r5["z"])
+    with Phase("decode-lm"):
+        decode_lm = decode_lm_phase(smi)
     sample_counts = {
         "sample": sample_stats["lockstep"]["launches"],
         "sample-continuous": sample_stats["continuous"]["launches"],
@@ -3543,7 +3857,14 @@ def main(argv) -> int:
                 "lm-train": lm_train_counts[name],
                 "lm-fit": lm_fit_counts[name],
                 "lm-test-entry": lm_test_counts[name],
-                "lm-callback": lm_callback_counts[name]}
+                "lm-callback": lm_callback_counts[name],
+                "decode-lm": decode_lm["launches"][name]}
+
+    def decode_paths(name):
+        """The launches of the parallel and speculative decoding paths."""
+        return {path: stats["launches"][name] for path, stats in (
+            ("decode-r5", decode_r5), ("decode-spec", decode_spec),
+            ("decode-lm", decode_lm))}
 
     def lm_row(name, counter, source, replaces, row, extra):
         by_path = lm_paths(counter)
@@ -3570,17 +3891,20 @@ def main(argv) -> int:
                 "serve-h4": h4_counts["nucleus_select"],
                 "lm-serve": lm_serve_counts["nucleus_select"],
                 **{path: c["nucleus_select"]
-                   for path, c in sample_counts.items()}}
+                   for path, c in sample_counts.items()},
+                **decode_paths("nucleus_select")}
     kernels = [
         {"name": "swa_fwd", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
          "launches": counts["swa_fwd"] + train_counts["swa_fwd"]
-         + sp_sum("swa_fwd") + sum(fit_paths("swa_fwd").values()),
+         + sp_sum("swa_fwd") + sum(fit_paths("swa_fwd").values())
+         + sum(decode_paths("swa_fwd").values()),
          "launches_by_path": {"serve": counts["swa_fwd"],
                               "train": train_counts["swa_fwd"],
                               "sp-train": sp_sum("swa_fwd"),
-                              **fit_paths("swa_fwd")},
+                              **fit_paths("swa_fwd"),
+                              **decode_paths("swa_fwd")},
          **{k: k1_serve[k] for k in ("max_abs_err", "ms", "device_ms",
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -3602,9 +3926,9 @@ def main(argv) -> int:
                                        "library_ms")},
          "shape": k4_rows[0]["shape"],
          "ulp_flip_rows": sum(r["ulp_flip_rows"] for r in (
-             *k4_rows, k4_wide, k4_mass, *k4_checks)),
+             *k4_rows, k4_wide, k4_mass, k4_frontier, *k4_checks)),
          "bit_identical": all(r["bit_identical"] for r in (
-             *k4_rows, k4_wide, k4_mass, *k4_checks)),
+             *k4_rows, k4_wide, k4_mass, k4_frontier, *k4_checks)),
          "temperature_0.7": {k: k4_rows[1][k] for k in (
              "max_abs_err", "ms", "device_ms", "plain_ms")},
          "rows_512": {k: k4_wide[k] for k in (
@@ -3613,16 +3937,23 @@ def main(argv) -> int:
          "rows_1000": {k: k4_mass[k] for k in (
              "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")},
+         f"rows_{DECODE_ROWS * DECODE_WINDOW}": {k: k4_frontier[k] for k in (
+             "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
          "r5_logits_1000": sample_stats["k4_on_logits"],
          "sampled_steps_held": {
              "sample": sample_stats["k4_held"],
-             "sample-lm": lm_sample_stats["k4_held"]},
+             "sample-lm": lm_sample_stats["k4_held"],
+             **{f"decode-r5 {k}": v
+                for k, v in decode_r5["k4_held"].items()},
+             "decode-lm": decode_lm["sampled_fused"]["k4_held"]},
          "parent": None if parent is None else {
              name: {k: r[k] for k in ("parent_ms", "parent_device_ms",
                                       "pccp")}
              for name, r in (("t1.0", k4_rows[0]), ("t0.7", k4_rows[1]),
                              ("rows_512", k4_wide),
-                             ("rows_1000", k4_mass))},
+                             ("rows_1000", k4_mass),
+                             ("rows_4096", k4_frontier))},
          "checks": [{k: r[k] for k in ("shape", "noise", "top_p",
                                        "ulp_flip_rows")}
                     for r in k4_checks],

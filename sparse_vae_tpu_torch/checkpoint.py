@@ -273,3 +273,38 @@ def _in_form(model: TransformerLanguageModel, device, dtype, train: bool):
         return model.train().requires_grad_(True)
     model = model.to(device=device, dtype=dtype)
     return model.eval().requires_grad_(False)
+
+
+# Draft families of draft-model speculative decoding that wait for a port.
+UNPORTED_DRAFTS = {
+    "lstm-lm": "the LSTM LM's draft_propose / initial_rnn_state "
+               "(sparse_vae_tpu/models/lstm_lm.py), ROADMAP.md Queue 1 "
+               "item 6",
+    "lstm-vae": "the LSTM family (sparse_vae_tpu/models/lstm_vae.py), "
+                "ROADMAP.md Queue 1 item 6",
+}
+
+
+def load_draft(spec: str, draft_k: int, device="cuda"):
+    """The draft of draft-model speculative decoding, `spec` =
+    "<experiment>:<run>" (`load_run`'s run, its serving form): returns
+    (draft_propose(state, last, noise), fresh_state(length)), the state a
+    transformer's (caches, index) sized for length + draft_k + 2
+    positions, the chunk's over-proposal included. A state is written in
+    place: take a fresh one for every document."""
+    experiment, name = spec.split(":", 1)
+    if experiment in UNPORTED_DRAFTS:
+        raise NotImplementedError(f"a {experiment!r} draft is not ported: "
+                                  f"it needs {UNPORTED_DRAFTS[experiment]}")
+    model, _, meta = load_run(name, device=device)
+    if meta.get("experiment") != experiment:
+        raise SystemExit(f"draft run {name!r} is a "
+                         f"{meta.get('experiment')!r} run, not "
+                         f"{experiment!r}")
+
+    def propose(state, last, noise):
+        return model.draft_propose(state, last, noise, draft_k)
+
+    def fresh_state(length: int):
+        return model.draft_init_state(1, length + draft_k + 2)
+    return propose, fresh_state

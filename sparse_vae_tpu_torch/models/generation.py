@@ -47,6 +47,35 @@ def prior_z(seed: int, batch_size: int, latent_depth: int, device,
                        generator=gen).to(device)
 
 
+class KeyedNoise:
+    """Noise that is a pure function of an integer key, for the parallel
+    and speculative decoders (models/parallel_decode.py,
+    models/spec_decode.py): `gumbel(key, shape)` and `uniform(key, shape)`
+    draw from a torch.Generator on `device` seeded with
+    derived_seed(seed, *path, key), so drawing one key twice gives the
+    same tensor, and `fold(key)` names a sub-stream (the role of JAX's
+    fold_in). The decoders key a position's noise by its block or chunk
+    and a pass's draws by the pass; a test hands them any object with
+    these three methods, such as one built on JAX's keys."""
+
+    def __init__(self, seed: int, device, path: tuple = (DECODE_STREAM,)):
+        self.seed, self.device, self.path = seed, device, path
+
+    def fold(self, key: int) -> "KeyedNoise":
+        return KeyedNoise(self.seed, self.device, (*self.path, key))
+
+    def uniform(self, key: int, shape):
+        """Uniforms in [tiny, 1), as jax.random.uniform(minval=tiny)."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            derived_seed(self.seed, *self.path, key))
+        u = torch.rand(shape, generator=gen, device=self.device,
+                       dtype=torch.float32)
+        return u.clamp_(min=torch.finfo(torch.float32).tiny)
+
+    def gumbel(self, key: int, shape):
+        return gumbel_from_uniform(self.uniform(key, shape))
+
+
 @dataclass(frozen=True)
 class SamplingParams:
     """Decode hyperparameters (the reference's defaults)."""

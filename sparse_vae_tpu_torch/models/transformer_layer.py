@@ -107,3 +107,26 @@ class TransformerLayer(nn.Module):
                    dtype=None) -> dict:
         return self.attention.init_cache(batch_size, max_length, device,
                                          dtype)
+
+    def decode_chunk(self, x, cache: dict, index: int):
+        """C-token speculative-verification peek at positions index ..
+        index + C - 1 (no cache write): equals C sequential `decode` steps.
+        Returns (out [B, C, D], this layer's chunk (k, v))."""
+        y, kv = self.attention.decode_chunk(self.attn_layer_norm(x), cache,
+                                            index)
+        return self._ffn(x + y), kv
+
+    def commit_chunk(self, cache: dict, kv, index: int, m: int) -> dict:
+        return self.attention.commit_chunk(cache, kv, index, m)
+
+    def window_decode(self, x, cache: dict, start: int):
+        """The active window's pass of frontier decoding: the layer at
+        absolute positions start .. start + W - 1 over the frozen prefix's
+        window cache. Returns (out [B, W, D], the window's (k, v))."""
+        y, kv = self.attention.window_attend(self.attn_layer_norm(x), cache,
+                                             start)
+        return self._ffn(x + y), kv
+
+    def init_window_cache(self, batch_size: int, device=None,
+                          dtype=None) -> dict:
+        return self.attention.init_window_cache(batch_size, device, dtype)

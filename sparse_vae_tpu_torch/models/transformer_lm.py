@@ -5,9 +5,15 @@ sparse_vae_tpu/models/transformer_lm.py): `embed` with the input dropout,
 rotary K/V of every layer for a bulk prefill), the full forward
 (`__call__`), `init_caches`, the decode steps `decode_step` (every
 row at one position) and `decode_step_rowwise` (per-row positions, the
-continuous-batching step), and the lockstep sampling loops `sample` and
-`sample_resumable` (models/generation.py). The Transformer-VAE builds
-on it.
+continuous-batching step), the lockstep sampling loops `sample` and
+`sample_resumable` (models/generation.py), the speculative-verification
+chunk `decode_chunk` / `commit_chunk`, the draft interface
+`draft_propose` / `draft_init_state`, the frontier window
+`init_window_caches` / `window_hidden`, and the parallel and speculative
+generators `frontier_generate`, `speculative_generate`,
+`spec_draft_generate` and `parallel_generate`
+(models/parallel_decode.py, models/spec_decode.py). The Transformer-VAE
+builds on it.
 
 Ported configurations: tied input/output embedding with
 d_embedding == d_model, dense FFNs, no decoder cross-attention, sparse
@@ -16,15 +22,16 @@ the dense one through K1/K2 inside the JAX package's flash-attention
 gate), one device or, for the Transformer-VAE, a length axis sharded
 over a `seq` group (`bind_seq_group`, through parallel.sp.sp_localize).
 The model computes in `compute_dtype` (default: its parameters' dtype);
-models/base.py states the rule. The speculative and parallel generators
-and the draft-model interface raise, naming the JAX function each needs
-(`UNPORTED`).
+models/base.py states the rule.
 
 Sampling takes an int seed: the decode noise comes from a generator on
 the model's device seeded from (seed, DECODE_STREAM), and the
 Transformer-VAE's prior z from a CPU generator seeded from (seed,
 Z_STREAM) (`generation.decode_generator`, `generation.prior_z`), as the
-JAX package splits its key into a z key and a decode key.
+JAX package splits its key into a z key and a decode key. The parallel
+and speculative generators key their noise by block, chunk or pass
+(`generation.KeyedNoise` under (seed, DECODE_STREAM)), or take a noise
+source as `noise=`.
 """
 from __future__ import annotations
 
@@ -40,9 +47,13 @@ from ..ops.ce_kernel import FusedTiedCrossEntropy
 from ..ops.cross_entropy import chunked_nll_rows
 from .base import (LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear,
                    dropout)
-from .generation import (DecodeState, SamplingParams, decode_generator,
-                         decode_loop, final_output, init_decode_state,
-                         prev_tokens)
+from .generation import (DecodeState, KeyedNoise, SamplingParams,
+                         decode_generator, decode_loop, final_output,
+                         init_decode_state, prev_tokens)
+from .parallel_decode import (frontier_jacobi_decode,
+                              frontier_speculative_decode, jacobi_decode,
+                              push_window_blocks)
+from .spec_decode import chunk_speculative_decode
 from .transformer_layer import TransformerLayer
 
 
@@ -95,42 +106,53 @@ class TransformerHparams(LanguageModelHparams):
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
-# Methods of the JAX package's model that this port does not have yet:
-# name -> what it needs (ROADMAP.md Queue 1).
-UNPORTED = {
-    "draft_propose": "speculative decoding (models/spec_decode.py), "
-                     "ROADMAP.md Queue 1 item 5",
-    "draft_init_state": "speculative decoding (models/spec_decode.py), "
-                        "ROADMAP.md Queue 1 item 5",
-    "decode_chunk": "speculative decoding (models/spec_decode.py), "
-                    "ROADMAP.md Queue 1 item 5",
-    "commit_chunk": "speculative decoding (models/spec_decode.py), "
-                    "ROADMAP.md Queue 1 item 5",
-    "frontier_generate": "models/parallel_decode.py, ROADMAP.md Queue 1 "
-                         "item 5",
-    "speculative_generate": "models/parallel_decode.py, ROADMAP.md Queue 1 "
-                            "item 5",
-    "spec_draft_generate": "models/spec_decode.py, ROADMAP.md Queue 1 "
-                           "item 5",
-    "parallel_generate": "models/parallel_decode.py, ROADMAP.md Queue 1 "
-                         "item 5",
-}
+class DraftStack:
+    """The draft's states after each step of `draft_propose`, without
+    copies of the caches, which its steps wrote in place: `select(j)`
+    rewinds them to the state after step j (index + j + 1 consumed
+    positions). A dense cache rewinds by index alone: a later step at
+    position p writes p and attends positions <= p, so the over-proposed
+    entries are masked, then overwritten. A ring cache cannot: a step at p
+    overwrote the slot of p - ring, which a later query may need, so the
+    slots the steps write are saved before them and given back."""
 
+    def __init__(self, caches: list, index: int, steps: int):
+        self.caches, self.index = caches, index
+        self.saved = []
+        for cache in caches:
+            if "k_ring" not in cache:
+                self.saved.append(None)
+                continue
+            ring_len = cache["k_ring"].shape[2]
+            if steps > ring_len:
+                raise ValueError(f"{steps} draft steps exceed the ring of "
+                                 f"{ring_len} positions")
+            slots = torch.remainder(torch.arange(
+                index, index + steps, device=cache["k_ring"].device),
+                ring_len)
+            n_cls = max(0, min(steps, cache["k_cls"].shape[2] - index))
+            self.saved.append((slots, n_cls, {
+                name: cache[name][:, :, slots].clone()
+                for name in ("k_ring", "v_ring")}, {
+                name: cache[name][:, :, index:index + n_cls].clone()
+                for name in ("k_cls", "v_cls")}))
 
-def _unported(name: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.{name} is not ported yet "
-            f"({self.JAX_MODULE}); it needs {UNPORTED[name]}")
-    method.__name__ = name
-    method.__doc__ = f"Not ported: raises NotImplementedError ({name})."
-    return method
+    def select(self, j: int):
+        """(caches, index + j + 1): the steps after step j undone."""
+        lo = j + 1
+        for cache, saved in zip(self.caches, self.saved):
+            if saved is None:
+                continue
+            slots, n_cls, ring, cls = saved
+            for name, old in ring.items():
+                cache[name][:, :, slots[lo:]] = old[:, :, lo:]
+            for name, old in cls.items():
+                cache[name][:, :, self.index + lo:self.index + n_cls] = \
+                    old[:, :, lo:]
+        return self.caches, self.index + lo
 
 
 class TransformerLanguageModel(nn.Module):
-    # The JAX module this class ports (named by the unported methods).
-    JAX_MODULE = "sparse_vae_tpu/models/transformer_lm.py"
-
     def __init__(self, hparams: TransformerHparams):
         super().__init__()
         hparams.check_ported()
@@ -349,6 +371,197 @@ class TransformerLanguageModel(nn.Module):
                            fused_select=fused_select)
 
 
-for _name in UNPORTED:
-    setattr(TransformerLanguageModel, _name, _unported(_name))
-del _name
+    # -- speculative verification and the draft interface ------------------
+    def decode_chunk(self, tokens, caches: list, index: int):
+        """C-token speculative-verification peek: tokens [B, C] at absolute
+        positions index .. index + C - 1 (caches committed through
+        index - 1). Returns (fp32 logits [B, C, V], kvs) without writing
+        the caches; row i decides position index + i + 1, as C sequential
+        decode steps would. kvs feed `commit_chunk`."""
+        x = self.embed(tokens)
+        kvs = []
+        for layer, cache in zip(self.decoder_layers, caches):
+            x, kv = layer.decode_chunk(x, cache, index)
+            kvs.append(kv)
+        return self.project(x), kvs
+
+    def commit_chunk(self, caches: list, kvs, index: int, m: int) -> list:
+        """Commit the first m positions of a `decode_chunk` peek, in place
+        (rejected drafts are never written)."""
+        return [layer.commit_chunk(cache, kv, index, m)
+                for layer, cache, kv in zip(self.decoder_layers, caches,
+                                            kvs)]
+
+    def draft_init_state(self, batch_size: int, max_length: int):
+        """The draft's (caches, index) before its first proposal."""
+        return self.init_caches(batch_size, max_length), 0
+
+    @torch.no_grad()
+    def draft_propose(self, state, last_token, noise, k: int,
+                      temperature: float = 1.0):
+        """Draft k tokens as the cheap model of speculative decoding:
+        k + 1 decode steps from state = (caches, index) (consumed through
+        index - 1), the first on last_token [B]. Step i samples
+        argmax(log_softmax(logits / temperature) + noise.gumbel(i, ...)),
+        the draft's raw distribution q. The caches are written in place.
+        Returns (drafts [B, k], q_logp [B, k, V] fp32, a `DraftStack` for
+        `spec_decode.draft_select`)."""
+        caches, index = state
+        stack = DraftStack(caches, index, k + 1)
+        tok, toks, logps = last_token, [], []
+        for i in range(k + 1):
+            logits, caches = self.decode_step(tok, caches, index + i)
+            logp = torch.log_softmax(logits.float() / temperature, dim=-1)
+            tok = torch.argmax(logp + noise.gumbel(i, logp.shape).to(
+                logp.device), dim=-1)
+            toks.append(tok)
+            logps.append(logp)
+        return (torch.stack(toks[:k], dim=1), torch.stack(logps[:k], dim=1),
+                stack)
+
+    # -- frontier-windowed and full-document parallel decoding -------------
+    def init_window_caches(self, batch_size: int) -> list:
+        return [layer.init_window_cache(batch_size, self.device, self.dtype)
+                for layer in self.decoder_layers]
+
+    def window_hidden(self, win_tokens, caches: list, start: int):
+        """The active window's decoder pass: tokens [B, W] at absolute
+        positions start .. -> (hidden [B, W, D], each layer's window
+        (k, v))."""
+        return self._window_pass(win_tokens, caches, start, None)
+
+    def _window_pass(self, win_tokens, caches: list, start: int, z_inputs):
+        """The window's decoder stack; z_inputs (the VAE's) gives each
+        layer's z projection for absolute position 0."""
+        x = self.embed(win_tokens)
+        kvs = []
+        for i, (layer, cache) in enumerate(zip(self.decoder_layers, caches)):
+            if z_inputs is not None and start == 0:
+                x = torch.cat([z_inputs(i, x), x[:, 1:]], dim=1)
+            x, kv = layer.window_decode(x, cache, start)
+            kvs.append(kv)
+        return x, kvs
+
+    def _noise(self, seed: int, noise):
+        return KeyedNoise(seed, self.device) if noise is None else noise
+
+    def _push(self):
+        bs = self.hparams.attn_block_size
+        return lambda caches, kvs, f: push_window_blocks(caches, kvs, f, bs)
+
+    def _require_sparse(self, name: str):
+        if not self.hparams.sparse_self_attention:
+            raise ValueError(f"{name} requires the sparse sliding-window "
+                             "attention configuration")
+
+    def _frontier(self, hidden_fn, seed, length, batch_size, sampling,
+                  start_token, end_token, window_tokens, max_iters,
+                  fused_select, draft_ngram, noise):
+        self._require_sparse("frontier_generate")
+        tokens, iters = frontier_jacobi_decode(
+            hidden_fn, self.project, self._push(),
+            self.init_window_caches(batch_size), batch_size, length,
+            self._noise(seed, noise), sampling, start_token, end_token,
+            window_tokens, self.hparams.attn_block_size, max_iters,
+            fused_select, draft_ngram, self.device)
+        return tokens[:, 1:], iters
+
+    def _speculative(self, hidden_fn, seed, length, batch_size, sampling,
+                     start_token, end_token, window_tokens, max_iters,
+                     draft_ngram, noise):
+        self._require_sparse("speculative_generate")
+        tokens, iters = frontier_speculative_decode(
+            hidden_fn, self.project, self._push(),
+            self.init_window_caches(batch_size), batch_size, length,
+            self._noise(seed, noise), sampling, start_token, end_token,
+            window_tokens, self.hparams.attn_block_size, max_iters,
+            draft_ngram, self.device)
+        return tokens[:, 1:], iters
+
+    def _spec_draft(self, chunk_fn, seed, length, draft_propose, draft_state,
+                    sampling, start_token, end_token, draft_k, max_iters,
+                    noise):
+        tokens, iters, accepted = chunk_speculative_decode(
+            chunk_fn, self.commit_chunk,
+            self.init_caches(1, length + draft_k + 2), draft_propose,
+            draft_state, length, self._noise(seed, noise), sampling,
+            start_token, end_token, draft_k, max_iters, self.device)
+        return tokens[:, 1:], iters, accepted
+
+    def _jacobi(self, hidden_fn, seed, length, batch_size, sampling,
+                start_token, end_token, max_iters, chunk_size, init_tokens,
+                fused_select, noise):
+        tokens, iters = jacobi_decode(
+            hidden_fn, self.project, batch_size, length,
+            self._noise(seed, noise), sampling, start_token, end_token,
+            max_iters, chunk_size, init_tokens, fused_select, self.device)
+        return tokens[:, 1:], iters
+
+    @torch.no_grad()
+    def frontier_generate(self, seed: int, length: int, batch_size: int = 1,
+                          sampling: SamplingParams = SamplingParams(),
+                          start_token: int = 1, end_token: int = 2,
+                          window_tokens: int = 512,
+                          max_iters: Optional[int] = None,
+                          fused_select: bool = False, draft_ngram: int = 0,
+                          noise=None):
+        """Frontier-windowed Jacobi decoding
+        (parallel_decode.frontier_jacobi_decode): a pass costs one window
+        whatever the document's length; draft_ngram > 0 drafts the
+        window's tail by suffix matching; fused_select selects sampled
+        nucleus tokens through K4. Sparse models only. Returns (tokens
+        [B, length - 1] without the start token, passes)."""
+        return self._frontier(self.window_hidden, seed, length, batch_size,
+                              sampling, start_token, end_token,
+                              window_tokens, max_iters, fused_select,
+                              draft_ngram, noise)
+
+    @torch.no_grad()
+    def speculative_generate(self, seed: int, length: int,
+                             batch_size: int = 1,
+                             sampling: SamplingParams = SamplingParams(),
+                             start_token: int = 1, end_token: int = 2,
+                             window_tokens: int = 512,
+                             max_iters: Optional[int] = None,
+                             draft_ngram: int = 3, noise=None):
+        """Frontier speculative sampling
+        (parallel_decode.frontier_speculative_decode): an exact sample of
+        the AR sampling distribution, the greedy trajectory at temperature
+        0. Sparse models only. Returns (tokens [B, length - 1], passes)."""
+        return self._speculative(self.window_hidden, seed, length,
+                                 batch_size, sampling, start_token,
+                                 end_token, window_tokens, max_iters,
+                                 draft_ngram, noise)
+
+    @torch.no_grad()
+    def spec_draft_generate(self, seed: int, length: int, draft_propose,
+                            draft_state,
+                            sampling: SamplingParams = SamplingParams(),
+                            start_token: int = 1, end_token: int = 2,
+                            draft_k: int = 8,
+                            max_iters: Optional[int] = None, noise=None):
+        """Draft-model speculative sampling (spec_decode.py): another model
+        proposes draft_k tokens a pass through draft_propose(state, last,
+        noise) from draft_state (written in place: give each call a fresh
+        one), and this model verifies them in one chunk against its decode
+        cache. Batch 1. Returns (tokens [1, length - 1], passes, accepted
+        draft tokens)."""
+        return self._spec_draft(self.decode_chunk, seed, length,
+                                draft_propose, draft_state, sampling,
+                                start_token, end_token, draft_k, max_iters,
+                                noise)
+
+    @torch.no_grad()
+    def parallel_generate(self, seed: int, length: int, batch_size: int = 1,
+                          sampling: SamplingParams = SamplingParams(),
+                          start_token: int = 1, end_token: int = 2,
+                          max_iters: Optional[int] = None,
+                          chunk_size: int = 2048, init_tokens=None,
+                          fused_select: bool = False, noise=None):
+        """Full-document Jacobi decoding (parallel_decode.jacobi_decode):
+        every iteration one teacher-forcing forward. init_tokens
+        ([B, length] with the start token) resumes an earlier iterate.
+        Returns (tokens [B, length - 1], iterations)."""
+        return self._jacobi(self.forward_hidden, seed, length, batch_size,
+                            sampling, start_token, end_token, max_iters,
+                            chunk_size, init_tokens, fused_select, noise)

@@ -4,7 +4,11 @@ shared input embedding, the ConditionalGaussian posterior, the per-layer z
 projections, `reconstruct_hidden`, `reconstruct_ll`, the training
 forwards (`__call__`, `forward_chunked_nll`), the decode steps
 `decode_step_z` (every row at one position) and `decode_step_z_rowwise`,
-and the lockstep sampling loops `sample` and `sample_resumable`.
+the lockstep sampling loops `sample` and `sample_resumable`, the
+speculative-verification chunk `decode_chunk_z`, the frontier window
+`window_hidden_z`, and the four parallel and speculative generators
+from z (`frontier_generate`, `speculative_generate`,
+`spec_draft_generate`, `parallel_generate`).
 
 z replaces position 0 ([CLS]) of every decoder layer's input. The training
 forwards take the posterior noise eps (z = loc + scale * eps) or a
@@ -49,8 +53,6 @@ def z_projection_module(hp: TransformerVAEHparams) -> nn.Linear:
 
 
 class TransformerVAE(TransformerLanguageModel):
-    JAX_MODULE = "sparse_vae_tpu/models/transformer_vae.py"
-
     def __init__(self, hparams: TransformerVAEHparams):
         super().__init__(hparams)
         self.z_projections = nn.ModuleList([
@@ -220,3 +222,100 @@ class TransformerVAE(TransformerLanguageModel):
             x, cache = layer.decode_rowwise(x, cache, index)
             new_caches.append(cache)
         return self.project(x[:, 0]), new_caches
+
+    # -- speculative verification and parallel decoding from z -------------
+    def _z_inputs(self, z):
+        """Each layer's input at absolute position 0: (layer i, x) -> its
+        z projection [B, 1, D]."""
+        return lambda i, x: self.z_projections[i](z.to(x.dtype)).expand(
+            x.shape[0], 1, x.shape[-1])
+
+    def _prior(self, seed: int, batch_size: int, z):
+        return prior_z(seed, batch_size, self.hparams.latent_depth,
+                       self.device) if z is None else z
+
+    def decode_chunk_z(self, tokens, caches: list, index: int, z):
+        """`decode_chunk` with z's projection as each layer's input at
+        absolute position 0 (the chunk's first position when index is 0),
+        as `decode_step_z` injects it. Returns (fp32 logits [B, C, V],
+        kvs) without writing the caches."""
+        x = self.embed(tokens)
+        z_inputs = self._z_inputs(z)
+        kvs = []
+        for i, (layer, cache) in enumerate(zip(self.decoder_layers, caches)):
+            if index == 0:
+                x = torch.cat([z_inputs(i, x), x[:, 1:]], dim=1)
+            x, kv = layer.decode_chunk(x, cache, index)
+            kvs.append(kv)
+        return self.project(x), kvs
+
+    def window_hidden_z(self, win_tokens, caches: list, start: int, z):
+        """`window_hidden` with z's projection as each layer's input at
+        absolute position 0 while the window holds it."""
+        return self._window_pass(win_tokens, caches, start, self._z_inputs(z))
+
+    @torch.no_grad()
+    def frontier_generate(self, seed: int, length: int, batch_size: int = 1,
+                          z: Optional[torch.Tensor] = None,
+                          sampling: SamplingParams = SamplingParams(),
+                          start_token: int = 1, end_token: int = 2,
+                          window_tokens: int = 512,
+                          max_iters: Optional[int] = None,
+                          fused_select: bool = False, draft_ngram: int = 0,
+                          noise=None):
+        """Frontier-windowed Jacobi decoding from z (z ~ N(0, I) from
+        `seed` unless given; see TransformerLanguageModel's)."""
+        z = self._prior(seed, batch_size, z)
+        return self._frontier(
+            lambda w, c, f: self.window_hidden_z(w, c, f, z), seed, length,
+            batch_size, sampling, start_token, end_token, window_tokens,
+            max_iters, fused_select, draft_ngram, noise)
+
+    @torch.no_grad()
+    def speculative_generate(self, seed: int, length: int,
+                             batch_size: int = 1,
+                             z: Optional[torch.Tensor] = None,
+                             sampling: SamplingParams = SamplingParams(),
+                             start_token: int = 1, end_token: int = 2,
+                             window_tokens: int = 512,
+                             max_iters: Optional[int] = None,
+                             draft_ngram: int = 3, noise=None):
+        """Frontier speculative sampling from z (see
+        TransformerLanguageModel's)."""
+        z = self._prior(seed, batch_size, z)
+        return self._speculative(
+            lambda w, c, f: self.window_hidden_z(w, c, f, z), seed, length,
+            batch_size, sampling, start_token, end_token, window_tokens,
+            max_iters, draft_ngram, noise)
+
+    @torch.no_grad()
+    def spec_draft_generate(self, seed: int, length: int, draft_propose,
+                            draft_state, z: Optional[torch.Tensor] = None,
+                            sampling: SamplingParams = SamplingParams(),
+                            start_token: int = 1, end_token: int = 2,
+                            draft_k: int = 8,
+                            max_iters: Optional[int] = None, noise=None):
+        """Draft-model speculative sampling from z, batch 1 (see
+        TransformerLanguageModel's)."""
+        z = self._prior(seed, 1, z)
+        return self._spec_draft(
+            lambda t, c, i: self.decode_chunk_z(t, c, i, z), seed, length,
+            draft_propose, draft_state, sampling, start_token, end_token,
+            draft_k, max_iters, noise)
+
+    @torch.no_grad()
+    def parallel_generate(self, seed: int, length: int, batch_size: int = 1,
+                          z: Optional[torch.Tensor] = None,
+                          sampling: SamplingParams = SamplingParams(),
+                          start_token: int = 1, end_token: int = 2,
+                          max_iters: Optional[int] = None,
+                          chunk_size: int = 2048, init_tokens=None,
+                          fused_select: bool = False, noise=None):
+        """Full-document Jacobi decoding from z: every iteration one
+        teacher-forcing forward of the z-injected decoder (see
+        TransformerLanguageModel's)."""
+        z = self._prior(seed, batch_size, z)
+        return self._jacobi(
+            lambda t: self.reconstruct_hidden(t, z), seed, length,
+            batch_size, sampling, start_token, end_token, max_iters,
+            chunk_size, init_tokens, fused_select, noise)

@@ -7,16 +7,22 @@ cross-attention (the blocked sparse path, its masked-dense fallback, the
 dense causal path and the dense non-causal masked path the Perceiver
 takes), the block-ring and dense decode caches with `decode` (one
 position for every row), `_decode_ring` and `decode_rowwise`, plus
-`row_cache_write` and `fill_cache_row`, the packed-layout branch
+`row_cache_write` and `fill_cache_row`, the speculative-verification
+chunk peek and commit (`decode_chunk`, `commit_chunk` and their
+per-row forms), the frontier window (`init_window_cache`,
+`window_attend`, `push_window_block`), the packed-layout branch
 (Dh = 128: the projections feed K5/K5b without head-major copies), and the
 sequence-parallel branch (`Attention._sp_call`, parallel/sp.py: the halo
 and [CLS] broadcast into K6, or the distributed softmax of replicated
-queries). The tensor-parallel and frontier-window branches are not
-ported.
+queries). The tensor-parallel branch is not ported. The chunk and window
+attentions are plain tensor code, as in the reference (XLA there, no
+Pallas kernel).
 
 Unlike the reference, whose arrays are immutable, the decode caches are
 updated in place: a step writes one position per row instead of copying
-every cache.
+every cache. A chunk peek writes nothing; a commit writes only the
+accepted positions; a window push rolls the context band of the cache
+its caller owns.
 """
 from __future__ import annotations
 
@@ -487,6 +493,225 @@ class Attention(nn.Module):
         out = dense_attention(q, cache["k"], cache["v"],
                               valid[:, None, None, :])
         return self._finalize(out), cache
+
+    # -- speculative verification: chunk peek and commit -------------------
+    def _chunk_limit(self, c: int):
+        """The chunk may not reach past the [CLS] store's lifetime: a query
+        with qb >= w while block 0 is still being written would need the
+        half-filled store. So c <= (w - 1) * bs + 1."""
+        bs, w = self.block_size, self.window_size
+        if c > (w - 1) * bs + 1:
+            raise ValueError(f"a ring-cache chunk of {c} positions exceeds "
+                             f"(window - 1) * block + 1 = {(w - 1) * bs + 1}")
+
+    def _ring_chunk_valid(self, index, c: int):
+        """[B, C, bs + ring] validity of [CLS store | ring] for chunks at
+        per-row starts index [B], the cache committed through index - 1:
+        the slot-to-block map of `_ring_valid` anchored at the last
+        written block, each query's band from its own block."""
+        bs, w = self.block_size, self.window_size
+        ring_len = w * bs
+        ci = torch.arange(c, device=index.device)
+        qb = torch.div(index[:, None] + ci[None, :], bs,
+                       rounding_mode="floor")                       # [B, C]
+        qb_old = torch.div(index - 1, bs, rounding_mode="floor")    # [B]
+        j = torch.arange(ring_len, device=index.device)
+        slot, offs = j // bs, j % bs
+        b_old = qb_old[:, None] - torch.remainder(
+            torch.remainder(qb_old[:, None], w) - slot[None, :], w)
+        pos_old = b_old * bs + offs[None, :]
+        written = (pos_old <= (index - 1)[:, None]) & (b_old >= 0)
+        ring_valid = written[:, None, :] & (b_old[:, None, :]
+                                            > (qb[:, :, None] - w))
+        cls_valid = (qb >= w)[:, :, None].expand(-1, -1, bs)
+        return torch.cat([cls_valid, ring_valid], dim=2)
+
+    def _dense_chunk_valid(self, index, c: int, length: int):
+        """[B, C, length] validity of the committed dense cache for chunks
+        at per-row starts index [B]: positions <= index - 1, in the band
+        (and block 0) when sparse."""
+        positions = torch.arange(length, device=index.device)
+        valid = (positions[None, :] <= (index - 1)[:, None])[:, None, :]
+        valid = valid.expand(-1, c, -1)
+        if self.sparse:
+            ci = torch.arange(c, device=index.device)
+            qb = torch.div(index[:, None] + ci[None, :], self.block_size,
+                           rounding_mode="floor")
+            kb = positions // self.block_size
+            valid = valid & ((kb[None, None, :] > (qb[:, :, None]
+                                                   - self.window_size))
+                             | (kb[None, None, :] == 0))
+        return valid
+
+    def _chunk_attend(self, x, cache: dict, index):
+        """The chunk peek at per-row starts index [B] (int64): query i
+        attends the committed cache and chunk keys j <= i."""
+        c = x.shape[1]
+        q, k_c, v_c = self._project(x, index)
+        intra = torch.ones((c, c), dtype=torch.bool,
+                           device=x.device).tril()[None].expand(
+                               x.shape[0], -1, -1)
+        if "k_ring" in cache:
+            self._chunk_limit(c)
+            old = self._ring_chunk_valid(index, c)
+            keys = (cache["k_cls"], cache["k_ring"])
+            values = (cache["v_cls"], cache["v_ring"])
+        else:
+            old = self._dense_chunk_valid(index, c, cache["k"].shape[2])
+            keys, values = (cache["k"],), (cache["v"],)
+        dt = keys[0].dtype
+        k_all = torch.cat([*keys, k_c.to(dt)], dim=2)
+        v_all = torch.cat([*values, v_c.to(dt)], dim=2)
+        valid = torch.cat([old, intra], dim=2)
+        out = dense_attention(q, k_all, v_all, valid[:, None])
+        return self._finalize(out), (k_c, v_c)
+
+    def decode_chunk(self, x, cache: dict, index: int):
+        """C-token attention against the cache WITHOUT writing it: the
+        speculative-verification peek. x: [B, C, D] at absolute positions
+        index .. index + C - 1 (int index; the cache committed through
+        index - 1). Equals C sequential `decode` calls; the caller commits
+        the accepted prefix with `commit_chunk`. Returns (out [B, C, D],
+        (k_c, v_c) [B, H, C, Dh])."""
+        return self._chunk_attend(x, cache, torch.full(
+            (x.shape[0],), index, dtype=torch.int64, device=x.device))
+
+    def decode_chunk_rowwise(self, x, cache: dict, index):
+        """`decode_chunk` at PER-ROW starts index [B] (int64): row r equals
+        decode_chunk at index[r]. Commit with `commit_chunk_rowwise`."""
+        return self._chunk_attend(x, cache, index)
+
+    def commit_chunk(self, cache: dict, kv, index: int, m: int) -> dict:
+        """Write the first m (0 <= m <= C) positions of a `decode_chunk`
+        peek into the cache, in place: positions index .. index + m - 1
+        become committed and the rejected tail is never written."""
+        k_c, v_c = kv
+        c = k_c.shape[2]
+        m = min(m, c)
+        if "k_ring" in cache:
+            ring_len = cache["k_ring"].shape[2]
+            if ring_len < c:
+                raise ValueError(f"a chunk of {c} positions exceeds the "
+                                 f"ring of {ring_len}")
+            slots = torch.remainder(
+                torch.arange(index, index + m, device=k_c.device), ring_len)
+            dt = cache["k_ring"].dtype
+            cache["k_ring"][:, :, slots] = k_c[:, :, :m].to(dt)
+            cache["v_ring"][:, :, slots] = v_c[:, :, :m].to(dt)
+            bs = cache["k_cls"].shape[2]
+            n_cls = max(0, min(index + m, bs) - index)
+            if n_cls:
+                cache["k_cls"][:, :, index:index + n_cls] = \
+                    k_c[:, :, :n_cls].to(dt)
+                cache["v_cls"][:, :, index:index + n_cls] = \
+                    v_c[:, :, :n_cls].to(dt)
+            return cache
+        dt = cache["k"].dtype
+        cache["k"][:, :, index:index + m] = k_c[:, :, :m].to(dt)
+        cache["v"][:, :, index:index + m] = v_c[:, :, :m].to(dt)
+        return cache
+
+    def commit_chunk_rowwise(self, cache: dict, kv, index, m) -> dict:
+        """`commit_chunk` at PER-ROW starts index [B] and PER-ROW accepted
+        lengths m [B], in place."""
+        k_c, v_c = kv
+        c = k_c.shape[2]
+        ci = torch.arange(c, device=k_c.device)
+        take = ci[None, :] < torch.clamp(m, max=c)[:, None]          # [B, C]
+        pos = index[:, None] + ci[None, :]                           # [B, C]
+        if "k_ring" in cache:
+            ring_len = cache["k_ring"].shape[2]
+            if ring_len < c:
+                raise ValueError(f"a chunk of {c} positions exceeds the "
+                                 f"ring of {ring_len}")
+            bs = cache["k_cls"].shape[2]
+            targets = (("k_ring", "v_ring", torch.remainder(pos, ring_len),
+                        take),
+                       ("k_cls", "v_cls", pos.clamp(max=bs - 1),
+                        take & (pos < bs)))
+        else:
+            length = cache["k"].shape[2]
+            targets = (("k", "v", pos.clamp(max=length - 1),
+                        take & (pos < length)),)
+        for k_name, v_name, where, ok in targets:
+            for name, new in ((k_name, k_c), (v_name, v_c)):
+                for i in range(c):
+                    row_cache_write(cache[name],
+                                    torch.where(ok[:, i], where[:, i],
+                                                cache[name].shape[2]),
+                                    new[:, :, i])
+        return cache
+
+    # -- frontier-window decoding (models/parallel_decode.py) --------------
+    def init_window_cache(self, batch_size: int, device=None,
+                          dtype=torch.float32) -> dict:
+        """K/V stores of frontier-windowed decoding (sparse only): the
+        [CLS] block and the `window_size`-block band of frozen context
+        just left of the frontier. Which entries are valid follows from the
+        frontier (`_window_mask`), so zeros suffice."""
+        if not self.sparse:
+            raise ValueError("frontier windowing needs the sparse band")
+        head_dim = self.d_model // self.num_heads
+        cls = (batch_size, self.num_heads, self.block_size, head_dim)
+        ctx = (batch_size, self.num_heads,
+               self.window_size * self.block_size, head_dim)
+        return {name: torch.zeros(shape, dtype=dtype, device=device)
+                for name, shape in (("cls_k", cls), ("cls_v", cls),
+                                    ("ctx_k", ctx), ("ctx_v", ctx))}
+
+    def _window_mask(self, start: int, num_q: int, device=None):
+        """[num_q, bs + ctx + num_q] validity of [CLS store | context band |
+        window] for queries at absolute positions start + i (start a block
+        multiple): block qb attends blocks qb - window + 1 .. qb and block
+        0, causal inside its own block, as the training mask."""
+        bs, ws = self.block_size, self.window_size
+        ctx_len = ws * bs
+        q_abs = start + torch.arange(num_q, device=device)
+        qb = q_abs // bs
+        # The [CLS] store holds block 0 once it is frozen.
+        cls_ok = torch.full((num_q, bs), start >= bs, dtype=torch.bool,
+                            device=device)
+        # Context slot j holds absolute position start - ctx_len + j: valid
+        # where it exists, is not block 0 and lies in the query's band.
+        ctx_abs = start - ctx_len + torch.arange(ctx_len, device=device)
+        ctx_b = torch.div(ctx_abs, bs, rounding_mode="floor")
+        ctx_ok = ((ctx_abs[None, :] >= 0) & (ctx_b[None, :] >= 1)
+                  & (ctx_b[None, :] > qb[:, None] - ws))
+        kb = qb
+        win_ok = ((q_abs[None, :] <= q_abs[:, None])
+                  & ((kb[None, :] > qb[:, None] - ws) | (kb[None, :] == 0)))
+        return torch.cat([cls_ok, ctx_ok, win_ok], dim=1)
+
+    def window_attend(self, x, cache: dict, start: int):
+        """Attention of the active window x [B, W, D] at absolute positions
+        start .. start + W - 1 over the frozen prefix's window cache and
+        the window itself. Returns (out [B, W, D], the window's (k, v)),
+        which the caller freezes block by block (`push_window_block`)."""
+        q, k_w, v_w = self._project(x, start)
+        dt = cache["ctx_k"].dtype
+        k_all = torch.cat([cache["cls_k"], cache["ctx_k"], k_w.to(dt)],
+                          dim=2)
+        v_all = torch.cat([cache["cls_v"], cache["ctx_v"], v_w.to(dt)],
+                          dim=2)
+        mask = self._window_mask(start, x.shape[1], x.device)
+        out = dense_attention(q, k_all, v_all, mask[None, None])
+        return self._finalize(out), (k_w, v_w)
+
+    @staticmethod
+    def push_window_block(cache: dict, kv, start: int, block_size: int):
+        """Freeze the window's leading block into the cache, in place: its
+        K/V become the [CLS] store when it is block 0 (start < block_size),
+        else enter the context band, rolled left one block."""
+        k_w, v_w = kv
+        for name, new in (("k", k_w), ("v", v_w)):
+            block = new[:, :, :block_size].to(cache[f"ctx_{name}"].dtype)
+            if start < block_size:
+                cache[f"cls_{name}"].copy_(block)
+                continue
+            ctx = cache[f"ctx_{name}"]
+            ctx[:, :, :-block_size] = ctx[:, :, block_size:].clone()
+            ctx[:, :, -block_size:] = block
+        return cache
 
 
 def fill_cache_row(cache: dict, row: int, k, v, length: int) -> dict:

@@ -3,7 +3,7 @@
     python -m sparse_vae_tpu_torch.sample {transformer-vae|transformer-lm}
         <run-name> [num_samples=700000] [batch_size=1000] [max_length=512]
         [ignore_end=0] [fused_select=1] [continuous=0] [slice_steps=256]
-        [device=cuda]
+        [spec_draft=<experiment>:<run>] [spec_k=8] [device=cuda]
 
 loads runs/<run-name>/ (or an archive directory given as a path:
 checkpoint.load_run) in its serving form and generates num_samples
@@ -15,7 +15,13 @@ continuous=1 decodes every document in its own row of a continuously
 refilled batch (serving.continuous_batch_sample, seed 0, bounded slices
 of slice_steps). ignore_end=1 never stops at [SEP], so every document
 runs to max_length. fused_select=1 selects each sampled token with the
-K4 kernel on the card.
+K4 kernel on the card. spec_draft=<experiment>:<run> decodes each
+document at batch 1 by draft-model speculative sampling
+(`spec_draft_generate`, document i from seed i): that run proposes
+spec_k tokens a pass and the target verifies them in one chunk; a
+transformer draft starts every document from a fresh
+`draft_init_state(1, max_length + spec_k + 2)`
+(checkpoint.load_draft), an LSTM draft raises.
 
 The documents are decoded with the run's tokenizer (cli.tokenizer_for_run:
 the one cached under sparse-vae-pretrained/tokenizers/ in the working
@@ -27,8 +33,8 @@ of that many documents from a seeded shuffle.
 
 The keys are the JAX package's sample.py keys, except `step` and
 `params_dtype`: the archive holds one set of params, cast to the run's
-compute dtype. spec_draft= and the LSTM families raise, naming what they
-need. It runs on the card unless device=cpu is given.
+compute dtype. The LSTM families raise, naming what they need. It runs on
+the card unless device=cpu is given.
 """
 from __future__ import annotations
 
@@ -41,19 +47,14 @@ from typing import List
 import numpy as np
 
 KEYS = {"num_samples", "batch_size", "max_length", "ignore_end",
-        "fused_select", "continuous", "slice_steps", "device", "spec_draft"}
+        "fused_select", "continuous", "slice_steps", "device", "spec_draft",
+        "spec_k"}
 UNPORTED = {
     "lstm-lm": "the LSTM LM (sparse_vae_tpu/models/lstm_lm.py), ROADMAP.md "
                "Queue 1 item 6",
     "lstm-vae": "the LSTM-VAE (sparse_vae_tpu/models/lstm_vae.py), "
                 "ROADMAP.md Queue 1 item 6",
 }
-SPEC_DRAFT = (
-    "spec_draft (draft-model speculative decoding, "
-    "sparse_vae_tpu/models/spec_decode.py) is not ported: ROADMAP.md Queue "
-    "1 item 5. It must branch on the draft's type as gen_bench.py:88-95 "
-    "does: an LSTM draft starts from initial_rnn_state, a transformer "
-    "draft from draft_init_state sized max_length + spec_k + 2")
 
 
 def save_samples(outputs: List[np.ndarray], texts: List[str],
@@ -83,7 +84,7 @@ def main(args) -> dict:
     their non-[PAD] tokens, "seconds": the generation's wall time,
     "splits": save_samples' counts, "path": the dataset directory}."""
     from .batch_generation import batch_generate_samples
-    from .checkpoint import load_run
+    from .checkpoint import load_draft, load_run
     from .cli import tokenizer_for_run
     from .models.base import SEP_ID
     from .serving import continuous_batch_sample
@@ -99,8 +100,6 @@ def main(args) -> dict:
     if unknown:
         raise SystemExit(f"unknown keys {sorted(unknown)}; known: "
                          f"{sorted(KEYS)}")
-    if "spec_draft" in extra:
-        raise NotImplementedError(SPEC_DRAFT)
     num_samples = int(extra.get("num_samples", 700_000))
     batch_size = int(extra.get("batch_size", 1000))
     max_length = int(extra.get("max_length", 512))
@@ -108,14 +107,31 @@ def main(args) -> dict:
     fused_select = extra.get("fused_select", "1") == "1"
     continuous = extra.get("continuous", "0") == "1"
     slice_steps = int(extra.get("slice_steps", 256))
+    spec_draft = extra.get("spec_draft")
+    spec_k = int(extra.get("spec_k", 8))
+    if spec_draft and batch_size != 1:
+        raise SystemExit("spec_draft is the batch-1 latency path: give "
+                         "batch_size=1")
 
-    model, _, meta = load_run(name, device=extra.get("device", "cuda"))
+    device = extra.get("device", "cuda")
+    model, _, meta = load_run(name, device=device)
     if meta.get("experiment") != experiment:
         raise SystemExit(f"run {name!r} is a {meta.get('experiment')!r} "
                          f"run, not {experiment!r}")
     end = -1 if ignore_end else SEP_ID
+    if spec_draft:
+        propose, fresh_state = load_draft(spec_draft, spec_k, device)
     t0 = time.perf_counter()
-    if continuous:
+    if spec_draft:
+        def spec_batch(i):
+            return model.spec_draft_generate(
+                i, max_length, propose, fresh_state(max_length),
+                end_token=end, draft_k=spec_k)[0]
+
+        outputs = batch_generate_samples(
+            spec_batch, num_samples, max_length,
+            end_token=None if ignore_end else SEP_ID)
+    elif continuous:
         outputs = continuous_batch_sample(
             model, 0, num_samples, max_length, batch_size, end_token=end,
             slice_steps=slice_steps, fused_select=fused_select,

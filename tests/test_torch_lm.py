@@ -427,12 +427,16 @@ def test_training_dropout_draws_from_the_generator():
 
 
 def test_unported_methods_name_what_they_need():
+    """The parallel, speculative and draft methods are ported; the
+    frontier decoders name what they need where the model lacks it: the
+    sparse sliding-window band."""
     model = TransformerLanguageModel(TransformerHparams(**SPARSE_LM))
-    for name, needs in (("draft_propose", "spec_decode"),
-                        ("decode_chunk", "spec_decode"),
-                        ("commit_chunk", "spec_decode"),
-                        ("frontier_generate", "parallel_decode"),
-                        ("speculative_generate", "parallel_decode"),
-                        ("parallel_generate", "parallel_decode")):
-        with pytest.raises(NotImplementedError, match=needs):
-            getattr(model, name)()
+    for name in ("draft_propose", "draft_init_state", "decode_chunk",
+                 "commit_chunk", "frontier_generate", "speculative_generate",
+                 "spec_draft_generate", "parallel_generate"):
+        assert callable(getattr(model, name))
+    dense = TransformerLanguageModel(TransformerHparams(
+        **{**SPARSE_LM, "sparse_self_attention": False}))
+    for name in ("frontier_generate", "speculative_generate"):
+        with pytest.raises(ValueError, match="sparse sliding-window"):
+            getattr(dense, name)(0, 256, 1)

@@ -227,6 +227,42 @@ launches of every mode printed:
                greedy (K1's dense route, 2 launches an iteration) held
                against its ar, and sampled with fused_select (K4 on every
                dirty chunk of 128), every K4 choice held.
+The LSTM family (ops/rnn.py, models/lstm_lm.py, models/lstm_vae.py): the
+lstm-benchmark preset's LSTM-VAE (d_model 1024, d_embedding 512, a
+bidirectional 2 x 256 encoder, latent 64, vocab 32,768, tied embeddings
+and logits, init_scale None: the JAX initialisation, seeded) at the
+default data's 50,000 tokens a batch and documents of up to 25,000
+tokens, and draft-lstm-r4's LSTM LM (meta.json only: 2 layers, d_model
+256). The recurrence runs through torch's fused RNN (cuDNN, its TF32
+off: fp32 as in the JAX package); its plain version is the step loop,
+which no path runs on the card (the `rnn_step_loop` counter stays 0 on
+every path; the oracle's calls move it):
+ 29. lstm-ops — the decoder's StackedRNN (in 576, H 1024) against the
+               step loop at [4, 4096], forward and backward, then timed at
+               [2, 25000] (ms, tokens/s); the masked BiLSTMEncoder at 1 and
+               2 layers over ragged rows with an empty one against each
+               row's trimmed step loop; a GRU stack; single decode steps
+               against the scan;
+ 30. lstm-train — step 1 of the LSTM-VAE at [4, 4096] from the JAX
+               initialisation, the fused RNN against the step loop on the
+               same batch and eps (loss 0.1%, every gradient at cosine >=
+               0.99 unless numerically zero); 3 timed steps at [2, 25000]
+               (seconds, real tokens/s, peak memory); one step of
+               draft-lstm-r4's LM at [13, 3584], held the same way;
+ 31. lstm-fit — Trainer.fit at lstm-benchmark on a stand-in corpus: 4
+               steps, validating, saving and reconstructing every 2; the
+               step-2 checkpoint restored bit for bit; export_archive ->
+               load_run(<dir>) with the logits of the trained model in
+               bf16-rounded weights, bit for bit; a 2-step fit of
+               draft-lstm-r4's LM; the `test` entry on both runs;
+ 32. lstm-sample — `sample lstm-vae <lstm-fit's archive>`: one lockstep
+               batch of 1000 x 512 (the unfused selection: no K4); then
+               `sample transformer-vae real-prose-vae-r5
+               spec_draft=lstm-lm:<lstm-fit's LM>` for 2 documents of 128
+               and gen_bench's spec_model row with that draft, greedy and
+               sampled (passes, accepted drafts).
+Cut for time: the fits' depth (4 and 2 steps), the test entry's samples
+(8 in 2 chunks) and the draft runs' documents (2 of 128); no width.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -268,12 +304,15 @@ from sparse_vae_tpu_torch.data.text_data_module import (
 from sparse_vae_tpu_torch.data.tokenizer import (tokenizer_cache_path,
                                                  train_tokenizer)
 from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
+from sparse_vae_tpu_torch.models.init import init_parameters
 from sparse_vae_tpu_torch import gen_bench
 from sparse_vae_tpu_torch.models import generation, parallel_decode
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise, prior_z)
 from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
                                       select_kernel, sp_kernel, swa_kernel)
+from sparse_vae_tpu_torch.ops.rnn import (BiLSTMEncoder, StackedRNN,
+                                          use_step_loop)
 from sparse_vae_tpu_torch.ops import attention as tattn
 from sparse_vae_tpu_torch.ops import sliding_window_attention as swa_plain
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
@@ -290,6 +329,7 @@ from sparse_vae_tpu_torch.train import (run_hparams, sp_pad_multiple,
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.train_step import train_step
 from sparse_vae_tpu_torch.training.trainer import Trainer, defer_accum_groups
+from sparse_vae_tpu_torch.utils.config import to_dict
 
 RUN = "real-prose-vae-r5"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
@@ -1929,20 +1969,44 @@ def validate_against_plain(n_docs: int, log_root: Path) -> dict:
 def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
             log_root: Path, capture_step=None, sample_every=None):
     """Trainer.fit of the run's family (the Transformer-VAE or the
-    Transformer LM) from the JAX initialisation, configured by
-    cli.assemble_config with runs/<run>/meta.json as the base and
-    `dotlist` on top, on `corpus` through prepare_corpus, for `steps`
-    steps, validating every `val_step` steps. Checks the stop, the finite
-    losses and grad norms, and the launch counts of the groups and
-    validations fit ran (K1/K2 on the sliding-window or the dense causal
-    route, as the model's attention is); returns (trainer, outcome,
-    counts, peak bytes, seconds). With `sample_every`, fit runs the
-    sampling callback of cli.make_sample_fns every that many steps (the
-    working directory must hold the run's tokenizer), its selection
-    through K4."""
+    Transformer LM) from the JAX initialisation with runs/<run>/meta.json
+    as the base (fit_trainer_run), checking the launch counts of the
+    groups and validations fit ran (K1/K2 on the sliding-window or the
+    dense causal route, as the model's attention is). With
+    `sample_every`, the sampling callback's selection runs through K4."""
     meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
-    experiment = meta["experiment"]
-    cfg = assemble_config(experiment, dotlist, base_meta=meta)
+    trainer, outcome, counts, peak, seconds = fit_trainer_run(
+        meta["experiment"], dotlist, corpus, steps, val_step, log_root, run,
+        meta, capture_step, sample_every)
+    hp = trainer.hp
+    layers = hp.num_layers
+    micro = trainer.thp.accumulate_grad_batches * steps
+    val_batches = sum(v["batches"] for v in trainer.validations)
+    route = "" if hp.sparse_self_attention else "_dense"
+    width = "_d256" if hp.d_model == 256 else ""
+    expect = {f"swa_fwd{route}": layers * (micro + val_batches),
+              f"swa_bwd{route}": layers * micro,
+              f"tied_ce_fwd{width}": micro + val_batches,
+              f"tied_ce_bwd{width}": micro}
+    if sample_every is not None:
+        expect["nucleus_select"] = None
+    check_counts(f"fit {run}", counts, expect)
+    return trainer, outcome, counts, peak, seconds
+
+
+def fit_trainer_run(experiment: str, dotlist: list, corpus, steps: int,
+                    val_step: int, log_root: Path, name: str,
+                    base_meta=None, capture_step=None, sample_every=None):
+    """Trainer.fit from the JAX initialisation, configured by
+    cli.assemble_config with `base_meta` (a run's meta.json) as the base
+    and `dotlist` on top, on `corpus` through prepare_corpus, for `steps`
+    steps, validating every `val_step` steps. Checks the stop, the finite
+    losses and grad norms and the validations; returns (trainer, outcome,
+    counts, peak bytes, seconds), the counts of the groups and
+    validations fit ran. With `sample_every`, fit runs the sampling
+    callback of cli.make_sample_fns every that many steps (the working
+    directory must hold the data's tokenizer)."""
+    cfg = assemble_config(experiment, dotlist, base_meta=base_meta)
     data = TextDataModule(cfg.data)
     data.prepare_corpus(corpus)
     k = cfg.trainer.accumulate_grad_batches
@@ -1950,7 +2014,7 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     vci = (val_step + 0.5) * k / max(1, data.num_batches("train"))
     cfg = assemble_config(experiment, dotlist + [
         f"trainer.val_check_interval={vci!r}",
-        f"trainer.max_steps={steps}"], base_meta=meta)
+        f"trainer.max_steps={steps}"], base_meta=base_meta)
     overrides = dict(cfg.model_overrides)
     overrides.setdefault("vocab_size", cfg.data.vocab_size)
     hp, objective = build_hparams(experiment, overrides)
@@ -1960,7 +2024,7 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
         callbacks = dict(zip(("sample_fn", "reconstruct_fn"),
                              make_sample_fns(experiment, objective)))
     trainer = FitTrainer(hp, objective, data, cfg.trainer,
-                         experiment=experiment, name=run,
+                         experiment=experiment, name=name,
                          log_root=log_root, device="cuda",
                          capture_step=capture_step, **callbacks)
     gc.collect()
@@ -1974,34 +2038,22 @@ def fit_run(run: str, dotlist: list, corpus, steps: int, val_step: int,
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check(trainer.val_every == val_step,
-          f"{run}: validation every {trainer.val_every} steps, not "
+          f"{name}: validation every {trainer.val_every} steps, not "
           f"{val_step}")
     check((outcome.step, outcome.stopped_reason) == (steps, "max_steps"),
-          f"{run}: fit stopped at {outcome.step}: {outcome.stopped_reason}")
-    check(len(trainer.steps) == steps, f"{run}: {len(trainer.steps)} steps")
+          f"{name}: fit stopped at {outcome.step}: {outcome.stopped_reason}")
+    check(len(trainer.steps) == steps, f"{name}: {len(trainer.steps)} steps")
     check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
               for s in trainer.steps),
-          f"{run}: a loss or grad_norm is not finite: {trainer.steps}")
+          f"{name}: a loss or grad_norm is not finite: {trainer.steps}")
     names = ("val_nll", "val_bpb", "val_loss") + (
-        ("val_kl",) if experiment == "transformer-vae" else ())
-    check(all(np.isfinite(v[name]) for v in trainer.validations
-              for name in names),
-          f"{run}: a validation metric is not finite")
+        ("val_kl",) if experiment.endswith("vae") else ())
+    check(all(np.isfinite(v[n]) for v in trainer.validations
+              for n in names),
+          f"{name}: a validation metric is not finite")
     check([v["step"] for v in trainer.validations]
           == list(range(val_step, steps + 1, val_step)),
-          f"{run}: validated at {[v['step'] for v in trainer.validations]}")
-    layers = hp.num_layers
-    micro = k * steps
-    val_batches = sum(v["batches"] for v in trainer.validations)
-    route = "" if hp.sparse_self_attention else "_dense"
-    width = "_d256" if hp.d_model == 256 else ""
-    expect = {f"swa_fwd{route}": layers * (micro + val_batches),
-              f"swa_bwd{route}": layers * micro,
-              f"tied_ce_fwd{width}": micro + val_batches,
-              f"tied_ce_bwd{width}": micro}
-    if sample_every is not None:
-        expect["nucleus_select"] = None
-    check_counts(f"fit {run}", counts, expect)
+          f"{name}: validated at {[v['step'] for v in trainer.validations]}")
     return trainer, outcome, counts, peak, seconds
 
 
@@ -3668,6 +3720,603 @@ def decode_lm_phase(smi: str) -> dict:
     return stats
 
 
+# -- the LSTM family --------------------------------------------------------
+
+# The lstm-benchmark preset's LSTM-VAE (hparam_presets.py: d_model 1024,
+# d_embedding 512, a bidirectional one-layer encoder of 2 x 256, latent
+# 64, tied embeddings and logits, init_scale None) at the default data's
+# vocab (32,768), 50,000 tokens a batch and documents of up to 25,000
+# tokens; draft-lstm-r4's LSTM LM (meta.json only: 2 layers, d_model 256,
+# init_scale 0.02). Both from the JAX initialisation, seeded.
+LSTM_EXPERIMENT, LSTM_PRESET = "lstm-vae", "lstm-benchmark"
+LSTM_LM_RUN = "draft-lstm-r4"
+LSTM_SEED = 71
+LSTM_CHECK = (4, 4096)           # [rows, L] held against the step loop
+LSTM_LONG = (2, 25000)           # a batch of the longest documents
+LSTM_ENCODER_LENGTHS = [4096, 3001, 129, 0]
+LSTM_GRU = (4, 1024)
+LSTM_SINGLE_STEPS = 256
+LSTM_LM_CHECK = (13, 3584)       # draft-lstm-r4's longest micro-batch
+LSTM_TIMED_STEPS = 3
+LSTM_FIT_DOCS, LSTM_FIT_STEPS, LSTM_FIT_EVERY = 200, 4, 2
+LSTM_LM_FIT_STEPS = 2
+LSTM_TEST_SAMPLES, LSTM_TEST_ITERS = 8, 2
+LSTM_SAMPLE_BATCH, LSTM_SAMPLE_LEN = 1000, 512   # the reference's batch
+LSTM_SPEC_K, LSTM_SPEC_DOCS, LSTM_SPEC_LEN = 8, 2, 128
+# The fused RNN (cuDNN with TF32 off) against the fp32 step loop on the
+# card: outputs and states within this absolute error (h lies in [-1, 1],
+# c is O(1); fp32 summation order over thousands of steps), gradients
+# within LSTM_GRAD_REL of each tensor's largest entry.
+LSTM_OUT_ATOL = 1e-4
+LSTM_GRAD_REL = 1e-3
+# A train step's gradient whose norm is below this share of the largest
+# gradient's is numerically zero: its cosine is recorded, not held.
+LSTM_NEAR_ZERO = 1e-6
+
+
+def lstm_hparams(experiment: str = LSTM_EXPERIMENT):
+    """The lstm-benchmark preset's LSTM-VAE hparams at the default data's
+    vocab, as `train lstm-vae preset=lstm-benchmark` builds them
+    (cli.assemble_config, build_hparams), or draft-lstm-r4's LM's."""
+    if experiment == "lstm-lm":
+        return run_hparams(LSTM_LM_RUN)
+    cfg = assemble_config(LSTM_EXPERIMENT, [f"preset={LSTM_PRESET}"])
+    return build_hparams(LSTM_EXPERIMENT, {
+        **cfg.model_overrides, "vocab_size": cfg.data.vocab_size})[0]
+
+
+def lstm_model(hp, use_kernels: bool = True):
+    """hp's model from the JAX initialisation (a CPU generator seeded with
+    LSTM_SEED) in the training form on the card: the fused RNN, or with
+    use_kernels False the step loop."""
+    return model_from_hparams(hp, torch.Generator().manual_seed(LSTM_SEED),
+                              "cuda", train=True,
+                              use_kernels=use_kernels)[0]
+
+
+def held_outputs(name: str, got: tuple, want: tuple) -> float:
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    check(err <= LSTM_OUT_ATOL, f"{name}: the fused RNN is {err} from the "
+          "step loop")
+    return err
+
+
+def held_grads(name: str, got: dict, want: dict) -> float:
+    worst = max(rel_err(got[n], w) for n, w in want.items())
+    check(got.keys() == want.keys() and worst <= LSTM_GRAD_REL,
+          f"{name}: a gradient is {worst} of its largest entry from the "
+          "step loop's")
+    return worst
+
+
+def lstm_ops_phase(smi: str) -> dict:
+    """ops/rnn.py on the card, the fused RNN against the step loop:
+    - the LSTM-VAE's decoder StackedRNN (in 576, H 1024) from z's initial
+      state over [4, 4096] embeddings: outputs, final states and the
+      gradients of the decoder, the embedding and z_to_hidden; then timed
+      over [2, 25000], forward and forward + backward;
+    - the masked BiLSTMEncoder (in 512, H 256) at 1 layer (the preset's)
+      and 2 over ragged rows and an empty one, against each row's trimmed
+      step loop (the empty row: tanh(c0));
+    - a GRU stack at [4, 1024], outputs and gradients;
+    - LSTM_SINGLE_STEPS decode steps against the scan.
+    The fused calls run with every counter at 0 before them, and the step
+    loop's counter stays 0 through them."""
+    hp = lstm_hparams()
+    model = lstm_model(hp)
+    dec = model.decoder
+    rows, length = LSTM_CHECK
+    fused_counts = []
+
+    def fused_only(name: str):
+        """The fused calls since the last reset moved no counter."""
+        torch.cuda.synchronize()
+        fused_counts.append(read_counts())
+        check_counts(name, fused_counts[-1], {})
+    gen = torch.Generator(device="cuda").manual_seed(LSTM_SEED)
+    ids = torch.randint(3, hp.vocab_size, (rows, length), generator=gen,
+                        device="cuda")
+    z = torch.randn((rows, hp.latent_depth), generator=gen, device="cuda")
+    w = torch.randn((rows, length, hp.d_model), generator=gen,
+                    device="cuda")
+
+    def decoder_run(step_loop: bool):
+        model.zero_grad(set_to_none=True)
+        x = torch.cat([model.decoder_embedding(ids),
+                       z[:, None].expand(-1, length, -1)], dim=-1)
+        out, finals = use_step_loop(dec, step_loop)(
+            x, model._decoder_init(z))
+        h_n, c_n = finals[0]
+        ((out * w).sum() + h_n.sum() + c_n.sum()).backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        return (out.detach(), h_n.detach(), c_n.detach()), grads
+
+    reset_counts()
+    fused, fused_grads = decoder_run(False)
+    fused_only("lstm-ops decoder")
+    loop, loop_grads = decoder_run(True)
+    stats = {"card": smi, "decoder": {
+        "shape": [rows, length, dec.w_ih_0.shape[1]],
+        "hidden": hp.d_model,
+        "max_abs_err": held_outputs("lstm-ops decoder", fused, loop),
+        "grad_rel_err": held_grads("lstm-ops decoder", fused_grads,
+                                   loop_grads),
+        "gradients": sorted(loop_grads)}}
+    model.zero_grad(set_to_none=True)
+    del fused, fused_grads, loop, loop_grads, w
+
+    x = torch.cat([model.decoder_embedding(ids),
+                   z[:, None].expand(-1, length, -1)], dim=-1).detach()
+    init = [tuple(s.detach() for s in st) for st in model._decoder_init(z)]
+    with torch.no_grad():
+        reset_counts()
+        fused_ms = cuda_ms(lambda: use_step_loop(dec, False)(x, init),
+                           iters=3, warmup=1)
+        fused_only("lstm-ops decoder timing")
+        plain_ms = cuda_ms(lambda: use_step_loop(dec)(x, init), iters=1,
+                           warmup=0)
+    use_step_loop(dec, False)
+    long_rows, long_len = LSTM_LONG
+    x_long = torch.randn((long_rows, long_len, x.shape[-1]), generator=gen,
+                         device="cuda", requires_grad=True)
+    z_long = torch.randn((long_rows, hp.latent_depth), generator=gen,
+                         device="cuda")
+    init_long = [tuple(s.detach() for s in st)
+                 for st in model._decoder_init(z_long)]
+
+    def forward():
+        with torch.no_grad():
+            dec(x_long, init_long)
+
+    def forward_backward():
+        out, _ = dec(x_long, init_long)
+        out.sum().backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    long_fwd_ms = cuda_ms(forward, iters=3, warmup=1)
+    long_train_ms = cuda_ms(forward_backward, iters=3, warmup=1)
+    fused_only("lstm-ops decoder [2, 25000]")
+    tokens = long_rows * long_len
+    stats["decoder"].update({
+        "fused_ms": fused_ms, "plain_ms": plain_ms,
+        "long": {"shape": [long_rows, long_len], "forward_ms": long_fwd_ms,
+                 "forward_backward_ms": long_train_ms,
+                 "forward_tokens_per_s": tokens / long_fwd_ms * 1e3,
+                 "forward_backward_tokens_per_s":
+                     tokens / long_train_ms * 1e3,
+                 "max_memory_allocated_bytes":
+                     torch.cuda.max_memory_allocated()}})
+    del x_long, x, init, init_long
+    model.zero_grad(set_to_none=True)
+
+    # The masked encoder: the preset's one layer, then two.
+    stats["encoder"] = []
+    lengths = torch.tensor(LSTM_ENCODER_LENGTHS, device="cuda")
+    width = max(LSTM_ENCODER_LENGTHS)
+    mask = torch.arange(width, device="cuda")[None, :] < lengths[:, None]
+    x = torch.randn((len(lengths), width, hp.d_embedding), generator=gen,
+                    device="cuda")
+    for layers in (1, 2):
+        enc = model.encoder if layers == 1 else init_parameters(
+            BiLSTMEncoder(hp.d_embedding, hp.d_model // 4, layers).cuda(),
+            torch.Generator(device="cuda").manual_seed(LSTM_SEED), None)
+        c0 = torch.randn((2, hp.d_model // 4), generator=gen, device="cuda")
+        with torch.no_grad():
+            reset_counts()
+            got = enc(x, mask, c0)
+            fused_only(f"lstm-ops encoder {layers}")
+            want = []
+            for r, n in enumerate(LSTM_ENCODER_LENGTHS):
+                if n == 0:
+                    want.append(torch.tanh(c0).reshape(-1))
+                    continue
+                row = x[r:r + 1, :n]
+                halves = []
+                for d, xd in ((0, row), (1, torch.flip(row, dims=(1,)))):
+                    c = c0[d:d + 1]
+                    _, finals = use_step_loop(getattr(enc, f"dir_{d}"))(
+                        xd, [(torch.tanh(c), c)] * layers)
+                    halves.append(finals[-1][0][0])
+                want.append(torch.cat(halves))
+        err = (got - torch.stack(want)).abs().max().item()
+        check(err <= LSTM_OUT_ATOL and torch.equal(
+            got[-1], torch.tanh(c0).reshape(-1)),
+            f"lstm-ops encoder at {layers} layers: {err} from the trimmed "
+            "step loop")
+        stats["encoder"].append({"layers": layers,
+                                 "lengths": LSTM_ENCODER_LENGTHS,
+                                 "max_abs_err": err})
+
+    # A GRU stack at the decoder's width.
+    gru = init_parameters(StackedRNN(hp.d_embedding, hp.d_model, 1, "GRU")
+                          .cuda(), torch.Generator(device="cuda")
+                          .manual_seed(LSTM_SEED), None)
+    g_rows, g_len = LSTM_GRU
+    xg = torch.randn((g_rows, g_len, hp.d_embedding), generator=gen,
+                     device="cuda")
+    hg = torch.tanh(torch.randn((g_rows, hp.d_model), generator=gen,
+                                device="cuda"))
+
+    def gru_run(step_loop: bool):
+        gru.zero_grad(set_to_none=True)
+        out, finals = use_step_loop(gru, step_loop)(xg, [hg])
+        (out.square().sum() + finals[0].sum()).backward()
+        return ((out.detach(), finals[0].detach()),
+                {n: p.grad.detach().clone()
+                 for n, p in gru.named_parameters()})
+
+    reset_counts()
+    fused, fused_grads = gru_run(False)
+    fused_only("lstm-ops gru")
+    loop, loop_grads = gru_run(True)
+    stats["gru"] = {"shape": [g_rows, g_len, hp.d_embedding],
+                    "hidden": hp.d_model,
+                    "max_abs_err": held_outputs("lstm-ops gru", fused, loop),
+                    "grad_rel_err": held_grads("lstm-ops gru", fused_grads,
+                                               loop_grads)}
+
+    # Single decode steps (the fused cell) against the scan.
+    with torch.no_grad():
+        xs = torch.cat([model.decoder_embedding(ids[:, :LSTM_SINGLE_STEPS]),
+                        z[:, None].expand(-1, LSTM_SINGLE_STEPS, -1)], -1)
+        states = model._decoder_init(z)
+        reset_counts()
+        scan, _ = dec(xs, states)
+        steps = []
+        for t in range(LSTM_SINGLE_STEPS):
+            h, states = dec.step(xs[:, t], states)
+            steps.append(h)
+        fused_only("lstm-ops single steps")
+    err = (torch.stack(steps, 1) - scan).abs().max().item()
+    check(err <= LSTM_OUT_ATOL, f"lstm-ops: decode steps {err} from the "
+          "scan")
+    stats["single_steps"] = {"steps": LSTM_SINGLE_STEPS, "rows": rows,
+                             "max_abs_err": err}
+    stats["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
+    check(not torch.backends.cudnn.allow_tf32,
+          "cuDNN's TF32 is on: the LSTM would not run in fp32")
+    stats["launches"] = total(*fused_counts)
+    del model, dec, gru
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("lstm-ops " + json.dumps(stats), flush=True)
+    return stats
+
+
+def lstm_step(hp, batch: dict, noise, use_kernels: bool):
+    """One optimizer step of hp's model from the JAX initialisation on
+    `batch` with `noise`, the fused RNN or the step loop: (metrics,
+    gradients, counts)."""
+    model, objective, optimizer, _ = build_from_hparams(
+        hp, torch.Generator().manual_seed(LSTM_SEED), "cuda",
+        use_kernels=use_kernels)
+    reset_counts()
+    metrics = train_step(model, objective, optimizer, [batch], 0,
+                         None if noise is None else [noise])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, objective, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: float(v) for k, v in metrics.items()}, grads, counts
+
+
+def lstm_step_against_loop(name: str, hp, batch: dict, noise) -> dict:
+    """lstm_step through the fused RNN (no counter moves) against the
+    same step through the step loop: the loss within TRAIN_LOSS_RTOL,
+    every gradient at cosine >= TRAIN_GRAD_COS unless its norm is below
+    LSTM_NEAR_ZERO of the largest."""
+    metrics, grads, counts = lstm_step(hp, batch, noise, True)
+    check_counts(name, counts, {})
+    ref, ref_grads, ref_counts = lstm_step(hp, batch, noise, False)
+    check_counts(f"{name} step loop", ref_counts, {"rnn_step_loop": None})
+    cos = cosines(grads, ref_grads)
+    norms = {n: g.norm().item() for n, g in ref_grads.items()}
+    largest = max(norms.values())
+    near_zero = {n: {"cosine": c, "norm_share": norms[n] / largest}
+                 for n, c in cos.items()
+                 if norms[n] <= LSTM_NEAR_ZERO * largest}
+    held = {n: c for n, c in cos.items() if n not in near_zero}
+    worst = sorted(held.items(), key=lambda kv: kv[1])[:3]
+    loss_rel = abs(metrics["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(np.isfinite(metrics["loss"]) and loss_rel <= TRAIN_LOSS_RTOL,
+          f"{name}: loss {metrics['loss']} vs the step loop's {ref['loss']}")
+    check(worst[0][1] >= TRAIN_GRAD_COS,
+          f"{name}: gradients disagree with the step loop's: {worst}")
+    return {"loss": metrics["loss"], "step_loop_loss": ref["loss"],
+            "loss_rel_err": loss_rel, "gradients": len(cos),
+            "min_grad_cosine": worst, "near_zero_gradients": near_zero,
+            "launches": counts}
+
+
+def lstm_train_phase(smi: str) -> dict:
+    """The LSTM-VAE (lstm-benchmark) trained from the JAX initialisation:
+    step 1 on [4, 4096] ragged documents with a seeded eps and marginal-KL
+    draws, the fused RNN against the step loop (lstm_step_against_loop);
+    then LSTM_TIMED_STEPS optimizer steps at [2, 25000] (seconds, real
+    tokens/s, peak memory). Then one step of draft-lstm-r4's LSTM LM (2
+    layers) at [13, 3584], held the same way."""
+    hp = lstm_hparams()
+    rng = np.random.default_rng(LSTM_SEED)
+    rows, length = LSTM_CHECK
+    batch = synthetic_batch(rng, rows, length, hp.vocab_size, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(LSTM_SEED)
+    noise = {"eps": torch.randn((rows, hp.latent_depth), generator=gen,
+                                device="cuda"),
+             "mi": torch.randn((10, rows, hp.latent_depth), generator=gen,
+                               device="cuda")}
+    stats = {"card": smi, "vae_step1": {
+        "shape": [rows, length], **lstm_step_against_loop(
+            "lstm-train vae", hp, batch, noise)}}
+
+    model, objective, optimizer, _ = build_from_hparams(
+        hp, torch.Generator().manual_seed(LSTM_SEED), "cuda")
+    long_rows, long_len = LSTM_LONG
+    batches = [synthetic_batch(rng, long_rows, long_len, hp.vocab_size,
+                               device="cuda")
+               for _ in range(LSTM_TIMED_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, losses = [], []
+    for step, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(model, objective, optimizer, [b], step,
+                             generator=gen)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    check_counts("lstm-train timed", read_counts(), {})
+    check(all(np.isfinite(losses)), f"lstm-train losses: {losses}")
+    real = [int(b["num_tokens"].sum()) for b in batches]
+    later = slice(1, None) if len(step_s) > 1 else slice(None)
+    stats["vae_timed"] = {
+        "shape": list(batches[0]["token_ids"].shape), "step_s": step_s,
+        "losses": losses, "real_tokens": real,
+        "real_tokens_per_s_after_step_1":
+            sum(real[later]) / sum(step_s[later]),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del model, objective, optimizer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm_hp = lstm_hparams("lstm-lm")
+    lm_rows, lm_len = LSTM_LM_CHECK
+    lm_batch = synthetic_batch(rng, lm_rows, lm_len, lm_hp.vocab_size,
+                               device="cuda")
+    stats["lm_step1"] = {"run": LSTM_LM_RUN, "shape": [lm_rows, lm_len],
+                         "layers": lm_hp.num_layers,
+                         **lstm_step_against_loop("lstm-train lm", lm_hp,
+                                                  lm_batch, None)}
+    stats["launches"] = total(stats["vae_step1"]["launches"],
+                              stats["lm_step1"]["launches"])
+    print("lstm-train " + json.dumps(stats), flush=True)
+    return stats
+
+
+def bf16_rounded(model):
+    """A copy of `model` whose parameters are rounded through bf16, as an
+    archive stores them."""
+    import copy
+    out = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.copy_(p.to(torch.bfloat16).to(p.dtype))
+    return out.eval().requires_grad_(False)
+
+
+def save_tokenizer(data_hparams: dict):
+    """A tokenizer trained on one line, saved in the working directory
+    where `data_hparams` look for their dataset's (the checks read ids
+    only)."""
+    train_tokenizer(iter(["A stand-in tokenizer for the token cache."]),
+                    data_hparams["vocab_size"],
+                    save_path=tokenizer_cache_path(
+                        data_hparams["dataset_name"]))
+
+
+def save_test_data(data_hparams: dict, corpus):
+    """The stand-in corpus where `data_hparams` look for their token cache
+    in the working directory, and a tokenizer for their dataset."""
+    data = TextDataModule(TextDataModuleHparams(**data_hparams))
+    corpus.save(data._token_cache_path())
+    save_tokenizer(data_hparams)
+
+
+def lstm_test_entry(experiment: str, name: str, args: list) -> dict:
+    """`python -m sparse_vae_tpu_torch.test <experiment> <name> <args>` as
+    test.main in the working directory: a finite, positive average, no
+    counter moved."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    average = test_entry.main(["test", experiment, name, *args])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check(np.isfinite(average) and average > 0,
+          f"test {experiment}: average {average}")
+    check_counts(f"test {experiment}", counts, {})
+    return {"average": average, "args": args, "seconds_with_load": seconds,
+            "launches": counts}
+
+
+def lstm_fit_phase(smi: str, log_root: Path) -> dict:
+    """Trainer.fit of the LSTM-VAE at lstm-benchmark on a stand-in corpus
+    of LSTM_FIT_DOCS documents of 16-25,000 ids (the default data's
+    lengths): LSTM_FIT_STEPS steps of 2 micro-batches of <= 50,000 tokens,
+    validating, saving and running the sampling callback every
+    LSTM_FIT_EVERY steps. Then: the step-LSTM_FIT_EVERY checkpoint
+    restored bit for bit; export_archive -> load_run(<dir>) giving the
+    logits of the trained model rounded to bf16, bit for bit; the
+    callback's reconstruction records (no sample: kl_weight is below 1
+    through the annealing). Then a LSTM_LM_FIT_STEPS-step fit of
+    draft-lstm-r4's LM from its meta.json, exported too, and the `test`
+    entry on both runs' checkpoints. Works in the directory that holds
+    `log_root`; returns the archives for lstm_sample_phase."""
+    stats = {"card": smi}
+    with contextlib.chdir(log_root.parent):
+        data_hp = TextDataModuleHparams()
+        corpus = fit_corpus(LSTM_FIT_DOCS, data_hp.min_tokens_per_sample,
+                            data_hp.max_tokens_per_sample,
+                            data_hp.vocab_size, FIT_SEED)
+        save_test_data(to_dict(data_hp), corpus)
+        dotlist = [f"preset={LSTM_PRESET}",
+                   f"trainer.checkpoint_every_n_steps={LSTM_FIT_EVERY}",
+                   "trainer.log_every_n_steps=1"]
+        trainer, outcome, counts, peak, seconds = fit_trainer_run(
+            LSTM_EXPERIMENT, dotlist, corpus, LSTM_FIT_STEPS,
+            LSTM_FIT_EVERY, log_root, LSTM_PRESET,
+            capture_step=LSTM_FIT_EVERY, sample_every=LSTM_FIT_EVERY)
+        check_counts("fit lstm-vae", counts, {})
+        stats["vae"] = fit_stats(trainer, counts, peak, seconds, smi)
+        model = outcome.model
+        saved = trainer.captured
+        restored, restored_opt = trainer.init_state(
+            torch.Generator().manual_seed(1))
+        restored_gen = torch.Generator(device="cuda")
+        check(trainer.restore(restored, restored_opt, restored_gen,
+                              step=LSTM_FIT_EVERY) == LSTM_FIT_EVERY,
+              "the LSTM checkpoint's step")
+        check(saved is not None and states_equal(cpu_state(trainer.state(
+            restored, restored_opt, LSTM_FIT_EVERY, restored_gen)), saved),
+            "the restored LSTM state is not the saved one")
+        stats["vae"]["resume"] = {"step": LSTM_FIT_EVERY,
+                                  "bit_identical": True}
+        del restored, restored_opt
+        records = [json.loads(x) for x in (trainer.run_dir / "metrics.jsonl")
+                   .read_text().splitlines()]
+        recon = sorted(r["step"] for r in records
+                       if "text_reconstruction" in r)
+        check(recon == list(range(LSTM_FIT_EVERY, LSTM_FIT_STEPS + 1,
+                                  LSTM_FIT_EVERY))
+              and not any("text_sampling_error" in r for r in records),
+              f"the sampling callback's records: {recon}")
+        stats["vae"]["reconstructions_at"] = recon
+        vae_dir = export_archive(model, trainer.meta(),
+                                 log_root.parent / "archive-vae",
+                                 step=outcome.step)
+        served, _, _ = load_run(str(vae_dir), device="cuda")
+        own = bf16_rounded(model)
+        gen = torch.Generator(device="cuda").manual_seed(FIT_SEED)
+        ids = torch.randint(3, model.hparams.vocab_size, (2, 512),
+                            generator=gen, device="cuda")
+        z = torch.randn((2, model.hparams.latent_depth), generator=gen,
+                        device="cuda")
+        with torch.no_grad():
+            a, b = served.reconstruct(ids, z), own.reconstruct(ids, z)
+        check(torch.equal(a, b), "the LSTM archive's logits differ from the "
+              f"trained model's: {(a - b).abs().max().item()}")
+        stats["vae"]["archive"] = {"logits_equal": True,
+                                   "shape": list(a.shape)}
+        del served, own, model, outcome, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        meta = json.loads((REPO / "runs" / LSTM_LM_RUN / "meta.json")
+                          .read_text())
+        lm_data = meta["data_hparams"]
+        lm_corpus = fit_corpus(LSTM_FIT_DOCS, lm_data["min_tokens_per_sample"],
+                               lm_data["max_tokens_per_sample"],
+                               lm_data["vocab_size"], FIT_SEED + 1)
+        save_test_data(lm_data, lm_corpus)
+        trainer, outcome, counts, peak, seconds = fit_trainer_run(
+            "lstm-lm", [f"trainer.checkpoint_every_n_steps="
+                        f"{LSTM_LM_FIT_STEPS}"], lm_corpus,
+            LSTM_LM_FIT_STEPS, LSTM_LM_FIT_STEPS, log_root, LSTM_LM_RUN,
+            base_meta=meta)
+        check_counts("fit lstm-lm", counts, {})
+        stats["lm"] = fit_stats(trainer, counts, peak, seconds, smi)
+        lm_dir = export_archive(outcome.model, trainer.meta(),
+                                log_root.parent / "archive-lm",
+                                step=outcome.step)
+        del outcome, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["test_entry"] = {
+            LSTM_EXPERIMENT: lstm_test_entry(
+                LSTM_EXPERIMENT, LSTM_PRESET,
+                [f"num_samples={LSTM_TEST_SAMPLES}",
+                 f"num_iter={LSTM_TEST_ITERS}"]),
+            "lstm-lm": lstm_test_entry("lstm-lm", LSTM_LM_RUN, [])}
+    stats["archives"] = {"vae": str(vae_dir), "lm": str(lm_dir)}
+    stats["launches"] = total(
+        stats["vae"]["launches"], stats["lm"]["launches"],
+        *(t["launches"] for t in stats["test_entry"].values()))
+    print("lstm-fit " + json.dumps(stats), flush=True)
+    return stats
+
+
+def lstm_sample_phase(smi: str, archives: dict) -> dict:
+    """The `sample` entry on lstm-fit's LSTM-VAE archive: one lockstep
+    batch of 1000 x 512 (the unfused selection, no K4); then r5 verifying
+    lstm-fit's LSTM LM's LSTM_SPEC_K-token drafts: the `sample` entry with
+    spec_draft=lstm-lm:<archive> for LSTM_SPEC_DOCS documents of
+    LSTM_SPEC_LEN, and gen_bench's spec_model row with the same draft,
+    greedy and sampled (passes, accepted drafts). No path launches a
+    kernel or runs the step loop."""
+    stats = {"card": smi}
+    draft = f"lstm-lm:{archives['lm']}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lstm_") as tmp, \
+            contextlib.chdir(tmp):
+        meta = json.loads((Path(archives["vae"]) / "meta.json").read_text())
+        save_tokenizer(meta["data_hparams"])
+        stand_in_tokenizer(RUN)
+        out, counts, peak = entry_run(
+            "lstm-sample", LSTM_EXPERIMENT, archives["vae"],
+            [f"num_samples={LSTM_SAMPLE_BATCH}",
+             f"batch_size={LSTM_SAMPLE_BATCH}",
+             f"max_length={LSTM_SAMPLE_LEN}"])
+        check_counts("lstm-sample", counts, {})
+        stats["sample"] = {**doc_stats(out["documents"]),
+                           "new_tokens": out["new_tokens"],
+                           "seconds": out["seconds"],
+                           "new_tokens_per_s":
+                               out["new_tokens"] / out["seconds"],
+                           "max_memory_allocated_bytes": peak,
+                           "launches": counts}
+        out, spec_counts, peak = entry_run(
+            "lstm-spec-entry", "transformer-vae", RUN,
+            [f"num_samples={LSTM_SPEC_DOCS}", "batch_size=1",
+             f"max_length={LSTM_SPEC_LEN}", f"spec_draft={draft}",
+             f"spec_k={LSTM_SPEC_K}"])
+        check_counts("lstm-spec entry", spec_counts, {})
+        stats["spec_entry"] = {**doc_stats(out["documents"]),
+                               "new_tokens": out["new_tokens"],
+                               "seconds": out["seconds"],
+                               "max_memory_allocated_bytes": peak}
+    model, hp, _ = load_run(RUN, device="cuda")
+    bench = gen_bench.Bench(
+        model, seq=LSTM_SPEC_LEN, spec_k=LSTM_SPEC_K,
+        z=prior_z(gen_bench.Z_SEED, 1, hp.latent_depth, model.device),
+        spec=load_draft(draft, LSTM_SPEC_K, model.device))
+    row = f"spec_model_k{LSTM_SPEC_K}"
+    mode_counts = []
+    for label, sampling in (("greedy", gen_bench.GREEDY),
+                            ("sampled", gen_bench.SAMPLED)):
+        counts = {}
+        json_row, runs = gen_bench.run_mode(bench, sampling, label,
+                                            names=[row],
+                                            timed=counted(counts))
+        check_counts(f"lstm-spec gen_bench {label}", counts[row], {})
+        mode_counts.append(counts[row])
+        stats[f"gen_bench_{label}"] = {**mode_stats(runs, counts)[row],
+                                       "row": json_row}
+    del model, bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["launches"] = total(stats["sample"]["launches"], spec_counts,
+                              *mode_counts)
+    print("lstm-sample " + json.dumps(stats), flush=True)
+    return stats
+
+
 def check_counts(path: str, counts: dict, expect: dict):
     """expect: {counter: exact count, or None for at least one}; every
     other counter, the plain_routes ones included, must be 0."""
@@ -3834,6 +4483,19 @@ def main(argv) -> int:
                                         decode_r5["z"])
     with Phase("decode-lm"):
         decode_lm = decode_lm_phase(smi)
+    with Phase("lstm-ops"):
+        lstm_ops = lstm_ops_phase(smi)
+    with Phase("lstm-train"):
+        lstm_train = lstm_train_phase(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lstm_") as tmp:
+        with Phase("lstm-fit"):
+            lstm_fit = lstm_fit_phase(smi, Path(tmp) / "sparse-vae-logs")
+        with Phase("lstm-sample"):
+            lstm_sample = lstm_sample_phase(smi, lstm_fit["archives"])
+    lstm_counts = {"lstm-ops": lstm_ops["launches"],
+                   "lstm-train": lstm_train["launches"],
+                   "lstm-fit": lstm_fit["launches"],
+                   "lstm-sample": lstm_sample["launches"]}
     sample_counts = {
         "sample": sample_stats["lockstep"]["launches"],
         "sample-continuous": sample_stats["continuous"]["launches"],
@@ -3861,10 +4523,12 @@ def main(argv) -> int:
                 "decode-lm": decode_lm["launches"][name]}
 
     def decode_paths(name):
-        """The launches of the parallel and speculative decoding paths."""
-        return {path: stats["launches"][name] for path, stats in (
+        """The launches of the parallel and speculative decoding paths and
+        of the LSTM family's (none launches a kernel)."""
+        return {**{path: stats["launches"][name] for path, stats in (
             ("decode-r5", decode_r5), ("decode-spec", decode_spec),
-            ("decode-lm", decode_lm))}
+            ("decode-lm", decode_lm))},
+            **{path: c[name] for path, c in lstm_counts.items()}}
 
     def lm_row(name, counter, source, replaces, row, extra):
         by_path = lm_paths(counter)

@@ -3,9 +3,11 @@
 built from hparams with the JAX package's initialisation and no archive
 (`model_from_hparams`), and the reverse, a model written as such an
 archive (`export_archive`, the layout of tools/archive_ckpt.py's export).
-Two families: the Transformer-VAE (`transformer-vae` runs,
-TransformerVAEHparams) and the Transformer LM (`transformer-lm` runs,
-TransformerHparams); `model_class` picks the module from the hparams.
+All four families: the Transformer-VAE (`transformer-vae` runs,
+TransformerVAEHparams), the Transformer LM (`transformer-lm`,
+TransformerHparams), the LSTM LM (`lstm-lm`, LSTMLanguageModelHparams)
+and the LSTM-VAE (`lstm-vae`, LSTMVAEHparams); `model_class` picks the
+module from the hparams.
 
 Archive format (tools/archive_ckpt.py): one npz entry per flax param leaf,
 keyed by its '/'-joined path (`layer_0/attention/q_linear/kernel`); float
@@ -13,7 +15,10 @@ leaves are stored as uint16 bf16 bit patterns under a `::bf16` key suffix.
 A flax Dense `kernel` is [in, out], the transpose of nn.Linear.weight; a
 LayerNorm `scale` and an Embed `embedding` are torch's `weight`; a learned
 query bank `learned_queries` is a bare [1, n, D] parameter of the same
-name.
+name. An RNN layer's `w_ih_{l}` / `w_hh_{l}` ([gates * H, in], already
+torch's layout: not transposed), `b_ih_{l}` / `b_hh_{l}`, and the bare
+`c0`, `encoder_c0` and `logit_bias` keep their names; a bidirectional
+encoder's stacks are `encoder/dir_{d}/...`.
 
 Weights are converted in memory at load time; `load_run` writes nothing.
 """
@@ -31,9 +36,12 @@ import torch
 
 from .models.base import compute_dtype, resolve_device
 from .models.init import init_parameters
+from .models.lstm_lm import LSTMLanguageModel, LSTMLanguageModelHparams
+from .models.lstm_vae import LSTMVAE, LSTMVAEHparams
 from .models.transformer_lm import (TransformerHparams,
                                     TransformerLanguageModel)
 from .models.transformer_vae import TransformerVAE, TransformerVAEHparams
+from .ops.rnn import use_step_loop
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 BF16_SUFFIX = "::bf16"
@@ -44,12 +52,15 @@ UNPORTED_PREFIXES = ()
 
 # The experiments this port loads: experiment -> (hparams class, module).
 FAMILIES = {"transformer-vae": (TransformerVAEHparams, TransformerVAE),
-            "transformer-lm": (TransformerHparams, TransformerLanguageModel)}
+            "transformer-lm": (TransformerHparams, TransformerLanguageModel),
+            "lstm-lm": (LSTMLanguageModelHparams, LSTMLanguageModel),
+            "lstm-vae": (LSTMVAEHparams, LSTMVAE)}
 
 
 def model_class(hparams) -> type:
-    """The module of `hparams`: a TransformerVAE for TransformerVAEHparams,
-    a TransformerLanguageModel for plain TransformerHparams."""
+    """The module of `hparams` (FAMILIES): a TransformerVAE for
+    TransformerVAEHparams, a TransformerLanguageModel for plain
+    TransformerHparams, and the LSTM families' likewise."""
     for hp_cls, module in FAMILIES.values():
         if type(hparams) is hp_cls:
             return module
@@ -59,6 +70,7 @@ _NUMBERED = {"layer": "decoder_layers", "z_projection": "z_projections",
              "middle": "middle_layers"}
 _WEIGHT_KINDS = ((torch.nn.Linear, "kernel"), (torch.nn.LayerNorm, "scale"),
                  (torch.nn.Embedding, "embedding"))
+_RNN_LEAF = re.compile(r"[wb]_(ih|hh)_\d+")
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "learned_queries": "learned_queries"}
 
@@ -85,8 +97,10 @@ def torch_key(path: str) -> tuple:
         parts += ([_NUMBERED[numbered.group(1)], numbered.group(2)]
                   if numbered else [part])
     leaf = parts[-1]
-    if len(parts) == 1:          # a bare parameter such as output_bias
-        return leaf, False
+    if len(parts) == 1 or _RNN_LEAF.fullmatch(leaf):
+        # A bare parameter such as output_bias or c0, or an RNN matrix or
+        # bias, which is already in torch's layout.
+        return ".".join(parts), False
     if leaf not in _LEAF_NAMES:
         raise KeyError(f"unknown leaf kind {leaf!r} in {path!r}")
     return ".".join(parts[:-1] + [_LEAF_NAMES[leaf]]), leaf == "kernel"
@@ -101,9 +115,8 @@ def params_from_numpy(flat: dict, hparams) -> dict:
 
 def state_from_leaves(leaves: dict, hparams) -> dict:
     """{flax leaf path: array} -> the state_dict of `hparams`' model
-    (`model_class`: a TransformerVAE or a TransformerLanguageModel) in
-    fp32 tensors. JAX parameters as numpy arrays cross into the port
-    here.
+    (`model_class`) in fp32 tensors. JAX parameters as numpy arrays
+    cross into the port here.
 
     Every leaf either maps to a parameter of the model `hparams` describe,
     with that parameter's shape, or lies under one of UNPORTED_PREFIXES;
@@ -194,9 +207,8 @@ def run_directory(name) -> Path:
 
 
 def hparams_from_meta(meta: dict):
-    """The run's model hparams (TransformerVAEHparams for a transformer-vae
-    run, TransformerHparams for a transformer-lm one), keeping the fields
-    this port reads."""
+    """The run's model hparams (its experiment's class in FAMILIES),
+    keeping the fields this port reads."""
     experiment = meta.get("experiment")
     if experiment not in FAMILIES:
         raise NotImplementedError(
@@ -211,9 +223,8 @@ def hparams_from_meta(meta: dict):
 def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
              train: bool = False, use_kernels: bool = True):
     """Load runs/<name>/ (meta.json + ckpt_bf16.npz), or the archive
-    directory `name` (`run_directory`), into its model (a TransformerVAE
-    or a TransformerLanguageModel) on `device`. Returns (model, hparams,
-    meta).
+    directory `name` (`run_directory`), into its model (`model_class`) on
+    `device`. Returns (model, hparams, meta).
 
     Serving form (train=False): the whole model in `dtype`, default the
     run's compute dtype (bf16 for precision=bf16), in eval mode without
@@ -222,18 +233,28 @@ def load_run(name: str, device="cuda", dtype: Optional[torch.dtype] = None,
     trainer keeps fp32 params under a bf16 compute dtype. use_kernels=False
     routes attention and the loss through the plain PyTorch versions
     (autograd) instead of the K1/K2 and K3/K3b Functions — the reference
-    path a kernel run is held against.
+    path a kernel run is held against; for the LSTM families, the RNN's
+    step loop instead of the fused RNN (ops/rnn.py). An LSTM model's
+    compute dtype is fp32.
     """
     device = resolve_device(device)
     run = run_directory(name)
     meta = json.loads((run / "meta.json").read_text())
-    hp = hparams_from_meta(meta)
-    hp.use_pallas_kernel = hp.use_pallas_kernel and use_kernels
+    hp = _with_kernels(hparams_from_meta(meta), use_kernels)
     with np.load(run / "ckpt_bf16.npz") as npz:
         state = params_from_numpy({k: npz[k] for k in npz.files}, hp)
     model = model_class(hp)(hp)
     model.load_state_dict(state, strict=True)
-    return _in_form(model, device, dtype, train), hp, meta
+    return _in_form(model, device, dtype, train, use_kernels), hp, meta
+
+
+def _with_kernels(hparams, use_kernels: bool):
+    """A copy of `hparams` whose use_pallas_kernel (a transformer's) is
+    off unless use_kernels; the LSTM families have none."""
+    if not hasattr(hparams, "use_pallas_kernel"):
+        return replace(hparams)
+    return replace(hparams, use_pallas_kernel=hparams.use_pallas_kernel
+                   and use_kernels)
 
 
 def model_from_hparams(hparams, generator: torch.Generator, device="cuda",
@@ -245,14 +266,12 @@ def model_from_hparams(hparams, generator: torch.Generator, device="cuda",
     of `load_run`. Returns (model, hparams); the caller's hparams are not
     changed."""
     device = resolve_device(device)
-    hp = replace(hparams,
-                 use_pallas_kernel=hparams.use_pallas_kernel and use_kernels)
+    hp = _with_kernels(hparams, use_kernels)
     model = init_parameters(model_class(hp)(hp), generator, hp.init_scale)
-    return _in_form(model, device, dtype, train), hp
+    return _in_form(model, device, dtype, train, use_kernels), hp
 
 
-def serving_form(model: TransformerLanguageModel
-                 ) -> TransformerLanguageModel:
+def serving_form(model: torch.nn.Module) -> torch.nn.Module:
     """A copy of `model` (say, a training form) in the serving form of
     `load_run`: every parameter rounded to its hparams' compute dtype,
     eval mode, no grads."""
@@ -262,11 +281,18 @@ def serving_form(model: TransformerLanguageModel
     return _in_form(served, model.device, None, train=False)
 
 
-def _in_form(model: TransformerLanguageModel, device, dtype, train: bool):
+def _in_form(model: torch.nn.Module, device, dtype, train: bool,
+             use_kernels: Optional[bool] = None):
     """Serving form (train=False): the whole model in `dtype`, default its
-    hparams' compute dtype, in eval mode without grads. Training form: fp32
-    master parameters with grads, computing in `dtype`."""
-    dtype = dtype or compute_dtype(model.hparams.precision)
+    hparams' compute dtype (fp32 where they have no precision, as the LSTM
+    families), in eval mode without grads. Training form: fp32 master
+    parameters with grads, computing in `dtype`. use_kernels (unless
+    None) puts an LSTM model's RNNs on the fused RNN or, False, on their
+    step loop."""
+    if use_kernels is not None:
+        use_step_loop(model, not use_kernels)
+    dtype = dtype or compute_dtype(getattr(model.hparams, "precision",
+                                           "fp32"))
     if train:
         model = model.to(device=device, dtype=torch.float32)
         model.compute_dtype = dtype
@@ -275,36 +301,29 @@ def _in_form(model: TransformerLanguageModel, device, dtype, train: bool):
     return model.eval().requires_grad_(False)
 
 
-# Draft families of draft-model speculative decoding that wait for a port.
-UNPORTED_DRAFTS = {
-    "lstm-lm": "the LSTM LM's draft_propose / initial_rnn_state "
-               "(sparse_vae_tpu/models/lstm_lm.py), ROADMAP.md Queue 1 "
-               "item 6",
-    "lstm-vae": "the LSTM family (sparse_vae_tpu/models/lstm_vae.py), "
-                "ROADMAP.md Queue 1 item 6",
-}
-
-
 def load_draft(spec: str, draft_k: int, device="cuda"):
     """The draft of draft-model speculative decoding, `spec` =
-    "<experiment>:<run>" (`load_run`'s run, its serving form): returns
-    (draft_propose(state, last, noise), fresh_state(length)), the state a
-    transformer's (caches, index) sized for length + draft_k + 2
-    positions, the chunk's over-proposal included. A state is written in
-    place: take a fresh one for every document."""
+    "<experiment>:<run>" (`load_run`'s run, its serving form) of a
+    language model: returns (draft_propose(state, last, noise),
+    fresh_state(length)). A transformer's state is its (caches, index)
+    sized for length + draft_k + 2 positions, the chunk's over-proposal
+    included, and is written in place: take a fresh one for every
+    document. An LSTM's is its `initial_rnn_state(1)`."""
     experiment, name = spec.split(":", 1)
-    if experiment in UNPORTED_DRAFTS:
-        raise NotImplementedError(f"a {experiment!r} draft is not ported: "
-                                  f"it needs {UNPORTED_DRAFTS[experiment]}")
     model, _, meta = load_run(name, device=device)
     if meta.get("experiment") != experiment:
         raise SystemExit(f"draft run {name!r} is a "
                          f"{meta.get('experiment')!r} run, not "
                          f"{experiment!r}")
+    if not hasattr(model, "draft_propose"):
+        raise SystemExit(f"a {experiment!r} model cannot draft: drafts "
+                         "are language models (transformer-lm, lstm-lm)")
 
     def propose(state, last, noise):
         return model.draft_propose(state, last, noise, draft_k)
 
     def fresh_state(length: int):
+        if hasattr(model, "initial_rnn_state"):
+            return model.initial_rnn_state(1)
         return model.draft_init_state(1, length + draft_k + 2)
     return propose, fresh_state

@@ -19,15 +19,6 @@ from .data.text_data_module import TextDataModule, TextDataModuleHparams
 from .hparam_presets import hparam_presets
 from .utils.config import TrainerHparams, merge_into_dataclass, parse_dotlist
 
-# The JAX package's model families and, for those this package does not
-# build yet, the module each lives in; it builds the Transformer-VAE and
-# the Transformer LM.
-FAMILIES = {"lstm-lm": "sparse_vae_tpu/models/lstm_lm.py",
-            "lstm-vae": "sparse_vae_tpu/models/lstm_vae.py",
-            "transformer-lm": None,
-            "transformer-vae": None}
-
-
 @dataclass
 class CLIConfig:
     experiment: str
@@ -85,26 +76,23 @@ def assemble_config(experiment: str, dotlist: List[str],
 def build_hparams(experiment: str, model_hparams_overrides=None):
     """(hparams, objective) of an experiment with the overrides merged
     (the JAX package's build_model; the module itself is built by
-    Trainer.init_state or checkpoint.model_from_hparams). Families this
-    package does not build raise NotImplementedError."""
+    Trainer.init_state or checkpoint.model_from_hparams)."""
+    from .checkpoint import FAMILIES
     if experiment not in FAMILIES:
         raise ValueError(f"Unrecognized model type '{experiment}'. "
                          f"Choose from {sorted(FAMILIES)}")
-    if FAMILIES[experiment] is not None:
-        raise NotImplementedError(
-            f"model {experiment!r} is not ported ({FAMILIES[experiment]}); "
-            "transformer-vae and transformer-lm are")
-    from .checkpoint import FAMILIES as MODELS
-    hparams = merge_into_dataclass(MODELS[experiment][0](),
+    hparams = merge_into_dataclass(FAMILIES[experiment][0](),
                                    model_hparams_overrides or {})
     return hparams, objective_for(hparams)
 
 
 def objective_for(hparams):
-    """The training objective of `hparams`' family: VAEObjective for a
-    Transformer-VAE, ARObjective for a Transformer LM."""
+    """The training objective of `hparams`' family: VAEObjective for the
+    Transformer-VAE and the LSTM-VAE, ARObjective for the language
+    models."""
     from .models.transformer_vae import TransformerVAEHparams
-    if isinstance(hparams, TransformerVAEHparams):
+    from .models.vae import ContinuousVAEHparams
+    if isinstance(hparams, (TransformerVAEHparams, ContinuousVAEHparams)):
         from .models.vae import VAEObjective
         return VAEObjective(hparams)
     from .training.objectives import ARObjective
@@ -123,6 +111,7 @@ def tokenizer_for_run(experiment: str, meta: dict):
     the run's dataset name, else one trained on that dataset's texts, as
     the run's data module resolves it. Unlike the JAX package's, it does
     not prepare the corpus: the tokenizer is all an entry needs."""
+    from .checkpoint import FAMILIES
     if experiment not in FAMILIES:
         raise ValueError(f"Unrecognized model type '{experiment}'")
     return TextDataModule(TextDataModuleHparams(
@@ -136,7 +125,9 @@ def make_sample_fns(experiment: str, objective, max_len: int = 512):
     TextBatch. A VAE refuses to sample while the annealed kl_weight is
     below 1; reconstruction decodes the batch's first document from its
     posterior mean at temperature 0.7 (an LM reconstructs nothing).
-    Nucleus selection goes through K4 (`sample`'s default)."""
+    Nucleus selection goes through K4 for the transformer families
+    (`sample`'s default) and through the unfused bisection for the LSTM
+    families (their `sample`, as the JAX package's)."""
     from .models.generation import SamplingParams
 
     is_vae = experiment.endswith("vae")

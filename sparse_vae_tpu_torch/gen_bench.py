@@ -18,6 +18,7 @@ times its rows, each once from seed 2 after a short warm-up of the run
   (frontier speculative sampling);
 - spec_draft with batch 1: `spec_model_kK`, draft-model speculative
   sampling, with `spec_model_accepted` and `spec_model_tokens_per_pass`;
+  the draft is a transformer-lm or an lstm-lm run (checkpoint.load_draft);
 - full=1: `jacobi_full`, full-document Jacobi at chunk 128.
 check=1 counts each greedy row's tokens that differ from `ar`'s (and the
 first such position of spec_model): exact in exact arithmetic, but two

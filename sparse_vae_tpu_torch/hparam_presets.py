@@ -11,9 +11,10 @@ chunked loss (loss_chunk_size 2048), bf16 compute and a remat policy;
 this package reads remat_policy and grad_checkpointing but does not
 rematerialise.
 
-Presets of families this package does not build (lstm-lm, lstm-vae,
-transformer-lm) stay in the table: assembling their configuration works,
-building their model raises (cli.build_model).
+This package builds every family a preset names: the LSTM presets
+(init_scale None: flax's default initialisers, models/init.py) build an
+LSTM-VAE, or an LSTM LM, and the transformer presets a Transformer-VAE
+or a Transformer LM (cli.build_hparams).
 """
 
 hparam_presets = {

@@ -2,10 +2,10 @@
 sparse_vae_tpu/models/generation.py).
 
 The lockstep loop (`DecodeState`, `decode_loop`) moves every row of the
-batch one position a step from [CLS]: `sample` and `sample_resumable` of
-both transformer families and the mass-sampling path run on it. Finished
-rows keep flowing through the step and write [PAD]. The position is a
-host int, the same for every row.
+batch one position a step from [CLS]: `sample` of all four families,
+`sample_resumable` of the transformer families and the mass-sampling
+path run on it. Finished rows keep flowing through the step and write
+[PAD]. The position is a host int, the same for every row.
 
 The row-wise loop (`RowDecodeState`, `decode_loop_rowwise`) gives every
 row its own position, so a serving loop can harvest finished rows and

@@ -18,10 +18,18 @@ Where the reference vmaps it over K samples of z, they stack the samples
 as rows: z [K, B, 1, latent] goes in as [K * B, 1, latent] beside the
 token ids repeated sample-major (`ids.repeat(K, 1)`: row k * B + b is
 document b under sample k). Log-weights and their logsumexp are fp32.
+
+The posterior and its noise have the model's shape: [B, 1, latent] for
+the Transformer-VAE, [B, latent] for the LSTM-VAE (eps [K, B, latent]
+with K samples). The objective reads `loss_chunk_size`, `free_bits` and
+`sp_size` with defaults (0, 0.0, 1), as the JAX package's does: the
+LSTM-VAE's hparams have no `loss_chunk_size` or `sp_size`, and it takes
+the full-logits branch.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,6 +39,20 @@ from ..ops.cross_entropy import (bits_per_byte, sequence_log_likelihood,
 from ..utils.distributions import DiagonalGaussian, standard_normal_log_prob
 from ..utils.math_utils import marginal_kl
 from ..utils.schedules import kl_weight_schedule
+from .base import LanguageModelHparams
+
+
+@dataclass
+class ContinuousVAEHparams(LanguageModelHparams):
+    """The continuous VAE's hparams (sparse_vae_tpu/models/vae.py), the
+    base of the LSTM-VAE's."""
+    latent_depth: int = 64
+    kl_annealing_steps: int = 0
+    kl_weight_start: float = 1.0
+    kl_weight_end: float = 1.0
+    early_stopping_metric: str = "val_loss"
+    train_mc_samples: int = 1
+    free_bits: float = 0.0
 
 
 def kl_sums(raw_kl, num_tokens):
@@ -74,6 +96,12 @@ class VAEObjective:
                 "mixture-of-experts losses are not ported yet: "
                 "sparse_vae_tpu/models/moe.py")
 
+    def _chunked(self, model) -> bool:
+        """The chunked branch: loss_chunk_size set and a model with
+        `forward_chunked_nll` (the Transformer-VAE)."""
+        return bool(getattr(self.hp, "loss_chunk_size", 0)) and hasattr(
+            type(model), "forward_chunked_nll")
+
     def kl_weight(self, step) -> float:
         return kl_weight_schedule(step, self.hp.kl_weight_start,
                                   self.hp.kl_weight_end,
@@ -85,10 +113,12 @@ class VAEObjective:
         """(differentiable sums, counts) of the ELBO on one batch
         {"token_ids": [B, L], "num_tokens": [B]}.
 
-        noise: {"eps": [B, 1, latent], "mi": [S, B, latent]} standard
-        normal draws for z and for the marginal-KL diagnostic; whatever is
-        missing is drawn from `generator`. With train_mc_samples K > 1:
-        {"eps": [K, B, 1, latent]} (`_multi_sample_sums`)."""
+        noise: {"eps": [B, 1, latent] (the LSTM-VAE's [B, latent]),
+        "mi": [S, B, latent]} standard normal draws for z and for the
+        marginal-KL diagnostic, and for an LSTM-VAE with dropout its
+        masks {"dropout": (embeddings', outputs')}; whatever is missing is
+        drawn from `generator`. With train_mc_samples K > 1: {"eps":
+        [K, B, 1, latent]} ([K, B, latent]; `_multi_sample_sums`)."""
         noise = noise or {}
         ids = batch["token_ids"]
         if getattr(self.hp, "train_mc_samples", 1) > 1:
@@ -100,15 +130,17 @@ class VAEObjective:
                     "term to clamp")
             return self._multi_sample_sums(model, batch, noise.get("eps"),
                                            generator)
-        if self.hp.loss_chunk_size:
+        if self._chunked(model):
             nll_sum, count, raw_kl, posterior, _ = model.forward_chunked_nll(
                 ids, noise.get("eps"), generator)
         else:
+            masks = ({"dropout_masks": noise["dropout"]}
+                     if "dropout" in noise else {})
             logits, raw_kl, posterior, _ = model(ids, noise.get("eps"),
-                                                 generator)
+                                                 generator, **masks)
             nll, mask = token_nll(logits[:, :-1], ids[:, 1:], reduce=False)
             nll_sum, count = nll.sum(), mask.sum()
-        fb = self.hp.free_bits
+        fb = getattr(self.hp, "free_bits", 0.0)
         kl_for_loss = raw_kl.clamp_min(fb) if fb > 0.0 else raw_kl
         kl_sum, _, rows = kl_sums(kl_for_loss, batch["num_tokens"])
         _, raw_kl_sum, _ = kl_sums(raw_kl, batch["num_tokens"])
@@ -157,8 +189,9 @@ class VAEObjective:
         token_count 0: the bound is per document."""
         ids = batch["token_ids"]
         posterior = model.posterior(ids)
-        use_ll = bool(self.hp.loss_chunk_size)
-        if model.hparams.sp_size > 1 and not use_ll:
+        use_ll = bool(getattr(self.hp, "loss_chunk_size", 0)) and hasattr(
+            type(model), "reconstruct_ll")
+        if getattr(model.hparams, "sp_size", 1) > 1 and not use_ll:
             raise ValueError(
                 "multi-sample training on a 'seq' mesh requires the chunked "
                 "per-document path (loss_chunk_size > 0 and a reconstruct_ll "
@@ -181,7 +214,7 @@ class VAEObjective:
         bits aside. Call under torch.no_grad."""
         ids, num_tokens = batch["token_ids"], batch["num_tokens"]
         eps = (noise or {}).get("eps")
-        if self.hp.loss_chunk_size:
+        if self._chunked(model):
             nll_sum, token_count, raw_kl, _, _ = model.forward_chunked_nll(
                 ids, eps, generator)
         else:

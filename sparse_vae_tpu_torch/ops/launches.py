@@ -3,11 +3,13 @@
 Each wrapper raises its own counter where it launches its kernel and
 nowhere else (ops/swa_kernel.py, ops/ce_kernel.py, ops/select_kernel.py);
 the counters are plain integers of this process. `plain_routes` counts
-calls inside a JAX kernel gate that ran a plain version on the CPU.
+calls inside a JAX kernel gate that ran a plain version on the CPU, and
+`rnn_step_loop` the RNN step loop's calls on CUDA tensors (ops/rnn.py:
+the oracle's; no path runs it on the card).
 """
 from __future__ import annotations
 
-from . import ce_kernel, select_kernel, swa_kernel
+from . import ce_kernel, rnn, select_kernel, swa_kernel
 
 COUNTERS = {
     "swa_fwd": (swa_kernel, "launches"),                    # K1
@@ -25,6 +27,7 @@ COUNTERS = {
     "nucleus_select": (select_kernel, "launches"),          # K4
     "swa_plain_routes": (swa_kernel, "plain_routes"),
     "ce_plain_routes": (ce_kernel, "plain_routes"),
+    "rnn_step_loop": (rnn, "step_loop_cuda_calls"),
 }
 
 

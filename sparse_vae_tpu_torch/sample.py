@@ -1,6 +1,7 @@
 """Mass sampling on the port (the JAX package's sample.py):
 
-    python -m sparse_vae_tpu_torch.sample {transformer-vae|transformer-lm}
+    python -m sparse_vae_tpu_torch.sample
+        {transformer-vae|transformer-lm|lstm-vae|lstm-lm}
         <run-name> [num_samples=700000] [batch_size=1000] [max_length=512]
         [ignore_end=0] [fused_select=1] [continuous=0] [slice_steps=256]
         [spec_draft=<experiment>:<run>] [spec_k=8] [device=cuda]
@@ -17,11 +18,17 @@ of slice_steps). ignore_end=1 never stops at [SEP], so every document
 runs to max_length. fused_select=1 selects each sampled token with the
 K4 kernel on the card. spec_draft=<experiment>:<run> decodes each
 document at batch 1 by draft-model speculative sampling
-(`spec_draft_generate`, document i from seed i): that run proposes
-spec_k tokens a pass and the target verifies them in one chunk; a
-transformer draft starts every document from a fresh
-`draft_init_state(1, max_length + spec_k + 2)`
-(checkpoint.load_draft), an LSTM draft raises.
+(`spec_draft_generate`, document i from seed i): that run (a
+transformer-lm or an lstm-lm run) proposes spec_k tokens a pass and the
+target verifies them in one chunk; a transformer draft starts every
+document from a fresh `draft_init_state(1, max_length + spec_k + 2)`, an
+LSTM draft from its `initial_rnn_state(1)` (checkpoint.load_draft).
+
+The LSTM families sample through the lockstep loop with the JAX
+package's unfused selection (their `sample` takes no fused selection, as
+the JAX package's does): for them fused_select defaults to 0 and
+fused_select=1 raises, and so does continuous=1 (they have no row-wise
+decode step: continuous batching serves the transformer families).
 
 The documents are decoded with the run's tokenizer (cli.tokenizer_for_run:
 the one cached under sparse-vae-pretrained/tokenizers/ in the working
@@ -33,8 +40,7 @@ of that many documents from a seeded shuffle.
 
 The keys are the JAX package's sample.py keys, except `step` and
 `params_dtype`: the archive holds one set of params, cast to the run's
-compute dtype. The LSTM families raise, naming what they need. It runs on
-the card unless device=cpu is given.
+compute dtype. It runs on the card unless device=cpu is given.
 """
 from __future__ import annotations
 
@@ -49,12 +55,8 @@ import numpy as np
 KEYS = {"num_samples", "batch_size", "max_length", "ignore_end",
         "fused_select", "continuous", "slice_steps", "device", "spec_draft",
         "spec_k"}
-UNPORTED = {
-    "lstm-lm": "the LSTM LM (sparse_vae_tpu/models/lstm_lm.py), ROADMAP.md "
-               "Queue 1 item 6",
-    "lstm-vae": "the LSTM-VAE (sparse_vae_tpu/models/lstm_vae.py), "
-                "ROADMAP.md Queue 1 item 6",
-}
+# The families whose `sample` selects with the unfused path only.
+UNFUSED = ("lstm-lm", "lstm-vae")
 
 
 def save_samples(outputs: List[np.ndarray], texts: List[str],
@@ -92,9 +94,6 @@ def main(args) -> dict:
     if len(args) < 3:
         raise SystemExit(__doc__)
     experiment, name = args[1], args[2]
-    if experiment in UNPORTED:
-        raise NotImplementedError(f"sampling {experiment!r} is not ported: "
-                                  f"it needs {UNPORTED[experiment]}")
     extra = dict(kv.split("=", 1) for kv in args[3:])
     unknown = set(extra) - KEYS
     if unknown:
@@ -104,7 +103,12 @@ def main(args) -> dict:
     batch_size = int(extra.get("batch_size", 1000))
     max_length = int(extra.get("max_length", 512))
     ignore_end = extra.get("ignore_end", "0") == "1"
-    fused_select = extra.get("fused_select", "1") == "1"
+    unfused = experiment in UNFUSED
+    fused_select = extra.get("fused_select", "0" if unfused else "1") == "1"
+    if unfused and fused_select:
+        raise SystemExit(f"fused_select=1: {experiment} samples with the "
+                         "unfused selection only (its sample takes no fused "
+                         "selection, as the JAX package's does)")
     continuous = extra.get("continuous", "0") == "1"
     slice_steps = int(extra.get("slice_steps", 256))
     spec_draft = extra.get("spec_draft")
@@ -137,9 +141,10 @@ def main(args) -> dict:
             slice_steps=slice_steps, fused_select=fused_select,
             progress=True)
     else:
+        fused = {} if unfused else {"fused_select": fused_select}
         outputs = batch_generate_samples(
             lambda i: model.sample(i, max_length, batch_size, end_token=end,
-                                   fused_select=fused_select),
+                                   **fused),
             num_samples, max_length,
             end_token=None if ignore_end else SEP_ID)
     seconds = time.perf_counter() - t0

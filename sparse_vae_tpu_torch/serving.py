@@ -28,12 +28,14 @@ def rowwise_family(module) -> bool:
     """Whether `module` supports per-row decode (continuous batching, the
     serving engine); returns is_vae: True for the Transformer-VAE
     (`decode_step_z_rowwise`), False for the Transformer LM
-    (`decode_step_rowwise`). Any other model raises."""
+    (`decode_step_rowwise`). Any other model raises, the LSTM families
+    among them, as in the JAX package."""
     is_vae = hasattr(type(module), "decode_step_z_rowwise")
     if not is_vae and not hasattr(type(module), "decode_step_rowwise"):
         raise ValueError(
             f"{type(module).__name__} has no row-wise decode step — "
-            "continuous batching serves the transformer families")
+            "continuous batching supports the transformer families; LSTM "
+            "models use the lockstep sample loop")
     return is_vae
 
 

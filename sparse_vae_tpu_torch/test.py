@@ -1,6 +1,5 @@
 """The test split's NLL (the port of the JAX package's test.py):
-importance-weighted for the Transformer-VAE, plain for the Transformer
-LM:
+importance-weighted for the VAEs, plain for the language models:
 
     python -m sparse_vae_tpu_torch.test <experiment> <run-name>
         [data.k=v ...] [num_samples=N] [num_iter=M] [step=<N>|best]
@@ -11,20 +10,19 @@ loads a run that this package's trainer saved
 unless `step` says otherwise) and iterates the test split of its data
 (the run's saved data hparams, or the defaults with the data.k=v given;
 `epoch_batches("test", seed=0)`). For each batch with a real row it
-prints the IWAE NLL per token, averaged over the batch's real
-documents, and the running average; then the average over the batches.
-For the Transformer-VAE each document's log p(x) is
+prints the NLL per token, averaged over the batch's real documents, and
+the running average; then the average over the batches. For a VAE (the
+Transformer-VAE or the LSTM-VAE) each document's log p(x) is
 `estimate_log_prob_iw` over num_samples posterior samples in num_iter
-chunks (100 x 100 by default, the reference's transformer_vae.py:76),
-through `reconstruct_ll`: no [B, L, V] logits. Batch i's noise comes from
-a generator seeded with i. For the Transformer LM a batch's NLL per token
-is its ARObjective.eval_stats, nll_sum over token_count (num_samples and
-num_iter are read and unused, as in the JAX package, where num_iter
-defaults to 20 outside the Transformer-VAE).
+chunks, through `reconstruct_ll`: no [B, L, V] logits. num_iter defaults
+to 100 for the Transformer-VAE (100 x 100, the reference's
+transformer_vae.py:76) and to 20 otherwise (the LSTM-VAE's 100 x 20,
+lstm_vae.py:137). Batch i's noise comes from a generator seeded with i.
+For a language model (the Transformer LM or the LSTM LM) a batch's NLL
+per token is its ARObjective.eval_stats, nll_sum over token_count
+(num_samples and num_iter are read and unused, as in the JAX package).
 
-It runs on the card unless device=cpu is given. The LSTM families are not
-ported: they raise NotImplementedError naming the reference code they
-need.
+It runs on the card unless device=cpu is given.
 """
 from __future__ import annotations
 
@@ -36,21 +34,14 @@ import torch
 
 from .models.vae import estimate_log_prob_iw
 
-UNPORTED = {
-    "lstm-lm": "ARObjective.eval_stats "
-               "(sparse_vae_tpu/training/objectives.py:27) and the LSTM LM "
-               "(sparse_vae_tpu/models/lstm_lm.py)",
-    "lstm-vae": "the LSTM-VAE (sparse_vae_tpu/models/lstm_vae.py)",
-}
-
-
 def batch_nll(model, batch: dict, num_samples: int, num_iter: int,
               eps: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None) -> float:
     """The IWAE NLL per token of one batch {"token_ids": [B, L],
     "num_tokens": [B]}: -log p(x) / num_tokens averaged over the rows
-    with num_tokens > 0. eps [num_samples, B, 1, latent] or `generator`
-    as for `estimate_log_prob_iw`. Call under torch.no_grad()."""
+    with num_tokens > 0. eps [num_samples, *posterior shape] ([K, B, 1,
+    latent] for the Transformer-VAE, [K, B, latent] for the LSTM-VAE) or
+    `generator` as for `estimate_log_prob_iw`. Call under torch.no_grad()."""
     ids, num_tokens = batch["token_ids"], batch["num_tokens"]
     posterior = model.posterior(ids)
     lp = estimate_log_prob_iw(model.reconstruct_ll, posterior, ids,
@@ -75,10 +66,6 @@ def main(args) -> float:
     from .data.text_data_module import TextDataModuleHparams
 
     experiment, name = args[1], args[2]
-    if experiment in UNPORTED:
-        raise NotImplementedError(
-            f"test.py for {experiment!r} is not ported: it needs "
-            f"{UNPORTED[experiment]}")
     extra = dict(kv.split("=", 1) for kv in args[3:])
     device = extra.pop("device", "cuda")
     num_samples = int(extra.pop("num_samples", 100))

@@ -1,12 +1,16 @@
-"""Train the Transformer-VAE or the Transformer LM on the port, in one of
-two forms.
+"""Train a model of any of the four families on the port, in one of two
+forms.
 
 The training run, the JAX package's `train.py` CLI:
 
-    python -m sparse_vae_tpu_torch.train {transformer-vae|transformer-lm}
+    python -m sparse_vae_tpu_torch.train
+        {transformer-vae|transformer-lm|lstm-vae|lstm-lm}
         [model.k=v ...] [data.k=v ...] [trainer.k=v ...] [preset=<name>]
         [name=<run>] [from_checkpoint=<run>] [no_log=true]
         [anomaly_detection=true] [device=cuda]
+
+(e.g. `train lstm-vae preset=lstm-benchmark`: the LSTM-VAE at the
+lstm-benchmark preset from the JAX package's default initialisers)
 
 assembles the configuration (cli.py: defaults, the dotlist, a preset),
 prepares the corpus (data/: tokenizer, token cache, length buckets) and
@@ -20,7 +24,7 @@ argument after the experiment is absent or holds a `=`.
 
 The step run on an archived model's weights:
 
-    python -m sparse_vae_tpu_torch.train {transformer-vae|transformer-lm}
+    python -m sparse_vae_tpu_torch.train <experiment>
         <run-name> [steps=10] [batch=8] [seq=12800] [accumulate=<run's>]
         [seed=0] [device=cuda] [sp=1]
 

@@ -37,8 +37,9 @@ def batch_arrays(batch, device="cpu") -> Dict[str, torch.Tensor]:
 
 
 class ARObjective:
-    """The plain language-model objective (Transformer LM; the LSTM LM
-    once ported): loss = the NLL per real token."""
+    """The plain language-model objective (the Transformer LM; the LSTM
+    LM, which has no `forward_hidden`, through its full logits): loss =
+    the NLL per real token."""
 
     # Per-ROW statistics, counted once under a length-sharded batch
     # (parallel/spmd.py): none in training; the byte count in validation.

@@ -290,7 +290,7 @@ class Trainer:
         self._pending_groups = {}
         if resume and self.ckpt is not None:
             step = self.restore(model, optimizer, generator)
-        if self.hp.grad_checkpointing:
+        if getattr(self.hp, "grad_checkpointing", False):
             print(f"fit: grad_checkpointing (remat_policy="
                   f"{self.hp.remat_policy!r}) is not applied: remat is not "
                   "ported (ROADMAP.md Queue 1 item 1), so the backward keeps "

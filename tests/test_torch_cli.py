@@ -100,11 +100,25 @@ def test_model_hparams_are_the_same(preset):
 
 @pytest.mark.parametrize("experiment", ["lstm-lm", "lstm-vae"])
 def test_unported_families_raise(experiment):
+    """The LSTM families build since the LSTM slice: at the lstm-benchmark
+    preset their hparams are JAX's build_model's, field for field, with
+    JAX's objective class; only an unknown family raises."""
     cfg = tcli.assemble_config(experiment, ["preset=lstm-benchmark"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.build_hparams(experiment, cfg.model_overrides)
+    overrides = {k: v for k, v in cfg.model_overrides.items()
+                 if experiment == "lstm-vae" or k in LSTM_LM_FIELDS}
+    hp, objective = tcli.build_hparams(experiment, overrides)
+    _, jhp, jobjective = jax_build_model(experiment, overrides)
+    assert tconfig.to_dict(hp) == jconfig.to_dict(jhp)
+    assert type(objective).__name__ == type(jobjective).__name__
+    assert hp.init_scale is None
     with pytest.raises(ValueError, match="Unrecognized model"):
         tcli.build_hparams("gpt", {})
+
+
+# The lstm-benchmark preset's keys an LSTM LM has (the preset is the
+# LSTM-VAE's: its latent and encoder keys belong to no LM).
+LSTM_LM_FIELDS = {"d_model", "d_embedding", "grad_clip_threshold",
+                  "init_scale", "lr", "tie_logit_weights"}
 
 
 def test_coerce_value_is_the_same():

@@ -1062,3 +1062,59 @@ def test_fit_on_bucketed_documents_at_r5_width(cuda, tmp_path):
     held = entry["against_plain"]
     assert len(held["nll_rel_err"]) == entry["batches"]
     assert max(held["nll_rel_err"]) <= chip_smoke.TRAIN_LOSS_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rnn_type", ["LSTM", "GRU"])
+def test_cudnn_rnn_matches_the_step_loop(cuda, rnn_type):
+    """The fused RNN (cuDNN, fp32 math) against the step loop on the card:
+    a 2-layer stack at H 256 over [3, 300] from given states, outputs and
+    final states within 1e-4 of the largest entry, every gradient within
+    1e-3; for the LSTM also the masked bidirectional encoder over ragged
+    rows and an empty row. The step loop's CUDA counter moves only for
+    the step loop's own calls."""
+    from sparse_vae_tpu_torch.ops import rnn
+
+    gen = torch.Generator().manual_seed(3)
+    stack = rnn.StackedRNN(96, 256, 2, rnn_type)
+    for p in stack.parameters():
+        p.data.normal_(0.0, 0.0625, generator=gen)
+    stack = stack.to(cuda)
+    x = torch.randn((3, 300, 96), generator=gen).to(cuda)
+    init = [torch.randn((3, 256), generator=gen).to(cuda) for _ in range(2)]
+    states = ([(torch.tanh(c), c) for c in init] if rnn_type == "LSTM"
+              else [torch.tanh(c) for c in init])
+
+    def run(step_loop):
+        stack.zero_grad(set_to_none=True)
+        out, finals = rnn.use_step_loop(stack, step_loop)(x, states)
+        h = torch.stack([f[0] if rnn_type == "LSTM" else f for f in finals])
+        (out.square().mean() + h.sum()).backward()
+        return out.detach(), h.detach(), {n: p.grad.clone() for n, p in
+                                          stack.named_parameters()}
+
+    before = rnn.step_loop_cuda_calls
+    fused = run(False)
+    assert rnn.step_loop_cuda_calls == before
+    loop = run(True)
+    assert rnn.step_loop_cuda_calls == before + 2
+    for got, want, name in zip(fused[:2], loop[:2], ("out", "h_n")):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (name, err)
+    for name, want in loop[2].items():
+        err = (fused[2][name] - want).abs().max().item()
+        assert err <= 1e-3 * want.abs().max().item(), (name, err)
+    assert not torch.backends.cudnn.allow_tf32
+    if rnn_type != "LSTM":
+        return
+    enc = rnn.BiLSTMEncoder(96, 64, 2).to(cuda)
+    for p in enc.parameters():
+        p.data.normal_(0.0, 0.0625)
+    lengths = torch.tensor([300, 120, 0], device=cuda)
+    mask = torch.arange(300, device=cuda)[None, :] < lengths[:, None]
+    c0 = torch.randn((2, 64), device=cuda)
+    with torch.no_grad():
+        got = enc(x, mask, c0)
+        want = rnn.use_step_loop(enc)(x, mask, c0)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.allclose(got[2], torch.tanh(c0).reshape(-1))

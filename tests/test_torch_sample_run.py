@@ -212,12 +212,10 @@ def test_sample_entry_writes_the_dataset(tmp_path, monkeypatch):
 
 def test_sample_entry_refuses_what_it_does_not_run(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sample_entry.main(["sample", "lstm-vae", "x", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sample_entry.main(["sample", "transformer-vae", "real-prose-vae-r5",
-                           "spec_draft=lstm-lm:draft-lstm-r4",
-                           "batch_size=1", "device=cpu"])
+    for experiment in ("lstm-vae", "lstm-lm"):
+        with pytest.raises(SystemExit, match="unfused"):
+            sample_entry.main(["sample", experiment, "x", "fused_select=1",
+                               "device=cpu"])
     with pytest.raises(SystemExit, match="batch-1"):
         sample_entry.main(["sample", "transformer-vae", "real-prose-vae-r5",
                            "spec_draft=transformer-lm:draft-tlm-r5",

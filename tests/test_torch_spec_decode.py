@@ -380,9 +380,10 @@ def test_a_perfect_draft_accepts_nearly_everything():
 
 def test_sample_entry_with_a_spec_draft(tiny_archives, tmp_path,
                                         monkeypatch):
-    """`sample ... spec_draft=transformer-lm:<dense LM> batch_size=1`: one
-    speculative document per seed, as spec_draft_generate gives it with a
-    fresh draft state; other batch sizes and LSTM drafts refuse."""
+    """`sample ... spec_draft=transformer-lm:<dense LM> batch_size=1`, and
+    with spec_draft=lstm-lm:<a tiny LSTM LM>: one speculative document
+    per seed, as spec_draft_generate gives it with a fresh draft state;
+    other batch sizes refuse."""
     monkeypatch.chdir(tmp_path)
     train_tokenizer(iter(["a stand-in tokenizer line"]), 128,
                     save_path=tokenizer_cache_path("local-prose"))
@@ -393,7 +394,8 @@ def test_sample_entry_with_a_spec_draft(tiny_archives, tmp_path,
                              "max_length=24", f"spec_draft={draft}",
                              "spec_k=3", "ignore_end=1", "device=cpu"])
     assert out["splits"] == {"train": 2}
-    from sparse_vae_tpu_torch.checkpoint import load_draft, load_run
+    from sparse_vae_tpu_torch.checkpoint import (export_archive,
+                                                 load_draft, load_run)
     model = load_run(vae, device="cpu")[0]
     propose, fresh = load_draft(draft, 3, "cpu")
     for i, doc in enumerate(out["documents"]):
@@ -403,7 +405,25 @@ def test_sample_entry_with_a_spec_draft(tiny_archives, tmp_path,
     with pytest.raises(SystemExit, match="batch-1"):
         sample_entry.main(["sample", "transformer-vae", vae,
                            f"spec_draft={draft}", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sample_entry.main(["sample", "transformer-vae", vae,
-                           "batch_size=1", "spec_draft=lstm-lm:draft-lstm-r4",
-                           "device=cpu"])
+    from dataclasses import asdict
+
+    from sparse_vae_tpu_torch.models.init import init_parameters
+    from sparse_vae_tpu_torch.models.lstm_lm import (
+        LSTMLanguageModel, LSTMLanguageModelHparams)
+    hp = LSTMLanguageModelHparams(vocab_size=model.hparams.vocab_size,
+                                  d_embedding=8, d_model=16,
+                                  tie_logit_weights=True)
+    lstm = init_parameters(LSTMLanguageModel(hp),
+                           torch.Generator().manual_seed(0), None)
+    lstm_draft = "lstm-lm:" + str(export_archive(lstm, {
+        "experiment": "lstm-lm", "name": "lstm", "model_hparams":
+        asdict(hp), "data_hparams": {}}, tiny_archives / "lstm"))
+    out = sample_entry.main(["sample", "transformer-vae", vae,
+                             "num_samples=2", "batch_size=1",
+                             "max_length=24", f"spec_draft={lstm_draft}",
+                             "spec_k=3", "ignore_end=1", "device=cpu"])
+    propose, fresh = load_draft(lstm_draft, 3, "cpu")
+    for i, doc in enumerate(out["documents"]):
+        want = model.spec_draft_generate(i, 24, propose, fresh(24),
+                                         end_token=-1, draft_k=3)[0]
+        np.testing.assert_array_equal(doc, want[0].numpy())

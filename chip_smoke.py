@@ -206,23 +206,23 @@ Parallel and speculative decoding (models/parallel_decode.py,
 models/spec_decode.py) through the `gen_bench` entry's rows, end token
 -1, so that every mode makes seq - 1 tokens; passes, seconds and
 launches of every mode printed:
- 26. decode-r5 — r5 at batch 1 x 1,024: greedy ar, frontier (window
-               512), frontier_draft3 and jacobi_full (chunk 128; sparse K1
+ 26. decode-r5 — r5 at batch 1 x 512: greedy ar, frontier (window
+               256), frontier_draft3 and jacobi_full (chunk 128; sparse K1
                6 launches an iteration), each held against ar: where one
                differs, AR's two leading logits at the first differing
                position lie within GREEDY_TIE_MARGIN; sampled (top_p 0.9,
-               penalty 1.2) frontier, frontier_fused (K4 at [512, 32768]
+               penalty 1.2) frontier, frontier_fused (K4 at [256, 32768]
                once a pass) and speculative_draft3; frontier_fused again
-               at batch 8 x 512 (K4 at [4096, 32768]); both fused runs
+               at batch 8 x 512 (K4 at [2048, 32768]); both fused runs
                again
                with every K4 choice held against the plain selection, the
                same tokens and passes;
  27. decode-spec — r5 verifying draft-tlm-r5's 8-token drafts
-               (spec_draft_generate) at batch 1 x 512, greedy (held
+               (spec_draft_generate) at batch 1 x 256, greedy (held
                against decode-r5's AR) and sampled: passes, accepted
                drafts, tokens per pass; then the `sample` entry with
                spec_draft=transformer-lm:draft-tlm-r5 for 2 documents of
-               128;
+               64;
  28. decode-lm — draft-tlm-r5's full-document Jacobi at batch 1 x 512:
                greedy (K1's dense route, 2 launches an iteration) held
                against its ar, and sampled with fused_select (K4 on every
@@ -263,6 +263,45 @@ every path; the oracle's calls move it):
                sampled (passes, accepted drafts).
 Cut for time: the fits' depth (4 and 2 steps), the test entry's samples
 (8 in 2 chunks) and the draft runs' documents (2 of 128); no width.
+The latent tooling (gather_latents.py, knn.py, reconstruct.py,
+vae_console.py; their entries' dataset writer, tsne and interactive
+loops are CPU work that tests/test_torch_latent.py drives) and the
+mixture-of-experts LM real-prose-lm-moe (meta.json only: d_model 512, 8
+heads, 6 dense causal layers of 8 experts, top-2, capacity factor 1.25,
+bf16; the JAX initialisation, seed 0):
+ 33. latent  — in a temporary working directory holding a stand-in
+               corpus of 64 documents of 512-4,096 ids and r5's trained
+               weights saved as a run: gather (the posterior of every
+               document, batches of 32 rows; the encoder launches no
+               kernel) in bf16 against the fp32 plain model on the same
+               batches; knn_scores on the card against knn.py's float64
+               formulas; one reconstruction of a test document (max_length
+               1,024, temperature 0.7: K4 once a step), every K4 choice
+               held against the plain selection; a scripted vae_console
+               session (help, load, encode, an expression, q);
+ 34. moe-train — 3 optimizer steps on one trainer group of its data
+               shape (2 micro-batches of [48, 1024] ragged documents)
+               through K1/K2 on the dense causal route (6 launches a
+               micro-batch) and K3/K3b at D = 512; step 1 against the
+               same step in fp32 through the plain versions (loss 0.1%,
+               every gradient at cosine >= 0.99 or the near-zero rule),
+               with the tokens whose top-2 experts or kept slots differ
+               between the routes counted by layer; seconds a step, real
+               tokens/s, peak memory, train_moe_aux, train_moe_z and the
+               share of dispatches dropped by capacity printed;
+ 35. moe-fit — Trainer.fit for 2 steps on a stand-in corpus of its
+               document lengths, validating and saving at step 2; the
+               checkpoint restored bit for bit and one step from it equal
+               to the same step from the saved state; export_archive ->
+               load_run(<dir>) serving the trained model's logits
+               exactly;
+ 36. moe-serve — 12 requests through ServeEngine at batch 64 (dead rows
+               present), four bulk-prefilled at 512 (K1's dense route),
+               selection through K4; greedy ar and jacobi_full at batch 1
+               x 512, jacobi_full held against ar.
+Cut for time in phases 26-27 when phases 33-36 came in: r5's document to
+512 positions (window 256), the draft runs to 256 and the entry's
+documents to 64.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -274,11 +313,13 @@ import contextlib
 import ctypes
 import functools
 import gc
+import io
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 # The run writes nothing into the checkout but the kernel library
@@ -289,15 +330,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparse_vae_tpu_torch import profile_train
+from sparse_vae_tpu_torch import gather_latents, profile_train, vae_console
+from sparse_vae_tpu_torch import knn as knn_entry
+from sparse_vae_tpu_torch import reconstruct as reconstruct_entry
 from sparse_vae_tpu_torch import test as test_entry
 from sparse_vae_tpu_torch.checkpoint import (export_archive, load_draft,
                                              load_run, model_from_hparams,
                                              serving_form)
 from sparse_vae_tpu_torch import sample as sample_entry
 from sparse_vae_tpu_torch.batch_generation import batch_generate_samples
-from sparse_vae_tpu_torch.cli import (assemble_config, build_hparams,
-                                      make_sample_fns)
+from sparse_vae_tpu_torch.cli import (assemble_config, build_data,
+                                      build_hparams, make_sample_fns)
 from sparse_vae_tpu_torch.data.datasets import TokenizedCorpus
 from sparse_vae_tpu_torch.data.text_data_module import (
     TextDataModule, TextDataModuleHparams)
@@ -305,6 +348,7 @@ from sparse_vae_tpu_torch.data.tokenizer import (tokenizer_cache_path,
                                                  train_tokenizer)
 from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
 from sparse_vae_tpu_torch.models.init import init_parameters
+from sparse_vae_tpu_torch.models.moe import expert_capacity
 from sparse_vae_tpu_torch import gen_bench
 from sparse_vae_tpu_torch.models import generation, parallel_decode
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
@@ -327,6 +371,7 @@ from sparse_vae_tpu_torch.train import build as build_training
 from sparse_vae_tpu_torch.train import (run_hparams, sp_pad_multiple,
                                        train_rank)
 from sparse_vae_tpu_torch.training.data import synthetic_batch
+from sparse_vae_tpu_torch.training.checkpointing import CheckpointManager
 from sparse_vae_tpu_torch.training.train_step import train_step
 from sparse_vae_tpu_torch.training.trainer import Trainer, defer_accum_groups
 from sparse_vae_tpu_torch.utils.config import to_dict
@@ -3457,11 +3502,15 @@ def sample_long_phase(smi: str) -> dict:
 # DECODE_SPEC_DOCS documents of DECODE_SPEC_LEN; draft-tlm-r5's own
 # full-document Jacobi at DECODE_LM_SEQ. The batch-8 frontier, the draft
 # runs and the entry's documents are cut to these lengths for the run's
-# time (PERF.md): at 1,024 positions the three phases took 322 s.
-DECODE_SEQ, DECODE_WINDOW, DECODE_DRAFT, DECODE_ROWS = 1024, 512, 3, 8
+# time (PERF.md): at 1,024 positions the three phases took 322 s; r5's
+# document went from 1,024 positions (window 512) to 512 (window 256),
+# the draft runs from 512 positions to 256 and the entry's documents from
+# 128 tokens to 64 when the latent and MoE phases came in (decode-r5
+# took 190 s and decode-spec 88 s of a run of 885 s).
+DECODE_SEQ, DECODE_WINDOW, DECODE_DRAFT, DECODE_ROWS = 512, 256, 3, 8
 DECODE_WIDE_SEQ = 512
-DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 512
-DECODE_SPEC_DOCS, DECODE_SPEC_LEN = 2, 128
+DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 256
+DECODE_SPEC_DOCS, DECODE_SPEC_LEN = 2, 64
 DECODE_LM_SEQ = 512
 DRAFT_SPEC = f"transformer-lm:{LM_RUN}"
 # A greedy mode may part from AR only where AR's choice was a near tie:
@@ -4317,6 +4366,456 @@ def lstm_sample_phase(smi: str, archives: dict) -> dict:
     return stats
 
 
+# -- the latent tooling and the mixture-of-experts LM ------------------------
+
+# The latent tooling (phase 33) on r5's trained weights over a stand-in
+# corpus of LATENT_DOCS documents of 512-LATENT_MAX_TOKENS ids, saved where
+# r5's data hparams look for their token cache, in a temporary working
+# directory that also holds r5's weights as a run this package's trainer
+# saved (the entries' loader reads such runs).
+LATENT_DOCS, LATENT_MAX_TOKENS, LATENT_SEED = 64, 4096, 81
+# gather's loc and scale in bf16 against the fp32 plain model on the same
+# batches, the largest |difference| relative to the largest |fp32 value|:
+# bf16 rounding of the Perceiver's activations, 4.8e-3 (loc) and 9.0e-4
+# (scale) on the CPU at 1,024 and 4,096 tokens; the bound is about four
+# times the larger reading. The encoder launches no kernel: its
+# attention is dense, as in the JAX package.
+LATENT_REL_TOL = 2e-2
+# knn_scores in fp32 on the card against knn.py's formulas in float64.
+KNN_REL, KNN_ATOL = 1e-5, 1e-6
+LATENT_CONSOLE = ["help", f"load {RUN}",
+                  "encode A stand-in line of text for the console.",
+                  "posterior.loc.float().norm().item()", "q"]
+
+# real-prose-lm-moe (phases 34-36; meta.json only): a transformer-lm at
+# d_model 512, 8 heads, 6 dense causal layers, 8 experts a layer, top-2,
+# capacity factor 1.25, tied embeddings, loss chunk 2,048, bf16, from the
+# JAX initialisation (seed 0). Its data: 50,000 tokens a batch, documents
+# of 512-3,125 tokens padded to 512, accumulate 2. The train phase takes
+# one trainer group of its 1,024-token bucket: 2 micro-batches of
+# MOE_GROUP = [48, 1024] (49,152 slots; documents of 513-1,024 tokens),
+# whose fp32 plain reference (the masked dense attention keeps
+# [48, 8, 1024, 1024] fp32 scores a layer for the backward) fits beside
+# the model; a group of its 3,584 bucket ([13, 3584]) would not.
+MOE_RUN = "real-prose-lm-moe"
+MOE_GROUP, MOE_STEPS, MOE_SEED = (48, 1024), 3, 87
+MOE_FIT_STEPS = 2    # one validation and a checkpoint, at step 2
+MOE_FIT_DOCS = 120
+
+
+def write_run(experiment: str, name: str, model, meta: dict):
+    """`model`'s parameters saved as this package's trainer saves a run
+    (sparse-vae-logs/<experiment>/<name>/ in the working directory, step
+    0), for the entries that load runs by name."""
+    CheckpointManager(experiment, name).save(
+        0, {"params": model.state_dict(), "step": 0}, meta)
+
+
+def knn_against_numpy(loc, scale, docs) -> float:
+    """knn_scores on the card for each document of `docs` against
+    knn.py's numpy formulas in float64: the largest error relative to the
+    largest |score| of its list, checked against KNN_REL."""
+    loc64, scale64 = loc.astype(np.float64), scale.astype(np.float64)
+    loc_t = torch.tensor(loc, device="cuda")
+    scale_t = torch.tensor(scale, device="cuda")
+    worst = 0.0
+    for i in docs:
+        got = knn_entry.knn_scores(loc_t, scale_t, i)
+        d2 = np.sum((loc64[i] - loc64) ** 2, axis=-1)
+        norms = np.linalg.norm(loc64, axis=-1) * np.linalg.norm(loc64[i])
+        cos = loc64 @ loc64[i] / np.maximum(norms, 1e-12)
+        var_p, var_q = scale64[i] ** 2, scale64 ** 2
+        kl = 0.5 * np.sum(var_p / var_q + (loc64[i] - loc64) ** 2 / var_q
+                          - 1.0 + np.log(var_q / var_p), axis=-1)
+        for name, g, w in zip(("l2", "cos", "kl"), got, (d2, cos, kl)):
+            err = float(np.abs(g.cpu().numpy() - w).max())
+            check(err <= KNN_REL * np.abs(w).max() + KNN_ATOL,
+                  f"knn {name} of document {i}: error {err:.3g}")
+            worst = max(worst, err / max(float(np.abs(w).max()), 1e-30))
+    return worst
+
+
+def latent_phase(smi: str, n_docs: int = LATENT_DOCS,
+                 max_length: int = reconstruct_entry.MAX_LENGTH) -> dict:
+    """The latent tooling's compute on the card, on r5's trained weights in
+    bf16 over a stand-in corpus (LATENT_DOCS documents of ids), in a
+    temporary working directory holding the corpus, a stand-in tokenizer
+    and r5's weights saved as a run: `gather_latents.gather` against the
+    fp32 plain model on the same batches (LATENT_REL_TOL; the encoder
+    launches no kernel); `knn.knn_scores` on the card against knn.py's
+    float64 formulas; one `reconstruct.reconstruct` of a test document
+    (max_length 1024, temperature 0.7: K4 once a step), every K4 choice
+    held against the plain selection on the same logits and noise; a
+    scripted `vae_console` session (help, load, encode, an expression,
+    q). The entries' dataset writer (`datasets`), tsne (sklearn,
+    matplotlib) and the interactive loops are CPU work that the tests
+    drive (tests/test_torch_latent.py); none of them runs here."""
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(n_docs, data_hp["min_tokens_per_sample"],
+                        LATENT_MAX_TOKENS,
+                        meta["model_hparams"]["vocab_size"], LATENT_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_latent_") as tmp, \
+            contextlib.chdir(tmp):
+        save_test_data(data_hp, corpus)
+        model, hp, _ = load_run(RUN, device="cuda")
+        write_run("transformer-vae", RUN, model, meta)
+        cfg = assemble_config("transformer-vae", [])
+        cfg.data = TextDataModuleHparams(**data_hp)
+        data = build_data(cfg)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loc, scale, titles, doc_index = gather_latents.gather(model, data)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        check_counts("latent gather", read_counts(), {})
+        check(loc.shape == (n_docs, hp.latent_depth)
+              and doc_index.tolist() == list(range(n_docs))
+              and bool(np.isfinite(loc).all() and (scale > 0).all()),
+              f"gather: {loc.shape}, {doc_index[:4]}")
+        plain, _, _ = load_run(RUN, device="cuda", dtype=torch.float32,
+                               use_kernels=False)
+        p_loc, p_scale, _, _ = gather_latents.gather(plain, data)
+        del plain
+        rel = {name: float(np.abs(got - want).max() / np.abs(want).max())
+               for name, got, want in (("loc", loc, p_loc),
+                                       ("scale", scale, p_scale))}
+        check(max(rel.values()) <= LATENT_REL_TOL,
+              f"gather bf16 against fp32 plain: {rel}")
+        knn_err = knn_against_numpy(loc, scale,
+                                    (0, n_docs // 3, n_docs - 1))
+
+        doc = data.splits["test"].docs[0]
+        tokens = torch.as_tensor(np.asarray(doc, np.int64),
+                                 device="cuda")[None, :]
+        holder = K4Held()
+        reset_counts()
+        t0 = time.perf_counter()
+        with holder.patched():
+            recon = reconstruct_entry.reconstruct(model, tokens,
+                                                  max_length=max_length)
+        torch.cuda.synchronize()
+        recon_s = time.perf_counter() - t0
+        recon_counts = read_counts()
+        check_counts("latent reconstruct", recon_counts,
+                     {"nucleus_select": holder.steps})
+        check(recon.shape == (1, max_length - 1) and holder.steps > 0
+              and bool(((recon >= 0) & (recon < hp.vocab_size)).all()),
+              f"reconstruct: {tuple(recon.shape)}, {holder.steps} steps")
+
+        buf = io.StringIO()
+        answers = iter(LATENT_CONSOLE)
+        with contextlib.redirect_stdout(buf):
+            console = vae_console.main(
+                ["vae_console", RUN, f"device={model.device.type}"],
+                read=lambda prompt: next(answers))
+        out = buf.getvalue().splitlines()
+        posterior = console.env["posterior"]
+        check(out.count(f"Loaded transformer VAE run '{RUN}'.") == 2
+              and tuple(posterior.loc.shape) == (1, 1, hp.latent_depth)
+              and bool(torch.isfinite(posterior.loc).all())
+              and np.isfinite(float(out[-1])),
+              f"console session: {out}")
+        del console, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {"documents": n_docs, "gather_s": gather_s,
+             "gather_rel_err_vs_fp32_plain": rel,
+             "knn_max_rel_err_vs_float64": knn_err,
+             "reconstruct": {"steps": holder.steps, "seconds": recon_s,
+                             "new_tokens": int((recon != 0).sum()),
+                             "k4_held": holder.stats()},
+             "console_lines": len(LATENT_CONSOLE),
+             "launches": recon_counts, "card": smi}
+    print("latent " + json.dumps(stats), flush=True)
+    return stats
+
+
+def moe_hparams(depth=None):
+    hp = run_hparams(MOE_RUN)
+    return hp if depth is None else replace(hp, num_layers=depth)
+
+
+def moe_builder(hp):
+    """make(use_kernels, dtype) -> (model, objective, optimizer): `hp`'s
+    MoE LM from the JAX initialisation (seed 0), in the training form."""
+    return lambda kernels, dtype: build_from_hparams(
+        hp, torch.Generator().manual_seed(0), "cuda", use_kernels=kernels,
+        dtype=dtype)[:3]
+
+
+def moe_routes(make, use_kernels: bool, dtype, ids) -> list:
+    """Each MoE layer's (assign [N, k], keep [k, N]) in the forward of
+    make(use_kernels, dtype)'s model over `ids`, without gradients."""
+    model = make(use_kernels, dtype)[0]
+    stats = []
+    with torch.no_grad():
+        model.forward_hidden(ids, moe_stats=stats)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [(s["assign"], s["keep"]) for s in stats]
+
+
+def route_flips(a: list, b: list, valid) -> list:
+    """Per layer, the real tokens whose top-k experts or kept bits differ
+    between two forwards' routes."""
+    return [int(((ra != rb).any(-1) | (ka != kb).any(0))[valid].sum())
+            for (ra, ka), (rb, kb) in zip(a, b)]
+
+
+def moe_steps(make, mbs: list, steps: int, seed: int) -> dict:
+    """`steps` optimizer steps of make(True, None)'s model on the group
+    `mbs`, its dropout masks from a generator seeded `seed`: each step's
+    metrics and seconds, step 1's gradients on the CPU, the launch counts
+    of all the steps and the peak memory."""
+    model, objective, optimizer = make(True, None)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = {"metrics": [], "seconds": []}
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(model, objective, optimizer, mbs, step, None,
+                             gen)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["metrics"].append(metrics)
+        if step == 0:
+            out["grads"] = {n: p.grad.detach().float().cpu()
+                            for n, p in model.named_parameters()}
+    out["launches"] = read_counts()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del model, objective, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase(smi: str, depth=None, group=MOE_GROUP,
+                    steps: int = MOE_STEPS) -> dict:
+    """real-prose-lm-moe at full width (depth layers when given) from the
+    JAX initialisation: `steps` optimizer steps on one trainer group of
+    its data shape (2 micro-batches of `group` ragged documents), through
+    K1/K2 on the dense causal route and K3/K3b at D = 512, their counts
+    from the steps; step 1's loss within TRAIN_LOSS_RTOL of the same
+    step in fp32 through the plain versions on the same batch and
+    dropout masks, and every gradient at cosine >= TRAIN_GRAD_COS or, below
+    it, as lm_train_phase allows a near-zero one. The routes of the first
+    micro-batch in the two forwards are compared (route_flips): bf16
+    kernels against fp32 plain, and against bf16 plain (the kernels' own
+    share). Seconds a step, real tokens/s, peak memory, train_moe_aux,
+    train_moe_z and the share of dispatches dropped by capacity are
+    printed."""
+    hp = moe_hparams(depth)
+    make = moe_builder(hp)
+    accumulate = json.loads((REPO / "runs" / MOE_RUN / "meta.json")
+                            .read_text())["trainer_hparams"][
+                                "accumulate_grad_batches"]
+    rows, width = group
+    rng = np.random.default_rng(MOE_SEED)
+    mbs = [synthetic_batch(rng, rows, width, hp.vocab_size,
+                           min_tokens=width // 2 + 1, device="cuda")
+           for _ in range(accumulate)]
+    real = sum(int(mb["num_tokens"].sum()) for mb in mbs)
+    run = moe_steps(make, mbs, steps, MOE_SEED)
+    layers = hp.num_layers
+    micro = accumulate * steps
+    check_counts("moe-train", run["launches"], {
+        "swa_fwd_dense": layers * micro, "swa_bwd_dense": layers * micro,
+        "tied_ce_fwd": micro, "tied_ce_bwd": micro})
+    loss = run["metrics"][0]["loss"]
+    ref_loss, ref_grads, ref_counts, _ = lm_step(make, mbs, False,
+                                                 torch.float32, MOE_SEED)
+    check_counts("moe-train fp32 plain", ref_counts, {})
+    cos = cosines(run["grads"], ref_grads)
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    check(len(cos) == len(ref_grads) == 6 + 16 * layers,
+          f"{len(cos)} gradients compared")
+    check(np.isfinite(loss) and loss_rel <= TRAIN_LOSS_RTOL,
+          f"moe-train: loss {loss} vs fp32 plain {ref_loss}")
+    noisy = {n: {"kernels_vs_fp32": c} for n, c in cos.items()
+             if c < TRAIN_GRAD_COS}
+    if noisy:
+        _, plain_grads, _, _ = lm_step(make, mbs, False, None, MOE_SEED)
+        plain_cos = cosines(plain_grads, ref_grads)
+        for n, c in noisy.items():
+            c["bf16_plain_vs_fp32"] = plain_cos[n]
+            check(plain_cos[n] < TRAIN_GRAD_COS
+                  and c["kernels_vs_fp32"]
+                  >= plain_cos[n] - NOISY_GRAD_MARGIN,
+                  f"moe-train: {n} disagrees with fp32 plain: {c}")
+    held = {n: c for n, c in cos.items() if n not in noisy}
+    ids = mbs[0]["token_ids"]
+    valid = (ids != 0).reshape(-1)
+    kernel_routes = moe_routes(make, True, None, ids)
+    flips_fp32 = route_flips(kernel_routes,
+                             moe_routes(make, False, torch.float32, ids),
+                             valid)
+    flips_bf16 = route_flips(kernel_routes,
+                             moe_routes(make, False, None, ids), valid)
+    dispatches = int(valid.sum()) * hp.moe_top_k
+    dropped = [1.0 - int(keep.sum()) / dispatches
+               for _, keep in kernel_routes]
+    timed = run["seconds"][1:] or run["seconds"]
+    stats = {
+        "layers": layers, "experts": hp.num_experts, "top_k": hp.moe_top_k,
+        "capacity_factor": hp.moe_capacity_factor,
+        "group": [accumulate, rows, width], "real_tokens": real,
+        "expert_capacity_a_micro_batch": expert_capacity(
+            rows * width, hp.num_experts, hp.moe_top_k,
+            hp.moe_capacity_factor),
+        "loss": loss, "fp32_plain_loss": ref_loss, "loss_rel_err": loss_rel,
+        "gradients": len(cos),
+        "min_grad_cosine": sorted(held.items(), key=lambda kv: kv[1])[:3],
+        "gradients_at_bf16_noise": noisy,
+        "route_flips_vs_fp32_plain": flips_fp32,
+        "route_flips_vs_bf16_plain": flips_bf16,
+        "real_tokens_first_micro_batch": int(valid.sum()),
+        "dropped_share_by_layer": dropped,
+        "step_s": run["seconds"],
+        "real_tokens_per_s": real * len(timed) / sum(timed),
+        "train_moe_aux": [m["train_moe_aux"] for m in run["metrics"]],
+        "train_moe_z": [m["train_moe_z"] for m in run["metrics"]],
+        "train_nll": [m["train_nll"] for m in run["metrics"]],
+        "max_memory_allocated_bytes": run["peak"],
+        "launches": run["launches"], "card": smi}
+    print("moe-train " + json.dumps(stats), flush=True)
+    return stats
+
+
+def moe_fit_phase(smi: str, log_root: Path, depth=None,
+                  n_docs: int = MOE_FIT_DOCS) -> dict:
+    """Trainer.fit at real-prose-lm-moe's meta.json hparams from the JAX
+    initialisation (depth layers when given) for MOE_FIT_STEPS steps on a
+    stand-in corpus of its document lengths, validating and saving at
+    the last step (fit_run checks the launch counts of the groups and the
+    validation); then the checkpoint restores the saved state bit for
+    bit, one step from it equals the same step from the saved state bit
+    for bit, and the archive export_archive writes serves the trained
+    model's logits through load_run(<dir>) exactly."""
+    meta = json.loads((REPO / "runs" / MOE_RUN / "meta.json").read_text())
+    data_hp = meta["data_hparams"]
+    corpus = fit_corpus(n_docs, data_hp["min_tokens_per_sample"],
+                        data_hp["max_tokens_per_sample"],
+                        meta["model_hparams"]["vocab_size"], FIT_SEED)
+    dotlist = [f"trainer.checkpoint_every_n_steps={MOE_FIT_STEPS}",
+               "trainer.log_every_n_steps=1"]
+    if depth is not None:
+        dotlist.append(f"model.num_layers={depth}")
+    trainer, outcome, counts, peak, seconds = fit_run(
+        MOE_RUN, dotlist, corpus, MOE_FIT_STEPS, MOE_FIT_STEPS, log_root,
+        capture_step=MOE_FIT_STEPS)
+    stats = fit_stats(trainer, counts, peak, seconds, smi)
+    model, hp = outcome.model, trainer.hp
+    saved = trainer.captured
+    check(saved is not None and saved["step"] == MOE_FIT_STEPS,
+          "no state was captured at the checkpoint")
+    restored, restored_opt = trainer.init_state(
+        torch.Generator().manual_seed(1))
+    restored_gen = torch.Generator(device="cuda")
+    check(trainer.restore(restored, restored_opt, restored_gen,
+                          step=MOE_FIT_STEPS) == MOE_FIT_STEPS,
+          "the checkpoint's step")
+    check(states_equal(cpu_state(trainer.state(
+        restored, restored_opt, MOE_FIT_STEPS, restored_gen)), saved),
+        "the restored state is not the saved one")
+    twin, twin_opt = trainer.init_state(torch.Generator().manual_seed(2))
+    twin.load_state_dict(saved["params"])
+    twin_opt.load_state_tensors(saved["optimizer"])
+    twin_gen = torch.Generator(device="cuda")
+    twin_gen.set_state(saved["generator"])
+    group = next(defer_accum_groups(
+        trainer.data.epoch_batches("train", seed=FIT_SEED),
+        trainer.thp.accumulate_grad_batches, {}))[0]
+    Trainer._step(trainer, restored, restored_opt, group, MOE_FIT_STEPS,
+                  restored_gen)
+    Trainer._step(trainer, twin, twin_opt, group, MOE_FIT_STEPS, twin_gen)
+    check(states_equal(
+        cpu_state(trainer.state(restored, restored_opt, MOE_FIT_STEPS + 1,
+                                restored_gen)),
+        cpu_state(trainer.state(twin, twin_opt, MOE_FIT_STEPS + 1,
+                                twin_gen))),
+        "a step from the restored state differs from the same step from "
+        "the saved state")
+    stats["resume"] = {"step": MOE_FIT_STEPS,
+                       "group": list(group["token_ids"].shape),
+                       "bit_identical": True}
+    del restored, restored_opt, twin, twin_opt
+    t0 = time.perf_counter()
+    out = export_archive(model, trainer.meta(), log_root / "moe-archive",
+                         step=outcome.step)
+    export_s = time.perf_counter() - t0
+    served, served_hp, _ = load_run(str(out), device="cuda")
+    own_form = serving_form(model)
+    gen = torch.Generator(device="cuda").manual_seed(FIT_SEED)
+    ids = torch.randint(3, hp.vocab_size, (2, 512), generator=gen,
+                        device="cuda")
+    ids[:, 0] = CLS_ID
+    ids[1, 300:] = 0
+    with torch.no_grad():
+        a, b = served(ids), own_form(ids)
+    check(served_hp.num_experts == hp.num_experts and torch.equal(a, b),
+          "the archive's serving logits differ from the trained model's: "
+          f"{(a - b).abs().max().item()}")
+    stats["archive"] = {"export_s": export_s, "logits_equal": True,
+                        "shape": list(a.shape)}
+    del served, own_form, model, outcome, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("moe-fit " + json.dumps(stats), flush=True)
+    return stats
+
+
+def moe_serve_phase(smi: str, depth=None, seq: int = DECODE_LM_SEQ) -> dict:
+    """The MoE LM (the JAX initialisation, bf16 serving form) answers 12
+    requests through ServeEngine at batch 64, max_length 512 (52 rows
+    dead, fed [PAD], which take no expert slot), four bulk-prefilled at
+    512 positions (K1's dense route once a layer each), selection through
+    K4; then gen_bench's greedy ar and full-document Jacobi at batch 1 x
+    `seq` (K1's dense route once a layer an iteration), Jacobi held
+    against ar as decode-lm holds draft-tlm-r5's."""
+    hp = moe_hparams(depth)
+    model, hp = model_from_hparams(hp, torch.Generator().manual_seed(0),
+                                   "cuda")
+    prompts = [0, 127, 0, 400, 300, 0, 450, 150, 0, 420, 0, 390]
+    requests = make_requests(
+        hp.vocab_size, prompt_lengths=prompts,
+        max_tokens=[256, 128, 192, 96, 96, 64, 48, 256, 128, 80, 96, 100],
+        seed=88)
+    stats = serve_phase(model, requests, before_traffic=reset_counts)
+    counts = read_counts()
+    long_prompts = sum(1 + p > 384 for p in prompts)
+    check_counts("moe-serve", counts, {
+        "swa_fwd_dense": hp.num_layers * long_prompts,
+        "nucleus_select": None})
+    bench = gen_bench.Bench(model, seq=seq)
+    decode_counts = {}
+    json_row, greedy = gen_bench.run_mode(
+        bench, gen_bench.GREEDY, "greedy", names=["ar", "jacobi_full"],
+        timed=counted(decode_counts))
+    check_counts("moe-serve ar", decode_counts["ar"], {})
+    check_counts("moe-serve jacobi_full", decode_counts["jacobi_full"], {
+        "swa_fwd_dense": hp.num_layers * greedy["jacobi_full"]["passes"]})
+    held = held_against_ar("moe-serve jacobi_full", model,
+                           greedy["ar"]["tokens"],
+                           greedy["jacobi_full"]["tokens"])
+    del model, bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats.update(prefills_at_512=long_prompts, launches=total(
+        counts, *decode_counts.values()), serve_launches=counts,
+        greedy=mode_stats(greedy, decode_counts),
+        greedy_held_against_ar=held, gen_bench_row=json_row, card=smi)
+    print("moe-serve " + json.dumps(stats), flush=True)
+    return stats
+
+
 def check_counts(path: str, counts: dict, expect: dict):
     """expect: {counter: exact count, or None for at least one}; every
     other counter, the plain_routes ones included, must be 0."""
@@ -4353,7 +4852,8 @@ def main(argv) -> int:
         k4_wide = k4_phase(1.0, seed=9, iters=50, n=512, parent=parent)
         k4_mass = k4_phase(1.0, seed=10, iters=50, n=SAMPLE_BATCH,
                            parent=parent)
-        # The fused frontier's rows at DECODE_ROWS windows of 512.
+        # The fused frontier's rows at DECODE_ROWS windows of
+        # DECODE_WINDOW.
         k4_frontier = k4_phase(1.0, seed=11, iters=20,
                                n=DECODE_ROWS * DECODE_WINDOW, parent=parent)
         k4_split = k4_instantiations(seed=12, iters=50)
@@ -4492,6 +4992,15 @@ def main(argv) -> int:
             lstm_fit = lstm_fit_phase(smi, Path(tmp) / "sparse-vae-logs")
         with Phase("lstm-sample"):
             lstm_sample = lstm_sample_phase(smi, lstm_fit["archives"])
+    with Phase("latent"):
+        latent = latent_phase(smi)
+    with Phase("moe-train"):
+        moe_train = moe_train_phase(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        with Phase("moe-fit"):
+            moe_fit = moe_fit_phase(smi, Path(tmp) / "sparse-vae-logs")
+    with Phase("moe-serve"):
+        moe_serve = moe_serve_phase(smi)
     lstm_counts = {"lstm-ops": lstm_ops["launches"],
                    "lstm-train": lstm_train["launches"],
                    "lstm-fit": lstm_fit["launches"],
@@ -4514,20 +5023,25 @@ def main(argv) -> int:
                 "dreg": dreg_counts[name], "test-entry": test_counts[name]}
 
     def lm_paths(name):
-        """The launches of the Transformer LM's paths."""
+        """The launches of the Transformer LM's paths, the MoE LM's
+        included."""
         return {"lm-serve": lm_serve_counts[name],
                 "lm-train": lm_train_counts[name],
                 "lm-fit": lm_fit_counts[name],
                 "lm-test-entry": lm_test_counts[name],
                 "lm-callback": lm_callback_counts[name],
-                "decode-lm": decode_lm["launches"][name]}
+                "decode-lm": decode_lm["launches"][name],
+                **{path: stats["launches"][name] for path, stats in (
+                    ("moe-train", moe_train), ("moe-fit", moe_fit),
+                    ("moe-serve", moe_serve))}}
 
     def decode_paths(name):
-        """The launches of the parallel and speculative decoding paths and
-        of the LSTM family's (none launches a kernel)."""
+        """The launches of the parallel and speculative decoding paths, of
+        the LSTM family's (none launches a kernel) and of the latent
+        tooling's."""
         return {**{path: stats["launches"][name] for path, stats in (
             ("decode-r5", decode_r5), ("decode-spec", decode_spec),
-            ("decode-lm", decode_lm))},
+            ("decode-lm", decode_lm), ("latent", latent))},
             **{path: c[name] for path, c in lstm_counts.items()}}
 
     def lm_row(name, counter, source, replaces, row, extra):
@@ -4554,6 +5068,7 @@ def main(argv) -> int:
     k4_paths = {"serve": counts["nucleus_select"],
                 "serve-h4": h4_counts["nucleus_select"],
                 "lm-serve": lm_serve_counts["nucleus_select"],
+                "moe-serve": moe_serve["launches"]["nucleus_select"],
                 **{path: c["nucleus_select"]
                    for path, c in sample_counts.items()},
                 **decode_paths("nucleus_select")}
@@ -4610,14 +5125,16 @@ def main(argv) -> int:
              "sample-lm": lm_sample_stats["k4_held"],
              **{f"decode-r5 {k}": v
                 for k, v in decode_r5["k4_held"].items()},
-             "decode-lm": decode_lm["sampled_fused"]["k4_held"]},
+             "decode-lm": decode_lm["sampled_fused"]["k4_held"],
+             "latent": latent["reconstruct"]["k4_held"]},
          "parent": None if parent is None else {
              name: {k: r[k] for k in ("parent_ms", "parent_device_ms",
                                       "pccp")}
              for name, r in (("t1.0", k4_rows[0]), ("t0.7", k4_rows[1]),
                              ("rows_512", k4_wide),
                              ("rows_1000", k4_mass),
-                             ("rows_4096", k4_frontier))},
+                             (f"rows_{DECODE_ROWS * DECODE_WINDOW}",
+                              k4_frontier))},
          "checks": [{k: r[k] for k in ("shape", "noise", "top_p",
                                        "ulp_flip_rows")}
                     for r in k4_checks],

@@ -18,7 +18,10 @@ query bank `learned_queries` is a bare [1, n, D] parameter of the same
 name. An RNN layer's `w_ih_{l}` / `w_hh_{l}` ([gates * H, in], already
 torch's layout: not transposed), `b_ih_{l}` / `b_hh_{l}`, and the bare
 `c0`, `encoder_c0` and `logit_bias` keep their names; a bidirectional
-encoder's stacks are `encoder/dir_{d}/...`.
+encoder's stacks are `encoder/dir_{d}/...`. A mixture-of-experts layer's
+`layer_{i}/moe/router/kernel` is a Dense kernel (transposed), and its
+expert stacks `moe/w_in` [E, D, H], `moe/b_in` [E, H] and `moe/w_out`
+[E, H, D] keep their names and layout.
 
 Weights are converted in memory at load time; `load_run` writes nothing.
 """
@@ -72,7 +75,8 @@ _WEIGHT_KINDS = ((torch.nn.Linear, "kernel"), (torch.nn.LayerNorm, "scale"),
                  (torch.nn.Embedding, "embedding"))
 _RNN_LEAF = re.compile(r"[wb]_(ih|hh)_\d+")
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-               "bias": "bias", "learned_queries": "learned_queries"}
+               "bias": "bias", "learned_queries": "learned_queries",
+               "w_in": "w_in", "b_in": "b_in", "w_out": "w_out"}
 
 
 def decode_leaves(flat: dict) -> dict:

@@ -124,12 +124,12 @@ def make_sample_fns(experiment: str, objective, max_len: int = 512):
     reconstruct_fn(model, seed, batch, step) -> tokens or None, batch a
     TextBatch. A VAE refuses to sample while the annealed kl_weight is
     below 1; reconstruction decodes the batch's first document from its
-    posterior mean at temperature 0.7 (an LM reconstructs nothing).
+    posterior mean at temperature 0.7 (`reconstruct.reconstruct`, at
+    most max_len or its length + 16 positions; an LM reconstructs
+    nothing).
     Nucleus selection goes through K4 for the transformer families
     (`sample`'s default) and through the unfused bisection for the LSTM
     families (their `sample`, as the JAX package's)."""
-    from .models.generation import SamplingParams
-
     is_vae = experiment.endswith("vae")
 
     def sample_fn(model, seed: int, step: int = 0):
@@ -141,13 +141,11 @@ def make_sample_fns(experiment: str, objective, max_len: int = 512):
         if not is_vae:
             return None
         import torch
+        from .reconstruct import reconstruct
         tokens = torch.as_tensor(np.asarray(batch.token_ids[:1]),
                                  dtype=torch.int64, device=model.device)
-        with torch.no_grad():
-            posterior = model.posterior(tokens)
-        length = min(max_len, int(batch.num_tokens[0]) + 16)
-        return model.sample(seed, length, 1, posterior.loc[:1],
-                            SamplingParams(temperature=0.7))
+        return reconstruct(model, tokens, seed,
+                           min(max_len, int(batch.num_tokens[0]) + 16))
 
     return sample_fn, reconstruct_fn
 

@@ -20,6 +20,8 @@ hparams without an archive (port of sparse_vae_tpu/models/base.py
 - Dense biases: 0 (flax's default);
 - LayerNorm: scale 1, bias 0 (flax's default);
 - learned query banks: N(0, 1) (ops/attention.py `learned_queries`);
+- mixture-of-experts FFNs (models/moe.py): the router (a Dense of the
+  layer) and the expert stacks `w_in`, `w_out` N(0, 0.02), `b_in` 0;
 - the tied output biases `output_bias` and `logit_bias`: 0.
 
 Draws come from an explicit torch.Generator, in the order of
@@ -37,6 +39,7 @@ import torch.nn as nn
 from ..ops.attention import Attention
 from ..ops.rnn import StackedRNN
 from .conditional_gaussian import ConditionalGaussian
+from .moe import MoEFFN
 from .transformer_layer import TransformerLayer
 
 # The reference's fixed scale for attention and FFN projections.
@@ -84,6 +87,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator,
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, MoEFFN):
+            for stack in (module.w_in, module.w_out):
+                stack.normal_(0.0, LAYER_INIT_SCALE, generator=generator)
+            module.b_in.zero_()
         elif isinstance(module, Attention) and module.num_queries:
             module.learned_queries.normal_(0.0, 1.0, generator=generator)
         elif isinstance(module, StackedRNN):

@@ -16,11 +16,16 @@ generators `frontier_generate`, `speculative_generate`,
 builds on it.
 
 Ported configurations: tied input/output embedding with
-d_embedding == d_model, dense FFNs, no decoder cross-attention, sparse
+d_embedding == d_model, dense or mixture-of-experts FFNs (num_experts >
+1, models/moe.py, on one device), no decoder cross-attention, sparse
 (sliding-window) or dense causal self-attention (ops/attention.py routes
 the dense one through K1/K2 inside the JAX package's flash-attention
-gate), one device or, for the Transformer-VAE, a length axis sharded
+gate), one device or, for a dense Transformer-VAE, a length axis sharded
 over a `seq` group (`bind_seq_group`, through parallel.sp.sp_localize).
+Every step, peek and window pass hands the MoE FFN the mask of real
+tokens (token != 0), so finished rows and [PAD] guesses take no expert
+slot; the training forwards append each layer's balance statistics to a
+`moe_stats` list when given one (training/objectives.py).
 The model computes in `compute_dtype` (default: its parameters' dtype);
 models/base.py states the rule.
 
@@ -96,10 +101,8 @@ class TransformerHparams(LanguageModelHparams):
             "untied output embedding": not self.tie_embedding_weights,
             "cross_attention": self.cross_attention,
             "tensor parallelism": self.tp_size > 1,
-            "mixture-of-experts FFNs (sparse_vae_tpu/models/moe.py)":
-                self.num_experts > 1,
-            "expert parallelism (sparse_vae_tpu/parallel/ep.py)":
-                self.ep_size > 1,
+            "expert parallelism (sparse_vae_tpu/parallel/ep.py, ROADMAP "
+            "Queue 1 item 8)": self.ep_size > 1,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -171,7 +174,10 @@ class TransformerLanguageModel(nn.Module):
                              sparse_self_attention=hp.sparse_self_attention,
                              window_size=hp.attn_window_size,
                              block_size=hp.attn_block_size,
-                             use_kernel=hp.use_pallas_kernel)
+                             use_kernel=hp.use_pallas_kernel,
+                             num_experts=hp.num_experts,
+                             moe_top_k=hp.moe_top_k,
+                             moe_capacity_factor=hp.moe_capacity_factor)
             for _ in range(hp.num_layers)])
         self.head_dense = Linear(hp.d_model, hp.d_model)
         self.head_norm = LayerNorm(hp.d_model, eps=LAYER_NORM_EPS)
@@ -181,6 +187,10 @@ class TransformerLanguageModel(nn.Module):
         """Shard the length axis over `group` (parallel/sp.py): the decoder
         attention takes the halo / [CLS] path and the labels shift across
         shards. The parameters do not change."""
+        if self.hparams.num_experts > 1:
+            raise NotImplementedError(
+                "mixture-of-experts layers over a seq group are not ported "
+                "yet: ROADMAP Queue 1 item 8")
         self.seq_group = group
         self.hparams = replace(self.hparams, sp_size=group.size)
         for layer in self.decoder_layers:
@@ -284,19 +294,22 @@ class TransformerLanguageModel(nn.Module):
     # -- the Transformer LM's own forwards ---------------------------------
     def forward_hidden(self, token_ids, deterministic: bool = True,
                        generator: Optional[torch.Generator] = None,
-                       return_kv: bool = False):
+                       return_kv: bool = False,
+                       moe_stats: Optional[list] = None):
         """The decoder stack's output [B, L, D] before the head (the
         chunked-loss entry point). token_ids: [B, L] (0 = pad, the key
         mask); deterministic False applies the input dropout and each
         layer's FFN dropout, their masks drawn from `generator` in that
         order. With return_kv also each layer's head-major rotary (k, v),
-        the bulk-prefill cache seed."""
+        the bulk-prefill cache seed. moe_stats: a list each MoE layer's
+        balance statistics are appended to, in layer order."""
         x = self.embed(token_ids, deterministic, generator)
         mask = token_ids != 0
         kvs = []
         for layer in self.decoder_layers:
             out = layer(x, mask, return_kv=return_kv,
-                        deterministic=deterministic, generator=generator)
+                        deterministic=deterministic, generator=generator,
+                        moe_stats=moe_stats)
             if return_kv:
                 x, kv = out
                 kvs.append(kv)
@@ -305,17 +318,19 @@ class TransformerLanguageModel(nn.Module):
         return (x, kvs) if return_kv else x
 
     def forward(self, token_ids, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                moe_stats: Optional[list] = None):
         """Logits [B, L, V] fp32 of the teacher-forced forward."""
-        return self.project(self.forward_hidden(token_ids, deterministic,
-                                                generator))
+        return self.project(self.forward_hidden(
+            token_ids, deterministic, generator, moe_stats=moe_stats))
 
     def decode_step(self, token, caches: list, index: int):
         """One decode step, every row at position `index` (int): token
         [B] -> (fp32 logits [B, V], caches). Caches update in place."""
         x = self.embed(token[:, None])
+        mask = (token != 0)[:, None]
         for layer, cache in zip(self.decoder_layers, caches):
-            x, _ = layer.decode(x, cache, index)
+            x, _ = layer.decode(x, cache, index, mask)
         return self.project(x[:, 0]), caches
 
     def decode_step_rowwise(self, token, caches: list, index):
@@ -323,8 +338,9 @@ class TransformerLanguageModel(nn.Module):
         continuous-batching step, serving.py): token [B] -> (fp32 logits
         [B, V], caches). Caches update in place."""
         x = self.embed(token[:, None])
+        mask = (token != 0)[:, None]
         for layer, cache in zip(self.decoder_layers, caches):
-            x, _ = layer.decode_rowwise(x, cache, index)
+            x, _ = layer.decode_rowwise(x, cache, index, mask)
         return self.project(x[:, 0]), caches
 
     # -- sampling -----------------------------------------------------------
@@ -381,7 +397,7 @@ class TransformerLanguageModel(nn.Module):
         x = self.embed(tokens)
         kvs = []
         for layer, cache in zip(self.decoder_layers, caches):
-            x, kv = layer.decode_chunk(x, cache, index)
+            x, kv = layer.decode_chunk(x, cache, index, tokens != 0)
             kvs.append(kv)
         return self.project(x), kvs
 
@@ -438,7 +454,7 @@ class TransformerLanguageModel(nn.Module):
         for i, (layer, cache) in enumerate(zip(self.decoder_layers, caches)):
             if z_inputs is not None and start == 0:
                 x = torch.cat([z_inputs(i, x), x[:, 1:]], dim=1)
-            x, kv = layer.window_decode(x, cache, start)
+            x, kv = layer.window_decode(x, cache, start, win_tokens != 0)
             kvs.append(kv)
         return x, kvs
 

@@ -12,7 +12,11 @@ from z (`frontier_generate`, `speculative_generate`,
 
 z replaces position 0 ([CLS]) of every decoder layer's input. The training
 forwards take the posterior noise eps (z = loc + scale * eps) or a
-torch.Generator to draw it from.
+torch.Generator to draw it from, and a `moe_stats` list for a decoder
+with mixture-of-experts FFNs (the encoder's stay dense). The decode
+steps, the chunk peek and the window pass mask [PAD] tokens out of the
+experts' capacity as the Transformer LM's do; the row-wise step counts a
+row at position 0 as real (it feeds its z projection).
 
 Under sequence parallelism (`bind_seq_group`) absolute position 0 lives
 on shard 0 only: z replaces it there, and the other shards see z through
@@ -77,11 +81,13 @@ class TransformerVAE(TransformerLanguageModel):
         return self.q_of_z_given_x(self.encode(token_ids), get_kl=get_kl)
 
     # -- decoder ------------------------------------------------------------
-    def reconstruct_hidden(self, token_ids, z, return_kv: bool = False):
+    def reconstruct_hidden(self, token_ids, z, return_kv: bool = False,
+                           moe_stats: Optional[list] = None):
         """Decoder stack with z injected at position 0 of every layer.
         token_ids: [B, L] (0 = pad); z: [B, 1, latent_depth]. Returns the
         pre-head hidden [B, L, D]; with return_kv also each layer's
-        head-major rotary (k, v), the bulk-prefill cache seed."""
+        head-major rotary (k, v), the bulk-prefill cache seed. moe_stats:
+        as `forward_hidden`'s."""
         x = self.embed(token_ids)
         mask = token_ids != 0
         # On a shard past the first, z does not enter here; selecting with
@@ -96,10 +102,10 @@ class TransformerVAE(TransformerLanguageModel):
             x = injected if first is None else torch.where(first, injected,
                                                            x)
             if return_kv:
-                x, kv = layer(x, mask, return_kv=True)
+                x, kv = layer(x, mask, return_kv=True, moe_stats=moe_stats)
                 kvs.append(kv)
             else:
-                x = layer(x, mask)
+                x = layer(x, mask, moe_stats=moe_stats)
         return (x, kvs) if return_kv else x
 
     def reconstruct(self, token_ids, z):
@@ -123,20 +129,23 @@ class TransformerVAE(TransformerLanguageModel):
         return q, kl, q.sample(eps, generator)
 
     def forward(self, token_ids, eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                moe_stats: Optional[list] = None):
         """(logits [B, L, V] fp32, per-dim KL [B, 1, latent], posterior,
         z) with z = loc + scale * eps, eps given or drawn from
         `generator`."""
         q, kl, z = self._posterior_and_z(token_ids, eps, generator)
-        return self.reconstruct(token_ids, z), kl, q, z
+        return self.project(self.reconstruct_hidden(
+            token_ids, z, moe_stats=moe_stats)), kl, q, z
 
     def forward_chunked_nll(self, token_ids,
                             eps: Optional[torch.Tensor] = None,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            moe_stats: Optional[list] = None):
         """Training forward without [B, L, V] logits: (nll_sum,
         token_count, per-dim KL, posterior, z)."""
         q, kl, z = self._posterior_and_z(token_ids, eps, generator)
-        h = self.reconstruct_hidden(token_ids, z)
+        h = self.reconstruct_hidden(token_ids, z, moe_stats=moe_stats)
         nll_sum, count = self.sequence_nll(h, self.labels_for(token_ids))
         return nll_sum, count, kl, q, z
 
@@ -147,11 +156,12 @@ class TransformerVAE(TransformerLanguageModel):
         z: [B, 1, latent_depth]. Returns (fp32 logits [B, V], caches);
         the caches update in place."""
         x = self.embed(token[:, None])
+        mask = (token != 0)[:, None]
         for proj, layer, cache in zip(self.z_projections,
                                       self.decoder_layers, caches):
             if index == 0:
                 x = proj(z.to(x.dtype)).expand(x.shape[0], 1, x.shape[-1])
-            x, _ = layer.decode(x, cache, index)
+            x, _ = layer.decode(x, cache, index, mask)
         return self.project(x[:, 0]), caches
 
     @torch.no_grad()
@@ -214,12 +224,13 @@ class TransformerVAE(TransformerLanguageModel):
         z: [B, 1, latent_depth]. Returns (fp32 logits [B, V], caches)."""
         x = self.embed(token[:, None])
         first = (index == 0)[:, None, None]
+        mask = ((token != 0) | (index == 0))[:, None]
         new_caches = []
         for proj, layer, cache in zip(self.z_projections,
                                       self.decoder_layers, caches):
             zh = proj(z.to(x.dtype)).expand(x.shape[0], 1, x.shape[-1])
             x = torch.where(first, zh, x)
-            x, cache = layer.decode_rowwise(x, cache, index)
+            x, cache = layer.decode_rowwise(x, cache, index, mask)
             new_caches.append(cache)
         return self.project(x[:, 0]), new_caches
 
@@ -245,7 +256,7 @@ class TransformerVAE(TransformerLanguageModel):
         for i, (layer, cache) in enumerate(zip(self.decoder_layers, caches)):
             if index == 0:
                 x = torch.cat([z_inputs(i, x), x[:, 1:]], dim=1)
-            x, kv = layer.decode_chunk(x, cache, index)
+            x, kv = layer.decode_chunk(x, cache, index, tokens != 0)
             kvs.append(kv)
         return self.project(x), kvs
 

@@ -10,7 +10,10 @@ As in the reference, `loss_sums` returns numerator sums and count
 denominators, and `compose_loss` divides them: the loss stays linear in
 the sums. The training forwards run without dropout, as the reference's
 VAE training does. The posterior noise comes in explicitly (`noise`: eps
-for z and the marginal-KL draws) or from a torch.Generator.
+for z and the marginal-KL draws) or from a torch.Generator. A decoder
+with mixture-of-experts FFNs adds its balance losses to the ELBO as
+training/objectives.py's ARObjective does; with train_mc_samples > 1 it
+raises, as in the reference.
 
 The estimators take `reconstruct(token_ids, z)`, the model's
 `reconstruct` (logits [N, L, V]) or `reconstruct_ll` (log p(x | z) [N]).
@@ -40,6 +43,7 @@ from ..utils.distributions import DiagonalGaussian, standard_normal_log_prob
 from ..utils.math_utils import marginal_kl
 from ..utils.schedules import kl_weight_schedule
 from .base import LanguageModelHparams
+from .moe import collect_moe_stats, compose_moe_losses, moe_loss_terms
 
 
 @dataclass
@@ -91,10 +95,6 @@ class VAEObjective:
     def __init__(self, hparams, mutual_info_samples: int = 10):
         self.hp = hparams
         self.mi_samples = mutual_info_samples
-        if getattr(hparams, "num_experts", 0) > 1:
-            raise NotImplementedError(
-                "mixture-of-experts losses are not ported yet: "
-                "sparse_vae_tpu/models/moe.py")
 
     def _chunked(self, model) -> bool:
         """The chunked branch: loss_chunk_size set and a model with
@@ -122,6 +122,13 @@ class VAEObjective:
         noise = noise or {}
         ids = batch["token_ids"]
         if getattr(self.hp, "train_mc_samples", 1) > 1:
+            if getattr(self.hp, "num_experts", 0) > 1:
+                # Each sample's routing and capacity would differ; the
+                # K-sample bound does not collect the balance statistics.
+                raise ValueError(
+                    "MoE (num_experts > 1) requires train_mc_samples=1: "
+                    "the multi-sample bound does not collect the MoE "
+                    "balance losses")
             if getattr(self.hp, "free_bits", 0.0) > 0.0:
                 # The IWAE bound has no separate KL term to floor.
                 raise ValueError(
@@ -130,14 +137,16 @@ class VAEObjective:
                     "term to clamp")
             return self._multi_sample_sums(model, batch, noise.get("eps"),
                                            generator)
+        stats = [] if getattr(self.hp, "num_experts", 0) > 1 else None
+        extra = {} if stats is None else {"moe_stats": stats}
         if self._chunked(model):
             nll_sum, count, raw_kl, posterior, _ = model.forward_chunked_nll(
-                ids, noise.get("eps"), generator)
+                ids, noise.get("eps"), generator, **extra)
         else:
-            masks = ({"dropout_masks": noise["dropout"]}
-                     if "dropout" in noise else {})
+            if "dropout" in noise:
+                extra["dropout_masks"] = noise["dropout"]
             logits, raw_kl, posterior, _ = model(ids, noise.get("eps"),
-                                                 generator, **masks)
+                                                 generator, **extra)
             nll, mask = token_nll(logits[:, :-1], ids[:, 1:], reduce=False)
             nll_sum, count = nll.sum(), mask.sum()
         fb = getattr(self.hp, "free_bits", 0.0)
@@ -158,6 +167,8 @@ class VAEObjective:
                             ids.shape[0], -1).shape),
                         generator=generator, device=ids.device)
                 sums["marginal_kl_rows"] = marginal_kl(detached, mi) * rows
+        if stats is not None:
+            moe_loss_terms(collect_moe_stats(stats), sums, counts)
         return sums, counts
 
     def compose_loss(self, sums, counts, step):
@@ -176,6 +187,12 @@ class VAEObjective:
         if "marginal_kl_rows" in sums:
             metrics["train_mc_mutual_info"] = kl - (
                 sums["marginal_kl_rows"] / rows)
+        if "moe_imp_sum" in sums:
+            extra, moe_metrics = compose_moe_losses(
+                sums, counts, getattr(self.hp, "moe_aux_weight", 1e-2),
+                getattr(self.hp, "moe_zloss_weight", 1e-3))
+            loss = loss + extra
+            metrics.update(moe_metrics)
         return loss, metrics
 
     def loss(self, model, batch, step, noise=None, generator=None):

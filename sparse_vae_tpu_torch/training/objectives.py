@@ -8,7 +8,14 @@ val_nll and val_bpb). With `loss_chunk_size` set and a model that has
 (`sequence_nll`: the fused tied CE, K3/K3b on the card) so [B, L, V]
 logits never exist; otherwise the full logits go through `token_nll`.
 As in the reference, `loss_sums` returns numerator sums and count
-denominators and `compose_loss` divides them, linear in the sums.
+denominators and `compose_loss` divides them, linear in the sums. A model
+with mixture-of-experts FFNs (num_experts > 1, models/moe.py) adds its
+balance statistics on both branches (`moe_imp_sum` / `moe_z_sum` in the
+sums, `moe_load` / `moe_nv` in the counts), and `compose_loss` adds
+moe_aux_weight * aux + moe_zloss_weight * z with the metrics
+`train_moe_aux` and `train_moe_z`; validation leaves them out. They are
+token statistics, local to a length shard, so they are not in
+ROW_SUMS / ROW_COUNTS.
 
 The methods take the arguments of models/vae.py's VAEObjective, so the
 trainer and train_step drive either: `noise` is unused (a language model
@@ -25,6 +32,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.moe import (collect_moe_stats, compose_moe_losses,
+                          moe_loss_terms)
 from ..ops.cross_entropy import token_nll
 
 
@@ -49,10 +58,6 @@ class ARObjective:
 
     def __init__(self, hparams=None):
         self.hp = hparams
-        if getattr(hparams, "num_experts", 0) > 1:
-            raise NotImplementedError(
-                "mixture-of-experts losses are not ported yet: "
-                "sparse_vae_tpu/models/moe.py")
 
     def _chunked(self, model) -> bool:
         return bool(getattr(self.hp, "loss_chunk_size", 0)) and hasattr(
@@ -66,15 +71,23 @@ class ARObjective:
                 "(sparse_vae_tpu/training/objectives.py ARObjective with "
                 "sp_size > 1, parallel/spmd.py) is not ported yet")
 
+    @staticmethod
+    def _moe_on(model) -> bool:
+        return getattr(model.hparams, "num_experts", 0) > 1
+
     def _nll_sums(self, model, ids, deterministic: bool,
-                  generator: Optional[torch.Generator]):
+                  generator: Optional[torch.Generator],
+                  moe_stats: Optional[list] = None):
         """(nll_sum, token_count) of one batch of token ids [B, L]; the
-        dropout (deterministic False) applies on the chunked path only."""
+        dropout (deterministic False) applies on the chunked path only.
+        moe_stats: a list the MoE layers' statistics are appended to."""
         self._check_device_layout(model)
         if self._chunked(model):
-            hidden = model.forward_hidden(ids, deterministic, generator)
+            hidden = model.forward_hidden(ids, deterministic, generator,
+                                          moe_stats=moe_stats)
             return model.sequence_nll(hidden, model.labels_for(ids))
-        logits = model(ids)
+        logits = (model(ids) if moe_stats is None
+                  else model(ids, moe_stats=moe_stats))
         nll, mask = token_nll(logits[:, :-1], ids[:, 1:], reduce=False)
         return nll.sum(), mask.sum()
 
@@ -83,15 +96,28 @@ class ARObjective:
                   ) -> Tuple[Dict[str, torch.Tensor],
                              Dict[str, torch.Tensor]]:
         """(differentiable sums, counts) of one batch {"token_ids":
-        [B, L], ...}: {"nll_sum"}, {"token_count"}."""
+        [B, L], ...}: {"nll_sum"}, {"token_count"}, and an MoE model's
+        balance statistics (`moe_loss_terms`)."""
+        stats = [] if self._moe_on(model) else None
         nll_sum, count = self._nll_sums(model, batch["token_ids"], False,
-                                        generator)
-        return {"nll_sum": nll_sum}, {"token_count": count.float()}
+                                        generator, stats)
+        sums, counts = {"nll_sum": nll_sum}, {"token_count": count.float()}
+        if stats is not None:
+            moe_loss_terms(collect_moe_stats(stats), sums, counts)
+        return sums, counts
 
     def compose_loss(self, sums, counts, step):
-        """(loss, metrics): the NLL per real token."""
+        """(loss, metrics): the NLL per real token, plus the MoE balance
+        losses where the sums hold them."""
         nll = sums["nll_sum"] / counts["token_count"].clamp_min(1.0)
-        return nll, {"train_nll": nll}
+        loss, metrics = nll, {"train_nll": nll}
+        if "moe_imp_sum" in sums:
+            extra, moe_metrics = compose_moe_losses(
+                sums, counts, getattr(self.hp, "moe_aux_weight", 1e-2),
+                getattr(self.hp, "moe_zloss_weight", 1e-3))
+            loss = nll + extra
+            metrics.update(moe_metrics)
+        return loss, metrics
 
     def loss(self, model, batch, step, noise=None, generator=None):
         sums, counts = self.loss_sums(model, batch, noise, generator)

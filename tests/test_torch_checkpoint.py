@@ -193,7 +193,8 @@ def test_package_imports_nothing_of_jax():
     tokenizer only), and check that the corpus pipeline, the trainer and
     the CLI, the evaluation entry and its estimators, the language-model
     objective and the LM's entry points (train, test, serve,
-    profile_train) are among the modules imported."""
+    profile_train), the mixture-of-experts FFN and the latent tooling's
+    entries are among the modules imported."""
     code = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "sparse_vae_tpu",
@@ -210,7 +211,8 @@ for name in ("data.batching", "data.datasets", "data.local_corpus",
              "training.checkpointing", "training.trainer", "train",
              "test", "utils.math_utils", "models.vae",
              "training.objectives", "models.transformer_lm", "serve",
-             "server", "serving", "profile_train"):
+             "server", "serving", "profile_train", "models.moe",
+             "gather_latents", "knn", "tsne", "reconstruct", "vae_console"):
     assert "sparse_vae_tpu_torch." + name in names, name
 import chip_smoke
 bad = [m for m in sys.modules

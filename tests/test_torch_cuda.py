@@ -25,7 +25,9 @@ K1 and K2. K4 at the mass-sampling batch [1000, 32768] and at the fused frontier
 [4096, 32768], the lockstep decode step (`decode_step_z`) bit for bit
 the row-wise one at every row's position, and r5's chunk peek
 (`decode_chunk_z`) against its sequential decode steps within the serve
-tolerance.
+tolerance. The MoE LM's step (real-prose-lm-moe at 2 layers) and the
+latent tooling's compute (gather, knn_scores, reconstruct, the console)
+as chip_smoke.py's moe-train and latent phases hold them.
 """
 import pytest
 import torch
@@ -1118,3 +1120,35 @@ def test_cudnn_rnn_matches_the_step_loop(cuda, rnn_type):
         want = rnn.use_step_loop(enc)(x, mask, c0)
     assert (got - want).abs().max().item() <= 1e-4
     assert torch.allclose(got[2], torch.tanh(c0).reshape(-1))
+
+
+@pytest.mark.gpu
+def test_moe_step_through_the_kernels_matches_plain(cuda):
+    """chip_smoke.py's moe-train phase at 2 of real-prose-lm-moe's layers
+    (full width, 8 experts, top-2) on one group of 2 micro-batches of
+    [8, 1024] ragged documents: 2 steps through K1/K2 on the dense causal
+    route and K3/K3b, step 1 against the fp32 plain step (loss within
+    0.1%, gradients at cosine >= 0.99 or the near-zero rule), the route
+    flips counted; every check raises inside the phase."""
+    import chip_smoke
+    stats = chip_smoke.moe_train_phase("pytest", depth=2, group=(8, 1024),
+                                       steps=2)
+    assert stats["loss_rel_err"] <= chip_smoke.TRAIN_LOSS_RTOL
+    assert stats["launches"]["swa_fwd_dense"] == 2 * 2 * 2
+    assert stats["gradients"] == 6 + 16 * 2
+    assert len(stats["route_flips_vs_fp32_plain"]) == 2
+
+
+@pytest.mark.gpu
+def test_gather_and_reconstruct_on_the_card(cuda):
+    """chip_smoke.py's latent phase on 16 documents with a reconstruction
+    of 64 positions: gather in bf16 against the fp32 plain model,
+    knn_scores against knn.py's float64 formulas, K4 once a
+    reconstruction step with every choice held against the plain
+    selection, a scripted console session."""
+    import chip_smoke
+    stats = chip_smoke.latent_phase("pytest", n_docs=16, max_length=64)
+    assert max(stats["gather_rel_err_vs_fp32_plain"].values()) <= (
+        chip_smoke.LATENT_REL_TOL)
+    assert stats["launches"]["nucleus_select"] == (
+        stats["reconstruct"]["steps"]) > 0

@@ -373,8 +373,13 @@ def test_jax_initialised_sparse_lm_objective_matches_jax(chunk):
 
 
 def test_objective_refuses_experts_and_a_seq_group():
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        ARObjective(TransformerHparams(num_experts=4))
+    """ARObjective now builds an MoE LM (tests/test_torch_moe.py holds it
+    against JAX) and still refuses an LM bound to a seq group."""
+    hp = TransformerHparams(**SPARSE_LM, num_experts=4)
+    loss, metrics = ARObjective(hp).loss(
+        TransformerLanguageModel(hp), {"token_ids": torch.ones(
+            1, 128, dtype=torch.int64)}, 0)
+    assert torch.isfinite(loss) and "train_moe_aux" in metrics
     model = TransformerLanguageModel(TransformerHparams(**SPARSE_LM))
     model.seq_group = object()
     ids = torch.ones(1, 128, dtype=torch.int64)

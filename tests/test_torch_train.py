@@ -334,11 +334,14 @@ def test_two_microbatch_train_step_matches_jax():
 
 def test_multi_sample_training_with_experts_still_raises():
     """train_mc_samples > 1 is ported (tests/test_torch_eval*.py); with
-    a mixture-of-experts decoder it still raises, naming the unported
-    module."""
+    a mixture-of-experts decoder it raises the JAX package's ValueError
+    (models/vae.py: the K-sample bound collects no balance losses)."""
     hp = TransformerVAEHparams(train_mc_samples=4, num_experts=4)
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        VAEObjective(hp)
+    ids = torch.ones(2, 8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="MoE \\(num_experts > 1\\) "
+                       "requires train_mc_samples=1"):
+        VAEObjective(hp).loss(None, {"token_ids": ids,
+                                     "num_tokens": torch.tensor([8, 8])}, 0)
 
 
 def test_kl_sums_and_normalized_kl_match_jax():

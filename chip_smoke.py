@@ -86,7 +86,7 @@ Sequence parallelism, r5 at the pg19 preset's document shape (one
  11. sp-train — one unsharded kernel step of r5 on a seeded document
                [1, 102400] (K1/K2 at [1, 8, 102400, 64]), then 4 ranks
                spawned on this card (gloo: they share it) take the same
-               step with the same weights, document and eps, and 2 more;
+               step with the same weights, document and eps, and 1 more;
                the same pair again in fp32 through the plain versions.
                fp32: all 165 summed gradients at cosine >= 0.99, loss to
                1e-5; kernels: loss within 1e-3 relative, gradients at
@@ -100,12 +100,12 @@ lengths log-uniform over r5's 512-50,000 tokens, through the
 data module's prepare_corpus, length buckets and accumulation groups;
 the model from the JAX initialisation, configured by cli.assemble_config
 on a run's meta.json:
- 12. fit     — r5's hparams (tokens_per_batch 100,000, accumulate 2): 6
-               steps of fit, validating and saving at steps 3 and 6,
+ 12. fit     — r5's hparams (tokens_per_batch 100,000, accumulate 2): 2
+               steps of fit, validating and saving at steps 1 and 2,
                through K1, K2, K3 and K3b (their counts from the groups
                and validation batches fit ran); validation through the
                kernels against the plain versions on the same parameters
-               and noise (val_nll and val_kl within 0.1%); the step-3
+               and noise (val_nll and val_kl within 0.1%); the step-1
                checkpoint restored bit for bit and one step from it equal
                to the same step from the saved state; export_archive then
                load_run(<dir>): serving logits equal to the trained
@@ -184,7 +184,7 @@ batching, the `sample` entry, the trainer's sampling callback), each in
 a temporary working directory with a stand-in tokenizer (the checks read
 ids):
  23. sample  — `sparse_vae_tpu_torch.sample transformer-vae
-               real-prose-vae-r5`: one lockstep batch of 1000 x 512 (K4
+               real-prose-vae-r5`: one lockstep batch of 1000 x 256 (K4
                at [1000, 32768] once a step) and 2,000 documents through
                1,000 continuously refilled rows, each saving its dataset;
                new tokens/s and document lengths printed; the lockstep
@@ -200,25 +200,25 @@ ids):
                unconditional_sample record, no train_bleu, no
                sampling_error;
  25. sample-long — pg19-fb8's sample_resumable at batch 1, max_length
-               102,400, no end token: 1,024 positions in one call and in
+               102,400, no end token: 512 positions in one call and in
                two slices of 512, the buffers bit for bit.
 Parallel and speculative decoding (models/parallel_decode.py,
 models/spec_decode.py) through the `gen_bench` entry's rows, end token
 -1, so that every mode makes seq - 1 tokens; passes, seconds and
 launches of every mode printed:
- 26. decode-r5 — r5 at batch 1 x 512: greedy ar, frontier (window
-               256), frontier_draft3 and jacobi_full (chunk 128; sparse K1
+ 26. decode-r5 — r5 at batch 1 x 256: greedy ar, frontier (window
+               128), frontier_draft3 and jacobi_full (chunk 128; sparse K1
                6 launches an iteration), each held against ar: where one
                differs, AR's two leading logits at the first differing
                position lie within GREEDY_TIE_MARGIN; sampled (top_p 0.9,
-               penalty 1.2) frontier, frontier_fused (K4 at [256, 32768]
+               penalty 1.2) frontier, frontier_fused (K4 at [128, 32768]
                once a pass) and speculative_draft3; frontier_fused again
-               at batch 8 x 512 (K4 at [2048, 32768]); both fused runs
+               at batch 8 x 256 (K4 at [1024, 32768]); both fused runs
                again
                with every K4 choice held against the plain selection, the
                same tokens and passes;
  27. decode-spec — r5 verifying draft-tlm-r5's 8-token drafts
-               (spec_draft_generate) at batch 1 x 256, greedy (held
+               (spec_draft_generate) at batch 1 x 128, greedy (held
                against decode-r5's AR) and sampled: passes, accepted
                drafts, tokens per pass; then the `sample` entry with
                spec_draft=transformer-lm:draft-tlm-r5 for 2 documents of
@@ -249,19 +249,19 @@ every path; the oracle's calls move it):
                0.99 unless numerically zero); 3 timed steps at [2, 25000]
                (seconds, real tokens/s, peak memory); one step of
                draft-lstm-r4's LM at [13, 3584], held the same way;
- 31. lstm-fit — Trainer.fit at lstm-benchmark on a stand-in corpus: 4
-               steps, validating, saving and reconstructing every 2; the
-               step-2 checkpoint restored bit for bit; export_archive ->
+ 31. lstm-fit — Trainer.fit at lstm-benchmark on a stand-in corpus: 2
+               steps, validating, saving and reconstructing every step;
+               the step-1 checkpoint restored bit for bit; export_archive ->
                load_run(<dir>) with the logits of the trained model in
                bf16-rounded weights, bit for bit; a 2-step fit of
                draft-lstm-r4's LM; the `test` entry on both runs;
  32. lstm-sample — `sample lstm-vae <lstm-fit's archive>`: one lockstep
-               batch of 1000 x 512 (the unfused selection: no K4); then
+               batch of 1000 x 256 (the unfused selection: no K4); then
                `sample transformer-vae real-prose-vae-r5
                spec_draft=lstm-lm:<lstm-fit's LM>` for 2 documents of 128
                and gen_bench's spec_model row with that draft, greedy and
                sampled (passes, accepted drafts).
-Cut for time: the fits' depth (4 and 2 steps), the test entry's samples
+Cut for time: the fits' depth (2 and 2 steps), the test entry's samples
 (8 in 2 chunks) and the draft runs' documents (2 of 128); no width.
 The latent tooling (gather_latents.py, knn.py, reconstruct.py,
 vae_console.py; their entries' dataset writer, tsne and interactive
@@ -289,7 +289,8 @@ bf16; the JAX initialisation, seed 0):
                between the routes counted by layer; seconds a step, real
                tokens/s, peak memory, train_moe_aux, train_moe_z and the
                share of dispatches dropped by capacity printed;
- 35. moe-fit — Trainer.fit for 2 steps on a stand-in corpus of its
+ 35. moe-fit — Trainer.fit at 3 of its 6 layers (MOE_FIT_DEPTH) for 2
+               steps on a stand-in corpus of its
                document lengths, validating and saving at step 2; the
                checkpoint restored bit for bit and one step from it equal
                to the same step from the saved state; export_archive ->
@@ -301,7 +302,46 @@ bf16; the JAX initialisation, seed 0):
                x 512, jacobi_full held against ar.
 Cut for time in phases 26-27 when phases 33-36 came in: r5's document to
 512 positions (window 256), the draft runs to 256 and the entry's
-documents to 64.
+documents to 64; when phases 37-40 came in: fit to 2 steps (from 6),
+sp-train's sharded kernel steps to 2 (from 3), sample-long to 512
+positions (from 1,024), decode-r5 to 256 positions (window 128, from 512 and 256),
+decode-spec's draft runs to 128 (from 256), sample's and lstm-sample's
+documents to 256 tokens (from 512), lstm-fit to 2 steps (from 4) on 120
+documents (from 200), moe-fit to 3 of its 6 layers.
+The data, model and expert axes (parallel/mesh.py, tp.py, ep.py,
+spmd.py): each phase spawns 4 ranks on this card (gloo: every collective
+staged through the host; the NCCL branch needs a card a rank), holds
+step 1 against the unsharded step on the same weights, documents and
+noise, in bf16 through the kernels and in fp32 through the plain
+versions (as sp-train: the fp32 pair loss 1e-5 and every gradient at
+cosine >= 0.99; the kernel pair loss 1e-3 and cosine >= 0.99 or the
+NOISY_GRAD_MARGIN rule), checks every rank's launch counts (the plain
+routes 0 on every rank) and that every replicated parameter is bitwise
+equal on every rank and every shard across its data peers, and prints
+seconds a step, real tokens/s, the seconds in host-staged transfers and
+each rank's peak memory:
+ 37. mesh-tp — r5 at full width over data 2 x model 2 (4 heads, half of
+               each FFN and 16,384 rows of the tied table a shard) on
+               [4, 4096] ragged documents, 3 steps: K1/K2 6 a step on
+               every rank, K3/K3b none (the vocab-parallel loss);
+ 38. mesh-ep — real-prose-lm-moe over data 2 x expert 2 (4 experts a
+               rank) on 2 micro-batches of [16, 1024]: step 1 held at
+               capacity factor MESH_NO_DROP without dropout, then 2
+               steps at 1.25 with dropout (masks per row shard), each
+               rank's dropped share a layer printed;
+               K1/K2 (dense) 6 and K3/K3b 1 a micro-batch on every rank;
+ 39. mesh-moe-tp — the same over data 2 x model 2 (expert hidden 2,048
+               -> 1,024 a shard): K1/K2 (dense) 6 a micro-batch, K3/K3b
+               none;
+ 40. mesh-fit — Trainer.fit of r5's hparams on data 2 x model 2 for 2
+               steps, validating and saving each step (cut: documents of
+               512-4,096 tokens in batches of 8,192, MESH_FIT_TOKENS);
+               the step-1 checkpoint restored bit for bit and stepped
+               into the run's step 2 bit for bit on every rank; the
+               gathered checkpoint loaded on the card by
+               load_checkpoint_for_name equal to the trained parameters,
+               and its archive served by load_run with the trained
+               model's logits exactly.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -368,8 +408,8 @@ from sparse_vae_tpu_torch.serving import continuous_batch_sample
 from sparse_vae_tpu_torch.parallel.group import spawn
 from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
-from sparse_vae_tpu_torch.train import (run_hparams, sp_pad_multiple,
-                                       train_rank)
+from sparse_vae_tpu_torch.train import (mesh_rank, run_hparams,
+                                        sp_pad_multiple, train_rank)
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.checkpointing import CheckpointManager
 from sparse_vae_tpu_torch.training.train_step import train_step
@@ -1564,36 +1604,49 @@ def unsharded_sp_step(use_kernels: bool, dtype, noise=None):
     return out
 
 
-def sharded_sp_steps(steps: int, noise: dict, use_kernels: bool = True,
-                     dtype=None) -> list:
+def sp_pair_rank(group, kernel_args: tuple, plain_args: tuple) -> tuple:
+    """One rank of sp-train: train.train_rank through the kernels, then
+    through the fp32 plain versions, in one process."""
+    kernel = train_rank(group, *kernel_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel, train_rank(group, *plain_args)
+
+
+def sharded_sp_steps(steps: int, noise: dict) -> list:
     """SP ranks spawned on the card take `steps` steps of r5 on the same
-    documents, the first with `noise`; their records, checked: every rank
-    on the card, one backend, the same losses and bitwise equal
-    parameters after every step."""
-    records = spawn(train_rank, SP, "cuda",
-                    (RUN, steps, 1, SP_SEQ, SP_SEED, 1,
-                     [{k: v.cpu() for k, v in noise.items()}], True, False,
-                     use_kernels, dtype), timeout=900)
-    check([r["rank"] for r in records] == list(range(SP)),
-          "a rank is missing")
-    check(all(r["device"].startswith("cuda") for r in records),
-          "a rank ran off the card")
-    check(len({r["backend"] for r in records}) == 1,
-          "the ranks disagree on the backend")
-    losses = [[m["loss"] for m in r["metrics"]] for r in records]
-    check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
-          f"the ranks' losses differ or are not finite: {losses}")
-    for step in range(steps):
-        check(len({r["param_digests"][step] for r in records}) == 1,
-              f"parameters differ across ranks after step {step + 1}")
-    return records
+    documents through the kernels, the first with `noise`, then that first
+    step through the fp32 plain versions. Returns the kernel and the plain
+    records, each checked: every rank on the card, one backend, the same
+    losses and bitwise equal parameters after every step."""
+    args = (RUN, steps, 1, SP_SEQ, SP_SEED, 1,
+            [{k: v.cpu() for k, v in noise.items()}], True, False)
+    pairs = spawn(sp_pair_rank, SP, "cuda",
+                  (args + (True, None),
+                   args[:1] + (1,) + args[2:] + (False, torch.float32)),
+                  timeout=900)
+    runs = [[pair[i] for pair in pairs] for i in (0, 1)]
+    for records in runs:
+        check([r["rank"] for r in records] == list(range(SP)),
+              "a rank is missing")
+        check(all(r["device"].startswith("cuda") for r in records),
+              "a rank ran off the card")
+        check(len({r["backend"] for r in records}) == 1,
+              "the ranks disagree on the backend")
+        losses = [[m["loss"] for m in r["metrics"]] for r in records]
+        check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
+              f"the ranks' losses differ or are not finite: {losses}")
+        for step in range(len(losses[0])):
+            check(len({r["param_digests"][step] for r in records}) == 1,
+                  f"parameters differ across ranks after step {step + 1}")
+    return runs
 
 
-def sp_train_phase(steps: int = 3) -> dict:
+def sp_train_phase(steps: int = 2) -> dict:
     """r5's step on one [1, SP_SEQ] document, unsharded and over SP ranks
     spawned on the card with the same weights, document and eps, each in
     bf16 through the kernels and in fp32 through the plain versions; then
-    2 more sharded kernel steps.
+    1 more sharded kernel step.
 
     The fp32 pair is held exactly (loss 1e-5 relative, all 165 gradients
     at cosine >= 0.99). The kernel pair: loss within 1e-3 relative; a
@@ -1610,38 +1663,14 @@ def sp_train_phase(steps: int = 3) -> dict:
                   "tied_ce_bwd": 1})
     c_loss, c_grads, _, c_s, _, _ = unsharded_sp_step(False, torch.float32,
                                                       noise)
-    records = sharded_sp_steps(steps, noise)
-    plain = sharded_sp_steps(1, noise, False, torch.float32)
-
-    d_cos = cosines(plain[0]["grads"], c_grads)
-    d_loss = plain[0]["metrics"][0]["loss"]
-    check(len(d_cos) == 165, f"{len(d_cos)} gradients compared, not 165")
-    check(abs(d_loss - c_loss) <= SP_FP32_LOSS_RTOL * abs(c_loss),
-          f"fp32 sp step 1 loss {d_loss} vs unsharded {c_loss}")
-    check(min(d_cos.values()) >= TRAIN_GRAD_COS,
-          f"fp32 sp gradients disagree with the unsharded fp32 step: "
-          f"{sorted(d_cos.items(), key=lambda kv: kv[1])[:3]}")
-
-    losses = [m["loss"] for m in records[0]["metrics"]]
-    loss_rel = abs(losses[0] - a_loss) / abs(a_loss)
-    check(loss_rel <= TRAIN_LOSS_RTOL,
-          f"sp step 1 loss {losses[0]} vs unsharded {a_loss}")
-    b_grads = records[0]["grads"]
-    ba_cos = cosines(b_grads, a_grads)
-    ac_cos = cosines(a_grads, c_grads)
-    bc_cos = cosines(b_grads, c_grads)
-    noisy = {n: {"unsharded_vs_fp32": ac_cos[n], "sp_vs_fp32": bc_cos[n],
-                 "sp_vs_unsharded": ba_cos[n]}
-             for n in ac_cos if ac_cos[n] < TRAIN_GRAD_COS}
-    held = {n: c for n, c in ba_cos.items() if n not in noisy}
-    check(len(ba_cos) == 165, f"{len(ba_cos)} gradients compared, not 165")
-    check(min(held.values()) >= TRAIN_GRAD_COS,
-          f"sp step 1 gradients disagree with the unsharded step: "
-          f"{sorted(held.items(), key=lambda kv: kv[1])[:3]}")
-    for n, c in noisy.items():
-        check(c["sp_vs_fp32"] >= c["unsharded_vs_fp32"] - NOISY_GRAD_MARGIN,
-              f"{n}: the sp step is farther from fp32 than the unsharded "
-              f"step: {c}")
+    records, plain = sharded_sp_steps(steps, noise)
+    held = held_sharded("sp-train", records[0]["metrics"][0]["loss"],
+                        records[0]["grads"],
+                        {"loss": a_loss, "grads": a_grads},
+                        {"loss": c_loss, "grads": c_grads},
+                        plain[0]["metrics"][0]["loss"], plain[0]["grads"])
+    check(held["gradients"] == 165,
+          f"{held['gradients']} gradients compared, not 165")
     for r in records:
         c = r["launches"]
         check(c["swa_plain_routes"] == 0 and c["ce_plain_routes"] == 0,
@@ -1657,22 +1686,16 @@ def sp_train_phase(steps: int = 3) -> dict:
                   and c["sp_windowed_attention_bwd"] > 0
                   and c["swa_fwd"] == 0 and c["swa_bwd"] == 0,
                   f"rank {r['rank']} ran no K6 or ran K1/K2: {c}")
+    held["fp32"].update(unsharded_step_s=c_s,
+                        step_s_by_rank=[r["step_s"] for r in plain])
     stats = {"sp": SP, "backend": records[0]["backend"],
              "document": [1, SP_SEQ],
              "unsharded": {"loss": a_loss, "step_s": a_s, "launches":
                            a_counts, "max_memory_allocated_bytes": a_peak},
-             "losses": losses, "loss_rel_err": loss_rel,
-             "min_grad_cosine": sorted(held.items(),
-                                       key=lambda kv: kv[1])[:3],
-             "near_zero_gradients": noisy,
-             "fp32": {"unsharded_loss": c_loss, "sp_loss": d_loss,
-                      "unsharded_step_s": c_s,
-                      "min_grad_cosine": sorted(
-                          d_cos.items(), key=lambda kv: kv[1])[:3],
-                      "step_s_by_rank": [r["step_s"] for r in plain]},
+             "losses": [m["loss"] for m in records[0]["metrics"]], **held,
              "step_s_by_rank": [r["step_s"] for r in records],
              "max_memory_allocated_by_rank": [
-                 r["max_memory_allocated"] for r in records],
+                 r.get("max_memory_allocated") for r in records],
              "launches_by_rank": [r["launches"] for r in records]}
     print("sp-train " + json.dumps(stats), flush=True)
     return stats
@@ -1684,8 +1707,8 @@ REPO = Path(__file__).resolve().parent
 PG19_RUN = "real-prose-pg19-fb8"
 FIT_DOCS = 200       # documents of the stand-in corpus
 FIT_SEED = 23
-FIT_STEPS = 6        # r5: validation and a checkpoint at steps 3 and 6
-FIT_EVERY = 3
+FIT_STEPS = 2        # r5: validation and a checkpoint at steps 1 and 2
+FIT_EVERY = 1
 PG19_STEPS = 2       # pg19-fb8: one validation, at step 2
 PG19_STREAM = 102400
 # The stand-in of the validation held against the plain versions: each
@@ -3148,17 +3171,18 @@ def lm_test_entry_phase(smi: str, log_root: Path) -> dict:
 
 # -- sampling: the lockstep loop, continuous batching, resumable slices ----
 
-# sample: r5 at the reference's mass-sampling batch (1000 x 512; the
-# reference's 700,000 documents are cut to one lockstep batch and 2,000
-# continuous documents), its lockstep and continuous documents equal at
+# sample: r5 at the reference's mass-sampling batch (1000 rows; the
+# reference's 700,000 documents of <= 512 tokens are cut to one lockstep
+# batch and 2,000 continuous documents of <= 256), its lockstep and
+# continuous documents equal at
 # SAMPLE_SMALL; sample-lm: draft-tlm-r5 at a smaller count; sample-long:
 # pg19-fb8 at batch 1 over LONG_STEPS of its 102,400 positions, in two
 # slices and in one call.
-SAMPLE_BATCH, SAMPLE_LEN, SAMPLE_DOCS = 1000, 512, 2000
+SAMPLE_BATCH, SAMPLE_LEN, SAMPLE_DOCS = 1000, 256, 2000
 LM_SAMPLE_BATCH, LM_SAMPLE_DOCS = 64, 128
 SAMPLE_SMALL = (64, 128)
 SAMPLE_SEED = 61
-LONG_STEPS, LONG_SLICES = 1024, 2
+LONG_STEPS, LONG_SLICES = 512, 2
 VOCAB = 32768           # every archived run's
 K4_CAPTURE_STEP = 100   # the lockstep step whose K4 inputs are timed
 
@@ -3506,10 +3530,12 @@ def sample_long_phase(smi: str) -> dict:
 # document went from 1,024 positions (window 512) to 512 (window 256),
 # the draft runs from 512 positions to 256 and the entry's documents from
 # 128 tokens to 64 when the latent and MoE phases came in (decode-r5
-# took 190 s and decode-spec 88 s of a run of 885 s).
-DECODE_SEQ, DECODE_WINDOW, DECODE_DRAFT, DECODE_ROWS = 512, 256, 3, 8
-DECODE_WIDE_SEQ = 512
-DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 256
+# took 190 s and decode-spec 88 s of a run of 885 s), and r5's document
+# to 256 (window 128) when the mesh phases came in (decode-r5 took 127 s
+# of a run of 1,286 s).
+DECODE_SEQ, DECODE_WINDOW, DECODE_DRAFT, DECODE_ROWS = 256, 128, 3, 8
+DECODE_WIDE_SEQ = 256
+DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 128
 DECODE_SPEC_DOCS, DECODE_SPEC_LEN = 2, 64
 DECODE_LM_SEQ = 512
 DRAFT_SPEC = f"transformer-lm:{LM_RUN}"
@@ -3787,10 +3813,10 @@ LSTM_GRU = (4, 1024)
 LSTM_SINGLE_STEPS = 256
 LSTM_LM_CHECK = (13, 3584)       # draft-lstm-r4's longest micro-batch
 LSTM_TIMED_STEPS = 3
-LSTM_FIT_DOCS, LSTM_FIT_STEPS, LSTM_FIT_EVERY = 200, 4, 2
+LSTM_FIT_DOCS, LSTM_FIT_STEPS, LSTM_FIT_EVERY = 120, 2, 1
 LSTM_LM_FIT_STEPS = 2
 LSTM_TEST_SAMPLES, LSTM_TEST_ITERS = 8, 2
-LSTM_SAMPLE_BATCH, LSTM_SAMPLE_LEN = 1000, 512   # the reference's batch
+LSTM_SAMPLE_BATCH, LSTM_SAMPLE_LEN = 1000, 256   # the reference's batch
 LSTM_SPEC_K, LSTM_SPEC_DOCS, LSTM_SPEC_LEN = 8, 2, 128
 # The fused RNN (cuDNN with TF32 off) against the fp32 step loop on the
 # card: outputs and states within this absolute error (h lies in [-1, 1],
@@ -4304,7 +4330,7 @@ def lstm_fit_phase(smi: str, log_root: Path) -> dict:
 
 def lstm_sample_phase(smi: str, archives: dict) -> dict:
     """The `sample` entry on lstm-fit's LSTM-VAE archive: one lockstep
-    batch of 1000 x 512 (the unfused selection, no K4); then r5 verifying
+    batch of 1000 x 256 (the unfused selection, no K4); then r5 verifying
     lstm-fit's LSTM LM's LSTM_SPEC_K-token drafts: the `sample` entry with
     spec_draft=lstm-lm:<archive> for LSTM_SPEC_DOCS documents of
     LSTM_SPEC_LEN, and gen_bench's spec_model row with the same draft,
@@ -4400,6 +4426,7 @@ LATENT_CONSOLE = ["help", f"load {RUN}",
 MOE_RUN = "real-prose-lm-moe"
 MOE_GROUP, MOE_STEPS, MOE_SEED = (48, 1024), 3, 87
 MOE_FIT_STEPS = 2    # one validation and a checkpoint, at step 2
+MOE_FIT_DEPTH = 3    # of 6 layers: the export's compression took 33.75 s
 MOE_FIT_DOCS = 120
 
 
@@ -4816,6 +4843,531 @@ def moe_serve_phase(smi: str, depth=None, seq: int = DECODE_LM_SEQ) -> dict:
     return stats
 
 
+# -- the data, model and expert axes ------------------------------------------
+
+MESH = 4               # ranks of each mesh phase, all on this card (gloo)
+MESH_SEED = 41
+MESH_STEPS = 3         # step 1 held, then 2 more
+MESH_TP_GROUP = (4, 4096)     # r5: one micro-batch of [4, 4096]
+MESH_MOE_GROUP = (8, 1024)    # the MoE LM: 16 rows a step in 2 of [8, 1024]
+MESH_MOE_SEED = 43
+# A capacity factor of E / k: each expert's capacity holds every token of
+# a call, so no token is dropped on one device or on a mesh and the
+# sharded step is the unsharded step's (capacity pools per shard are the
+# one layout-dependent behaviour, parallel/ep.py).
+MESH_NO_DROP = 4.0
+# Two bf16 steps in different summation orders, each at an angle theta
+# from the fp32 gradient, may be 2 theta apart. The unsharded kernel step
+# is a reference for a sharded one at TRAIN_GRAD_COS only where its own
+# angle to fp32 is at most half the angle TRAIN_GRAD_COS allows:
+# cos(arccos(0.99) / 2) = 0.9975. Between that and TRAIN_GRAD_COS the
+# sharded step is held to TRAIN_GRAD_COS against the unsharded step or
+# against fp32 itself, as the train phases hold a kernel step (mesh-tp's
+# first run: the bottleneck's learned queries at 0.9933 and 0.9935 from
+# fp32 unsharded and sharded, 0.988 from each other; mesh-moe-tp's:
+# layer 2's v_linear bias at 0.9902 and 0.9893 from fp32, 0.9905 from
+# each other).
+MESH_REFERENCE_COS = float(np.cos(np.arccos(TRAIN_GRAD_COS) / 2))
+MESH_FIT_STEPS = 2
+MESH_FIT_DOCS = 80
+MESH_FIT_SEED = 47
+# mesh-fit's cut of r5's data shape: documents of 512-4,096 tokens in
+# batches of 8,192 tokens (r5: 512-50,000 in 100,000), so that a step's
+# host-staged all-reduces stay within the run's time.
+MESH_FIT_TOKENS = (512, 4096, 8192)
+
+
+def mesh_source_hparams(source):
+    return run_hparams(source) if isinstance(source, str) else source
+
+
+def mesh_global_noise(source, rows: int, accumulate: int, seed: int):
+    """Per micro-batch, the global batch's posterior noise {"eps", "mi"}
+    on the CPU for a VAE run; None for a language model."""
+    hp = mesh_source_hparams(source)
+    if not hasattr(hp, "latent_depth"):
+        return None
+    gen = torch.Generator().manual_seed(seed)
+    return [{"eps": torch.randn((rows, 1, hp.latent_depth), generator=gen),
+             "mi": torch.randn((10, rows, hp.latent_depth), generator=gen)}
+            for _ in range(accumulate)]
+
+
+def unsharded_mesh_step(source, group, accumulate: int, seed: int, noise,
+                        use_kernels: bool, dtype) -> dict:
+    """One unsharded step of `source` (a run name or hparams from the JAX
+    initialisation drawn from `seed`) on the batches mesh_rank draws from
+    `seed`, with the same noise and no dropout: loss, gradients on the
+    CPU, launch counts, seconds and peak bytes."""
+    rows, width = group
+    if isinstance(source, str):
+        model, objective, optimizer, _ = build_training(
+            source, "cuda", accumulate, use_kernels=use_kernels,
+            dtype=dtype)
+    else:
+        model, objective, optimizer, _ = build_from_hparams(
+            source, torch.Generator().manual_seed(seed), "cuda",
+            use_kernels=use_kernels, dtype=dtype)
+    if hasattr(model, "decoder_layers"):
+        model.hparams.input_dropout = 0.0
+        for layer in model.decoder_layers:
+            layer.dropout_rate = 0.0
+    rng = np.random.default_rng(seed)
+    mbs = [{k: v.to("cuda") for k, v in synthetic_batch(
+        rng, rows, width, model.hparams.vocab_size).items()}
+        for _ in range(accumulate)]
+    noise = None if noise is None else [
+        {k: v.to("cuda") for k, v in n.items()} for n in noise]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = train_step(model, objective, optimizer, mbs, 0, noise, gen)
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "seconds": time.perf_counter() - t0, "launches": read_counts(),
+           "peak": torch.cuda.max_memory_allocated(),
+           "real_tokens": sum(int(mb["num_tokens"].sum()) for mb in mbs),
+           "grads": {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()}}
+    del model, objective, optimizer, metrics, mbs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pair_rank(world, kernel_args: tuple, plain_args: tuple) -> tuple:
+    """One rank of a mesh phase: train.mesh_rank's run through the
+    kernels, then its fp32 plain run, in one process."""
+    kernel = mesh_rank(world, *kernel_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kernel, mesh_rank(world, *plain_args)
+
+
+def mesh_spawn(source, tp: int, ep: int, group, accumulate: int,
+               seed: int, noise, first_step=None, drops: bool = False):
+    """MESH ranks spawned on the card (gloo: they share it): MESH_STEPS
+    mesh steps of `source` through the kernels, then one through the fp32
+    plain versions (train.mesh_rank, first_step as there). Returns the
+    kernel and the plain records, each checked: every rank on the card,
+    one backend, the same finite losses."""
+    rows, width = group
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = (source, MESH_STEPS, rows, width, seed, accumulate, tp, ep,
+            noise, True, False, True, None, first_step, drops)
+    plain_args = args[:1] + (1,) + args[2:11] + (False, torch.float32,
+                                                  first_step, False)
+    pairs = spawn(mesh_pair_rank, MESH, "cuda", (args, plain_args),
+                  timeout=900)
+    runs = [[pair[i] for pair in pairs] for i in (0, 1)]
+    for records in runs:
+        check([r["rank"] for r in records] == list(range(MESH)),
+              "a rank is missing")
+        check(all(r["device"].startswith("cuda") for r in records),
+              "a rank ran off the card")
+        check(len({r["backend"] for r in records}) == 1,
+              "the ranks disagree on the backend")
+        losses = [[m["loss"] for m in r["metrics"]] for r in records]
+        check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
+              f"the ranks' losses differ or are not finite: {losses}")
+    return runs
+
+
+def held_sharded(name: str, b_loss: float, b_grads: dict, a: dict,
+                 c: dict, d_loss: float, d_grads: dict,
+                 reference_cos: float = TRAIN_GRAD_COS) -> dict:
+    """Hold a sharded step against the unsharded one, as sp-train does:
+    the fp32 plain pair (d against c) at loss SP_FP32_LOSS_RTOL and every
+    gradient at cosine >= TRAIN_GRAD_COS; the kernel pair (b against a)
+    at loss TRAIN_LOSS_RTOL and cosine >= TRAIN_GRAD_COS wherever the
+    unsharded kernel step a is within `reference_cos` of fp32 c;
+    where a is within TRAIN_GRAD_COS of c but not `reference_cos`, b at
+    cosine >= TRAIN_GRAD_COS with a or with c; elsewhere no farther from
+    c than a, less NOISY_GRAD_MARGIN (MESH_REFERENCE_COS says why a mesh
+    phase asks more of a than sp-train)."""
+    d_cos = cosines(d_grads, c["grads"])
+    check(len(d_cos) == len(c["grads"]) == len(b_grads),
+          f"{name}: {len(d_cos)} gradients compared")
+    check(abs(d_loss - c["loss"]) <= SP_FP32_LOSS_RTOL * abs(c["loss"]),
+          f"{name}: fp32 sharded loss {d_loss} vs unsharded {c['loss']}")
+    check(min(d_cos.values()) >= TRAIN_GRAD_COS,
+          f"{name}: fp32 sharded gradients disagree with the unsharded "
+          f"fp32 step: {sorted(d_cos.items(), key=lambda kv: kv[1])[:3]}")
+    loss_rel = abs(b_loss - a["loss"]) / abs(a["loss"])
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"{name}: step 1 loss {b_loss} vs unsharded {a['loss']}")
+    ba_cos = cosines(b_grads, a["grads"])
+    ac_cos = cosines(a["grads"], c["grads"])
+    bc_cos = cosines(b_grads, c["grads"])
+    noisy = {n: {"unsharded_vs_fp32": ac_cos[n], "sharded_vs_fp32": bc_cos[n],
+                 "sharded_vs_unsharded": ba_cos[n]}
+             for n in ac_cos if ac_cos[n] < reference_cos}
+    held = {n: v for n, v in ba_cos.items() if n not in noisy}
+    check(min(held.values()) >= TRAIN_GRAD_COS,
+          f"{name}: step 1 gradients disagree with the unsharded step: "
+          + str([(n, v, "unsharded_vs_fp32", ac_cos[n], "sharded_vs_fp32",
+                  bc_cos[n]) for n, v in sorted(
+                      held.items(), key=lambda kv: kv[1])[:5]]))
+    for n, v in noisy.items():
+        if v["unsharded_vs_fp32"] >= TRAIN_GRAD_COS:
+            ok = max(v["sharded_vs_unsharded"],
+                     v["sharded_vs_fp32"]) >= TRAIN_GRAD_COS
+        else:
+            ok = (v["sharded_vs_fp32"]
+                  >= v["unsharded_vs_fp32"] - NOISY_GRAD_MARGIN)
+        check(ok, f"{name}: {n} is too far from fp32 sharded: {v}")
+    return {"loss": b_loss, "unsharded_loss": a["loss"],
+            "loss_rel_err": loss_rel, "gradients": len(ba_cos),
+            "min_grad_cosine": sorted(held.items(),
+                                      key=lambda kv: kv[1])[:3],
+            "near_zero_gradients": noisy,
+            "fp32": {"unsharded_loss": c["loss"], "sharded_loss": d_loss,
+                     "min_grad_cosine": sorted(
+                         d_cos.items(), key=lambda kv: kv[1])[:3]}}
+
+
+def mesh_layout_specs(source, tp: int, ep: int) -> dict:
+    """The names of the parameters sharded on the mesh."""
+    from sparse_vae_tpu_torch.checkpoint import model_class
+    from sparse_vae_tpu_torch.parallel import ep as pep
+    from sparse_vae_tpu_torch.parallel import tp as ptp
+    hp = mesh_source_hparams(source)
+    with torch.device("meta"):
+        template = model_class(hp)(hp)
+    if tp > 1:
+        return ptp.param_specs(template, ptp.shards_vocab(hp, tp))
+    return pep.param_specs(template) if ep > 1 else {}
+
+
+def mesh_replicas_equal(name: str, records: list, specs: dict, tp: int):
+    """Every replicated parameter bitwise equal on every rank; every
+    sharded one bitwise equal across the ranks that hold the same shard
+    (data peers: world ranks with the same model or expert coordinate)."""
+    inner = "model" if tp > 1 else "expert"
+    for pname in records[0]["local_digests"]:
+        if pname in specs:
+            by_shard = {}
+            for r in records:
+                by_shard.setdefault(r["coords"].get(inner, 0), set()).add(
+                    r["local_digests"][pname])
+            check(all(len(d) == 1 for d in by_shard.values()),
+                  f"{name}: shard of {pname} differs across data peers")
+        else:
+            check(len({r["local_digests"][pname] for r in records}) == 1,
+                  f"{name}: replicated {pname} differs across ranks")
+
+
+def mesh_rank_counts(name: str, records: list, expect: dict):
+    for r in records:
+        check_counts(f"{name} rank {r['rank']}", r["launches"], expect)
+
+
+def mesh_references(source, group, accumulate: int, seed: int,
+                    first_step=None) -> dict:
+    """The unsharded steps a mesh phase is held against (at first_step's
+    capacity factor, without dropout): the global noise and the steps
+    through the kernels (a) and through the fp32 plain versions (c)."""
+    rows, _ = group
+    hold = source
+    if first_step and "capacity_factor" in first_step:
+        hold = replace(source, moe_capacity_factor=first_step[
+            "capacity_factor"])
+    noise = mesh_global_noise(hold, rows, accumulate, seed)
+    return {"noise": noise,
+            "a": unsharded_mesh_step(hold, group, accumulate, seed, noise,
+                                     True, None),
+            "c": unsharded_mesh_step(hold, group, accumulate, seed, noise,
+                                     False, torch.float32)}
+
+
+def mesh_step_phase(name: str, smi: str, source, tp: int, ep: int, group,
+                    accumulate: int, seed: int, expect: dict,
+                    first_step=None, refs=None) -> dict:
+    """One mesh's phase: the unsharded kernel and fp32 plain steps of
+    `source` (at first_step's capacity factor, without dropout), the same
+    step on MESH ranks through the kernels, then MESH_STEPS - 1 more at
+    the run's own settings, and through the fp32 plain versions, held by
+    `held_sharded`; every rank's launch counts against `expect` a
+    micro-batch (the plain-route counters 0), the parameters checked by
+    `mesh_replicas_equal` after the last step. Prints seconds a step,
+    real tokens/s, the time in host-staged transfers, each rank's peak
+    memory and, for an MoE model, each rank's dropped share a layer in
+    the last step."""
+    rows, width = group
+    refs = refs or mesh_references(source, group, accumulate, seed,
+                                   first_step)
+    noise, a, c = refs["noise"], refs["a"], refs["c"]
+    check_counts(f"{name} unsharded", a["launches"],
+                 {**{k: v * accumulate for k, v in expect.items()
+                     if not k.startswith("tied_ce")},
+                  "tied_ce_fwd": accumulate, "tied_ce_bwd": accumulate})
+    check_counts(f"{name} unsharded fp32 plain", c["launches"], {})
+    moe = getattr(mesh_source_hparams(source), "num_experts", 0) > 1
+    records, plain = mesh_spawn(source, tp, ep, group, accumulate, seed,
+                                noise, first_step, drops=moe)
+    stats = held_sharded(name, records[0]["metrics"][0]["loss"],
+                         records[0]["grads"], a, c,
+                         plain[0]["metrics"][0]["loss"], plain[0]["grads"],
+                         MESH_REFERENCE_COS)
+    mesh_rank_counts(name, records, {k: v * accumulate * MESH_STEPS
+                                     for k, v in expect.items()})
+    mesh_rank_counts(f"{name} fp32 plain", plain, {})
+    mesh_replicas_equal(name, records, mesh_layout_specs(source, tp, ep),
+                        tp)
+    for r in records:
+        check(len(set(r["param_digests"])) == MESH_STEPS,
+              f"{name}: rank {r['rank']}'s parameters did not move")
+    stats.update(mesh_timing(records, a, plain))
+    stats.update(mesh={"data": MESH // (tp * ep), "model": tp,
+                       "expert": ep},
+                 group=[accumulate, rows, width],
+                 losses=[m["loss"] for m in records[0]["metrics"]],
+                 card=smi)
+    if moe:
+        stats.update(
+            train_moe_aux=[m["train_moe_aux"]
+                           for m in records[0]["metrics"]],
+            train_moe_z=[m["train_moe_z"] for m in records[0]["metrics"]],
+            dropped_share_by_layer_by_rank=[
+                r["dropped_share_by_layer"] for r in records])
+    return stats
+
+
+def mesh_timing(records: list, unsharded: dict, plain: list) -> dict:
+    """Seconds a step (the first and the rest), real tokens/s of the
+    global batch, seconds in host-staged transfers and peak memory, by
+    rank."""
+    later = [r["step_s"][1:] or r["step_s"] for r in records]
+    slowest = max(sum(s) / len(s) for s in later)
+    return {"step_s_by_rank": [r["step_s"] for r in records],
+            "staged_s_by_rank": [r["staged_s"] for r in records],
+            "staged_share_after_step_1": max(
+                sum(r["staged_s"][1:] or r["staged_s"])
+                / sum(r["step_s"][1:] or r["step_s"]) for r in records),
+            "real_tokens_a_step": unsharded["real_tokens"],
+            "real_tokens_per_s_after_step_1":
+                unsharded["real_tokens"] / slowest,
+            "unsharded_step_s": unsharded["seconds"],
+            "unsharded_real_tokens_per_s":
+                unsharded["real_tokens"] / unsharded["seconds"],
+            "unsharded_max_memory_allocated": unsharded["peak"],
+            "max_memory_allocated_by_rank": [
+                r.get("max_memory_allocated") for r in records],
+            "fp32_plain_step_s_by_rank": [r["step_s"] for r in plain],
+            "launches_by_rank": [r["launches"] for r in records]}
+
+
+def mesh_tp_phase(smi: str) -> dict:
+    """r5 at full width over data 2 x model 2 (4 heads and half of each
+    FFN a shard, the 32,768-row tied table split into 16,384 rows a
+    shard) on [4, 4096] ragged documents: K1/K2 6 launches a step on
+    every rank, K3/K3b none (the vocab-parallel cross-entropy runs in
+    torch products)."""
+    stats = mesh_step_phase("mesh-tp", smi, RUN, 2, 1, MESH_TP_GROUP, 1,
+                            MESH_SEED, {"swa_fwd": 6, "swa_bwd": 6})
+    print("mesh-tp " + json.dumps(stats), flush=True)
+    return stats
+
+
+MESH_MOE_FIRST_STEP = {"capacity_factor": MESH_NO_DROP, "dropout": False}
+
+
+def mesh_moe_references() -> dict:
+    """The unsharded MoE steps mesh-ep and mesh-moe-tp are both held
+    against (one model, batches and noise)."""
+    return mesh_references(moe_hparams(), MESH_MOE_GROUP, mesh_moe_accumulate(),
+                           MESH_MOE_SEED, MESH_MOE_FIRST_STEP)
+
+
+def mesh_moe_accumulate() -> int:
+    return json.loads((REPO / "runs" / MOE_RUN / "meta.json").read_text())[
+        "trainer_hparams"]["accumulate_grad_batches"]
+
+
+def mesh_moe_phase(name: str, smi: str, tp: int, ep: int,
+                   refs=None) -> dict:
+    """real-prose-lm-moe at full width (6 layers of 8 experts, top-2) over
+    data 2 x expert 2 (ep) or data 2 x model 2 (tp), on micro-batches of
+    MESH_MOE_GROUP ragged documents, accumulation 2 (the run's): step 1
+    at capacity factor MESH_NO_DROP without dropout held against the
+    unsharded step, then 2 steps at the run's 1.25 with its dropout (masks
+    per row shard), each rank's dropped share a layer printed. K1/K2 on
+    the dense causal route 6 launches a micro-batch on every rank, K3/K3b
+    once a micro-batch under ep and never under tp (the vocabulary is
+    split). refs: mesh_moe_references(), shared by the two phases."""
+    expect = {"swa_fwd_dense": 6, "swa_bwd_dense": 6}
+    if ep > 1:
+        expect.update(tied_ce_fwd=1, tied_ce_bwd=1)
+    stats = mesh_step_phase(
+        name, smi, moe_hparams(), tp, ep, MESH_MOE_GROUP,
+        mesh_moe_accumulate(), MESH_MOE_SEED, expect, MESH_MOE_FIRST_STEP,
+        refs)
+    print(f"{name} " + json.dumps(stats), flush=True)
+    return stats
+
+
+def mesh_fit_rank(world, dotlist: list, corpus, log_root: str) -> dict:
+    """One rank of mesh-fit: Trainer.fit of r5's hparams on data 2 x
+    model 2 (FitTrainer, capturing the step-1 state), then the step-1
+    checkpoint restored into a new state and stepped on the run's second
+    group, against the run's step-2 checkpoint. Returns the steps,
+    validations, saves, launches, peak memory, staged seconds, whether the
+    resumed step is bit for bit the unbroken one, and on rank 0 the
+    gathered trained parameters on the CPU."""
+    from sparse_vae_tpu_torch.parallel import group as pgroup
+    from sparse_vae_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(world, model_axis=2)
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    cfg = assemble_config("transformer-vae", dotlist, base_meta=meta)
+    data = TextDataModule(cfg.data)
+    data.prepare_corpus(corpus)
+    overrides = dict(cfg.model_overrides)
+    overrides.setdefault("vocab_size", cfg.data.vocab_size)
+    hp, objective = build_hparams("transformer-vae", overrides)
+    trainer = FitTrainer(hp, objective, data, cfg.trainer,
+                         experiment="transformer-vae", name="mesh-fit",
+                         log_root=Path(log_root), mesh=mesh,
+                         capture_step=1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    pgroup.staged_seconds = 0.0
+    t0 = time.perf_counter()
+    outcome = trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, staged = read_counts(), pgroup.staged_seconds
+    peak = torch.cuda.max_memory_allocated()
+    model, optimizer = trainer.init_state(torch.Generator().manual_seed(1))
+    generator = torch.Generator(device="cuda")
+    step = trainer.restore(model, optimizer, generator, step=1)
+    restored = cpu_state(trainer.state(model, optimizer, step, generator))
+    trainer._pending_groups = {}    # the epoch's groups as fit met them
+    groups = trainer._accum_groups(trainer.thp.seed)
+    next(groups)
+    Trainer._step(trainer, model, optimizer, next(groups)[0], step,
+                  generator)
+    resumed = cpu_state(trainer.state(model, optimizer, step + 1,
+                                      generator))
+    unbroken = cpu_state(trainer.ckpt.restore(2, map_location="cpu"))
+    record = {"rank": world.rank, "step": outcome.step,
+              "stopped": outcome.stopped_reason, "fit_s": seconds,
+              "steps": trainer.steps, "validations": trainer.validations,
+              "saves": trainer.saves, "launches": counts, "peak": peak,
+              "staged_s": staged,
+              "restored_equal": (trainer.captured is not None
+                                 and states_equal(restored,
+                                                  trainer.captured)),
+              "resumed_equal": states_equal(resumed, unbroken)}
+    if world.rank == 0:
+        record["params"] = {k: v.detach().cpu() for k, v in
+                            outcome.model.state_dict().items()}
+        record["meta"] = trainer.meta()
+    return record
+
+
+def mesh_fit_phase(smi: str, log_root: Path) -> dict:
+    """Trainer.fit of r5's hparams from the JAX initialisation on data 2 x
+    model 2 (MESH ranks on this card) for MESH_FIT_STEPS steps on a
+    stand-in corpus cut to MESH_FIT_TOKENS, validating and saving every
+    step: every rank's K1/K2 counts (6 a micro-batch and validation
+    batch) and no K3/K3b; the step-1 state restored bit for bit and one
+    step from it equal to the run's step-2 checkpoint bit for bit, on
+    every rank; the gathered checkpoint loaded on one card
+    (load_checkpoint_for_name) equal to the trained parameters bit for
+    bit, and, exported by export_archive, served by load_run(<dir>) with
+    the trained model's serving logits."""
+    from sparse_vae_tpu_torch import load_checkpoint_for_name
+    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    lo, hi, tokens = MESH_FIT_TOKENS
+    corpus = fit_corpus(MESH_FIT_DOCS, lo, hi,
+                        meta["model_hparams"]["vocab_size"], MESH_FIT_SEED)
+    dotlist = ["trainer.num_devices=4", "trainer.model_parallel=2",
+               "trainer.checkpoint_every_n_steps=1",
+               "trainer.log_every_n_steps=1",
+               f"trainer.max_steps={MESH_FIT_STEPS}",
+               "trainer.val_check_interval=0.001",
+               "trainer.limit_val_batches=2",
+               f"data.min_tokens_per_sample={lo}",
+               f"data.max_tokens_per_sample={hi}",
+               f"data.tokens_per_batch={tokens}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = spawn(mesh_fit_rank, MESH, "cuda",
+                    (dotlist, corpus, str(log_root)), timeout=900)
+    layers = meta["model_hparams"]["num_layers"]
+    for r in records:
+        check((r["step"], r["stopped"]) == (MESH_FIT_STEPS, "max_steps"),
+              f"mesh-fit rank {r['rank']} stopped at {r['step']}: "
+              f"{r['stopped']}")
+        check([v["step"] for v in r["validations"]]
+              == list(range(1, MESH_FIT_STEPS + 1)),
+              f"mesh-fit validated at {r['validations']}")
+        check(all(np.isfinite(s["loss"]) for s in r["steps"]),
+              "mesh-fit: a loss is not finite")
+        micro = sum(s["shape"][0] for s in r["steps"])
+        val_batches = sum(v["batches"] for v in r["validations"])
+        check_counts(f"mesh-fit rank {r['rank']}", r["launches"], {
+            "swa_fwd": layers * (micro + val_batches),
+            "swa_bwd": layers * micro})
+        check(r["restored_equal"], f"mesh-fit rank {r['rank']}: the "
+              "restored state is not the saved one")
+        check(r["resumed_equal"], f"mesh-fit rank {r['rank']}: a step from "
+              "the step-1 checkpoint is not the run's step 2")
+        check([{k: v for k, v in val.items() if k != "seconds"}
+               for val in r["validations"]]
+              == [{k: v for k, v in val.items() if k != "seconds"}
+                  for val in records[0]["validations"]],
+              "mesh-fit: the ranks' validations differ")
+    trained = records[0]["params"]
+    model, hp, _, state, _ = load_checkpoint_for_name(
+        "transformer-vae", "mesh-fit", root=log_root, device="cuda")
+    check(state["step"] == MESH_FIT_STEPS and all(
+        torch.equal(state["params"][k].cpu(), v) for k, v in trained.items()),
+        "mesh-fit: the checkpoint is not the trained parameters")
+    out = export_archive(model, records[0]["meta"], log_root / "archive",
+                         step=MESH_FIT_STEPS)
+    served, _, _ = load_run(str(out), device="cuda")
+    own_form = serving_form(model)
+    gen = torch.Generator(device="cuda").manual_seed(MESH_FIT_SEED)
+    ids = torch.randint(3, hp.vocab_size, (2, 256), generator=gen,
+                        device="cuda")
+    ids[:, 0] = CLS_ID
+    eps = torch.randn((2, 1, hp.latent_depth), generator=gen, device="cuda")
+    with torch.no_grad():
+        a, b = served(ids, eps)[0], own_form(ids, eps)[0]
+    check(torch.equal(a, b), "mesh-fit: the archive's serving logits differ "
+          f"from the trained model's: {(a - b).abs().max().item()}")
+    del model, served, own_form
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = records[0]["steps"]
+    stats = {"mesh": {"data": 2, "model": 2}, "cut": {
+                 "document_tokens": [lo, hi], "tokens_per_batch": tokens},
+             "shapes_fed": [s["shape"] for s in steps],
+             "step_s_by_rank": [[s["seconds"] for s in r["steps"]]
+                                for r in records],
+             "real_tokens": [s["real_tokens"] for s in steps],
+             "real_tokens_per_s": sum(s["real_tokens"] for s in steps)
+             / max(sum(s["seconds"] for s in r["steps"]) for r in records),
+             "staged_s_by_rank": [r["staged_s"] for r in records],
+             "fit_s_by_rank": [r["fit_s"] for r in records],
+             "losses": [s["loss"] for s in steps],
+             "validations": records[0]["validations"],
+             "saves_by_rank": [r["saves"] for r in records],
+             "resume_bit_identical": True, "checkpoint_equal": True,
+             "archive_logits_equal": True,
+             "max_memory_allocated_by_rank": [r["peak"] for r in records],
+             "launches_by_rank": [r["launches"] for r in records],
+             "card": smi}
+    print("mesh-fit " + json.dumps(stats), flush=True)
+    return stats
+
+
 def check_counts(path: str, counts: dict, expect: dict):
     """expect: {counter: exact count, or None for at least one}; every
     other counter, the plain_routes ones included, must be 0."""
@@ -4998,9 +5550,21 @@ def main(argv) -> int:
         moe_train = moe_train_phase(smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
         with Phase("moe-fit"):
-            moe_fit = moe_fit_phase(smi, Path(tmp) / "sparse-vae-logs")
+            moe_fit = moe_fit_phase(smi, Path(tmp) / "sparse-vae-logs",
+                                    depth=MOE_FIT_DEPTH)
     with Phase("moe-serve"):
         moe_serve = moe_serve_phase(smi)
+    with Phase("mesh-tp"):
+        mesh_tp = mesh_tp_phase(smi)
+    with Phase("mesh-ep"):
+        moe_refs = mesh_moe_references()
+        mesh_ep = mesh_moe_phase("mesh-ep", smi, 1, 2, moe_refs)
+    with Phase("mesh-moe-tp"):
+        mesh_moe_tp = mesh_moe_phase("mesh-moe-tp", smi, 2, 1, moe_refs)
+        del moe_refs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        with Phase("mesh-fit"):
+            mesh_fit = mesh_fit_phase(smi, Path(tmp))
     lstm_counts = {"lstm-ops": lstm_ops["launches"],
                    "lstm-train": lstm_train["launches"],
                    "lstm-fit": lstm_fit["launches"],
@@ -5015,6 +5579,15 @@ def main(argv) -> int:
 
     def sp_sum(name):
         return sp_single[name] + sum(c[name] for c in sp_counts)
+
+    def mesh_sum(stats, name):
+        """A mesh phase's launches of one kernel, summed over its ranks."""
+        return sum(c[name] for c in stats["launches_by_rank"])
+
+    def mesh_paths(name):
+        return {path: mesh_sum(stats, name) for path, stats in (
+            ("mesh-tp", mesh_tp), ("mesh-ep", mesh_ep),
+            ("mesh-moe-tp", mesh_moe_tp), ("mesh-fit", mesh_fit))}
 
     def fit_paths(name):
         """The launches of the trainer-loop and evaluation paths."""
@@ -5033,7 +5606,9 @@ def main(argv) -> int:
                 "decode-lm": decode_lm["launches"][name],
                 **{path: stats["launches"][name] for path, stats in (
                     ("moe-train", moe_train), ("moe-fit", moe_fit),
-                    ("moe-serve", moe_serve))}}
+                    ("moe-serve", moe_serve))},
+                **{path: n for path, n in mesh_paths(name).items()
+                   if path in ("mesh-ep", "mesh-moe-tp")}}
 
     def decode_paths(name):
         """The launches of the parallel and speculative decoding paths, of
@@ -5078,12 +5653,14 @@ def main(argv) -> int:
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
          "launches": counts["swa_fwd"] + train_counts["swa_fwd"]
          + sp_sum("swa_fwd") + sum(fit_paths("swa_fwd").values())
-         + sum(decode_paths("swa_fwd").values()),
+         + sum(decode_paths("swa_fwd").values())
+         + sum(mesh_paths("swa_fwd").values()),
          "launches_by_path": {"serve": counts["swa_fwd"],
                               "train": train_counts["swa_fwd"],
                               "sp-train": sp_sum("swa_fwd"),
                               **fit_paths("swa_fwd"),
-                              **decode_paths("swa_fwd")},
+                              **decode_paths("swa_fwd"),
+                              **mesh_paths("swa_fwd")},
          **{k: k1_serve[k] for k in ("max_abs_err", "ms", "device_ms",
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -5143,10 +5720,12 @@ def main(argv) -> int:
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
          "launches": train_counts["swa_bwd"] + sp_sum("swa_bwd")
-         + sum(fit_paths("swa_bwd").values()),
+         + sum(fit_paths("swa_bwd").values())
+         + sum(mesh_paths("swa_bwd").values()),
          "launches_by_path": {"train": train_counts["swa_bwd"],
                               "sp-train": sp_sum("swa_bwd"),
-                              **fit_paths("swa_bwd")},
+                              **fit_paths("swa_bwd"),
+                              **mesh_paths("swa_bwd")},
          **timed(k2_train), **{k: k2_train[k] for k in (
              "device_ms", "parts_device_ms", "bit_identical")}},
         {"name": "tied_ce_fwd", "route": "cuda",

@@ -1,5 +1,4 @@
-"""Mixture-of-experts FFN (port of sparse_vae_tpu/models/moe.py, its
-single-device path: ep_size = tp_size = 1).
+"""Mixture-of-experts FFN (port of sparse_vae_tpu/models/moe.py).
 
 A decoder layer with num_experts > 1 replaces its dense 4x GELU FFN by E
 expert FFNs behind a learned top-k router, GShard/Switch style:
@@ -22,6 +21,18 @@ expert FFNs behind a learned top-k router, GShard/Switch style:
   (`einsum("ecd,edh->ech")` in the reference, which runs them outside
   any Pallas kernel), + b_in, tanh-GELU, then the output product; the
   combine adds each slot's output times its gate, slot by slot.
+
+Expert parallelism (ep_size > 1, parallel/ep.py): the module holds its
+E / ep local experts, and once `expert_group` is bound the [E, C, D]
+buffer crosses the `expert` group with one all-to-all each way around
+them. Tensor parallelism (tp_size > 1, parallel/tp.py): every expert's
+hidden dimension is sharded, w_in and b_in column-parallel, w_out
+row-parallel, and once `model_group` is bound the buffer passes
+`replicate_gradient` and the partial outputs `reduce_activations`. The
+router and the dispatch stay replicated (every shard routes the same
+tokens the same way). The two axes do not compose with each other, as in
+the JAX package. Capacity comes from this rank's own token count, so
+under expert parallelism the drop pool is per (shard, expert).
 
 The balance statistics are returned, not stored on the module:
 imp [E] (the probabilities summed over valid tokens; differentiable),
@@ -77,28 +88,52 @@ class MoEFFN(nn.Module):
         super().__init__()
         if top_k > num_experts:
             raise ValueError(f"top_k={top_k} > E={num_experts}")
-        if ep_size > 1 or tp_size > 1:
+        if num_experts % ep_size:
+            raise ValueError(f"num_experts={num_experts} not divisible by "
+                             f"ep_size={ep_size}")
+        if d_hidden % tp_size:
+            raise ValueError(f"d_hidden={d_hidden} not divisible by "
+                             f"tp_size={tp_size}")
+        if ep_size > 1 and tp_size > 1:
             raise NotImplementedError(
-                "experts sharded over an 'expert' or a 'model' group "
-                "(sparse_vae_tpu/parallel/ep.py, parallel/tp.py) are not "
-                "ported yet: ROADMAP Queue 1 item 8")
+                "expert x tensor parallelism is not composed: shard experts "
+                "over 'expert' OR their hidden dim over 'model', not both "
+                "(parallel/ep.py, parallel/tp.py scope notes)")
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor = capacity_factor
+        self.expert_group = None    # the `expert` AxisGroup under ep_size > 1
+        self.model_group = None     # the `model` AxisGroup under tp_size > 1
+        e_loc, h_loc = num_experts // ep_size, d_hidden // tp_size
         self.router = Linear(d_model, num_experts, bias=False)
         # The JAX initialisation's N(0, 0.02) (models/init.py draws it
         # again from its generator).
         self.w_in = nn.Parameter(nn.init.normal_(
-            torch.empty(num_experts, d_model, d_hidden), std=0.02))
-        self.b_in = nn.Parameter(torch.zeros(num_experts, d_hidden))
+            torch.empty(e_loc, d_model, h_loc), std=0.02))
+        self.b_in = nn.Parameter(torch.zeros(e_loc, h_loc))
         self.w_out = nn.Parameter(nn.init.normal_(
-            torch.empty(num_experts, d_hidden, d_model), std=0.02))
+            torch.empty(e_loc, h_loc, d_model), std=0.02))
 
     def experts(self, buf):
         """[E, C, D] capacity buffer -> the expert FFNs' outputs [E, C, D],
-        the fp32 masters cast to the buffer's dtype at use."""
+        the fp32 masters cast to the buffer's dtype at use; across the
+        `expert` group around the local experts, and through the f/g pair
+        of the `model` group around the split hidden dimension."""
+        if self.expert_group is not None:
+            from ..parallel.ep import exchange_to_experts
+            buf = exchange_to_experts(buf, self.expert_group)
+        if self.model_group is not None:
+            from ..parallel.tp import replicate_gradient
+            buf = replicate_gradient(buf, self.model_group)
         dt = buf.dtype
         h = torch.bmm(buf, self.w_in.to(dt)) + self.b_in.to(dt)[:, None, :]
-        return torch.bmm(F.gelu(h, approximate="tanh"), self.w_out.to(dt))
+        out = torch.bmm(F.gelu(h, approximate="tanh"), self.w_out.to(dt))
+        if self.model_group is not None:
+            from ..parallel.tp import reduce_activations
+            out = reduce_activations(out, self.model_group)
+        if self.expert_group is not None:
+            from ..parallel.ep import exchange_from_experts
+            out = exchange_from_experts(out, self.expert_group)
+        return out
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         b, length, d = x.shape

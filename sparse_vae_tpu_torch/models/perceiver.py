@@ -12,6 +12,9 @@ sharded over the group and the latent set is the same on every rank. The
 first (learned-query) layer and the middle layers' cross-attention read
 the sharded document through the distributed softmax; the latent
 self-attention and the bottleneck run replicated on every rank.
+
+Tensor parallelism (tp_size > 1, `bind_model_group`): every layer holds a
+shard of the heads and of the FFN, as the decoder's do.
 """
 from __future__ import annotations
 
@@ -24,23 +27,36 @@ from .transformer_layer import TransformerLayer
 
 class Perceiver(nn.Module):
     def __init__(self, num_layers: int, num_latents: int, d_model: int,
-                 bottleneck_width: Optional[int] = None):
+                 bottleneck_width: Optional[int] = None, tp_size: int = 1):
         super().__init__()
         if num_layers < 2:
             raise ValueError("the Perceiver needs at least two layers")
         num_heads = max(1, d_model // 64)
         self.first_layer = TransformerLayer(d_model, num_heads,
-                                            learned_queries=num_latents)
+                                            learned_queries=num_latents,
+                                            tp_size=tp_size)
         middle = num_layers - 1
         self.bottleneck = None
         if bottleneck_width:
             self.bottleneck = TransformerLayer(
-                d_model, num_heads, learned_queries=bottleneck_width)
+                d_model, num_heads, learned_queries=bottleneck_width,
+                tp_size=tp_size)
             middle -= 1
         self.middle_layers = nn.ModuleList([
             TransformerLayer(d_model, num_heads, use_cross_attention=True,
-                             sp_cross_only=True)
+                             sp_cross_only=True, tp_size=tp_size)
             for _ in range(max(middle, 0))])
+
+    def layers(self) -> list:
+        return [self.first_layer, *self.middle_layers,
+                *([self.bottleneck] if self.bottleneck is not None else [])]
+
+    def bind_model_group(self, group):
+        """Bind every layer's f/g collectives to the `model` group (tensor
+        parallelism: tp_size > 1; the learned-query banks are sharded on
+        their last dim)."""
+        for layer in self.layers():
+            layer.bind_model_group(group)
 
     def bind_seq_group(self, group):
         """Bind the layers that read the sharded input to `group`."""

@@ -15,6 +15,13 @@ an MoE FFN dispatches only real tokens, so [PAD] rows and guesses take no
 expert slot. A forward given a `moe_stats` list appends the MoE FFN's
 balance statistics to it; nothing is kept on the module.
 
+Tensor parallelism (tp_size > 1, parallel/tp.py): the attention holds a
+shard of the heads, ffn_in is column-parallel and ffn_out row-parallel
+(bias-free, so one all-reduce closes it), and an MoE FFN splits each
+expert's hidden dimension; `bind_model_group` hands them the `model`
+group. Expert parallelism (ep_size > 1, parallel/ep.py): the MoE FFN
+holds its local experts, `bind_expert_group` binds its exchange.
+
 Sequence parallelism (parallel/sp.py): `bind_seq_group` hands the group to
 the attention that reads the length-sharded document. With sp_cross_only
 (the Perceiver's middle layers) that is the cross-attention alone, whose
@@ -43,31 +50,39 @@ class TransformerLayer(nn.Module):
                  learned_queries: Optional[int] = None,
                  use_kernel: bool = True, sp_cross_only: bool = False,
                  num_experts: int = 0, moe_top_k: int = 2,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25, tp_size: int = 1,
+                 ep_size: int = 1):
         super().__init__()
         self.learned_queries = learned_queries
         self.dropout_rate = DROPOUT_RATE
         self.sp_cross_only = sp_cross_only
+        self.model_group = None     # the `model` AxisGroup under tp_size > 1
         self.attention = Attention(d_model, num_heads, causal=causal,
                                    sparse=sparse_self_attention,
                                    window_size=window_size,
                                    block_size=block_size,
                                    learned_queries=learned_queries,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel, tp_size=tp_size)
         self.is_moe = num_experts > 1
         if self.is_moe:
             self.moe = MoEFFN(d_model, 4 * d_model, num_experts, moe_top_k,
-                              moe_capacity_factor)
+                              moe_capacity_factor, ep_size=ep_size,
+                              tp_size=tp_size)
         else:
-            self.ffn_in = Linear(d_model, 4 * d_model)
-            self.ffn_out = Linear(4 * d_model, d_model, bias=False)
+            if (4 * d_model) % tp_size:
+                raise ValueError(f"d_hidden={4 * d_model} not divisible by "
+                                 f"tp_size={tp_size}")
+            self.ffn_in = Linear(d_model, 4 * d_model // tp_size)
+            self.ffn_out = Linear(4 * d_model // tp_size, d_model,
+                                  bias=False)
         self.attn_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.ffn_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.use_cross_attention = use_cross_attention
         if use_cross_attention:
             self.cross_attention = Attention(d_model, num_heads,
                                              use_kernel=use_kernel,
-                                             sp_replicated_q=sp_cross_only)
+                                             sp_replicated_q=sp_cross_only,
+                                             tp_size=tp_size)
             self.cross_attn_layer_norm = LayerNorm(d_model,
                                                    eps=LAYER_NORM_EPS)
             self.context_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
@@ -79,6 +94,21 @@ class TransformerLayer(nn.Module):
             self.cross_attention.seq_group = (group if self.sp_cross_only
                                               else None)
 
+    def bind_model_group(self, group):
+        """Bind the f/g collectives of the attention, the cross-attention
+        and the FFN to the `model` group."""
+        self.model_group = group
+        self.attention.model_group = group
+        if self.use_cross_attention:
+            self.cross_attention.model_group = group
+        if self.is_moe:
+            self.moe.model_group = group
+
+    def bind_expert_group(self, group):
+        """Bind the MoE FFN's exchange to the `expert` group."""
+        if self.is_moe:
+            self.moe.expert_group = group
+
     def _ffn(self, x, deterministic: bool = True, generator=None,
              mask=None, moe_stats: Optional[list] = None):
         y = self.ffn_layer_norm(x)
@@ -86,6 +116,11 @@ class TransformerLayer(nn.Module):
             y, stats = self.moe(y, mask)
             if moe_stats is not None:
                 moe_stats.append(stats)
+        elif self.model_group is not None:
+            from ..parallel.tp import reduce_activations, replicate_gradient
+            y = replicate_gradient(y, self.model_group)  # column-parallel in
+            y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))
+            y = reduce_activations(y, self.model_group)  # row-parallel close
         else:
             y = self.ffn_out(F.gelu(self.ffn_in(y), approximate="tanh"))
         if not deterministic:

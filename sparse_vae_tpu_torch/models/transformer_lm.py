@@ -17,11 +17,19 @@ builds on it.
 
 Ported configurations: tied input/output embedding with
 d_embedding == d_model, dense or mixture-of-experts FFNs (num_experts >
-1, models/moe.py, on one device), no decoder cross-attention, sparse
-(sliding-window) or dense causal self-attention (ops/attention.py routes
-the dense one through K1/K2 inside the JAX package's flash-attention
-gate), one device or, for a dense Transformer-VAE, a length axis sharded
-over a `seq` group (`bind_seq_group`, through parallel.sp.sp_localize).
+1, models/moe.py), no decoder cross-attention, sparse (sliding-window)
+or dense causal self-attention (ops/attention.py routes the dense one
+through K1/K2 inside the JAX package's flash-attention gate), one device
+or, for a dense Transformer-VAE, a length axis sharded over a `seq`
+group (`bind_seq_group`, through parallel.sp.sp_localize). Tensor and
+expert parallelism build a per-shard twin (parallel.tp.tp_localize,
+parallel.ep.ep_localize: hparams with tp_size or ep_size > 1, then
+`bind_model_group` / `bind_expert_group`); under tensor parallelism with
+tied weights and the chunked loss (`shard_vocab`) the embedding and the
+output bias hold V / tp_size rows, `embed` goes through
+parallel.tp.vocab_parallel_embed and the loss through the vocab-parallel
+cross-entropy (`_vocab_parallel_rows`); full logits (`project`) then
+raise.
 Every step, peek and window pass hands the MoE FFN the mask of real
 tokens (token != 0), so finished rows and [PAD] guesses take no expert
 slot; the training forwards append each layer's balance statistics to a
@@ -100,9 +108,6 @@ class TransformerHparams(LanguageModelHparams):
                 None, self.d_model),
             "untied output embedding": not self.tie_embedding_weights,
             "cross_attention": self.cross_attention,
-            "tensor parallelism": self.tp_size > 1,
-            "expert parallelism (sparse_vae_tpu/parallel/ep.py, ROADMAP "
-            "Queue 1 item 8)": self.ep_size > 1,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -165,10 +170,13 @@ class TransformerLanguageModel(nn.Module):
                 "with parallel.sp.sp_localize, which sets sp_size")
         hp = self.hparams = hparams
         self.seq_group = None       # a parallel.group.SeqGroup when bound
+        self.model_group = None     # the `model` AxisGroup under tp_size > 1
         # None: compute in the parameters' dtype. Training sets bf16 over
         # fp32 master parameters (checkpoint.load_run(train=True)).
         self.compute_dtype: Optional[torch.dtype] = None
-        self.input_embedding = nn.Embedding(hp.vocab_size, hp.d_model)
+        vocab_local = (hp.vocab_size // hp.tp_size if self.shard_vocab
+                       else hp.vocab_size)
+        self.input_embedding = nn.Embedding(vocab_local, hp.d_model)
         self.decoder_layers = nn.ModuleList([
             TransformerLayer(hp.d_model, hp.num_heads, causal=True,
                              sparse_self_attention=hp.sparse_self_attention,
@@ -177,11 +185,31 @@ class TransformerLanguageModel(nn.Module):
                              use_kernel=hp.use_pallas_kernel,
                              num_experts=hp.num_experts,
                              moe_top_k=hp.moe_top_k,
-                             moe_capacity_factor=hp.moe_capacity_factor)
+                             moe_capacity_factor=hp.moe_capacity_factor,
+                             tp_size=hp.tp_size, ep_size=hp.ep_size)
             for _ in range(hp.num_layers)])
         self.head_dense = Linear(hp.d_model, hp.d_model)
         self.head_norm = LayerNorm(hp.d_model, eps=LAYER_NORM_EPS)
-        self.output_bias = nn.Parameter(torch.zeros(hp.vocab_size))
+        self.output_bias = nn.Parameter(torch.zeros(vocab_local))
+
+    @property
+    def shard_vocab(self) -> bool:
+        """The tied embedding and head sharded over the vocabulary (the
+        tensor-parallel twin only; parallel.tp.shards_vocab)."""
+        from ..parallel.tp import shards_vocab
+        return shards_vocab(self.hparams, self.hparams.tp_size)
+
+    def bind_model_group(self, group):
+        """Bind the tensor-parallel collectives of every layer, the
+        vocab-parallel embedding and the loss to the `model` group."""
+        self.model_group = group
+        for layer in self.decoder_layers:
+            layer.bind_model_group(group)
+
+    def bind_expert_group(self, group):
+        """Bind every MoE layer's exchange to the `expert` group."""
+        for layer in self.decoder_layers:
+            layer.bind_expert_group(group)
 
     def bind_seq_group(self, group):
         """Shard the length axis over `group` (parallel/sp.py): the decoder
@@ -209,7 +237,12 @@ class TransformerLanguageModel(nn.Module):
         """Token embeddings in the compute dtype; with deterministic False
         the input dropout (hparams.input_dropout, base.dropout) draws its
         mask from `generator`."""
-        x = self.input_embedding(token_ids).to(self.dtype)
+        if self.shard_vocab:
+            from ..parallel.tp import vocab_parallel_embed
+            x = vocab_parallel_embed(self.input_embedding.weight, token_ids,
+                                     self.model_group).to(self.dtype)
+        else:
+            x = self.input_embedding(token_ids).to(self.dtype)
         if deterministic:
             return x
         return dropout(x, self.hparams.input_dropout, generator)
@@ -226,6 +259,11 @@ class TransformerLanguageModel(nn.Module):
         """Head + tied output projection, [..., D] -> fp32 [..., V]. The
         product rounds to the compute dtype before the fp32 bias is added,
         as the reference's bf16 dot plus fp32 bias does."""
+        if self.shard_vocab:
+            raise NotImplementedError(
+                "full [.., V] logits are never materialized under "
+                "vocab-parallel TP; use sequence_nll / sequence_ll_rows "
+                "(the chunked paths the objectives already select)")
         logits = F.linear(self.pre_logits(h), self.table())
         return logits.float() + self.output_bias.float()
 
@@ -241,6 +279,8 @@ class TransformerLanguageModel(nn.Module):
         + CE; inside the gate at another width that runs on the CPU only
         (`ce_kernel.take_plain_route`)."""
         hp = self.hparams
+        if self.shard_vocab:
+            return self._vocab_parallel_rows(hidden, labels)
         route = (ce_kernel.route(True, hp.vocab_size, hp.d_model)
                  if hp.use_pallas_kernel else "outside")
         if route == "kernel":
@@ -256,6 +296,28 @@ class TransformerLanguageModel(nn.Module):
             ce_kernel.take_plain_route(hidden.device, hp.d_model)
         return chunked_nll_rows(hidden, self.project, labels,
                                 hp.loss_chunk_size or 2048)
+
+    def _vocab_parallel_rows(self, hidden, labels):
+        """`_nll_rows` under vocab-parallel TP: the length in chunks of
+        loss_chunk_size (the last one short), each chunk's head on
+        [B * chunk, D] and parallel.tp.tied_vocab_parallel_nll over this
+        shard's V / tp_size rows of the table."""
+        from ..parallel.tp import tied_vocab_parallel_nll
+        b, length, d = hidden.shape
+        cs = min(self.hparams.loss_chunk_size or 2048, length)
+        table, bias = self.table(), self.output_bias.float()
+        rows = hidden.new_zeros(b, dtype=torch.float32)
+        count = hidden.new_zeros((), dtype=torch.float32)
+        for lo in range(0, length, cs):
+            h_c, lab = hidden[:, lo:lo + cs], labels[:, lo:lo + cs]
+            n = h_c.shape[1]
+            g = self.pre_logits(h_c.reshape(b * n, d))
+            nll = tied_vocab_parallel_nll(g.contiguous(), table, bias,
+                                          lab.reshape(-1), self.model_group)
+            mask = (lab != 0).float()
+            rows = rows + (nll.reshape(b, n) * mask).sum(-1)
+            count = count + mask.sum()
+        return rows, count
 
     def sequence_nll(self, hidden, labels):
         """(nll_sum, token_count) over non-pad labels without [B, L, V]

@@ -18,6 +18,10 @@ steps, the chunk peek and the window pass mask [PAD] tokens out of the
 experts' capacity as the Transformer LM's do; the row-wise step counts a
 row at position 0 as real (it feeds its z projection).
 
+Under tensor parallelism (`bind_model_group`, parallel/tp.py) the encoder
+and the decoder hold their shards of the heads and FFNs; the z
+projections and the posterior stay replicated.
+
 Under sequence parallelism (`bind_seq_group`) absolute position 0 lives
 on shard 0 only: z replaces it there, and the other shards see z through
 the [CLS] block broadcast of the decoder attention, which also carries its
@@ -64,13 +68,18 @@ class TransformerVAE(TransformerLanguageModel):
         self.encoder = Perceiver(
             num_layers=max(2, hparams.num_layers // 2),
             num_latents=hparams.num_encoder_latents,
-            d_model=hparams.d_model, bottleneck_width=1)
+            d_model=hparams.d_model, bottleneck_width=1,
+            tp_size=hparams.tp_size)
         self.q_of_z_given_x = ConditionalGaussian(hparams.latent_depth,
                                                   hparams.d_model)
 
     def bind_seq_group(self, group):
         super().bind_seq_group(group)
         self.encoder.bind_seq_group(group)
+
+    def bind_model_group(self, group):
+        super().bind_model_group(group)
+        self.encoder.bind_model_group(group)
 
     # -- encoder ------------------------------------------------------------
     def encode(self, token_ids):

@@ -14,9 +14,10 @@ per-row forms), the frontier window (`init_window_cache`,
 (Dh = 128: the projections feed K5/K5b without head-major copies), and the
 sequence-parallel branch (`Attention._sp_call`, parallel/sp.py: the halo
 and [CLS] broadcast into K6, or the distributed softmax of replicated
-queries). The tensor-parallel branch is not ported. The chunk and window
-attentions are plain tensor code, as in the reference (XLA there, no
-Pallas kernel).
+queries), and the tensor-parallel branch (`tp_size` > 1, parallel/tp.py:
+a shard of the heads, the f/g collectives at entry and close). The chunk
+and window attentions are plain tensor code, as in the reference (XLA
+there, no Pallas kernel).
 
 Unlike the reference, whose arrays are immutable, the decode caches are
 updated in place: a step writes one position per row instead of copying
@@ -139,16 +140,30 @@ class Attention(nn.Module):
     `_sp_call` runs instead. sp_replicated_q declares that the queries are
     the same on every rank (a cross-attention from the Perceiver's
     latents), which the distributed softmax needs.
+
+    Tensor parallelism (tp_size > 1, the twin parallel.tp.tp_localize
+    makes): q/k/v and the learned-query bank hold num_heads / tp_size
+    heads (`d_model` is then the shard's width, `d_out` the model's), the
+    output projection is row-parallel, and once `model_group` is bound the
+    input passes `replicate_gradient` and the output projection's partial
+    product `reduce_activations` before its replicated bias is added once.
+    The packed layout is off, as in the JAX package (`_packed_ok`).
     """
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
                  sparse: bool = False, window_size: int = 2,
                  block_size: int = 128, max_length: int = 10_000,
                  learned_queries: Optional[int] = None,
-                 use_kernel: bool = True, sp_replicated_q: bool = False):
+                 use_kernel: bool = True, sp_replicated_q: bool = False,
+                 tp_size: int = 1):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be a multiple of num_heads")
+        if num_heads % tp_size:
+            raise ValueError(f"num_heads {num_heads} not divisible by "
+                             f"tp_size {tp_size}")
+        self.d_out, self.tp_size = d_model, tp_size
+        d_model, num_heads = d_model // tp_size, num_heads // tp_size
         self.d_model, self.num_heads = d_model, num_heads
         self.causal, self.sparse = causal, sparse
         self.window_size, self.block_size = window_size, block_size
@@ -157,14 +172,15 @@ class Attention(nn.Module):
         self.use_kernel = use_kernel
         self.sp_replicated_q = sp_replicated_q
         self.seq_group = None       # a parallel.group.SeqGroup when bound
+        self.model_group = None     # the `model` AxisGroup under tp_size > 1
         if learned_queries:
             self.learned_queries = nn.Parameter(
                 torch.randn(1, learned_queries, d_model))
         else:
-            self.q_linear = Linear(d_model, d_model)
-        self.k_linear = Linear(d_model, d_model)
-        self.v_linear = Linear(d_model, d_model)
-        self.output_linear = Linear(d_model, d_model)
+            self.q_linear = Linear(self.d_out, d_model)
+        self.k_linear = Linear(self.d_out, d_model)
+        self.v_linear = Linear(self.d_out, d_model)
+        self.output_linear = Linear(d_model, self.d_out)
 
     @property
     def rotary_base(self) -> float:
@@ -195,7 +211,26 @@ class Attention(nn.Module):
         return self._close(merge_heads(out_heads))
 
     def _close(self, merged):
-        return self.output_linear(merged)
+        """The output projection; row-parallel under tensor parallelism:
+        the shards' partial products summed over the model group, the
+        replicated bias added once."""
+        if self.model_group is None:
+            return self.output_linear(merged)
+        from ..parallel.tp import reduce_activations
+        weight = self.output_linear.weight.to(merged.dtype)
+        y = reduce_activations(merged @ weight.t(), self.model_group)
+        return y + self.output_linear.bias.to(merged.dtype)
+
+    def _replicated_inputs(self, x, x_kv):
+        """x and x_kv through `replicate_gradient` (once where they are the
+        same tensor): replicated activations feeding column-parallel
+        projections."""
+        from ..parallel.tp import replicate_gradient
+        group = self.model_group
+        if x_kv is None or x_kv is x:
+            return replicate_gradient(x, group), None
+        return (replicate_gradient(x, group),
+                replicate_gradient(x_kv, group))
 
     def _route(self, lq: int, lk: int) -> Optional[str]:
         """None for the dense masked path; "dense" or "dense_plain" for the
@@ -209,8 +244,11 @@ class Attention(nn.Module):
             return None
         if not self.use_kernel:
             return "outside"
-        return swa_kernel.route(self.d_model // self.num_heads,
-                                self.block_size)
+        route = swa_kernel.route(self.d_model // self.num_heads,
+                                 self.block_size)
+        # The packed layout is single-shard only (the JAX package's
+        # _packed_ok), and head-major K1/K2 take Dh 64 only.
+        return "plain" if route == "packed" and self.tp_size > 1 else route
 
     def _dense_route(self, lq: int, lk: int) -> Optional[str]:
         """The dense causal gate of the JAX package (ops/attention.py: its
@@ -341,10 +379,18 @@ class Attention(nn.Module):
         returns the head-major rotary (k, v) — the bulk-prefill cache seed
         (fill_cache_row)."""
         if self.seq_group is not None:
+            if self.model_group is not None:
+                raise NotImplementedError(
+                    "attention over a seq group and a model group together "
+                    "(data x seq x model, sparse_vae_tpu/ops/attention.py "
+                    "_sp_call with tp_size > 1) is not ported yet: ROADMAP "
+                    "Queue 1 item 8")
             if return_kv:
                 raise NotImplementedError("sequence-parallel attention "
                                           "returns no decode cache seed")
             return self._sp_call(x, kv_mask, x_kv)
+        if self.model_group is not None:
+            x, x_kv = self._replicated_inputs(x, x_kv)
         route = self._route(x.shape[1],
                             (x if x_kv is None else x_kv).shape[1])
         if route == "packed":

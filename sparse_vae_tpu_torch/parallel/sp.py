@@ -44,54 +44,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .group import SeqGroup
+from .group import SeqGroup, all_reduce, shift
 
 NEG_INF = -1e9
-
-
-# -- transfers ----------------------------------------------------------------
-def _all_reduce(x, group: SeqGroup, op=dist.ReduceOp.SUM):
-    """A new tensor: x reduced over the group (through the host where the
-    group stages), floating point summed in fp32 and returned in x's
-    dtype."""
-    buf = x.detach().to(torch.float32 if x.is_floating_point() else x.dtype,
-                        copy=True)
-    if group.host_staged:
-        buf = buf.cpu()
-    dist.all_reduce(buf, op=op)
-    return buf.to(device=x.device, dtype=x.dtype)
-
-
-def _shift(x, group: SeqGroup, step: int):
-    """Rank r receives rank r - step's x (zeros where there is none):
-    step 1 moves data to the right, -1 to the left."""
-    send = x.detach().contiguous()
-    if group.host_staged:
-        send = send.cpu()
-    recv = torch.zeros_like(send)
-    ops = []
-    if 0 <= group.rank + step < group.size:
-        ops.append(dist.P2POp(dist.isend, send, group.rank + step))
-    if 0 <= group.rank - step < group.size:
-        ops.append(dist.P2POp(dist.irecv, recv, group.rank - step))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return recv.to(x.device)
-
-
-def all_reduce_sum(x, group: SeqGroup):
-    """x summed over the group, without a gradient (counts, statistics)."""
-    return _all_reduce(x, group)
-
-
-def broadcast_from_first(x, group: SeqGroup):
-    """Rank 0's x on every rank, without a gradient."""
-    buf = x.detach().clone()
-    if group.host_staged:
-        buf = buf.cpu()
-    dist.broadcast(buf, src=0)
-    return buf.to(x.device)
 
 
 # -- collectives with pinned adjoints ------------------------------------------
@@ -99,11 +54,11 @@ class _SumOverShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _all_reduce(x, group)
+        return all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, ct):
-        return _all_reduce(ct, ctx.group), None
+        return all_reduce(ct, ctx.group), None
 
 
 def sum_over_shards(x, group: SeqGroup):
@@ -115,7 +70,7 @@ def sum_over_shards(x, group: SeqGroup):
 class _MaxOverShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group, dist.ReduceOp.MAX)
+        return all_reduce(x, group, dist.ReduceOp.MAX)
 
     @staticmethod
     def backward(ctx, ct):
@@ -132,11 +87,11 @@ class _HaloFromLeft(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _shift(x, group, 1)
+        return shift(x, group, 1)
 
     @staticmethod
     def backward(ctx, ct):
-        return _shift(ct, ctx.group, -1), None
+        return shift(ct, ctx.group, -1), None
 
 
 def halo_from_left(x, group: SeqGroup):
@@ -152,9 +107,9 @@ class _ExchangeKV(torch.autograd.Function):
         length = k.shape[2]
         tail = torch.stack([k[:, :, length - halo_rows:],
                             v[:, :, length - halo_rows:]])
-        halo = _shift(tail, group, 1) if halo_rows else tail
+        halo = shift(tail, group, 1) if halo_rows else tail
         head = torch.stack([k[:, :, :block_size], v[:, :, :block_size]])
-        cls = _all_reduce(head if group.rank == 0
+        cls = all_reduce(head if group.rank == 0
                           else torch.zeros_like(head), group)
         return (torch.cat([halo[0], k], dim=2),
                 torch.cat([halo[1], v], dim=2), cls[0], cls[1])
@@ -166,12 +121,12 @@ class _ExchangeKV(torch.autograd.Function):
         dv = dv_ext[:, :, halo_rows:].clone()
         length = dk.shape[2]
         if halo_rows:
-            back = _shift(torch.stack([dk_ext[:, :, :halo_rows],
+            back = shift(torch.stack([dk_ext[:, :, :halo_rows],
                                        dv_ext[:, :, :halo_rows]]),
                           group, -1)
             dk[:, :, length - halo_rows:] += back[0]
             dv[:, :, length - halo_rows:] += back[1]
-        dcls = _all_reduce(torch.stack([dcls_k, dcls_v]), group)
+        dcls = all_reduce(torch.stack([dcls_k, dcls_v]), group)
         if group.rank == 0:
             dk[:, :, :block_size] += dcls[0]
             dv[:, :, :block_size] += dcls[1]
@@ -194,7 +149,7 @@ def sp_shifted_labels(token_ids, group: SeqGroup):
     """Next-token labels of a length shard: each shard's last column is
     its RIGHT neighbour's first token, the last shard's [PAD] = 0, as the
     unsharded end-padded shift gives. token_ids: [rows, S_local]."""
-    nxt = _shift(token_ids[:, :1], group, -1)
+    nxt = shift(token_ids[:, :1], group, -1)
     return torch.cat([token_ids[:, 1:], nxt], dim=1)
 
 

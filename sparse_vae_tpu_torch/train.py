@@ -20,13 +20,20 @@ sparse-vae-logs/<experiment>/<name>/, and every
 trainer.sample_every_n_steps a sample and, for a VAE, a reconstruction
 with its BLEU (cli.make_sample_fns). from_checkpoint=<run> resumes
 that run with its saved hparams as the base. It is selected when the
-argument after the experiment is absent or holds a `=`.
+argument after the experiment is absent or holds a `=`. With
+trainer.num_devices=N > 1 (and trainer.model_parallel or
+trainer.expert_parallel) it trains on a mesh of N ranks (parallel/mesh.py:
+data x model or data x expert): spawned here, rank r on cuda:{r %
+device_count} (all on the CPU with device=cpu), or, under torchrun (RANK
+and WORLD_SIZE set), this process as one rank. Rank 0 prepares the corpus
+before the others read it, and rank 0 logs and writes the checkpoints,
+gathered to the single-device format.
 
 The step run on an archived model's weights:
 
     python -m sparse_vae_tpu_torch.train <experiment>
         <run-name> [steps=10] [batch=8] [seq=12800] [accumulate=<run's>]
-        [seed=0] [device=cuda] [sp=1]
+        [seed=0] [device=cuda] [sp=1] [dp=1] [tp=1] [ep=1]
 
 loads runs/<run-name>/ (a run of that experiment, such as
 real-prose-vae-r5 or draft-tlm-r5) in its training form (fp32 master
@@ -51,6 +58,13 @@ chosen backend is printed. Every rank prints its own line per step
 ({"rank", "step", "seconds", ...}); rank 0 also prints the step's
 metrics, the same on every rank.
 
+dp=, tp= and ep= train on a mesh of dp x tp x ep ranks (parallel/mesh.py;
+tp and ep not both): tensor parallelism over tp (heads, FFNs, the tied
+vocabulary), expert parallelism over ep (an MoE run's experts), the rows
+of each global batch over dp (x ep). The ranks are spawned as for sp=N,
+or come from torchrun, whose WORLD_SIZE gives dp. Each rank prints its
+line per step, rank 0 also the step's metrics (`mesh_rank`).
+
 `build_from_hparams` builds a model with no archive instead: hparams plus
 the JAX package's initialisation, at `bench_hparams`, the JAX train
 bench's geometry, or at a run's meta.json hparams (`run_hparams`: such
@@ -64,7 +78,8 @@ import os
 import sys
 import time
 
-KEYS = {"steps", "batch", "seq", "accumulate", "seed", "device", "sp"}
+KEYS = {"steps", "batch", "seq", "accumulate", "seed", "device", "sp",
+        "dp", "tp", "ep"}
 
 
 def run_lr(hp, meta: dict, accumulate: int) -> float:
@@ -155,14 +170,19 @@ def sp_pad_multiple(hp, sp: int, pad_to_multiple_of: int = 512) -> int:
 def param_digest(model) -> str:
     """sha256 of every parameter's bytes, in order: equal digests are
     bitwise equal parameters."""
+    return param_digest_of(model.parameters())
+
+
+def param_digest_of(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
     import hashlib
 
     import torch
 
     digest = hashlib.sha256()
     with torch.no_grad():
-        for p in model.parameters():
-            digest.update(p.detach().float().cpu().numpy().tobytes())
+        for t in tensors:
+            digest.update(t.detach().float().cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
@@ -248,14 +268,224 @@ def train_rank(group, name: str, steps: int, batch: int, seq: int,
     return record
 
 
+def mesh_rank(world, source, steps: int, batch: int, seq: int,
+              seed: int = 0, accumulate=None, tp: int = 1, ep: int = 1,
+              noise=None, keep_grads: bool = False, report: bool = True,
+              use_kernels: bool = True, dtype=None, first_step=None,
+              drops: bool = False) -> dict:
+    """One rank of a mesh run (tp and ep as `create_mesh`'s model_axis and
+    expert_axis; data = the world / (tp * ep)): `steps` optimizer steps on
+    this rank's rows of seeded global batches [batch, seq] (the same
+    batches on every rank, and the same as an unsharded run with this seed
+    gives). source: a run name (`build`) or hparams (`build_from_hparams`
+    with the JAX initialisation drawn from `seed`). noise: the first
+    step's per-micro-batch global {"eps", "mi"}, or None to draw it from
+    the seeded generator. first_step: settings of the first step alone,
+    {"capacity_factor": an MoE model's, "dropout": False for the
+    layers' FFN dropout at rate 0} (its masks are per row shard, so a
+    step with them is not the unsharded step's): a step to hold against
+    the unsharded one, then the run's own settings. Returns the rank's
+    record: its mesh coordinates, metrics, step seconds, seconds in
+    host-staged transfers, launch counts, peak memory, a digest of its
+    parameters after each step and of each parameter at the end, with
+    keep_grads the first step's full gathered gradients on the CPU (rank
+    0), and with drops (an MoE model) the share of each layer's
+    dispatches that capacity dropped on this rank's rows of the last
+    micro-batch."""
+    import numpy as np
+    import torch
+
+    from .ops import launches
+    from .parallel import group as pgroup
+    from .parallel.mesh import create_mesh, shard_rows
+    from .parallel.spmd import localize, mesh_norm_fn, shard_layout
+    from .parallel.tp import gather_state
+    from .training.data import synthetic_batch
+    from .training.optimizer import make_optimizer
+    from .training.train_step import train_step
+
+    device = world.device
+    if device.type == "cpu":    # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world.size))
+    mesh = create_mesh(world, model_axis=tp, expert_axis=ep)
+    if isinstance(source, str):
+        model, objective, _, accumulate = build(
+            source, device, accumulate, use_kernels=use_kernels,
+            dtype=dtype)
+        from .checkpoint import run_directory
+        meta = json.loads((run_directory(source) / "meta.json").read_text())
+        lr = run_lr(model.hparams, meta, accumulate)
+    else:
+        model, objective, _, _ = build_from_hparams(
+            source, torch.Generator().manual_seed(seed), device,
+            use_kernels=use_kernels, dtype=dtype)
+        accumulate, lr = accumulate or 1, model.hparams.lr
+    hp = model.hparams
+    model = localize(model, mesh)
+    layers = getattr(model, "decoder_layers", [])
+    run_settings = [(layer.dropout_rate, layer.moe.capacity_factor
+                     if layer.is_moe else None) for layer in layers]
+    first_step = first_step or {}
+    optimizer = make_optimizer(
+        model.parameters(), lr=lr, lr_decay_steps=hp.lr_decay_steps,
+        grad_clip_threshold=hp.grad_clip_threshold,
+        weight_decay=hp.weight_decay, lamb=hp.lamb, tp_size=tp,
+        ep_size=ep, norm_fn=mesh_norm_fn(model, mesh))
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if noise is not None:
+        noise = [{k: v.to(device) for k, v in n.items()} for n in noise]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    launches.reset()
+    pgroup.staged_seconds = 0.0
+    record = {"rank": world.rank, "size": world.size,
+              "backend": world.backend, "device": str(device),
+              "mesh": dict(mesh.shape),
+              "coords": {a: mesh.coord(a) for a in mesh.shape},
+              "metrics": [], "step_s": [], "staged_s": [],
+              "param_digests": []}
+    for step in range(steps):
+        mbs = []
+        for _ in range(accumulate):
+            mb = synthetic_batch(rng, batch, seq, hp.vocab_size)
+            mbs.append({k: v.to(device)
+                        for k, v in shard_rows(mb, mesh).items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for layer, (rate, capacity) in zip(layers, run_settings):
+            first = step == 0
+            layer.dropout_rate = (0.0 if first and first_step.get(
+                "dropout") is False else rate)
+            if capacity is not None:
+                layer.moe.capacity_factor = (first_step.get(
+                    "capacity_factor", capacity) if first else capacity)
+        staged0 = pgroup.staged_seconds
+        t0 = time.perf_counter()
+        metrics = train_step(model, objective, optimizer, mbs, step,
+                             noise if step == 0 else None, generator)
+        out = {k: float(v) for k, v in metrics.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        if keep_grads and step == 0:
+            grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+            specs, group = shard_layout(model, mesh)
+            full = gather_state(grads, specs, group)
+            if world.rank == 0:
+                record["grads"] = {n: g.float().cpu()
+                                   for n, g in full.items()}
+        record["metrics"].append(out)
+        record["step_s"].append(seconds)
+        record["staged_s"].append(pgroup.staged_seconds - staged0)
+        record["param_digests"].append(param_digest(model))
+        if report:
+            line = {"rank": world.rank, "step": step, "seconds": seconds,
+                    "staged_seconds": record["staged_s"][-1],
+                    "local_tokens": int(sum((m["token_ids"] != 0).sum()
+                                            for m in mbs))}
+            if device.type == "cuda":
+                line["max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated(device)
+            print(json.dumps(line), flush=True)
+            if world.rank == 0:
+                print(json.dumps({**out, "step": step, "seconds": seconds,
+                                  "tokens": batch * seq * accumulate,
+                                  "mesh": dict(mesh.shape)}), flush=True)
+    record["launches"] = launches.read()
+    if drops:
+        stats = []
+        with torch.no_grad():
+            model.forward_hidden(mbs[-1]["token_ids"], moe_stats=stats)
+        dispatches = int((mbs[-1]["token_ids"] != 0).sum()) * hp.moe_top_k
+        record["dropped_share_by_layer"] = [
+            1.0 - int(s["keep"].sum()) / dispatches for s in stats]
+    record["local_digests"] = {
+        n: param_digest_of([p]) for n, p in model.named_parameters()}
+    if device.type == "cuda":
+        record["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device)
+    return record
+
+
+def _fit_config(experiment: str, dotlist: list):
+    from .cli import assemble_config
+    from .training.checkpointing import load_run_meta
+
+    cfg = assemble_config(experiment, dotlist)
+    if cfg.from_checkpoint:
+        meta = load_run_meta(experiment, cfg.name)
+        if meta:
+            cfg = assemble_config(experiment, dotlist, base_meta=meta)
+    return cfg
+
+
+def fit_rank(world, experiment: str, dotlist: list) -> dict:
+    """One rank of the training run on a mesh (trainer.num_devices ranks:
+    trainer.model_parallel or trainer.expert_parallel innermost). Rank 0
+    prepares the corpus while the others wait, then reads it with them.
+    Returns {"step", "stopped_reason", "best_metric"}."""
+    import torch
+
+    from .cli import (build_data, build_hparams, make_sample_fns,
+                      seed_everything)
+    from .parallel.group import barrier
+    from .parallel.mesh import create_mesh
+    from .training.trainer import Trainer
+
+    if world.device.type == "cpu":    # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world.size))
+    cfg = _fit_config(experiment, dotlist)
+    thp = cfg.trainer
+    mesh = create_mesh(world, model_axis=thp.model_parallel,
+                       seq_axis=thp.seq_parallel,
+                       expert_axis=thp.expert_parallel)
+    seed_everything(thp.seed)
+    if cfg.anomaly_detection:
+        torch.autograd.set_detect_anomaly(True)
+    if world.rank == 0:
+        print(f"Training {experiment} on mesh {dict(mesh.shape)} "
+              f"({world.backend})...", flush=True)
+        data = build_data(cfg)
+    barrier(world)
+    if world.rank != 0:
+        data = build_data(cfg)
+    overrides = dict(cfg.model_overrides)
+    overrides.setdefault("vocab_size", cfg.data.vocab_size)
+    hparams, objective = build_hparams(experiment, overrides)
+    sample_fn, reconstruct_fn = make_sample_fns(experiment, objective)
+    trainer = Trainer(hparams, objective, data, thp, experiment=experiment,
+                      name=cfg.name, enable_logging=not cfg.no_log,
+                      sample_fn=sample_fn, reconstruct_fn=reconstruct_fn,
+                      mesh=mesh)
+    outcome = trainer.fit(resume=cfg.from_checkpoint is not None)
+    if world.rank == 0:
+        print(f"Done: step={outcome.step} stopped={outcome.stopped_reason} "
+              f"best {hparams.early_stopping_metric}={outcome.best_metric}",
+              flush=True)
+    return {"step": outcome.step, "stopped_reason": outcome.stopped_reason,
+            "best_metric": outcome.best_metric}
+
+
+def _start_ranks(device: str, size: int):
+    """The device of spawned ranks, with the kernels built once here
+    first."""
+    from .parallel.group import rank_device
+
+    dev = rank_device(device, 0)
+    if dev.type == "cuda":
+        from .ops import cuda_lib
+        cuda_lib.library()      # built once, before the ranks start
+    return dev
+
+
 def fit_main(experiment: str, args) -> int:
     """The training run: `args` is the dotlist after the experiment, with
     device=<device> (default cuda) among it."""
     import torch
 
-    from .cli import (assemble_config, build_data, build_hparams,
-                      make_sample_fns, seed_everything)
-    from .training.checkpointing import load_run_meta
+    from .cli import (build_data, build_hparams, make_sample_fns,
+                      seed_everything)
     from .training.trainer import Trainer
 
     device = "cuda"
@@ -265,11 +495,23 @@ def fit_main(experiment: str, args) -> int:
             device = item.split("=", 1)[1]
         else:
             dotlist.append(item)
-    cfg = assemble_config(experiment, dotlist)
-    if cfg.from_checkpoint:
-        meta = load_run_meta(experiment, cfg.name)
-        if meta:
-            cfg = assemble_config(experiment, dotlist, base_meta=meta)
+    cfg = _fit_config(experiment, dotlist)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from .parallel.group import from_environment
+        world = from_environment(device)
+        try:
+            fit_rank(world, experiment, dotlist)
+        finally:
+            dist.destroy_process_group()
+        return 0
+    if (cfg.trainer.num_devices or 1) > 1:
+        from .parallel.group import spawn
+        n = cfg.trainer.num_devices
+        spawn(fit_rank, n, _start_ranks(device, n).type,
+              (experiment, dotlist), timeout=float("inf"))
+        return 0
     seed_everything(cfg.trainer.seed)
     if cfg.anomaly_detection:
         torch.autograd.set_detect_anomaly(True)
@@ -320,36 +562,56 @@ def main(args) -> int:
     seed = int(extra.get("seed", 0))
     accumulate = int(extra["accumulate"]) if "accumulate" in extra else None
     sp = int(extra.get("sp", 1))
-    sharded = sp > 1 or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
-    if sharded and experiment != "transformer-vae":
+    dp, tp, ep = (int(extra.get(k, 1)) for k in ("dp", "tp", "ep"))
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    meshed = dp * tp * ep > 1 or (torchrun and any(
+        k in extra for k in ("dp", "tp", "ep")))
+    if sp > 1 and meshed:
+        raise NotImplementedError(
+            "sp=N beside dp=, tp= or ep= (data x seq x model) is not ported "
+            "yet: ROADMAP Queue 1 item 8")
+    seq_run = sp > 1 or (torchrun and not meshed)
+    if seq_run and experiment != "transformer-vae":
         raise NotImplementedError(
             f"{experiment} over a seq group (sparse_vae_tpu/training/"
             "objectives.py ARObjective with sp_size > 1, parallel/spmd.py) "
-            "is not ported yet; sp=N trains the Transformer-VAE")
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            "is not ported yet: ROADMAP Queue 1 item 8; sp=N trains the "
+            "Transformer-VAE")
+    device_arg = extra.get("device", "cuda")
+    if torchrun:
         import torch.distributed as dist
 
         from .parallel.group import from_environment
-        group = from_environment(extra.get("device", "cuda"))
+        group = from_environment(device_arg)
         if group.rank == 0:
-            print(json.dumps({"sp": group.size, "backend": group.backend}),
-                  flush=True)
+            print(json.dumps({"sp": group.size, "backend": group.backend}
+                             if seq_run else
+                             {"world": group.size, "tp": tp, "ep": ep,
+                              "backend": group.backend}), flush=True)
         try:
-            train_rank(group, name, steps, batch, seq, seed, accumulate)
+            if seq_run:
+                train_rank(group, name, steps, batch, seq, seed, accumulate)
+            else:
+                mesh_rank(group, name, steps, batch, seq, seed, accumulate,
+                          tp, ep)
         finally:
             dist.destroy_process_group()
         return 0
-    if sp > 1:
-        from .parallel.group import choose_backend, rank_device, spawn
+    if seq_run or meshed:
+        from .parallel.group import choose_backend, spawn
 
-        device = rank_device(extra.get("device", "cuda"), 0)
-        if device.type == "cuda":
-            from .ops import cuda_lib
-            cuda_lib.library()      # built once, before the ranks start
-        print(json.dumps({"sp": sp, "backend": choose_backend(sp, device)}),
-              flush=True)
-        spawn(train_rank, sp, device.type,
-              (name, steps, batch, seq, seed, accumulate))
+        size = sp if seq_run else dp * tp * ep
+        device = _start_ranks(device_arg, size)
+        backend = choose_backend(size, device)
+        if seq_run:
+            print(json.dumps({"sp": sp, "backend": backend}), flush=True)
+            spawn(train_rank, sp, device.type,
+                  (name, steps, batch, seq, seed, accumulate))
+        else:
+            print(json.dumps({"world": size, "tp": tp, "ep": ep,
+                              "backend": backend}), flush=True)
+            spawn(mesh_rank, size, device.type,
+                  (name, steps, batch, seq, seed, accumulate, tp, ep))
         return 0
     model, objective, optimizer, accumulate = build(
         name, extra.get("device", "cuda"), accumulate)

@@ -69,7 +69,8 @@ class ARObjective:
             raise NotImplementedError(
                 "the language-model objective over a seq group "
                 "(sparse_vae_tpu/training/objectives.py ARObjective with "
-                "sp_size > 1, parallel/spmd.py) is not ported yet")
+                "sp_size > 1, parallel/spmd.py) is not ported yet: "
+                "ROADMAP Queue 1 item 8")
 
     @staticmethod
     def _moe_on(model) -> bool:

@@ -11,6 +11,11 @@ schedule).
   direction and the decoupled weight decay, which applies to every
   parameter, biases and LayerNorms included.
 - LAMB clamps each parameter's norm into [0.01, 10] for its trust ratio.
+- On a mesh whose parameters are sharded (parallel/tp.py, ep.py) the
+  clip's norm comes from `norm_fn`, which sums the shards' squares over
+  their group (`clip_by_tp_global_norm` / the EP twin in the JAX
+  package), so every rank clips by the same, exact norm; LAMB's
+  per-parameter trust ratios are refused there, as in the JAX package.
 - One global step counter; the schedule is evaluated at the 1-indexed
   step. The step's scalars are computed in fp32 and the update is
   rounded where the reference rounds it (update = -lr_eff * (wd * p + d),
@@ -37,16 +42,19 @@ class RAdam(torch.optim.Optimizer):
     """RAdam/LAMB over fp32 parameters, with the global-norm clip of
     `clip_threshold` applied to the gradients first (optax semantics: the
     gradients are scaled by threshold / norm unless norm < threshold).
-    `step()` returns the unclipped global gradient norm."""
+    `step()` returns the unclipped global gradient norm, `norm_fn(grads)`
+    (default `global_norm`) of the gradients in parameter order."""
 
     def __init__(self, params, lr: Union[float, Callable[[int], float]],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
                  weight_decay: float = 0.01, lamb: bool = False,
-                 clip_threshold: Optional[float] = None):
+                 clip_threshold: Optional[float] = None,
+                 norm_fn: Optional[Callable] = None):
         super().__init__(params, dict(lr=lr))
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.lamb = weight_decay, lamb
         self.clip_threshold = clip_threshold
+        self.norm_fn = norm_fn or global_norm
         self.count = 0
 
     def _params(self):
@@ -79,7 +87,7 @@ class RAdam(torch.optim.Optimizer):
         params = self._params()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         if self.clip_threshold is not None and not bool(
                 norm < self.clip_threshold):
             grads = [g / norm * self.clip_threshold for g in grads]
@@ -140,10 +148,20 @@ class RAdam(torch.optim.Optimizer):
 
 def make_optimizer(params, lr: float, lr_decay_steps: Optional[int],
                    grad_clip_threshold: float, weight_decay: float = 0.01,
-                   lamb: bool = False, warmup_steps: int = 0) -> RAdam:
+                   lamb: bool = False, warmup_steps: int = 0,
+                   tp_size: int = 1, ep_size: int = 1,
+                   norm_fn: Optional[Callable] = None) -> RAdam:
     """The training chain: global-norm clip at grad_clip_threshold, then
     RAdam stepping a cosine-decayed lr (with linear warmup when
-    warmup_steps > 0)."""
+    warmup_steps > 0). With tp_size or ep_size > 1 the parameters are a
+    rank's shards: `norm_fn` gives the exact global norm
+    (parallel.spmd.mesh_norm_fn), and LAMB raises."""
+    if (tp_size > 1 or ep_size > 1) and lamb:
+        raise NotImplementedError(
+            "LAMB trust ratios are per-param norms and would be wrong on "
+            "model- or expert-sharded params (each shard would compute a "
+            "different ratio from its local slice); use lamb=False with "
+            "tensor/expert parallelism")
     if lr_decay_steps:
         if warmup_steps:
             def schedule(step):
@@ -155,4 +173,4 @@ def make_optimizer(params, lr: float, lr_decay_steps: Optional[int],
     else:
         schedule = lr
     return RAdam(params, schedule, weight_decay=weight_decay, lamb=lamb,
-                 clip_threshold=grad_clip_threshold)
+                 clip_threshold=grad_clip_threshold, norm_fn=norm_fn)

@@ -1,5 +1,4 @@
-"""The training harness (port of sparse_vae_tpu/training/trainer.py, its
-single-device path).
+"""The training harness (port of sparse_vae_tpu/training/trainer.py).
 
 A host loop around `train_step`: one optimizer step per group of
 `accumulate_grad_batches` micro-batches of one (rows, L) shape, the lr
@@ -24,6 +23,19 @@ whose state the checkpoints carry, validation at step s from a
 generator seeded from (seed, s), so two validations of the same
 parameters at the same step agree bit for bit, and the sampling callback
 at step s from the sampling seed derived from (seed, s).
+
+On a mesh (parallel/mesh.py: `data` x `model` or `data` x `expert`, one
+process a rank, `mesh=` given; trainer.num_devices, model_parallel and
+expert_parallel must describe it) every rank runs this loop on the same
+batches, planned with rows a multiple of data x expert, and keeps its
+rows; it holds its shard of the parameters and of the optimizer state
+(parallel.spmd.localize: the JAX initialisation drawn whole on every
+rank, then cut), steps through the mesh step, validates through the
+mesh's summed eval statistics on the global batch's noise, and saves
+checkpoints gathered to the single-device format, which rank 0 writes: a
+mesh run's checkpoint loads on one device (checkpoint.load_run), and a
+resume cuts it again. Rank 0 alone logs, samples (on the gathered model)
+and profiles. fit's outcome holds the gathered model on every rank.
 
 Resuming restores the parameters, the optimizer, the step and the noise
 generator, and then does what the JAX trainer does: the data stream starts
@@ -102,26 +114,32 @@ def early_stop_start_step(thp: TrainerHparams, hp) -> int:
     return 0
 
 
-def check_single_device(thp: TrainerHparams):
-    """Raise for a device mesh this trainer does not run."""
-    if (thp.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"num_devices={thp.num_devices}: the data-parallel mesh "
-            "(sparse_vae_tpu/training/trainer.py Trainer.__init__ with a "
-            "mesh, sparse_vae_tpu/parallel/spmd.py) is not ported; this "
-            "trainer runs on one device")
+def check_layout(thp: TrainerHparams, mesh=None):
+    """Raise for a layout this trainer does not run, or a mesh that is
+    not the one the trainer hparams describe."""
     if thp.seq_parallel > 1:
         raise NotImplementedError(
             f"seq_parallel={thp.seq_parallel}: fit over a seq mesh "
             "(sparse_vae_tpu/training/trainer.py:146-163, "
-            "sparse_vae_tpu/parallel/spmd.py) is not ported; train "
-            "sequence-parallel steps with `python -m "
+            "sparse_vae_tpu/parallel/spmd.py) is not ported yet: ROADMAP "
+            "Queue 1 item 8; train sequence-parallel steps with `python -m "
             "sparse_vae_tpu_torch.train transformer-vae <run-name> sp=N`")
-    if thp.model_parallel > 1 or thp.expert_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={thp.model_parallel}, expert_parallel="
-            f"{thp.expert_parallel}: sparse_vae_tpu/parallel/tp.py and "
-            "ep.py are not ported")
+    from ..parallel.mesh import EXPERT, MODEL
+    want = (thp.num_devices, thp.model_parallel, thp.expert_parallel)
+    if mesh is None:
+        if (thp.num_devices or 1) > 1 or want[1:] != (1, 1):
+            raise ValueError(
+                f"num_devices={thp.num_devices}, model_parallel="
+                f"{thp.model_parallel}, expert_parallel="
+                f"{thp.expert_parallel} need a mesh: start the ranks with "
+                "`python -m sparse_vae_tpu_torch.train <experiment> "
+                "trainer.num_devices=N ...` (which spawns them) or under "
+                "torchrun")
+        return
+    have = (mesh.world.size, mesh.size(MODEL), mesh.size(EXPERT))
+    if have[1:] != want[1:] or want[0] not in (None, have[0]):
+        raise ValueError(f"the mesh has (ranks, model, expert) = {have}, "
+                         f"the trainer hparams ask for {want}")
 
 
 class Trainer:
@@ -138,13 +156,18 @@ class Trainer:
         device="cuda",
         sample_fn: Optional[Callable] = None,
         reconstruct_fn: Optional[Callable] = None,
+        mesh=None,
     ):
         self.hp = model_hparams
         self.objective = objective
         self.data = data
         self.thp = trainer_hparams or TrainerHparams()
-        check_single_device(self.thp)
-        self.device = resolve_device(device)
+        check_layout(self.thp, mesh)
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.world.rank == 0
+        self._rows_multiple = 1 if mesh is None else mesh.row_shards
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.device
         self.experiment = experiment
         self.name = name
         self.sample_fn = sample_fn
@@ -153,8 +176,9 @@ class Trainer:
         self._val_batches: Optional[list] = None
 
         self.run_dir = run_dir(experiment, name, log_root)
-        self.writer = MetricsWriter(self.run_dir if enable_logging else None,
-                                    enabled=enable_logging)
+        logging = enable_logging and self.rank0
+        self.writer = MetricsWriter(self.run_dir if logging else None,
+                                    enabled=logging)
         self.ckpt = CheckpointManager(experiment, name, log_root) \
             if enable_logging else None
         tokens_per_step = (self.data.hparams.tokens_per_batch
@@ -170,11 +194,20 @@ class Trainer:
         the global-norm clip at the scaled lr."""
         model, _ = model_from_hparams(self.hp, generator, self.device,
                                       train=True)
+        norm_fn, sizes = None, {}
+        if self.mesh is not None:
+            from ..parallel.mesh import EXPERT, MODEL
+            from ..parallel.spmd import localize, mesh_norm_fn
+            model = localize(model, self.mesh)
+            norm_fn = mesh_norm_fn(model, self.mesh)
+            sizes = {"tp_size": self.mesh.size(MODEL),
+                     "ep_size": self.mesh.size(EXPERT)}
         optimizer = make_optimizer(
             model.parameters(), lr=self.lr,
             lr_decay_steps=self.hp.lr_decay_steps,
             grad_clip_threshold=self.hp.grad_clip_threshold,
-            weight_decay=self.hp.weight_decay, lamb=self.hp.lamb)
+            weight_decay=self.hp.weight_decay, lamb=self.hp.lamb,
+            norm_fn=norm_fn, **sizes)
         return model, optimizer
 
     def _to_device(self, arrays: dict) -> dict:
@@ -188,13 +221,23 @@ class Trainer:
         step of a bucket has the one [k, rows, L] shape, and at most k - 1
         micro-batches a bucket go unused at the end of training."""
         yield from defer_accum_groups(
-            self.data.epoch_batches("train", seed=seed),
+            self.data.epoch_batches("train", seed=seed,
+                                    rows_multiple_of=self._rows_multiple),
             self.thp.accumulate_grad_batches, self._pending_groups)
+
+    def _local_rows(self, arrays: dict, stacked: bool = False) -> dict:
+        """This rank's rows of a batch on a mesh; the batch itself on one
+        device."""
+        if self.mesh is None:
+            return arrays
+        from ..parallel.mesh import shard_rows
+        return shard_rows(arrays, self.mesh, stacked)
 
     def _step(self, model, optimizer, stacked: dict, step: int,
               generator: torch.Generator) -> dict:
-        """One optimizer step on a group [k, rows, L]."""
-        arrays = self._to_device(stacked)
+        """One optimizer step on a group [k, rows, L] (on a mesh, this
+        rank's rows of it)."""
+        arrays = self._to_device(self._local_rows(stacked, stacked=True))
         microbatches = [{name: arr[i] for name, arr in arrays.items()}
                         for i in range(arrays["token_ids"].shape[0])]
         return train_step(model, self.objective, optimizer, microbatches,
@@ -213,16 +256,24 @@ class Trainer:
                 derived_seed(self.thp.seed, VALIDATION_STREAM, step))
         limit = max_batches or self.thp.limit_val_batches
         if self._val_batches is None:
-            self._val_batches = list(self.data.epoch_batches("test",
-                                                             seed=0))
+            self._val_batches = list(self.data.epoch_batches(
+                "test", seed=0, rows_multiple_of=self._rows_multiple))
         totals: Dict[str, float] = {}
         with torch.no_grad():
             for i, batch in enumerate(self._val_batches):
                 if limit is not None and i >= limit:
                     break
-                stats = self.objective.eval_stats(
-                    model, self._to_device(batch._asdict()),
-                    generator=generator)
+                if self.mesh is None:
+                    stats = self.objective.eval_stats(
+                        model, self._to_device(batch._asdict()),
+                        generator=generator)
+                else:
+                    from ..parallel.spmd import mesh_eval_stats
+                    local = self._to_device(self._local_rows(
+                        {k: np.asarray(v)
+                         for k, v in batch._asdict().items()}))
+                    stats = mesh_eval_stats(self.objective, model, local,
+                                            self.mesh, generator=generator)
                 for k, v in stats.items():
                     totals[k] = totals.get(k, 0.0) + float(v)
         return {k: float(v) for k, v in
@@ -239,6 +290,10 @@ class Trainer:
         if not self.hp.log_samples or (self.sample_fn is None
                                        and self.reconstruct_fn is None):
             return
+        if self.mesh is not None:
+            model = self.full_model(model)   # every rank gathers
+            if not self.rank0:
+                return
         tokenizer = self.data.tokenizer
         seed = derived_seed(self.thp.seed, SAMPLING_STREAM, step)
 
@@ -290,7 +345,7 @@ class Trainer:
         self._pending_groups = {}
         if resume and self.ckpt is not None:
             step = self.restore(model, optimizer, generator)
-        if getattr(self.hp, "grad_checkpointing", False):
+        if getattr(self.hp, "grad_checkpointing", False) and self.rank0:
             print(f"fit: grad_checkpointing (remat_policy="
                   f"{self.hp.remat_policy!r}) is not applied: remat is not "
                   "ported (ROADMAP.md Queue 1 item 1), so the backward keeps "
@@ -320,7 +375,8 @@ class Trainer:
                                      generator)
                 step += 1
 
-                if profile_n and profiler is None and step == profile_start:
+                if (profile_n and self.rank0 and profiler is None
+                        and step == profile_start):
                     profiler = self._start_profile()
                 elif (profiler is not None
                       and step >= profile_start + profile_n):
@@ -372,13 +428,15 @@ class Trainer:
         if profiler is not None:
             self._stop_profile(profiler, profile_start, step)
         leftover = sum(len(g) for g in self._pending_groups.values())
-        if leftover:
+        if leftover and self.rank0:
             print(f"fit: {leftover} deferred microbatch(es) left unused at "
                   "training end (partial accumulation groups; see "
                   "_accum_groups)")
         if self.ckpt is not None:
             self._save(model, optimizer, step, generator)
         self.writer.close()
+        if self.mesh is not None:
+            model = self.full_model(model)
         return TrainOutcome(step=step, best_metric=best_metric,
                             stopped_reason=stopped, model=model,
                             metrics_history=history)
@@ -407,23 +465,49 @@ class Trainer:
                 "data_hparams": to_dict(self.data.hparams),
                 "trainer_hparams": to_dict(self.thp)}
 
+    def full_model(self, model):
+        """The single-device model of a mesh rank's shard: every sharded
+        parameter gathered (every rank calls this)."""
+        from ..parallel.spmd import gather_full_state
+        from ..parallel.tp import localized_twin
+        return localized_twin(model, self.hp,
+                              gather_full_state(model, self.mesh))
+
     def state(self, model, optimizer, step: int,
               generator: torch.Generator) -> dict:
-        """What a checkpoint holds (training/checkpointing.py)."""
-        return {"params": model.state_dict(),
-                "optimizer": optimizer.state_tensors(), "step": step,
+        """What a checkpoint holds (training/checkpointing.py), in the
+        single-device format: on a mesh the parameters and the optimizer's
+        moments gathered (every rank calls this)."""
+        params, opt = model.state_dict(), optimizer.state_tensors()
+        if self.mesh is not None:
+            from ..parallel.spmd import (gather_full_state,
+                                         gather_optimizer_state)
+            params = gather_full_state(model, self.mesh)
+            opt = gather_optimizer_state(model, self.mesh, opt)
+        return {"params": params, "optimizer": opt, "step": step,
                 "generator": generator.get_state()}
 
     def _save(self, model, optimizer, step, generator, best: bool = False):
-        self.ckpt.save(step, self.state(model, optimizer, step, generator),
-                       meta=self.meta(), best=best)
+        state = self.state(model, optimizer, step, generator)
+        if self.rank0:
+            self.ckpt.save(step, state, meta=self.meta(), best=best)
+        if self.mesh is not None:
+            from ..parallel.group import barrier
+            barrier(self.mesh.world)    # written before any rank reads it
 
     def restore(self, model, optimizer, generator,
                 step: Optional[int] = None) -> int:
         """Load the checkpoint at `step` (default the newest) into model,
-        optimizer and generator; returns its step."""
+        optimizer and generator, on a mesh each rank's shard of it;
+        returns its step."""
         state = self.ckpt.restore(step, map_location=self.device)
-        model.load_state_dict(state["params"], strict=True)
-        optimizer.load_state_tensors(state["optimizer"])
+        params, opt = state["params"], state["optimizer"]
+        if self.mesh is not None:
+            from ..parallel.spmd import (shard_full_state,
+                                         shard_optimizer_state)
+            params = shard_full_state(model, self.mesh, params)
+            opt = shard_optimizer_state(model, self.mesh, opt)
+        model.load_state_dict(params, strict=True)
+        optimizer.load_state_tensors(opt)
         generator.set_state(state["generator"].cpu())
         return int(state["step"])

@@ -127,8 +127,9 @@ class TrainerHparams:
     # patience); None: the end of the model's KL annealing when it has
     # one, else 0 (training/trainer.py::early_stop_start_step).
     early_stopping_start_step: Optional[int] = None
-    # The device mesh: one device here; num_devices, seq_parallel,
-    # model_parallel and expert_parallel > 1 raise in the Trainer.
+    # The device mesh (parallel/mesh.py): num_devices ranks, data x
+    # model_parallel or data x expert_parallel; seq_parallel > 1 raises
+    # in the Trainer (ROADMAP Queue 1 item 8).
     num_devices: Optional[int] = None
     seq_parallel: int = 1
     model_parallel: int = 1

@@ -192,3 +192,37 @@ def test_train_cli_refuses_a_seq_mesh(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="sp=N"):
         train.main(["train", "transformer-vae", *TINY,
                     "trainer.seq_parallel=2", "no_log=true"])
+
+
+MESH_LAYOUTS = {
+    "model": ("transformer-vae", ["model.d_model=128", "model.num_heads=2",
+                                  "model.loss_chunk_size=256",
+                                  "trainer.model_parallel=2"]),
+    "expert": ("transformer-lm", ["model.num_experts=4",
+                                  "model.sparse_self_attention=false",
+                                  "trainer.expert_parallel=2"])}
+
+
+@pytest.mark.parametrize("layout", sorted(MESH_LAYOUTS))
+def test_train_cli_runs_on_a_mesh(tmp_path, monkeypatch, capfd, layout):
+    """`train <experiment> <dotlist> trainer.num_devices=2
+    trainer.<axis>_parallel=2 device=cpu` spawns 2 gloo ranks (data 1 x
+    model 2, or data 1 x expert 2): 2 steps with validation, a
+    checkpoint and the sampling callback; rank 0 reports, and the
+    gathered checkpoint loads on one device with the run's hparams."""
+    from sparse_vae_tpu_torch import load_checkpoint_for_name
+    monkeypatch.chdir(tmp_path)
+    experiment, extra = MESH_LAYOUTS[layout]
+    dotlist = [x for x in TINY if experiment == "transformer-vae"
+               or "latent" not in x]
+    assert train.main(["train", experiment, *dotlist, *extra,
+                       "trainer.max_steps=2", "trainer.num_devices=2",
+                       f"name=mesh-{layout}"]) == 0
+    out = capfd.readouterr().out
+    assert f"mesh {{'data': 1, '{layout}': 2}} (gloo)" in out
+    assert "Done: step=2 stopped=max_steps" in out
+    model, hp, _, state, _ = load_checkpoint_for_name(
+        experiment, f"mesh-{layout}", device="cpu")
+    assert state["step"] == 2 and (hp.tp_size, hp.ep_size) == (1, 1)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+

@@ -273,13 +273,18 @@ def test_ties_go_to_the_lower_expert():
 
 
 def test_guards_raise_as_jax_and_name_item_8():
+    """The JAX package's guards; expert and tensor parallelism alone are
+    ported (tests/test_torch_ep.py), both together raise as in JAX, and
+    MoE over a seq group names ROADMAP item 8."""
     with pytest.raises(ValueError, match="top_k=5 > E=4"):
         MoEFFN(8, 16, 4, top_k=5)
-    for kw in ({"ep_size": 2}, {"tp_size": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            MoEFFN(8, 16, 4, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TransformerHparams(num_experts=4, ep_size=2).check_ported()
+    assert MoEFFN(8, 16, 4, ep_size=2).w_in.shape == (2, 8, 16)
+    assert MoEFFN(8, 16, 4, tp_size=2).w_out.shape == (4, 8, 8)
+    with pytest.raises(ValueError, match="not divisible by ep_size=3"):
+        MoEFFN(8, 16, 4, ep_size=3)
+    with pytest.raises(NotImplementedError, match="not composed"):
+        MoEFFN(8, 16, 4, ep_size=2, tp_size=2)
+    TransformerHparams(num_experts=4, ep_size=2).check_ported()
     model = TransformerLanguageModel(_port_hp(LM))
     with pytest.raises(NotImplementedError, match="item 8"):
         model.bind_seq_group(object())

@@ -85,13 +85,14 @@ Sequence parallelism, r5 at the pg19 preset's document shape (one
                port never calls);
  11. sp-train — one unsharded kernel step of r5 on a seeded document
                [1, 102400] (K1/K2 at [1, 8, 102400, 64]), then 4 ranks
-               spawned on this card (gloo: they share it) take the same
+               on this card (gloo: they share it; the spawn of phases
+               37-43, so this phase runs with them, last) take the same
                step with the same weights, document and eps, and 1 more;
                the same pair again in fp32 through the plain versions.
                fp32: all 165 summed gradients at cosine >= 0.99, loss to
                1e-5; kernels: loss within 1e-3 relative, gradients at
                cosine >= 0.99 wherever the unsharded kernel step is itself
-               that close to fp32 (see sp_train_phase); parameters bitwise
+               that close to fp32 (see sp_train_plan); parameters bitwise
                equal across ranks, K6 launched on ranks 1-3, K1/K2 on rank
                0, K3/K3b on every rank.
 The trainer loop (training/trainer.py) on bucketed document batches: a
@@ -186,7 +187,9 @@ ids):
  23. sample  — `sparse_vae_tpu_torch.sample transformer-vae
                real-prose-vae-r5`: one lockstep batch of 1000 x 256 (K4
                at [1000, 32768] once a step) and 2,000 documents through
-               1,000 continuously refilled rows, each saving its dataset;
+               1,000 continuously refilled rows (at least one refill a
+               row: the VAE's new z drawn into a live row), each saving
+               its dataset;
                new tokens/s and document lengths printed; the lockstep
                batch again with every K4 choice held against the plain
                selection on the same penalised logits and noise (the
@@ -213,12 +216,12 @@ launches of every mode printed:
                position lie within GREEDY_TIE_MARGIN; sampled (top_p 0.9,
                penalty 1.2) frontier, frontier_fused (K4 at [128, 32768]
                once a pass) and speculative_draft3; frontier_fused again
-               at batch 8 x 256 (K4 at [1024, 32768]); both fused runs
+               at batch 8 x 128 (K4 at [1024, 32768]); both fused runs
                again
                with every K4 choice held against the plain selection, the
                same tokens and passes;
  27. decode-spec — r5 verifying draft-tlm-r5's 8-token drafts
-               (spec_draft_generate) at batch 1 x 128, greedy (held
+               (spec_draft_generate) at batch 1 x 64, greedy (held
                against decode-r5's AR) and sampled: passes, accepted
                drafts, tokens per pass; then the `sample` entry with
                spec_draft=transformer-lm:draft-tlm-r5 for 2 documents of
@@ -246,7 +249,7 @@ every path; the oracle's calls move it):
  30. lstm-train — step 1 of the LSTM-VAE at [4, 4096] from the JAX
                initialisation, the fused RNN against the step loop on the
                same batch and eps (loss 0.1%, every gradient at cosine >=
-               0.99 unless numerically zero); 3 timed steps at [2, 25000]
+               0.99 unless numerically zero); 2 timed steps at [2, 25000]
                (seconds, real tokens/s, peak memory); one step of
                draft-lstm-r4's LM at [13, 3584], held the same way;
  31. lstm-fit — Trainer.fit at lstm-benchmark on a stand-in corpus: 2
@@ -256,7 +259,7 @@ every path; the oracle's calls move it):
                bf16-rounded weights, bit for bit; a 2-step fit of
                draft-lstm-r4's LM; the `test` entry on both runs;
  32. lstm-sample — `sample lstm-vae <lstm-fit's archive>`: one lockstep
-               batch of 1000 x 256 (the unfused selection: no K4); then
+               batch of 1000 x 128 (the unfused selection: no K4); then
                `sample transformer-vae real-prose-vae-r5
                spec_draft=lstm-lm:<lstm-fit's LM>` for 2 documents of 128
                and gen_bench's spec_model row with that draft, greedy and
@@ -341,7 +344,58 @@ each rank's peak memory:
                gathered checkpoint loaded on the card by
                load_checkpoint_for_name equal to the trained parameters,
                and its archive served by load_run with the trained
-               model's logits exactly.
+               model's logits exactly. Its ranks run beside seq-fit's (42).
+The seq and pipe axes (parallel/mesh.py's (data, seq, model) and (data,
+pipe) grids, spmd.py's seq mesh, pp.py), each phase's ranks in one spawn
+and held as phases 37-39 (the unsharded steps on the same weights,
+documents and noise; replicated parameters bitwise equal; every rank's
+launch counts; seconds a step, real tokens/s, host-staged seconds and
+each rank's peak memory):
+ 41. mesh-seq — r5 over seq 2 x model 2 on sp-train's [1, 102400]
+               document and eps (sp-train's unsharded steps; 2 steps):
+               seq shard 0 K1/K2, shard 1 K6 at q [1, 4, 51200, 64], no
+               K3/K3b (the vocabulary split); the sharded DReG step (r5's
+               geometry, JAX initialisation, train_mc_samples 4) over seq
+               2 x model 2 on [2, 6400]; the nonvae-pg19 LM (JAX
+               initialisation) over seq 4 on one [1, 92160] document
+               (23,040 tokens a shard: K6 on ranks 1-3, K1/K2 on rank 0,
+               K3/K3b at D = 512 on every rank; 2 steps); real-prose-lm-moe
+               with sparse attention over seq 4 on one [8, 4096] group
+               (step 1 at MESH_NO_DROP without dropout, step 2 at 1.25
+               with dropout; each rank's dropped share a layer and the
+               tokens whose routes differ from the unsharded forward's);
+               real-prose-lm-moe as archived (dense) over seq raises the
+               JAX package's ValueError; the encoder's numerically zero
+               q/k gradients held against the unsharded bf16 step's own
+               noise (SEQ_NEAR_ZERO);
+ 42. seq-fit — Trainer.fit of pg19-fb8's hparams over data 2 x seq 2
+               (102,400-token streams, two a micro-batch: one a data
+               shard; accumulation 2), 2 steps, validating and saving
+               each step, held as mesh-fit (40); the bucket quantum
+               (lcm(512, 2 x 2 x 128) = 512) and the trainer's override
+               printed (None: pg19-fb8's 512 already is a multiple; the
+               override runs in the CPU tests only);
+ 43. mesh-pipe — r5's trained weights over data 2 x pipe 2 (3 decoder
+               layers and 3 z projections a stage) on M = 4 micro-batches
+               of [4, 4096] (step 1 held against the unsharded
+               accumulated step, then 2 more) and the r4 LM geometry on M
+               = 4 of [4, 3584] (2 steps, K1/K2 on the dense route): K1/K2
+               3 a micro-batch on every rank, K3/K3b on the last stage
+               alone; each rank's idle seconds in the schedule beside the
+               GPipe bubble (P - 1) / (M + P - 1) = 0.2.
+Phases 11 and 37-43 share ONE spawn of 4 ranks (`mesh_phases`): every
+phase's unsharded references first ("mesh-references"), then the ranks
+run every phase's sharded runs in turn ("mesh-ranks"; rank 0 prints each
+run's seconds), then each phase's checks, timed as the phase.
+Cut for time when phases 41-43 came in: phases 37-39 to 2 steps (from
+3); one spawn for phases 11 and 37-43 (from one a phase); decode-r5's
+batch-8 run to 128 positions (from 256), decode-spec's draft runs to 64
+(from 128), lstm-train's timed steps to 2 (from 3), lstm-sample's
+documents to 128 tokens (from 256); every archive written uncompressed
+(fit's, lstm-fit's, moe-fit's, mesh-fit's and seq-fit's; load_run reads
+both forms); seq-fit's accumulation to 2 (pg19-fb8: 4 micro-batches of
+one stream; here 2 of two, the same tokens a step) and its validation to
+one batch.
 No path may route a call to a plain version: on the card such a route
 raises, and every path's `plain_routes` counters must stay 0.
 Then one {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -406,10 +460,10 @@ from sparse_vae_tpu_torch.ops.sliding_window_attention import (
 from sparse_vae_tpu_torch.server import ServeEngine
 from sparse_vae_tpu_torch.serving import continuous_batch_sample
 from sparse_vae_tpu_torch.parallel.group import spawn
+from sparse_vae_tpu_torch.parallel.sp import sp_pad_multiple
 from sparse_vae_tpu_torch.train import bench_hparams, build_from_hparams
 from sparse_vae_tpu_torch.train import build as build_training
-from sparse_vae_tpu_torch.train import (mesh_rank, run_hparams,
-                                        sp_pad_multiple, train_rank)
+from sparse_vae_tpu_torch.train import mesh_rank, run_hparams, train_rank
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.checkpointing import CheckpointManager
 from sparse_vae_tpu_torch.training.train_step import train_step
@@ -1613,40 +1667,12 @@ def sp_pair_rank(group, kernel_args: tuple, plain_args: tuple) -> tuple:
     return kernel, train_rank(group, *plain_args)
 
 
-def sharded_sp_steps(steps: int, noise: dict) -> list:
-    """SP ranks spawned on the card take `steps` steps of r5 on the same
-    documents through the kernels, the first with `noise`, then that first
-    step through the fp32 plain versions. Returns the kernel and the plain
-    records, each checked: every rank on the card, one backend, the same
-    losses and bitwise equal parameters after every step."""
-    args = (RUN, steps, 1, SP_SEQ, SP_SEED, 1,
-            [{k: v.cpu() for k, v in noise.items()}], True, False)
-    pairs = spawn(sp_pair_rank, SP, "cuda",
-                  (args + (True, None),
-                   args[:1] + (1,) + args[2:] + (False, torch.float32)),
-                  timeout=900)
-    runs = [[pair[i] for pair in pairs] for i in (0, 1)]
-    for records in runs:
-        check([r["rank"] for r in records] == list(range(SP)),
-              "a rank is missing")
-        check(all(r["device"].startswith("cuda") for r in records),
-              "a rank ran off the card")
-        check(len({r["backend"] for r in records}) == 1,
-              "the ranks disagree on the backend")
-        losses = [[m["loss"] for m in r["metrics"]] for r in records]
-        check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
-              f"the ranks' losses differ or are not finite: {losses}")
-        for step in range(len(losses[0])):
-            check(len({r["param_digests"][step] for r in records}) == 1,
-                  f"parameters differ across ranks after step {step + 1}")
-    return runs
-
-
-def sp_train_phase(steps: int = 2) -> dict:
-    """r5's step on one [1, SP_SEQ] document, unsharded and over SP ranks
-    spawned on the card with the same weights, document and eps, each in
-    bf16 through the kernels and in fp32 through the plain versions; then
-    1 more sharded kernel step.
+def sp_train_plan(steps: int = 2) -> tuple:
+    """r5's step on one [1, SP_SEQ] document, unsharded (here) and over SP
+    ranks (a part of `mesh_phases`' one spawn) with the same weights,
+    document and eps, each in bf16 through the kernels and in fp32
+    through the plain versions (train.train_rank); then 1 more sharded
+    kernel step.
 
     The fp32 pair is held exactly (loss 1e-5 relative, all 165 gradients
     at cosine >= 0.99). The kernel pair: loss within 1e-3 relative; a
@@ -1655,50 +1681,71 @@ def sp_train_phase(steps: int = 2) -> dict:
     from the fp32 gradient than the unsharded kernel step less
     NOISY_GRAD_MARGIN: a few tensors whose gradients are near zero (the
     encoder bottleneck's, at this length) sit at bf16 noise in either
-    bf16 step, so the unsharded kernel step is no reference for them."""
+    bf16 step, so the unsharded kernel step is no reference for them.
+    Every rank on the card, one backend, the same losses and bitwise equal
+    parameters after every step. The finish's stats carry "refs", the
+    unsharded steps mesh-seq holds r5 over seq x model against."""
     a_loss, a_grads, a_counts, a_s, a_peak, noise = unsharded_sp_step(
         True, None)
     check_counts("sp-train unsharded", a_counts,
                  {"swa_fwd": 6, "swa_bwd": 6, "tied_ce_fwd": 1,
                   "tied_ce_bwd": 1})
-    c_loss, c_grads, _, c_s, _, _ = unsharded_sp_step(False, torch.float32,
-                                                      noise)
-    records, plain = sharded_sp_steps(steps, noise)
-    held = held_sharded("sp-train", records[0]["metrics"][0]["loss"],
-                        records[0]["grads"],
-                        {"loss": a_loss, "grads": a_grads},
-                        {"loss": c_loss, "grads": c_grads},
-                        plain[0]["metrics"][0]["loss"], plain[0]["grads"])
-    check(held["gradients"] == 165,
-          f"{held['gradients']} gradients compared, not 165")
-    for r in records:
-        c = r["launches"]
-        check(c["swa_plain_routes"] == 0 and c["ce_plain_routes"] == 0,
-              f"rank {r['rank']} took a plain route: {c}")
-        check(c["tied_ce_fwd"] > 0 and c["tied_ce_bwd"] > 0,
-              f"rank {r['rank']} ran no K3/K3b: {c}")
-        if r["rank"] == 0:
-            check(c["swa_fwd"] > 0 and c["swa_bwd"] > 0
-                  and c["sp_windowed_attention"] == 0,
-                  f"rank 0 ran no K1/K2 or ran K6: {c}")
-        else:
-            check(c["sp_windowed_attention"] > 0
-                  and c["sp_windowed_attention_bwd"] > 0
-                  and c["swa_fwd"] == 0 and c["swa_bwd"] == 0,
-                  f"rank {r['rank']} ran no K6 or ran K1/K2: {c}")
-    held["fp32"].update(unsharded_step_s=c_s,
-                        step_s_by_rank=[r["step_s"] for r in plain])
-    stats = {"sp": SP, "backend": records[0]["backend"],
-             "document": [1, SP_SEQ],
-             "unsharded": {"loss": a_loss, "step_s": a_s, "launches":
-                           a_counts, "max_memory_allocated_bytes": a_peak},
-             "losses": [m["loss"] for m in records[0]["metrics"]], **held,
-             "step_s_by_rank": [r["step_s"] for r in records],
-             "max_memory_allocated_by_rank": [
-                 r.get("max_memory_allocated") for r in records],
-             "launches_by_rank": [r["launches"] for r in records]}
-    print("sp-train " + json.dumps(stats), flush=True)
-    return stats
+    c_loss, c_grads, c_counts, c_s, _, _ = unsharded_sp_step(
+        False, torch.float32, noise)
+    args = (RUN, steps, 1, SP_SEQ, SP_SEED, 1,
+            [{k: v.cpu() for k, v in noise.items()}], True, False)
+    part = (args + (True, None),
+            args[:1] + (1,) + args[2:] + (False, torch.float32))
+
+    def finish(got):
+        records, plain, seconds = pair_runs(got[0])
+        for step in range(steps):
+            check(len({r["param_digests"][step] for r in records}) == 1,
+                  f"parameters differ across ranks after step {step + 1}")
+        held = held_sharded("sp-train", records[0]["metrics"][0]["loss"],
+                            records[0]["grads"],
+                            {"loss": a_loss, "grads": a_grads},
+                            {"loss": c_loss, "grads": c_grads},
+                            plain[0]["metrics"][0]["loss"],
+                            plain[0]["grads"])
+        check(held["gradients"] == 165,
+              f"{held['gradients']} gradients compared, not 165")
+        for r in records:
+            c = r["launches"]
+            check(c["swa_plain_routes"] == 0 and c["ce_plain_routes"] == 0,
+                  f"rank {r['rank']} took a plain route: {c}")
+            check(c["tied_ce_fwd"] > 0 and c["tied_ce_bwd"] > 0,
+                  f"rank {r['rank']} ran no K3/K3b: {c}")
+            if r["rank"] == 0:
+                check(c["swa_fwd"] > 0 and c["swa_bwd"] > 0
+                      and c["sp_windowed_attention"] == 0,
+                      f"rank 0 ran no K1/K2 or ran K6: {c}")
+            else:
+                check(c["sp_windowed_attention"] > 0
+                      and c["sp_windowed_attention_bwd"] > 0
+                      and c["swa_fwd"] == 0 and c["swa_bwd"] == 0,
+                      f"rank {r['rank']} ran no K6 or ran K1/K2: {c}")
+        held["fp32"].update(unsharded_step_s=c_s,
+                            step_s_by_rank=[r["step_s"] for r in plain])
+        stats = {"sp": SP, "backend": records[0]["backend"],
+                 "document": [1, SP_SEQ],
+                 "unsharded": {"loss": a_loss, "step_s": a_s, "launches":
+                               a_counts, "max_memory_allocated_bytes":
+                               a_peak},
+                 "losses": [m["loss"] for m in records[0]["metrics"]],
+                 **held, "ranks_s": seconds,
+                 "step_s_by_rank": [r["step_s"] for r in records],
+                 "max_memory_allocated_by_rank": [
+                     r.get("max_memory_allocated") for r in records],
+                 "launches_by_rank": [r["launches"] for r in records]}
+        print("sp-train " + json.dumps(stats), flush=True)
+        return stats
+
+    refs = {"noise": [{k: v.cpu() for k, v in noise.items()}],
+            "a": {"loss": a_loss, "grads": a_grads, "launches": a_counts,
+                  "seconds": a_s, "peak": a_peak, "real_tokens": SP_SEQ},
+            "c": {"loss": c_loss, "grads": c_grads, "launches": c_counts}}
+    return ("sp-train", [("sp-train", sp_pair_rank, part)], finish), refs
 
 
 # -- fit: the trainer loop on bucketed document batches --------------------
@@ -1899,7 +1946,7 @@ def step_against_plain(run: str, mbs: list, name: str, seed: int,
     counts `expect`), against the same step with the same noise in fp32
     through the plain versions: the loss within TRAIN_LOSS_RTOL and each
     of the 165 gradients at cosine >= TRAIN_GRAD_COS. A gradient below
-    that passes only as sp_train_phase's near-zero gradients do: where
+    that passes only as sp_train_plan's near-zero gradients do: where
     the same step in bf16 through the plain versions is below
     TRAIN_GRAD_COS too (the bf16 noise of a gradient near zero, no
     kernel's), and the kernel step is no farther from fp32 than that step
@@ -2226,7 +2273,7 @@ def fit_r5_phase(smi: str, depth=None, n_docs: int = FIT_DOCS,
 
         t0 = time.perf_counter()
         out = export_archive(model, trainer.meta(), log_root / "archive",
-                             step=outcome.step)
+                             step=outcome.step, compress=False)
         export_s = time.perf_counter() - t0
         served, _, _ = load_run(str(out), device="cuda")
         own_form = serving_form(model)
@@ -3364,7 +3411,12 @@ def sampling_phase(smi: str, name: str, experiment: str, run: str,
     (lockstep_profile); and at
     SAMPLE_SMALL the lockstep and continuous documents of one seed and z
     equal."""
-    stats = {"card": smi}
+    # Every one of the `docs` documents ends in one of the `batch` rows,
+    # so docs - batch of them were refilled into a row that had finished
+    # one.
+    check(docs > batch, f"{name}: {docs} documents through {batch} rows "
+          "refill no row")
+    stats = {"card": smi, "refills": docs - batch}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sample_") as tmp, \
             contextlib.chdir(tmp):
         stand_in_tokenizer(run)
@@ -3534,8 +3586,8 @@ def sample_long_phase(smi: str) -> dict:
 # to 256 (window 128) when the mesh phases came in (decode-r5 took 127 s
 # of a run of 1,286 s).
 DECODE_SEQ, DECODE_WINDOW, DECODE_DRAFT, DECODE_ROWS = 256, 128, 3, 8
-DECODE_WIDE_SEQ = 256
-DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 128
+DECODE_WIDE_SEQ = 128
+DECODE_SPEC_K, DECODE_SPEC_SEQ = 8, 64
 DECODE_SPEC_DOCS, DECODE_SPEC_LEN = 2, 64
 DECODE_LM_SEQ = 512
 DRAFT_SPEC = f"transformer-lm:{LM_RUN}"
@@ -3812,11 +3864,11 @@ LSTM_ENCODER_LENGTHS = [4096, 3001, 129, 0]
 LSTM_GRU = (4, 1024)
 LSTM_SINGLE_STEPS = 256
 LSTM_LM_CHECK = (13, 3584)       # draft-lstm-r4's longest micro-batch
-LSTM_TIMED_STEPS = 3
+LSTM_TIMED_STEPS = 2
 LSTM_FIT_DOCS, LSTM_FIT_STEPS, LSTM_FIT_EVERY = 120, 2, 1
 LSTM_LM_FIT_STEPS = 2
 LSTM_TEST_SAMPLES, LSTM_TEST_ITERS = 8, 2
-LSTM_SAMPLE_BATCH, LSTM_SAMPLE_LEN = 1000, 256   # the reference's batch
+LSTM_SAMPLE_BATCH, LSTM_SAMPLE_LEN = 1000, 128   # the reference's batch
 LSTM_SPEC_K, LSTM_SPEC_DOCS, LSTM_SPEC_LEN = 8, 2, 128
 # The fused RNN (cuDNN with TF32 off) against the fp32 step loop on the
 # card: outputs and states within this absolute error (h lies in [-1, 1],
@@ -4276,7 +4328,7 @@ def lstm_fit_phase(smi: str, log_root: Path) -> dict:
         stats["vae"]["reconstructions_at"] = recon
         vae_dir = export_archive(model, trainer.meta(),
                                  log_root.parent / "archive-vae",
-                                 step=outcome.step)
+                                 step=outcome.step, compress=False)
         served, _, _ = load_run(str(vae_dir), device="cuda")
         own = bf16_rounded(model)
         gen = torch.Generator(device="cuda").manual_seed(FIT_SEED)
@@ -4310,7 +4362,7 @@ def lstm_fit_phase(smi: str, log_root: Path) -> dict:
         stats["lm"] = fit_stats(trainer, counts, peak, seconds, smi)
         lm_dir = export_archive(outcome.model, trainer.meta(),
                                 log_root.parent / "archive-lm",
-                                step=outcome.step)
+                                step=outcome.step, compress=False)
         del outcome, trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -4330,7 +4382,7 @@ def lstm_fit_phase(smi: str, log_root: Path) -> dict:
 
 def lstm_sample_phase(smi: str, archives: dict) -> dict:
     """The `sample` entry on lstm-fit's LSTM-VAE archive: one lockstep
-    batch of 1000 x 256 (the unfused selection, no K4); then r5 verifying
+    batch of 1000 x 128 (the unfused selection, no K4); then r5 verifying
     lstm-fit's LSTM LM's LSTM_SPEC_K-token drafts: the `sample` entry with
     spec_draft=lstm-lm:<archive> for LSTM_SPEC_DOCS documents of
     LSTM_SPEC_LEN, and gen_bench's spec_model row with the same draft,
@@ -4776,7 +4828,7 @@ def moe_fit_phase(smi: str, log_root: Path, depth=None,
     del restored, restored_opt, twin, twin_opt
     t0 = time.perf_counter()
     out = export_archive(model, trainer.meta(), log_root / "moe-archive",
-                         step=outcome.step)
+                         step=outcome.step, compress=False)
     export_s = time.perf_counter() - t0
     served, served_hp, _ = load_run(str(out), device="cuda")
     own_form = serving_form(model)
@@ -4847,7 +4899,7 @@ def moe_serve_phase(smi: str, depth=None, seq: int = DECODE_LM_SEQ) -> dict:
 
 MESH = 4               # ranks of each mesh phase, all on this card (gloo)
 MESH_SEED = 41
-MESH_STEPS = 3         # step 1 held, then 2 more
+MESH_STEPS = 2         # step 1 held, then 1 more
 MESH_TP_GROUP = (4, 4096)     # r5: one micro-batch of [4, 4096]
 MESH_MOE_GROUP = (8, 1024)    # the MoE LM: 16 rows a step in 2 of [8, 1024]
 MESH_MOE_SEED = 43
@@ -4883,11 +4935,16 @@ def mesh_source_hparams(source):
 
 def mesh_global_noise(source, rows: int, accumulate: int, seed: int):
     """Per micro-batch, the global batch's posterior noise {"eps", "mi"}
-    on the CPU for a VAE run; None for a language model."""
+    ({"eps": [K, rows, 1, latent]} with train_mc_samples K > 1) on the
+    CPU for a VAE run; None for a language model."""
     hp = mesh_source_hparams(source)
     if not hasattr(hp, "latent_depth"):
         return None
     gen = torch.Generator().manual_seed(seed)
+    if hp.train_mc_samples > 1:
+        return [{"eps": torch.randn((hp.train_mc_samples, rows, 1,
+                                     hp.latent_depth), generator=gen)}
+                for _ in range(accumulate)]
     return [{"eps": torch.randn((rows, 1, hp.latent_depth), generator=gen),
              "mi": torch.randn((10, rows, hp.latent_depth), generator=gen)}
             for _ in range(accumulate)]
@@ -4948,39 +5005,66 @@ def mesh_pair_rank(world, kernel_args: tuple, plain_args: tuple) -> tuple:
     return kernel, mesh_rank(world, *plain_args)
 
 
-def mesh_spawn(source, tp: int, ep: int, group, accumulate: int,
-               seed: int, noise, first_step=None, drops: bool = False):
-    """MESH ranks spawned on the card (gloo: they share it): MESH_STEPS
-    mesh steps of `source` through the kernels, then one through the fp32
-    plain versions (train.mesh_rank, first_step as there). Returns the
-    kernel and the plain records, each checked: every rank on the card,
-    one backend, the same finite losses."""
+def run_parts(world, parts: list) -> list:
+    """One rank of the mesh phases (37-43): each part (label, fn, args)
+    as fn(world, *args), in turn; rank 0 prints each part's seconds.
+    Returns [(result, seconds)] a part."""
+    out = []
+    for label, fn, args in parts:
+        t0 = time.perf_counter()
+        result = fn(world, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t0
+        if world.rank == 0:
+            print(f"[{label} ranks] done in {seconds:.1f} s", flush=True)
+        out.append((result, seconds))
+    return out
+
+
+def mesh_part(source, tp: int, ep: int, group, accumulate: int, seed: int,
+              noise, first_step=None, drops: bool = False, sp: int = 1,
+              steps: int = MESH_STEPS, plain_source=None) -> tuple:
+    """train.mesh_rank's arguments for `steps` mesh steps of `source`
+    through the kernels (step 1 held; first_step as there) and for one
+    through the fp32 plain versions (of plain_source where given: the
+    same model with a smaller loss chunk, so that four ranks' fp32
+    logits fit beside each other on the card)."""
     rows, width = group
-    gc.collect()
-    torch.cuda.empty_cache()
-    args = (source, MESH_STEPS, rows, width, seed, accumulate, tp, ep,
-            noise, True, False, True, None, first_step, drops)
-    plain_args = args[:1] + (1,) + args[2:11] + (False, torch.float32,
-                                                  first_step, False)
-    pairs = spawn(mesh_pair_rank, MESH, "cuda", (args, plain_args),
-                  timeout=900)
-    runs = [[pair[i] for pair in pairs] for i in (0, 1)]
+    args = (source, steps, rows, width, seed, accumulate, tp, ep, noise,
+            True, False, True, None, first_step, drops, sp)
+    plain_args = ((plain_source or source), 1) + args[2:11] + (
+        False, torch.float32, first_step, False, sp)
+    return args, plain_args
+
+
+def check_mesh_records(records: list):
+    """Every rank on the card, one backend, the same finite losses."""
+    check([r["rank"] for r in records] == list(range(MESH)),
+          "a rank is missing")
+    check(all(r["device"].startswith("cuda") for r in records),
+          "a rank ran off the card")
+    check(len({r["backend"] for r in records}) == 1,
+          "the ranks disagree on the backend")
+    losses = [[m["loss"] for m in r["metrics"]] for r in records]
+    check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
+          f"the ranks' losses differ or are not finite: {losses}")
+
+
+def pair_runs(got: list) -> tuple:
+    """A pair part's results on every rank [(kernel, plain), seconds] ->
+    (the kernel records, the plain records, the part's seconds), each set
+    of records checked by `check_mesh_records`."""
+    runs = [[pair[i] for pair, _ in got] for i in (0, 1)]
     for records in runs:
-        check([r["rank"] for r in records] == list(range(MESH)),
-              "a rank is missing")
-        check(all(r["device"].startswith("cuda") for r in records),
-              "a rank ran off the card")
-        check(len({r["backend"] for r in records}) == 1,
-              "the ranks disagree on the backend")
-        losses = [[m["loss"] for m in r["metrics"]] for r in records]
-        check(all(np.isfinite(x).all() and x == losses[0] for x in losses),
-              f"the ranks' losses differ or are not finite: {losses}")
-    return runs
+        check_mesh_records(records)
+    return runs[0], runs[1], max(sec for _, sec in got)
 
 
 def held_sharded(name: str, b_loss: float, b_grads: dict, a: dict,
                  c: dict, d_loss: float, d_grads: dict,
-                 reference_cos: float = TRAIN_GRAD_COS) -> dict:
+                 reference_cos: float = TRAIN_GRAD_COS,
+                 zero_share: float = 0.0) -> dict:
     """Hold a sharded step against the unsharded one, as sp-train does:
     the fp32 plain pair (d against c) at loss SP_FP32_LOSS_RTOL and every
     gradient at cosine >= TRAIN_GRAD_COS; the kernel pair (b against a)
@@ -4989,7 +5073,12 @@ def held_sharded(name: str, b_loss: float, b_grads: dict, a: dict,
     where a is within TRAIN_GRAD_COS of c but not `reference_cos`, b at
     cosine >= TRAIN_GRAD_COS with a or with c; elsewhere no farther from
     c than a, less NOISY_GRAD_MARGIN (MESH_REFERENCE_COS says why a mesh
-    phase asks more of a than sp-train)."""
+    phase asks more of a than sp-train). With zero_share, a gradient below
+    the reference whose fp32 norm is at most zero_share of the largest
+    gradient's is numerically zero: it is held against the unsharded
+    kernel step's own noise, b at most twice as far from c as a is and
+    at a cosine with c of at least half a's, so that a zeroed or
+    sign-flipped gradient fails (SEQ_NEAR_ZERO says where and why)."""
     d_cos = cosines(d_grads, c["grads"])
     check(len(d_cos) == len(c["grads"]) == len(b_grads),
           f"{name}: {len(d_cos)} gradients compared")
@@ -5013,19 +5102,42 @@ def held_sharded(name: str, b_loss: float, b_grads: dict, a: dict,
           + str([(n, v, "unsharded_vs_fp32", ac_cos[n], "sharded_vs_fp32",
                   bc_cos[n]) for n, v in sorted(
                       held.items(), key=lambda kv: kv[1])[:5]]))
+    norms = {n: float(g.double().norm()) for n, g in c["grads"].items()}
+    largest = max(norms.values())
+    zero = {}
+    for n in noisy:
+        if zero_share and norms[n] <= zero_share * largest:
+            want = c["grads"][n].double()
+            zero[n] = {**noisy[n], "norm_share": norms[n] / largest,
+                       "sharded_distance": float(
+                           (b_grads[n].double() - want).norm()) / norms[n],
+                       "unsharded_distance": float(
+                           (a["grads"][n].double() - want).norm())
+                       / norms[n]}
+    check(all(v["sharded_distance"] <= 2 * v["unsharded_distance"]
+              and v["sharded_vs_fp32"] >= v["unsharded_vs_fp32"] / 2
+              for v in zero.values()),
+          f"{name}: a numerically zero gradient is farther from fp32 than "
+          f"the unsharded step's noise allows: {zero}")
+    far = {}
     for n, v in noisy.items():
+        if n in zero:
+            continue
         if v["unsharded_vs_fp32"] >= TRAIN_GRAD_COS:
             ok = max(v["sharded_vs_unsharded"],
                      v["sharded_vs_fp32"]) >= TRAIN_GRAD_COS
         else:
             ok = (v["sharded_vs_fp32"]
                   >= v["unsharded_vs_fp32"] - NOISY_GRAD_MARGIN)
-        check(ok, f"{name}: {n} is too far from fp32 sharded: {v}")
+        if not ok:
+            far[n] = v
+    check(not far, f"{name}: too far from fp32 sharded: {far}; every "
+          f"gradient below the reference: {noisy}")
     return {"loss": b_loss, "unsharded_loss": a["loss"],
             "loss_rel_err": loss_rel, "gradients": len(ba_cos),
             "min_grad_cosine": sorted(held.items(),
                                       key=lambda kv: kv[1])[:3],
-            "near_zero_gradients": noisy,
+            "near_zero_gradients": noisy, "numerically_zero": zero,
             "fp32": {"unsharded_loss": c["loss"], "sharded_loss": d_loss,
                      "min_grad_cosine": sorted(
                          d_cos.items(), key=lambda kv: kv[1])[:3]}}
@@ -5085,46 +5197,72 @@ def mesh_references(source, group, accumulate: int, seed: int,
                                      False, torch.float32)}
 
 
-def mesh_step_phase(name: str, smi: str, source, tp: int, ep: int, group,
-                    accumulate: int, seed: int, expect: dict,
-                    first_step=None, refs=None) -> dict:
-    """One mesh's phase: the unsharded kernel and fp32 plain steps of
-    `source` (at first_step's capacity factor, without dropout), the same
-    step on MESH ranks through the kernels, then MESH_STEPS - 1 more at
-    the run's own settings, and through the fp32 plain versions, held by
-    `held_sharded`; every rank's launch counts against `expect` a
-    micro-batch (the plain-route counters 0), the parameters checked by
-    `mesh_replicas_equal` after the last step. Prints seconds a step,
-    real tokens/s, the time in host-staged transfers, each rank's peak
-    memory and, for an MoE model, each rank's dropped share a layer in
-    the last step."""
-    rows, width = group
+def mesh_step_plan(name: str, smi: str, source, tp: int, ep: int, group,
+                   accumulate: int, seed: int, expect: dict,
+                   first_step=None, refs=None) -> tuple:
+    """One mesh's phase as a plan (`mesh_phases`): the unsharded kernel
+    and fp32 plain steps of `source` (at first_step's capacity factor,
+    without dropout) computed here, the same step on MESH ranks through
+    the kernels, then MESH_STEPS - 1 more at the run's own settings, and
+    through the fp32 plain versions, held by `hold_mesh_part`."""
     refs = refs or mesh_references(source, group, accumulate, seed,
                                    first_step)
-    noise, a, c = refs["noise"], refs["a"], refs["c"]
-    check_counts(f"{name} unsharded", a["launches"],
+    check_counts(f"{name} unsharded", refs["a"]["launches"],
                  {**{k: v * accumulate for k, v in expect.items()
                      if not k.startswith("tied_ce")},
                   "tied_ce_fwd": accumulate, "tied_ce_bwd": accumulate})
-    check_counts(f"{name} unsharded fp32 plain", c["launches"], {})
     moe = getattr(mesh_source_hparams(source), "num_experts", 0) > 1
-    records, plain = mesh_spawn(source, tp, ep, group, accumulate, seed,
-                                noise, first_step, drops=moe)
+    part = mesh_part(source, tp, ep, group, accumulate, seed, refs["noise"],
+                     first_step, drops=moe)
+
+    def finish(got):
+        records, plain, seconds = pair_runs(got[0])
+        stats = hold_mesh_part(name, smi, source, {"model": tp,
+                                                   "expert": ep},
+                               group, accumulate, refs, (records, plain),
+                               expect)
+        stats["ranks_s"] = seconds
+        print(f"{name} " + json.dumps(stats), flush=True)
+        return stats
+
+    return name, [(name, mesh_pair_rank, part)], finish
+
+
+def hold_mesh_part(name: str, smi: str, source, axes: dict, group,
+                   accumulate: int, refs: dict, runs, expect,
+                   steps: int = MESH_STEPS, zero_share: float = 0.0) -> dict:
+    """Hold one mesh run (`runs`: its kernel and plain records) against
+    the unsharded steps `refs` by `held_sharded`; every rank's launch
+    counts against `expect` a micro-batch (a dict, or a function of the
+    rank's record; the plain-route counters 0), the parameters checked by
+    `mesh_replicas_equal` after the last step. Prints seconds a step,
+    real tokens/s, the time in host-staged transfers, each rank's peak
+    memory and, for an MoE model, each rank's dropped share a layer in
+    the last step. axes: the mesh's model, expert and seq sizes;
+    zero_share as `held_sharded`'s."""
+    rows, width = group
+    a, c = refs["a"], refs["c"]
+    tp, ep = axes.get("model", 1), axes.get("expert", 1)
+    check_counts(f"{name} unsharded fp32 plain", c["launches"], {})
+    records, plain = runs
+    moe = getattr(mesh_source_hparams(source), "num_experts", 0) > 1
     stats = held_sharded(name, records[0]["metrics"][0]["loss"],
                          records[0]["grads"], a, c,
                          plain[0]["metrics"][0]["loss"], plain[0]["grads"],
-                         MESH_REFERENCE_COS)
-    mesh_rank_counts(name, records, {k: v * accumulate * MESH_STEPS
-                                     for k, v in expect.items()})
+                         MESH_REFERENCE_COS, zero_share)
+    for r in records:
+        per_mb = expect(r) if callable(expect) else expect
+        check_counts(f"{name} rank {r['rank']}", r["launches"],
+                     {k: v * accumulate * steps for k, v in per_mb.items()})
     mesh_rank_counts(f"{name} fp32 plain", plain, {})
     mesh_replicas_equal(name, records, mesh_layout_specs(source, tp, ep),
                         tp)
     for r in records:
-        check(len(set(r["param_digests"])) == MESH_STEPS,
+        check(len(set(r["param_digests"])) == steps,
               f"{name}: rank {r['rank']}'s parameters did not move")
     stats.update(mesh_timing(records, a, plain))
-    stats.update(mesh={"data": MESH // (tp * ep), "model": tp,
-                       "expert": ep},
+    stats.update(mesh={"data": MESH // (tp * ep * axes.get("seq", 1)),
+                       **axes},
                  group=[accumulate, rows, width],
                  losses=[m["loss"] for m in records[0]["metrics"]],
                  card=smi)
@@ -5162,16 +5300,14 @@ def mesh_timing(records: list, unsharded: dict, plain: list) -> dict:
             "launches_by_rank": [r["launches"] for r in records]}
 
 
-def mesh_tp_phase(smi: str) -> dict:
+def mesh_tp_plan(smi: str) -> tuple:
     """r5 at full width over data 2 x model 2 (4 heads and half of each
     FFN a shard, the 32,768-row tied table split into 16,384 rows a
     shard) on [4, 4096] ragged documents: K1/K2 6 launches a step on
     every rank, K3/K3b none (the vocab-parallel cross-entropy runs in
     torch products)."""
-    stats = mesh_step_phase("mesh-tp", smi, RUN, 2, 1, MESH_TP_GROUP, 1,
-                            MESH_SEED, {"swa_fwd": 6, "swa_bwd": 6})
-    print("mesh-tp " + json.dumps(stats), flush=True)
-    return stats
+    return mesh_step_plan("mesh-tp", smi, RUN, 2, 1, MESH_TP_GROUP, 1,
+                          MESH_SEED, {"swa_fwd": 6, "swa_bwd": 6})
 
 
 MESH_MOE_FIRST_STEP = {"capacity_factor": MESH_NO_DROP, "dropout": False}
@@ -5189,13 +5325,12 @@ def mesh_moe_accumulate() -> int:
         "trainer_hparams"]["accumulate_grad_batches"]
 
 
-def mesh_moe_phase(name: str, smi: str, tp: int, ep: int,
-                   refs=None) -> dict:
+def mesh_moe_plan(name: str, smi: str, tp: int, ep: int, refs) -> tuple:
     """real-prose-lm-moe at full width (6 layers of 8 experts, top-2) over
     data 2 x expert 2 (ep) or data 2 x model 2 (tp), on micro-batches of
     MESH_MOE_GROUP ragged documents, accumulation 2 (the run's): step 1
     at capacity factor MESH_NO_DROP without dropout held against the
-    unsharded step, then 2 steps at the run's 1.25 with its dropout (masks
+    unsharded step, then a step at the run's 1.25 with its dropout (masks
     per row shard), each rank's dropped share a layer printed. K1/K2 on
     the dense causal route 6 launches a micro-batch on every rank, K3/K3b
     once a micro-batch under ep and never under tp (the vocabulary is
@@ -5203,26 +5338,27 @@ def mesh_moe_phase(name: str, smi: str, tp: int, ep: int,
     expect = {"swa_fwd_dense": 6, "swa_bwd_dense": 6}
     if ep > 1:
         expect.update(tied_ce_fwd=1, tied_ce_bwd=1)
-    stats = mesh_step_phase(
+    return mesh_step_plan(
         name, smi, moe_hparams(), tp, ep, MESH_MOE_GROUP,
         mesh_moe_accumulate(), MESH_MOE_SEED, expect, MESH_MOE_FIRST_STEP,
         refs)
-    print(f"{name} " + json.dumps(stats), flush=True)
-    return stats
 
 
-def mesh_fit_rank(world, dotlist: list, corpus, log_root: str) -> dict:
-    """One rank of mesh-fit: Trainer.fit of r5's hparams on data 2 x
-    model 2 (FitTrainer, capturing the step-1 state), then the step-1
+def mesh_fit_one(world, name: str, run: str, mesh_kw: dict, dotlist: list,
+                 corpus, log_root: str) -> dict:
+    """One rank of a mesh fit: Trainer.fit of `run`'s hparams on the mesh
+    of `mesh_kw` (FitTrainer, capturing the step-1 state), then the step-1
     checkpoint restored into a new state and stepped on the run's second
     group, against the run's step-2 checkpoint. Returns the steps,
-    validations, saves, launches, peak memory, staged seconds, whether the
-    resumed step is bit for bit the unbroken one, and on rank 0 the
-    gathered trained parameters on the CPU."""
+    validations, saves, launches, peak memory, staged seconds, the bucket
+    quantum a seq mesh needs (sp_pad_multiple) and the trainer's override
+    of it (None where the data's pad_to_multiple_of already is one),
+    whether the resumed step is bit for bit the unbroken one, and on rank
+    0 the gathered trained parameters on the CPU."""
     from sparse_vae_tpu_torch.parallel import group as pgroup
     from sparse_vae_tpu_torch.parallel.mesh import create_mesh
-    mesh = create_mesh(world, model_axis=2)
-    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    mesh = create_mesh(world, **mesh_kw)
+    meta = json.loads((REPO / "runs" / run / "meta.json").read_text())
     cfg = assemble_config("transformer-vae", dotlist, base_meta=meta)
     data = TextDataModule(cfg.data)
     data.prepare_corpus(corpus)
@@ -5230,7 +5366,7 @@ def mesh_fit_rank(world, dotlist: list, corpus, log_root: str) -> dict:
     overrides.setdefault("vocab_size", cfg.data.vocab_size)
     hp, objective = build_hparams("transformer-vae", overrides)
     trainer = FitTrainer(hp, objective, data, cfg.trainer,
-                         experiment="transformer-vae", name="mesh-fit",
+                         experiment="transformer-vae", name=name,
                          log_root=Path(log_root), mesh=mesh,
                          capture_step=1)
     torch.cuda.reset_peak_memory_stats()
@@ -5255,10 +5391,13 @@ def mesh_fit_rank(world, dotlist: list, corpus, log_root: str) -> dict:
                                       generator))
     unbroken = cpu_state(trainer.ckpt.restore(2, map_location="cpu"))
     record = {"rank": world.rank, "step": outcome.step,
+              "coords": {a: mesh.coord(a) for a in mesh.shape},
               "stopped": outcome.stopped_reason, "fit_s": seconds,
               "steps": trainer.steps, "validations": trainer.validations,
               "saves": trainer.saves, "launches": counts, "peak": peak,
-              "staged_s": staged,
+              "staged_s": staged, "pad_multiple": trainer._pad_multiple,
+              "pad_quantum": sp_pad_multiple(
+                  hp, mesh.size("seq"), cfg.data.pad_to_multiple_of),
               "restored_equal": (trainer.captured is not None
                                  and states_equal(restored,
                                                   trainer.captured)),
@@ -5267,70 +5406,58 @@ def mesh_fit_rank(world, dotlist: list, corpus, log_root: str) -> dict:
         record["params"] = {k: v.detach().cpu() for k, v in
                             outcome.model.state_dict().items()}
         record["meta"] = trainer.meta()
+    del model, optimizer, outcome, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     return record
 
 
-def mesh_fit_phase(smi: str, log_root: Path) -> dict:
-    """Trainer.fit of r5's hparams from the JAX initialisation on data 2 x
-    model 2 (MESH ranks on this card) for MESH_FIT_STEPS steps on a
-    stand-in corpus cut to MESH_FIT_TOKENS, validating and saving every
-    step: every rank's K1/K2 counts (6 a micro-batch and validation
-    batch) and no K3/K3b; the step-1 state restored bit for bit and one
-    step from it equal to the run's step-2 checkpoint bit for bit, on
-    every rank; the gathered checkpoint loaded on one card
-    (load_checkpoint_for_name) equal to the trained parameters bit for
-    bit, and, exported by export_archive, served by load_run(<dir>) with
-    the trained model's serving logits."""
+def mesh_fits_rank(world, fits: list) -> list:
+    """One rank of the mesh fits, `mesh_fit_one` each in turn."""
+    return [mesh_fit_one(world, *fit) for fit in fits]
+
+
+def mesh_fit_held(name: str, run: str, records: list, log_root: Path,
+                  steps: int, expect, smi: str, layout: dict) -> dict:
+    """A mesh fit's checks: MESH_FIT_STEPS steps, a validation each, every
+    rank's launches against expect(record, micro-batches, validation
+    batches), the step-1 state restored bit for bit and one step from it
+    equal to the run's step-2 checkpoint bit for bit on every rank, the
+    gathered checkpoint loaded on the card by load_checkpoint_for_name
+    equal to the trained parameters bit for bit, and, exported by
+    export_archive, served by load_run(<dir>) with the trained model's
+    serving logits. layout: the mesh and the run's cuts, printed."""
     from sparse_vae_tpu_torch import load_checkpoint_for_name
-    meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
-    lo, hi, tokens = MESH_FIT_TOKENS
-    corpus = fit_corpus(MESH_FIT_DOCS, lo, hi,
-                        meta["model_hparams"]["vocab_size"], MESH_FIT_SEED)
-    dotlist = ["trainer.num_devices=4", "trainer.model_parallel=2",
-               "trainer.checkpoint_every_n_steps=1",
-               "trainer.log_every_n_steps=1",
-               f"trainer.max_steps={MESH_FIT_STEPS}",
-               "trainer.val_check_interval=0.001",
-               "trainer.limit_val_batches=2",
-               f"data.min_tokens_per_sample={lo}",
-               f"data.max_tokens_per_sample={hi}",
-               f"data.tokens_per_batch={tokens}"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    records = spawn(mesh_fit_rank, MESH, "cuda",
-                    (dotlist, corpus, str(log_root)), timeout=900)
-    layers = meta["model_hparams"]["num_layers"]
     for r in records:
-        check((r["step"], r["stopped"]) == (MESH_FIT_STEPS, "max_steps"),
-              f"mesh-fit rank {r['rank']} stopped at {r['step']}: "
+        check((r["step"], r["stopped"]) == (steps, "max_steps"),
+              f"{name} rank {r['rank']} stopped at {r['step']}: "
               f"{r['stopped']}")
         check([v["step"] for v in r["validations"]]
-              == list(range(1, MESH_FIT_STEPS + 1)),
-              f"mesh-fit validated at {r['validations']}")
+              == list(range(1, steps + 1)),
+              f"{name} validated at {r['validations']}")
         check(all(np.isfinite(s["loss"]) for s in r["steps"]),
-              "mesh-fit: a loss is not finite")
+              f"{name}: a loss is not finite")
         micro = sum(s["shape"][0] for s in r["steps"])
         val_batches = sum(v["batches"] for v in r["validations"])
-        check_counts(f"mesh-fit rank {r['rank']}", r["launches"], {
-            "swa_fwd": layers * (micro + val_batches),
-            "swa_bwd": layers * micro})
-        check(r["restored_equal"], f"mesh-fit rank {r['rank']}: the "
+        check_counts(f"{name} rank {r['rank']}", r["launches"],
+                     expect(r, micro, val_batches))
+        check(r["restored_equal"], f"{name} rank {r['rank']}: the "
               "restored state is not the saved one")
-        check(r["resumed_equal"], f"mesh-fit rank {r['rank']}: a step from "
+        check(r["resumed_equal"], f"{name} rank {r['rank']}: a step from "
               "the step-1 checkpoint is not the run's step 2")
         check([{k: v for k, v in val.items() if k != "seconds"}
                for val in r["validations"]]
               == [{k: v for k, v in val.items() if k != "seconds"}
                   for val in records[0]["validations"]],
-              "mesh-fit: the ranks' validations differ")
+              f"{name}: the ranks' validations differ")
     trained = records[0]["params"]
     model, hp, _, state, _ = load_checkpoint_for_name(
-        "transformer-vae", "mesh-fit", root=log_root, device="cuda")
-    check(state["step"] == MESH_FIT_STEPS and all(
+        "transformer-vae", name, root=log_root, device="cuda")
+    check(state["step"] == steps and all(
         torch.equal(state["params"][k].cpu(), v) for k, v in trained.items()),
-        "mesh-fit: the checkpoint is not the trained parameters")
-    out = export_archive(model, records[0]["meta"], log_root / "archive",
-                         step=MESH_FIT_STEPS)
+        f"{name}: the checkpoint is not the trained parameters")
+    out = export_archive(model, records[0]["meta"], log_root / name,
+                         step=steps, compress=False)
     served, _, _ = load_run(str(out), device="cuda")
     own_form = serving_form(model)
     gen = torch.Generator(device="cuda").manual_seed(MESH_FIT_SEED)
@@ -5340,23 +5467,24 @@ def mesh_fit_phase(smi: str, log_root: Path) -> dict:
     eps = torch.randn((2, 1, hp.latent_depth), generator=gen, device="cuda")
     with torch.no_grad():
         a, b = served(ids, eps)[0], own_form(ids, eps)[0]
-    check(torch.equal(a, b), "mesh-fit: the archive's serving logits differ "
+    check(torch.equal(a, b), f"{name}: the archive's serving logits differ "
           f"from the trained model's: {(a - b).abs().max().item()}")
     del model, served, own_form
     gc.collect()
     torch.cuda.empty_cache()
-    steps = records[0]["steps"]
-    stats = {"mesh": {"data": 2, "model": 2}, "cut": {
-                 "document_tokens": [lo, hi], "tokens_per_batch": tokens},
-             "shapes_fed": [s["shape"] for s in steps],
+    steps_fed = records[0]["steps"]
+    stats = {"run": run, "layout": layout,
+             "pad_multiple": records[0]["pad_multiple"],
+             "pad_quantum": records[0]["pad_quantum"],
+             "shapes_fed": [s["shape"] for s in steps_fed],
              "step_s_by_rank": [[s["seconds"] for s in r["steps"]]
                                 for r in records],
-             "real_tokens": [s["real_tokens"] for s in steps],
-             "real_tokens_per_s": sum(s["real_tokens"] for s in steps)
+             "real_tokens": [s["real_tokens"] for s in steps_fed],
+             "real_tokens_per_s": sum(s["real_tokens"] for s in steps_fed)
              / max(sum(s["seconds"] for s in r["steps"]) for r in records),
              "staged_s_by_rank": [r["staged_s"] for r in records],
              "fit_s_by_rank": [r["fit_s"] for r in records],
-             "losses": [s["loss"] for s in steps],
+             "losses": [s["loss"] for s in steps_fed],
              "validations": records[0]["validations"],
              "saves_by_rank": [r["saves"] for r in records],
              "resume_bit_identical": True, "checkpoint_equal": True,
@@ -5364,8 +5492,491 @@ def mesh_fit_phase(smi: str, log_root: Path) -> dict:
              "max_memory_allocated_by_rank": [r["peak"] for r in records],
              "launches_by_rank": [r["launches"] for r in records],
              "card": smi}
-    print("mesh-fit " + json.dumps(stats), flush=True)
+    print(f"{name} " + json.dumps(stats), flush=True)
     return stats
+
+
+def mesh_fit_plan(smi: str, log_root: Path) -> tuple:
+    """Two Trainer.fit runs on MESH ranks of this card, one part of
+    `mesh_phases`, each for MESH_FIT_STEPS steps, validating and saving
+    every step, held by `mesh_fit_held`:
+    - mesh-fit: r5's hparams from the JAX initialisation on data 2 x
+      model 2, on a stand-in corpus cut to MESH_FIT_TOKENS; every rank's
+      K1/K2 counts (6 a micro-batch and validation batch), no K3/K3b;
+    - seq-fit: pg19-fb8's hparams (concatenated 102,400-token streams,
+      free bits 8.0) on data 2 x seq 2, on fit-pg19's stand-in corpus:
+      the bucket quantum override printed and checked (lcm(512, 2 x 2 x
+      128) = 512: none), two streams a micro-batch (one a data shard),
+      accumulation 2 (cut: pg19-fb8 takes one stream a micro-batch and
+      4); seq shard 0 K1/K2, shard 1 K6 (6 a micro-batch and validation
+      batch), K3/K3b once a micro-batch (and validation batch, K3) on
+      every rank.
+    The plan's finish returns (mesh-fit's stats, seq-fit's)."""
+    r5_meta = json.loads((REPO / "runs" / RUN / "meta.json").read_text())
+    lo, hi, tokens = MESH_FIT_TOKENS
+    vocab = r5_meta["model_hparams"]["vocab_size"]
+    mesh_corpus = fit_corpus(MESH_FIT_DOCS, lo, hi, vocab, MESH_FIT_SEED)
+    common = ["trainer.num_devices=4", "trainer.checkpoint_every_n_steps=1",
+              "trainer.log_every_n_steps=1",
+              f"trainer.max_steps={MESH_FIT_STEPS}",
+              "trainer.val_check_interval=0.001"]
+    mesh_dotlist = common + ["trainer.model_parallel=2",
+                             "trainer.limit_val_batches=2",
+                             f"data.min_tokens_per_sample={lo}",
+                             f"data.max_tokens_per_sample={hi}",
+                             f"data.tokens_per_batch={tokens}"]
+    pg19 = json.loads((REPO / "runs" / PG19_RUN / "meta.json").read_text())
+    seq_corpus = fit_corpus(FIT_DOCS, r5_meta["data_hparams"][
+        "min_tokens_per_sample"], r5_meta["data_hparams"][
+        "max_tokens_per_sample"], vocab, FIT_SEED)
+    seq_dotlist = common + [
+        "trainer.seq_parallel=2", "trainer.limit_val_batches=1",
+        "trainer.accumulate_grad_batches=2",
+        f"data.tokens_per_batch="
+        f"{2 * pg19['data_hparams']['tokens_per_batch']}"]
+    fits = [("mesh-fit", RUN, {"model_axis": 2}, mesh_dotlist, mesh_corpus,
+             str(log_root)),
+            ("seq-fit", PG19_RUN, {"seq_axis": 2}, seq_dotlist, seq_corpus,
+             str(log_root))]
+    layers = r5_meta["model_hparams"]["num_layers"]
+
+    def tp_expect(r, micro, val):
+        return {"swa_fwd": layers * (micro + val), "swa_bwd": layers * micro}
+
+    def seq_expect(r, micro, val):
+        ce = {"tied_ce_fwd": micro + val, "tied_ce_bwd": micro}
+        if r["coords"]["seq"] == 0:
+            return {"swa_fwd": layers * (micro + val),
+                    "swa_bwd": layers * micro, **ce}
+        return {"sp_windowed_attention": layers * (micro + val),
+                "sp_windowed_attention_bwd": layers * micro, **ce}
+
+    def finish(got):
+        ranks = [result for result, _ in got[0]]
+        seconds = max(sec for _, sec in got[0])
+        mesh_fit = mesh_fit_held(
+            "mesh-fit", RUN, [r[0] for r in ranks], log_root,
+            MESH_FIT_STEPS, tp_expect, smi,
+            {"mesh": {"data": 2, "model": 2}, "document_tokens": [lo, hi],
+             "tokens_per_batch": tokens, "ranks_s_with_seq_fit": seconds})
+        seq_fit = mesh_fit_held(
+            "seq-fit", PG19_RUN, [r[1] for r in ranks], log_root,
+            MESH_FIT_STEPS, seq_expect, smi,
+            {"mesh": {"data": 2, "seq": 2}, "streams_a_micro_batch": 2,
+             "accumulate_grad_batches": 2,
+             "ranks_s_with_mesh_fit": seconds})
+        return mesh_fit, seq_fit
+
+    return "seq-fit", [("mesh-fit+seq-fit", mesh_fits_rank, (fits,))], \
+        finish
+
+
+# -- the seq and pipe axes ----------------------------------------------------
+
+SEQ_SEED = 53
+SEQ_R5 = 2             # r5 over seq 2 x model 2 on sp-train's document
+# The DReG step's [rows, L] (K = 4: 51,200 token rows, 25,600 a rank; at
+# dreg's [2, 12800] four ranks' fp32 plain steps outgrew the card).
+SEQ_DREG = (2, 6400)
+SEQ_LM = (1, 92160)    # nonvae-pg19's longest document, over seq 4
+SEQ_MOE = (8, 4096)    # the MoE twin's trainer group, over seq 4
+# The loss chunk of the MoE twin's fp32 plain sharded step: at the run's
+# 2,048 each rank's chunk of fp32 logits is [8 x 2048, 32768], 2 GiB,
+# and four ranks' steps outgrew the card (the summation order aside, the
+# same loss).
+SEQ_PLAIN_CHUNK = 512
+# On 51,200-token shards under tensor parallelism seven of the encoder's
+# attention q/k gradients are 1.2e-9 to 2.2e-7 of the largest gradient's
+# norm (on an H100): numerically zero (below fp32's resolution
+# against the step's gradient, far below bf16's), so their cosines are
+# bf16 noise in any layout (r5's middle-layer q_linear: 0.953 unsharded,
+# 0.930 over seq 4, 0.890 over seq 2 x model 2, each against fp32; the
+# bottleneck's k_linear 0.709 unsharded). As the LSTM phases call a
+# gradient below LSTM_NEAR_ZERO numerically zero, mesh-seq holds such a
+# gradient (fp32 norm at most this share of the largest) against the
+# unsharded bf16 step's own distance and cosine from fp32
+# (`held_sharded`), not by the cosine rules.
+SEQ_NEAR_ZERO = LSTM_NEAR_ZERO
+PIPE_R5 = (4, 4096)    # r5 over data 2 x pipe 2, M micro-batches of it
+PIPE_LM = (4, 3584)    # the r4 LM geometry likewise
+PIPE_M = 4
+PIPE_STEPS = 3         # step 1 held, then 2 more
+PIPE_SEED = 59
+
+
+def nonvae_pg19_hparams():
+    """The `nonvae-pg19` preset's Transformer LM (hparam_presets.py:
+    d_model 512, 6 sparse layers, bf16, documents up to 92,160 tokens)."""
+    cfg = assemble_config("transformer-lm", ["preset=nonvae-pg19"])
+    overrides = dict(cfg.model_overrides)
+    overrides.setdefault("vocab_size", cfg.data.vocab_size)
+    return build_hparams("transformer-lm", overrides)[0]
+
+
+def by_seq_coord(first: dict, later: dict):
+    """Launch counts a micro-batch by the rank's seq coordinate: shard 0
+    runs `first` (K1/K2 over its own block band), every other shard
+    `later` (K6: the band over its left halo plus the broadcast [CLS])."""
+    return lambda r: first if r["coords"].get("seq", 0) == 0 else later
+
+
+def seq_counts(layers: int, passes: int = 1, ce: int = 0) -> object:
+    """by_seq_coord for `layers` decoder layers, `passes` forwards a
+    micro-batch (the DReG step's weights pass without gradients is one
+    more), and `ce` K3/K3b launches a micro-batch on every rank."""
+    tail = {"tied_ce_fwd": ce, "tied_ce_bwd": ce} if ce else {}
+    return by_seq_coord(
+        {"swa_fwd": layers * passes, "swa_bwd": layers, **tail},
+        {"sp_windowed_attention": layers * passes,
+         "sp_windowed_attention_bwd": layers, **tail})
+
+
+def seq_route_flips(records: list, unsharded_routes: list, ids,
+                    sp: int) -> list:
+    """Per rank and layer, the real tokens of the rank's length shard
+    (ids: the global [rows, L] batch) whose top-k experts or kept slots
+    differ from the unsharded forward's."""
+    rows, width = ids.shape
+    out = []
+    for r in records:
+        s = r["coords"].get("seq", 0)
+        part = slice(s * width // sp, (s + 1) * width // sp)
+        local = [(ua.cpu().reshape(rows, width, -1)[:, part].reshape(
+                      -1, ua.shape[-1]),
+                  uk.cpu().reshape(-1, rows, width)[..., part].reshape(
+                      uk.shape[0], -1))
+                 for ua, uk in unsharded_routes]
+        out.append(route_flips(r["routes"], local,
+                               (ids[:, part] != 0).reshape(-1)))
+    return out
+
+
+def mesh_seq_plan(smi: str, r5_refs: dict) -> tuple:
+    """The seq axis inside a mesh, four mesh runs of `mesh_phases`' MESH
+    ranks on this card, each held against the unsharded steps on the same
+    weights, documents and noise by `hold_mesh_part`:
+    - r5 over seq 2 x model 2 on sp-train's [1, 102400] document and eps
+      (its unsharded steps, `r5_refs`), 2 steps: seq shard 0 K1/K2, shard
+      1 K6 at q [1, 4, 51200, 64], no K3/K3b (the vocabulary split);
+    - the sharded DReG step: r5's geometry from the JAX initialisation
+      with train_mc_samples 4 over seq 2 x model 2 on [2, 6400] (K1 or
+      K6 twice a layer, K2 or K6's backward once);
+    - the nonvae-pg19 LM (the JAX initialisation) over seq 4 on one
+      [1, 92160] document, 23,040 tokens a shard: K6 on ranks 1-3, K1/K2
+      on rank 0, K3/K3b on every rank; step 1 without dropout, step 2
+      with it (masks per length shard);
+    - real-prose-lm-moe with sparse attention over seq 4 on one [8, 4096]
+      group: step 1 at MESH_NO_DROP without dropout, step 2 at 1.25 with
+      dropout; each rank's dropped share a layer, and the tokens whose
+      routes differ from the unsharded forward's.
+    Then real-prose-lm-moe as archived (dense attention) over a seq group
+    raises the JAX package's ValueError."""
+    from sparse_vae_tpu_torch.checkpoint import model_class
+    from sparse_vae_tpu_torch.parallel.group import AxisGroup
+    from sparse_vae_tpu_torch.parallel.sp import sp_localize
+    dreg_hp = replace(run_hparams(RUN), train_mc_samples=DREG_SAMPLES)
+    lm_hp = nonvae_pg19_hparams()
+    moe_hp = replace(moe_hparams(), sparse_self_attention=True)
+    first = MESH_MOE_FIRST_STEP
+    refs = {"dreg": mesh_references(dreg_hp, SEQ_DREG, 1, SEQ_SEED),
+            "lm": mesh_references(lm_hp, SEQ_LM, 1, SEQ_SEED),
+            "moe": mesh_references(moe_hp, SEQ_MOE, 1, SEQ_SEED, first)}
+    hold = replace(moe_hp, moe_capacity_factor=first["capacity_factor"])
+    rng = np.random.default_rng(SEQ_SEED)
+    ids = synthetic_batch(rng, *SEQ_MOE, moe_hp.vocab_size)["token_ids"]
+    moe_routes_ref = moe_routes(
+        lambda kernels, dtype: build_from_hparams(
+            hold, torch.Generator().manual_seed(SEQ_SEED), "cuda",
+            use_kernels=kernels, dtype=dtype)[:3], True, None,
+        ids.to("cuda"))
+    layers = run_hparams(RUN).num_layers
+    parts = {
+        "r5": (RUN, {"model": 2, "seq": SEQ_R5}, (1, SP_SEQ), r5_refs,
+               mesh_part(RUN, 2, 1, (1, SP_SEQ), 1, SP_SEED,
+                         r5_refs["noise"], sp=SEQ_R5),
+               seq_counts(layers)),
+        "dreg": (dreg_hp, {"model": 2, "seq": 2}, SEQ_DREG, refs["dreg"],
+                 mesh_part(dreg_hp, 2, 1, SEQ_DREG, 1, SEQ_SEED,
+                           refs["dreg"]["noise"], sp=2, steps=1),
+                 seq_counts(layers, passes=2)),
+        "lm": (lm_hp, {"seq": MESH}, SEQ_LM, refs["lm"],
+               mesh_part(lm_hp, 1, 1, SEQ_LM, 1, SEQ_SEED, None,
+                         {"dropout": False}, sp=MESH),
+               seq_counts(lm_hp.num_layers, ce=1)),
+        "moe": (moe_hp, {"seq": MESH}, SEQ_MOE, refs["moe"],
+                mesh_part(moe_hp, 1, 1, SEQ_MOE, 1, SEQ_SEED, None, first,
+                          drops=True, sp=MESH, plain_source=replace(
+                              moe_hp, loss_chunk_size=SEQ_PLAIN_CHUNK)),
+                seq_counts(moe_hp.num_layers, ce=1))}
+
+    def finish(got):
+        stats = {}
+        for (name, (source, axes, group, ref, args, expect)), part in zip(
+                parts.items(), got):
+            records, plain, seconds = pair_runs(part)
+            stats[name] = hold_mesh_part(f"mesh-seq {name}", smi, source,
+                                         axes, group, 1, ref,
+                                         (records, plain), expect,
+                                         args[0][1], SEQ_NEAR_ZERO)
+            stats[name]["ranks_s"] = seconds
+        records = pair_runs(got[3])[0]
+        stats["moe"]["real_tokens_by_rank"] = [
+            int((ids.reshape(SEQ_MOE[0], MESH, -1)[:, r["coords"]["seq"]]
+                 != 0).sum()) for r in records]
+        stats["moe"]["route_flips_by_rank_by_layer"] = seq_route_flips(
+            records, moe_routes_ref, ids, MESH)
+        dense = run_hparams(MOE_RUN)
+        with torch.device("meta"):
+            archived = model_class(dense)(dense)
+        try:
+            sp_localize(archived, AxisGroup(0, MESH, torch.device("cpu"),
+                                            "gloo"))
+            refused = None
+        except ValueError as err:
+            refused = str(err)
+        check(refused is not None and "sparse sliding-window" in refused,
+              f"the dense {MOE_RUN} over seq was not refused: {refused}")
+        stats["dense_moe_over_seq"] = refused
+        stats["card"] = smi
+        print("mesh-seq " + json.dumps(stats), flush=True)
+        return stats
+
+    return "mesh-seq", [(f"mesh-seq {name}", mesh_pair_rank, part[4])
+                        for name, part in parts.items()], finish
+
+
+def pipe_rank(world, source, steps: int, rows: int, width: int, seed: int,
+              micro: int, noise, use_kernels: bool, dtype) -> dict:
+    """One rank of a pipelined run (parallel/pp.py) on data 2 x pipe 2:
+    `steps` steps of `source` (a run name or hparams from the JAX
+    initialisation drawn from `seed`), without dropout, each over `micro`
+    micro-batches of this rank's rows of seeded [rows, width] batches (the
+    same as unsharded_mesh_step's), the first with `noise`. Returns the
+    rank's coordinates, metrics, step seconds, host-staged seconds, the
+    schedule's seconds and this stage's busy seconds a step, launch
+    counts, peak memory, a digest of its parameters after each step and
+    of each at the end (full-model names), and the first step's gradients
+    of its parameters on the CPU."""
+    from sparse_vae_tpu_torch.parallel import group as pgroup
+    from sparse_vae_tpu_torch.parallel import pp
+    from sparse_vae_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    from sparse_vae_tpu_torch.train import param_digest, param_digest_of
+    from sparse_vae_tpu_torch.train import run_lr
+    mesh = create_mesh(world, pipe_axis=2)
+    if isinstance(source, str):
+        model, objective, _, _ = build_training(
+            source, "cuda", micro, use_kernels=use_kernels, dtype=dtype)
+        meta = json.loads((REPO / "runs" / source / "meta.json")
+                          .read_text())
+        lr = run_lr(model.hparams, meta, micro)
+    else:
+        model, objective, _, _ = build_from_hparams(
+            source, torch.Generator().manual_seed(seed), "cuda",
+            use_kernels=use_kernels, dtype=dtype)
+        lr = model.hparams.lr
+    hp = model.hparams
+    hp.input_dropout = 0.0
+    for layer in model.decoder_layers:
+        layer.dropout_rate = 0.0
+    stage = pp.pp_localize(model, mesh)
+    optimizer = pp.make_pp_optimizer(
+        stage, lr=lr, lr_decay_steps=hp.lr_decay_steps,
+        grad_clip_threshold=hp.grad_clip_threshold,
+        weight_decay=hp.weight_decay)
+    step_fn = pp.make_pp_train_step(stage, objective, optimizer, mesh,
+                                    deterministic=True, timed=True)
+    s, _, per = stage.pipe_stage
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    noise = None if noise is None else [
+        {k: v.to("cuda") for k, v in n.items()} for n in noise]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    pgroup.staged_seconds = 0.0
+    record = {"rank": world.rank, "device": str(mesh.device),
+              "backend": world.backend,
+              "coords": {a: mesh.coord(a) for a in mesh.shape},
+              "metrics": [], "step_s": [], "staged_s": [], "timing": [],
+              "param_digests": []}
+    for step in range(steps):
+        mbs = [{k: v.to("cuda") for k, v in shard_batch(synthetic_batch(
+                    rng, rows, width, hp.vocab_size), mesh).items()}
+               for _ in range(micro)]
+        torch.cuda.synchronize()
+        staged0, t0 = pgroup.staged_seconds, time.perf_counter()
+        metrics = step_fn(mbs, step, noise if step == 0 else None,
+                          generator)
+        out = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        record["step_s"].append(time.perf_counter() - t0)
+        record["staged_s"].append(pgroup.staged_seconds - staged0)
+        record["metrics"].append(out)
+        record["timing"].append(step_fn.timing)
+        record["param_digests"].append(param_digest(stage))
+        if step == 0:
+            record["grads"] = {pp.global_name(n, s, per):
+                               p.grad.detach().float().cpu()
+                               for n, p in stage.named_parameters()}
+    record["launches"] = read_counts()
+    record["local_digests"] = {pp.global_name(n, s, per): param_digest_of([p])
+                               for n, p in stage.named_parameters()}
+    record["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model, stage, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def pipe_pair_rank(world, kernel_args: tuple, plain_args: tuple) -> tuple:
+    """One rank of a mesh-pipe run: its kernel run, then its fp32 plain
+    run (one step)."""
+    kernel = pipe_rank(world, *kernel_args)
+    return kernel, pipe_rank(world, *plain_args)
+
+
+def pipe_part(source, group, steps: int, seed: int, noise) -> tuple:
+    rows, width = group
+    args = (source, steps, rows, width, seed, PIPE_M, noise, True, None)
+    return args, args[:1] + (1,) + args[2:7] + (False, torch.float32)
+
+
+def stage_grads(records: list) -> dict:
+    """The full model's gradients of a pipelined step: each stage's from
+    its first rank, the shared leaves from rank 0."""
+    out = {}
+    for r in reversed(records):
+        out.update(r["grads"])
+    return out
+
+
+def hold_pipe_part(name: str, smi: str, source, group, refs: dict, runs,
+                   steps: int, dense: bool) -> dict:
+    """A pipelined run held against the unsharded accumulated steps by
+    `held_sharded`; each stage's launches (K1/K2 num_layers / 2 a
+    micro-batch on every rank, on the dense route for the LM; K3/K3b once
+    a micro-batch on the last stage, never on the first; the plain routes
+    0); the shared parameters bitwise equal on every rank and each
+    stage's on its data peers; each rank's idle seconds in the schedule
+    beside the GPipe bubble (P - 1) / (M + P - 1)."""
+    records, plain = runs
+    layers = mesh_source_hparams(source).num_layers
+    per = layers // 2
+    stats = held_sharded(name, records[0]["metrics"][0]["loss"],
+                         stage_grads(records), refs["a"], refs["c"],
+                         plain[0]["metrics"][0]["loss"], stage_grads(plain),
+                         MESH_REFERENCE_COS)
+    fwd, bwd = (("swa_fwd_dense", "swa_bwd_dense") if dense
+                else ("swa_fwd", "swa_bwd"))
+    for r in records:
+        n = PIPE_M * steps
+        last = r["coords"]["pipe"] == 1
+        check_counts(f"{name} rank {r['rank']}", r["launches"],
+                     {fwd: per * n, bwd: per * n,
+                      **({"tied_ce_fwd": n, "tied_ce_bwd": n} if last
+                         else {})})
+        check(len(set(r["param_digests"])) == steps,
+              f"{name}: rank {r['rank']}'s parameters did not move")
+    mesh_rank_counts(f"{name} fp32 plain", plain, {})
+    for pname in records[0]["local_digests"]:
+        holders = [r for r in records if pname in r["local_digests"]]
+        staged = pname.startswith(("decoder_layers.", "z_projections."))
+        check(len(holders) == (2 if staged else MESH)
+              and len({r["local_digests"][pname] for r in holders}) == 1,
+              f"{name}: {pname} differs across the ranks that hold it")
+    bubble = 1 / (PIPE_M + 1)
+    stats.update(
+        mesh={"data": 2, "pipe": 2}, micro_batches=PIPE_M,
+        group=[PIPE_M, *group], steps=steps,
+        losses=[m["loss"] for m in records[0]["metrics"]],
+        step_s_by_rank=[r["step_s"] for r in records],
+        staged_s_by_rank=[r["staged_s"] for r in records],
+        schedule_s_by_rank=[[t["schedule_s"] for t in r["timing"]]
+                            for r in records],
+        idle_s_by_rank=[[t["schedule_s"] - t["busy_s"] for t in r["timing"]]
+                        for r in records],
+        idle_share_by_rank=[[1 - t["busy_s"] / t["schedule_s"]
+                             for t in r["timing"]] for r in records],
+        gpipe_bubble=bubble,
+        real_tokens_a_step=refs["a"]["real_tokens"],
+        real_tokens_per_s_after_step_1=refs["a"]["real_tokens"] / max(
+            sum(r["step_s"][1:] or r["step_s"])
+            / len(r["step_s"][1:] or r["step_s"]) for r in records),
+        unsharded_step_s=refs["a"]["seconds"],
+        max_memory_allocated_by_rank=[r["max_memory_allocated"]
+                                      for r in records],
+        launches_by_rank=[r["launches"] for r in records], card=smi)
+    return stats
+
+
+def mesh_pipe_plan(smi: str) -> tuple:
+    """The pipe axis (parallel/pp.py) over data 2 x pipe 2, two runs of
+    `mesh_phases`' MESH ranks, each stage 3 of the 6 decoder layers (and the
+    VAE's 3 z projections), the micro-batches of accumulation the
+    pipeline's (PIPE_M = 4):
+    - r5's trained weights on M micro-batches of [4, 4096] ragged
+      documents: step 1 held against the unsharded accumulated step on
+      the same weights, documents and eps, then PIPE_STEPS - 1 more;
+    - the r4 LM geometry (the JAX initialisation; 6 dense causal layers:
+      K1/K2 on the dense route) on M of [4, 3584], 2 steps, step 1 held
+      the same way.
+    Each as `hold_pipe_part`, in bf16 through the kernels and in fp32
+    through the plain versions."""
+    lm_hp = run_hparams(LM_GEOMETRY)
+    refs = {"r5": mesh_references(RUN, PIPE_R5, PIPE_M, PIPE_SEED),
+            "lm": mesh_references(lm_hp, PIPE_LM, PIPE_M, PIPE_SEED)}
+    parts = [pipe_part(RUN, PIPE_R5, PIPE_STEPS, PIPE_SEED,
+                       refs["r5"]["noise"]),
+             pipe_part(lm_hp, PIPE_LM, 2, PIPE_SEED, None)]
+
+    def finish(got):
+        stats = {}
+        for name, source, group, steps, dense, part in (
+                ("r5", RUN, PIPE_R5, PIPE_STEPS, False, got[0]),
+                ("lm", lm_hp, PIPE_LM, 2, True, got[1])):
+            records, plain, seconds = pair_runs(part)
+            stats[name] = hold_pipe_part(f"mesh-pipe {name}", smi, source,
+                                         group, refs[name], (records, plain),
+                                         steps, dense)
+            stats[name]["ranks_s"] = seconds
+        print("mesh-pipe " + json.dumps(stats), flush=True)
+        return stats
+
+    return "mesh-pipe", [(f"mesh-pipe {name}", pipe_pair_rank, part)
+                         for name, part in zip(("r5", "lm"), parts)], finish
+
+
+def mesh_phases(smi: str, log_root: Path) -> dict:
+    """The phases of several ranks (11 and 37-43): each phase's unsharded
+    references here first ("mesh-references"), then ONE spawn of MESH
+    ranks on this card (gloo: they share it) that runs every phase's
+    sharded runs in turn ("mesh-ranks", `run_parts`: rank 0 prints each
+    run's seconds; one spawn pays the ranks' start, imports and CUDA
+    set-up once), then each phase's checks and its JSON line, timed as
+    the phase. Returns {phase: stats}; the fits' phase gives mesh-fit's
+    and seq-fit's."""
+    with Phase("mesh-references"):
+        sp_plan, r5_seq_refs = sp_train_plan()
+        moe_refs = mesh_moe_references()
+        plans = [sp_plan, mesh_tp_plan(smi),
+                 mesh_moe_plan("mesh-ep", smi, 1, 2, moe_refs),
+                 mesh_moe_plan("mesh-moe-tp", smi, 2, 1, moe_refs),
+                 mesh_seq_plan(smi, r5_seq_refs),
+                 mesh_fit_plan(smi, log_root),
+                 mesh_pipe_plan(smi)]
+        del moe_refs, r5_seq_refs
+    parts = [part for _, plan_parts, _ in plans for part in plan_parts]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("mesh-ranks"):
+        ranks = spawn(run_parts, MESH, "cuda", (parts,), timeout=1100)
+    out, i = {}, 0
+    for name, plan_parts, finish in plans:
+        got = [[rank[i + j] for rank in ranks]
+               for j in range(len(plan_parts))]
+        i += len(plan_parts)
+        with Phase(name):
+            out[name] = finish(got)
+    return out
 
 
 def check_counts(path: str, counts: dict, expect: dict):
@@ -5481,10 +6092,6 @@ def main(argv) -> int:
         for window, seed in ((1, 19), (3, 20)):
             k6_phase(1, 1024, 1024, [(window - 1) * 128 + 1024], [128],
                      window, seed=seed, h=2)
-    with Phase("sp-train"):
-        sp_stats = sp_train_phase()
-    sp_counts = sp_stats["launches_by_rank"]
-    sp_single = sp_stats["unsharded"]["launches"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
         fit_logs = Path(tmp) / "sparse-vae-logs"
         with Phase("fit"):
@@ -5554,17 +6161,15 @@ def main(argv) -> int:
                                     depth=MOE_FIT_DEPTH)
     with Phase("moe-serve"):
         moe_serve = moe_serve_phase(smi)
-    with Phase("mesh-tp"):
-        mesh_tp = mesh_tp_phase(smi)
-    with Phase("mesh-ep"):
-        moe_refs = mesh_moe_references()
-        mesh_ep = mesh_moe_phase("mesh-ep", smi, 1, 2, moe_refs)
-    with Phase("mesh-moe-tp"):
-        mesh_moe_tp = mesh_moe_phase("mesh-moe-tp", smi, 2, 1, moe_refs)
-        del moe_refs
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        with Phase("mesh-fit"):
-            mesh_fit = mesh_fit_phase(smi, Path(tmp))
+        meshes = mesh_phases(smi, Path(tmp))
+    sp_stats = meshes["sp-train"]
+    sp_counts = sp_stats["launches_by_rank"]
+    sp_single = sp_stats["unsharded"]["launches"]
+    mesh_tp, mesh_ep, mesh_moe_tp = (meshes[n] for n in (
+        "mesh-tp", "mesh-ep", "mesh-moe-tp"))
+    mesh_seq, mesh_pipe = meshes["mesh-seq"], meshes["mesh-pipe"]
+    mesh_fit, seq_fit = meshes["seq-fit"]
     lstm_counts = {"lstm-ops": lstm_ops["launches"],
                    "lstm-train": lstm_train["launches"],
                    "lstm-fit": lstm_fit["launches"],
@@ -5587,7 +6192,11 @@ def main(argv) -> int:
     def mesh_paths(name):
         return {path: mesh_sum(stats, name) for path, stats in (
             ("mesh-tp", mesh_tp), ("mesh-ep", mesh_ep),
-            ("mesh-moe-tp", mesh_moe_tp), ("mesh-fit", mesh_fit))}
+            ("mesh-moe-tp", mesh_moe_tp), ("mesh-fit", mesh_fit),
+            *((f"mesh-seq {part}", st) for part, st in mesh_seq.items()
+              if isinstance(st, dict) and "launches_by_rank" in st),
+            ("seq-fit", seq_fit),
+            *((f"mesh-pipe {part}", st) for part, st in mesh_pipe.items()))}
 
     def fit_paths(name):
         """The launches of the trainer-loop and evaluation paths."""
@@ -5607,8 +6216,7 @@ def main(argv) -> int:
                 **{path: stats["launches"][name] for path, stats in (
                     ("moe-train", moe_train), ("moe-fit", moe_fit),
                     ("moe-serve", moe_serve))},
-                **{path: n for path, n in mesh_paths(name).items()
-                   if path in ("mesh-ep", "mesh-moe-tp")}}
+                **mesh_paths(name)}
 
     def decode_paths(name):
         """The launches of the parallel and speculative decoding paths, of
@@ -5782,9 +6390,12 @@ def main(argv) -> int:
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
          "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:1031",
-         "launches": sp_sum("sp_windowed_attention"),
+         "launches": sp_sum("sp_windowed_attention")
+         + sum(mesh_paths("sp_windowed_attention").values()),
          "launches_by_rank": {"sp-train": [
              c["sp_windowed_attention"] for c in sp_counts]},
+         "launches_by_path": {"sp-train": sp_sum("sp_windowed_attention"),
+                              **mesh_paths("sp_windowed_attention")},
          **timed(k6), "device_ms": k6["device_ms"],
          "k1_device_ms": k6["k1_device_ms"],
          "square": {k: k6_square[k] for k in (
@@ -5794,9 +6405,13 @@ def main(argv) -> int:
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "wrapper": "sparse_vae_tpu_torch/ops/sp_kernel.py",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:1057",
-         "launches": sp_sum("sp_windowed_attention_bwd"),
+         "launches": sp_sum("sp_windowed_attention_bwd")
+         + sum(mesh_paths("sp_windowed_attention_bwd").values()),
          "launches_by_rank": {"sp-train": [
              c["sp_windowed_attention_bwd"] for c in sp_counts]},
+         "launches_by_path": {
+             "sp-train": sp_sum("sp_windowed_attention_bwd"),
+             **mesh_paths("sp_windowed_attention_bwd")},
          "shape": k6["shape"], "max_abs_err": k6["bwd_max_abs_err"],
          "ms": k6["bwd_ms"], "device_ms": k6["bwd_device_ms"],
          "k2_device_ms": k6["bwd_k2_device_ms"],

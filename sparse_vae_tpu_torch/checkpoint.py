@@ -173,13 +173,14 @@ def flax_path(model: torch.nn.Module, key: str) -> tuple:
 
 
 def export_archive(model: torch.nn.Module, meta: dict, out_dir,
-                   step: int = 0) -> Path:
+                   step: int = 0, compress: bool = True) -> Path:
     """Write `model` as an archive `load_run(out_dir)` reads:
     ckpt_bf16.npz (each parameter under its flax leaf path with the
     `::bf16` suffix, its value rounded to bf16 (to nearest, ties to even)
     and stored as the uint16 bit pattern, Dense kernels transposed back to
-    [in, out]), meta.json (`meta`) and ckpt_meta.json (experiment, name,
-    step, each leaf's dtype, meta). Returns out_dir."""
+    [in, out]; zip-compressed unless compress is False, which writes
+    faster and reads the same), meta.json (`meta`) and ckpt_meta.json
+    (experiment, name, step, each leaf's dtype, meta). Returns out_dir."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     arrays, dtypes = {}, {}
@@ -191,7 +192,8 @@ def export_archive(model: torch.nn.Module, meta: dict, out_dir,
             arrays[path + BF16_SUFFIX] = value.contiguous().view(
                 torch.int16).numpy().view(np.uint16)
             dtypes[path] = "float32"
-    np.savez_compressed(out_dir / "ckpt_bf16.npz", **arrays)
+    save = np.savez_compressed if compress else np.savez
+    save(out_dir / "ckpt_bf16.npz", **arrays)
     (out_dir / "meta.json").write_text(json.dumps(meta, indent=2) + "\n")
     (out_dir / "ckpt_meta.json").write_text(json.dumps(
         {"experiment": meta.get("experiment"), "name": meta.get("name"),

@@ -20,8 +20,8 @@ d_embedding == d_model, dense or mixture-of-experts FFNs (num_experts >
 1, models/moe.py), no decoder cross-attention, sparse (sliding-window)
 or dense causal self-attention (ops/attention.py routes the dense one
 through K1/K2 inside the JAX package's flash-attention gate), one device
-or, for a dense Transformer-VAE, a length axis sharded over a `seq`
-group (`bind_seq_group`, through parallel.sp.sp_localize). Tensor and
+or, with sparse attention, a length axis sharded over a `seq` group
+(`bind_seq_group`, through parallel.sp.sp_localize). Tensor and
 expert parallelism build a per-shard twin (parallel.tp.tp_localize,
 parallel.ep.ep_localize: hparams with tp_size or ep_size > 1, then
 `bind_model_group` / `bind_expert_group`); under tensor parallelism with
@@ -214,11 +214,8 @@ class TransformerLanguageModel(nn.Module):
     def bind_seq_group(self, group):
         """Shard the length axis over `group` (parallel/sp.py): the decoder
         attention takes the halo / [CLS] path and the labels shift across
-        shards. The parameters do not change."""
-        if self.hparams.num_experts > 1:
-            raise NotImplementedError(
-                "mixture-of-experts layers over a seq group are not ported "
-                "yet: ROADMAP Queue 1 item 8")
+        shards. The parameters do not change. Mixture-of-experts layers
+        route and fill their capacity per length shard."""
         self.seq_group = group
         self.hparams = replace(self.hparams, sp_size=group.size)
         for layer in self.decoder_layers:

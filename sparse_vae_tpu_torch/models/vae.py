@@ -91,6 +91,7 @@ class VAEObjective:
     ROW_SUMS = ("kl_sum", "raw_kl_sum", "marginal_kl_rows",
                 "neg_bound_sum", "bound_sum")
     ROW_COUNTS = ("row_count",)
+    ROW_EVAL = ("byte_count", "kl_weighted_rows", "row_count")
 
     def __init__(self, hparams, mutual_info_samples: int = 10):
         self.hp = hparams
@@ -149,27 +150,45 @@ class VAEObjective:
                                                  generator, **extra)
             nll, mask = token_nll(logits[:, :-1], ids[:, 1:], reduce=False)
             nll_sum, count = nll.sum(), mask.sum()
+        sums, counts = self.latent_sums(raw_kl, posterior, batch, noise,
+                                        generator)
+        sums["nll_sum"], counts["token_count"] = nll_sum, count
+        if stats is not None:
+            moe_loss_terms(collect_moe_stats(stats), sums, counts)
+        return sums, counts
+
+    @staticmethod
+    def sum_names(rows: int) -> Tuple[tuple, tuple]:
+        """The names of the single-sample loss_sums' sums and counts on a
+        batch of `rows` rows without experts: latent_sums' and the NLL's."""
+        marginal = ("marginal_kl_rows",) if rows > 1 else ()
+        return (("nll_sum", "kl_sum", "raw_kl_sum") + marginal,
+                ("token_count", "row_count"))
+
+    def latent_sums(self, raw_kl, posterior, batch: dict, noise: dict,
+                    generator: Optional[torch.Generator] = None):
+        """The ELBO's latent terms of one batch: ({"kl_sum" (free bits
+        applied), "raw_kl_sum"[, "marginal_kl_rows"]}, {"row_count"}).
+        raw_kl: the per-dimension KL [B, 1, latent]; noise["mi"] (or
+        draws from `generator`) for the marginal-KL diagnostic, with B >
+        1 rows."""
         fb = getattr(self.hp, "free_bits", 0.0)
         kl_for_loss = raw_kl.clamp_min(fb) if fb > 0.0 else raw_kl
         kl_sum, _, rows = kl_sums(kl_for_loss, batch["num_tokens"])
         _, raw_kl_sum, _ = kl_sums(raw_kl, batch["num_tokens"])
-        sums = {"nll_sum": nll_sum, "kl_sum": kl_sum,
-                "raw_kl_sum": raw_kl_sum}
-        counts = {"token_count": count, "row_count": rows}
-        if ids.shape[0] > 1:
+        sums = {"kl_sum": kl_sum, "raw_kl_sum": raw_kl_sum}
+        b = batch["token_ids"].shape[0]
+        if b > 1:
             with torch.no_grad():
                 detached = DiagonalGaussian(posterior.loc.detach(),
                                             posterior.scale.detach())
                 mi = noise.get("mi")
                 if mi is None:
                     mi = torch.randn(
-                        (self.mi_samples, *detached.loc.reshape(
-                            ids.shape[0], -1).shape),
-                        generator=generator, device=ids.device)
+                        (self.mi_samples, *detached.loc.reshape(b, -1).shape),
+                        generator=generator, device=raw_kl.device)
                 sums["marginal_kl_rows"] = marginal_kl(detached, mi) * rows
-        if stats is not None:
-            moe_loss_terms(collect_moe_stats(stats), sums, counts)
-        return sums, counts
+        return sums, {"row_count": rows}
 
     def compose_loss(self, sums, counts, step):
         """(loss, metrics) from the sums and counts."""

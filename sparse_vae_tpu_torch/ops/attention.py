@@ -15,7 +15,8 @@ per-row forms), the frontier window (`init_window_cache`,
 sequence-parallel branch (`Attention._sp_call`, parallel/sp.py: the halo
 and [CLS] broadcast into K6, or the distributed softmax of replicated
 queries), and the tensor-parallel branch (`tp_size` > 1, parallel/tp.py:
-a shard of the heads, the f/g collectives at entry and close). The chunk
+a shard of the heads, the f/g collectives at entry and close), the two
+composed on a data x seq x model mesh. The chunk
 and window attentions are plain tensor code, as in the reference (XLA
 there, no Pallas kernel).
 
@@ -147,7 +148,9 @@ class Attention(nn.Module):
     output projection is row-parallel, and once `model_group` is bound the
     input passes `replicate_gradient` and the output projection's partial
     product `reduce_activations` before its replicated bias is added once.
-    The packed layout is off, as in the JAX package (`_packed_ok`).
+    The packed layout is off, as in the JAX package (`_packed_ok`). Both
+    groups bound (data x seq x model): the inputs pass
+    `replicate_gradient` first, then `_sp_call` runs on the shard's heads.
     """
 
     def __init__(self, d_model: int, num_heads: int, causal: bool = False,
@@ -378,19 +381,13 @@ class Attention(nn.Module):
         kv_mask: [B, Lk] bool (True = valid key). With return_kv, also
         returns the head-major rotary (k, v) — the bulk-prefill cache seed
         (fill_cache_row)."""
+        if self.model_group is not None:
+            x, x_kv = self._replicated_inputs(x, x_kv)
         if self.seq_group is not None:
-            if self.model_group is not None:
-                raise NotImplementedError(
-                    "attention over a seq group and a model group together "
-                    "(data x seq x model, sparse_vae_tpu/ops/attention.py "
-                    "_sp_call with tp_size > 1) is not ported yet: ROADMAP "
-                    "Queue 1 item 8")
             if return_kv:
                 raise NotImplementedError("sequence-parallel attention "
                                           "returns no decode cache seed")
             return self._sp_call(x, kv_mask, x_kv)
-        if self.model_group is not None:
-            x, x_kv = self._replicated_inputs(x, x_kv)
         route = self._route(x.shape[1],
                             (x if x_kv is None else x_kv).shape[1])
         if route == "packed":

@@ -41,6 +41,8 @@ ops/sp_kernel.py holds the kernel path (K6).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
@@ -266,18 +268,33 @@ def sp_localize(model, group: SeqGroup):
     A group of one rank leaves the model as it is."""
     if group.size <= 1:
         return model
-    hp = model.hparams
-    if not hasattr(hp, "sp_size"):
+    check_seq_parallel(model.hparams, type(model).__name__)
+    model.bind_seq_group(group)
+    return model
+
+
+def sp_pad_multiple(hp, sp: int, pad_to_multiple_of: int = 512) -> int:
+    """The row-length multiple of a batch sharded over `sp` ranks (the
+    JAX package's Trainer): lcm(pad_to_multiple_of, sp x window x block),
+    so that every length shard is a whole number of window bands."""
+    need = (sp * getattr(hp, "attn_window_size", 1)
+            * getattr(hp, "attn_block_size", 1))
+    return math.lcm(pad_to_multiple_of, need)
+
+
+def check_seq_parallel(hparams, model_name: str):
+    """Raise the JAX package's ValueError where a model of `hparams`
+    cannot shard its length axis: not a transformer family, or dense
+    attention."""
+    if not hasattr(hparams, "sp_size"):
         raise ValueError(
-            f"{type(model).__name__} does not support sequence parallelism; "
+            f"{model_name} does not support sequence parallelism; "
             "only the transformer families shard the length axis")
-    if not getattr(hp, "sparse_self_attention", False):
+    if not getattr(hparams, "sparse_self_attention", False):
         raise ValueError(
             "sequence parallelism requires the sparse sliding-window "
             "decoder (dense causal self-attention has no bounded halo); "
             "set sparse_self_attention=true")
-    model.bind_seq_group(group)
-    return model
 
 
 def shard_length(x, group: SeqGroup, dim: int = 1):

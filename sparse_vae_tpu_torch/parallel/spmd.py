@@ -14,7 +14,8 @@ parallel/mesh.py):
   gradient for this shard's terms; the all-reduce itself is never
   differentiated. `assert_compose_loss_linear` checks that contract for
   an objective. The sums are summed over the seq group, or over the
-  mesh's rows group: `data`, and `data` x `expert` on an expert mesh.
+  mesh's `sums_group`: `data`, `data` x `expert` on an expert mesh,
+  `data` x `seq` on a seq mesh.
 - `SeqOnceObjective` counts the objective's per-ROW statistics
   (ROW_SUMS / ROW_COUNTS: KL, the IWAE bound's sums, row counts) on
   shard 0 only, since they are the same on every length shard; token
@@ -23,7 +24,8 @@ parallel/mesh.py):
   shards inside `reconstruct_ll` before the bound, which is then a
   per-row statistic like the KL. It needs the chunked loss: the
   full-logits branch shifts labels locally and would mislabel the shard
-  boundaries.
+  boundaries. On a seq mesh (`seq_once`) it wraps the objective of the
+  train and the eval statistics alike.
 - Noise. Under sequence parallelism every shard of a row decodes the same
   z: `seq_noise` broadcasts rank 0's draws. On a mesh the posterior noise
   is drawn for the GLOBAL batch, the same on every rank, and each rank
@@ -35,11 +37,12 @@ parallel/mesh.py):
   a group in one collective over the flattened fp32 gradients.
   `reduce_mesh_grads` applies the mesh's rule per leaf: replicated
   leaves over `data` (x `expert` on an expert mesh), model-sharded leaves
-  and expert stacks over `data` alone; no sum ever crosses `model`. Clip
+  and expert stacks over `data` alone, every leaf over `data` x `seq` on
+  a seq mesh; no sum ever crosses `model`. Clip
   and RAdam then run on every rank on identical gradients (the clip's
   norm from `mesh_norm_fn`), so the parameters stay identical wherever
   they are replicated.
-- `mesh_eval_stats` sums the objective's eval statistics over the rows
+- `mesh_eval_stats` sums the objective's eval statistics over the sums
   group.
 """
 from __future__ import annotations
@@ -49,7 +52,7 @@ from typing import Callable, Optional
 import torch
 
 from .group import AxisGroup, SeqGroup, all_reduce_sum, broadcast_from_first
-from .mesh import DATA, EXPERT, MODEL, Mesh
+from .mesh import DATA, EXPERT, MODEL, SEQ, Mesh
 
 
 class SeqOnceObjective:
@@ -77,6 +80,11 @@ class SeqOnceObjective:
         sums, counts = self.inner.loss_sums(model, batch, noise, generator)
         return (self._once(sums, self.inner.ROW_SUMS),
                 self._once(counts, self.inner.ROW_COUNTS))
+
+    def eval_stats(self, model, batch, noise=None, generator=None):
+        return self._once(self.inner.eval_stats(model, batch, noise,
+                                                generator),
+                          self.inner.ROW_EVAL)
 
 
 def seq_noise(objective, model, batch: dict, noise, generator,
@@ -126,6 +134,11 @@ def seq_loss(objective, model, batch: dict, step: int, noise, generator,
     """(loss, metrics) of one length-sharded micro-batch: the global
     values on every rank, with this shard's gradient."""
     objective = SeqOnceObjective(objective, group)
+    if not hasattr(objective, "mi_samples"):
+        # A language model draws no latent noise; its dropout generator
+        # folds by the shard inside the objective.
+        return sharded_loss(objective, model, batch, step, noise, generator,
+                            group)
     noise = seq_noise(objective, model, batch, noise, generator, group)
     return sharded_loss(objective, model, batch, step, noise, None, group)
 
@@ -160,8 +173,11 @@ def assert_compose_loss_linear(objective, sums: dict, counts: dict,
 def localize(model, mesh: Mesh):
     """`model`'s twin on this rank of the mesh: tensor-parallel over
     `model`, expert-parallel over `expert`, or `model` itself for data
-    parallelism; bound to the mesh (`model.mesh`) for train_step."""
+    parallelism; bound to the `seq` group on a seq mesh
+    (parallel.sp.sp_localize), and to the mesh (`model.mesh`) for
+    train_step."""
     from .ep import ep_localize
+    from .sp import sp_localize
     from .tp import tp_localize
     if mesh.size(MODEL) > 1:
         twin = tp_localize(model, mesh.groups[MODEL])
@@ -169,6 +185,8 @@ def localize(model, mesh: Mesh):
         twin = ep_localize(model, mesh.groups[EXPERT])
     else:
         twin = model
+    if mesh.size(SEQ) > 1:
+        sp_localize(twin, mesh.groups[SEQ])
     twin.mesh = mesh
     return twin
 
@@ -242,17 +260,29 @@ def mesh_noise(objective, model, rows: int, noise, generator,
     return out
 
 
+def seq_once(objective, mesh: Mesh):
+    """The objective as a seq mesh needs it: per-row statistics counted on
+    seq shard 0 (`SeqOnceObjective`); itself elsewhere."""
+    if mesh.size(SEQ) > 1:
+        return SeqOnceObjective(objective, mesh.groups[SEQ])
+    return objective
+
+
 def mesh_loss(objective, model, batch: dict, step: int, noise, generator,
               mesh: Mesh):
-    """(loss, metrics) of this rank's rows of one micro-batch on the mesh:
-    the global values on every rank, with this shard's gradient. noise:
-    the global micro-batch's (`mesh_noise`)."""
+    """(loss, metrics) of this rank's part of one micro-batch on the mesh
+    (its rows; on a seq mesh its slice of their length): the global
+    values on every rank, with this shard's gradient, the sums summed
+    over `mesh.sums_group`. noise: the global micro-batch's
+    (`mesh_noise`; every seq shard of a row decodes the same z). The
+    dropout generator folds by the row shard here and by the seq shard in
+    the objective."""
     rows = batch["token_ids"].shape[0]
     noise = mesh_noise(objective, model, rows, noise, generator, mesh)
     folded = (None if generator is None
               else fold_generator(generator, mesh.row_shard))
-    return sharded_loss(objective, model, batch, step, noise, folded,
-                        mesh.rows_group)
+    return sharded_loss(seq_once(objective, mesh), model, batch, step, noise,
+                        folded, mesh.sums_group)
 
 
 def all_reduce_grads(params, group: AxisGroup) -> None:
@@ -275,12 +305,12 @@ def all_reduce_grads(params, group: AxisGroup) -> None:
 
 
 def reduce_mesh_grads(model, mesh: Mesh) -> None:
-    """Each gradient summed over the ranks whose rows it has not seen:
-    `data` for every leaf; on an expert mesh also `expert` for all but the
-    expert stacks, whose gradients the exchange already made complete
-    over it."""
+    """Each gradient summed over the ranks whose tokens it has not seen:
+    `data` for every leaf, and `seq` too on a seq mesh; on an expert mesh
+    also `expert` for all but the expert stacks, whose gradients the
+    exchange already made complete over it."""
     if mesh.size(EXPERT) <= 1:
-        all_reduce_grads(model, mesh.groups[DATA])
+        all_reduce_grads(model, mesh.sums_group)
         return
     from .ep import is_expert_leaf
     named = list(model.named_parameters())
@@ -300,10 +330,11 @@ def mesh_eval_stats(objective, model, batch: dict, mesh: Mesh, noise=None,
     local_noise = mesh_noise(objective, model, rows, noise, generator, mesh)
     if local_noise is not None:
         local_noise = {"eps": local_noise["eps"]}
-    stats = objective.eval_stats(model, batch, local_noise, generator)
+    stats = seq_once(objective, mesh).eval_stats(model, batch, local_noise,
+                                                 generator)
     names = sorted(stats)
     total = all_reduce_sum(torch.stack(
-        [stats[k].detach().float() for k in names]), mesh.rows_group)
+        [stats[k].detach().float() for k in names]), mesh.sums_group)
     return dict(zip(names, total))
 
 

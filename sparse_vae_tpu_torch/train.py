@@ -21,9 +21,10 @@ trainer.sample_every_n_steps a sample and, for a VAE, a reconstruction
 with its BLEU (cli.make_sample_fns). from_checkpoint=<run> resumes
 that run with its saved hparams as the base. It is selected when the
 argument after the experiment is absent or holds a `=`. With
-trainer.num_devices=N > 1 (and trainer.model_parallel or
-trainer.expert_parallel) it trains on a mesh of N ranks (parallel/mesh.py:
-data x model or data x expert): spawned here, rank r on cuda:{r %
+trainer.num_devices=N > 1 (and trainer.model_parallel,
+trainer.seq_parallel or trainer.expert_parallel) it trains on a mesh of
+N ranks (parallel/mesh.py: data x seq x model or data x expert):
+spawned here, rank r on cuda:{r %
 device_count} (all on the CPU with device=cpu), or, under torchrun (RANK
 and WORLD_SIZE set), this process as one rank. Rank 0 prepares the corpus
 before the others read it, and rank 0 logs and writes the checkpoints,
@@ -46,11 +47,14 @@ global-norm clip on the cosine schedule, at the JAX trainer's lr
 (`run_lr`). Prints one JSON line of metrics per step.
 
 sp=N > 1 shards the length axis over N ranks (sequence parallelism,
-parallel/; the Transformer-VAE only): lengths are padded to a multiple
-of N * window * block, the kernels are built once here, and N ranks are
-spawned, rank r on cuda:{r % device_count} (or all on the CPU with
-device=cpu). Under torchrun (RANK and WORLD_SIZE set) this process is
-one rank of that group instead, on cuda:{LOCAL_RANK % device_count}.
+parallel/; a run with sparse attention): lengths are padded to a
+multiple of N * window * block, the kernels are built once here, and N
+ranks are spawned, rank r on cuda:{r % device_count} (or all on the CPU
+with device=cpu). Under torchrun (RANK and WORLD_SIZE set) this process
+is one rank of that group instead, on cuda:{LOCAL_RANK % device_count}.
+The Transformer-VAE alone runs its own loop (`train_rank`); the
+Transformer LM (`sp=N` on a run with sparse attention) runs the mesh's
+(`mesh_rank`, data 1 x seq N).
 Every rank runs with the same weights and the same global batches,
 holding positions r * L / N .. (r + 1) * L / N - 1. The process group is NCCL when every
 rank has a card of its own and gloo otherwise (parallel/group.py); the
@@ -58,12 +62,14 @@ chosen backend is printed. Every rank prints its own line per step
 ({"rank", "step", "seconds", ...}); rank 0 also prints the step's
 metrics, the same on every rank.
 
-dp=, tp= and ep= train on a mesh of dp x tp x ep ranks (parallel/mesh.py;
-tp and ep not both): tensor parallelism over tp (heads, FFNs, the tied
-vocabulary), expert parallelism over ep (an MoE run's experts), the rows
-of each global batch over dp (x ep). The ranks are spawned as for sp=N,
-or come from torchrun, whose WORLD_SIZE gives dp. Each rank prints its
-line per step, rank 0 also the step's metrics (`mesh_rank`).
+dp=, tp= and ep= train on a mesh of dp x sp x tp x ep ranks
+(parallel/mesh.py; ep beside neither tp nor sp, as in the JAX package):
+tensor parallelism over tp (heads, FFNs, the tied vocabulary), sequence
+parallelism over sp (each row's length), expert parallelism over ep (an
+MoE run's experts), the rows of each global batch over dp (x ep). The
+ranks are spawned as for sp=N, or come from torchrun, whose WORLD_SIZE
+gives dp. Each rank prints its line per step, rank 0 also the step's
+metrics (`mesh_rank`).
 
 `build_from_hparams` builds a model with no archive instead: hparams plus
 the JAX package's initialisation, at `bench_hparams`, the JAX train
@@ -73,7 +79,6 @@ as real-prose-lm-r4, which has no weights).
 from __future__ import annotations
 
 import json
-import math
 import os
 import sys
 import time
@@ -159,14 +164,6 @@ def build_from_hparams(hparams, generator, device="cuda",
     return model, objective_for(hp), _optimizer(model, hp, hp.lr), 1
 
 
-def sp_pad_multiple(hp, sp: int, pad_to_multiple_of: int = 512) -> int:
-    """The row-length multiple of a batch sharded over `sp` ranks: every
-    shard a whole number of window bands (training/trainer.py of the JAX
-    package)."""
-    need = sp * hp.attn_window_size * hp.attn_block_size
-    return math.lcm(pad_to_multiple_of, need)
-
-
 def param_digest(model) -> str:
     """sha256 of every parameter's bytes, in order: equal digests are
     bitwise equal parameters."""
@@ -204,7 +201,7 @@ def train_rank(group, name: str, steps: int, batch: int, seq: int,
     import torch
 
     from .ops import launches
-    from .parallel.sp import shard_length, sp_localize
+    from .parallel.sp import shard_length, sp_localize, sp_pad_multiple
     from .training.data import synthetic_batch
     from .training.train_step import train_step
 
@@ -272,12 +269,14 @@ def mesh_rank(world, source, steps: int, batch: int, seq: int,
               seed: int = 0, accumulate=None, tp: int = 1, ep: int = 1,
               noise=None, keep_grads: bool = False, report: bool = True,
               use_kernels: bool = True, dtype=None, first_step=None,
-              drops: bool = False) -> dict:
-    """One rank of a mesh run (tp and ep as `create_mesh`'s model_axis and
-    expert_axis; data = the world / (tp * ep)): `steps` optimizer steps on
-    this rank's rows of seeded global batches [batch, seq] (the same
-    batches on every rank, and the same as an unsharded run with this seed
-    gives). source: a run name (`build`) or hparams (`build_from_hparams`
+              drops: bool = False, sp: int = 1) -> dict:
+    """One rank of a mesh run (tp, sp and ep as `create_mesh`'s
+    model_axis, seq_axis and expert_axis; data = the world / (tp * sp *
+    ep)): `steps` optimizer steps on this rank's part of seeded global
+    batches [batch, seq] (its rows; with sp > 1 its slice of their length,
+    padded to a multiple of `sp_pad_multiple`: the same batches on every
+    rank, and the same as an unsharded run with this seed gives at that
+    length). source: a run name (`build`) or hparams (`build_from_hparams`
     with the JAX initialisation drawn from `seed`). noise: the first
     step's per-micro-batch global {"eps", "mi"}, or None to draw it from
     the seeded generator. first_step: settings of the first step alone,
@@ -290,14 +289,16 @@ def mesh_rank(world, source, steps: int, batch: int, seq: int,
     parameters after each step and of each parameter at the end, with
     keep_grads the first step's full gathered gradients on the CPU (rank
     0), and with drops (an MoE model) the share of each layer's
-    dispatches that capacity dropped on this rank's rows of the last
-    micro-batch."""
+    dispatches that capacity dropped on this rank's part of the last
+    micro-batch, and each layer's routes (assign, keep) of its part of
+    the first micro-batch before the first step."""
     import numpy as np
     import torch
 
     from .ops import launches
     from .parallel import group as pgroup
-    from .parallel.mesh import create_mesh, shard_rows
+    from .parallel.mesh import create_mesh, shard_batch
+    from .parallel.sp import sp_pad_multiple
     from .parallel.spmd import localize, mesh_norm_fn, shard_layout
     from .parallel.tp import gather_state
     from .training.data import synthetic_batch
@@ -307,7 +308,7 @@ def mesh_rank(world, source, steps: int, batch: int, seq: int,
     device = world.device
     if device.type == "cpu":    # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world.size))
-    mesh = create_mesh(world, model_axis=tp, expert_axis=ep)
+    mesh = create_mesh(world, model_axis=tp, seq_axis=sp, expert_axis=ep)
     if isinstance(source, str):
         model, objective, _, accumulate = build(
             source, device, accumulate, use_kernels=use_kernels,
@@ -321,6 +322,7 @@ def mesh_rank(world, source, steps: int, batch: int, seq: int,
             use_kernels=use_kernels, dtype=dtype)
         accumulate, lr = accumulate or 1, model.hparams.lr
     hp = model.hparams
+    pad = sp_pad_multiple(hp, sp) if sp > 1 else 512
     model = localize(model, mesh)
     layers = getattr(model, "decoder_layers", [])
     run_settings = [(layer.dropout_rate, layer.moe.capacity_factor
@@ -348,9 +350,10 @@ def mesh_rank(world, source, steps: int, batch: int, seq: int,
     for step in range(steps):
         mbs = []
         for _ in range(accumulate):
-            mb = synthetic_batch(rng, batch, seq, hp.vocab_size)
+            mb = synthetic_batch(rng, batch, seq, hp.vocab_size,
+                                 pad_to_multiple_of=pad)
             mbs.append({k: v.to(device)
-                        for k, v in shard_rows(mb, mesh).items()})
+                        for k, v in shard_batch(mb, mesh).items()})
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         for layer, (rate, capacity) in zip(layers, run_settings):
@@ -360,6 +363,13 @@ def mesh_rank(world, source, steps: int, batch: int, seq: int,
             if capacity is not None:
                 layer.moe.capacity_factor = (first_step.get(
                     "capacity_factor", capacity) if first else capacity)
+        if drops and step == 0:
+            stats = []
+            with torch.no_grad():
+                model.forward_hidden(mbs[0]["token_ids"], moe_stats=stats)
+            record["routes"] = [(s["assign"].cpu(), s["keep"].cpu())
+                                for s in stats]
+            launches.reset()    # the steps' launches alone
         staged0 = pgroup.staged_seconds
         t0 = time.perf_counter()
         metrics = train_step(model, objective, optimizer, mbs, step,
@@ -508,7 +518,10 @@ def fit_main(experiment: str, args) -> int:
         return 0
     if (cfg.trainer.num_devices or 1) > 1:
         from .parallel.group import spawn
+        from .parallel.mesh import mesh_axes
         n = cfg.trainer.num_devices
+        mesh_axes(n, cfg.trainer.model_parallel, cfg.trainer.seq_parallel,
+                  1, cfg.trainer.expert_parallel)   # JAX's refusals
         spawn(fit_rank, n, _start_ranks(device, n).type,
               (experiment, dotlist), timeout=float("inf"))
         return 0
@@ -566,41 +579,45 @@ def main(args) -> int:
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     meshed = dp * tp * ep > 1 or (torchrun and any(
         k in extra for k in ("dp", "tp", "ep")))
-    if sp > 1 and meshed:
-        raise NotImplementedError(
-            "sp=N beside dp=, tp= or ep= (data x seq x model) is not ported "
-            "yet: ROADMAP Queue 1 item 8")
-    seq_run = sp > 1 or (torchrun and not meshed)
-    if seq_run and experiment != "transformer-vae":
-        raise NotImplementedError(
-            f"{experiment} over a seq group (sparse_vae_tpu/training/"
-            "objectives.py ARObjective with sp_size > 1, parallel/spmd.py) "
-            "is not ported yet: ROADMAP Queue 1 item 8; sp=N trains the "
-            "Transformer-VAE")
+    # The length axis alone: the world is the seq group (train_rank) for
+    # the Transformer-VAE; the Transformer LM, or seq beside the other
+    # axes, takes the mesh (mesh_rank with sp).
+    seq_alone = not meshed and (sp > 1 or torchrun)
+    seq_run = seq_alone and experiment == "transformer-vae"
+    mesh_run = meshed or (seq_alone and not seq_run)
+    if mesh_run and not torchrun:
+        from .parallel.mesh import mesh_axes
+        mesh_axes(dp * tp * sp * ep, tp, sp, 1, ep)   # JAX's refusals
+    if sp > 1 or (seq_alone and torchrun):
+        from .parallel.sp import check_seq_parallel
+        check_seq_parallel(run_hparams(name), experiment)
     device_arg = extra.get("device", "cuda")
     if torchrun:
         import torch.distributed as dist
 
         from .parallel.group import from_environment
         group = from_environment(device_arg)
+        if mesh_run and not meshed and "sp" not in extra:
+            sp = group.size
         if group.rank == 0:
             print(json.dumps({"sp": group.size, "backend": group.backend}
                              if seq_run else
-                             {"world": group.size, "tp": tp, "ep": ep,
-                              "backend": group.backend}), flush=True)
+                             {"world": group.size, "tp": tp, "sp": sp,
+                              "ep": ep, "backend": group.backend}),
+                  flush=True)
         try:
             if seq_run:
                 train_rank(group, name, steps, batch, seq, seed, accumulate)
             else:
                 mesh_rank(group, name, steps, batch, seq, seed, accumulate,
-                          tp, ep)
+                          tp, ep, sp=sp)
         finally:
             dist.destroy_process_group()
         return 0
-    if seq_run or meshed:
+    if seq_run or mesh_run:
         from .parallel.group import choose_backend, spawn
 
-        size = sp if seq_run else dp * tp * ep
+        size = sp if seq_run else dp * tp * sp * ep
         device = _start_ranks(device_arg, size)
         backend = choose_backend(size, device)
         if seq_run:
@@ -608,10 +625,11 @@ def main(args) -> int:
             spawn(train_rank, sp, device.type,
                   (name, steps, batch, seq, seed, accumulate))
         else:
-            print(json.dumps({"world": size, "tp": tp, "ep": ep,
+            print(json.dumps({"world": size, "tp": tp, "sp": sp, "ep": ep,
                               "backend": backend}), flush=True)
             spawn(mesh_rank, size, device.type,
-                  (name, steps, batch, seq, seed, accumulate, tp, ep))
+                  (name, steps, batch, seq, seed, accumulate, tp, ep, None,
+                   False, True, True, None, None, False, sp))
         return 0
     model, objective, optimizer, accumulate = build(
         name, extra.get("device", "cuda"), accumulate)

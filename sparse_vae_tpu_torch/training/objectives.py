@@ -15,7 +15,10 @@ sums, `moe_load` / `moe_nv` in the counts), and `compose_loss` adds
 moe_aux_weight * aux + moe_zloss_weight * z with the metrics
 `train_moe_aux` and `train_moe_z`; validation leaves them out. They are
 token statistics, local to a length shard, so they are not in
-ROW_SUMS / ROW_COUNTS.
+ROW_SUMS / ROW_COUNTS. Under sequence parallelism (a model bound to a
+seq group) the labels shift across the shards (`labels_for`) and the
+dropout generator folds by the seq shard, as the JAX package folds its
+dropout rng by the seq index.
 
 The methods take the arguments of models/vae.py's VAEObjective, so the
 trainer and train_step drive either: `noise` is unused (a language model
@@ -64,15 +67,6 @@ class ARObjective:
             type(model), "forward_hidden")
 
     @staticmethod
-    def _check_device_layout(model):
-        if getattr(model, "seq_group", None) is not None:
-            raise NotImplementedError(
-                "the language-model objective over a seq group "
-                "(sparse_vae_tpu/training/objectives.py ARObjective with "
-                "sp_size > 1, parallel/spmd.py) is not ported yet: "
-                "ROADMAP Queue 1 item 8")
-
-    @staticmethod
     def _moe_on(model) -> bool:
         return getattr(model.hparams, "num_experts", 0) > 1
 
@@ -82,8 +76,14 @@ class ARObjective:
         """(nll_sum, token_count) of one batch of token ids [B, L]; the
         dropout (deterministic False) applies on the chunked path only.
         moe_stats: a list the MoE layers' statistics are appended to."""
-        self._check_device_layout(model)
         if self._chunked(model):
+            group = getattr(model, "seq_group", None)
+            if generator is not None and group is not None:
+                # Length shards hold different tokens: the dropout stream
+                # folds by the seq shard, or every shard would drop the
+                # same positions.
+                from ..parallel.spmd import fold_generator
+                generator = fold_generator(generator, group.rank)
             hidden = model.forward_hidden(ids, deterministic, generator,
                                           moe_stats=moe_stats)
             return model.sequence_nll(hidden, model.labels_for(ids))
@@ -106,6 +106,11 @@ class ARObjective:
         if stats is not None:
             moe_loss_terms(collect_moe_stats(stats), sums, counts)
         return sums, counts
+
+    @staticmethod
+    def sum_names(rows: int) -> Tuple[tuple, tuple]:
+        """The names of loss_sums' sums and counts without experts."""
+        return ("nll_sum",), ("token_count",)
 
     def compose_loss(self, sums, counts, step):
         """(loss, metrics): the NLL per real token, plus the MoE balance

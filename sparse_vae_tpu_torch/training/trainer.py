@@ -24,17 +24,20 @@ generator seeded from (seed, s), so two validations of the same
 parameters at the same step agree bit for bit, and the sampling callback
 at step s from the sampling seed derived from (seed, s).
 
-On a mesh (parallel/mesh.py: `data` x `model` or `data` x `expert`, one
-process a rank, `mesh=` given; trainer.num_devices, model_parallel and
-expert_parallel must describe it) every rank runs this loop on the same
-batches, planned with rows a multiple of data x expert, and keeps its
-rows; it holds its shard of the parameters and of the optimizer state
-(parallel.spmd.localize: the JAX initialisation drawn whole on every
-rank, then cut), steps through the mesh step, validates through the
-mesh's summed eval statistics on the global batch's noise, and saves
-checkpoints gathered to the single-device format, which rank 0 writes: a
-mesh run's checkpoint loads on one device (checkpoint.load_run), and a
-resume cuts it again. Rank 0 alone logs, samples (on the gathered model)
+On a mesh (parallel/mesh.py: `data` x `model`, `data` x `seq` x
+`model` or `data` x `expert`, one process a rank, `mesh=` given;
+trainer.num_devices, model_parallel, seq_parallel and expert_parallel
+must describe it) every rank runs this loop on the same batches, planned
+with rows a multiple of data x expert (and, on a seq mesh, lengths a
+multiple of lcm(pad_to_multiple_of, seq x window x block), printed once:
+a per-call override, the data hparams unchanged), and keeps its rows
+(and its slice of their length); it holds its shard of the parameters
+and of the optimizer state (parallel.spmd.localize: the JAX
+initialisation drawn whole on every rank, then cut), steps through the
+mesh step, validates through the mesh's summed eval statistics on the
+global batch's noise, and saves checkpoints gathered to the
+single-device format, which rank 0 writes: a mesh run's checkpoint loads
+on one device (checkpoint.load_run), and a resume cuts it again. Rank 0 alone logs, samples (on the gathered model)
 and profiles. fit's outcome holds the gathered model on every rank.
 
 Resuming restores the parameters, the optimizer, the step and the noise
@@ -56,6 +59,7 @@ import torch
 from ..checkpoint import model_from_hparams
 from ..data.text_data_module import TextDataModule
 from ..models.base import resolve_device
+from ..parallel.sp import sp_pad_multiple
 from ..utils.config import TrainerHparams, to_dict
 from ..utils.math_utils import bleu_score_corpus
 from ..utils.metrics import MetricsWriter
@@ -115,31 +119,27 @@ def early_stop_start_step(thp: TrainerHparams, hp) -> int:
 
 
 def check_layout(thp: TrainerHparams, mesh=None):
-    """Raise for a layout this trainer does not run, or a mesh that is
-    not the one the trainer hparams describe."""
-    if thp.seq_parallel > 1:
-        raise NotImplementedError(
-            f"seq_parallel={thp.seq_parallel}: fit over a seq mesh "
-            "(sparse_vae_tpu/training/trainer.py:146-163, "
-            "sparse_vae_tpu/parallel/spmd.py) is not ported yet: ROADMAP "
-            "Queue 1 item 8; train sequence-parallel steps with `python -m "
-            "sparse_vae_tpu_torch.train transformer-vae <run-name> sp=N`")
-    from ..parallel.mesh import EXPERT, MODEL
-    want = (thp.num_devices, thp.model_parallel, thp.expert_parallel)
+    """Raise for a mesh that is not the one the trainer hparams describe,
+    or a layout that needs a mesh and has none."""
+    from ..parallel.mesh import EXPERT, MODEL, SEQ
+    want = (thp.num_devices, thp.model_parallel, thp.expert_parallel,
+            thp.seq_parallel)
     if mesh is None:
-        if (thp.num_devices or 1) > 1 or want[1:] != (1, 1):
+        if (thp.num_devices or 1) > 1 or want[1:] != (1, 1, 1):
             raise ValueError(
                 f"num_devices={thp.num_devices}, model_parallel="
                 f"{thp.model_parallel}, expert_parallel="
-                f"{thp.expert_parallel} need a mesh: start the ranks with "
-                "`python -m sparse_vae_tpu_torch.train <experiment> "
+                f"{thp.expert_parallel}, seq_parallel={thp.seq_parallel} "
+                "need a mesh: start the ranks with `python -m "
+                "sparse_vae_tpu_torch.train <experiment> "
                 "trainer.num_devices=N ...` (which spawns them) or under "
                 "torchrun")
         return
-    have = (mesh.world.size, mesh.size(MODEL), mesh.size(EXPERT))
+    have = (mesh.world.size, mesh.size(MODEL), mesh.size(EXPERT),
+            mesh.size(SEQ))
     if have[1:] != want[1:] or want[0] not in (None, have[0]):
-        raise ValueError(f"the mesh has (ranks, model, expert) = {have}, "
-                         f"the trainer hparams ask for {want}")
+        raise ValueError(f"the mesh has (ranks, model, expert, seq) = "
+                         f"{have}, the trainer hparams ask for {want}")
 
 
 class Trainer:
@@ -166,6 +166,15 @@ class Trainer:
         self.mesh = mesh
         self.rank0 = mesh is None or mesh.world.rank == 0
         self._rows_multiple = 1 if mesh is None else mesh.row_shards
+        # A per-call override of the bucket quantum: the data hparams are
+        # not changed.
+        seq = 1 if mesh is None else mesh.size("seq")
+        cur = data.hparams.pad_to_multiple_of
+        pad = sp_pad_multiple(model_hparams, seq, cur) if seq > 1 else cur
+        self._pad_multiple = None if pad == cur else pad
+        if self._pad_multiple is not None and self.rank0:
+            print(f"seq_parallel={seq}: padding batch lengths to multiples "
+                  f"of {pad} (was {cur})", flush=True)
         self.device = resolve_device(device) if mesh is None \
             else mesh.device
         self.experiment = experiment
@@ -222,16 +231,17 @@ class Trainer:
         micro-batches a bucket go unused at the end of training."""
         yield from defer_accum_groups(
             self.data.epoch_batches("train", seed=seed,
-                                    rows_multiple_of=self._rows_multiple),
+                                    rows_multiple_of=self._rows_multiple,
+                                    pad_to_multiple_of=self._pad_multiple),
             self.thp.accumulate_grad_batches, self._pending_groups)
 
     def _local_rows(self, arrays: dict, stacked: bool = False) -> dict:
-        """This rank's rows of a batch on a mesh; the batch itself on one
-        device."""
+        """This rank's part of a batch on a mesh (its rows; on a seq mesh
+        its slice of their length); the batch itself on one device."""
         if self.mesh is None:
             return arrays
-        from ..parallel.mesh import shard_rows
-        return shard_rows(arrays, self.mesh, stacked)
+        from ..parallel.mesh import shard_batch
+        return shard_batch(arrays, self.mesh, stacked)
 
     def _step(self, model, optimizer, stacked: dict, step: int,
               generator: torch.Generator) -> dict:
@@ -257,7 +267,8 @@ class Trainer:
         limit = max_batches or self.thp.limit_val_batches
         if self._val_batches is None:
             self._val_batches = list(self.data.epoch_batches(
-                "test", seed=0, rows_multiple_of=self._rows_multiple))
+                "test", seed=0, rows_multiple_of=self._rows_multiple,
+                pad_to_multiple_of=self._pad_multiple))
         totals: Dict[str, float] = {}
         with torch.no_grad():
             for i, batch in enumerate(self._val_batches):

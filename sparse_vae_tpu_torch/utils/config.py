@@ -128,8 +128,7 @@ class TrainerHparams:
     # one, else 0 (training/trainer.py::early_stop_start_step).
     early_stopping_start_step: Optional[int] = None
     # The device mesh (parallel/mesh.py): num_devices ranks, data x
-    # model_parallel or data x expert_parallel; seq_parallel > 1 raises
-    # in the Trainer (ROADMAP Queue 1 item 8).
+    # seq_parallel x model_parallel or data x expert_parallel.
     num_devices: Optional[int] = None
     seq_parallel: int = 1
     model_parallel: int = 1

@@ -188,10 +188,15 @@ def test_train_cli_trains_validates_checkpoints_and_resumes(tmp_path,
 
 
 def test_train_cli_refuses_a_seq_mesh(tmp_path, monkeypatch):
+    """A seq axis beside an expert axis: the JAX package's refusal, before
+    any rank starts."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="sp=N"):
-        train.main(["train", "transformer-vae", *TINY,
-                    "trainer.seq_parallel=2", "no_log=true"])
+    lm = [x for x in TINY if "latent" not in x]
+    with pytest.raises(NotImplementedError, match="'data' axis only"):
+        train.main(["train", "transformer-lm", *lm,
+                    "model.num_experts=4", "trainer.num_devices=4",
+                    "trainer.seq_parallel=2", "trainer.expert_parallel=2",
+                    "no_log=true"])
 
 
 MESH_LAYOUTS = {
@@ -226,3 +231,51 @@ def test_train_cli_runs_on_a_mesh(tmp_path, monkeypatch, capfd, layout):
     assert state["step"] == 2 and (hp.tp_size, hp.ep_size) == (1, 1)
     assert all(torch.isfinite(p).all() for p in model.parameters())
 
+
+
+def test_train_cli_runs_the_lm_on_a_seq_mesh(tmp_path, monkeypatch, capfd):
+    """`train transformer-lm <dotlist> trainer.num_devices=2
+    trainer.seq_parallel=2 device=cpu`: the sparse LM's fit over data 1 x
+    seq 2 (each rank half of every document), 2 steps with validation and
+    a checkpoint that loads on one device."""
+    from sparse_vae_tpu_torch import load_checkpoint_for_name
+    monkeypatch.chdir(tmp_path)
+    dotlist = [x for x in TINY if "latent" not in x]
+    assert train.main(["train", "transformer-lm", *dotlist,
+                       "model.loss_chunk_size=256", "trainer.max_steps=2",
+                       "trainer.num_devices=2", "trainer.seq_parallel=2",
+                       "name=mesh-seq"]) == 0
+    out = capfd.readouterr().out
+    assert "mesh {'data': 1, 'seq': 2, 'model': 1} (gloo)" in out
+    assert "Done: step=2 stopped=max_steps" in out
+    model, hp, _, state, _ = load_checkpoint_for_name(
+        "transformer-lm", "mesh-seq", device="cpu")
+    assert state["step"] == 2 and hp.sp_size == 1
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def test_train_cli_under_torchrun_takes_a_data_parallel_step(tmp_path):
+    """torchrun's rendezvous is the counterpart of the JAX package's
+    initialize_distributed: `python -m torch.distributed.run --standalone
+    --nproc_per_node 2 -m sparse_vae_tpu_torch.train transformer-vae
+    <dotlist> trainer.num_devices=2 device=cpu` starts 2 ranks that meet
+    through group.from_environment (RANK, WORLD_SIZE, the rendezvous on
+    localhost) and train over data 2."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "sparse_vae_tpu_torch.train",
+         "transformer-vae", *TINY, "trainer.max_steps=1",
+         "trainer.num_devices=2", "trainer.val_check_interval=1.0",
+         "name=torchrun"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "mesh {'data': 2, 'model': 1} (gloo)" in proc.stdout
+    assert "Done: step=1 stopped=max_steps" in proc.stdout
+    ckpts = tmp_path / "sparse-vae-logs" / "transformer-vae" / "torchrun"
+    assert (ckpts / "checkpoints" / "step_1").exists()

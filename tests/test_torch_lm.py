@@ -373,18 +373,31 @@ def test_jax_initialised_sparse_lm_objective_matches_jax(chunk):
 
 
 def test_objective_refuses_experts_and_a_seq_group():
-    """ARObjective now builds an MoE LM (tests/test_torch_moe.py holds it
-    against JAX) and still refuses an LM bound to a seq group."""
+    """ARObjective builds an MoE LM (tests/test_torch_moe.py holds it
+    against JAX) and, since the seq axis is ported, an LM bound to a seq
+    group (tests/test_torch_seq_mesh.py holds it against JAX over 2
+    shards): over a group of one shard it gives the unbound loss, and
+    its dropout stream is the generator folded by the shard."""
+    from sparse_vae_tpu_torch.parallel.group import AxisGroup
+    from sparse_vae_tpu_torch.parallel.spmd import fold_generator
     hp = TransformerHparams(**SPARSE_LM, num_experts=4)
     loss, metrics = ARObjective(hp).loss(
         TransformerLanguageModel(hp), {"token_ids": torch.ones(
             1, 128, dtype=torch.int64)}, 0)
     assert torch.isfinite(loss) and "train_moe_aux" in metrics
-    model = TransformerLanguageModel(TransformerHparams(**SPARSE_LM))
-    model.seq_group = object()
-    ids = torch.ones(1, 128, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="seq group"):
-        ARObjective(model.hparams).loss(model, {"token_ids": ids}, 0)
+    hp = TransformerHparams(**SPARSE_LM, loss_chunk_size=256)
+    model = TransformerLanguageModel(hp)
+    ids = torch.randint(3, 2048, (2, 256), generator=torch.Generator()
+                        .manual_seed(0))
+    objective = ARObjective(hp)
+    with torch.no_grad():
+        want, _ = objective.loss(model, {"token_ids": ids}, 0,
+                                 generator=fold_generator(
+                                     torch.Generator().manual_seed(1), 0))
+        model.bind_seq_group(AxisGroup(0, 1, torch.device("cpu"), "gloo"))
+        got, _ = objective.loss(model, {"token_ids": ids}, 0,
+                                generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_training_dropout_draws_from_the_generator():

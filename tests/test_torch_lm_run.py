@@ -222,7 +222,8 @@ def test_batch_arrays_are_the_jax_packages():
 def test_train_step_form_on_the_draft_run(capsys):
     """`train transformer-lm draft-tlm-r5 steps=1 ...` takes one step of
     the archived LM's training form with ARObjective; a run of another
-    experiment and a seq group are refused."""
+    experiment and, over a seq group, the run's dense attention are
+    refused (JAX's ValueError, before any rank starts)."""
     assert train.main(["train", "transformer-lm", RUN, "steps=1", "batch=1",
                        "seq=512", "accumulate=1", "device=cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -230,7 +231,7 @@ def test_train_step_form_on_the_draft_run(capsys):
     assert 5 < line["loss"] < 12 and line["tokens"] == 512
     with pytest.raises(SystemExit, match="transformer-lm"):
         train.main(["train", "transformer-vae", RUN, "device=cpu"])
-    with pytest.raises(NotImplementedError, match="seq group"):
+    with pytest.raises(ValueError, match="sparse sliding-window decoder"):
         train.main(["train", "transformer-lm", RUN, "sp=2", "device=cpu"])
 
 

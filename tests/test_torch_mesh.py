@@ -120,12 +120,12 @@ def test_mesh_guards_raise():
         create_mesh(world, model_axis=3)
     with pytest.raises(NotImplementedError, match="'data' axis only"):
         create_mesh(world, model_axis=2, expert_axis=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_mesh(world, pipe_axis=2)
+    with pytest.raises(NotImplementedError, match="'data' axis only"):
+        create_mesh(world, seq_axis=2, expert_axis=2)
     with pytest.raises(NotImplementedError, match="'data' axis only"):
         create_mesh(world, pipe_axis=2, model_axis=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_mesh(world, seq_axis=2)
+    with pytest.raises(NotImplementedError, match="'data' axis only"):
+        create_mesh(world, pipe_axis=2, seq_axis=2)
 
 
 @pytest.mark.parametrize("stacked", [False, True])

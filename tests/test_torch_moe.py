@@ -275,7 +275,8 @@ def test_ties_go_to_the_lower_expert():
 def test_guards_raise_as_jax_and_name_item_8():
     """The JAX package's guards; expert and tensor parallelism alone are
     ported (tests/test_torch_ep.py), both together raise as in JAX, and
-    MoE over a seq group names ROADMAP item 8."""
+    MoE over a seq group binds every layer (its routing per length shard,
+    tests/test_torch_seq_mesh.py)."""
     with pytest.raises(ValueError, match="top_k=5 > E=4"):
         MoEFFN(8, 16, 4, top_k=5)
     assert MoEFFN(8, 16, 4, ep_size=2).w_in.shape == (2, 8, 16)
@@ -285,9 +286,13 @@ def test_guards_raise_as_jax_and_name_item_8():
     with pytest.raises(NotImplementedError, match="not composed"):
         MoEFFN(8, 16, 4, ep_size=2, tp_size=2)
     TransformerHparams(num_experts=4, ep_size=2).check_ported()
+    from sparse_vae_tpu_torch.parallel.group import AxisGroup
     model = TransformerLanguageModel(_port_hp(LM))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model.bind_seq_group(object())
+    group = AxisGroup(1, 2, torch.device("cpu"), "gloo")
+    model.bind_seq_group(group)
+    assert model.seq_group is group and model.hparams.sp_size == 2
+    assert all(layer.attention.seq_group is group
+               for layer in model.decoder_layers)
 
 
 # -- the models ----------------------------------------------------------------

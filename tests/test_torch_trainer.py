@@ -358,14 +358,11 @@ def test_validation_is_a_function_of_params_and_step(tmp_path, monkeypatch):
 
 
 def test_unported_configurations_raise(tmp_path, monkeypatch):
-    """fit over a seq mesh is not ported (ROADMAP item 8); a mesh layout
-    without the mesh's ranks (tests/test_torch_mesh.py runs them) is
-    refused."""
+    """A mesh layout without the mesh's ranks (tests/test_torch_mesh.py and
+    test_torch_seq_mesh.py run them), a seq mesh included, is refused."""
     dm = _data(tmp_path, monkeypatch)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _trainer(dm, tmp_path, trainer_kw=dict(seq_parallel=4))
     for kw in (dict(num_devices=2), dict(model_parallel=2),
-               dict(expert_parallel=2)):
+               dict(expert_parallel=2), dict(seq_parallel=4)):
         with pytest.raises(ValueError, match="need a mesh"):
             _trainer(dm, tmp_path, trainer_kw=kw)
 

@@ -1,6 +1,7 @@
-"""Rank functions for tests/test_torch_tp.py, test_torch_ep.py and
-test_torch_mesh.py, in a module that imports torch and the port only:
-every rank the tests spawn imports it, and must not load JAX.
+"""Rank functions for tests/test_torch_tp.py, test_torch_ep.py,
+test_torch_mesh.py and test_torch_seq_mesh.py, in a module that imports
+torch and the port only: every rank the tests spawn imports it, and must
+not load JAX.
 
 Each function runs on every rank of a world of gloo ranks on the CPU,
 builds the mesh its case names (parallel/mesh.py) and returns what the
@@ -18,7 +19,7 @@ from sparse_vae_tpu_torch.checkpoint import model_class
 from sparse_vae_tpu_torch.cli import objective_for
 from sparse_vae_tpu_torch.parallel import spmd, tp
 from sparse_vae_tpu_torch.parallel.group import barrier
-from sparse_vae_tpu_torch.parallel.mesh import MODEL, create_mesh, shard_rows
+from sparse_vae_tpu_torch.parallel.mesh import MODEL, create_mesh, shard_batch
 from sparse_vae_tpu_torch.training.optimizer import make_optimizer
 from sparse_vae_tpu_torch.training.train_step import train_step
 
@@ -99,7 +100,7 @@ def mesh_step(mesh, case: dict) -> dict:
     sizes = {"tp_size": mesh.size("model"), "ep_size": mesh.size("expert")}
     opt = make_optimizer(model.parameters(), **OPTIMIZER, **sizes,
                          norm_fn=spmd.mesh_norm_fn(model, mesh))
-    mbs = [shard_rows(b, mesh) for b in case["batches"]]
+    mbs = [shard_batch(b, mesh) for b in case["batches"]]
     metrics = train_step(model, objective_for(case["hparams"]), opt, mbs,
                          case["step"], case["noise"])
     specs, group = spmd.shard_layout(model, mesh)
@@ -116,8 +117,8 @@ def mesh_eval(mesh, case: dict) -> dict:
     with torch.no_grad():
         stats = spmd.mesh_eval_stats(
             objective_for(case["hparams"]), model,
-            shard_rows(case["batches"][0], mesh), mesh,
-            noise=case["noise"][0])
+            shard_batch(case["batches"][0], mesh), mesh,
+            noise=case["noise"][0] if case["noise"] else None)
     return {k: float(v) for k, v in stats.items()}
 
 
@@ -154,6 +155,7 @@ def run_steps(world, cases: list, inputs=None, fit=None,
                                           inputs)
     for case in cases:
         mesh = create_mesh(world, model_axis=case.get("tp", 1),
+                           seq_axis=case.get("sp", 1),
                            expert_axis=case.get("ep", 1))
         out["steps"].append(mesh_step(mesh, case))
         if case.get("eval"):
@@ -164,13 +166,14 @@ def run_steps(world, cases: list, inputs=None, fit=None,
 
 
 def run_fit(world, workdir: str, hparams, trainer_kw: dict,
-            data_kw: dict, logits_ids) -> dict:
-    """Trainer.fit on a data 2 x model 2 mesh in `workdir` (rank 0
-    prepares the corpus), then the step-1 checkpoint restored into a new
-    trainer's state and one step taken from it on the run's second group.
-    Returns the trained (gathered) model's logits on `logits_ids`, the
-    outcome, and whether the restored step equals the unbroken run's
-    step-2 checkpoint bit for bit."""
+            data_kw: dict, logits_ids, mesh_kw=None) -> dict:
+    """Trainer.fit on a mesh (`create_mesh`'s mesh_kw; data 2 x model 2 by
+    default) in `workdir` (rank 0 prepares the corpus), then the step-1
+    checkpoint restored into a new trainer's state and one step taken
+    from it on the run's second group. Returns the trained (gathered)
+    model's logits on `logits_ids`, the outcome, whether the restored
+    step equals the unbroken run's step-2 checkpoint bit for bit, the
+    trainer's bucket quantum override and its first two groups' shapes."""
     from sparse_vae_tpu_torch.data.text_data_module import (
         TextDataModule, TextDataModuleHparams)
     from sparse_vae_tpu_torch.training.trainer import Trainer
@@ -179,7 +182,7 @@ def run_fit(world, workdir: str, hparams, trainer_kw: dict,
 
     torch.set_num_threads(1)
     os.chdir(workdir)
-    mesh = create_mesh(world, model_axis=2)
+    mesh = create_mesh(world, **(mesh_kw or {"model_axis": 2}))
     dhp = TextDataModuleHparams(**data_kw)
     if world.rank == 0:
         TextDataModule(dhp).prepare_data()
@@ -205,7 +208,7 @@ def run_fit(world, workdir: str, hparams, trainer_kw: dict,
     generator = torch.Generator().manual_seed(0)
     step = again.restore(model, optimizer, generator, step=1)
     groups = again._accum_groups(thp.seed)
-    next(groups)
+    first, _ = next(groups)
     stacked, _ = next(groups)
     again._step(model, optimizer, stacked, step, generator)
     got = again.state(model, optimizer, step + 1, generator)
@@ -218,5 +221,8 @@ def run_fit(world, workdir: str, hparams, trainer_kw: dict,
     return {"logits": logits, "step": outcome.step,
             "history": outcome.metrics_history,
             "resumed_equal": bool(same),
+            "pad_multiple": again._pad_multiple,
+            "group_shapes": [tuple(first["token_ids"].shape),
+                             tuple(stacked["token_ids"].shape)],
             "generator_equal": bool(torch.equal(got["generator"],
                                                 want["generator"]))}

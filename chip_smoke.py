@@ -3,6 +3,11 @@
 GPU:
 
     python3 chip_smoke.py [--k4-parent DIR]
+    python3 chip_smoke.py --compare BEFORE.log AFTER.log
+
+--compare reads two of this script's logs (no card needed) and prints,
+phase by phase, the seconds of each and the timing and memory numbers
+of its JSON lines (`COMPARED_KEYS`), the first log's beside the second's.
 
 Phases, each timed:
   1. device  — the card's name and power limit (nvidia-smi); exits non-zero
@@ -383,6 +388,37 @@ each rank's peak memory):
                3 a micro-batch on every rank, K3/K3b on the last stage
                alone; each rank's idle seconds in the schedule beside the
                GPipe bubble (P - 1) / (M + P - 1) = 0.2.
+Rematerialisation (models/remat.py) and the rest of the library surface:
+ 44. remat   — r5 in its training form at full rows [8, 12800] (right
+               after phase 6): from one state, batch and noise, step 1
+               without remat (first and last: its own spread) and under
+               each of full, dots, dots_attn, dots_attn_qkv and offload,
+               the loss and all 165 gradients bit-identical to no remat's
+               (or, where the two no-remat runs differ, within their
+               spread, the moved gradients named), then 3 timed steps;
+               ms a step, peak memory over the steps (full must peak
+               below no remat) and launches a step: K1 12 under full,
+               dots and offload (the recompute launches it again), 6
+               under the attn policies, which keep its out and lse; K2 6,
+               K3/K3b 1;
+ 45. lm-options — (after phase 20) a Transformer LM at r5's width (d_model
+               512, 8 heads, 6 sparse layers, V 32,768, window 2 x 128,
+               bf16, dots_attn_qkv remat; the JAX initialisation) with a
+               factorised embedding (d_embedding 256), an untied head and
+               cross-attention to a [4, 512] context with its own table: 3
+               steps on [4, 4096], K1/K2 6 a step, K3/K3b none (the untied
+               loss is outside the fused tied CE, as in JAX), step 1 held
+               against the fp32 plain step as phase 20 holds its steps;
+               then the generic Transformer at the same width: its bf16
+               logits through K1 against the fp32 plain model on the card
+               (relative L2 within TRANSFORMER_REL, argmax agreement
+               printed).
+Every phase built from a run's meta.json or a preset rematerialises its
+decoder layers as the meta says (every archived transformer run and
+preset: grad_checkpointing with dots_attn_qkv): train, fit, fit-pg19,
+lm-train's r4 geometry, lm-fit, moe-train, moe-fit, sp-train and the mesh
+phases; their launch counts are unchanged (dots_attn_qkv keeps K1's
+output), their memory and seconds are not.
 Phases 11 and 37-43 share ONE spawn of 4 ranks (`mesh_phases`): every
 phase's unsharded references first ("mesh-references"), then the ranks
 run every phase's sharded runs in turn ("mesh-ranks"; rank 0 prints each
@@ -443,6 +479,9 @@ from sparse_vae_tpu_torch.data.tokenizer import (tokenizer_cache_path,
 from sparse_vae_tpu_torch.models.base import CLS_ID, SEP_ID
 from sparse_vae_tpu_torch.models.init import init_parameters
 from sparse_vae_tpu_torch.models.moe import expert_capacity
+from sparse_vae_tpu_torch.models.transformer import Transformer
+from sparse_vae_tpu_torch.models.transformer_lm import (
+    TransformerHparams, checkpoint_policy)
 from sparse_vae_tpu_torch import gen_bench
 from sparse_vae_tpu_torch.models import generation, parallel_decode
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
@@ -466,6 +505,7 @@ from sparse_vae_tpu_torch.train import build as build_training
 from sparse_vae_tpu_torch.train import mesh_rank, run_hparams, train_rank
 from sparse_vae_tpu_torch.training.data import synthetic_batch
 from sparse_vae_tpu_torch.training.checkpointing import CheckpointManager
+from sparse_vae_tpu_torch.training.optimizer import make_optimizer
 from sparse_vae_tpu_torch.training.train_step import train_step
 from sparse_vae_tpu_torch.training.trainer import Trainer, defer_accum_groups
 from sparse_vae_tpu_torch.utils.config import to_dict
@@ -1398,6 +1438,107 @@ def train_phase(make, expect: dict, steps: int = 3, batch: int = 4,
              "max_memory_allocated_bytes": peak}
     print(f"{name} " + json.dumps(stats), flush=True)
     return stats
+
+
+REMAT_POLICIES = (None, "full", "dots", "dots_attn", "dots_attn_qkv",
+                  "offload", None)    # no remat first and last: its spread
+REMAT_TIMED_STEPS = 3
+REMAT_SEED = 67
+# K1 a step: the forward's launch a layer, and under these policies the
+# recompute's again (dots_attn and dots_attn_qkv keep its out and lse).
+REMAT_REPEATS_K1 = ("full", "dots", "offload")
+
+
+def set_remat(model, name):
+    """Every decoder layer of `model` under policy `name` (None: none)."""
+    remat = None if name is None else checkpoint_policy(name)
+    for layer in model.decoder_layers:
+        layer.remat = remat
+
+
+def remat_phase(smi: str) -> dict:
+    """r5 in its training form (bf16 over fp32 masters) at full rows
+    [8, 12800], from one state, batch and noise: for no remat and each of
+    the five policies, step 1's loss and all 165 gradients bit-identical
+    to no remat's (no remat runs first and last: where its two runs
+    differ, a policy is held within their spread and the gradients that
+    moved are named), then REMAT_TIMED_STEPS timed steps; each policy's
+    ms a step, its peak memory over the steps (after a reset) and its
+    launches a step, K1's 12 under full, dots and offload (the recompute
+    launches it again) and 6 under the two attn policies, as without
+    remat."""
+    model, objective, optimizer = build_training(RUN, "cuda", 1)[:3]
+    hp = model.hparams
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt_start = optimizer.state_dict()
+    rng = np.random.default_rng(REMAT_SEED)
+    batch = synthetic_batch(rng, len(TRAIN_LENGTHS), TRAIN_LENGTHS[0],
+                            hp.vocab_size, min_tokens=TRAIN_LENGTHS[0],
+                            device="cuda")
+    noise = step_noise(hp, objective, [batch], REMAT_SEED)
+    runs, ref = [], None
+    for name in REMAT_POLICIES:
+        set_remat(model, name)
+        model.load_state_dict(start)
+        optimizer.load_state_dict(opt_start)
+        gen = torch.Generator(device="cuda").manual_seed(REMAT_SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss = float(train_step(model, objective, optimizer, [batch], 0,
+                                noise, gen)["loss"])
+        counts = read_counts()
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in model.named_parameters()}
+        step_s = []
+        for step in range(1, REMAT_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, objective, optimizer, [batch], step, None,
+                       gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        check_counts(f"remat {name}", counts, {
+            "swa_fwd": 12 if name in REMAT_REPEATS_K1 else 6,
+            "swa_bwd": 6, "tied_ce_fwd": 1, "tied_ce_bwd": 1})
+        run = {"policy": name, "loss": loss, "step_ms": [
+            1e3 * t for t in step_s], "max_memory_allocated_bytes": peak,
+            "launches_per_step": counts}
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            run["loss_diff"] = loss - ref[0]
+            run["moved"] = {n: float((g - ref[1][n]).abs().max())
+                            for n, g in grads.items()
+                            if not torch.equal(g, ref[1][n])}
+        runs.append(run)
+        del grads
+    check(len(ref[1]) == 165, f"{len(ref[1])} gradients, not 165")
+    spread = runs[-1]
+    for run in runs[1:-1]:
+        over = {n: d for n, d in run["moved"].items()
+                if d > spread["moved"].get(n, 0.0)}
+        check(abs(run["loss_diff"]) <= abs(spread["loss_diff"]) and not over,
+              f"remat {run['policy']}: step 1 differs from no remat "
+              f"beyond the no-remat spread: loss {run['loss_diff']}, "
+              f"gradients {sorted(over.items())[:5]}")
+    plain = runs[0]["max_memory_allocated_bytes"]
+    full = next(r for r in runs if r["policy"] == "full")
+    check(full["max_memory_allocated_bytes"] < plain,
+          f"remat full peaks at {full['max_memory_allocated_bytes']} "
+          f"bytes, no remat at {plain}")
+    out = {"batch": [len(TRAIN_LENGTHS), TRAIN_LENGTHS[0]],
+           "bit_identical": all(not r["moved"] and r["loss_diff"] == 0
+                                for r in runs[1:]),
+           "nondeterministic_without_remat": spread["moved"],
+           "runs": runs, "card": smi}
+    print("remat " + json.dumps(out), flush=True)
+    del model, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def h4_model(use_kernels: bool = True, dtype=None, train: bool = False):
@@ -2975,6 +3116,160 @@ def lm_train_phase(smi: str) -> dict:
             "max_memory_allocated_bytes": peak, "launches": counts}
     out["card"] = smi
     print("lm-train " + json.dumps(out), flush=True)
+    return out
+
+
+OPTIONS_GROUP = (4, 4096)
+OPTIONS_CONTEXT = (4, 512)
+OPTIONS_STEPS = 3
+OPTIONS_SEED = 73
+TRANSFORMER_GROUP = (2, 4096)
+TRANSFORMER_REL = 2e-2     # bf16 logits' relative L2 distance from fp32
+
+
+def options_hparams(use_kernels: bool = True) -> TransformerHparams:
+    """A Transformer LM at r5's width (d_model 512, 8 heads, 6 sparse
+    layers, window 2 x 128, V 32,768, bf16, remat as every preset) with
+    all three options: a factorised input embedding (d_embedding 256),
+    an untied head and cross-attention with its own context table."""
+    return TransformerHparams(
+        d_model=512, num_heads=8, num_layers=6, vocab_size=32768,
+        d_embedding=256, tie_embedding_weights=False, cross_attention=True,
+        sparse_self_attention=True, attn_window_size=2,
+        attn_block_size=128, loss_chunk_size=2048, precision="bf16",
+        grad_checkpointing=True, remat_policy="dots_attn_qkv",
+        use_pallas_kernel=use_kernels)
+
+
+def options_step(use_kernels: bool, dtype, batch: dict, ctx, steps: int):
+    """`steps` optimizer steps of the options LM (the JAX initialisation,
+    seed 0) on one batch and context, its FFN dropout masks from a
+    generator seeded OPTIONS_SEED: (losses, step-1 gradients on the CPU,
+    launch counts, seconds a step)."""
+    model, hp = model_from_hparams(
+        options_hparams(use_kernels), torch.Generator().manual_seed(0),
+        "cuda", dtype=dtype, train=True, use_kernels=use_kernels)
+    if not use_kernels:
+        hp.loss_chunk_size = plain_chunk(hp, batch["token_ids"].shape[0])
+    opt = make_optimizer(model.parameters(), lr=hp.lr,
+                         lr_decay_steps=hp.lr_decay_steps,
+                         grad_clip_threshold=hp.grad_clip_threshold)
+    gen = torch.Generator(device="cuda").manual_seed(OPTIONS_SEED)
+    ids = batch["token_ids"]
+    losses, step_s, grads = [], [], None
+    reset_counts()
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        hidden = model.forward_hidden(ids, False, gen, context_ids=ctx)
+        nll, count = model.sequence_nll(hidden, model.labels_for(ids))
+        loss = nll / count
+        loss.backward()
+        if step == 0:
+            grads = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts()
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, grads, counts, step_s
+
+
+def lm_options_phase(smi: str) -> dict:
+    """The Transformer LM's options at r5's width (options_hparams): 3
+    steps on [4, 4096] with cross-attention to a [4, 512] context, K1/K2 6
+    launches a step (the sparse self-attention; the cross-attention is
+    dense, as JAX's XLA path) and no K3/K3b (the untied head's loss is the
+    chunked projection outside the fused tied CE, as in JAX); step 1 held
+    against the fp32 plain step on the same batch, context and dropout
+    masks as lm-train holds its steps. Then the generic Transformer
+    (models/transformer.py) at the same width, 6 sparse layers: its bf16
+    forward logits through K1 (6 launches) against the fp32 plain model on
+    the card with the same weights, on [2, 4096] with a padded row."""
+    rng = np.random.default_rng(OPTIONS_SEED)
+    rows, width = OPTIONS_GROUP
+    batch = synthetic_batch(rng, rows, width, 32768, device="cuda")
+    ctx = torch.from_numpy(rng.integers(3, 32768, size=OPTIONS_CONTEXT)).to(
+        "cuda")
+    ctx[1, 300:] = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, grads, counts, step_s = options_step(True, None, batch, ctx,
+                                                 OPTIONS_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"lm-options losses {losses}")
+    check_counts("lm-options", counts, {"swa_fwd": 6 * OPTIONS_STEPS,
+                                        "swa_bwd": 6 * OPTIONS_STEPS})
+    ref_losses, ref_grads, ref_counts, _ = options_step(
+        False, torch.float32, batch, ctx, 1)
+    check_counts("lm-options fp32 plain", ref_counts, {})
+    cos = cosines(grads, ref_grads)
+    loss_rel = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"lm-options: loss {losses[0]} vs fp32 plain {ref_losses[0]}")
+    noisy = {n: {"kernels_vs_fp32": c} for n, c in cos.items()
+             if c < TRAIN_GRAD_COS}
+    if noisy:
+        _, plain_grads, _, _ = options_step(False, None, batch, ctx, 1)
+        plain_cos = cosines(plain_grads, ref_grads)
+        for n, c in noisy.items():
+            c["bf16_plain_vs_fp32"] = plain_cos[n]
+            check(plain_cos[n] < TRAIN_GRAD_COS
+                  and c["kernels_vs_fp32"]
+                  >= plain_cos[n] - NOISY_GRAD_MARGIN,
+                  f"lm-options: {n} disagrees with fp32 plain: {c}")
+    held = {n: c for n, c in cos.items() if n not in noisy}
+    check(any(n.startswith("context_embedding") for n in held)
+          and any(n.startswith("embedding_projection") for n in held)
+          and any(n.startswith("output_embedding") for n in held),
+          "lm-options: an option's leaves are missing")
+    out = {"batch": [rows, width], "context": list(OPTIONS_CONTEXT),
+           "real_tokens": int(batch["num_tokens"].sum()),
+           "losses": losses, "fp32_plain_loss": ref_losses[0],
+           "loss_rel_err": loss_rel, "gradients": len(cos),
+           "min_grad_cosine": sorted(held.items(),
+                                     key=lambda kv: kv[1])[:3],
+           "near_zero_gradients": noisy, "step_s": step_s,
+           "max_memory_allocated_bytes": peak, "launches": counts}
+
+    kw = dict(vocab_size=32768, d_model=512, num_heads=8, num_layers=6,
+              causal=True, sparse_self_attention=True, window_size=2,
+              block_size=128)
+    ref = init_parameters(Transformer(**kw, use_pallas_kernel=False),
+                          torch.Generator().manual_seed(1)).to("cuda")
+    model = Transformer(**kw).to("cuda")
+    model.load_state_dict(ref.state_dict())
+    model = model.to(torch.bfloat16)
+    rows, width = TRANSFORMER_GROUP
+    tb = synthetic_batch(rng, rows, width, 32768, device="cuda")
+    ids = tb["token_ids"]
+    mask = ids != 0
+    reset_counts()
+    with torch.no_grad():
+        got = model(ids, mask).float()
+        t_counts = read_counts()
+        want = ref(ids, mask)
+    real = mask[..., None].expand_as(want)
+    diff = (got - want)[real]
+    rel = float(diff.norm() / want[real].norm())
+    agree = float((got.argmax(-1) == want.argmax(-1))[mask].float().mean())
+    check(bool(torch.isfinite(got).all()) and rel <= TRANSFORMER_REL,
+          f"generic Transformer bf16 logits {rel} from fp32 plain")
+    check_counts("lm-options transformer", t_counts, {"swa_fwd": 6})
+    out["transformer"] = {"batch": [rows, width],
+                          "real_tokens": int(tb["num_tokens"].sum()),
+                          "rel_l2_err": rel, "argmax_agree": agree,
+                          "max_abs_err": float(diff.abs().max()),
+                          "launches": t_counts}
+    del model, ref, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card"] = smi
+    print("lm-options " + json.dumps(out), flush=True)
     return out
 
 
@@ -5989,12 +6284,75 @@ def check_counts(path: str, counts: dict, expect: dict):
               f"{'> 0' if want is None else want}")
 
 
+# The numbers `--compare` sets side by side, by a JSON line's leaf key.
+COMPARED_KEYS = ("step_s", "step_s_by_rank", "step_ms", "step_ms_all",
+                 "wall_s", "seconds", "tokens_per_s", "new_tokens_per_s",
+                 "real_tokens_per_s_after_step_1", "fit_s",
+                 "max_memory_allocated_bytes")
+
+
+def log_numbers(path) -> dict:
+    """{phase: {key path: value}} of a chip_smoke log: each phase's
+    seconds ("[name] done in X s") and the COMPARED_KEYS leaves of the
+    JSON lines ("<tag> {...}") printed inside it, by tag and key path."""
+    import re
+    out, phase = {}, None
+
+    def leaves(value, path):
+        if isinstance(value, dict):
+            for key, item in value.items():
+                yield from leaves(item, f"{path}/{key}")
+        elif path.rsplit("/", 1)[-1] in COMPARED_KEYS:
+            yield path, value
+
+    for line in Path(path).read_text().splitlines():
+        mark = re.match(r"^\[([\w-]+)\] (?:start|done in ([\d.]+) s)$", line)
+        if mark:
+            phase = mark.group(1)
+            if mark.group(2):
+                out.setdefault(phase, {})["seconds"] = float(mark.group(2))
+            continue
+        tagged = re.match(r"^([\w-]+) (\{.*\})$", line)
+        if tagged and phase is not None:
+            try:
+                record = json.loads(tagged.group(2))
+            except ValueError:
+                continue
+            out.setdefault(phase, {}).update(
+                leaves(record, tagged.group(1)))
+    return out
+
+
+def compare_logs(before, after) -> None:
+    """Print log_numbers of two logs phase by phase: before | after."""
+    a, b = log_numbers(before), log_numbers(after)
+
+    def fmt(value):
+        if isinstance(value, float):
+            return f"{value:.6g}"
+        if isinstance(value, list):
+            return "[" + ", ".join(fmt(v) for v in value) + "]"
+        return "-" if value is None else str(value)
+
+    for phase in list(a) + [p for p in b if p not in a]:
+        print(f"[{phase}]")
+        keys = list(a.get(phase, {}))
+        keys += [k for k in b.get(phase, {}) if k not in keys]
+        for key in keys:
+            print(f"  {key}: {fmt(a.get(phase, {}).get(key))} | "
+                  f"{fmt(b.get(phase, {}).get(key))}")
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--compare"] and len(argv) == 3:
+        compare_logs(argv[1], argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if argv and (len(argv) != 2 or argv[0] != "--k4-parent"):
-        print("usage: chip_smoke.py [--k4-parent DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--k4-parent DIR] | --compare BEFORE "
+              "AFTER", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     with Phase("device"):
@@ -6057,6 +6415,8 @@ def main(argv) -> int:
                 RUN, "cuda", 1, use_kernels=kernels, dtype=dtype)[:3],
             {"swa_fwd": 6, "swa_bwd": 6, "tied_ce_fwd": 1,
              "tied_ce_bwd": 1})["launches"]
+    with Phase("remat"):
+        remat = remat_phase(smi)
     with Phase("kernels-h4"):
         k5_serve, k5b_serve = k5_phase(1, 512, [417], seed=12, iters=200)
         k5_long, k5b_long = k5_phase(4, 4096, [4096, 3001, 1500, 129],
@@ -6118,6 +6478,8 @@ def main(argv) -> int:
     lm_train_counts = {name: sum(lm_train[run]["launches"][name]
                                  for run in (LM_RUN, LM_GEOMETRY))
                        for name in lm_serve_counts}
+    with Phase("lm-options"):
+        lm_options = lm_options_phase(smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
         lm_logs = Path(tmp) / "sparse-vae-logs"
         with Phase("lm-fit"):
@@ -6227,6 +6589,15 @@ def main(argv) -> int:
             ("decode-lm", decode_lm), ("latent", latent))},
             **{path: c[name] for path, c in lstm_counts.items()}}
 
+    def remat_paths(name):
+        """The remat phase's launches (step 1 of each of its runs) and
+        the lm-options phase's (its 3 steps and the generic Transformer's
+        forward)."""
+        return {"remat": sum(r["launches_per_step"][name]
+                             for r in remat["runs"]),
+                "lm-options": lm_options["launches"][name]
+                + lm_options["transformer"]["launches"][name]}
+
     def lm_row(name, counter, source, replaces, row, extra):
         by_path = lm_paths(counter)
         return {"name": name, "route": "cuda", "source": source,
@@ -6262,9 +6633,11 @@ def main(argv) -> int:
          "launches": counts["swa_fwd"] + train_counts["swa_fwd"]
          + sp_sum("swa_fwd") + sum(fit_paths("swa_fwd").values())
          + sum(decode_paths("swa_fwd").values())
-         + sum(mesh_paths("swa_fwd").values()),
+         + sum(mesh_paths("swa_fwd").values())
+         + sum(remat_paths("swa_fwd").values()),
          "launches_by_path": {"serve": counts["swa_fwd"],
                               "train": train_counts["swa_fwd"],
+                              **remat_paths("swa_fwd"),
                               "sp-train": sp_sum("swa_fwd"),
                               **fit_paths("swa_fwd"),
                               **decode_paths("swa_fwd"),
@@ -6329,8 +6702,10 @@ def main(argv) -> int:
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
          "launches": train_counts["swa_bwd"] + sp_sum("swa_bwd")
          + sum(fit_paths("swa_bwd").values())
-         + sum(mesh_paths("swa_bwd").values()),
+         + sum(mesh_paths("swa_bwd").values())
+         + sum(remat_paths("swa_bwd").values()),
          "launches_by_path": {"train": train_counts["swa_bwd"],
+                              **remat_paths("swa_bwd"),
                               "sp-train": sp_sum("swa_bwd"),
                               **fit_paths("swa_bwd"),
                               **mesh_paths("swa_bwd")},
@@ -6342,8 +6717,10 @@ def main(argv) -> int:
          "launches": train_counts["tied_ce_fwd"]
          + h4_train_counts["tied_ce_fwd"] + sp_sum("tied_ce_fwd")
          + sum(fit_paths("tied_ce_fwd").values())
-         + sum(lm_paths("tied_ce_fwd").values()),
+         + sum(lm_paths("tied_ce_fwd").values())
+         + sum(remat_paths("tied_ce_fwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
+                              **remat_paths("tied_ce_fwd"),
                               "train-h4": h4_train_counts["tied_ce_fwd"],
                               "sp-train": sp_sum("tied_ce_fwd"),
                               **fit_paths("tied_ce_fwd"),
@@ -6357,8 +6734,10 @@ def main(argv) -> int:
          "launches": train_counts["tied_ce_bwd"]
          + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd")
          + sum(fit_paths("tied_ce_bwd").values())
-         + sum(lm_paths("tied_ce_bwd").values()),
+         + sum(lm_paths("tied_ce_bwd").values())
+         + sum(remat_paths("tied_ce_bwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_bwd"],
+                              **remat_paths("tied_ce_bwd"),
                               "train-h4": h4_train_counts["tied_ce_bwd"],
                               "sp-train": sp_sum("tied_ce_bwd"),
                               **fit_paths("tied_ce_bwd"),

@@ -15,7 +15,9 @@ leaves are stored as uint16 bf16 bit patterns under a `::bf16` key suffix.
 A flax Dense `kernel` is [in, out], the transpose of nn.Linear.weight; a
 LayerNorm `scale` and an Embed `embedding` are torch's `weight`; a learned
 query bank `learned_queries` is a bare [1, n, D] parameter of the same
-name. An RNN layer's `w_ih_{l}` / `w_hh_{l}` ([gates * H, in], already
+name. The Transformer LM's factorised input `embedding_projection`
+and untied `output_embedding` are Dense leaves (kernels transposed), its
+`context_embedding` an Embed. An RNN layer's `w_ih_{l}` / `w_hh_{l}` ([gates * H, in], already
 torch's layout: not transposed), `b_ih_{l}` / `b_hh_{l}`, and the bare
 `c0`, `encoder_c0` and `logit_bias` keep their names; a bidirectional
 encoder's stacks are `encoder/dir_{d}/...`. A mixture-of-experts layer's
@@ -117,18 +119,22 @@ def params_from_numpy(flat: dict, hparams) -> dict:
     return state_from_leaves(decode_leaves(flat), hparams)
 
 
-def state_from_leaves(leaves: dict, hparams) -> dict:
+def state_from_leaves(leaves: dict, hparams=None,
+                      template: Optional[torch.nn.Module] = None) -> dict:
     """{flax leaf path: array} -> the state_dict of `hparams`' model
-    (`model_class`) in fp32 tensors. JAX parameters as numpy arrays
-    cross into the port here.
+    (`model_class`), or of `template` (a module built without hparams,
+    such as the generic models/transformer.py Transformer, whose
+    `layer_i` are its `decoder_layers`), in fp32 tensors. JAX parameters
+    as numpy arrays cross into the port here.
 
     Every leaf either maps to a parameter of the model `hparams` describe,
     with that parameter's shape, or lies under one of UNPORTED_PREFIXES;
     anything else raises, so no leaf is silently dropped, and a parameter
     no leaf gives raises too.
     """
-    with torch.device("meta"):
-        template = model_class(hparams)(hparams)
+    if template is None:
+        with torch.device("meta"):
+            template = model_class(hparams)(hparams)
     expected = {k: tuple(v.shape) for k, v in template.state_dict().items()}
     state = {}
     for path, arr in leaves.items():

@@ -203,17 +203,39 @@ def load_raw_texts(dataset_name: str, dataset_config: Optional[str],
                    synthetic_docs: int = 2000,
                    seed: int = 7295) -> List[dict]:
     """The raw documents of a dataset: 'synthetic' (seeded, generated
-    here) or 'local-prose' (local_corpus.py). A Hugging Face dataset
-    (`dataset_path` or a hub name) raises: it needs that library's cache
-    or the network."""
+    here), 'local-prose' (local_corpus.py), a Hugging Face dataset saved
+    on disk at `dataset_path` (`datasets.load_from_disk`), or else a hub
+    dataset through `datasets.load_dataset` (its cache, or the network).
+    A DatasetDict's splits are joined; each document is {"text"}, plus
+    "title" (the `title` or `short_book_title` column) and "label" where
+    the dataset has them, as in the JAX package."""
     if dataset_name == "synthetic":
         return synthetic_texts(synthetic_docs, seed=seed)
     if dataset_name == "local-prose":
         from .local_corpus import build_local_prose
         return build_local_prose()
-    raise NotImplementedError(
-        f"dataset {dataset_name!r} (dataset_path={dataset_path!r}) needs "
-        "datasets.load_dataset / load_from_disk "
-        "(sparse_vae_tpu/data/datasets.py, load_raw_texts), which is not "
-        "ported: it reads the Hugging Face cache or the network. Use "
-        "'synthetic' or 'local-prose'.")
+    try:
+        import datasets as hfd
+    except ImportError as e:
+        raise ImportError(
+            f"dataset {dataset_name!r} (dataset_path={dataset_path!r}) "
+            "needs the 'datasets' package (Hugging Face), which is not "
+            "installed; use 'synthetic' or 'local-prose'") from e
+    if dataset_path:
+        ds = hfd.load_from_disk(dataset_path)
+    else:
+        ds = hfd.load_dataset(dataset_name, name=dataset_config, split=split)
+    if isinstance(ds, hfd.DatasetDict):
+        ds = hfd.concatenate_datasets(list(ds.values()))
+    cols = ds.column_names
+    title_col = "title" if "title" in cols else (
+        "short_book_title" if "short_book_title" in cols else None)
+    out = []
+    for row in ds:
+        d = {"text": row["text"]}
+        if title_col:
+            d["title"] = row[title_col]
+        if "label" in cols:
+            d["label"] = row["label"]
+        out.append(d)
+    return out

@@ -7,9 +7,9 @@ semantics: the LSTM benchmark and wikipedia runs, the dense-against-
 sparse transformer ablation, VAE against plain LM, and the long-context
 pg19 configurations (102,400-token documents). Sparse attention's
 geometry is in 128-token blocks. Every transformer preset carries the
-chunked loss (loss_chunk_size 2048), bf16 compute and a remat policy;
-this package reads remat_policy and grad_checkpointing but does not
-rematerialise.
+chunked loss (loss_chunk_size 2048), bf16 compute and a remat policy,
+which this package applies to every decoder layer as JAX does
+(models/remat.py).
 
 This package builds every family a preset names: the LSTM presets
 (init_scale None: flax's default initialisers, models/init.py) build an

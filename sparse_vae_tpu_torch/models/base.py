@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .remat import linear as remat_linear
+
 VOCAB_SIZE = 2 ** 15
 
 # Special token ids of the project's tokenizer
@@ -76,11 +78,12 @@ def resolve_device(device="cuda") -> torch.device:
 
 class Linear(nn.Linear):
     """nn.Linear in the dtype of its input: the weight and bias are cast
-    at use (flax Dense with `dtype=`)."""
+    at use (flax Dense with `dtype=`). Inside a rematerialised layer
+    its output is a save point (models/remat.py `linear`)."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return remat_linear(x, self.weight.to(x.dtype), bias)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -3,8 +3,10 @@ hparams without an archive (port of sparse_vae_tpu/models/base.py
 `dense_kernel_init` / `embed_init` and each flax module's defaults):
 
 - Dense kernels: N(0, init_scale) for the model's own projections (the
-  embedding head, the z projections, the LSTM families' logit bottleneck
-  or output layer and z_to_hidden) and the posterior's Dense, or flax's
+  embedding head, the Transformer LM's factorised `embedding_projection`
+  and untied `output_embedding`, the z projections, the LSTM families'
+  logit bottleneck or output layer and z_to_hidden) and the posterior's
+  Dense, or flax's
   `lecun_normal` where init_scale is None: a normal truncated at two
   standard deviations, scaled so that its standard deviation is
   1 / sqrt(fan_in), fan_in the kernel's input width. N(0, 0.02) always for
@@ -12,7 +14,9 @@ hparams without an archive (port of sparse_vae_tpu/models/base.py
   (ops/attention.py, models/transformer_layer.py). The posterior's scale
   is its ConditionalGaussian's `init_scale` where it has one (the
   LSTM-VAE's `init_scale or 0.02`);
-- Embed table: N(0, init_scale), N(0, 1) where init_scale is None;
+- Embed tables (the input table, the cross-attention's
+  `context_embedding`, the generic Transformer's `embedding`): N(0,
+  init_scale), N(0, 1) where init_scale is None;
 - RNN matrices (ops/rnn.py, `w_ih_{l}` and `w_hh_{l}` [gates * H, in]):
   `lecun_normal` whatever init_scale is, and over flax's fan_in, the
   array's axis -2: gates * H, not the input width; RNN biases 0;

@@ -53,6 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .base import Linear
+from .remat import bmm
 
 
 def expert_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -125,8 +126,8 @@ class MoEFFN(nn.Module):
             from ..parallel.tp import replicate_gradient
             buf = replicate_gradient(buf, self.model_group)
         dt = buf.dtype
-        h = torch.bmm(buf, self.w_in.to(dt)) + self.b_in.to(dt)[:, None, :]
-        out = torch.bmm(F.gelu(h, approximate="tanh"), self.w_out.to(dt))
+        h = bmm(buf, self.w_in.to(dt)) + self.b_in.to(dt)[:, None, :]
+        out = bmm(F.gelu(h, approximate="tanh"), self.w_out.to(dt))
         if self.model_group is not None:
             from ..parallel.tp import reduce_activations
             out = reduce_activations(out, self.model_group)

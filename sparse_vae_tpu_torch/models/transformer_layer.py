@@ -32,12 +32,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import Attention
 from .base import LAYER_NORM_EPS, LayerNorm, Linear, dropout
 from .moe import MoEFFN
+from .remat import checkpoint_layer
 
 # The reference's dropout on the FFN output (transformer_layer.py).
 DROPOUT_RATE = 0.1
@@ -78,6 +80,9 @@ class TransformerLayer(nn.Module):
         self.attn_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.ffn_layer_norm = LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.use_cross_attention = use_cross_attention
+        # The rematerialisation policy (models/remat.py) when the model
+        # sets grad_checkpointing; None keeps every activation.
+        self.remat = None
         if use_cross_attention:
             self.cross_attention = Attention(d_model, num_heads,
                                              use_kernel=use_kernel,
@@ -135,7 +140,21 @@ class TransformerLayer(nn.Module):
         [B, Lc]. With return_kv also returns the attention's head-major
         (k, v). deterministic False: the FFN output's dropout, its mask
         drawn from `generator`. moe_stats: a list the MoE FFN's
-        statistics are appended to."""
+        statistics are appended to. With a `remat` policy and gradients
+        on, the layer is rematerialised (models/remat.py)."""
+        if self.remat is not None and torch.is_grad_enabled():
+            return checkpoint_layer(
+                self._forward, self.remat, x, mask, context, context_mask,
+                generator=generator, moe_stats=moe_stats,
+                return_kv=return_kv, deterministic=deterministic)
+        return self._forward(x, mask, context, context_mask,
+                             return_kv=return_kv,
+                             deterministic=deterministic,
+                             generator=generator, moe_stats=moe_stats)
+
+    def _forward(self, x, mask, context, context_mask, *,
+                 return_kv: bool, deterministic: bool, generator,
+                 moe_stats: Optional[list]):
         y = self.attention(self.attn_layer_norm(x), kv_mask=mask,
                            return_kv=return_kv)
         if return_kv:

@@ -15,9 +15,17 @@ generators `frontier_generate`, `speculative_generate`,
 (models/parallel_decode.py, models/spec_decode.py). The Transformer-VAE
 builds on it.
 
-Ported configurations: tied input/output embedding with
-d_embedding == d_model, dense or mixture-of-experts FFNs (num_experts >
-1, models/moe.py), no decoder cross-attention, sparse (sliding-window)
+Configurations: the input embedding at d_embedding with its projection
+to d_model where the two differ (`embedding_projection`); the output
+tied to the input table (`tie_embedding_weights` and d_embedding ==
+d_model, with `output_bias`) or an untied `output_embedding` (a Linear to
+V with its bias), whose loss takes the chunked projection outside the
+fused tied CE, as the JAX package's does; decoder cross-attention to a
+context (`cross_attention`: `forward_hidden(..., context_ids=)`, the
+context embedded by its own `context_embedding` table or, with
+separate_context_embedding off, by `embed`), dense non-causal attention
+(`dense_attention`) as JAX's XLA path; dense or mixture-of-experts FFNs
+(num_experts > 1, models/moe.py), sparse (sliding-window)
 or dense causal self-attention (ops/attention.py routes the dense one
 through K1/K2 inside the JAX package's flash-attention gate), one device
 or, with sparse attention, a length axis sharded over a `seq` group
@@ -36,6 +44,12 @@ slot; the training forwards append each layer's balance statistics to a
 `moe_stats` list when given one (training/objectives.py).
 The model computes in `compute_dtype` (default: its parameters' dtype);
 models/base.py states the rule.
+
+Under `grad_checkpointing` every decoder layer is rematerialised under
+the named `remat_policy` (`checkpoint_policy`, models/remat.py): the
+training forwards keep what the policy names and run the rest again in
+the backward, with the same values. An unknown policy name raises even
+with grad_checkpointing off, as in JAX.
 
 Sampling takes an int seed: the decode noise comes from a generator on
 the model's device seeded from (seed, DECODE_STREAM), and the
@@ -60,6 +74,7 @@ from ..ops.ce_kernel import FusedTiedCrossEntropy
 from ..ops.cross_entropy import chunked_nll_rows
 from .base import (LAYER_NORM_EPS, LanguageModelHparams, LayerNorm, Linear,
                    dropout)
+from .remat import checkpoint_policy
 from .generation import (DecodeState, KeyedNoise, SamplingParams,
                          decode_generator, decode_loop, final_output,
                          init_decode_state, prev_tokens)
@@ -81,8 +96,8 @@ class TransformerHparams(LanguageModelHparams):
     input_dropout: float = 0.0
     tie_embedding_weights: bool = True
     cross_attention: bool = False
-    # Rematerialisation (the JAX package's jax.checkpoint policy): read,
-    # not applied; it trades memory for time and changes no value.
+    # Rematerialise every decoder layer under remat_policy
+    # (`checkpoint_policy`): memory for time, the same values.
     grad_checkpointing: bool = False
     separate_context_embedding: bool = True
     attn_window_size: int = 2           # in attn_block_size blocks
@@ -100,18 +115,6 @@ class TransformerHparams(LanguageModelHparams):
     moe_aux_weight: float = 1e-2
     moe_zloss_weight: float = 1e-3
     ep_size: int = 1
-
-    def check_ported(self):
-        """Raise for a configuration this port does not run yet."""
-        unported = {
-            "d_embedding != d_model": self.d_embedding not in (
-                None, self.d_model),
-            "untied output embedding": not self.tie_embedding_weights,
-            "cross_attention": self.cross_attention,
-        }
-        bad = [name for name, on in unported.items() if on]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
 class DraftStack:
@@ -163,7 +166,7 @@ class DraftStack:
 class TransformerLanguageModel(nn.Module):
     def __init__(self, hparams: TransformerHparams):
         super().__init__()
-        hparams.check_ported()
+        remat = checkpoint_policy(hparams.remat_policy)
         if hparams.sp_size != 1:
             raise ValueError(
                 "build the model with sp_size 1 and bind it to a seq group "
@@ -176,21 +179,38 @@ class TransformerLanguageModel(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = None
         vocab_local = (hp.vocab_size // hp.tp_size if self.shard_vocab
                        else hp.vocab_size)
-        self.input_embedding = nn.Embedding(vocab_local, hp.d_model)
+        d_embedding = hp.d_embedding or hp.d_model
+        self.input_embedding = nn.Embedding(vocab_local, d_embedding)
+        self.embedding_projection = (
+            Linear(d_embedding, hp.d_model) if d_embedding != hp.d_model
+            else None)
         self.decoder_layers = nn.ModuleList([
             TransformerLayer(hp.d_model, hp.num_heads, causal=True,
                              sparse_self_attention=hp.sparse_self_attention,
                              window_size=hp.attn_window_size,
                              block_size=hp.attn_block_size,
+                             use_cross_attention=hp.cross_attention,
                              use_kernel=hp.use_pallas_kernel,
                              num_experts=hp.num_experts,
                              moe_top_k=hp.moe_top_k,
                              moe_capacity_factor=hp.moe_capacity_factor,
                              tp_size=hp.tp_size, ep_size=hp.ep_size)
             for _ in range(hp.num_layers)])
+        if hp.grad_checkpointing:
+            for layer in self.decoder_layers:
+                layer.remat = remat
+        self.context_embedding = (
+            nn.Embedding(hp.vocab_size, hp.d_model)
+            if hp.cross_attention and hp.separate_context_embedding
+            else None)
         self.head_dense = Linear(hp.d_model, hp.d_model)
         self.head_norm = LayerNorm(hp.d_model, eps=LAYER_NORM_EPS)
-        self.output_bias = nn.Parameter(torch.zeros(vocab_local))
+        self.tie_output = (hp.tie_embedding_weights
+                           and d_embedding == hp.d_model)
+        if self.tie_output:
+            self.output_bias = nn.Parameter(torch.zeros(vocab_local))
+        else:
+            self.output_embedding = Linear(hp.d_model, hp.vocab_size)
 
     @property
     def shard_vocab(self) -> bool:
@@ -240,12 +260,26 @@ class TransformerLanguageModel(nn.Module):
                                      self.model_group).to(self.dtype)
         else:
             x = self.input_embedding(token_ids).to(self.dtype)
+        if self.embedding_projection is not None:
+            x = self.embedding_projection(x)
         if deterministic:
             return x
         return dropout(x, self.hparams.input_dropout, generator)
 
+    def embed_context(self, context_ids, deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None):
+        """[B, Lc] context tokens -> [B, Lc, D] for the cross-attention:
+        the context's own table or, without one, `embed` (its projection
+        and input dropout included)."""
+        if self.context_embedding is not None:
+            return self.context_embedding(context_ids).to(self.dtype)
+        return self.embed(context_ids, deterministic, generator)
+
     def table(self):
-        """The tied output table in the compute dtype."""
+        """The output table [V, D] in the compute dtype: the input
+        embedding when tied, else the untied head's weight."""
+        if not self.tie_output:
+            return self.output_embedding.weight.to(self.dtype)
         return self.input_embedding.weight.to(self.dtype)
 
     def pre_logits(self, h):
@@ -253,14 +287,17 @@ class TransformerLanguageModel(nn.Module):
         return self.head_norm(F.gelu(self.head_dense(h), approximate="tanh"))
 
     def project(self, h):
-        """Head + tied output projection, [..., D] -> fp32 [..., V]. The
+        """Head + output projection, [..., D] -> fp32 [..., V]. Tied, the
         product rounds to the compute dtype before the fp32 bias is added,
-        as the reference's bf16 dot plus fp32 bias does."""
+        as the reference's bf16 dot plus fp32 bias does; untied, the
+        output Linear adds its bias in the compute dtype, as JAX's Dense."""
         if self.shard_vocab:
             raise NotImplementedError(
                 "full [.., V] logits are never materialized under "
                 "vocab-parallel TP; use sequence_nll / sequence_ll_rows "
                 "(the chunked paths the objectives already select)")
+        if not self.tie_output:
+            return self.output_embedding(self.pre_logits(h)).float()
         logits = F.linear(self.pre_logits(h), self.table())
         return logits.float() + self.output_bias.float()
 
@@ -278,7 +315,8 @@ class TransformerLanguageModel(nn.Module):
         hp = self.hparams
         if self.shard_vocab:
             return self._vocab_parallel_rows(hidden, labels)
-        route = (ce_kernel.route(True, hp.vocab_size, hp.d_model)
+        route = (ce_kernel.route(self.tie_output, hp.vocab_size,
+                                 hp.d_model)
                  if hp.use_pallas_kernel else "outside")
         if route == "kernel":
             b, length, d = hidden.shape
@@ -354,19 +392,30 @@ class TransformerLanguageModel(nn.Module):
     def forward_hidden(self, token_ids, deterministic: bool = True,
                        generator: Optional[torch.Generator] = None,
                        return_kv: bool = False,
-                       moe_stats: Optional[list] = None):
+                       moe_stats: Optional[list] = None,
+                       context_ids=None):
         """The decoder stack's output [B, L, D] before the head (the
         chunked-loss entry point). token_ids: [B, L] (0 = pad, the key
         mask); deterministic False applies the input dropout and each
         layer's FFN dropout, their masks drawn from `generator` in that
         order. With return_kv also each layer's head-major rotary (k, v),
         the bulk-prefill cache seed. moe_stats: a list each MoE layer's
-        balance statistics are appended to, in layer order."""
+        balance statistics are appended to, in layer order. context_ids:
+        [B, Lc] context tokens every layer cross-attends to (0 = pad;
+        cross_attention only)."""
         x = self.embed(token_ids, deterministic, generator)
         mask = token_ids != 0
+        context = context_mask = None
+        if context_ids is not None:
+            if not self.hparams.cross_attention:
+                raise ValueError("context requires cross_attention=True")
+            context = self.embed_context(context_ids, deterministic,
+                                         generator)
+            context_mask = context_ids != 0
         kvs = []
         for layer in self.decoder_layers:
-            out = layer(x, mask, return_kv=return_kv,
+            out = layer(x, mask, return_kv=return_kv, context=context,
+                        context_mask=context_mask,
                         deterministic=deterministic, generator=generator,
                         moe_stats=moe_stats)
             if return_kv:
@@ -378,10 +427,11 @@ class TransformerLanguageModel(nn.Module):
 
     def forward(self, token_ids, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                moe_stats: Optional[list] = None):
+                moe_stats: Optional[list] = None, context_ids=None):
         """Logits [B, L, V] fp32 of the teacher-forced forward."""
         return self.project(self.forward_hidden(
-            token_ids, deterministic, generator, moe_stats=moe_stats))
+            token_ids, deterministic, generator, moe_stats=moe_stats,
+            context_ids=context_ids))
 
     def decode_step(self, token, caches: list, index: int):
         """One decode step, every row at position `index` (int): token

@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 
 from ..models.base import Linear
+from ..models.remat import keep_qkv, linear
 from . import sp_kernel, swa_kernel
 from .rotary import apply_rotary
 from .sliding_window_attention import (SlidingWindowAttentionPackedFn,
@@ -221,7 +222,7 @@ class Attention(nn.Module):
             return self.output_linear(merged)
         from ..parallel.tp import reduce_activations
         weight = self.output_linear.weight.to(merged.dtype)
-        y = reduce_activations(merged @ weight.t(), self.model_group)
+        y = reduce_activations(linear(merged, weight), self.model_group)
         return y + self.output_linear.bias.to(merged.dtype)
 
     def _replicated_inputs(self, x, x_kv):
@@ -284,9 +285,11 @@ class Attention(nn.Module):
                                  device=x.device)
         else:
             lengths = kv_mask.sum(dim=-1, dtype=torch.int32)
+        q_p, k_p, v_p = keep_qkv(q.reshape(b, length, d),
+                                 k.reshape(b, length, d), v)
         out = SlidingWindowAttentionPackedFn.apply(
-            q.reshape(b, length, d), k.reshape(b, length, d), v, lengths, h,
-            self.window_size, self.block_size, self.causal, True)
+            q_p, k_p, v_p, lengths, h, self.window_size, self.block_size,
+            self.causal, True)
         y = self._close(out)
         if not return_kv:
             return y
@@ -346,6 +349,9 @@ class Attention(nn.Module):
         # The halo (a window-1 band has none) and shard 0's block 0, in one
         # autograd node.
         k_ext, v_ext, cls_k, cls_v = exchange_kv(k, v, ws, bs, group)
+        # The q/k/v save point after the exchange, as in JAX.
+        q, k_ext, v_ext, cls_k, cls_v = keep_qkv(q, k_ext, v_ext, cls_k,
+                                                 cls_v)
         kv_mask_ext = cls_mask = None
         if kv_mask is not None:   # integers: no gradient, no backward
             m = kv_mask.to(torch.int32)
@@ -380,7 +386,8 @@ class Attention(nn.Module):
         learned queries); x_kv: [B, Lk, D] keys and values, default x;
         kv_mask: [B, Lk] bool (True = valid key). With return_kv, also
         returns the head-major rotary (k, v) — the bulk-prefill cache seed
-        (fill_cache_row)."""
+        (fill_cache_row). Inside a rematerialised layer the q/k/v it
+        reads are a save point (models/remat.py `keep_qkv`)."""
         if self.model_group is not None:
             x, x_kv = self._replicated_inputs(x, x_kv)
         if self.seq_group is not None:
@@ -398,6 +405,7 @@ class Attention(nn.Module):
                 x.device, self.d_model // self.num_heads,
                 block if route == "dense_plain" else self.block_size)
         q, k, v = self._project(x, x_kv=x_kv)
+        q, k, v = keep_qkv(q, k, v)
         lq, lk = q.shape[2], k.shape[2]
         own_queries = not self.num_queries
         mask = None

@@ -37,6 +37,8 @@ from __future__ import annotations
 
 import torch
 
+from ..models.remat import kernel_forward
+
 NEG_INF = -1e9
 
 
@@ -337,15 +339,18 @@ class SlidingWindowAttentionFn(torch.autograd.Function):
     """Sliding-window + [CLS] attention with its backward: K1 forward and
     K2 backward for CUDA tensors, the plain versions for CPU tensors.
     lengths: [B] int32 valid key prefix per row. dense: the call is the
-    dense causal route (ops/attention.py), whose launches count apart."""
+    dense causal route (ops/attention.py), whose launches count apart.
+    The forward's (out, lse) is a rematerialisation save point
+    (models/remat.py `kernel_forward`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window_size, block_size, causal,
                 include_cls, dense=False):
         from .swa_kernel import swa_fwd
-        out, lse = swa_fwd(q, k, v, lengths, window_size=window_size,
-                           block_size=block_size, causal=causal,
-                           include_cls=include_cls, dense=dense)
+        out, lse = kernel_forward(lambda: swa_fwd(
+            q, k, v, lengths, window_size=window_size,
+            block_size=block_size, causal=causal, include_cls=include_cls,
+            dense=dense))
         ctx.save_for_backward(q, k, v, lengths, out, lse)
         ctx.options = (window_size, block_size, causal, include_cls, dense)
         return out
@@ -396,10 +401,9 @@ class SlidingWindowAttentionPackedFn(torch.autograd.Function):
     def forward(ctx, q, k, v, lengths, num_heads, window_size, block_size,
                 causal, include_cls):
         from .swa_kernel import swa_fwd_packed
-        out, lse = swa_fwd_packed(q, k, v, lengths, num_heads,
-                                  window_size=window_size,
-                                  block_size=block_size, causal=causal,
-                                  include_cls=include_cls)
+        out, lse = kernel_forward(lambda: swa_fwd_packed(
+            q, k, v, lengths, num_heads, window_size=window_size,
+            block_size=block_size, causal=causal, include_cls=include_cls))
         ctx.save_for_backward(q, k, v, lengths, out, lse)
         ctx.options = (num_heads, window_size, block_size, causal,
                        include_cls)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.remat import kernel_forward
 from . import swa_kernel
 from .sliding_window_attention import (sliding_window_attention_bwd_plain,
                                        sliding_window_attention_plain)
@@ -164,8 +165,9 @@ class SpWindowedAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_len,
                 window_size, block_size):
-        out, lse = sp_fwd(q, k_ext, v_ext, cls_k, cls_v, start, ext_len,
-                          cls_len, window_size, block_size)
+        out, lse = kernel_forward(lambda: sp_fwd(
+            q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_len,
+            window_size, block_size))
         ctx.save_for_backward(q, k_ext, v_ext, cls_k, cls_v, ext_len,
                               cls_len, out, lse)
         ctx.options = (start, window_size, block_size)

@@ -2,7 +2,8 @@
 
     python -m sparse_vae_tpu_torch.profile_train [run=real-prose-vae-r5]
         [heads=N | geometry=<run>] [batch=8] [seq=12800] [accumulate=1]
-        [steps=5] [profiled=3]
+        [steps=5] [profiled=3] [remat=<policy>[,<policy>...]]
+        [layers=1] [trace=<path>]
 
 Loads the run (a Transformer-VAE or a Transformer LM run with weights)
 in its training form (fp32 master parameters, bf16 compute, kernels on)
@@ -23,12 +24,24 @@ step ends in a synchronize): step time and real tokens/s. Then
 starts and ends in a synchronize: the device time by kernel per step,
 and the device's idle share of that window, 1 - (union of the device's
 busy intervals) / (the window's wall time). The profiler has been seen
-to drop kernel records, so a window counts only when it holds a record
-for every kernel launch the runtime saw in it (`kernel_records`), and is
-otherwise profiled again. The profiler slows the host,
+to drop kernel records, so a window counts when it holds a record for
+every kernel launch the runtime saw in it (`kernel_records`), and is
+otherwise profiled again, up to TRACE_ATTEMPTS windows; the last one then
+counts, with its missing records a step in the JSON line. The profiler slows the host,
 so the window's step time is printed beside the unprofiled one. Also
 reports max_memory_allocated over the run. Prints one JSON line last.
 Needs a card; there is no CPU mode.
+
+remat= switches the decoder layers' rematerialisation (models/remat.py)
+to each named policy in turn ("none": off) and measures each on the same
+model, state and batches, one JSON line a policy; without it the model
+keeps its meta's policy. layers=1 adds each decoder layer's host
+milliseconds, median over `steps` more steps: its forward call, and its
+backward from the gradient reaching its output to the gradient leaving
+its input (the recompute included), on the host clock without a
+synchronize inside the step, so they are the host's dispatch time while
+the card keeps up. trace=<path> writes a Chrome trace of one more step
+(utils/profiling.py `start_trace`), a policy's name before the suffix.
 """
 from __future__ import annotations
 
@@ -46,7 +59,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
 KEYS = {"run", "heads", "geometry", "batch", "seq", "accumulate", "steps",
-        "profiled"}
+        "profiled", "remat", "layers", "trace"}
 
 
 def _args(argv):
@@ -62,7 +75,66 @@ def _args(argv):
             extra.get("geometry"),
             int(extra.get("batch", 8)), int(extra.get("seq", 12800)),
             int(extra.get("accumulate", 1)), int(extra.get("steps", 5)),
-            int(extra.get("profiled", 3)))
+            int(extra.get("profiled", 3)),
+            extra["remat"].split(",") if "remat" in extra else [None],
+            extra.get("layers") == "1", extra.get("trace"))
+
+
+def set_remat(model, name: str) -> None:
+    """Every decoder layer rematerialised under policy `name` ("none":
+    off)."""
+    from .models.transformer_lm import checkpoint_policy
+    remat = None if name == "none" else checkpoint_policy(name)
+    for layer in model.decoder_layers:
+        layer.remat = remat
+
+
+def layer_host_ms(model, one_step, steps: int) -> dict:
+    """Each decoder layer's host ms, median over `steps` steps: its
+    forward call, and its backward from the gradient reaching its output
+    to the gradient leaving its input (module hooks and tensor hooks; the
+    backward's run on the autograd engine's thread)."""
+    marks: dict = {}
+
+    def stamp(key):
+        def hook(*_):
+            marks[key] = time.perf_counter()
+        return hook
+
+    def pre(i):
+        def hook(module, args):
+            marks["f0", i] = time.perf_counter()
+            if args[0].requires_grad:
+                args[0].register_hook(stamp(("b1", i)))
+        return hook
+
+    def post(i):
+        def hook(module, args, out):
+            marks["f1", i] = time.perf_counter()
+            y = out[0] if isinstance(out, tuple) else out
+            if y.requires_grad:
+                y.register_hook(stamp(("b0", i)))
+        return hook
+
+    layers = list(model.decoder_layers)
+    handles = [h for i, layer in enumerate(layers)
+               for h in (layer.register_forward_pre_hook(pre(i)),
+                         layer.register_forward_hook(post(i)))]
+    fwd, bwd = [], []
+    try:
+        for i in range(steps):
+            marks.clear()
+            one_step(i)
+            torch.cuda.synchronize()
+            fwd.append([1e3 * (marks["f1", j] - marks["f0", j])
+                        for j in range(len(layers))])
+            bwd.append([1e3 * (marks["b1", j] - marks["b0", j])
+                        for j in range(len(layers))])
+    finally:
+        for h in handles:
+            h.remove()
+    return {"layer_forward_host_ms": np.median(fwd, axis=0).tolist(),
+            "layer_backward_host_ms": np.median(bwd, axis=0).tolist()}
 
 
 def busy_share(events, window_name: str = WINDOW) -> tuple[float, float]:
@@ -130,12 +202,12 @@ def per_call_device_ms(averages, iters: int):
 def main(argv) -> int:
     from .train import bench_hparams, build, build_from_hparams, run_hparams
     from .training.data import synthetic_batch
-    from .training.train_step import train_step
 
     if not torch.cuda.is_available():
         print("profile_train needs a CUDA card", file=sys.stderr)
         return 1
-    run, heads, geometry, b, seq, accumulate, steps, profiled = _args(argv)
+    (run, heads, geometry, b, seq, accumulate, steps, profiled, policies,
+     layers, trace) = _args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -159,6 +231,25 @@ def main(argv) -> int:
                 for _ in range(accumulate)] for _ in range(2)]
     slots = sum(int(mb["token_ids"].numel()) for mb in batches[0])
     real = sum(int(mb["num_tokens"].sum()) for mb in batches[0])
+    for policy in policies:
+        if policy is not None:
+            set_remat(model, policy)
+        _measure(model, objective, optimizer, batches, generator, card,
+                 dict(run=run, batch=b, seq=seq, accumulate=accumulate,
+                      steps=steps, profiled=profiled, slots=slots,
+                      real=real, policy=policy, layers=layers,
+                      trace=trace))
+    return 0
+
+
+def _measure(model, objective, optimizer, batches, generator, card,
+             opts) -> None:
+    """One policy's timed steps, profiled window, layer times and trace;
+    prints its table and JSON line."""
+    from .training.train_step import train_step
+    steps, profiled = opts["steps"], opts["profiled"]
+    real = opts["real"]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def one_step(i):
@@ -195,9 +286,9 @@ def main(argv) -> int:
             break
         print(f"profiler trace incomplete: {recorded} kernel records for "
               f"{launched} launches; profiled again", flush=True)
-    else:
-        raise RuntimeError(f"the profiler dropped kernel records in "
-                           f"{TRACE_ATTEMPTS} windows running")
+    # After TRACE_ATTEMPTS short windows the last one counts, its missing
+    # records reported (a record or two of thousands moves the idle share
+    # by less than its spread between windows).
     window_us, busy_us = busy_share(prof.events())
     # Device work only: kernels and copies, not the annotation ranges,
     # which span kernels already counted.
@@ -212,10 +303,25 @@ def main(argv) -> int:
     for e in top:
         print(f"{e.key[:70]:70s} {e.count / profiled:10.1f} "
               f"{e.self_device_time_total / 1e3 / profiled:14.3f}")
+    extra = {}
+    if opts["layers"]:
+        extra = layer_host_ms(model, one_step, steps)
+    if opts["trace"]:
+        from .utils.profiling import start_trace, stop_trace
+        stem, dot, suffix = opts["trace"].rpartition(".")
+        path = (f"{stem}-{opts['policy'] or 'meta'}.{suffix}" if dot
+                else f"{opts['trace']}-{opts['policy'] or 'meta'}")
+        profiler = start_trace(torch.device("cuda"))
+        one_step(0)
+        extra["trace"] = str(stop_trace(profiler, torch.device("cuda"),
+                                        path))
+    remat = getattr(model.decoder_layers[0], "remat", None)
     result = {
-        "card": card, "run": run, "batch": b, "seq": seq,
-        "accumulate": accumulate, "steps": steps,
-        "slots_per_step": slots, "real_tokens_per_step": real,
+        "card": card, "run": opts["run"], "batch": opts["batch"],
+        "seq": opts["seq"], "accumulate": opts["accumulate"],
+        "steps": steps,
+        "remat": None if remat is None else remat.name,
+        "slots_per_step": opts["slots"], "real_tokens_per_step": real,
         "step_ms_median": 1e3 * step_s,
         "step_ms_all": [1e3 * w for w in walls],
         "real_tokens_per_s": real / step_s,
@@ -228,12 +334,14 @@ def main(argv) -> int:
         "kernels_per_step": sum(e.count for e in kernels) / profiled,
         "kernel_launches_per_step": launched / profiled,
         "profiled_windows": attempt + 1,
+        "kernel_records_missing": max(0, launched - recorded) / profiled,
         # [name, launches per step, device ms per step]; a list, since
         # kernel names can share a long prefix.
         "top_kernels": [[e.key[:120], e.count / profiled,
                          e.self_device_time_total / 1e3 / profiled]
                         for e in top],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        **extra,
     }
     print(json.dumps(result))
     return 0

@@ -63,6 +63,7 @@ from ..parallel.sp import sp_pad_multiple
 from ..utils.config import TrainerHparams, to_dict
 from ..utils.math_utils import bleu_score_corpus
 from ..utils.metrics import MetricsWriter
+from ..utils.profiling import start_trace, stop_trace
 from ..utils.schedules import scaled_lr
 from ..utils.seeds import derived_seed
 from .checkpointing import CheckpointManager, run_dir
@@ -356,11 +357,6 @@ class Trainer:
         self._pending_groups = {}
         if resume and self.ckpt is not None:
             step = self.restore(model, optimizer, generator)
-        if getattr(self.hp, "grad_checkpointing", False) and self.rank0:
-            print(f"fit: grad_checkpointing (remat_policy="
-                  f"{self.hp.remat_policy!r}) is not applied: remat is not "
-                  "ported (ROADMAP.md Queue 1 item 1), so the backward keeps "
-                  "every activation", flush=True)
 
         k_accum = self.thp.accumulate_grad_batches
         num_train_batches = max(1, self.data.num_batches("train"))
@@ -388,7 +384,7 @@ class Trainer:
 
                 if (profile_n and self.rank0 and profiler is None
                         and step == profile_start):
-                    profiler = self._start_profile()
+                    profiler = start_trace(self.device)
                 elif (profiler is not None
                       and step >= profile_start + profile_n):
                     self._stop_profile(profiler, profile_start, step)
@@ -452,22 +448,9 @@ class Trainer:
                             stopped_reason=stopped, model=model,
                             metrics_history=history)
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.__enter__()
-        return profiler
-
     def _stop_profile(self, profiler, first: int, last: int):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        profiler.__exit__(None, None, None)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        profiler.export_chrome_trace(
-            str(self.run_dir / f"trace_steps_{first}-{last}.json"))
+        stop_trace(profiler, self.device,
+                   self.run_dir / f"trace_steps_{first}-{last}.json")
 
     # -- checkpoints --------------------------------------------------------
     def meta(self) -> dict:

@@ -1,15 +1,21 @@
 """The port's corpus pipeline (sparse_vae_tpu_torch/data/) against the JAX
 package's (sparse_vae_tpu/data/) on the CPU: the tokenizer, the token
 cache, streams, the length filter and the split, length buckets, batch
-plans, epochs of batches, the data module and the local-prose corpus.
+plans, epochs of batches, the data module, the local-prose corpus, and
+`load_raw_texts` on Hugging Face datasets saved to disk (a Dataset and a
+DatasetDict, with and without titles and labels) and its hub branch
+(`datasets.load_dataset` replaced by a stand-in: nothing is fetched).
 
 The same inputs go through both packages in one process. Everything here
 is integer or string data, so the tolerance is none: equal vocabularies,
 equal ids, equal arrays bit for bit (dtype included), equal documents.
 The JAX package packs batches with its C++ packer (native/, which
 tests/conftest.py builds); the port with its numpy version.
+
+Worker time: about 15 s.
 """
 import gzip
+import sys
 
 import numpy as np
 import pytest
@@ -298,9 +304,59 @@ def test_prepare_corpus_is_prepare_data_after_tokenization(tmp_path,
         assert_corpus_equal(other.splits[name], dm.splits[name])
 
 
-def test_hub_datasets_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="load_dataset"):
+def test_hub_datasets_raise_not_implemented(monkeypatch):
+    """A hub dataset is no longer refused: it goes to
+    datasets.load_dataset with the name, config and split, as in JAX
+    (here a stand-in, so nothing reaches the network). Without the
+    `datasets` package the error names it."""
+    hfd = pytest.importorskip("datasets")
+    asked = []
+
+    def load_dataset(path, name=None, split=None):
+        asked.append((path, name, split))
+        return hfd.Dataset.from_dict({"text": ["a b", "c"]})
+
+    monkeypatch.setattr(hfd, "load_dataset", load_dataset)
+    got = td.load_raw_texts("wikipedia", "20200501.en", None, "train")
+    assert asked == [("wikipedia", "20200501.en", "train")]
+    assert got == [{"text": "a b"}, {"text": "c"}]
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    with pytest.raises(ImportError, match="'datasets' package"):
         td.load_raw_texts("wikipedia", "20200501.en", None, None)
+
+
+def _hf_saved(tmp_path, split_dict: bool, columns: dict):
+    """A small Hugging Face dataset (a DatasetDict of two splits when
+    split_dict) saved with save_to_disk under tmp_path: its path."""
+    hfd = pytest.importorskip("datasets")
+    ds = hfd.Dataset.from_dict(columns)
+    if split_dict:
+        half = len(ds) // 2
+        ds = hfd.DatasetDict({"train": ds.select(range(half)),
+                              "test": ds.select(range(half, len(ds)))})
+    path = tmp_path / ("dict" if split_dict else "flat")
+    ds.save_to_disk(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("split_dict", [False, True])
+@pytest.mark.parametrize("columns", ["title_label", "book_title", "text"])
+def test_load_raw_texts_from_disk_is_the_same(tmp_path, split_dict,
+                                              columns):
+    """load_from_disk of a saved Dataset or DatasetDict (its splits
+    joined): the documents, titles (`title` or `short_book_title`) and
+    labels equal the JAX package's, exactly."""
+    text = [_prose(i + 1) + f" doc {i}" for i in range(6)]
+    cols = {"title_label": {"text": text,
+                            "title": [f"t{i}" for i in range(6)],
+                            "label": [i % 3 for i in range(6)]},
+            "book_title": {"text": text,
+                           "short_book_title": [f"b{i}" for i in range(6)]},
+            "text": {"text": text}}[columns]
+    path = _hf_saved(tmp_path, split_dict, cols)
+    want = jd.load_raw_texts("ignored", None, path, None)
+    got = td.load_raw_texts("ignored", None, path, None)
+    assert got == want and len(got) == 6
 
 
 def _prose(n: int) -> str:

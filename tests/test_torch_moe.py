@@ -285,7 +285,10 @@ def test_guards_raise_as_jax_and_name_item_8():
         MoEFFN(8, 16, 4, ep_size=3)
     with pytest.raises(NotImplementedError, match="not composed"):
         MoEFFN(8, 16, 4, ep_size=2, tp_size=2)
-    TransformerHparams(num_experts=4, ep_size=2).check_ported()
+    # An expert-parallel twin builds (check_ported, which refused the LM
+    # options, is gone).
+    twin = TransformerLanguageModel(_port_hp({**LM, "ep_size": 2}))
+    assert twin.decoder_layers[0].moe.w_in.shape[0] == LM["num_experts"] // 2
     from sparse_vae_tpu_torch.parallel.group import AxisGroup
     model = TransformerLanguageModel(_port_hp(LM))
     group = AxisGroup(1, 2, torch.device("cpu"), "gloo")

@@ -16,7 +16,9 @@ stage; the micro-batches of accumulation are the pipeline's):
   eps and marginal-KL draws read off JAX's rng splits (the step rng
   folded by the data shard, split per micro-batch, then into (dropout,
   sample, mi));
-- the LM again with its FFN dropout on (the port's masks: no JAX twin).
+- the LM again with its FFN dropout on (the port's masks: no JAX twin),
+  and that run once more with grad_checkpointing (remat_policy
+  dots_attn_qkv), which must equal it bit for bit.
 Step 1 of each is held against JAX's `make_pp_train_step` on 4 of
 conftest's virtual CPU devices (an optax transformation that keeps the
 gradients as its state, so JAX's gradients come out exact): loss 2e-5
@@ -27,8 +29,10 @@ relative, every parameter after each step within 2e-4 relative and 2e-6
 absolute (tests/test_pp.py's own bound); data peers hold their stage's
 parameters bit for bit.
 
-Worker time: about 20 s (4 ranks); the JAX steps about 30 s here.
+Worker time: about 25 s (4 ranks); the JAX steps about 30 s here.
 """
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,8 +101,7 @@ def _jax_noise(module, jobj, params, tokens, step_rng, latent):
 
 
 def _port_hparams(cfg):
-    kw = {k: v for k, v in cfg.items() if k != "grad_checkpointing"}
-    kw["use_pallas_kernel"] = True
+    kw = dict(cfg, use_pallas_kernel=True)
     return (TransformerVAEHparams if "latent_depth" in cfg
             else TransformerHparams)(**kw)
 
@@ -161,7 +164,11 @@ def pp_run():
     prepared = {name: prepare(name) for name in CASES}
     cases = [prepared[n][0] for n in CASES]
     dropout = {**cases[0], "dropout": True}
-    records = spawn(run_pp, 4, "cpu", (cases + [dropout], STEPS),
+    # The same dropout run with every layer rematerialised.
+    remat = {**dropout, "hparams": replace(
+        dropout["hparams"], grad_checkpointing=True,
+        remat_policy="dots_attn_qkv")}
+    records = spawn(run_pp, 4, "cpu", (cases + [dropout, remat], STEPS),
                     timeout=RANK_TIMEOUT_S)
     return {"records": records, "jax": {n: prepared[n][1] for n in CASES},
             "cases": dict(zip(CASES, cases)),
@@ -182,6 +189,21 @@ def test_pp_lm_step_with_dropout_moves_every_stage_alike(pp_run):
     for a, b in ((0, 2), (1, 3)):
         for key, value in recs[a]["params"][-1].items():
             assert torch.equal(value, recs[b]["params"][-1][key]), key
+
+
+def test_pp_step_under_remat_equals_the_step_without(pp_run):
+    """grad_checkpointing (remat_policy dots_attn_qkv) on every stage's
+    layers, FFN dropout on: two pipelined steps give the metrics, the
+    step-1 gradients and the parameters of the step without remat bit for
+    bit (JAX's tests/test_pp.py holds its remat step to its plain one)."""
+    for rec in pp_run["records"]:
+        plain, remat = rec["steps"][len(CASES)], rec["steps"][-1]
+        assert remat["metrics"] == plain["metrics"]
+        for key, value in plain["grads"].items():
+            assert torch.equal(remat["grads"][key], value), key
+        for i, params in enumerate(plain["params"]):
+            for key, value in params.items():
+                assert torch.equal(remat["params"][i][key], value), key
 
 
 def _full_grads(records, index) -> dict:
@@ -255,7 +277,8 @@ def test_each_stage_holds_its_layers_and_times_its_schedule(pp_run):
         for run in rec["steps"][:len(CASES)]:
             for t in run["timing"]:
                 assert 0.0 < t["busy_s"] < t["schedule_s"]
-        assert rec["steps"][len(CASES)]["timing"] == [None] * STEPS
+        for run in rec["steps"][len(CASES):]:
+            assert run["timing"] == [None] * STEPS
 
 
 def test_split_and_merge_round_trip_and_match_the_jax_split():

@@ -20,10 +20,12 @@ tests/torch_mesh_worker.py (which imports no JAX):
   step, which tests/test_torch_train.py holds against JAX: loss 1e-5
   relative, each gradient within 1e-4 of its tensor's largest |value|;
   the replicated parameters after the step bitwise equal on the two
-  model shards.
+  model shards; the same step with every decoder layer rematerialised
+  (dots_attn_qkv, the collectives issued again in the recompute) equal
+  to it bit for bit.
 The slicing rules' round trip and the guards run in this process.
 
-Worker time: about 25 s (4 ranks); the JAX steps about 15 s here.
+Worker time: about 30 s (4 ranks); the JAX steps about 15 s here.
 """
 import dataclasses
 
@@ -189,7 +191,6 @@ def jax_sharded_step(experiment, cfg, mesh_kw, localize, seed, k, b,
     leaves = _leaves(params)
     grads = {p: leaves[p] - v for p, v in _leaves(new).items()}
     port_cfg = {**cfg, "use_pallas_kernel": True}
-    port_cfg.pop("grad_checkpointing", None)
     hp = (TransformerVAEHparams if "latent_depth" in cfg
           else TransformerHparams)(**port_cfg)
     case = {"hparams": hp, "state": ckpt.state_from_leaves(leaves, hp),
@@ -264,8 +265,11 @@ def tp_run():
         lambda m: jtp.tp_localize(m, 2), seed=1, k=2, b=4, length=128)
     lm_case["tp"] = 2
     vae = vae_case(R5_SHAPED, mesh={"tp": 2})
+    remat = vae_case(dict(R5_SHAPED, grad_checkpointing=True,
+                          remat_policy="dots_attn_qkv"), mesh={"tp": 2})
     inputs = collective_inputs()
-    records = spawn(run_steps, WORLD, "cpu", ([lm_case, vae], inputs),
+    records = spawn(run_steps, WORLD, "cpu", ([lm_case, vae, remat],
+                                              inputs),
                     timeout=RANK_TIMEOUT_S)
     return {"records": records, "inputs": inputs,
             "jax_collectives": _jax_collectives(inputs),
@@ -322,6 +326,21 @@ def test_r5_shaped_tp_vae_step_matches_the_unsharded_step(tp_run, which):
     for name in specs:                      # data peers hold one shard
         assert torch.equal(recs[0]["local"][name], recs[2]["local"][name])
         assert torch.equal(recs[1]["local"][name], recs[3]["local"][name])
+
+
+def test_tp_vae_step_under_remat_equals_the_step_without(tp_run):
+    """The r5-shaped step again with every decoder layer rematerialised
+    (dots_attn_qkv): the recompute issues the layers' f/g collectives
+    again in the backward on every rank, and the loss, the gradients and
+    the parameters after the step equal the step without remat bit for
+    bit on every rank."""
+    for rec in tp_run["records"]:
+        plain, remat = rec["steps"][1], rec["steps"][2]
+        assert remat["metrics"] == plain["metrics"]
+        for part in ("grads", "local"):
+            assert remat[part].keys() == plain[part].keys()
+            for name, value in plain[part].items():
+                assert torch.equal(remat[part][name], value), (part, name)
 
 
 @pytest.mark.parametrize("family", ["transformer-vae", "transformer-lm"])

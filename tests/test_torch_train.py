@@ -277,7 +277,18 @@ def test_two_microbatch_train_step_matches_jax():
     relative on the metrics plus 2e-6 absolute (the mutual information
     is kl - marginal_kl, a difference of O(1) terms, so its rounding is
     absolute), and 1e-6 absolute on the parameters."""
-    overrides = _tiny_hparams()
+    _two_microbatch_step(_tiny_hparams())
+
+
+def test_two_microbatch_train_step_matches_jax_with_remat():
+    """The same step with grad_checkpointing on in both packages
+    (remat_policy dots_attn_qkv, the presets' policy), at the same
+    tolerances."""
+    _two_microbatch_step(dict(_tiny_hparams(), grad_checkpointing=True,
+                              remat_policy="dots_attn_qkv"))
+
+
+def _two_microbatch_step(overrides):
     module, jhp, jobj = build_model("transformer-vae", overrides)
     rng = np.random.default_rng(3)
     mbs = [_documents(rng, lengths, 32, 1024)
@@ -309,8 +320,7 @@ def test_two_microbatch_train_step_matches_jax():
     step_fn = make_train_step(module, jobj, optimizer, mesh=None)
     new_params, _, metrics = step_fn(params, opt_state, batch, step, key)
 
-    hp = TransformerVAEHparams(**{k: v for k, v in overrides.items()
-                                  if k != "grad_checkpointing"})
+    hp = TransformerVAEHparams(**overrides)
     model = TransformerVAE(hp)
     model.load_state_dict(ckpt.state_from_leaves(leaves, hp), strict=True)
     topt = make_optimizer(model.parameters(), lr=hp.lr,
@@ -367,8 +377,7 @@ def test_full_logits_and_chunked_elbo_agree():
     """The objective's two forwards (full logits through `forward`, and
     `forward_chunked_nll`) give the same sums on a tiny model with the
     same eps. Tolerance 1e-5 relative: fp32 sums over 96 tokens."""
-    hp = TransformerVAEHparams(**{k: v for k, v in _tiny_hparams().items()
-                                  if k != "grad_checkpointing"})
+    hp = TransformerVAEHparams(**_tiny_hparams())
     torch.manual_seed(0)
     model = TransformerVAE(hp)
     rng = np.random.default_rng(5)

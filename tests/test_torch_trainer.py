@@ -532,16 +532,22 @@ def test_a_bare_run_name_is_the_repo_run_whatever_the_cwd(
 @pytest.mark.parametrize("grad_checkpointing", [True, False])
 def test_fit_says_that_remat_is_not_applied(tmp_path, monkeypatch, capsys,
                                             grad_checkpointing):
+    """fit applies the hparams' remat (models/remat.py) and no longer
+    says that it does not: with grad_checkpointing every decoder layer of
+    the trained model carries the dots_attn_qkv policy, without it none
+    does, and no line of fit's output speaks of remat."""
     dm = _data(tmp_path, monkeypatch)
     trainer = _trainer(dm, tmp_path, model_kw=dict(
         grad_checkpointing=grad_checkpointing,
         remat_policy="dots_attn_qkv"), trainer_kw=dict(max_steps=1))
-    trainer.fit()
-    said = [line for line in capsys.readouterr().out.splitlines()
-            if "grad_checkpointing" in line]
-    assert len(said) == int(grad_checkpointing)
-    if grad_checkpointing:
-        assert "'dots_attn_qkv'" in said[0] and "not applied" in said[0]
+    outcome = trainer.fit()
+    out = capsys.readouterr().out
+    assert "not applied" not in out and "grad_checkpointing" not in out
+    for layer in outcome.model.decoder_layers:
+        if grad_checkpointing:
+            assert layer.remat.name == "dots_attn_qkv"
+        else:
+            assert layer.remat is None
 
 
 def test_the_stand_in_validation_sees_the_attention_band():

@@ -73,6 +73,35 @@ layout):
   9. train   — 3 optimizer steps at [4, 4096] through K5, K5b, K3 and K3b
                (K5 and K5b 6 launches a step), step 1 held against the fp32
                plain step as in phase 6.
+Every other attention shape inside the JAX gates up to Dh 512 (the
+generic pair of csrc/swa_generic.cu; K1/K2's head-major Dh 128
+instantiation), and the Dh = 256 model (bench.py --heads 2, packed, from
+the JAX initialisation):
+  9a. kernels-generic — the generic forward and backward through the
+               wrappers against their fp32 plain versions at K1's and
+               K2's tolerances, bit-identical across two calls, each shape
+               timed (events, device time, the backward by part: delta,
+               dq, dk/dv) beside its bound, the plain versions and SDPA
+               under the band mask where SDPA takes it: packed Dh 256 at
+               K5's three shapes, head-major Dh 32 (--heads 16) on full
+               [8, 16, 12800] rows, block 256 at head-major Dh 64 and
+               packed Dh 128 (causal and bidirectional, ragged), packed
+               Dh 512 at [2, 2048], K6's banded form at Dh 256 (q_off,
+               the broadcast [CLS] block; the profiled forward and
+               backward the generic kernels alone) and the dense causal
+               route at Dh 32 (beside SDPA is_causal);
+  9b. kernels-hm128 — K1/K2 at head-major Dh 128 likewise at
+               [8, 4, 12800, 128] ragged, K6 banded at Dh 128 and the dense
+               route at [14, 4, 3584, 128]; then the layers that take it,
+               counted alone: a sparse layer of --heads 4 over model 2
+               and a dense causal Dh 128 layer, forward and backward;
+  9c. model-h2 — the bf16 prefill logits of the Dh = 256 model (the
+               generic forward) against the fp32 plain model on the card;
+  9d. serve-h2 — ServeEngine answers phase 5's requests through bulk
+               prefill (the generic forward) and fused selection (K4);
+  9e. train-h2 — 3 optimizer steps at [4, 4096] through the generic pair
+               (6 + 6 launches a step), K3 and K3b, step 1 held against
+               the fp32 plain step as in phase 6.
 Sequence parallelism, r5 at the pg19 preset's document shape (one
 102,400-token document per micro-batch, 4 length shards of 25,600):
  10. kernels — K6 (the shard attention: one K1 launch with q_off and the
@@ -671,13 +700,23 @@ def build_phase():
             print(f"  {line.strip()}")
 
 
-def band_mask(L: int, lengths, window: int, block: int, device):
-    """[B, 1, L, L] bool: causal band of `window` blocks + [CLS] block +
-    key prefix, the token mask the K1 kernel applies."""
+def band_mask(L: int, lengths, window: int, block: int, device,
+              causal: bool = True, include_cls: bool = True):
+    """[B, 1, L, L] bool: the band of `window` blocks of `block` (causal,
+    or the ceil-left / floor-right split), the [CLS] block where the band
+    does not reach block 0, the causal triangle and the key prefix: the
+    token mask the attention kernels apply."""
     pos = torch.arange(L, device=device)
-    qb, kb = pos[:, None] // block, pos[None, :] // block
-    mask = ((qb - kb < window) | (kb == 0)) & (pos[None, :] <= pos[:, None])
-    keys = pos[None, :] < lengths[:, None]
+    blk = pos // block
+    left = window if causal else (window + 1) // 2
+    first = blk - (left - 1)
+    mask = (blk[None, :] >= first[:, None]) \
+        & (blk[None, :] <= first[:, None] + window - 1)
+    if include_cls:
+        mask |= (first[:, None] > 0) & (blk[None, :] == 0)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    keys = pos[None, :] < torch.as_tensor(lengths, device=device)[:, None]
     return (mask[None] & keys[:, None, :])[:, None]
 
 
@@ -1086,11 +1125,22 @@ K2_KERNELS = {"dq": "swa_dq_kernel", "dkv": "swa_dkv_kernel",
               "reduce": "swa_cls_reduce_kernel"}
 
 
-def k2_parts(times: dict) -> dict:
-    """The device ms of csrc/swa_bwd.cu's kernels (K2, K5b) by part from
-    `device_ms`, and the rest (PyTorch's) beside them."""
+# The kernels of csrc/swa_generic.cu's backward.
+GENERIC_BWD_KERNELS = {"delta": "swa_generic_delta_kernel",
+                       "dq": "swa_generic_dq_kernel",
+                       "dkv": "swa_generic_dkv_kernel"}
+# A family's forward kernel name and backward kernels: K1/K2 (any of their
+# instantiations) or the generic pair.
+FAMILIES = {"k1": ("swa_fwd_kernel", K2_KERNELS),
+            "generic": ("swa_generic_fwd_kernel", GENERIC_BWD_KERNELS)}
+
+
+def k2_parts(times: dict, kernels: dict = K2_KERNELS) -> dict:
+    """The device ms of csrc/swa_bwd.cu's kernels (K2, K5b), or of another
+    backward's `kernels`, by part from `device_ms`, and the rest
+    (PyTorch's) beside them."""
     parts = {part: kernel_ms(times, name)
-             for part, name in K2_KERNELS.items()}
+             for part, name in kernels.items()}
     parts["pytorch"] = sum(times.values()) - sum(parts.values())
     return parts
 
@@ -1212,6 +1262,234 @@ def k5_phase(b: int, L: int, lengths, seed: int, iters: int,
     print("K5 " + json.dumps(fwd), flush=True)
     print("K5b " + json.dumps(bwd), flush=True)
     return fwd, bwd
+
+
+def attention_case(name: str, b: int, L: int, lengths, d: int, heads: int,
+                   seed: int, iters: int, *, packed: bool, block: int = 128,
+                   window: int = 2, causal: bool = True,
+                   include_cls: bool = True, family: str = "generic",
+                   counter: str = "generic", library: bool = True):
+    """The sliding-window attention forward and backward at one shape,
+    head-major [b, heads, L, d] or packed [b, L, heads * d], through the
+    wrappers (swa_kernel.swa_fwd / swa_bwd or their packed twins), which
+    must launch `counter`'s kernels (the generic pair, or K1/K2's Dh 128
+    instantiation) once a call: out, lse and the gradients against the
+    fp32 plain versions at K1's and K2's tolerances, both bit-identical
+    across two calls; timed by CUDA events and torch.profiler's device
+    time beside the plain versions, the bound and (library) SDPA with
+    the band mask on head-major views, where SDPA takes the shape."""
+    fwd_kernel, bwd_kernels = FAMILIES[family]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, L, heads * d) if packed else (b, heads, L, d)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(window_size=window, block_size=block, causal=causal,
+              include_cls=include_cls)
+
+    def fwd():
+        if packed:
+            return swa_kernel.swa_fwd_packed(q, k, v, lens, heads, **kw)
+        return swa_kernel.swa_fwd(q, k, v, lens, **kw)
+
+    def bwd(out, lse):
+        if packed:
+            return swa_kernel.swa_bwd_packed(q, k, v, lens, lse, out, do,
+                                             heads, **kw)
+        return swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, **kw)
+
+    before = read_counts()
+    out, lse = fwd()
+    grads = bwd(out, lse)
+    out2, lse2 = fwd()
+    again = bwd(out, lse)
+    torch.cuda.synchronize()
+    after = read_counts()
+    moved = {key: after[key] - before[key] for key in after
+             if after[key] != before[key]}
+    check(moved == {f"swa_fwd_{counter}": 2, f"swa_bwd_{counter}": 2},
+          f"{name} launched {moved}, not the {counter} kernels twice")
+    check(torch.equal(out, out2) and torch.equal(lse, lse2)
+          and all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{name} differs in two calls at {list(shape)}")
+    del out2, lse2, again
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    if packed:
+        ref, ref_lse = sliding_window_attention_packed_plain(
+            q32, k32, v32, lens, heads, **kw)
+    else:
+        key_mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+        ref, ref_lse = sliding_window_attention_plain(
+            q32, k32, v32, key_mask, return_lse=True, **kw)
+    err = (out.float() - ref).abs()
+    agree = bool((err <= K1_OUT_ATOL + K1_OUT_RTOL * ref.abs()).all())
+    finite = torch.isfinite(ref_lse)
+    same_rows = torch.equal(finite, torch.isfinite(lse))
+    lse_err = (lse[finite] - ref_lse[finite]).abs().max().item()
+    del ref, ref_lse
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{name} out is not finite")
+    check(agree, f"{name} out disagrees with its plain version: max "
+          f"{err.max():.3g}")
+    check(same_rows, f"{name} lse is -inf on other rows than the plain "
+          f"version's")
+    check(lse_err <= K1_LSE_ATOL, f"{name} lse disagrees: {lse_err:.3g}")
+    if packed:
+        want = sliding_window_attention_packed_bwd_plain(
+            q32, k32, v32, lens, lse, out.float(), do.float(), heads, **kw)
+    else:
+        want = sliding_window_attention_bwd_plain(
+            q32, k32, v32, lens, lse, out.float(), do.float(), **kw)
+    errs = [rel_err(g, w) for g, w in zip(grads, want)]
+    bwd_abs = max((g.float() - w).abs().max().item()
+                  for g, w in zip(grads, want))
+    del want, q32, k32, v32
+    check(all(bool(torch.isfinite(g.float()).all()) for g in grads),
+          f"{name} gradients are not finite")
+    check(max(errs) <= GRAD_REL_TOL,
+          f"{name} gradients disagree with the plain version: {errs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mask = band_mask(L, lengths, window, block, "cuda", causal,
+                     include_cls)
+    pairs = int(mask.sum().item()) * heads
+    row = {"shape": list(shape), "layout": "packed" if packed
+           else "head_major", "head_dim": d, "block": block,
+           "window": window, "causal": causal, "include_cls": include_cls,
+           "lengths": list(lengths), "pairs": pairs}
+    few = max(2, iters // 10)
+    fwd_row = {**row, "max_abs_err": err.max().item(),
+               "lse_max_abs_err": lse_err, "bit_identical": True,
+               "ms": cuda_ms(fwd, iters),
+               "device_ms": kernel_ms(device_ms(fwd), fwd_kernel)}
+    times = device_ms(lambda: bwd(out, lse), 5)
+    bwd_row = {**row, "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
+               "bit_identical": True, "ms": cuda_ms(lambda: bwd(out, lse),
+                                                    iters),
+               "device_ms": sum(times.values()),
+               "parts_device_ms": k2_parts(times, bwd_kernels)}
+    if packed:
+        fwd_row["plain_ms"] = cuda_ms(
+            lambda: sliding_window_attention_packed_plain(
+                q, k, v, lens, heads, **kw), few, warmup=1)
+        bwd_row["plain_ms"] = cuda_ms(
+            lambda: sliding_window_attention_packed_bwd_plain(
+                q, k, v, lens, lse, out, do, heads, **kw), few, warmup=1)
+        views = [t.view(b, L, heads, d).transpose(1, 2)
+                 for t in (q, k, v, do)]
+    else:
+        fwd_row["plain_ms"] = cuda_ms(
+            lambda: sliding_window_attention_plain(q, k, v, key_mask, **kw),
+            few, warmup=1)
+        bwd_row["plain_ms"] = cuda_ms(
+            lambda: sliding_window_attention_bwd_plain(
+                q, k, v, lens, lse, out, do, **kw), few, warmup=1)
+        views = [q, k, v, do]
+    fwd_row["library_ms"] = bwd_row["library_ms"] = None
+    if library:
+        try:
+            fwd_row["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    *views[:3], attn_mask=mask), few, warmup=1)
+            bwd_row["library_ms"] = sdpa_backward_ms(
+                *views, lens, window, block, mask)
+        except (torch.OutOfMemoryError, RuntimeError) as exc:
+            print(f"{name} library yardstick: {type(exc).__name__}: "
+                  f"{str(exc)[:120]}", flush=True)
+    del mask
+    # Forward: q, k, v read and out written (bf16), lse written, lengths
+    # read; per attended pair 2 products of d multiply-adds. Backward:
+    # q, k, v, out, do read and three gradients written, lse read; per
+    # pair s and dp recomputed, dq, dk, dv: 5 products.
+    fwd_row["bound_ms"], fwd_row["bound_by"] = bound(
+        4 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4,
+        4 * d * pairs, BF16_TENSOR_FLOPS)
+    bwd_row["bound_ms"], bwd_row["bound_by"] = bound(
+        8 * q.numel() * 2 + lse.numel() * 4 + lens.numel() * 4,
+        10 * d * pairs, BF16_TENSOR_FLOPS)
+    print(f"{name} fwd " + json.dumps(fwd_row), flush=True)
+    print(f"{name} bwd " + json.dumps(bwd_row), flush=True)
+    return fwd_row, bwd_row
+
+
+def generic_phase() -> dict:
+    """The generic pair (csrc/swa_generic.cu) against the fp32 plain
+    versions at the shapes the JAX gates admit and no tuned instantiation
+    takes: packed Dh 256 (bench.py --heads 2) at K5's three shapes,
+    head-major Dh 32 (--heads 16) on full [8, 16, 12800] rows, block 256
+    at head-major Dh 64 and packed Dh 128 both ways on ragged rows, packed
+    Dh 512 (one head of d_model 512), K6's banded form at Dh 256 and the
+    dense causal route at Dh 32; every case bit-identical across two
+    calls."""
+    rows = {}
+    for tag, b, L, lengths, iters in (
+            ("serve", 1, 512, [417], 50),
+            ("long", 4, 4096, [4096, 3001, 1500, 129], 20),
+            ("train", 8, 12800, TRAIN_LENGTHS, 3)):
+        rows[f"h2_{tag}"] = attention_case(
+            f"generic packed Dh 256 {tag}", b, L, lengths, 256, 2,
+            seed=70 + b, iters=iters, packed=True)
+    rows["h16_train"] = attention_case(
+        "generic head-major Dh 32", 8, 12800, TRAIN_LENGTHS, 32, 16,
+        seed=74, iters=3, packed=False)
+    for causal in (True, False):
+        way = "causal" if causal else "bidirectional"
+        rows[f"block256_hm64_{way}"] = attention_case(
+            f"generic head-major Dh 64 block 256 {way}", 4, 4096,
+            [4096, 3001, 1500, 129], 64, 8, seed=75 + causal, iters=5,
+            packed=False, block=256, causal=causal)
+        rows[f"block256_packed128_{way}"] = attention_case(
+            f"generic packed Dh 128 block 256 {way}", 4, 4096,
+            [4096, 3001, 1500, 129], 128, 4, seed=77 + causal, iters=5,
+            packed=True, block=256, causal=causal)
+    rows["packed512"] = attention_case(
+        "generic packed Dh 512", 2, 2048, [2048, 1000], 512, 1, seed=79,
+        iters=5, packed=True)
+    rows["k6_dh256"] = k6_phase(2, 4096, 8192, [4224, 3000],
+                                [128, 77], 2, seed=80, h=2, time_it=True,
+                                d=256, family="generic")
+    rows["dense_dh32"] = dense_phase(4, 16, 3584, [3584, 3101, 2049, 1024],
+                                     seed=81, iters=5, d=32,
+                                     family="generic")
+    return rows
+
+
+def hm128_phase() -> dict:
+    """K1/K2's head-major Dh 128 instantiation against the fp32 plain
+    versions: at [8, 4, 12800, 128] on ragged rows, K6's banded form at
+    Dh 128 and the dense causal route at [14, 4, 3584, 128]; then the
+    path that takes it, counted alone: a sparse layer of bench.py --heads
+    4 over model 2 (tensor parallelism keeps the head-major layout) and a
+    dense causal Dh 128 layer, forward and backward."""
+    rows = {"train": attention_case(
+        "K1/K2 head-major Dh 128", 8, 12800, [12800, 11001, 7500, 3001] * 2,
+        128, 4, seed=82, iters=5, packed=False, family="k1",
+        counter="hm128")}
+    rows["k6"] = k6_phase(2, 4096, 8192, [4224, 3000], [128, 77], 2,
+                          seed=83, h=4, time_it=True, d=128)
+    rows["dense"] = dense_phase(14, 4, 3584, [3584] * 14, seed=84, iters=5,
+                                d=128)
+    torch.manual_seed(85)
+    layers = [tattn.Attention(512, 4, causal=True, sparse=True, tp_size=2),
+              tattn.Attention(512, 4, causal=True, sparse=False)]
+    x = torch.randn((4, 3584, 512), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    mask = torch.arange(3584, device="cuda")[None, :] < torch.tensor(
+        [[3584], [3584], [2000], [129]], device="cuda")
+    layers = [layer.to("cuda", torch.bfloat16) for layer in layers]
+    reset_counts()
+    for layer in layers:
+        layer(x, kv_mask=mask).float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("hm128-layers", counts, {"swa_fwd_hm128": 2,
+                                          "swa_bwd_hm128": 2})
+    check(bool(torch.isfinite(x.grad).all()), "hm128 layers' gradient is "
+          "not finite")
+    rows["layers"] = {"launches": counts}
+    print("hm128-layers " + json.dumps({"launches": counts}), flush=True)
+    return rows
 
 
 def ce_inputs(t: int, seed: int, vocab: int = 32768, d: int = 512,
@@ -1541,22 +1819,27 @@ def remat_phase(smi: str) -> dict:
     return out
 
 
-def h4_model(use_kernels: bool = True, dtype=None, train: bool = False):
-    """The Dh = 128 model (bench.py --heads 4) from the JAX
+def bench_model(use_kernels: bool = True, dtype=None, train: bool = False,
+                heads: int = 4):
+    """The Dh = 128 model (bench.py --heads 4), or the bench's model at
+    another head count (heads=2: packed Dh 256), from the JAX
     initialisation drawn from a torch.Generator seeded H4_SEED."""
     gen = torch.Generator().manual_seed(H4_SEED)
     if train:
-        return build_from_hparams(bench_hparams(4), gen, "cuda", use_kernels,
-                                  dtype)[:3]
-    model, _ = model_from_hparams(bench_hparams(4), gen, device="cuda",
+        return build_from_hparams(bench_hparams(heads), gen, "cuda",
+                                  use_kernels, dtype)[:3]
+    model, _ = model_from_hparams(bench_hparams(heads), gen, device="cuda",
                                   dtype=dtype, use_kernels=use_kernels)
     return model
 
 
-def model_h4_phase(model, seed: int = 0, length: int = 256) -> dict:
-    """Prefill logits of the bf16 Dh = 128 model (K5) against the fp32
-    plain model on the card, on one fixed input."""
-    ref_model = h4_model(use_kernels=False, dtype=torch.float32)
+def model_bench_phase(model, seed: int = 0, length: int = 256,
+                      heads: int = 4) -> dict:
+    """Prefill logits of the bf16 Dh = 128 model (K5), or of the bench's
+    model at `heads` heads, against the fp32 plain model on the card, on
+    one fixed input."""
+    ref_model = bench_model(use_kernels=False, dtype=torch.float32,
+                            heads=heads)
     rng = np.random.default_rng(seed)
     ids = rng.integers(3, model.hparams.vocab_size, size=(1, length))
     ids[0, 0] = 1
@@ -1572,12 +1855,13 @@ def model_h4_phase(model, seed: int = 0, length: int = 256) -> dict:
     diff = (got - ref).abs()[0, real]
     rel = (diff.max() / ref[0, real].abs().max()).item()
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-          "h4 model logits are not finite or have the wrong shape")
-    check(rel <= MODEL_H4_REL_TOL, f"h4 model logits rel err {rel:.3g}")
+          f"h{heads} model logits are not finite or have the wrong shape")
+    check(rel <= MODEL_H4_REL_TOL,
+          f"h{heads} model logits rel err {rel:.3g}")
     row = {"max_abs_err": diff.max().item(), "mean_abs_err":
            diff.mean().item(), "max_abs_logit": ref[0, real].abs().max()
            .item(), "rel_err": rel, "tokens": int(real.sum())}
-    print("model-h4 " + json.dumps(row), flush=True)
+    print(f"model-h{heads} " + json.dumps(row), flush=True)
     return row
 
 
@@ -1616,7 +1900,8 @@ def sp_mask(S: int, start: int, ext_lens, cls_lens, window: int,
 
 
 def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
-             seed: int, h: int = 8, time_it: bool = False):
+             seed: int, h: int = 8, time_it: bool = False, d: int = 64,
+             block: int = 128, family: str = "k1"):
     """K6 forward and backward (ops/sp_kernel.py: one K1 call with q_off,
     the backward one K2 call, the broadcast [CLS] block a slot of each)
     against its plain version on the same bf16 inputs, the backward
@@ -1624,8 +1909,9 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
     must give out 0 and zero gradients with no NaN. Timed beside its plain
     version and SDPA over [CLS | k_ext] under the same mask when time_it;
     then a banded shard's profiled forward must launch K1's kernel only
-    and its backward K2's kernels only."""
-    d, block = 64, 128
+    and its backward K2's kernels only. d, block and family: another head
+    dim or block, and the kernels that take it (`FAMILIES`)."""
+    fwd_kernel, bwd_kernels = FAMILIES[family]
     ctx = (window - 1) * block
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1695,14 +1981,15 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
         # in one launch).
         times = device_ms(lambda: sp_kernel.sp_fwd(*args, window, block))
         row["device_ms"] = sum(times.values())
-        row["k1_device_ms"] = kernel_ms(times, "swa_fwd_kernel")
+        row["k1_device_ms"] = kernel_ms(times, fwd_kernel)
         if start > 0:
             others = sorted(name for name in times
-                            if "swa_fwd_kernel" not in name)
+                            if fwd_kernel not in name)
             check(not others, f"K6's forward on a banded shard launched "
-                  f"other kernels than K1's: {others}")
+                  f"other kernels than {fwd_kernel}: {others}")
             print(f"K6 forward on a banded shard: {len(times)} kernel, "
-                  f"K1's (no cuBLAS, no aten elementwise)", flush=True)
+                  f"{fwd_kernel} (no cuBLAS, no aten elementwise)",
+                  flush=True)
         row["bwd_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block), 10)
         # The backward on the device, and K2's kernels inside it (on a
@@ -1711,16 +1998,16 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
         times = device_ms(lambda: sp_kernel.sp_bwd(
             *args, out, lse, do, window, block))
         row["bwd_device_ms"] = sum(times.values())
-        parts = k2_parts(times)
+        parts = k2_parts(times, bwd_kernels)
         row["bwd_k2_device_ms"] = sum(parts.values()) - parts["pytorch"]
         row["bwd_parts_device_ms"] = parts
         if start > 0:
             others = sorted(name for name in times if not any(
-                kernel in name for kernel in K2_KERNELS.values()))
+                kernel in name for kernel in bwd_kernels.values()))
             check(not others, f"K6's backward on a banded shard launched "
-                  f"other kernels than K2's: {others}")
+                  f"other kernels than {family}'s: {others}")
             print(f"K6 backward on a banded shard: {len(times)} kernels, "
-                  f"all K2's (no cuBLAS or aten matmul)", flush=True)
+                  f"all {family}'s (no cuBLAS or aten matmul)", flush=True)
         row["plain_ms"] = cuda_ms(lambda: sp_kernel.sp_fwd_plain(
             *args, window, block), 2, warmup=1)
         row["bwd_plain_ms"] = cuda_ms(lambda: sp_kernel.sp_bwd_plain(
@@ -1749,7 +2036,9 @@ def k6_phase(b: int, S: int, start: int, ext_lens, cls_lens, window: int,
             2 * io + q.numel() * 2 + lse.numel() * 4 + lens_bytes,
             10 * d * pairs, BF16_TENSOR_FLOPS)
         row["pairs"] = pairs
-    print("K6 " + json.dumps(row), flush=True)
+    label = "" if (d, block, family) == (64, 128, "k1") else \
+        f" {family} Dh {d} block {block}"
+    print(f"K6{label} " + json.dumps(row), flush=True)
     return row
 
 
@@ -2882,13 +3171,17 @@ def sdpa_causal_ms(q, k, v, do, iters: int):
     return fwd_ms, cuda_ms(fwd_bwd, iters) - fwd_ms
 
 
-def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int):
+def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
+                d: int = 64, family: str = "k1"):
     """K1 and K2 on the dense causal route (window L / 128, no [CLS] slot)
     against their plain versions: out within K1's tolerances, lse within
     K1_LSE_ATOL, gradients within GRAD_REL_TOL of the largest entry, both
     bit-identical across two calls; timed beside the plain versions and
-    SDPA with is_causal, with the bound."""
-    d, block = 64, 128
+    SDPA with is_causal, with the bound. d and family: another head dim,
+    and the kernels that take it (`FAMILIES`: K1/K2's instantiation at
+    Dh 64 or 128, or the generic pair)."""
+    block = 128
+    fwd_kernel, bwd_kernels = FAMILIES[family]
     kw = dict(window_size=L // block, block_size=block, causal=True,
               include_cls=False)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2946,7 +3239,7 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int):
     k1 = {"shape": shape, "lengths": list(lengths), "window": L // block,
           "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
           "bit_identical": True, "ms": cuda_ms(fwd, iters),
-          "device_ms": kernel_ms(device_ms(fwd), "swa_fwd_kernel"),
+          "device_ms": kernel_ms(device_ms(fwd), fwd_kernel),
           "plain_ms": cuda_ms(lambda: sliding_window_attention_plain(
               q, k, v, key_mask, **kw), 1, warmup=1),
           "library": "F.scaled_dot_product_attention(is_causal=True)",
@@ -2957,15 +3250,16 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int):
           "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
           "bit_identical": True, "ms": cuda_ms(bwd, iters),
           "device_ms": sum(times.values()),
-          "parts_device_ms": k2_parts(times),
+          "parts_device_ms": k2_parts(times, bwd_kernels),
           "plain_ms": cuda_ms(lambda: sliding_window_attention_bwd_plain(
               q, k, v, lens, lse, out, do, **kw), 1, warmup=1),
           "library": "the backward of F.scaled_dot_product_attention("
                      "is_causal=True)",
           "library_ms": lib_bwd, "bound_ms": bwd_bound[0],
           "bound_by": bwd_bound[1], "pairs": pairs}
-    print("K1 dense " + json.dumps(k1), flush=True)
-    print("K2 dense " + json.dumps(k2), flush=True)
+    label = "" if (d, family) == (64, "k1") else f" {family} Dh {d}"
+    print(f"K1 dense{label} " + json.dumps(k1), flush=True)
+    print(f"K2 dense{label} " + json.dumps(k2), flush=True)
     return k1, k2
 
 
@@ -6424,8 +6718,8 @@ def main(argv) -> int:
         k5_train, k5b_train = k5_phase(8, 12800, TRAIN_LENGTHS, seed=14,
                                        iters=5)
     with Phase("model-h4"):
-        model = h4_model()
-        model_h4_phase(model)
+        model = bench_model()
+        model_bench_phase(model)
     with Phase("serve-h4"):
         stats = serve_phase(model, requests, before_traffic=reset_counts)
         h4_counts = read_counts()
@@ -6436,9 +6730,30 @@ def main(argv) -> int:
         del model
     with Phase("train-h4"):
         h4_train_counts = train_phase(
-            lambda kernels, dtype: h4_model(kernels, dtype, train=True),
+            lambda kernels, dtype: bench_model(kernels, dtype, train=True),
             {"swa_fwd_packed": 6, "swa_bwd_packed": 6, "tied_ce_fwd": 1,
              "tied_ce_bwd": 1}, name="train-h4")["launches"]
+    with Phase("kernels-generic"):
+        generic = generic_phase()
+    with Phase("kernels-hm128"):
+        hm128 = hm128_phase()
+    with Phase("model-h2"):
+        model = bench_model(heads=2)
+        model_bench_phase(model, heads=2)
+    with Phase("serve-h2"):
+        stats = serve_phase(model, requests, before_traffic=reset_counts)
+        h2_counts = read_counts()
+        check_counts("serve-h2", h2_counts, {"swa_fwd_generic": None,
+                                             "nucleus_select": None})
+        print("serve-h2 " + json.dumps({**stats, "launches": h2_counts,
+                                        "card": smi}), flush=True)
+        del model
+    with Phase("train-h2"):
+        h2_train_counts = train_phase(
+            lambda kernels, dtype: bench_model(kernels, dtype, train=True,
+                                            heads=2),
+            {"swa_fwd_generic": 6, "swa_bwd_generic": 6, "tied_ce_fwd": 1,
+             "tied_ce_bwd": 1}, name="train-h2")["launches"]
     shard = SP_SEQ // SP
     with Phase("kernels-sp"):
         k6 = k6_phase(1, shard, shard, [shard + 128], [128], 2, seed=15,
@@ -6619,8 +6934,30 @@ def main(argv) -> int:
                                    "library_ms")}
                 for r in rows]
 
+    def brief(row, prefix=""):
+        """A timed row's shape, error, times and bound (a K6 row's
+        backward under its bwd_ keys)."""
+        keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")
+        return {**{k: row[k] for k in ("shape", "layout", "head_dim",
+                                       "block", "causal", "lengths")
+                   if k in row},
+                **{k: row[prefix + k] for k in keys}}
+
+    def generic_shapes(half: int):
+        """Every kernels-generic shape's forward (half 0) or backward
+        (half 1) row."""
+        out = {}
+        for tag, rows in generic.items():
+            if tag == "k6_dh256":
+                out[tag] = brief(rows, "bwd_" if half else "")
+            else:
+                out[tag] = brief(rows[half])
+        return out
+
     k4_paths = {"serve": counts["nucleus_select"],
                 "serve-h4": h4_counts["nucleus_select"],
+                "serve-h2": h2_counts["nucleus_select"],
                 "lm-serve": lm_serve_counts["nucleus_select"],
                 "moe-serve": moe_serve["launches"]["nucleus_select"],
                 **{path: c["nucleus_select"]
@@ -6715,13 +7052,15 @@ def main(argv) -> int:
          "source": "sparse_vae_tpu_torch/csrc/tied_ce.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:143",
          "launches": train_counts["tied_ce_fwd"]
-         + h4_train_counts["tied_ce_fwd"] + sp_sum("tied_ce_fwd")
+         + h4_train_counts["tied_ce_fwd"] + h2_train_counts["tied_ce_fwd"]
+         + sp_sum("tied_ce_fwd")
          + sum(fit_paths("tied_ce_fwd").values())
          + sum(lm_paths("tied_ce_fwd").values())
          + sum(remat_paths("tied_ce_fwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_fwd"],
                               **remat_paths("tied_ce_fwd"),
                               "train-h4": h4_train_counts["tied_ce_fwd"],
+                              "train-h2": h2_train_counts["tied_ce_fwd"],
                               "sp-train": sp_sum("tied_ce_fwd"),
                               **fit_paths("tied_ce_fwd"),
                               **lm_paths("tied_ce_fwd")},
@@ -6732,13 +7071,15 @@ def main(argv) -> int:
          "source": "sparse_vae_tpu_torch/csrc/tied_ce_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_ce.py:177",
          "launches": train_counts["tied_ce_bwd"]
-         + h4_train_counts["tied_ce_bwd"] + sp_sum("tied_ce_bwd")
+         + h4_train_counts["tied_ce_bwd"] + h2_train_counts["tied_ce_bwd"]
+         + sp_sum("tied_ce_bwd")
          + sum(fit_paths("tied_ce_bwd").values())
          + sum(lm_paths("tied_ce_bwd").values())
          + sum(remat_paths("tied_ce_bwd").values()),
          "launches_by_path": {"train": train_counts["tied_ce_bwd"],
                               **remat_paths("tied_ce_bwd"),
                               "train-h4": h4_train_counts["tied_ce_bwd"],
+                              "train-h2": h2_train_counts["tied_ce_bwd"],
                               "sp-train": sp_sum("tied_ce_bwd"),
                               **fit_paths("tied_ce_bwd"),
                               **lm_paths("tied_ce_bwd")},
@@ -6808,6 +7149,53 @@ def main(argv) -> int:
                     "bound_ms": k6_square["bwd_bound_ms"],
                     "bound_by": k6_square["bwd_bound_by"],
                     "library_ms": k6_square["bwd_library_ms"]}},
+        {"name": "swa_fwd_generic", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_generic.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:590",
+         "also_replaces": ["sparse_vae_tpu/ops/pallas_kernels.py:152",
+                           "sparse_vae_tpu/ops/pallas_kernels.py:1031"],
+         "instantiation": "packed Dh 256 on the path; Dh % 8 == 0 up to "
+                          "512 and blocks that are multiples of 128",
+         "launches": h2_counts["swa_fwd_generic"]
+         + h2_train_counts["swa_fwd_generic"],
+         "launches_by_path": {
+             "serve-h2": h2_counts["swa_fwd_generic"],
+             "train-h2": h2_train_counts["swa_fwd_generic"]},
+         **brief(generic["h2_train"][0]),
+         "shapes": generic_shapes(0)},
+        {"name": "swa_bwd_generic", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_generic.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:788",
+         "also_replaces": ["sparse_vae_tpu/ops/pallas_kernels.py:337",
+                           "sparse_vae_tpu/ops/pallas_kernels.py:1057"],
+         "launches": h2_train_counts["swa_bwd_generic"],
+         "launches_by_path": {
+             "train-h2": h2_train_counts["swa_bwd_generic"]},
+         **brief(generic["h2_train"][1]),
+         "parts_device_ms": generic["h2_train"][1]["parts_device_ms"],
+         "shapes": generic_shapes(1)},
+        {"name": "swa_fwd_hm128", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:152",
+         "instantiation": "head-major Dh 128 (swa_fwd_kernel<128, false, "
+                          "*>)",
+         "launches": hm128["layers"]["launches"]["swa_fwd_hm128"],
+         "launches_by_path": {
+             "hm128-layers": hm128["layers"]["launches"]["swa_fwd_hm128"]},
+         **brief(hm128["train"][0]),
+         "shapes": {"k6": brief(hm128["k6"]),
+                    "dense": brief(hm128["dense"][0])}},
+        {"name": "swa_bwd_hm128", "route": "cuda",
+         "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
+         "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
+         "instantiation": "head-major Dh 128",
+         "launches": hm128["layers"]["launches"]["swa_bwd_hm128"],
+         "launches_by_path": {
+             "hm128-layers": hm128["layers"]["launches"]["swa_bwd_hm128"]},
+         **brief(hm128["train"][1]),
+         "parts_device_ms": hm128["train"][1]["parts_device_ms"],
+         "shapes": {"k6": brief(hm128["k6"], "bwd_"),
+                    "dense": brief(hm128["dense"][1])}},
         lm_row("swa_fwd_dense", "swa_fwd_dense",
                "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
                "sparse_vae_tpu/ops/pallas_kernels.py:152", lm_k["k1"], {

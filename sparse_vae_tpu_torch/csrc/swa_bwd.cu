@@ -12,7 +12,8 @@
 // ::sliding_window_attention_packed_bwd_plain.
 //
 // What it computes. q, k, v, out, do are bf16, either head-major
-// [B, H, L, 64] (K2, svt_swa_bwd) or packed [B, L, H * 128] with head h at
+// [B, H, L, 64] or [B, H, L, 128] (K2, svt_swa_bwd) or packed
+// [B, L, H * 128] with head h at
 // column h * 128 (K5b, svt_swa_bwd_packed); lse (from K1 or K5) and delta
 // are head-major [B, H, L] fp32 in both. For every attended (query i, key
 // j) pair of the band + [CLS] pattern (the forward's mask):
@@ -36,10 +37,10 @@
 // and out the merged output, so p = exp(s - lse) is the exact partial
 // probability and delta = rowsum(do * out) is the whole row's. On such a
 // banded shard (q_off = window - 1, 0 at window 1) the broadcast [CLS]
-// block (cls_k, cls_v [B, H, 128, 64], cls_len [B] valid keys) is a slot
+// block (cls_k, cls_v [B, H, 128, Dh], cls_len [B] valid keys) is a slot
 // with its own pointer: every local query attends it (the band never
 // holds global block 0), masked by cls_len only and never causally, and
-// its gradients go to dcls_k, dcls_v [B, H, 128, 64].
+// its gradients go to dcls_k, dcls_v [B, H, 128, Dh].
 //
 // What bounds it. Per layer the pass reads q, k, v, out, do and lse and
 // writes dq, dk, dv: at [8, 8, 12800, 64] (or [8, 12800, 4 * 128]) about
@@ -621,7 +622,7 @@ using bf16p = const __nv_bfloat16*;
 
 }  // namespace
 
-// K2 (and K6's backward): head-major Dh 64. With cls_k not null (and
+// K2 (and K6's backward): head-major Dh 64 or 128. With cls_k not null (and
 // include_cls), [CLS] is the broadcast block cls_k, cls_v, cls_len whose
 // gradients go to dcls_k, dcls_v; with cls_k null, key block 0 (those five
 // may then be null).
@@ -650,6 +651,9 @@ extern "C" int svt_swa_bwd(const void* q, const void* k, const void* v,
                     batch, num_heads, q_len, key_len, window, causal,
                     include_cls, q_off, cls_chunk, 0, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 128)
+    return cls_k ? launch<128, false, true>(p, head_dim, block_size, s)
+                 : launch<128, false, false>(p, head_dim, block_size, s);
   return cls_k ? launch<64, false, true>(p, head_dim, block_size, s)
                : launch<64, false, false>(p, head_dim, block_size, s);
 }

@@ -13,8 +13,10 @@
 // sliding_window_attention_plain (with `cls` for K6) and
 // ::sliding_window_attention_packed_plain.
 //
-// What it computes. q, k, v are bf16, either head-major [B, H, L, 64]
-// (K1, svt_swa_fwd) or packed [B, L, H * 128] with head h at column h * 128
+// What it computes. q, k, v are bf16, either head-major [B, H, L, 64] or
+// [B, H, L, 128] (K1, svt_swa_fwd; Dh 128 for tensor parallelism's heads,
+// K6 and the dense route at that width) or packed [B, L, H * 128] with
+// head h at column h * 128
 // (K5, svt_swa_fwd_packed), with L a multiple of the 128-token block.
 // Query block qb attends the `window` key blocks of its band (causal:
 // qb-window+1 .. qb; bidirectional: ceil-left / floor-right around qb)
@@ -32,7 +34,7 @@
 // qb + q_off - window + 1 .. qb + q_off, the causal triangle compares
 // positions on the key axis, and lengths[b] counts valid extended keys. On
 // a banded shard (q_off = window - 1, which is 0 at window 1) the
-// broadcast [CLS] block (cls_k, cls_v [B, H, 128, 64], cls_len [B] valid
+// broadcast [CLS] block (cls_k, cls_v [B, H, 128, Dh], cls_len [B] valid
 // keys) is slot 0 with its own pointer: every local query attends it,
 // masked by cls_len only and never causally. The online softmax spans it
 // and the band, so out and the JOINT lse of the two come from one pass:
@@ -306,7 +308,7 @@ extern "C" const char* svt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1 (and K6's forward): head-major Dh 64. With cls_k not null (and
+// K1 (and K6's forward): head-major Dh 64 or 128. With cls_k not null (and
 // include_cls), [CLS] is the broadcast block cls_k, cls_v, cls_len; with
 // cls_k null, key block 0 (those three may then be null).
 extern "C" int svt_swa_fwd(const void* q, const void* k, const void* v,
@@ -325,6 +327,9 @@ extern "C" int svt_swa_fwd(const void* q, const void* k, const void* v,
                     batch, num_heads, q_len, key_len, window, causal,
                     include_cls, q_off, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 128)
+    return cls_k ? launch<128, false, true>(p, head_dim, block_size, s)
+                 : launch<128, false, false>(p, head_dim, block_size, s);
   return cls_k ? launch<64, false, true>(p, head_dim, block_size, s)
                : launch<64, false, false>(p, head_dim, block_size, s);
 }

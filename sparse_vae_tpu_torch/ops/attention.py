@@ -119,10 +119,12 @@ class Attention(nn.Module):
     bank of n learned queries [1, n, D] (no rotary) replaces the projected
     queries, the Perceiver's pattern. use_kernel (the JAX package's
     use_pallas_kernel) lets the blocked sparse path take a kernel family,
-    chosen by `swa_kernel.route`: the packed K5/K5b Function on the
-    [B, L, H * Dh] projections, or the head-major K1/K2 one; off, or
-    outside the JAX package's gates, autograd differentiates the plain
-    forward. Inside a gate at a shape no CUDA kernel takes, the plain
+    chosen by `swa_kernel.route`: the packed Function on the
+    [B, L, H * Dh] projections (K5/K5b, or the generic pair of
+    csrc/swa_generic.cu at another Dh % 128 == 0 or block), or the
+    head-major one (K1/K2, or the generic pair); off, or outside the JAX
+    package's gates, autograd differentiates the plain forward. Inside a
+    gate beyond Dh 512, where no CUDA kernel takes the shape, the plain
     forward runs on the CPU and a CUDA input raises.
 
     Dense causal self-attention (sparse=False, causal, its own queries: the
@@ -248,17 +250,18 @@ class Attention(nn.Module):
             return None
         if not self.use_kernel:
             return "outside"
-        route = swa_kernel.route(self.d_model // self.num_heads,
-                                 self.block_size)
         # The packed layout is single-shard only (the JAX package's
-        # _packed_ok), and head-major K1/K2 take Dh 64 only.
-        return "plain" if route == "packed" and self.tp_size > 1 else route
+        # _packed_ok): under tensor parallelism the head-major families.
+        return swa_kernel.route(self.d_model // self.num_heads,
+                                self.block_size,
+                                packed_ok=self.tp_size == 1)
 
     def _dense_route(self, lq: int, lk: int) -> Optional[str]:
         """The dense causal gate of the JAX package (ops/attention.py: its
         flash-attention branch): dense, causal, its own queries, kernels
         on, lq == lk and lq % DENSE_KERNEL_MULTIPLE == 0. Inside it
-        "dense" at K1/K2's head-major Dh, else "dense_plain" (the plain
+        "dense" (K1/K2 at head-major Dh 64 or 128, or the generic pair at
+        another Dh % 8 == 0 up to 512), else "dense_plain" (the plain
         version on the CPU; `take_plain_route` raises on the card). None
         outside it."""
         if not (not self.sparse and self.causal and not self.num_queries
@@ -266,13 +269,16 @@ class Attention(nn.Module):
                 and lq % DENSE_KERNEL_MULTIPLE == 0):
             return None
         head_dim = self.d_model // self.num_heads
-        return "dense" if head_dim == swa_kernel.HEAD_DIM else "dense_plain"
+        block = swa_kernel.BLOCK_SIZE
+        return "dense" if swa_kernel.in_range(head_dim, block) \
+            else "dense_plain"
 
     def _packed_forward(self, x, kv_mask, return_kv: bool):
-        """Self-attention through K5/K5b on the packed [B, L, H * Dh]
-        projections: rotary on a [B, L, H, Dh] view, as the reference
-        rotates split heads and merges them back. Only with return_kv are
-        head-major k/v made (the bulk-prefill cache seed)."""
+        """Self-attention through K5/K5b (or the generic pair) on the
+        packed [B, L, H * Dh] projections: rotary on a [B, L, H, Dh]
+        view, as the reference rotates split heads and merges them back.
+        Only with return_kv are head-major k/v made (the bulk-prefill
+        cache seed)."""
         b, length, d = x.shape
         h, base = self.num_heads, self.rotary_base
         q = apply_rotary(self.q_linear(x).view(b, length, h, d // h), base,
@@ -397,7 +403,7 @@ class Attention(nn.Module):
             return self._sp_call(x, kv_mask, x_kv)
         route = self._route(x.shape[1],
                             (x if x_kv is None else x_kv).shape[1])
-        if route == "packed":
+        if route in ("packed", "packed_generic"):
             return self._packed_forward(x, kv_mask, return_kv)
         block = swa_kernel.BLOCK_SIZE   # the dense route's band block
         if route in ("plain", "dense_plain"):
@@ -419,7 +425,8 @@ class Attention(nn.Module):
             out = sliding_window_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), kv_mask,
                 window_size=self.window_size, block_size=self.block_size,
-                causal=self.causal, use_kernel=route == "head_major")
+                causal=self.causal,
+                use_kernel=route in ("head_major", "generic"))
         else:
             if self.sparse and own_queries:
                 mask = sliding_window_token_mask(

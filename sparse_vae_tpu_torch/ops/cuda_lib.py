@@ -26,8 +26,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "tied_ce.cu", "tied_ce_bwd.cu",
-           "nucleus_select.cu")
+SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_generic.cu", "tied_ce.cu",
+           "tied_ce_bwd.cu", "nucleus_select.cu")
 # Included by the sources; part of the library's hash.
 HEADERS = ("hopper.cuh", "swa_tiles.cuh", "tiles.cuh")
 NVCC_TIMEOUT_S = 600
@@ -49,6 +49,14 @@ _SIGNATURES = {
     # The packed layout (K5b): q, k, v, lengths, lse, out, do, dq, dk, dv,
     # delta, scratch, then as K2 with one seq_len and no q_off.
     "svt_swa_bwd_packed": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # The generic pair (csrc/swa_generic.cu), either layout: q, k, v,
+    # lengths, cls_k, cls_v, cls_len, out, lse, then q's and k's (row,
+    # head, batch) strides, batch, heads, q_len, key_len, head_dim,
+    # block_size, window, causal, include_cls, q_off, scale, stream.
+    "svt_swa_generic_fwd": [_P] * 9 + [_I] * 16 + [_F, _P],
+    # q, k, v, lengths, lse, out, do, cls_k, cls_v, cls_len, dq, dk, dv,
+    # dcls_k, dcls_v, delta, then as the forward.
+    "svt_swa_generic_bwd": [_P] * 16 + [_I] * 16 + [_F, _P],
     # g, table, bias, lse, part (split partials), tokens, vocab, dim,
     # splits, stream
     "svt_tied_ce_fwd": [_P] * 5 + [_I] * 4 + [_P],

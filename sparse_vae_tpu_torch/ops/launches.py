@@ -20,6 +20,10 @@ COUNTERS = {
     "sp_windowed_attention_bwd": (swa_kernel, "sp_bwd_launches"),
     "swa_fwd_dense": (swa_kernel, "dense_launches"),        # K1, dense
     "swa_bwd_dense": (swa_kernel, "dense_bwd_launches"),    # K2, dense
+    "swa_fwd_hm128": (swa_kernel, "hm128_launches"),        # K1, Dh 128
+    "swa_bwd_hm128": (swa_kernel, "hm128_bwd_launches"),    # K2, Dh 128
+    "swa_fwd_generic": (swa_kernel, "generic_launches"),    # generic pair
+    "swa_bwd_generic": (swa_kernel, "generic_bwd_launches"),
     "tied_ce_fwd": (ce_kernel, "fwd_launches"),             # K3
     "tied_ce_bwd": (ce_kernel, "bwd_launches"),             # K3b
     "tied_ce_fwd_d256": (ce_kernel, "fwd_launches_d256"),   # K3, D = 256

@@ -25,7 +25,11 @@ and `sliding_window_attention_packed_bwd_plain` are the head-major plain
 versions between head views, the oracle of the JAX package's packed tests
 and the plain versions of K5/K5b (ops/swa_kernel.py::swa_fwd_packed,
 ::swa_bwd_packed); `SlidingWindowAttentionPackedFn` wraps them as
-`SlidingWindowAttentionFn` wraps K1/K2.
+`SlidingWindowAttentionFn` wraps K1/K2. Both Functions launch the generic
+pair of csrc/swa_generic.cu instead at the shapes no tuned instantiation
+takes (any Dh % 8 == 0 up to 512, any block that is a multiple of 128),
+and these plain versions are its plain versions too: none assumes a head
+dim or a block.
 
 One deliberate difference from the reference: a query row with no valid
 key at all (a row whose kv_mask is all False) gives 0 here, where the

@@ -58,18 +58,18 @@ def route(head_dim: int, block_size: int) -> str:
     JAX package's `Attention._sp_call` dispatches it (block % 128 == 0 and
     Dh % 8 == 0: its Pallas path):
 
-    - "kernel": inside that gate at the K1/K2 instantiation (Dh 64,
-      block 128): `SpWindowedAttentionFn`;
-    - "plain": inside the gate at another shape: the plain K6 on the CPU,
+    - "kernel": inside that gate up to Dh 512: `SpWindowedAttentionFn`,
+      on K1/K2 at Dh 64 or 128 and block 128, on the generic pair
+      (csrc/swa_generic.cu) at the other shapes;
+    - "plain": inside the gate beyond Dh 512: the plain K6 on the CPU,
       counted in swa_kernel.plain_routes; on the card it raises
       (swa_kernel.take_plain_route);
     - "outside": outside the gate: parallel.sp.windowed_attention_ctx, as
       JAX takes its XLA oracle there.
     """
     if block_size % 128 == 0 and head_dim % 8 == 0:
-        at = (head_dim, block_size) == (swa_kernel.HEAD_DIM,
-                                        swa_kernel.BLOCK_SIZE)
-        return "kernel" if at else "plain"
+        return "kernel" if swa_kernel.in_range(head_dim, block_size) \
+            else "plain"
     return "outside"
 
 

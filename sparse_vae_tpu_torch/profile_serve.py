@@ -1,10 +1,14 @@
 """Where the serving path's time goes on the card:
 
-    python -m sparse_vae_tpu_torch.profile_serve [run=real-prose-vae-r5]
-        [batch_size=64] [max_length=512] [prompt=256] [steps=64]
+    python -m sparse_vae_tpu_torch.profile_serve [run=real-prose-vae-r5 |
+        heads=N] [batch_size=64] [max_length=512] [prompt=256] [steps=64]
 
-Loads the run in its compute dtype on CUDA, bulk-prefills every row of a
-batch_size-row batch with a `prompt`-token random prompt (K1), then times
+Loads the run in its compute dtype on CUDA, or with `heads=N` builds the
+JAX train bench's model at N heads in bf16 from the JAX initialisation
+(train.bench_hparams, seed 0, as profile_train does: heads=2 is packed
+Dh 256, whose prefill runs the generic forward of csrc/swa_generic.cu;
+heads=4 is Dh 128, K5), bulk-prefills every row of a batch_size-row batch
+with a `prompt`-token random prompt (K1 for r5), then times
 decode slices of `steps` steps with every row live (nucleus sampling at
 temperature 1.0, top_p 0.9, repetition penalty 1.2, fused K4 selection):
 host-clock step time and tokens/s, and a torch.profiler window of 16 steps
@@ -29,14 +33,17 @@ WINDOW = "profile_serve.window"
 
 def _args(argv):
     extra = dict(kv.split("=", 1) for kv in argv[1:])
+    if "heads" in extra and "run" in extra:
+        raise SystemExit("give run= or heads=, not both")
     return (extra.get("run", "real-prose-vae-r5"),
+            int(extra["heads"]) if "heads" in extra else None,
             int(extra.get("batch_size", 64)),
             int(extra.get("max_length", 512)),
             int(extra.get("prompt", 256)), int(extra.get("steps", 64)))
 
 
 def main(argv) -> int:
-    from .checkpoint import load_run
+    from .checkpoint import load_run, model_from_hparams
     from .models.generation import SamplingParams, init_row_decode_state
     from .ops.attention import fill_cache_row
     from .profile_train import busy_share
@@ -45,12 +52,19 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_serve needs a CUDA card", file=sys.stderr)
         return 1
-    run, b, ml, prompt, steps = _args(argv)
+    run, heads, b, ml, prompt, steps = _args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    model, hp, _ = load_run(run, device="cuda")
+    if heads is None:
+        model, hp, _ = load_run(run, device="cuda")
+    else:
+        from .train import bench_hparams
+        run = f"bench.py --heads {heads} (JAX initialisation, seed 0)"
+        hp = bench_hparams(heads)
+        model, _ = model_from_hparams(hp, torch.Generator().manual_seed(0),
+                                      device="cuda")
     sampling = SamplingParams(temperature=1.0, top_p=0.9,
                               repetition_penalty=1.2)
     # end_token=-1: no row ends early, so every step runs all b rows.

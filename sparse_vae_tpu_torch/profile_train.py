@@ -10,7 +10,9 @@ in its training form (fp32 master parameters, bf16 compute, kernels on)
 on CUDA, or with `heads=N` builds the JAX train bench's model at N heads
 from the JAX initialisation with no archive (train.py `bench_hparams`;
 heads=4 is the Dh = 128 geometry, whose decoder attention runs the
-packed kernels K5/K5b), or with `geometry=<run>` the model of that run's
+packed kernels K5/K5b; heads=2 is packed Dh 256 and heads=16 head-major
+Dh 32, both on the generic pair of csrc/swa_generic.cu), or with
+`geometry=<run>` the model of that run's
 meta.json hparams from the JAX initialisation (train.py `run_hparams`:
 `geometry=real-prose-lm-r4 batch=14 seq=3584` is the dense Transformer
 LM at the preset's 50,000-token batches on full rows, K1/K2 on the dense

@@ -726,21 +726,21 @@ def test_swa_packed_kernel_rejects_what_it_does_not_take(cuda):
         swa_kernel.swa_fwd_packed(q, q, q, lengths, 2)          # fp32
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError):
-        swa_kernel.swa_fwd_packed(qb, qb, qb, lengths, 4)       # Dh 64
+        swa_kernel.swa_fwd_packed(qb, qb, qb, lengths, 64)      # Dh 4
 
 
 @pytest.mark.gpu
 def test_plain_routes_raise_on_the_card(cuda):
-    """A sparse attention at Dh = 32, a dense causal one at Dh = 128 and a
-    tied loss at D = 384 lie inside the JAX package's kernel gates but
-    have no CUDA instantiation: on the card they raise instead of running
-    the plain version."""
-    narrow = Attention(64, 2, causal=True, sparse=True).to(cuda)
-    with pytest.raises(NotImplementedError, match="head_dim 32"):
-        narrow(torch.zeros((1, 128, 64), device=cuda))
-    wide = Attention(256, 2, causal=True, sparse=False).to(cuda)
-    with pytest.raises(NotImplementedError, match="head_dim 128"):
-        wide(torch.zeros((1, 512, 256), device=cuda))
+    """A sparse attention and a dense causal one at Dh = 520 and a tied
+    loss at D = 384 lie inside the JAX package's kernel gates but beyond
+    every CUDA kernel: on the card they raise instead of running the plain
+    version."""
+    narrow = Attention(1040, 2, causal=True, sparse=True).to(cuda)
+    with pytest.raises(NotImplementedError, match="head_dim 520"):
+        narrow(torch.zeros((1, 128, 1040), device=cuda))
+    wide = Attention(1040, 2, causal=True, sparse=False).to(cuda)
+    with pytest.raises(NotImplementedError, match="head_dim 520"):
+        wide(torch.zeros((1, 512, 1040), device=cuda))
     hp = TransformerVAEHparams(d_model=384, num_heads=2, num_layers=1,
                                latent_depth=16, vocab_size=1024,
                                num_encoder_latents=8)
@@ -1152,3 +1152,210 @@ def test_gather_and_reconstruct_on_the_card(cuda):
         chip_smoke.LATENT_REL_TOL)
     assert stats["launches"]["nucleus_select"] == (
         stats["reconstruct"]["steps"]) > 0
+
+
+# -- the generic pair (csrc/swa_generic.cu) and head-major Dh 128 ----------
+def _randn(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _held(got, again, want_out, want_lse, want_grads, names="qkv"):
+    """out and lse as K1's, gradients as K2's, bit for bit in two calls."""
+    out, lse, grads = got
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for a, b in zip(grads, again[2]):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-3,
+                               rtol=1e-5)
+    for name, g, w in zip(names, grads, want_grads):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        if w.abs().max() > 0:
+            _assert_rel(g, w, "d" + name)
+        else:
+            assert bool((g == 0).all()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,block,window,causal,include_cls,q_off", [
+    (32, 256, 2, True, True, 0),      # bench.py --heads 16, block 256
+    (32, 128, 2, True, True, 0),
+    (64, 256, 2, False, True, 0),     # block 256, bidirectional
+    (64, 256, 3, True, False, 1),     # q_off in blocks of 256
+    (8, 128, 1, True, True, 0),       # the narrowest head
+    (80, 128, 2, False, False, 0),    # Dh padded to a multiple of 16
+    (384, 128, 2, True, True, 0),     # two output chunks, the last partial
+    (512, 256, 2, True, True, 0),
+])
+def test_generic_head_major_matches_plain(cuda, d, block, window, causal,
+                                          include_cls, q_off):
+    """The generic pair on head-major operands at shapes no tuned
+    instantiation takes, ragged rows and an empty one, against the plain
+    versions, launched through the generic entry, bit for bit in two
+    calls."""
+    gen = torch.Generator(device=cuda).manual_seed(d + block + window)
+    L = 4 * block
+    key_len = L + q_off * block
+    q, do = _randn(gen, 3, 2, L, d), _randn(gen, 3, 2, L, d)
+    k, v = _randn(gen, 3, 2, key_len, d), _randn(gen, 3, 2, key_len, d)
+    lengths = torch.tensor([key_len, key_len - block - 37, 0],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(window_size=window, block_size=block, causal=causal,
+              include_cls=include_cls, q_off=q_off)
+    f0, b0 = swa_kernel.generic_launches, swa_kernel.generic_bwd_launches
+
+    def run():
+        out, lse = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+        return out, lse, swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do,
+                                            **kw)
+
+    got, again = run(), run()
+    assert (swa_kernel.generic_launches,
+            swa_kernel.generic_bwd_launches) == (f0 + 2, b0 + 2)
+    mask = torch.arange(key_len, device=cuda)[None, :] < lengths[:, None]
+    ref, ref_lse = sliding_window_attention_plain(q, k, v, mask,
+                                                  return_lse=True, **kw)
+    want = sliding_window_attention_bwd_plain(q, k, v, lengths, got[1],
+                                              got[0], do, **kw)
+    _held(got, again, ref, ref_lse, want)
+    assert bool((got[0][2] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,heads,block,causal", [
+    (256, 2, 128, True),      # bench.py --heads 2: the slice's shape
+    (256, 2, 128, False),
+    (128, 4, 256, True),      # K5's head dim at block 256
+    (512, 1, 128, True),      # the widest head: d_model 512, one head
+])
+def test_generic_packed_matches_plain(cuda, d, heads, block, causal):
+    """The generic pair on packed [B, L, H * Dh] operands through the
+    packed autograd Function, against the packed plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(d + heads + block)
+    L = 4 * block
+    q, k, v, do = (_randn(gen, 3, L, heads * d) for _ in range(4))
+    lengths = torch.tensor([L, L - 300, 1], dtype=torch.int32, device=cuda)
+    kw = dict(window_size=2, block_size=block, causal=causal,
+              include_cls=True)
+
+    def run():
+        out, lse = swa_kernel.swa_fwd_packed(q, k, v, lengths, heads, **kw)
+        return out, lse, swa_kernel.swa_bwd_packed(q, k, v, lengths, lse,
+                                                   out, do, heads, **kw)
+
+    f0 = swa_kernel.generic_launches
+    got, again = run(), run()
+    assert swa_kernel.generic_launches == f0 + 2
+    ref, ref_lse = sliding_window_attention_packed_plain(
+        q.float(), k.float(), v.float(), lengths, heads, **kw)
+    want = sliding_window_attention_packed_bwd_plain(
+        q.float(), k.float(), v.float(), lengths, got[1], got[0].float(),
+        do.float(), heads, **kw)
+    _held(got, again, ref, ref_lse, want)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = SlidingWindowAttentionPackedFn.apply(*leaves, lengths, heads, 2,
+                                               block, causal, True)
+    out.backward(do)
+    for t, g in zip(leaves, got[2]):
+        assert torch.equal(t.grad, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,block,start", [(256, 128, 1024), (256, 128, 0),
+                                           (128, 128, 1024), (32, 256, 1024)])
+def test_sp_kernel_beyond_dh_64_matches_plain(cuda, d, block, start):
+    """K6 at Dh 256 and block 256 (the generic pair with q_off and the
+    broadcast [CLS] block) and at Dh 128 (K1/K2's head-major Dh 128
+    instantiation), both branches, ragged rows, a partial [CLS] and a
+    filler row, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(d + block + start)
+    S, ctx = 4 * block, block
+    q, do = _randn(gen, 3, 2, S, d), _randn(gen, 3, 2, S, d)
+    k_ext, v_ext = _randn(gen, 3, 2, ctx + S, d), _randn(gen, 3, 2, ctx + S, d)
+    cls_k, cls_v = _randn(gen, 3, 2, block, d), _randn(gen, 3, 2, block, d)
+    full = S if start == 0 else ctx + S
+    ext_len = torch.tensor([full, full // 2, 0], dtype=torch.int32,
+                           device=cuda)
+    cls_len = torch.tensor([block, 77, 0], dtype=torch.int32, device=cuda)
+    args = (q, k_ext, v_ext, cls_k, cls_v, start, ext_len, cls_len)
+    counter = "hm128" if d == 128 and block == 128 else "generic"
+    f0 = getattr(swa_kernel, f"{counter}_launches")
+
+    def run():
+        out, lse = sp_kernel.sp_fwd(*args, 2, block)
+        return out, lse, sp_kernel.sp_bwd(*args, out, lse, do, 2, block)
+
+    got, again = run(), run()
+    assert getattr(swa_kernel, f"{counter}_launches") == f0 + 2
+    ref, ref_lse = sp_kernel.sp_fwd_plain(*args, 2, block)
+    want = sp_kernel.sp_bwd_plain(*args, got[0], got[1], do, 2, block)
+    _held(got, again, ref, ref_lse, want,
+          names=("q", "k_ext", "v_ext", "cls_k", "cls_v"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("include_cls", [True, False])
+def test_swa_kernels_at_head_major_dh_128_match_plain(cuda, causal,
+                                                      include_cls):
+    """K1/K2's head-major Dh 128 instantiation (tensor parallelism's
+    heads of bench.py --heads 4) on ragged rows against the plain
+    versions, counted in the hm128 counters, bit for bit in two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(128 + causal)
+    q, k, v, do = (_randn(gen, 3, 4, 1024, 128) for _ in range(4))
+    lengths = torch.tensor([1024, 700, 129], dtype=torch.int32, device=cuda)
+    kw = dict(causal=causal, include_cls=include_cls)
+    f0, b0 = swa_kernel.hm128_launches, swa_kernel.hm128_bwd_launches
+
+    def run():
+        out, lse = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+        return out, lse, swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do,
+                                            **kw)
+
+    got, again = run(), run()
+    assert (swa_kernel.hm128_launches,
+            swa_kernel.hm128_bwd_launches) == (f0 + 2, b0 + 2)
+    mask = torch.arange(1024, device=cuda)[None, :] < lengths[:, None]
+    ref, ref_lse = sliding_window_attention_plain(q, k, v, mask,
+                                                  return_lse=True, **kw)
+    want = sliding_window_attention_bwd_plain(q, k, v, lengths, got[1],
+                                              got[0], do, **kw)
+    _held(got, again, ref, ref_lse, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model,heads,tp,counter", [
+    (512, 4, 2, "hm128"),     # bench.py --heads 4 over model 2: K1/K2 Dh 128
+    (512, 2, 1, "generic"),   # bench.py --heads 2: the generic pair, packed
+    (512, 16, 1, "generic"),  # bench.py --heads 16: Dh 32, head-major
+])
+def test_attention_layers_take_the_new_kernels(cuda, d_model, heads, tp,
+                                               counter):
+    """Sparse causal attention layers whose shapes raised before run a
+    kernel forward and backward on the card, with a finite gradient, and
+    the dense causal route at Dh 128 and 256 likewise."""
+    torch.manual_seed(0)
+    attn = Attention(d_model, heads, causal=True, sparse=True,
+                     tp_size=tp).to(cuda, torch.bfloat16)
+    x = torch.randn((2, 512, d_model), device=cuda, requires_grad=True)
+    mask = torch.arange(512, device=cuda)[None, :] < torch.tensor(
+        [[512], [300]], device=cuda)
+    f0 = getattr(swa_kernel, f"{counter}_launches")
+    b0 = getattr(swa_kernel, f"{counter}_bwd_launches")
+    attn(x.to(torch.bfloat16), kv_mask=mask).float().sum().backward()
+    assert getattr(swa_kernel, f"{counter}_launches") == f0 + 1
+    assert getattr(swa_kernel, f"{counter}_bwd_launches") == b0 + 1
+    assert bool(torch.isfinite(x.grad).all())
+    for d_dense, counter in ((256, "hm128"), (512, "generic")):
+        dense = Attention(d_dense, 2, causal=True, sparse=False).to(
+            cuda, torch.bfloat16)
+        f0 = getattr(swa_kernel, f"{counter}_launches")
+        with torch.no_grad():
+            y = dense(torch.randn((1, 512, d_dense), device=cuda,
+                                  dtype=torch.bfloat16))
+        assert getattr(swa_kernel, f"{counter}_launches") == f0 + 1
+        assert bool(torch.isfinite(y.float()).all())

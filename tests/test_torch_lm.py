@@ -271,7 +271,13 @@ def test_dense_gate_is_the_jax_flash_gate():
                            use_kernel=False)._route(512, 512) is None
     assert tattn.Attention(128, 2, causal=False,
                            sparse=False)._route(512, 512) is None
+    # Dh 128 takes K1/K2's Dh 128 instantiation, Dh 256 the generic pair;
+    # beyond Dh 512 no kernel does.
     assert tattn.Attention(256, 2, causal=True,
+                           sparse=False)._route(512, 512) == "dense"
+    assert tattn.Attention(512, 2, causal=True,
+                           sparse=False)._route(512, 512) == "dense"
+    assert tattn.Attention(1040, 2, causal=True,
                            sparse=False)._route(512, 512) == "dense_plain"
     torch.manual_seed(0)
     x = torch.randn(2, 512, 128)
@@ -295,14 +301,18 @@ def test_dense_gate_is_the_jax_flash_gate():
 
 
 def test_dense_route_without_an_instantiation_raises_off_the_cpu():
-    """A dense causal layer at head dim 128 (no head-major K1/K2
-    instantiation) raises on a non-CPU device instead of running the
-    plain version, as the sparse gates do; the counter does not move."""
-    attn = tattn.Attention(256, 2, causal=True, sparse=False)
+    """A dense causal layer at head dim 520 (beyond every CUDA kernel's
+    range) raises on a non-CPU device instead of running the plain
+    version, as the sparse gates do; the counter does not move. Head
+    dims 128 (K1/K2) and 256 (the generic pair) take the dense route."""
+    attn = tattn.Attention(1040, 2, causal=True, sparse=False)
     before = swa_kernel.plain_routes
-    with pytest.raises(NotImplementedError, match="head_dim 128"):
-        attn(torch.empty(1, 512, 256, device="meta"))
+    with pytest.raises(NotImplementedError, match="head_dim 520"):
+        attn(torch.empty(1, 512, 1040, device="meta"))
     assert swa_kernel.plain_routes == before
+    for d_model in (256, 512):
+        layer = tattn.Attention(d_model, 2, causal=True, sparse=False)
+        assert layer._dense_route(512, 512) == "dense"
 
 
 # -- draft-tlm-r5 -------------------------------------------------------------

@@ -303,10 +303,13 @@ def _draft_tlm_widths():
 @pytest.mark.parametrize("head_dim,block,want", [
     (64, 128, "head_major"),     # r5: 512 / 8 heads -> K1/K2
     (128, 128, "packed"),        # bench.py --heads 4 -> K5/K5b
-    (32, 128, "plain"),          # JAX's head-major gate, no instantiation
-    (256, 128, "plain"),         # JAX's packed gate, no instantiation
-    (128, 256, "plain"),
-    (64, 256, "plain"),
+    (32, 128, "generic"),        # JAX's head-major gate: the generic pair
+    (256, 128, "packed_generic"),  # JAX's packed gate: the generic pair
+    (128, 256, "packed_generic"),
+    (64, 256, "generic"),
+    (512, 128, "packed_generic"),  # the widest head in range
+    (1024, 128, "plain"),        # JAX's packed gate beyond Dh 512
+    (520, 128, "plain"),         # JAX's head-major gate beyond Dh 512
     (12, 128, "outside"),        # Dh % 8 != 0: JAX runs XLA
     (64, 8, "outside"),          # block % 128 != 0: JAX runs XLA
 ])
@@ -325,16 +328,18 @@ def test_ce_route_table():
 
 
 def test_plain_routes_are_counted_where_the_module_takes_them():
-    """A Dh = 32 sparse attention (inside JAX's head-major gate, no CUDA
-    instantiation) and a D = 384 tied loss each raise their plain_routes
-    counter once per call; an r5-shaped attention does not."""
+    """A Dh = 520 sparse attention (inside JAX's head-major gate, beyond
+    every CUDA kernel's range) and a D = 384 tied loss each raise their
+    plain_routes counter once per call; an r5-shaped attention and a
+    Dh = 32 one (the generic pair's) do not."""
     torch.manual_seed(0)
-    x = torch.randn(1, 128, 64)
+    wide = tattn.Attention(1040, 2, causal=True, sparse=True)
     narrow = tattn.Attention(64, 2, causal=True, sparse=True)
     r5_like = tattn.Attention(512, 8, causal=True, sparse=True)
     before = swa_kernel.plain_routes
     with torch.no_grad():
-        narrow(x)
+        wide(torch.randn(1, 128, 1040))
+        narrow(torch.randn(1, 128, 64))
         r5_like(torch.randn(1, 128, 512))
     assert swa_kernel.plain_routes == before + 1
 
@@ -348,16 +353,16 @@ def test_plain_routes_are_counted_where_the_module_takes_them():
 
 
 @pytest.mark.parametrize("d_model,heads,block,names", [
-    (64, 2, 128, "head_dim 32"),      # JAX's head-major gate
-    (512, 2, 128, "head_dim 256"),    # JAX's packed gate
-    (256, 2, 256, "block_size 256"),  # JAX's packed gate, block 256
+    (1040, 2, 128, "head_dim 520"),     # JAX's head-major gate
+    (1024, 1, 128, "head_dim 1024"),    # JAX's packed gate
+    (2048, 2, 256, "block_size 256"),   # JAX's packed gate, block 256
 ])
 def test_plain_attention_route_raises_off_the_cpu(d_model, heads, block,
                                                   names):
-    """Off the CPU a shape inside JAX's kernel gates with no CUDA
-    instantiation raises instead of running the plain version: the JAX
-    package runs a kernel there. A meta tensor stands in for a CUDA one;
-    the counter does not move."""
+    """Off the CPU a shape inside JAX's kernel gates beyond every CUDA
+    kernel's range (Dh > 512) raises instead of running the plain
+    version: the JAX package runs a kernel there. A meta tensor stands in
+    for a CUDA one; the counter does not move."""
     module = tattn.Attention(d_model, heads, causal=True, sparse=True,
                              block_size=block)
     before = swa_kernel.plain_routes

@@ -511,20 +511,23 @@ def test_model_built_sharded_is_rejected():
 
 
 def test_k6_shape_outside_the_instantiation_raises_off_the_cpu():
-    """Dh 32 at block 128 is inside the JAX package's K6 gate but no CUDA
-    kernel takes it: a meta tensor (standing in for a CUDA one) raises,
-    and a CPU call counts a plain route."""
-    assert sp_kernel.route(32, 128) == "plain"
+    """Dh 520 at block 128 is inside the JAX package's K6 gate but beyond
+    every CUDA kernel's range: a meta tensor (standing in for a CUDA one)
+    raises, and a CPU call counts a plain route. Dh 32 and 128 and block
+    256 take the kernels (the generic pair, K1/K2)."""
+    assert sp_kernel.route(520, 128) == "plain"
     assert sp_kernel.route(64, 128) == "kernel"
+    assert sp_kernel.route(32, 128) == "kernel"
+    assert sp_kernel.route(128, 256) == "kernel"
     assert sp_kernel.route(32, 16) == "outside"
-    attn = Attention(64, 2, causal=True, sparse=True, block_size=128)
+    attn = Attention(1040, 2, causal=True, sparse=True, block_size=128)
     attn.seq_group = _group()
-    with pytest.raises(NotImplementedError, match="head_dim 32"):
-        attn(torch.zeros(1, 256, 64, device="meta"))
+    with pytest.raises(NotImplementedError, match="head_dim 520"):
+        attn(torch.zeros(1, 256, 1040, device="meta"))
     before = swa_kernel.plain_routes
     # With no process group it stops at the first collective.
     with pytest.raises(ValueError, match="process group"):
-        attn(torch.zeros(1, 256, 64))
+        attn(torch.zeros(1, 256, 1040))
     assert swa_kernel.plain_routes == before + 1
 
 

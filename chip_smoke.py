@@ -3,7 +3,13 @@
 GPU:
 
     python3 chip_smoke.py [--k4-parent DIR]
+    python3 chip_smoke.py --generic-parent DIR
     python3 chip_smoke.py --compare BEFORE.log AFTER.log
+
+--generic-parent runs the kernels-generic phase (9a) alone, in another
+checkout DIR (its own script, package and build) and in this one, in the
+order parent, this, this, parent, and prints each shared row's times
+side by side.
 
 --compare reads two of this script's logs (no card needed) and prints,
 phase by phase, the seconds of each and the timing and memory numbers
@@ -81,15 +87,23 @@ the JAX initialisation):
                wrappers against their fp32 plain versions at K1's and
                K2's tolerances, bit-identical across two calls, each shape
                timed (events, device time, the backward by part: delta,
-               dq, dk/dv) beside its bound, the plain versions and SDPA
-               under the band mask where SDPA takes it: packed Dh 256 at
-               K5's three shapes, head-major Dh 32 (--heads 16) on full
-               [8, 16, 12800] rows, block 256 at head-major Dh 64 and
-               packed Dh 128 (causal and bidirectional, ragged), packed
-               Dh 512 at [2, 2048], K6's banded form at Dh 256 (q_off,
-               the broadcast [CLS] block; the profiled forward and
-               backward the generic kernels alone) and the dense causal
-               route at Dh 32 (beside SDPA is_causal);
+               dq, dk/dv, reduce; with the [CLS] slot dk/dv also by
+               band, [CLS] chunks and reduce, the band from the same
+               call without the slot) beside its bound, the plain
+               versions and SDPA under the band mask where SDPA takes
+               it: packed Dh 256 at K5's three shapes, head-major Dh 32
+               (--heads 16) on full [8, 16, 12800] rows, block 256 at
+               head-major Dh 64 and packed Dh 128 (causal and
+               bidirectional, ragged), packed Dh 512 at [2, 2048],
+               head-major Dh 24 (zero padding), Dh 40 at block 384
+               (bidirectional), packed Dh 256 at block 384, K6's banded
+               form at Dh 256 (q_off, the broadcast [CLS] block; the
+               profiled forward and backward the generic kernels alone)
+               and the dense causal route at Dh 32, 28 and 27 blocks
+               (beside SDPA is_causal); the build phase prints each
+               generic kernel's registers and spills. --generic-parent
+               DIR runs this phase alone in DIR and here, DIR, this,
+               this, DIR;
   9b. kernels-hm128 — K1/K2 at head-major Dh 128 likewise at
                [8, 4, 12800, 128] ragged, K6 banded at Dh 128 and the dense
                route at [14, 4, 3584, 128]; then the layers that take it,
@@ -474,6 +488,7 @@ import functools
 import gc
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -640,30 +655,49 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# The profiler keeps only the kernel records that fall inside its window
+# on the host's clock, and the card's clock, as it converts it, drifts
+# from the host's over a run: minutes in, a window of a millisecond's
+# work held none of its records (an H100 with torch 2.11 and CUDA 12.8:
+# 0 of 10, in up to 12 traces in a row). So device_ms pads its window
+# with idle host time on both sides, doubling the pad after a short
+# trace (from TRACE_PAD_S up to TRACE_PAD_MAX_S) and starting each call
+# from the pad that last sufficed.
+DEVICE_TRACE_ATTEMPTS = 12
+TRACE_PAD_S = 0.005
+TRACE_PAD_MAX_S = 2.0
+_trace_pad = [TRACE_PAD_S]
+
+
 def device_ms(fn, iters: int = 10) -> dict:
     """Device milliseconds per call of fn() by kernel name, from
     torch.profiler over `iters` calls after one warm-up call: what the card
     spent, without the host's share of the call's time
     (profile_train.per_call_device_ms, which tolerates a dropped kernel
-    record; a trace that lost more is taken again)."""
+    record; a trace that lost more is taken again with a wider pad)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(profile_train.TRACE_ATTEMPTS):
+    for _ in range(DEVICE_TRACE_ATTEMPTS):
+        pad = _trace_pad[0]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         averages = prof.key_averages()
         times = profile_train.per_call_device_ms(averages, iters)
         if times is not None:
             return times
         launched, recorded = profile_train.kernel_records(averages)
+        _trace_pad[0] = min(2 * pad, TRACE_PAD_MAX_S)
         print(f"profiler trace incomplete: {recorded} kernel records for "
-              f"{launched} launches; taken again", flush=True)
+              f"{launched} launches with {pad:g} s of pad; taken again "
+              f"with {_trace_pad[0]:g} s", flush=True)
     raise AssertionError(f"the profiler dropped kernel records in "
-                         f"{profile_train.TRACE_ATTEMPTS} traces running")
+                         f"{DEVICE_TRACE_ATTEMPTS} traces running")
 
 
 def kernel_ms(times: dict, name: str) -> float:
@@ -695,9 +729,38 @@ def build_phase():
     cuda_lib.library()
     info = cuda_lib.build_info
     print(f"library {info.path.name}: nvcc {info.seconds:.1f} s", flush=True)
-    for line in info.ptxas_log.splitlines():
-        if "ptxas" in line:
-            print(f"  {line.strip()}")
+    for line in ptxas_lines(info.ptxas_log):
+        print(f"  {line}")
+
+
+def ptxas_lines(log: str) -> list:
+    """The build's `ptxas info` lines but ptxas's notes that it placed a
+    warpgroup.arrive (C7519, one per accumulator use: hundreds), and after
+    each kernel of csrc/swa_generic.cu its registers and spills (the
+    function-properties line that carries them has no `ptxas` prefix):
+    "ptxas <kernel>: N registers, S bytes spill stores, L loads"."""
+    lines, name, spill = [], None, None
+    for line in log.splitlines():
+        line = line.strip()
+        if "spill stores" in line:  # a function's properties, no prefix
+            spill = line
+        if "ptxas" not in line or "(C7519)" in line:
+            continue
+        lines.append(line)
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line and name and "swa_generic" in name:
+            m = re.search(r"(swa_generic_[a-z_]*?kernel)(?:ILi(\d+)E)?"
+                          r"(?:Lb(\d)E)?", name)
+            args = [a for a in m.group(2, 3) if a is not None]
+            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            name = None
+            stores, loads = (int(w) for w in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", spill or ""))
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            lines.append(f"ptxas {kernel}: {regs} registers, {stores} bytes "
+                         f"spill stores, {loads} loads")
+    return lines
 
 
 def band_mask(L: int, lengths, window: int, block: int, device,
@@ -1125,14 +1188,17 @@ K2_KERNELS = {"dq": "swa_dq_kernel", "dkv": "swa_dkv_kernel",
               "reduce": "swa_cls_reduce_kernel"}
 
 
-# The kernels of csrc/swa_generic.cu's backward.
-GENERIC_BWD_KERNELS = {"delta": "swa_generic_delta_kernel",
-                       "dq": "swa_generic_dq_kernel",
-                       "dkv": "swa_generic_dkv_kernel"}
+# The kernels of csrc/swa_generic.cu's backward, by name prefix: the
+# Hopper kernels (Dh <= 256: dq with delta, dk/dv with the [CLS]
+# partials, the reduce) and the mma.sync ones beyond (delta, dq, dk/dv).
+GENERIC_BWD_KERNELS = {"delta": "swa_generic_delta",
+                       "dq": "swa_generic_dq",
+                       "dkv": "swa_generic_dkv",
+                       "reduce": "swa_generic_reduce"}
 # A family's forward kernel name and backward kernels: K1/K2 (any of their
 # instantiations) or the generic pair.
 FAMILIES = {"k1": ("swa_fwd_kernel", K2_KERNELS),
-            "generic": ("swa_generic_fwd_kernel", GENERIC_BWD_KERNELS)}
+            "generic": ("swa_generic_fwd", GENERIC_BWD_KERNELS)}
 
 
 def k2_parts(times: dict, kernels: dict = K2_KERNELS) -> dict:
@@ -1369,6 +1435,9 @@ def attention_case(name: str, b: int, L: int, lengths, d: int, heads: int,
                                                     iters),
                "device_ms": sum(times.values()),
                "parts_device_ms": k2_parts(times, bwd_kernels)}
+    if family == "generic" and include_cls:
+        bwd_row["dkv_parts_device_ms"] = dkv_parts(
+            bwd_row["parts_device_ms"], fwd, bwd, kw)
     if packed:
         fwd_row["plain_ms"] = cuda_ms(
             lambda: sliding_window_attention_packed_plain(
@@ -1413,6 +1482,23 @@ def attention_case(name: str, b: int, L: int, lengths, d: int, heads: int,
     return fwd_row, bwd_row
 
 
+def dkv_parts(parts: dict, fwd, bwd, kw: dict) -> dict:
+    """The generic dk/dv of a call with the [CLS] slot by part: "band",
+    the device ms of the same call's dk/dv without the [CLS] slot (the
+    same band tasks, key block 0's band part written out directly);
+    "cls_chunks", the rest of the dk/dv launch (the [CLS] CTAs, by
+    difference); "reduce", the reduce kernel."""
+    kw["include_cls"] = False
+    try:
+        out, lse = fwd()
+        band = k2_parts(device_ms(lambda: bwd(out, lse), 5),
+                        GENERIC_BWD_KERNELS)["dkv"]
+    finally:
+        kw["include_cls"] = True
+    return {"band": band, "cls_chunks": parts["dkv"] - band,
+            "reduce": parts["reduce"]}
+
+
 def generic_phase() -> dict:
     """The generic pair (csrc/swa_generic.cu) against the fp32 plain
     versions at the shapes the JAX gates admit and no tuned instantiation
@@ -1446,12 +1532,27 @@ def generic_phase() -> dict:
     rows["packed512"] = attention_case(
         "generic packed Dh 512", 2, 2048, [2048, 1000], 512, 1, seed=79,
         iters=5, packed=True)
+    # Head dims that are no multiple of 16 (the zero padding), block 384,
+    # and the dense route at an odd block count.
+    rows["hm24"] = attention_case(
+        "generic head-major Dh 24", 4, 4096, [4096, 3001, 1500, 129], 24, 8,
+        seed=86, iters=5, packed=False)
+    rows["block384_hm40_bidirectional"] = attention_case(
+        "generic head-major Dh 40 block 384 bidirectional", 4, 4608,
+        [4608, 3001, 1500, 129], 40, 8, seed=87, iters=5, packed=False,
+        block=384, causal=False)
+    rows["block384_packed256"] = attention_case(
+        "generic packed Dh 256 block 384", 4, 4608, [4608, 3001, 1500, 129],
+        256, 2, seed=88, iters=5, packed=True, block=384)
     rows["k6_dh256"] = k6_phase(2, 4096, 8192, [4224, 3000],
                                 [128, 77], 2, seed=80, h=2, time_it=True,
                                 d=256, family="generic")
     rows["dense_dh32"] = dense_phase(4, 16, 3584, [3584, 3101, 2049, 1024],
                                      seed=81, iters=5, d=32,
                                      family="generic")
+    rows["dense_dh32_odd"] = dense_phase(
+        4, 16, 3456, [3456, 3101, 2049, 1024], seed=89, iters=5, d=32,
+        family="generic")
     return rows
 
 
@@ -6637,6 +6738,46 @@ def compare_logs(before, after) -> None:
                   f"{fmt(b.get(phase, {}).get(key))}")
 
 
+GENERIC_PARENT_TIMEOUT_S = 900
+# The numbers of a kernels-generic row that --generic-parent sets side by
+# side.
+GENERIC_COMPARED = ("ms", "device_ms", "parts_device_ms",
+                    "dkv_parts_device_ms", "max_abs_err")
+
+
+def generic_parent(parent: str) -> dict:
+    """The kernels-generic phase of another checkout (DIR, its own
+    chip_smoke.py, package and build) and of this one, each in its own
+    process, in the order parent, this, this, parent: every row the two
+    trees share, with its times from each run, by the row's label."""
+    runs = {}
+    code = ("import chip_smoke as cs; cs.device_phase(); cs.build_phase(); "
+            "cs.generic_phase()")
+    for n, (who, root) in enumerate((("parent", parent), ("this", REPO),
+                                     ("this", REPO), ("parent", parent))):
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=GENERIC_PARENT_TIMEOUT_S)
+        print(f"--generic-parent run {n} ({who}, {root}): exit "
+              f"{done.returncode}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if done.returncode != 0:
+            print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
+            raise AssertionError(f"the {who} tree's kernels-generic failed")
+        for line in done.stdout.splitlines():
+            label, brace, rest = line.partition(" {")
+            if not brace or "ms" not in rest:
+                continue
+            row = json.loads("{" + rest)
+            runs.setdefault(label, []).append(
+                {"run": f"{n} {who}", **{key: row[key] for key
+                                         in GENERIC_COMPARED if key in row}})
+    for label, rows in runs.items():
+        print(f"generic-parent {label} " + json.dumps(rows), flush=True)
+    return runs
+
+
 def main(argv) -> int:
     if argv[:1] == ["--compare"] and len(argv) == 3:
         compare_logs(argv[1], argv[2])
@@ -6644,9 +6785,14 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--generic-parent"] and len(argv) == 2:
+        smi = device_phase()
+        generic_parent(argv[1])
+        print(json.dumps({"card": smi}), flush=True)
+        return 0
     if argv and (len(argv) != 2 or argv[0] != "--k4-parent"):
-        print("usage: chip_smoke.py [--k4-parent DIR] | --compare BEFORE "
-              "AFTER", file=sys.stderr)
+        print("usage: chip_smoke.py [--k4-parent DIR] | --generic-parent "
+              "DIR | --compare BEFORE AFTER", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     with Phase("device"):
@@ -7173,6 +7319,8 @@ def main(argv) -> int:
              "train-h2": h2_train_counts["swa_bwd_generic"]},
          **brief(generic["h2_train"][1]),
          "parts_device_ms": generic["h2_train"][1]["parts_device_ms"],
+         "dkv_parts_device_ms":
+             generic["h2_train"][1]["dkv_parts_device_ms"],
          "shapes": generic_shapes(1)},
         {"name": "swa_fwd_hm128", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_fwd.cu",

@@ -55,8 +55,9 @@ _SIGNATURES = {
     # block_size, window, causal, include_cls, q_off, scale, stream.
     "svt_swa_generic_fwd": [_P] * 9 + [_I] * 16 + [_F, _P],
     # q, k, v, lengths, lse, out, do, cls_k, cls_v, cls_len, dq, dk, dv,
-    # dcls_k, dcls_v, delta, then as the forward.
-    "svt_swa_generic_bwd": [_P] * 16 + [_I] * 16 + [_F, _P],
+    # dcls_k, dcls_v, delta, scratch (the [CLS] partials), then as the
+    # forward with cls_chunk after q_off.
+    "svt_swa_generic_bwd": [_P] * 17 + [_I] * 17 + [_F, _P],
     # g, table, bias, lse, part (split partials), tokens, vocab, dim,
     # splits, stream
     "svt_tied_ce_fwd": [_P] * 5 + [_I] * 4 + [_P],

@@ -69,8 +69,11 @@ HEAD_DIMS = (HEAD_DIM, 128)
 PACKED_HEAD_DIM = 128
 # The generic pair's range: Dh % 8 == 0 up to MAX_HEAD_DIM (the widest head
 # of any run, preset or bench width: d_model 512, one head) and any block
-# that is a multiple of 128.
+# that is a multiple of 128. Up to WG_MAX_HEAD_DIM its kernels are the
+# Hopper ones (wgmma, the backward's [CLS] column split into partials);
+# wider heads keep the mma.sync kernels, which take no [CLS] scratch.
 MAX_HEAD_DIM = 512
+WG_MAX_HEAD_DIM = 256
 
 
 def instantiated(head_dim: int, block_size: int, packed: bool) -> bool:
@@ -261,14 +264,18 @@ def _generic_bwd(q, k, v, lengths, lse, out, do, heads: int, packed: bool,
     dcls_v = torch.empty_like(cls_v) if cls is not None else None
     delta = torch.empty((b, heads, q_len), dtype=torch.float32,
                         device=q.device)
+    scratch = torch.empty(generic_scratch_shape(
+        b, heads, q_len, d, block_size, window_size, causal, include_cls,
+        cls is not None), dtype=torch.float32, device=q.device)
     code = cuda_lib.library().svt_swa_generic_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         lse.data_ptr(), out.data_ptr(), do.data_ptr(), _ptr(cls_k),
         _ptr(cls_v), _ptr(cls_len), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(dcls_k), _ptr(dcls_v), delta.data_ptr(),
+        _ptr(scratch if scratch.numel() else None),
         *_strides(q, packed, d), *_strides(k, packed, d), b, heads, q_len,
         key_len, d, block_size, window_size, int(causal), int(include_cls),
-        q_off, d ** -0.5, _stream(q.device))
+        q_off, CLS_CHUNK, d ** -0.5, _stream(q.device))
     cuda_lib.check(code, "swa_generic_bwd")
     generic_bwd_launches += 1
     return (dq, dk, dv, dcls_k, dcls_v) if cls is not None else (dq, dk, dv)
@@ -440,6 +447,24 @@ def scratch_parts(chunks: int, broadcast: bool) -> int:
     scratch: one partial per chunk, after the band part of key block 0
     unless [CLS] is the broadcast block."""
     return chunks + (not broadcast)
+
+
+def generic_scratch_shape(batch: int, heads: int, q_len: int,
+                          head_dim: int, block_size: int, window_size: int,
+                          causal: bool, include_cls: bool,
+                          broadcast: bool = False) -> tuple:
+    """The fp32 [CLS] scratch of the generic backward: (2 (dk, dv), B, H,
+    parts, block, Dh) with K2's count of parts (`scratch_parts` of
+    `cls_chunks`: key block 0's band part, unless [CLS] is the broadcast
+    block, then one partial per chunk, summed in that order); (0,) when
+    the call has no [CLS] chunk or its head is wider than WG_MAX_HEAD_DIM
+    (the mma.sync kernels split nothing)."""
+    chunks = cls_chunks(q_len // block_size, window_size, causal,
+                        include_cls or broadcast, broadcast)
+    if not chunks or head_dim > WG_MAX_HEAD_DIM:
+        return (0,)
+    return (2, batch, heads, scratch_parts(chunks, broadcast), block_size,
+            head_dim)
 
 
 def _check_packed(q, k, v, lengths, num_heads: int, block_size: int,

@@ -1190,6 +1190,11 @@ def _held(got, again, want_out, want_lse, want_grads, names="qkv"):
     (80, 128, 2, False, False, 0),    # Dh padded to a multiple of 16
     (384, 128, 2, True, True, 0),     # two output chunks, the last partial
     (512, 256, 2, True, True, 0),
+    (24, 128, 2, True, True, 0),      # Dh no multiple of 16, one half
+    (40, 384, 2, False, True, 0),     # ... at block 384, bidirectional
+    (256, 384, 3, True, True, 0),     # the widest Hopper head, block 384
+    (512, 128, 2, False, True, 0),    # Dh 512: two chunks, bidirectional
+    (192, 256, 2, True, False, 2),    # three halves, q_off
 ])
 def test_generic_head_major_matches_plain(cuda, d, block, window, causal,
                                           include_cls, q_off):
@@ -1231,6 +1236,8 @@ def test_generic_head_major_matches_plain(cuda, d, block, window, causal,
     (256, 2, 128, False),
     (128, 4, 256, True),      # K5's head dim at block 256
     (512, 1, 128, True),      # the widest head: d_model 512, one head
+    (256, 2, 384, True),      # Dh 256 at block 384
+    (384, 1, 256, False),     # a chunked head at block 256
 ])
 def test_generic_packed_matches_plain(cuda, d, heads, block, causal):
     """The generic pair on packed [B, L, H * Dh] operands through the
@@ -1266,7 +1273,8 @@ def test_generic_packed_matches_plain(cuda, d, heads, block, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,block,start", [(256, 128, 1024), (256, 128, 0),
-                                           (128, 128, 1024), (32, 256, 1024)])
+                                           (128, 128, 1024), (32, 256, 1024),
+                                           (256, 256, 1024), (40, 128, 512)])
 def test_sp_kernel_beyond_dh_64_matches_plain(cuda, d, block, start):
     """K6 at Dh 256 and block 256 (the generic pair with q_off and the
     broadcast [CLS] block) and at Dh 128 (K1/K2's head-major Dh 128
@@ -1295,6 +1303,92 @@ def test_sp_kernel_beyond_dh_64_matches_plain(cuda, d, block, start):
     want = sp_kernel.sp_bwd_plain(*args, got[0], got[1], do, 2, block)
     _held(got, again, ref, ref_lse, want,
           names=("q", "k_ext", "v_ext", "cls_k", "cls_v"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,heads,packed,block,window,causal", [
+    (256, 2, True, 128, 2, True),     # bench.py --heads 2's layout
+    (32, 4, False, 128, 2, True),     # --heads 16's head dim
+    (24, 2, False, 256, 3, False),    # bidirectional: left 2
+    (40, 2, True, 128, 1, True),
+])
+def test_generic_cls_column_in_chunks_matches_plain(cuda, d, heads, packed,
+                                                    block, window, causal):
+    """Key block 0's [CLS] column split into three or more chunks of
+    query blocks (fp32 partials summed in a fixed order by the reduce),
+    on rows whose length ends inside a chunk, inside the band part and at
+    a block edge, against the plain versions; bit for bit in two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(d + block + window)
+    left = window if causal else (window + 1) // 2
+    blocks = left + 2 * swa_kernel.CLS_CHUNK + 3   # three chunks
+    L = blocks * block
+    assert swa_kernel.cls_chunks(blocks, window, causal, True) == 3
+    lengths = torch.tensor(
+        [L, (left + swa_kernel.CLS_CHUNK + 3) * block + 50,
+         block // 2 + 8, (left + 1) * block], dtype=torch.int32,
+        device=cuda)
+    shape = (4, L, heads * d) if packed else (4, heads, L, d)
+    q, k, v, do = (_randn(gen, *shape) for _ in range(4))
+    kw = dict(window_size=window, block_size=block, causal=causal,
+              include_cls=True)
+
+    def run():
+        if packed:
+            out, lse = swa_kernel.swa_fwd_packed(q, k, v, lengths, heads,
+                                                 **kw)
+            return out, lse, swa_kernel.swa_bwd_packed(
+                q, k, v, lengths, lse, out, do, heads, **kw)
+        out, lse = swa_kernel.swa_fwd(q, k, v, lengths, **kw)
+        return out, lse, swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do,
+                                            **kw)
+
+    f0 = swa_kernel.generic_bwd_launches
+    got, again = run(), run()
+    assert swa_kernel.generic_bwd_launches == f0 + 2
+    if packed:
+        ref, ref_lse = sliding_window_attention_packed_plain(
+            q.float(), k.float(), v.float(), lengths, heads, **kw)
+        want = sliding_window_attention_packed_bwd_plain(
+            q.float(), k.float(), v.float(), lengths, got[1],
+            got[0].float(), do.float(), heads, **kw)
+    else:
+        mask = torch.arange(L, device=cuda)[None, :] < lengths[:, None]
+        ref, ref_lse = sliding_window_attention_plain(
+            q, k, v, mask, return_lse=True, **kw)
+        want = sliding_window_attention_bwd_plain(q, k, v, lengths, got[1],
+                                                  got[0], do, **kw)
+    _held(got, again, ref, ref_lse, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,blocks", [(32, 7), (256, 5), (40, 9)])
+def test_generic_dense_route_with_an_odd_block_count(cuda, d, blocks):
+    """The generic pair on the dense causal route (a causal band of every
+    block, no [CLS] slot) at an odd number of blocks, the grids running
+    the longest rows and columns first, on ragged rows against the plain
+    versions; bit for bit in two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(d + blocks)
+    L = blocks * 128
+    q, k, v, do = (_randn(gen, 3, 2, L, d) for _ in range(4))
+    lengths = torch.tensor([L, L - 200, 129], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(window_size=blocks, block_size=128, causal=True,
+              include_cls=False)
+
+    def run():
+        out, lse = swa_kernel.swa_fwd(q, k, v, lengths, dense=True, **kw)
+        return out, lse, swa_kernel.swa_bwd(q, k, v, lengths, lse, out, do,
+                                            dense=True, **kw)
+
+    f0 = swa_kernel.generic_launches
+    got, again = run(), run()
+    assert swa_kernel.generic_launches == f0 + 2
+    mask = torch.arange(L, device=cuda)[None, :] < lengths[:, None]
+    ref, ref_lse = sliding_window_attention_plain(q, k, v, mask,
+                                                  return_lse=True, **kw)
+    want = sliding_window_attention_bwd_plain(q, k, v, lengths, got[1],
+                                              got[0], do, **kw)
+    _held(got, again, ref, ref_lse, want)
 
 
 @pytest.mark.gpu

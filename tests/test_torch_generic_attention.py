@@ -294,7 +294,7 @@ def recorder(monkeypatch):
 # Argument positions of svt_swa_generic_fwd / _bwd after their pointers:
 # q's (row, head, batch) strides, k's, then batch, heads, q_len, key_len,
 # head_dim, block_size, window, causal, include_cls, q_off.
-_FWD_POINTERS, _BWD_POINTERS = 9, 16
+_FWD_POINTERS, _BWD_POINTERS = 9, 17
 _INT_NAMES = ("q_row", "q_head", "q_batch", "k_row", "k_head", "k_batch",
               "batch", "heads", "q_len", "key_len", "head_dim", "block",
               "window", "causal", "include_cls", "q_off")

@@ -4,12 +4,21 @@ GPU:
 
     python3 chip_smoke.py [--k4-parent DIR]
     python3 chip_smoke.py --generic-parent DIR
+    python3 chip_smoke.py --dense-parent DIR
     python3 chip_smoke.py --compare BEFORE.log AFTER.log
 
 --generic-parent runs the kernels-generic phase (9a) alone, in another
 checkout DIR (its own script, package and build) and in this one, in the
 order parent, this, this, parent, and prints each shared row's times
 side by side.
+
+--dense-parent does the same for the dense causal route: `dense_phase`
+at the lm-kernels shapes (Dh 64: the r4 geometry's full rows,
+draft-tlm-r5's ragged rows, lm-serve's [1, 8, 512, 64]) and at
+[14, 4, 3584, 128], each tree running its own kernels for the route, then
+`profile_train geometry=real-prose-lm-r4 batch=14 seq=3584`, in the
+order parent, this, this, parent; it prints each shape's forward and
+backward times from every run and every run's r4 step.
 
 --compare reads two of this script's logs (no card needed) and prints,
 phase by phase, the seconds of each and the timing and memory numbers
@@ -105,10 +114,11 @@ the JAX initialisation):
                DIR runs this phase alone in DIR and here, DIR, this,
                this, DIR;
   9b. kernels-hm128 — K1/K2 at head-major Dh 128 likewise at
-               [8, 4, 12800, 128] ragged, K6 banded at Dh 128 and the dense
-               route at [14, 4, 3584, 128]; then the layers that take it,
-               counted alone: a sparse layer of --heads 4 over model 2
-               and a dense causal Dh 128 layer, forward and backward;
+               [8, 4, 12800, 128] ragged and K6 banded at Dh 128; the
+               dense causal pair at [14, 4, 3584, 128]; then the layers
+               that take them, counted alone: a sparse layer of --heads 4
+               over model 2 (K1/K2) and a dense causal Dh 128 layer (the
+               dense causal pair), forward and backward;
   9c. model-h2 — the bf16 prefill logits of the Dh = 256 model (the
                generic forward) against the fp32 plain model on the card;
   9d. serve-h2 — ServeEngine answers phase 5's requests through bulk
@@ -198,20 +208,25 @@ the same records in every retake); phases 19-22 run last:
  18. lm-kernels — K3/K3b at their D = 256 instantiation against their
                plain versions at 16,384 and 50,176 tokens with padding
                tails, bit-identical across two calls, timed at 50,176
-               beside F.linear + F.cross_entropy; K1/K2 on the dense
-               causal route (a causal band of L / 128 = 28 blocks, no
-               [CLS] slot) at [14, 8, 3584, 64] on full rows and
-               [13, 4, 3584, 64] on ragged ones, against their plain
-               versions, bit-identical across two calls, timed beside SDPA
-               with is_causal, forward and backward, with the bound;
+               beside F.linear + F.cross_entropy; the dense causal pair
+               (csrc/causal_fwd.cu, causal_bwd.cu: the dense causal route,
+               a causal band of L / 128 = 28 blocks with no [CLS] slot, at
+               Dh 64 and 128) at [14, 8, 3584, 64] on full rows,
+               [13, 4, 3584, 64] on ragged ones and lm-serve's
+               [1, 8, 512, 64], against its plain versions, bit-identical
+               across two calls, counted in the dense counters alone, its
+               profiled calls holding no band kernel's record, timed
+               (events, device time, the backward by part: delta, the
+               pass, the dq rounding) beside SDPA with is_causal, forward
+               and backward, with the bound;
  19. lm-serve — draft-tlm-r5's bf16 logits at [1, 512] (the dense route)
                against the fp32 CPU model; 12 requests through
                ServeEngine at batch 64, max_length 512, four of them
-               bulk-prefilled at 512 positions (K1 once a layer each),
-               selection through K4;
+               bulk-prefilled at 512 positions (the dense causal forward
+               once a layer each), selection through K4;
  20. lm-train — one bf16 step of draft-tlm-r5 at [13, 3584] and one of
-               the r4 geometry at [4, 3584] through K1/K2 on the dense
-               route and K3/K3b, each against the fp32 plain step on the
+               the r4 geometry at [4, 3584] through the dense causal pair
+               and K3/K3b, each against the fp32 plain step on the
                same batch and dropout masks (loss 0.1%, every gradient at
                cosine >= 0.99 or the near-zero rule);
  21. lm-fit  — Trainer.fit at r4's meta.json hparams from the JAX
@@ -275,7 +290,7 @@ launches of every mode printed:
                spec_draft=transformer-lm:draft-tlm-r5 for 2 documents of
                64;
  28. decode-lm — draft-tlm-r5's full-document Jacobi at batch 1 x 512:
-               greedy (K1's dense route, 2 launches an iteration) held
+               greedy (the dense causal forward, 2 launches an iteration) held
                against its ar, and sampled with fused_select (K4 on every
                dirty chunk of 128), every K4 choice held.
 The LSTM family (ops/rnn.py, models/lstm_lm.py, models/lstm_vae.py): the
@@ -332,7 +347,7 @@ bf16; the JAX initialisation, seed 0):
                session (help, load, encode, an expression, q);
  34. moe-train — 3 optimizer steps on one trainer group of its data
                shape (2 micro-batches of [48, 1024] ragged documents)
-               through K1/K2 on the dense causal route (6 launches a
+               through the dense causal pair (6 launches a
                micro-batch) and K3/K3b at D = 512; step 1 against the
                same step in fp32 through the plain versions (loss 0.1%,
                every gradient at cosine >= 0.99 or the near-zero rule),
@@ -348,7 +363,7 @@ bf16; the JAX initialisation, seed 0):
                load_run(<dir>) serving the trained model's logits
                exactly;
  36. moe-serve — 12 requests through ServeEngine at batch 64 (dead rows
-               present), four bulk-prefilled at 512 (K1's dense route),
+               present), four bulk-prefilled at 512 (the dense causal forward),
                selection through K4; greedy ar and jacobi_full at batch 1
                x 512, jacobi_full held against ar.
 Cut for time in phases 26-27 when phases 33-36 came in: r5's document to
@@ -380,9 +395,11 @@ each rank's peak memory:
                capacity factor MESH_NO_DROP without dropout, then 2
                steps at 1.25 with dropout (masks per row shard), each
                rank's dropped share a layer printed;
-               K1/K2 (dense) 6 and K3/K3b 1 a micro-batch on every rank;
+               the dense causal pair 6 and K3/K3b 1 a micro-batch on every
+               rank;
  39. mesh-moe-tp — the same over data 2 x model 2 (expert hidden 2,048
-               -> 1,024 a shard): K1/K2 (dense) 6 a micro-batch, K3/K3b
+               -> 1,024 a shard): the dense causal pair 6 a micro-batch,
+               K3/K3b
                none;
  40. mesh-fit — Trainer.fit of r5's hparams on data 2 x model 2 for 2
                steps, validating and saving each step (cut: documents of
@@ -427,7 +444,7 @@ each rank's peak memory):
                layers and 3 z projections a stage) on M = 4 micro-batches
                of [4, 4096] (step 1 held against the unsharded
                accumulated step, then 2 more) and the r4 LM geometry on M
-               = 4 of [4, 3584] (2 steps, K1/K2 on the dense route): K1/K2
+               = 4 of [4, 3584] (2 steps, the dense causal pair): the pair
                3 a micro-batch on every rank, K3/K3b on the last stage
                alone; each rank's idle seconds in the schedule beside the
                GPipe bubble (P - 1) / (M + P - 1) = 0.2.
@@ -530,8 +547,9 @@ from sparse_vae_tpu_torch import gen_bench
 from sparse_vae_tpu_torch.models import generation, parallel_decode
 from sparse_vae_tpu_torch.models.generation import (SamplingParams,
                                                     gumbel_noise, prior_z)
-from sparse_vae_tpu_torch.ops import (ce_kernel, cuda_lib, launches,
-                                      select_kernel, sp_kernel, swa_kernel)
+from sparse_vae_tpu_torch.ops import (causal_kernel, ce_kernel, cuda_lib,
+                                      launches, select_kernel, sp_kernel,
+                                      swa_kernel)
 from sparse_vae_tpu_torch.ops.rnn import (BiLSTMEncoder, StackedRNN,
                                           use_step_loop)
 from sparse_vae_tpu_torch.ops import attention as tattn
@@ -1195,10 +1213,20 @@ GENERIC_BWD_KERNELS = {"delta": "swa_generic_delta",
                        "dq": "swa_generic_dq",
                        "dkv": "swa_generic_dkv",
                        "reduce": "swa_generic_reduce"}
+# The kernels of csrc/causal_bwd.cu (the dense causal pair's backward):
+# delta with the counters zeroed, the one pass over key tiles, the dq
+# rounding.
+CAUSAL_BWD_KERNELS = {"delta": "causal_delta_kernel",
+                      "pass": "causal_bwd_kernel",
+                      "dq_round": "causal_dq_kernel"}
 # A family's forward kernel name and backward kernels: K1/K2 (any of their
-# instantiations) or the generic pair.
+# instantiations), the generic pair, or the dense causal pair.
 FAMILIES = {"k1": ("swa_fwd_kernel", K2_KERNELS),
-            "generic": ("swa_generic_fwd", GENERIC_BWD_KERNELS)}
+            "generic": ("swa_generic_fwd", GENERIC_BWD_KERNELS),
+            "causal": ("causal_fwd_kernel", CAUSAL_BWD_KERNELS)}
+# Kernel names of the band pairs: none may run on the dense route at
+# Dh 64 and 128.
+BAND_KERNELS = ("swa_fwd_kernel", *K2_KERNELS.values(), "swa_generic")
 
 
 def k2_parts(times: dict, kernels: dict = K2_KERNELS) -> dict:
@@ -1558,11 +1586,12 @@ def generic_phase() -> dict:
 
 def hm128_phase() -> dict:
     """K1/K2's head-major Dh 128 instantiation against the fp32 plain
-    versions: at [8, 4, 12800, 128] on ragged rows, K6's banded form at
-    Dh 128 and the dense causal route at [14, 4, 3584, 128]; then the
-    path that takes it, counted alone: a sparse layer of bench.py --heads
-    4 over model 2 (tensor parallelism keeps the head-major layout) and a
-    dense causal Dh 128 layer, forward and backward."""
+    versions: at [8, 4, 12800, 128] on ragged rows and K6's banded form at
+    Dh 128; the dense causal pair at [14, 4, 3584, 128]; then the paths
+    that take them, counted alone: a sparse layer of bench.py --heads 4
+    over model 2 (tensor parallelism keeps the head-major layout; K1/K2)
+    and a dense causal Dh 128 layer (the dense causal pair), forward and
+    backward."""
     rows = {"train": attention_case(
         "K1/K2 head-major Dh 128", 8, 12800, [12800, 11001, 7500, 3001] * 2,
         128, 4, seed=82, iters=5, packed=False, family="k1",
@@ -1570,7 +1599,7 @@ def hm128_phase() -> dict:
     rows["k6"] = k6_phase(2, 4096, 8192, [4224, 3000], [128, 77], 2,
                           seed=83, h=4, time_it=True, d=128)
     rows["dense"] = dense_phase(14, 4, 3584, [3584] * 14, seed=84, iters=5,
-                                d=128)
+                                d=128, family="causal")
     torch.manual_seed(85)
     layers = [tattn.Attention(512, 4, causal=True, sparse=True, tp_size=2),
               tattn.Attention(512, 4, causal=True, sparse=False)]
@@ -1584,8 +1613,10 @@ def hm128_phase() -> dict:
         layer(x, kv_mask=mask).float().square().mean().backward()
     torch.cuda.synchronize()
     counts = read_counts()
-    check_counts("hm128-layers", counts, {"swa_fwd_hm128": 2,
-                                          "swa_bwd_hm128": 2})
+    check_counts("hm128-layers", counts, {"swa_fwd_hm128": 1,
+                                          "swa_bwd_hm128": 1,
+                                          "swa_fwd_dense": 1,
+                                          "swa_bwd_dense": 1})
     check(bool(torch.isfinite(x.grad).all()), "hm128 layers' gradient is "
           "not finite")
     rows["layers"] = {"launches": counts}
@@ -3222,9 +3253,9 @@ LM_GEOMETRY = "real-prose-lm-r4"
 # 50,000-token micro-batch as [14, 3584] (50,176 slots), each with a
 # padding tail that ends inside a 128-token tile.
 LM_CE_CHECKS = ((16384, 2048), (50176, 6173))
-# The dense causal route: K1/K2 at a causal band of L / 128 blocks (28 at
-# 3,584) without a [CLS] slot. The r4 geometry's heads on full rows, and
-# draft-tlm-r5's on ragged rows.
+# The dense causal route: a causal band of L / 128 blocks (28 at 3,584)
+# without a [CLS] slot, the dense causal pair at Dh 64 and 128. The r4
+# geometry's heads on full rows, and draft-tlm-r5's on ragged rows.
 LM_DENSE_LENGTHS = [3584, 3584, 3101, 3000, 2560, 2049, 1800, 1537, 1024,
                     700, 513, 300, 129]
 # draft-tlm-r5's micro-batch shape (its meta: 50,000 tokens a batch, the
@@ -3273,16 +3304,20 @@ def sdpa_causal_ms(q, k, v, do, iters: int):
 
 
 def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
-                d: int = 64, family: str = "k1"):
-    """K1 and K2 on the dense causal route (window L / 128, no [CLS] slot)
-    against their plain versions: out within K1's tolerances, lse within
-    K1_LSE_ATOL, gradients within GRAD_REL_TOL of the largest entry, both
-    bit-identical across two calls; timed beside the plain versions and
-    SDPA with is_causal, with the bound. d and family: another head dim,
-    and the kernels that take it (`FAMILIES`: K1/K2's instantiation at
-    Dh 64 or 128, or the generic pair)."""
+                d: int = 64, family: str = "causal"):
+    """The dense causal route (window L / 128, no [CLS] slot) through the
+    band wrappers (swa_kernel.swa_fwd / swa_bwd with dense=True) against
+    the plain versions of the kernels that take it: out within K1's
+    tolerances, lse within K1_LSE_ATOL, gradients within GRAD_REL_TOL of
+    the largest entry, both bit-identical across two calls; timed beside
+    the plain versions and SDPA with is_causal, with the bound. family:
+    the kernels that take the head dim (`FAMILIES`: the dense causal pair
+    at Dh 64 and 128, the generic pair at the other widths). The causal
+    family's calls count in the dense counters alone, and its profiled
+    calls hold no band kernel's record."""
     block = 128
     fwd_kernel, bwd_kernels = FAMILIES[family]
+    causal = family == "causal"
     kw = dict(window_size=L // block, block_size=block, causal=True,
               include_cls=False)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3290,6 +3325,7 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
                    .to(torch.bfloat16) for _ in range(4))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     key_mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    before = read_counts()
     out, lse = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
     out2, lse2 = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
     grads = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
@@ -3297,29 +3333,56 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
     again = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
                                **kw)
     torch.cuda.synchronize()
+    after = read_counts()
+    moved = {key: after[key] - before[key] for key in after
+             if after[key] != before[key]}
+    want_moved = ({"swa_fwd_dense": 2, "swa_bwd_dense": 2} if causal
+                  else {"swa_fwd_generic": 2, "swa_bwd_generic": 2})
+    check(moved == want_moved, f"dense {family} Dh {d} launched {moved}")
     check(torch.equal(out, out2) and torch.equal(lse, lse2)
           and all(torch.equal(x, y) for x, y in zip(grads, again)),
-          f"dense K1/K2 differ in two calls at {[b, h, L, d]}")
+          f"dense {family} differs in two calls at {[b, h, L, d]}")
     del out2, lse2, again
-    ref, ref_lse = sliding_window_attention_plain(q, k, v, key_mask,
-                                                  return_lse=True, **kw)
+
+    def fwd_plain(q, k, v):
+        if causal:
+            return causal_kernel.causal_attention_plain(q, k, v, lens)
+        return sliding_window_attention_plain(q, k, v, key_mask,
+                                              return_lse=True, **kw)
+
+    def bwd_plain(q, k, v, out, do):
+        if causal:
+            return causal_kernel.causal_attention_bwd_plain(
+                q, k, v, lens, lse, out, do)
+        return sliding_window_attention_bwd_plain(q, k, v, lens, lse, out,
+                                                  do, **kw)
+
+    ref, ref_lse = fwd_plain(q, k, v)
     err = (out.float() - ref.float()).abs()
-    lse_err = (lse - ref_lse).abs().max().item()
+    finite = torch.isfinite(ref_lse)
+    check(torch.equal(finite, torch.isfinite(lse)),
+          f"dense {family} lse is -inf on other rows than the plain "
+          f"version's")
+    lse_err = (lse[finite] - ref_lse[finite]).abs().max().item()
     check(bool(torch.isfinite(out.float()).all()),
-          "dense K1 out is not finite")
+          f"dense {family} out is not finite")
     check(bool((err <= K1_OUT_ATOL + K1_OUT_RTOL * ref.float().abs()).all()),
-          f"dense K1 disagrees with its plain version: max {err.max():.3g}")
-    check(lse_err <= K1_LSE_ATOL, f"dense K1 lse disagrees: {lse_err:.3g}")
+          f"dense {family} disagrees with its plain version: max "
+          f"{err.max():.3g}")
+    check(lse_err <= K1_LSE_ATOL,
+          f"dense {family} lse disagrees: {lse_err:.3g}")
     fwd_err = err.max().item()
     del ref, ref_lse, err
-    want = sliding_window_attention_bwd_plain(q, k, v, lens, lse, out, do,
-                                              **kw)
+    want = bwd_plain(q, k, v, out, do)
     errs = [rel_err(g, w) for g, w in zip(grads, want)]
     bwd_abs = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(grads, want))
     del want
+    check(all(bool(torch.isfinite(g.float()).all()) for g in grads),
+          f"dense {family} gradients are not finite")
     check(max(errs) <= GRAD_REL_TOL,
-          f"dense K2 disagrees with its plain version: {errs}")
+          f"dense {family} gradients disagree with the plain version: "
+          f"{errs}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3336,52 +3399,72 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
                       4 * d * pairs, BF16_TENSOR_FLOPS)
     bwd_bound = bound(8 * q.numel() * 2 + lse.numel() * 4 + b * 4,
                       10 * d * pairs, BF16_TENSOR_FLOPS)
+    fwd_times = device_ms(fwd)
+    bwd_times = device_ms(bwd, 5)
+    if causal:
+        band = [key for key in (*fwd_times, *bwd_times)
+                if any(name in key for name in BAND_KERNELS)]
+        check(not band, f"the dense route at Dh {d} ran band kernels: "
+              f"{band}")
     shape = [b, h, L, d]
-    k1 = {"shape": shape, "lengths": list(lengths), "window": L // block,
-          "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
-          "bit_identical": True, "ms": cuda_ms(fwd, iters),
-          "device_ms": kernel_ms(device_ms(fwd), fwd_kernel),
-          "plain_ms": cuda_ms(lambda: sliding_window_attention_plain(
-              q, k, v, key_mask, **kw), 1, warmup=1),
-          "library": "F.scaled_dot_product_attention(is_causal=True)",
-          "library_ms": lib_fwd, "bound_ms": fwd_bound[0],
-          "bound_by": fwd_bound[1], "pairs": pairs}
-    times = device_ms(bwd, 5)
-    k2 = {"shape": shape, "lengths": list(lengths), "window": L // block,
-          "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
-          "bit_identical": True, "ms": cuda_ms(bwd, iters),
-          "device_ms": sum(times.values()),
-          "parts_device_ms": k2_parts(times, bwd_kernels),
-          "plain_ms": cuda_ms(lambda: sliding_window_attention_bwd_plain(
-              q, k, v, lens, lse, out, do, **kw), 1, warmup=1),
-          "library": "the backward of F.scaled_dot_product_attention("
-                     "is_causal=True)",
-          "library_ms": lib_bwd, "bound_ms": bwd_bound[0],
-          "bound_by": bwd_bound[1], "pairs": pairs}
-    label = "" if (d, family) == (64, "k1") else f" {family} Dh {d}"
-    print(f"K1 dense{label} " + json.dumps(k1), flush=True)
-    print(f"K2 dense{label} " + json.dumps(k2), flush=True)
-    return k1, k2
+    fwd_row = {"shape": shape, "lengths": list(lengths),
+               "window": L // block, "family": family,
+               "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+               "bit_identical": True, "ms": cuda_ms(fwd, iters),
+               "device_ms": kernel_ms(fwd_times, fwd_kernel),
+               "plain_ms": cuda_ms(lambda: fwd_plain(q, k, v), 1,
+                                   warmup=1),
+               "library": "F.scaled_dot_product_attention(is_causal=True)",
+               "library_ms": lib_fwd, "bound_ms": fwd_bound[0],
+               "bound_by": fwd_bound[1], "pairs": pairs}
+    bwd_row = {"shape": shape, "lengths": list(lengths),
+               "window": L // block, "family": family,
+               "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
+               "bit_identical": True, "ms": cuda_ms(bwd, iters),
+               "device_ms": sum(bwd_times.values()),
+               "parts_device_ms": k2_parts(bwd_times, bwd_kernels),
+               "plain_ms": cuda_ms(lambda: bwd_plain(q, k, v, out, do), 1,
+                                   warmup=1),
+               "library": "the backward of F.scaled_dot_product_attention("
+                          "is_causal=True)",
+               "library_ms": lib_bwd, "bound_ms": bwd_bound[0],
+               "bound_by": bwd_bound[1], "pairs": pairs}
+    if causal:
+        print(f"dense fwd Dh {d} " + json.dumps(fwd_row), flush=True)
+        print(f"dense bwd Dh {d} " + json.dumps(bwd_row), flush=True)
+    else:
+        print(f"K1 dense {family} Dh {d} " + json.dumps(fwd_row), flush=True)
+        print(f"K2 dense {family} Dh {d} " + json.dumps(bwd_row), flush=True)
+    return fwd_row, bwd_row
+
+
+# The dense causal pair's shapes: the r4 geometry's heads on full rows,
+# draft-tlm-r5's on ragged rows, and lm-serve's prefill of one 512-token
+# prompt (four query tiles: latency decides).
+DENSE_SHAPES = {"full": (14, 8, 3584, [3584] * 14, 43, 5),
+                "ragged": (13, 4, 3584, LM_DENSE_LENGTHS, 44, 5),
+                "serve": (1, 8, 512, [512], 45, 50)}
 
 
 def lm_kernels_phase() -> dict:
-    """K3/K3b at D = 256 (LM_CE_CHECKS) and K1/K2 on the dense causal
-    route at the r4 geometry's [14, 8, 3584, 64] on full rows and
-    draft-tlm-r5's [13, 4, 3584, 64] on ragged ones."""
+    """K3/K3b at D = 256 (LM_CE_CHECKS) and the dense causal pair at
+    `DENSE_SHAPES` (Dh 64)."""
     k3, k3b = k3_phase(41, LM_CE_CHECKS, d=256, label=" D=256")
-    full = dense_phase(14, 8, 3584, [3584] * 14, seed=43, iters=5)
-    ragged = dense_phase(13, 4, 3584, LM_DENSE_LENGTHS, seed=44, iters=5)
-    return {"k3": k3, "k3b": k3b, "k1": full[0], "k2": full[1],
-            "k1_ragged": ragged[0], "k2_ragged": ragged[1]}
+    rows = {"k3": k3, "k3b": k3b}
+    for tag, (b, h, L, lengths, seed, iters) in DENSE_SHAPES.items():
+        rows[f"fwd_{tag}"], rows[f"bwd_{tag}"] = dense_phase(
+            b, h, L, lengths, seed=seed, iters=iters)
+    return rows
 
 
 def lm_serve_phase(smi: str) -> dict:
     """draft-tlm-r5 on the card in bf16: prefill logits at [1, 512] (the
-    dense route: K1 once a layer) against the fp32 CPU model (the masked
+    dense causal forward once a layer) against the fp32 CPU model (the masked
     dense path); then 12 requests through ServeEngine at batch 64,
     max_length 512, four with prompts long enough to bulk-prefill at 512
-    positions (K1 once a layer each; shorter prompts pad to 128-384 and
-    take the masked dense path), selection through K4."""
+    positions (the dense causal forward once a layer each; shorter prompts
+    pad to 128-384 and take the masked dense path), selection through
+    K4."""
     model, hp, _ = load_run(LM_RUN, device="cuda")
     cpu_model, _, _ = load_run(LM_RUN, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(45)
@@ -3715,7 +3798,7 @@ def lm_nll(model, objective, batches: list) -> dict:
 
 def lm_against_plain(batches: list, name: str) -> dict:
     """draft-tlm-r5's trained weights in the training form (bf16 compute)
-    on `batches` through the kernels (K1 on the dense route once a layer,
+    on `batches` through the kernels (the dense causal forward once a layer,
     K3 once a batch, each twice: lm_nll) against the plain versions at
     the same precision: each batch's NLL and its block-start NLL within
     TRAIN_LOSS_RTOL; and the plain run with the attention cut to the
@@ -3853,7 +3936,7 @@ def lm_test_entry_phase(smi: str, log_root: Path) -> dict:
     as test.main in the directory holding `log_root`, on the checkpoint
     lm_fit_phase saved there (its corpus and a stand-in tokenizer saved
     where the run's data hparams look for them, as test_entry_phase
-    does): a finite, positive average, K1 on the dense route once a layer
+    does): a finite, positive average, the dense causal forward once a layer
     and K3 once a batch for every test batch with a real row. Then each
     of those batches, at its shape and row lengths, becomes documents of
     draft-tlm-r5's own text (lm_model_batch) held on its trained weights
@@ -4486,10 +4569,10 @@ def decode_spec_phase(smi: str, ar, z) -> dict:
 
 def decode_lm_phase(smi: str) -> dict:
     """draft-tlm-r5's full-document Jacobi at batch 1 x DECODE_LM_SEQ:
-    gen_bench's greedy ar and jacobi_full (chunk 128; K1's dense route, 2
-    launches an iteration), jacobi_full held against ar; then sampled with
-    fused_select (K4 at [128, 32768] on every dirty chunk), every K4
-    choice held against the plain selection."""
+    gen_bench's greedy ar and jacobi_full (chunk 128; the dense causal
+    forward, 2 launches an iteration), jacobi_full held against ar; then
+    sampled with fused_select (K4 at [128, 32768] on every dirty chunk),
+    every K4 choice held against the plain selection."""
     model, _, _ = load_run(LM_RUN, device="cuda")
     bench = gen_bench.Bench(model, seq=DECODE_LM_SEQ)
     counts = {}
@@ -5371,7 +5454,7 @@ def moe_train_phase(smi: str, depth=None, group=MOE_GROUP,
     """real-prose-lm-moe at full width (depth layers when given) from the
     JAX initialisation: `steps` optimizer steps on one trainer group of
     its data shape (2 micro-batches of `group` ragged documents), through
-    K1/K2 on the dense causal route and K3/K3b at D = 512, their counts
+    the dense causal pair and K3/K3b at D = 512, their counts
     from the steps; step 1's loss within TRAIN_LOSS_RTOL of the same
     step in fp32 through the plain versions on the same batch and
     dropout masks, and every gradient at cosine >= TRAIN_GRAD_COS or, below
@@ -5545,9 +5628,9 @@ def moe_serve_phase(smi: str, depth=None, seq: int = DECODE_LM_SEQ) -> dict:
     """The MoE LM (the JAX initialisation, bf16 serving form) answers 12
     requests through ServeEngine at batch 64, max_length 512 (52 rows
     dead, fed [PAD], which take no expert slot), four bulk-prefilled at
-    512 positions (K1's dense route once a layer each), selection through
-    K4; then gen_bench's greedy ar and full-document Jacobi at batch 1 x
-    `seq` (K1's dense route once a layer an iteration), Jacobi held
+    512 positions (the dense causal forward once a layer each), selection
+    through K4; then gen_bench's greedy ar and full-document Jacobi at batch 1 x
+    `seq` (the dense causal forward once a layer an iteration), Jacobi held
     against ar as decode-lm holds draft-tlm-r5's."""
     hp = moe_hparams(depth)
     model, hp = model_from_hparams(hp, torch.Generator().manual_seed(0),
@@ -6607,7 +6690,7 @@ def mesh_pipe_plan(smi: str) -> tuple:
       documents: step 1 held against the unsharded accumulated step on
       the same weights, documents and eps, then PIPE_STEPS - 1 more;
     - the r4 LM geometry (the JAX initialisation; 6 dense causal layers:
-      K1/K2 on the dense route) on M of [4, 3584], 2 steps, step 1 held
+      the dense causal pair) on M of [4, 3584], 2 steps, step 1 held
       the same way.
     Each as `hold_pipe_part`, in bf16 through the kernels and in fp32
     through the plain versions."""
@@ -6778,6 +6861,77 @@ def generic_parent(parent: str) -> dict:
     return runs
 
 
+DENSE_PARENT_TIMEOUT_S = 900
+# The dense route's shapes that --dense-parent times in both trees:
+# DENSE_SHAPES at Dh 64 and the r4 geometry's heads at Dh 128.
+# (The code names the shapes itself: the parent's script may have no
+# DENSE_SHAPES.)
+DENSE_PARENT_CODE = (
+    "import chip_smoke as cs; cs.device_phase(); cs.build_phase(); "
+    "[cs.dense_phase(b, h, L, lengths, seed=seed, iters=iters) "
+    f"for b, h, L, lengths, seed, iters in {list(DENSE_SHAPES.values())}]; "
+    "cs.dense_phase(14, 4, 3584, [3584] * 14, seed=84, iters=5, d=128)")
+DENSE_COMPARED = ("ms", "device_ms", "parts_device_ms", "max_abs_err",
+                  "library_ms", "bound_ms")
+# The r4 LM's training step in each tree (profile_train's JSON line).
+R4_STEP = ["-m", "sparse_vae_tpu_torch.profile_train",
+           "geometry=real-prose-lm-r4", "batch=14", "seq=3584"]
+R4_COMPARED = ("step_ms_median", "device_ms_per_step", "device_idle_share",
+               "max_memory_allocated_bytes")
+
+
+def dense_parent(parent: str) -> dict:
+    """The dense route's shapes (this tree's `DENSE_PARENT_CODE`, run in
+    each tree by its own chip_smoke.py, package and build: the parent's
+    K1/K2 at a causal band, this tree's dense causal pair) and the r4
+    LM's training step (profile_train), each in its own process, in the
+    order parent, this, this, parent: every shape's forward and backward
+    times from each run, keyed by direction and shape, and each run's
+    step."""
+    runs, steps = {}, []
+    for n, (who, root) in enumerate((("parent", parent), ("this", REPO),
+                                     ("this", REPO), ("parent", parent))):
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", DENSE_PARENT_CODE],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=DENSE_PARENT_TIMEOUT_S)
+        print(f"--dense-parent run {n} ({who}, {root}): exit "
+              f"{done.returncode}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if done.returncode != 0:
+            print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
+            raise AssertionError(f"the {who} tree's dense shapes failed")
+        for line in done.stdout.splitlines():
+            label, brace, rest = line.partition(" {")
+            if not brace or not label.startswith(("K1 dense", "K2 dense",
+                                                  "dense fwd",
+                                                  "dense bwd")):
+                continue
+            row = json.loads("{" + rest)
+            way = "fwd" if label.startswith(("K1", "dense fwd")) else "bwd"
+            key = f"{way} {row['shape']}"
+            runs.setdefault(key, []).append(
+                {"run": f"{n} {who}", **{k: row[k] for k in DENSE_COMPARED
+                                         if k in row}})
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, *R4_STEP], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=DENSE_PARENT_TIMEOUT_S)
+        print(f"--dense-parent r4 step {n} ({who}): exit {done.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if done.returncode != 0:
+            print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
+            raise AssertionError(f"the {who} tree's r4 step failed")
+        result = json.loads(done.stdout.strip().splitlines()[-1])
+        steps.append({"run": f"{n} {who}",
+                      **{k: result[k] for k in R4_COMPARED},
+                      "top_kernels": result["top_kernels"][:6]})
+    for key, rows in runs.items():
+        print(f"dense-parent {key} " + json.dumps(rows), flush=True)
+    print("dense-parent r4-step " + json.dumps(steps), flush=True)
+    return {"shapes": runs, "r4_step": steps}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--compare"] and len(argv) == 3:
         compare_logs(argv[1], argv[2])
@@ -6790,9 +6944,15 @@ def main(argv) -> int:
         generic_parent(argv[1])
         print(json.dumps({"card": smi}), flush=True)
         return 0
+    if argv[:1] == ["--dense-parent"] and len(argv) == 2:
+        smi = device_phase()
+        dense_parent(argv[1])
+        print(json.dumps({"card": smi}), flush=True)
+        return 0
     if argv and (len(argv) != 2 or argv[0] != "--k4-parent"):
         print("usage: chip_smoke.py [--k4-parent DIR] | --generic-parent "
-              "DIR | --compare BEFORE AFTER", file=sys.stderr)
+              "DIR | --dense-parent DIR | --compare BEFORE AFTER",
+              file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     with Phase("device"):
@@ -7069,6 +7229,35 @@ def main(argv) -> int:
                                        "library_ms", "shape")},
                 **extra}
 
+    def causal_row(name, counter, source, half):
+        """The dense causal pair's row: its launches on every path that
+        runs the dense route (the LM family's, the remat and lm-options
+        phases', the dense Dh 128 layer's), timed at the r4 geometry's
+        full rows, with the ragged, serving and Dh 128 shapes beside."""
+        by_path = {**lm_paths(counter), **remat_paths(counter),
+                   "hm128-layers": hm128["layers"]["launches"][counter]}
+        row = lm_k[f"{half}_full"]
+        keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "sparse_vae_tpu/ops/attention.py:472",
+                "replaces_note": "the JAX library's Pallas flash_attention "
+                                 "(causal), called there",
+                "wrapper": "sparse_vae_tpu_torch/ops/causal_kernel.py (the "
+                           "dense causal route of ops/attention.py at "
+                           "head-major Dh 64 and 128)",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                **{k: row[k] for k in keys},
+                "library": row["library"],
+                **({"parts_device_ms": row["parts_device_ms"]}
+                   if half == "bwd" else {}),
+                "shapes": {
+                    "ragged": {k: lm_k[f"{half}_ragged"][k] for k in keys},
+                    "serve": {k: lm_k[f"{half}_serve"][k] for k in keys},
+                    "dh128": {k: hm128["dense"][half == "bwd"][k]
+                              for k in keys}}}
+
     def timed(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
@@ -7331,8 +7520,7 @@ def main(argv) -> int:
          "launches_by_path": {
              "hm128-layers": hm128["layers"]["launches"]["swa_fwd_hm128"]},
          **brief(hm128["train"][0]),
-         "shapes": {"k6": brief(hm128["k6"]),
-                    "dense": brief(hm128["dense"][0])}},
+         "shapes": {"k6": brief(hm128["k6"])}},
         {"name": "swa_bwd_hm128", "route": "cuda",
          "source": "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
          "replaces": "sparse_vae_tpu/ops/pallas_kernels.py:337",
@@ -7342,30 +7530,11 @@ def main(argv) -> int:
              "hm128-layers": hm128["layers"]["launches"]["swa_bwd_hm128"]},
          **brief(hm128["train"][1]),
          "parts_device_ms": hm128["train"][1]["parts_device_ms"],
-         "shapes": {"k6": brief(hm128["k6"], "bwd_"),
-                    "dense": brief(hm128["dense"][1])}},
-        lm_row("swa_fwd_dense", "swa_fwd_dense",
-               "sparse_vae_tpu_torch/csrc/swa_fwd.cu",
-               "sparse_vae_tpu/ops/pallas_kernels.py:152", lm_k["k1"], {
-                   "wrapper": "sparse_vae_tpu_torch/ops/attention.py "
-                              "(the dense causal route, window L / 128)",
-                   "also_replaces": "the JAX library flash_attention "
-                                    "call, sparse_vae_tpu/ops/"
-                                    "attention.py:472",
-                   "library": lm_k["k1"]["library"],
-                   "ragged": {k: lm_k["k1_ragged"][k] for k in (
-                       "shape", "max_abs_err", "ms", "device_ms",
-                       "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")}}),
-        lm_row("swa_bwd_dense", "swa_bwd_dense",
-               "sparse_vae_tpu_torch/csrc/swa_bwd.cu",
-               "sparse_vae_tpu/ops/pallas_kernels.py:337", lm_k["k2"], {
-                   "library": lm_k["k2"]["library"],
-                   "parts_device_ms": lm_k["k2"]["parts_device_ms"],
-                   "ragged": {k: lm_k["k2_ragged"][k] for k in (
-                       "shape", "max_abs_err", "ms", "device_ms",
-                       "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")}}),
+         "shapes": {"k6": brief(hm128["k6"], "bwd_")}},
+        causal_row("causal_fwd", "swa_fwd_dense",
+                   "sparse_vae_tpu_torch/csrc/causal_fwd.cu", "fwd"),
+        causal_row("causal_bwd", "swa_bwd_dense",
+                   "sparse_vae_tpu_torch/csrc/causal_bwd.cu", "bwd"),
         lm_row("tied_ce_fwd", "tied_ce_fwd_d256",
                "sparse_vae_tpu_torch/csrc/tied_ce.cu",
                "sparse_vae_tpu/ops/pallas_ce.py:143", lm_k["k3"], {

@@ -132,10 +132,12 @@ class Attention(nn.Module):
     sparse_self_attention=False, such as the dense-benchmark preset's)
     takes the JAX package's flash-attention gate: use_kernel, lq == lk and
     lq % 512 == 0. There the JAX package calls the JAX library's Pallas
-    flash attention on the TPU; here the same function is K1/K2 at a causal
-    band of lq / 128 blocks of 128 without a [CLS] slot, which is dense
-    causal attention with the key mask as per-row lengths (`_dense_route`;
-    its launches count in `swa_kernel`'s dense counters). Outside that
+    flash attention on the TPU; here the same function is a causal band of
+    lq / 128 blocks of 128 without a [CLS] slot, which is dense causal
+    attention with the key mask as per-row lengths (`_dense_route`): the
+    dense causal pair of ops/causal_kernel.py at head-major Dh 64 and 128,
+    the generic pair at the other widths (its launches count in
+    `swa_kernel`'s dense counters at Dh 64 and 128). Outside that
     gate the masked dense path runs, as in JAX. At pad query positions the
     two paths differ, as JAX's two do: the losses mask those positions.
 
@@ -260,10 +262,10 @@ class Attention(nn.Module):
         """The dense causal gate of the JAX package (ops/attention.py: its
         flash-attention branch): dense, causal, its own queries, kernels
         on, lq == lk and lq % DENSE_KERNEL_MULTIPLE == 0. Inside it
-        "dense" (K1/K2 at head-major Dh 64 or 128, or the generic pair at
-        another Dh % 8 == 0 up to 512), else "dense_plain" (the plain
-        version on the CPU; `take_plain_route` raises on the card). None
-        outside it."""
+        "dense" (the dense causal pair at head-major Dh 64 or 128,
+        `causal_kernel.takes`, or the generic pair at another Dh % 8 == 0
+        up to 512), else "dense_plain" (the plain version on the CPU;
+        `take_plain_route` raises on the card). None outside it."""
         if not (not self.sparse and self.causal and not self.num_queries
                 and self.use_kernel and lq == lk
                 and lq % DENSE_KERNEL_MULTIPLE == 0):

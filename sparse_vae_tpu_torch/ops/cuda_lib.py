@@ -26,8 +26,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_generic.cu", "tied_ce.cu",
-           "tied_ce_bwd.cu", "nucleus_select.cu")
+SOURCES = ("swa_fwd.cu", "swa_bwd.cu", "swa_generic.cu", "causal_fwd.cu",
+           "causal_bwd.cu", "tied_ce.cu", "tied_ce_bwd.cu",
+           "nucleus_select.cu")
 # Included by the sources; part of the library's hash.
 HEADERS = ("hopper.cuh", "swa_tiles.cuh", "tiles.cuh")
 NVCC_TIMEOUT_S = 600
@@ -58,6 +59,12 @@ _SIGNATURES = {
     # dcls_k, dcls_v, delta, scratch (the [CLS] partials), then as the
     # forward with cls_chunk after q_off.
     "svt_swa_generic_bwd": [_P] * 17 + [_I] * 17 + [_F, _P],
+    # The dense causal pair (csrc/causal_fwd.cu, causal_bwd.cu): q, k, v,
+    # lengths, out, lse, batch, heads, len, head_dim, scale, stream.
+    "svt_causal_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # q, k, v, lengths, lse, out, do, dq, dk, dv, delta, dq_acc, counters,
+    # batch, heads, len, head_dim, scale, stream
+    "svt_causal_bwd": [_P] * 13 + [_I] * 4 + [_F, _P],
     # g, table, bias, lse, part (split partials), tokens, vocab, dim,
     # splits, stream
     "svt_tied_ce_fwd": [_P] * 5 + [_I] * 4 + [_P],

@@ -1,7 +1,8 @@
 """Every kernel launch counter of the port in one place, by kernel name.
 
 Each wrapper raises its own counter where it launches its kernel and
-nowhere else (ops/swa_kernel.py, ops/ce_kernel.py, ops/select_kernel.py);
+nowhere else (ops/swa_kernel.py, ops/causal_kernel.py, ops/ce_kernel.py,
+ops/select_kernel.py);
 the counters are plain integers of this process. `plain_routes` counts
 calls inside a JAX kernel gate that ran a plain version on the CPU, and
 `rnn_step_loop` the RNN step loop's calls on CUDA tensors (ops/rnn.py:
@@ -18,8 +19,10 @@ COUNTERS = {
     "swa_bwd_packed": (swa_kernel, "packed_bwd_launches"),  # K5b
     "sp_windowed_attention": (swa_kernel, "sp_launches"),   # K6
     "sp_windowed_attention_bwd": (swa_kernel, "sp_bwd_launches"),
-    "swa_fwd_dense": (swa_kernel, "dense_launches"),        # K1, dense
-    "swa_bwd_dense": (swa_kernel, "dense_bwd_launches"),    # K2, dense
+    # The dense causal pair (ops/causal_kernel.py), the dense route at Dh
+    # 64 and 128.
+    "swa_fwd_dense": (swa_kernel, "dense_launches"),
+    "swa_bwd_dense": (swa_kernel, "dense_bwd_launches"),
     "swa_fwd_hm128": (swa_kernel, "hm128_launches"),        # K1, Dh 128
     "swa_bwd_hm128": (swa_kernel, "hm128_bwd_launches"),    # K2, Dh 128
     "swa_fwd_generic": (swa_kernel, "generic_launches"),    # generic pair

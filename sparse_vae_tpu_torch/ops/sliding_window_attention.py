@@ -343,7 +343,8 @@ class SlidingWindowAttentionFn(torch.autograd.Function):
     """Sliding-window + [CLS] attention with its backward: K1 forward and
     K2 backward for CUDA tensors, the plain versions for CPU tensors.
     lengths: [B] int32 valid key prefix per row. dense: the call is the
-    dense causal route (ops/attention.py), whose launches count apart.
+    dense causal route (ops/attention.py), which the dense causal pair
+    (ops/causal_kernel.py) takes at head-major Dh 64 and 128.
     The forward's (out, lse) is a rematerialisation save point
     (models/remat.py `kernel_forward`)."""
 
@@ -380,7 +381,7 @@ def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
     use_kernel is False. On the Function's path kv_mask must be a
     right-padding prefix mask (the kernels take per-row valid lengths).
     dense: the dense causal route (a causal band of every block, no [CLS]
-    slot), counted apart from the sliding-window launches."""
+    slot): the dense causal pair at head-major Dh 64 and 128."""
     if not use_kernel:
         return sliding_window_attention_plain(
             q, k, v, kv_mask, window_size=window_size,

@@ -11,8 +11,11 @@ sp_windowed_attention_pallas (K6) calls the same two Pallas kernels, and
 the broadcast [CLS] block of such a shard as a slot of its own (`cls`):
 ops/sp_kernel.py builds K6 on them.
 
-Every other shape inside the JAX package's gates up to Dh 512 (Dh % 8 ==
-0, a block that is a multiple of 128) takes the generic pair of
+The dense causal route (`dense=True`: a causal band of every 128-token
+block, no [CLS] slot) takes the dense causal pair of ops/causal_kernel.py
+(csrc/causal_fwd.cu, causal_bwd.cu) at head-major Dh 64 and 128, K1/K2
+nowhere. Every other shape inside the JAX package's gates up to Dh 512
+(Dh % 8 == 0, a block that is a multiple of 128) takes the generic pair of
 csrc/swa_generic.cu, in either layout (one entry, given the operands'
 row, head and batch strides), with the same options: `q_off`, `cls`,
 causal or not, the [CLS] slot. The wrappers choose it by shape
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import causal_kernel, cuda_lib
 from .sliding_window_attention import (
     sliding_window_attention_bwd_plain,
     sliding_window_attention_packed_bwd_plain,
@@ -38,12 +41,12 @@ from .sliding_window_attention import (
 # Kernel launches in this process (raised only where a kernel launches):
 # K1 in `launches`, K2 in `bwd_launches`, K5 in `packed_launches`, K5b in
 # `packed_bwd_launches`; K1 and K2 launched for K6's banded branch
-# (`sp=True`) in `sp_launches` and `sp_bwd_launches` instead, and for the
-# dense causal route (`dense=True`, ops/attention.py) in `dense_launches`
-# and `dense_bwd_launches`. Those count the head-major Dh 64
-# instantiation: K1 and K2 at head-major Dh 128 count in `hm128_launches`
-# and `hm128_bwd_launches`, and the generic pair in `generic_launches` and
-# `generic_bwd_launches`, whoever calls them.
+# (`sp=True`) in `sp_launches` and `sp_bwd_launches` instead. Those count
+# the head-major Dh 64 instantiation: K1 and K2 at head-major Dh 128 count
+# in `hm128_launches` and `hm128_bwd_launches`, and the generic pair in
+# `generic_launches` and `generic_bwd_launches`, whoever calls them. The
+# dense causal pair (ops/causal_kernel.py, the dense causal route at Dh 64
+# and 128) counts in `dense_launches` and `dense_bwd_launches`.
 # `plain_routes` counts CPU attention calls inside the JAX package's
 # kernel gates at a shape no CUDA kernel takes (`route` == "plain");
 # `take_plain_route` raises it.
@@ -296,11 +299,17 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
     valid keys cls_len; lse is then the joint one of the band and the
     block. Off the CPU: bf16, contiguous; K1 at D = 64 or 128 and
     block_size = 128, the generic forward at the rest of `in_range`. sp:
-    the launch is K6's banded branch (ops/sp_kernel.py) and counts as K6's;
-    dense: it is the dense causal route (ops/attention.py) and counts in
-    `dense_launches` (both at Dh 64).
+    the launch is K6's banded branch (ops/sp_kernel.py) and counts as K6's
+    (at Dh 64); dense: the call is the dense causal route (ops/attention.py,
+    a causal band of every block), which the dense causal pair takes at
+    Dh 64 and 128 (`causal_kernel.causal_fwd`, on the CPU its plain
+    version).
     """
-    global launches, sp_launches, dense_launches, hm128_launches
+    global launches, sp_launches, hm128_launches
+    if dense and q.ndim == 4 and causal_kernel.takes(
+            q.shape[3], block_size, window_size, q.shape[2], causal=causal,
+            include_cls=include_cls, q_off=q_off, cls=cls):
+        return causal_kernel.causal_fwd(q, k, v, lengths)  # checks its own
     _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
            cls)
     if q.device.type == "cpu":
@@ -334,8 +343,6 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
         hm128_launches += 1
     elif sp:
         sp_launches += 1
-    elif dense:
-        dense_launches += 1
     else:
         launches += 1
     return out, lse
@@ -356,10 +363,13 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
     joint lse and the merged out; then returns (dq, dk, dv, dcls_k,
     dcls_v). Off the CPU: bf16, contiguous; K2 at D = 64 or 128 and
     block_size = 128, the generic backward at the rest of `in_range`. sp
-    and dense: as in `swa_fwd`.
+    and dense: as in `swa_fwd` (`causal_kernel.causal_bwd`).
     """
-    global bwd_launches, sp_bwd_launches, dense_bwd_launches, \
-        hm128_bwd_launches
+    global bwd_launches, sp_bwd_launches, hm128_bwd_launches
+    if dense and q.ndim == 4 and causal_kernel.takes(
+            q.shape[3], block_size, window_size, q.shape[2], causal=causal,
+            include_cls=include_cls, q_off=q_off, cls=cls):
+        return causal_kernel.causal_bwd(q, k, v, lengths, lse, out, do)
     _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
            cls)
     if out.shape != q.shape or do.shape != q.shape:
@@ -414,8 +424,6 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
         hm128_bwd_launches += 1
     elif sp:
         sp_bwd_launches += 1
-    elif dense:
-        dense_bwd_launches += 1
     else:
         bwd_launches += 1
     return (dq, dk, dv, dcls_k, dcls_v) if broadcast else (dq, dk, dv)

@@ -15,8 +15,8 @@ Dh 32, both on the generic pair of csrc/swa_generic.cu), or with
 `geometry=<run>` the model of that run's
 meta.json hparams from the JAX initialisation (train.py `run_hparams`:
 `geometry=real-prose-lm-r4 batch=14 seq=3584` is the dense Transformer
-LM at the preset's 50,000-token batches on full rows, K1/K2 on the dense
-causal route and K3/K3b at D = 512), and trains on the JAX train
+LM at the preset's 50,000-token batches on full rows, the dense causal
+pair of csrc/causal_fwd.cu and causal_bwd.cu and K3/K3b at D = 512), and trains on the JAX train
 bench's traffic
 (bench.py): every row a full document of `seq` random ids, so every slot
 is a real token. After two warm-up steps it times `steps` optimizer steps

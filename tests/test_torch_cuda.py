@@ -19,9 +19,10 @@ one K1 launch and one K2 launch set with q_off and the broadcast [CLS]
 block as a slot of its own) as K1 and K2, on both branches, bit for bit
 across two calls. The evaluation paths (the IWAE estimator and the DReG
 step) as chip_smoke.py's eval and dreg phases hold them, at smaller
-shapes. K3/K3b at the Transformer LM's D = 256 as at 512, and K1/K2 on
-the dense causal route (a causal band of every block, no [CLS] slot) as
-K1 and K2. K4 at the mass-sampling batch [1000, 32768] and at the fused frontier's
+shapes. K3/K3b at the Transformer LM's D = 256 as at 512, and the dense
+causal pair (csrc/causal_fwd.cu, causal_bwd.cu: the dense causal route at
+Dh 64 and 128, a causal band of every block with no [CLS] slot) as K1
+and K2. K4 at the mass-sampling batch [1000, 32768] and at the fused frontier's
 [4096, 32768], the lockstep decode step (`decode_step_z`) bit for bit
 the row-wise one at every row's position, and r5's chunk peek
 (`decode_chunk_z`) against its sequential decode steps within the serve
@@ -35,8 +36,8 @@ import torch
 from sparse_vae_tpu_torch.models.generation import SamplingParams, gumbel_noise
 from sparse_vae_tpu_torch.models.transformer_vae import (
     TransformerVAE, TransformerVAEHparams)
-from sparse_vae_tpu_torch.ops import (ce_kernel, select_kernel, sp_kernel,
-                                      swa_kernel)
+from sparse_vae_tpu_torch.ops import (causal_kernel, ce_kernel,
+                                      select_kernel, sp_kernel, swa_kernel)
 from sparse_vae_tpu_torch.ops.attention import Attention
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
     SlidingWindowAttentionPackedFn, sliding_window_attention,
@@ -624,10 +625,11 @@ def test_tied_ce_kernels_at_the_lm_width(cuda, t, vocab, padded):
 @pytest.mark.gpu
 @pytest.mark.parametrize("length", [512, 1536])
 def test_dense_route_kernels_match_plain(cuda, length):
-    """K1 and K2 on the dense causal route (a causal band of every block,
-    no [CLS] slot) on ragged rows against their plain versions, counted in
-    the dense counters; the dense causal Attention takes that route on the
-    card and has a gradient."""
+    """The dense causal route (a causal band of every block, no [CLS]
+    slot) through the band wrappers on ragged rows against the band plain
+    versions: the dense causal pair, counted in the dense counters; the
+    dense causal Attention takes that route on the card and has a
+    gradient."""
     gen = torch.Generator(device=cuda).manual_seed(length)
     q, k, v, do = (torch.randn((3, 2, length, 64), generator=gen,
                                device=cuda).to(torch.bfloat16)
@@ -659,6 +661,47 @@ def test_dense_route_kernels_match_plain(cuda, length):
     attn(x.to(torch.bfloat16), kv_mask=mask[:2]).float().sum().backward()
     assert swa_kernel.dense_launches == f0 + 1
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("length,lengths", [
+    (512, [512, 417, 1]),
+    (1024, [1024, 1000, 129, 0]),
+    (3584, [3584, 3101, 1537]),
+])
+def test_dense_causal_pair_matches_plain(cuda, d, length, lengths):
+    """The dense causal pair against its plain versions on full and ragged
+    rows (a length that is no multiple of 128, a length of 1, a row with
+    no valid key), bit for bit in two calls, counted in the dense counters
+    and in no band counter."""
+    gen = torch.Generator(device=cuda).manual_seed(length + d)
+    q, k, v, do = (_randn(gen, len(lengths), 2, length, d) for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = {name: getattr(swa_kernel, name) for name in (
+        "dense_launches", "dense_bwd_launches", "launches", "bwd_launches",
+        "hm128_launches", "hm128_bwd_launches", "generic_launches",
+        "generic_bwd_launches")}
+
+    def run():
+        out, lse = causal_kernel.causal_fwd(q, k, v, lens)
+        return out, lse, causal_kernel.causal_bwd(q, k, v, lens, lse, out,
+                                                  do)
+
+    got, again = run(), run()
+    moved = {name: getattr(swa_kernel, name) - n
+             for name, n in before.items()}
+    assert moved == {**{name: 0 for name in before}, "dense_launches": 2,
+                     "dense_bwd_launches": 2}
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    ref, ref_lse = causal_kernel.causal_attention_plain(q32, k32, v32, lens)
+    want = causal_kernel.causal_attention_bwd_plain(
+        q32, k32, v32, lens, got[1], got[0].float(), do.float())
+    _held(got, again, ref, ref_lse, want)
+    if 0 in lengths:
+        row = lengths.index(0)
+        assert bool((got[0][row] == 0).all())
+        assert all(bool((g[row] == 0).all()) for g in got[2])
 
 
 @pytest.mark.gpu
@@ -1126,8 +1169,8 @@ def test_cudnn_rnn_matches_the_step_loop(cuda, rnn_type):
 def test_moe_step_through_the_kernels_matches_plain(cuda):
     """chip_smoke.py's moe-train phase at 2 of real-prose-lm-moe's layers
     (full width, 8 experts, top-2) on one group of 2 micro-batches of
-    [8, 1024] ragged documents: 2 steps through K1/K2 on the dense causal
-    route and K3/K3b, step 1 against the fp32 plain step (loss within
+    [8, 1024] ragged documents: 2 steps through the dense causal pair
+    and K3/K3b, step 1 against the fp32 plain step (loss within
     0.1%, gradients at cosine >= 0.99 or the near-zero rule), the route
     flips counted; every check raises inside the phase."""
     import chip_smoke
@@ -1431,7 +1474,8 @@ def test_attention_layers_take_the_new_kernels(cuda, d_model, heads, tp,
                                                counter):
     """Sparse causal attention layers whose shapes raised before run a
     kernel forward and backward on the card, with a finite gradient, and
-    the dense causal route at Dh 128 and 256 likewise."""
+    the dense causal route at Dh 128 (the dense causal pair) and 256 (the
+    generic pair) likewise."""
     torch.manual_seed(0)
     attn = Attention(d_model, heads, causal=True, sparse=True,
                      tp_size=tp).to(cuda, torch.bfloat16)
@@ -1444,7 +1488,7 @@ def test_attention_layers_take_the_new_kernels(cuda, d_model, heads, tp,
     assert getattr(swa_kernel, f"{counter}_launches") == f0 + 1
     assert getattr(swa_kernel, f"{counter}_bwd_launches") == b0 + 1
     assert bool(torch.isfinite(x.grad).all())
-    for d_dense, counter in ((256, "hm128"), (512, "generic")):
+    for d_dense, counter in ((256, "dense"), (512, "generic")):
         dense = Attention(d_dense, 2, causal=True, sparse=False).to(
             cuda, torch.bfloat16)
         f0 = getattr(swa_kernel, f"{counter}_launches")

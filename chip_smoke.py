@@ -3303,18 +3303,40 @@ def sdpa_causal_ms(q, k, v, do, iters: int):
     return fwd_ms, cuda_ms(fwd_bwd, iters) - fwd_ms
 
 
+def key_tile_dq(q, k, v, lens, lse, out, do, tile: int):
+    """The share of key tile `tile` (keys 128 tile ..) in each query row's
+    dq, from the plain backward's terms in fp32: what a lost add of that
+    tile takes away."""
+    keys = slice(tile * 128, (tile + 1) * 128)
+    scale = q.shape[-1] ** -0.5
+    kt, vt, dof = k[:, :, keys].float(), v[:, :, keys].float(), do.float()
+    pos = torch.arange(q.shape[2], device=q.device)
+    mask = ((pos[keys][None, :] <= pos[:, None])[None]
+            & (pos[keys][None, :] < lens[:, None].long())[:, None])[:, None]
+    s = torch.matmul(q.float(), kt.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vt.transpose(-1, -2)) - delta) * scale
+    return torch.matmul(ds, kt)
+
+
 def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
                 d: int = 64, family: str = "causal"):
     """The dense causal route (window L / 128, no [CLS] slot) through the
-    band wrappers (swa_kernel.swa_fwd / swa_bwd with dense=True) against
-    the plain versions of the kernels that take it: out within K1's
+    kernels that take it against their plain versions: out within K1's
     tolerances, lse within K1_LSE_ATOL, gradients within GRAD_REL_TOL of
     the largest entry, both bit-identical across two calls; timed beside
     the plain versions and SDPA with is_causal, with the bound. family:
     the kernels that take the head dim (`FAMILIES`: the dense causal pair
-    at Dh 64 and 128, the generic pair at the other widths). The causal
-    family's calls count in the dense counters alone, and its profiled
-    calls hold no band kernel's record."""
+    at Dh 64 and 128, through causal_kernel.causal_fwd / causal_bwd; the
+    generic pair at the other widths, through swa_kernel.swa_fwd /
+    swa_bwd). Each row of out, dq, dk and dv past
+    `causal_kernel.row_start` is within ROW_REL_TOL of the plain
+    version's norm (`causal_kernel.row_rel_err`). The causal family's
+    calls count in the dense counters alone, its profiled calls hold no
+    band kernel's record, and it reads the per-row ratio on two planted
+    faults as well (key tile n - 2's values taken from tile n - 3, and
+    that tile's dq adds lost), each of which must exceed ROW_REL_TOL."""
     block = 128
     fwd_kernel, bwd_kernels = FAMILIES[family]
     causal = family == "causal"
@@ -3325,13 +3347,21 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
                    .to(torch.bfloat16) for _ in range(4))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     key_mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+
+    def fwd():
+        if causal:
+            return causal_kernel.causal_fwd(q, k, v, lens)
+        return swa_kernel.swa_fwd(q, k, v, lens, **kw)
+
+    def bwd():
+        if causal:
+            return causal_kernel.causal_bwd(q, k, v, lens, lse, out, do)
+        return swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, **kw)
+
     before = read_counts()
-    out, lse = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
-    out2, lse2 = swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
-    grads = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
-                               **kw)
-    again = swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
-                               **kw)
+    out, lse = fwd()
+    out2, lse2 = fwd()
+    grads, again = bwd(), bwd()
     torch.cuda.synchronize()
     after = read_counts()
     moved = {key: after[key] - before[key] for key in after
@@ -3372,26 +3402,39 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
     check(lse_err <= K1_LSE_ATOL,
           f"dense {family} lse disagrees: {lse_err:.3g}")
     fwd_err = err.max().item()
-    del ref, ref_lse, err
+    del err
     want = bwd_plain(q, k, v, out, do)
     errs = [rel_err(g, w) for g, w in zip(grads, want)]
     bwd_abs = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(grads, want))
-    del want
     check(all(bool(torch.isfinite(g.float()).all()) for g in grads),
           f"dense {family} gradients are not finite")
     check(max(errs) <= GRAD_REL_TOL,
           f"dense {family} gradients disagree with the plain version: "
           f"{errs}")
+    rows = {name: causal_kernel.row_rel_err(x, w) for name, x, w in zip(
+        ("out", "dq", "dk", "dv"), (out, *grads), (ref, *want))}
+    planted = None
+    if causal:
+        tile = L // block - 2
+        shifted = v.clone()
+        shifted[:, :, tile * block:(tile + 1) * block] = \
+            v[:, :, (tile - 1) * block:tile * block]
+        planted = {
+            "v_tile_shifted": causal_kernel.row_rel_err(
+                fwd_plain(q, k, shifted)[0], ref),
+            "dq_add_lost": causal_kernel.row_rel_err(
+                want[0].float() - key_tile_dq(q, k, v, lens, lse, out, do,
+                                              tile), want[0])}
+        del shifted
+        check(min(planted.values()) > causal_kernel.ROW_REL_TOL,
+              f"a planted fault passes the per-row gate: {planted}")
+    check(max(rows.values()) <= causal_kernel.ROW_REL_TOL,
+          f"dense {family} Dh {d} rows disagree with the plain version's:"
+          f" {rows} (planted faults: {planted})")
+    del ref, ref_lse, want
     gc.collect()
     torch.cuda.empty_cache()
-
-    def fwd():
-        return swa_kernel.swa_fwd(q, k, v, lens, dense=True, **kw)
-
-    def bwd():
-        return swa_kernel.swa_bwd(q, k, v, lens, lse, out, do, dense=True,
-                                  **kw)
 
     pairs = dense_pairs(L, lengths) * h
     lib_fwd, lib_bwd = sdpa_causal_ms(q, k, v, do, max(3, iters // 2))
@@ -3410,6 +3453,8 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
     fwd_row = {"shape": shape, "lengths": list(lengths),
                "window": L // block, "family": family,
                "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+               "row_rel_err": rows["out"],
+               "planted_row_rel_err": planted,
                "bit_identical": True, "ms": cuda_ms(fwd, iters),
                "device_ms": kernel_ms(fwd_times, fwd_kernel),
                "plain_ms": cuda_ms(lambda: fwd_plain(q, k, v), 1,
@@ -3420,6 +3465,8 @@ def dense_phase(b: int, h: int, L: int, lengths, seed: int, iters: int,
     bwd_row = {"shape": shape, "lengths": list(lengths),
                "window": L // block, "family": family,
                "max_abs_err": bwd_abs, "rel_errs_dq_dk_dv": errs,
+               "row_rel_errs_dq_dk_dv": [rows["dq"], rows["dk"],
+                                         rows["dv"]],
                "bit_identical": True, "ms": cuda_ms(bwd, iters),
                "device_ms": sum(bwd_times.values()),
                "parts_device_ms": k2_parts(bwd_times, bwd_kernels),
@@ -6821,7 +6868,44 @@ def compare_logs(before, after) -> None:
                   f"{fmt(b.get(phase, {}).get(key))}")
 
 
-GENERIC_PARENT_TIMEOUT_S = 900
+PARENT_TIMEOUT_S = 900
+
+
+def parent_runs(parent: str, mode: str, commands) -> list:
+    """Each command of `commands` (the arguments after the Python
+    executable) in another checkout (DIR: its own chip_smoke.py, package
+    and build) and in this one, each in its own process, in the order
+    parent, this, this, parent: [(run label, [stdout of each command])].
+    Raises if a command fails."""
+    runs = []
+    for n, (who, root) in enumerate((("parent", parent), ("this", REPO),
+                                     ("this", REPO), ("parent", parent))):
+        outs = []
+        for argv in commands:
+            t0 = time.perf_counter()
+            done = subprocess.run([sys.executable, *argv], cwd=root,
+                                  capture_output=True, text=True,
+                                  timeout=PARENT_TIMEOUT_S)
+            print(f"{mode} run {n} ({who}, {root}) command "
+                  f"{len(outs)}: exit {done.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if done.returncode != 0:
+                print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
+                raise AssertionError(f"{mode}: the {who} tree's command "
+                                     f"{len(outs)} failed")
+            outs.append(done.stdout)
+        runs.append((f"{n} {who}", outs))
+    return runs
+
+
+def labelled_lines(stdout: str):
+    """(label, JSON text) of each "label {...}" line of a run's output."""
+    for line in stdout.splitlines():
+        label, brace, rest = line.partition(" {")
+        if brace:
+            yield label, "{" + rest
+
+
 # The numbers of a kernels-generic row that --generic-parent sets side by
 # side.
 GENERIC_COMPARED = ("ms", "device_ms", "parts_device_ms",
@@ -6829,39 +6913,26 @@ GENERIC_COMPARED = ("ms", "device_ms", "parts_device_ms",
 
 
 def generic_parent(parent: str) -> dict:
-    """The kernels-generic phase of another checkout (DIR, its own
-    chip_smoke.py, package and build) and of this one, each in its own
-    process, in the order parent, this, this, parent: every row the two
-    trees share, with its times from each run, by the row's label."""
-    runs = {}
+    """The kernels-generic phase in another checkout and in this one
+    (`parent_runs`): every row the two trees share, with its times from
+    each run, by the row's label."""
     code = ("import chip_smoke as cs; cs.device_phase(); cs.build_phase(); "
             "cs.generic_phase()")
-    for n, (who, root) in enumerate((("parent", parent), ("this", REPO),
-                                     ("this", REPO), ("parent", parent))):
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, "-c", code], cwd=root,
-                              capture_output=True, text=True,
-                              timeout=GENERIC_PARENT_TIMEOUT_S)
-        print(f"--generic-parent run {n} ({who}, {root}): exit "
-              f"{done.returncode}, {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        if done.returncode != 0:
-            print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
-            raise AssertionError(f"the {who} tree's kernels-generic failed")
-        for line in done.stdout.splitlines():
-            label, brace, rest = line.partition(" {")
-            if not brace or "ms" not in rest:
+    runs = {}
+    for run, (stdout,) in parent_runs(parent, "--generic-parent",
+                                      [["-c", code]]):
+        for label, text in labelled_lines(stdout):
+            if "ms" not in text:
                 continue
-            row = json.loads("{" + rest)
+            row = json.loads(text)
             runs.setdefault(label, []).append(
-                {"run": f"{n} {who}", **{key: row[key] for key
-                                         in GENERIC_COMPARED if key in row}})
+                {"run": run, **{key: row[key] for key in GENERIC_COMPARED
+                                if key in row}})
     for label, rows in runs.items():
         print(f"generic-parent {label} " + json.dumps(rows), flush=True)
     return runs
 
 
-DENSE_PARENT_TIMEOUT_S = 900
 # The dense route's shapes that --dense-parent times in both trees:
 # DENSE_SHAPES at Dh 64 and the r4 geometry's heads at Dh 128.
 # (The code names the shapes itself: the parent's script may have no
@@ -6884,47 +6955,23 @@ def dense_parent(parent: str) -> dict:
     """The dense route's shapes (this tree's `DENSE_PARENT_CODE`, run in
     each tree by its own chip_smoke.py, package and build: the parent's
     K1/K2 at a causal band, this tree's dense causal pair) and the r4
-    LM's training step (profile_train), each in its own process, in the
-    order parent, this, this, parent: every shape's forward and backward
-    times from each run, keyed by direction and shape, and each run's
-    step."""
+    LM's training step (profile_train) in another checkout and in this
+    one (`parent_runs`): every shape's forward and backward times from
+    each run, keyed by direction and shape, and each run's step."""
     runs, steps = {}, []
-    for n, (who, root) in enumerate((("parent", parent), ("this", REPO),
-                                     ("this", REPO), ("parent", parent))):
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, "-c", DENSE_PARENT_CODE],
-                              cwd=root, capture_output=True, text=True,
-                              timeout=DENSE_PARENT_TIMEOUT_S)
-        print(f"--dense-parent run {n} ({who}, {root}): exit "
-              f"{done.returncode}, {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        if done.returncode != 0:
-            print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
-            raise AssertionError(f"the {who} tree's dense shapes failed")
-        for line in done.stdout.splitlines():
-            label, brace, rest = line.partition(" {")
-            if not brace or not label.startswith(("K1 dense", "K2 dense",
-                                                  "dense fwd",
-                                                  "dense bwd")):
+    for run, (shapes, step) in parent_runs(
+            parent, "--dense-parent", [["-c", DENSE_PARENT_CODE], R4_STEP]):
+        for label, text in labelled_lines(shapes):
+            if not label.startswith(("K1 dense", "K2 dense", "dense fwd",
+                                     "dense bwd")):
                 continue
-            row = json.loads("{" + rest)
+            row = json.loads(text)
             way = "fwd" if label.startswith(("K1", "dense fwd")) else "bwd"
-            key = f"{way} {row['shape']}"
-            runs.setdefault(key, []).append(
-                {"run": f"{n} {who}", **{k: row[k] for k in DENSE_COMPARED
-                                         if k in row}})
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, *R4_STEP], cwd=root,
-                              capture_output=True, text=True,
-                              timeout=DENSE_PARENT_TIMEOUT_S)
-        print(f"--dense-parent r4 step {n} ({who}): exit {done.returncode}, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        if done.returncode != 0:
-            print(done.stdout[-4000:] + done.stderr[-4000:], flush=True)
-            raise AssertionError(f"the {who} tree's r4 step failed")
-        result = json.loads(done.stdout.strip().splitlines()[-1])
-        steps.append({"run": f"{n} {who}",
-                      **{k: result[k] for k in R4_COMPARED},
+            runs.setdefault(f"{way} {row['shape']}", []).append(
+                {"run": run, **{k: row[k] for k in DENSE_COMPARED
+                                if k in row}})
+        result = json.loads(step.strip().splitlines()[-1])
+        steps.append({"run": run, **{k: result[k] for k in R4_COMPARED},
                       "top_kernels": result["top_kernels"][:6]})
     for key, rows in runs.items():
         print(f"dense-parent {key} " + json.dumps(rows), flush=True)

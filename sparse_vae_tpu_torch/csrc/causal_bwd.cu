@@ -45,12 +45,13 @@
 //     highest key tile of a query step first, down to tile 0, a counter a
 //     64-query step saying whose turn it is (acquire, then release once
 //     the writes are done, a step later, so the next step's writes run
-//     meanwhile). The grid runs in chunks of (head, row) pairs whose dq
-//     buffer, Q and dO fit kL2Bytes, so the buffer's read-modify-writes
-//     stay in L2; within a chunk the key tile descends (the shortest
-//     CTAs first): tile kt reaches a query step two steps after tile kt +
-//     1, which was launched before it, so a CTA seldom waits and never
-//     on one launched after it. (Tile 0 first, the order the other way
+//     meanwhile). The grid runs in chunks of `group` (head, row) pairs,
+//     as many as keep their dq buffer, Q and dO within 32 MiB of L2 (the
+//     caller's count, ops/causal_kernel.py `bwd_group`), so the buffer's
+//     read-modify-writes stay there; within a chunk the key tile
+//     descends (the shortest CTAs first): tile kt reaches a query step
+//     two steps after tile kt + 1, which was launched before it, so a
+//     CTA seldom waits and never on one launched after it. (Tile 0 first, the order the other way
 //     round, makes a CTA wait on every lower tile of its chunk.)
 //   dq rounding (causal_dq_kernel): the buffer rounded once to bf16.
 // Registers and shared memory: a consumer thread holds dV and dK (32 or
@@ -83,9 +84,6 @@ constexpr int kStepHalf = kStep * 128;      // [64 rows x 64 dims] bf16
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
-// What a chunk of the grid's (head, row) pairs may share in L2: their dq
-// buffer, Q and dO.
-constexpr long long kL2Bytes = 32LL << 20;
 
 // wgmma descriptor of a tile of 64-byte rows in the 64-byte swizzle (as
 // TMA writes it), 8-row groups 512 bytes apart.
@@ -618,16 +616,19 @@ int launch(const Ptrs& t, const BwdParams& p, cudaStream_t s) {
 // q, k, v, out, do, dq, dk, dv: bf16 [B, H, L, Dh] contiguous, Dh 64 or
 // 128, L a multiple of 128; lengths [B] int32; lse from svt_causal_fwd;
 // scratch: delta [B, H, L] fp32, dq_acc [B, H, L, Dh] fp32, counters
-// [B H L / 64] int32. Launches the delta, the pass and the dq rounding on
-// the stream.
+// [B H L / 64] int32; group: the (head, row) pairs of a chunk of the
+// pass's grid, 1 .. B H. Launches the delta, the pass and the dq rounding
+// on the stream.
 extern "C" int svt_causal_bwd(const void* q, const void* k, const void* v,
                               const void* lengths, const void* lse,
                               const void* out, const void* dout, void* dq,
                               void* dk, void* dv, void* delta, void* dq_acc,
                               void* counters, int batch, int heads, int len,
-                              int head_dim, float scale, void* stream) {
+                              int head_dim, int group, float scale,
+                              void* stream) {
   if (batch < 1 || heads < 1 || len <= 0 || len % kTile != 0 ||
-      (head_dim != 64 && head_dim != 128))
+      (head_dim != 64 && head_dim != 128) || group < 1 ||
+      group > batch * heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const Ptrs t{q, k, v, dout, out, static_cast<bf16*>(dq)};
   const BwdParams p{static_cast<const int*>(lengths),
@@ -640,8 +641,7 @@ extern "C" int svt_causal_bwd(const void* q, const void* k, const void* v,
                     batch,
                     heads,
                     len,
-                    svt::l2_group(batch * heads, 8LL * len * head_dim,
-                                  kL2Bytes),
+                    group,
                     scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return head_dim == 64 ? launch<64>(t, p, s) : launch<128>(t, p, s);

@@ -26,10 +26,12 @@
 // Design. One CTA per 128-query tile of a (head, row): two consumer
 // warpgroups of 64 rows and a producer warpgroup that gives them its
 // registers (setmaxnreg, 24 against 240; 384 threads, one CTA an SM).
-// The grid runs in chunks of (head, row) pairs whose K and V fit
-// kL2Bytes, so that a chunk's reads stay in L2; within a chunk the query
-// tile is the slower index and descends, so the longest CTAs (28 key
-// tiles at L 3,584) start first and the chunk ends on one-tile CTAs.
+// The grid runs in chunks of `group` (head, row) pairs, as many as keep
+// their K and V within 8 MiB of L2 (the caller's count,
+// ops/causal_kernel.py `fwd_group`), so that a chunk's reads stay there;
+// within a chunk the query tile is the slower index and descends, so the
+// longest CTAs (28 key tiles at L 3,584) start first and the chunk ends
+// on one-tile CTAs.
 // The producer's first thread brings Q by TMA, then the key tiles 0 ..
 // min(t, last valid) of 128 keys, K and V each into their own ring of
 // kStages slots (3 at Dh 64, 2 at Dh 128), each arrival counted on an
@@ -76,9 +78,6 @@ constexpr int kConsumerRegs = 240;
 constexpr int kHalfBytes = kTile * 128;     // [128 rows x 64 dims] bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// What a chunk of the grid's (head, row) pairs may share in L2: their K
-// and V.
-constexpr long long kL2Bytes = 8LL << 20;
 
 template <int D>
 struct Fwd {
@@ -400,13 +399,15 @@ int launch(const void* q, const void* k, const void* v, const FwdParams& p,
 }  // namespace
 
 // q, k, v, out: bf16 [B, H, L, Dh] contiguous, Dh 64 or 128, L a multiple
-// of 128; lengths [B] int32; lse [B, H, L] fp32.
+// of 128; lengths [B] int32; lse [B, H, L] fp32; group: the (head, row)
+// pairs of a chunk of the grid, 1 .. B H.
 extern "C" int svt_causal_fwd(const void* q, const void* k, const void* v,
                               const void* lengths, void* out, void* lse,
                               int batch, int heads, int len, int head_dim,
-                              float scale, void* stream) {
+                              int group, float scale, void* stream) {
   if (batch < 1 || heads < 1 || len <= 0 || len % kTile != 0 ||
-      (head_dim != 64 && head_dim != 128))
+      (head_dim != 64 && head_dim != 128) || group < 1 ||
+      group > batch * heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const FwdParams p{static_cast<const int*>(lengths),
                     static_cast<bf16*>(out),
@@ -414,8 +415,7 @@ extern "C" int svt_causal_fwd(const void* q, const void* k, const void* v,
                     batch,
                     heads,
                     len,
-                    svt::l2_group(batch * heads, 4LL * len * head_dim,
-                                  kL2Bytes),
+                    group,
                     scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return head_dim == 64 ? launch<64>(q, k, v, p, s)

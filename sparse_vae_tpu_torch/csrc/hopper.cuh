@@ -478,13 +478,5 @@ class MapCache {
   int filled_ = 0, next_ = 0;
 };
 
-// The (head, row) pairs of a `chunked_tile` chunk: as many as keep
-// `bytes_per_row` each within `budget` bytes of the card's 50 MB L2, at
-// least one.
-inline int l2_group(int rows, long long bytes_per_row, long long budget) {
-  const long long fit = budget / (bytes_per_row > 0 ? bytes_per_row : 1);
-  return static_cast<int>(fit < 1 ? 1 : fit < rows ? fit : rows);
-}
-
 
 }  // namespace svt

@@ -4,8 +4,9 @@ building block; the concrete models use the Transformer LM instead).
 
 Sparse layers take the sliding-window attention (K1, and K2 in a
 backward, where the JAX package's kernel gate admits the shape); dense
-causal layers take the flash-attention gate's route (K1/K2 at a causal
-band, ops/attention.py `_dense_route`). The logits are a plain product
+causal layers take the flash-attention gate's route (ops/attention.py
+`_dense_route`: the dense causal pair at Dh 64 and 128, the generic pair
+at the other widths). The logits are a plain product
 with the embedding table, as JAX's `x @ table.T` outside any kernel.
 """
 from __future__ import annotations

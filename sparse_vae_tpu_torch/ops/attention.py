@@ -262,9 +262,9 @@ class Attention(nn.Module):
         """The dense causal gate of the JAX package (ops/attention.py: its
         flash-attention branch): dense, causal, its own queries, kernels
         on, lq == lk and lq % DENSE_KERNEL_MULTIPLE == 0. Inside it
-        "dense" (the dense causal pair at head-major Dh 64 or 128,
-        `causal_kernel.takes`, or the generic pair at another Dh % 8 == 0
-        up to 512), else "dense_plain" (the plain version on the CPU;
+        "dense" (on the card the dense causal pair at head-major Dh 64 or
+        128, or the generic pair at another Dh % 8 == 0 up to 512; on the
+        CPU the band plain version), else "dense_plain" (the plain version on the CPU;
         `take_plain_route` raises on the card). None outside it."""
         if not (not self.sparse and self.causal and not self.num_queries
                 and self.use_kernel and lq == lk

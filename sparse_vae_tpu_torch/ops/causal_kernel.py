@@ -4,9 +4,10 @@ self-attention on the TPU (sparse_vae_tpu/ops/attention.py:472:
 jax.experimental.pallas.ops.tpu.flash_attention with causal=True and the
 key mask as segment ids). The CUDA kernels are csrc/causal_fwd.cu and
 csrc/causal_bwd.cu, at head-major Dh 64 and 128; the dense causal route
-(ops/attention.py `_dense_route`, through `swa_kernel.swa_fwd` /
-`swa_bwd` with dense=True) takes them at those widths, and the generic
-pair of csrc/swa_generic.cu at the others.
+(ops/attention.py `_dense_route`, through `SlidingWindowAttentionFn` with
+dense=True) hands them its card tensors at those widths, and the generic
+pair of csrc/swa_generic.cu takes the others. On the CPU the route runs
+the band plain version at every width.
 
 Query i attends key j iff j <= i and j < lengths[b]: a pad query attends
 the valid keys, as the JAX package's masked dense path does (its flash
@@ -16,8 +17,12 @@ wrapper launches its kernel for CUDA tensors, counted in
 version (`causal_attention_plain`, `causal_attention_bwd_plain`) for CPU
 tensors; there is no other fallback.
 
-`fwd_order` and `bwd_order` are the kernels' CTA orders, and `dq_order`
-the order in which the backward's key tiles add to a query step's dq.
+The wrappers pass each grid's chunk of (head, row) pairs (`fwd_group`,
+`bwd_group`) to the kernels. `fwd_order` and `bwd_order` are the
+kernels' CTA orders over those chunks, and `dq_order` the order in which
+the backward's key tiles add to a query step's dq: Python copies of the
+kernels' index arithmetic (csrc/hopper.cuh `chunked_tile`, the tile
+order of causal_fwd.cu and causal_bwd.cu), kept in step by hand.
 """
 from __future__ import annotations
 
@@ -29,17 +34,6 @@ HEAD_DIMS = (64, 128)
 TILE = 128   # queries of a forward CTA, keys of a backward CTA
 STEP = 64    # queries of a backward step (one dq counter each)
 NEG_INF = -1e9
-
-
-def takes(head_dim: int, block_size: int, window_size: int, length: int,
-          *, causal: bool = True, include_cls: bool = False,
-          q_off: int = 0, cls=None) -> bool:
-    """Whether a call of the band kernels is the dense causal route at a
-    width the pair takes: a causal band of every 128-token block, no
-    [CLS] slot, no q_off, head-major Dh 64 or 128."""
-    return (head_dim in HEAD_DIMS and block_size == TILE
-            and length % TILE == 0 and window_size == length // TILE
-            and causal and not include_cls and q_off == 0 and cls is None)
 
 
 def _mask(length: int, lengths, device):
@@ -87,6 +81,37 @@ def causal_attention_bwd_plain(q, k, v, lengths, lse, out, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The pair's per-row gate, beside PERF.md section 2's (chip_smoke.py and
+# the card tests): a late row of a dense causal row attends thousands of
+# keys, so one key tile's share of it (a wrong V slot, a lost dq add)
+# moves it by about sqrt(128 / its keys) of its norm (0.19 at 3,584 keys),
+# while the absolute gates are set by the early rows' larger values.
+ROW_REL_TOL = 0.03
+# A row's norm counts as at least this share of the largest row's, so that
+# a row which cancels to about zero (the dq of a query with one key) does
+# not divide rounding by rounding.
+ROW_FLOOR = 1e-3
+
+
+def row_start(length: int) -> int:
+    """The first row of [B, H, L, D] that `row_rel_err` reads: 1,024, or
+    half of a shorter length."""
+    return min(1024, length // 2)
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the rows (the vectors of
+    the last dim) at positions `row_start` and past of [B, H, L, D]
+    tensors: the query rows of out and dq, the key rows of dk and dv. A
+    row's norm is taken as at least ROW_FLOOR of the tensor's largest."""
+    start = row_start(want.shape[2])
+    g, w = got.float(), want.float()
+    err = (g - w).norm(dim=-1)[:, :, start:]
+    norm = w.norm(dim=-1)
+    floor = ROW_FLOOR * norm.max().clamp_min(1e-30)
+    return (err / norm[:, :, start:].clamp_min(floor)).max().item()
+
+
 def _check(q, k, v, lengths, *extra):
     b = q.shape[0]
     if k.shape != q.shape or v.shape != q.shape \
@@ -127,8 +152,8 @@ def causal_fwd(q, k, v, lengths):
     lse = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
     code = cuda_lib.library().svt_causal_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, h, L, d, d ** -0.5,
-        swa_kernel._stream(q.device))
+        out.data_ptr(), lse.data_ptr(), b, h, L, d, fwd_group(b, h, L, d),
+        d ** -0.5, swa_kernel._stream(q.device))
     cuda_lib.check(code, "causal_fwd")
     swa_kernel.dense_launches += 1
     return out, lse
@@ -158,7 +183,7 @@ def causal_bwd(q, k, v, lengths, lse, out, do):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         lse.data_ptr(), out.data_ptr(), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        counters.data_ptr(), b, h, L, d, d ** -0.5,
+        counters.data_ptr(), b, h, L, d, bwd_group(b, h, L, d), d ** -0.5,
         swa_kernel._stream(q.device))
     cuda_lib.check(code, "causal_bwd")
     swa_kernel.dense_bwd_launches += 1
@@ -166,16 +191,28 @@ def causal_bwd(q, k, v, lengths, lse, out, do):
 
 
 # A chunk of the forward's grid holds as many (head, row) pairs as keep
-# their K and V within FWD_L2_BYTES of the card's L2 (csrc/causal_fwd.cu
-# kL2Bytes), the backward's their dq buffer, Q and dO within BWD_L2_BYTES
-# (csrc/causal_bwd.cu).
+# their K and V within FWD_L2_BYTES of the card's 50 MB L2, the
+# backward's their dq buffer, Q and dO within BWD_L2_BYTES.
 FWD_L2_BYTES = 8 << 20
 BWD_L2_BYTES = 32 << 20
 
 
 def l2_group(rows: int, bytes_per_row: int, budget: int) -> int:
-    """The (head, row) pairs of a chunk (csrc/hopper.cuh `l2_group`)."""
+    """The (head, row) pairs of a chunk: as many as keep `bytes_per_row`
+    each within `budget`, at least one."""
     return max(1, min(rows, budget // max(bytes_per_row, 1)))
+
+
+def fwd_group(batch: int, heads: int, length: int, head_dim: int) -> int:
+    """The forward's chunk: pairs whose K and V (4 L Dh bytes a pair) fit
+    FWD_L2_BYTES."""
+    return l2_group(batch * heads, 4 * length * head_dim, FWD_L2_BYTES)
+
+
+def bwd_group(batch: int, heads: int, length: int, head_dim: int) -> int:
+    """The backward pass's chunk: pairs whose dq buffer, Q and dO (8 L Dh
+    bytes a pair) fit BWD_L2_BYTES."""
+    return l2_group(batch * heads, 8 * length * head_dim, BWD_L2_BYTES)
 
 
 def _chunked(rows: int, tiles: int, group: int) -> list:
@@ -191,26 +228,26 @@ def _chunked(rows: int, tiles: int, group: int) -> list:
 
 def fwd_order(batch: int, heads: int, length: int, head_dim: int) -> list:
     """The forward grid's CTAs in launch order as (b, h, query tile): in
-    chunks of (head, row) pairs whose K and V (4 L Dh bytes a pair) fit
-    FWD_L2_BYTES, the pairs fastest within a chunk, then the query tiles
-    from the last (the longest rows) down (csrc/causal_fwd.cu)."""
-    tiles, rows = length // TILE, batch * heads
-    group = l2_group(rows, 4 * length * head_dim, FWD_L2_BYTES)
+    chunks of `fwd_group` (head, row) pairs, the pairs fastest within a
+    chunk, then the query tiles from the last (the longest rows) down
+    (csrc/causal_fwd.cu)."""
+    tiles = length // TILE
+    group = fwd_group(batch, heads, length, head_dim)
     return [(hb // heads, hb % heads, tiles - 1 - t)
-            for hb, t in _chunked(rows, tiles, group)]
+            for hb, t in _chunked(batch * heads, tiles, group)]
 
 
 def bwd_order(batch: int, heads: int, length: int, head_dim: int) -> list:
     """The backward pass's CTAs in launch order as (b, h, key tile): in
-    chunks of (head, row) pairs whose dq buffer, Q and dO (8 L Dh bytes a
-    pair) fit BWD_L2_BYTES, the pairs fastest within a chunk, then the key
-    tiles from the last (the fewest queries) down (csrc/causal_bwd.cu):
+    chunks of `bwd_group` (head, row) pairs, the pairs fastest within a
+    chunk, then the key tiles from the last (the fewest queries) down
+    (csrc/causal_bwd.cu):
     key tile t adds to a query step's dq after tile t + 1, which was
     launched before it and reaches the step two steps before it does."""
-    tiles, rows = length // TILE, batch * heads
-    group = l2_group(rows, 8 * length * head_dim, BWD_L2_BYTES)
+    tiles = length // TILE
+    group = bwd_group(batch, heads, length, head_dim)
     return [(hb // heads, hb % heads, tiles - 1 - t)
-            for hb, t in _chunked(rows, tiles, group)]
+            for hb, t in _chunked(batch * heads, tiles, group)]
 
 
 def dq_order(valid: int, step: int) -> list:

@@ -60,11 +60,11 @@ _SIGNATURES = {
     # forward with cls_chunk after q_off.
     "svt_swa_generic_bwd": [_P] * 17 + [_I] * 17 + [_F, _P],
     # The dense causal pair (csrc/causal_fwd.cu, causal_bwd.cu): q, k, v,
-    # lengths, out, lse, batch, heads, len, head_dim, scale, stream.
-    "svt_causal_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # lengths, out, lse, batch, heads, len, head_dim, group, scale, stream.
+    "svt_causal_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, lengths, lse, out, do, dq, dk, dv, delta, dq_acc, counters,
-    # batch, heads, len, head_dim, scale, stream
-    "svt_causal_bwd": [_P] * 13 + [_I] * 4 + [_F, _P],
+    # batch, heads, len, head_dim, group, scale, stream
+    "svt_causal_bwd": [_P] * 13 + [_I] * 5 + [_F, _P],
     # g, table, bias, lse, part (split partials), tokens, vocab, dim,
     # splits, stream
     "svt_tied_ce_fwd": [_P] * 5 + [_I] * 4 + [_P],

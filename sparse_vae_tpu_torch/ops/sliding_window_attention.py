@@ -339,36 +339,54 @@ def sliding_window_attention_packed_bwd_plain(q, k, v, lengths, lse, out, do,
     return tuple(merge_heads(g) for g in grads)
 
 
+def _dense_pair(dense: bool, q) -> bool:
+    """Whether a call goes to the dense causal pair (ops/causal_kernel.py):
+    the dense causal route off the CPU at head-major Dh 64 or 128. On the
+    CPU the route runs the band plain version at every width."""
+    from .causal_kernel import HEAD_DIMS
+    return dense and q.device.type != "cpu" and q.shape[-1] in HEAD_DIMS
+
+
 class SlidingWindowAttentionFn(torch.autograd.Function):
     """Sliding-window + [CLS] attention with its backward: K1 forward and
     K2 backward for CUDA tensors, the plain versions for CPU tensors.
     lengths: [B] int32 valid key prefix per row. dense: the call is the
-    dense causal route (ops/attention.py), which the dense causal pair
-    (ops/causal_kernel.py) takes at head-major Dh 64 and 128.
-    The forward's (out, lse) is a rematerialisation save point
-    (models/remat.py `kernel_forward`)."""
+    dense causal route (ops/attention.py: a causal band of every block, no
+    [CLS] slot), which the dense causal pair takes on the card at
+    head-major Dh 64 and 128 (`_dense_pair`). The forward's (out, lse) is
+    a rematerialisation save point (models/remat.py `kernel_forward`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window_size, block_size, causal,
                 include_cls, dense=False):
+        from . import causal_kernel
         from .swa_kernel import swa_fwd
-        out, lse = kernel_forward(lambda: swa_fwd(
-            q, k, v, lengths, window_size=window_size,
-            block_size=block_size, causal=causal, include_cls=include_cls,
-            dense=dense))
+        if _dense_pair(dense, q):
+            out, lse = kernel_forward(
+                lambda: causal_kernel.causal_fwd(q, k, v, lengths))
+        else:
+            out, lse = kernel_forward(lambda: swa_fwd(
+                q, k, v, lengths, window_size=window_size,
+                block_size=block_size, causal=causal,
+                include_cls=include_cls))
         ctx.save_for_backward(q, k, v, lengths, out, lse)
         ctx.options = (window_size, block_size, causal, include_cls, dense)
         return out
 
     @staticmethod
     def backward(ctx, do):
+        from . import causal_kernel
         from .swa_kernel import swa_bwd
         q, k, v, lengths, out, lse = ctx.saved_tensors
         window_size, block_size, causal, include_cls, dense = ctx.options
-        dq, dk, dv = swa_bwd(q, k, v, lengths, lse, out, do.contiguous(),
-                             window_size=window_size, block_size=block_size,
-                             causal=causal, include_cls=include_cls,
-                             dense=dense)
+        if _dense_pair(dense, q):
+            dq, dk, dv = causal_kernel.causal_bwd(q, k, v, lengths, lse, out,
+                                                  do.contiguous())
+        else:
+            dq, dk, dv = swa_bwd(q, k, v, lengths, lse, out, do.contiguous(),
+                                 window_size=window_size,
+                                 block_size=block_size, causal=causal,
+                                 include_cls=include_cls)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -381,7 +399,8 @@ def sliding_window_attention(q, k, v, kv_mask=None, *, window_size: int = 2,
     use_kernel is False. On the Function's path kv_mask must be a
     right-padding prefix mask (the kernels take per-row valid lengths).
     dense: the dense causal route (a causal band of every block, no [CLS]
-    slot): the dense causal pair at head-major Dh 64 and 128."""
+    slot): the dense causal pair on the card at head-major Dh 64 and
+    128."""
     if not use_kernel:
         return sliding_window_attention_plain(
             q, k, v, kv_mask, window_size=window_size,

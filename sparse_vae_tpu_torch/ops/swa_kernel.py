@@ -11,10 +11,10 @@ sp_windowed_attention_pallas (K6) calls the same two Pallas kernels, and
 the broadcast [CLS] block of such a shard as a slot of its own (`cls`):
 ops/sp_kernel.py builds K6 on them.
 
-The dense causal route (`dense=True`: a causal band of every 128-token
-block, no [CLS] slot) takes the dense causal pair of ops/causal_kernel.py
-(csrc/causal_fwd.cu, causal_bwd.cu) at head-major Dh 64 and 128, K1/K2
-nowhere. Every other shape inside the JAX package's gates up to Dh 512
+The dense causal route (ops/attention.py) takes the dense causal pair of
+ops/causal_kernel.py on the card at head-major Dh 64 and 128
+(`SlidingWindowAttentionFn` hands it over), and these wrappers at the
+other widths and on the CPU. Every other shape inside the JAX package's gates up to Dh 512
 (Dh % 8 == 0, a block that is a multiple of 128) takes the generic pair of
 csrc/swa_generic.cu, in either layout (one entry, given the operands'
 row, head and batch strides), with the same options: `q_off`, `cls`,
@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import causal_kernel, cuda_lib
+from . import cuda_lib
 from .sliding_window_attention import (
     sliding_window_attention_bwd_plain,
     sliding_window_attention_packed_bwd_plain,
@@ -287,7 +287,7 @@ def _generic_bwd(q, k, v, lengths, lse, out, do, heads: int, packed: bool,
 def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
             include_cls: bool = True, q_off: int = 0, cls=None,
-            sp: bool = False, dense: bool = False):
+            sp: bool = False):
     """Sliding-window + [CLS] attention forward.
 
     q: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D] (q_off > 0:
@@ -300,16 +300,9 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
     block. Off the CPU: bf16, contiguous; K1 at D = 64 or 128 and
     block_size = 128, the generic forward at the rest of `in_range`. sp:
     the launch is K6's banded branch (ops/sp_kernel.py) and counts as K6's
-    (at Dh 64); dense: the call is the dense causal route (ops/attention.py,
-    a causal band of every block), which the dense causal pair takes at
-    Dh 64 and 128 (`causal_kernel.causal_fwd`, on the CPU its plain
-    version).
+    (at Dh 64).
     """
     global launches, sp_launches, hm128_launches
-    if dense and q.ndim == 4 and causal_kernel.takes(
-            q.shape[3], block_size, window_size, q.shape[2], causal=causal,
-            include_cls=include_cls, q_off=q_off, cls=cls):
-        return causal_kernel.causal_fwd(q, k, v, lengths)  # checks its own
     _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
            cls)
     if q.device.type == "cpu":
@@ -351,7 +344,7 @@ def swa_fwd(q, k, v, lengths, *, window_size: int = 2,
 def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
             block_size: int = 128, causal: bool = True,
             include_cls: bool = True, q_off: int = 0, cls=None,
-            sp: bool = False, dense: bool = False):
+            sp: bool = False):
     """Sliding-window + [CLS] attention backward.
 
     q/out/do: [B, H, L, D]; k/v: [B, H, L + q_off * block_size, D];
@@ -362,14 +355,10 @@ def swa_bwd(q, k, v, lengths, lse, out, do, *, window_size: int = 2,
     shard also attends (K6's backward), its valid keys cls_len, under the
     joint lse and the merged out; then returns (dq, dk, dv, dcls_k,
     dcls_v). Off the CPU: bf16, contiguous; K2 at D = 64 or 128 and
-    block_size = 128, the generic backward at the rest of `in_range`. sp
-    and dense: as in `swa_fwd` (`causal_kernel.causal_bwd`).
+    block_size = 128, the generic backward at the rest of `in_range`. sp:
+    as in `swa_fwd`.
     """
     global bwd_launches, sp_bwd_launches, hm128_bwd_launches
-    if dense and q.ndim == 4 and causal_kernel.takes(
-            q.shape[3], block_size, window_size, q.shape[2], causal=causal,
-            include_cls=include_cls, q_off=q_off, cls=cls):
-        return causal_kernel.causal_bwd(q, k, v, lengths, lse, out, do)
     _check(q, k, v, lengths, block_size, window_size, q_off, include_cls,
            cls)
     if out.shape != q.shape or do.shape != q.shape:

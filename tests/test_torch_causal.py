@@ -3,7 +3,7 @@ CUDA kernels csrc/causal_fwd.cu and causal_bwd.cu run on the card only)
 on the CPU:
 
 - its plain versions against the band plain versions at a causal band of
-  L / 128 blocks without a [CLS] slot (what the dense route ran before)
+  L / 128 blocks without a [CLS] slot (what the dense route runs on the CPU)
   and against the JAX package's masked dense causal attention (its path
   off the TPU, sparse_vae_tpu/ops/attention.py), pad positions and a
   fully padded row included;
@@ -22,7 +22,8 @@ from sparse_vae_tpu.ops.attention import dense_attention as j_dense
 from sparse_vae_tpu_torch.ops import attention as tattn
 from sparse_vae_tpu_torch.ops import causal_kernel, cuda_lib, swa_kernel
 from sparse_vae_tpu_torch.ops.sliding_window_attention import (
-    sliding_window_attention_bwd_plain, sliding_window_attention_plain)
+    _dense_pair, sliding_window_attention_bwd_plain,
+    sliding_window_attention_plain)
 
 OUT_ATOL, GRAD_ATOL = 2e-5, 2e-3
 LENGTHS = (512, 301, 0)   # full, ragged, fully padded
@@ -162,19 +163,18 @@ def test_dq_order():
     (512, 16, "generic"), (512, 2, "generic"), (1040, 2, "plain")])
 def test_dense_route_picks_the_pair_by_head_dim(d_model, heads, pair):
     """The dense causal gate takes the dense causal pair at head-major Dh
-    64 and 128 and the generic pair at the other widths of the kernels'
-    range; beyond it the plain version."""
+    64 and 128 on the card and the generic pair at the other widths of
+    the kernels' range; beyond it the plain version. On the CPU the route
+    hands nothing to the pair."""
     attn = tattn.Attention(d_model, heads, causal=True, sparse=False)
     assert attn._dense_route(512, 512) == (
         "dense_plain" if pair == "plain" else "dense")
-    L = 512
     d = d_model // heads
-    assert causal_kernel.takes(d, 128, L // 128, L) == (pair == "causal")
+    q = torch.empty((1, heads, 512, d), device="meta")
+    assert _dense_pair(True, q) == (pair == "causal")
+    assert not _dense_pair(False, q)
+    assert not _dense_pair(True, torch.empty((1, heads, 512, d)))
     assert swa_kernel.in_range(d, 128) == (pair != "plain")
-    # Not the dense route: a narrower band, a [CLS] slot, a block of 256.
-    assert not causal_kernel.takes(d, 128, 2, L)
-    assert not causal_kernel.takes(d, 128, L // 128, L, include_cls=True)
-    assert not causal_kernel.takes(d, 256, L // 256, L)
 
 
 class _Recorder:
@@ -195,8 +195,8 @@ def test_dense_layer_launches_the_pair(monkeypatch, d_model, heads):
     """A dense causal layer at Dh 64 or 128 on meta tensors (standing in
     for CUDA ones) launches svt_causal_fwd and svt_causal_bwd with (batch,
     heads, length, head dim), counted in the dense counters, and no band
-    kernel; on the CPU the same call runs the plain version and counts
-    nothing."""
+    kernel; on the CPU the same call runs the band plain version, counts
+    nothing and does not reach the pair's wrappers."""
     lib = _Recorder()
     monkeypatch.setattr(cuda_lib, "library", lambda: lib)
     monkeypatch.setattr(swa_kernel, "_stream", lambda device: 0)
@@ -210,13 +210,21 @@ def test_dense_layer_launches_the_pair(monkeypatch, d_model, heads):
     meta(x).sum().backward()
     assert [name for name, _ in lib.calls] == ["svt_causal_fwd",
                                                "svt_causal_bwd"]
-    assert lib.calls[0][1][6:10] == (3, heads, L, d)
-    assert lib.calls[1][1][13:17] == (3, heads, L, d)
-    assert lib.calls[0][1][10] == pytest.approx(d ** -0.5)
+    assert lib.calls[0][1][6:11] == (
+        3, heads, L, d, causal_kernel.fwd_group(3, heads, L, d))
+    assert lib.calls[1][1][13:18] == (
+        3, heads, L, d, causal_kernel.bwd_group(3, heads, L, d))
+    assert lib.calls[0][1][11] == pytest.approx(d ** -0.5)
+    assert lib.calls[1][1][18] == pytest.approx(d ** -0.5)
     assert (swa_kernel.dense_launches, swa_kernel.dense_bwd_launches,
             swa_kernel.hm128_launches, swa_kernel.launches) == (
         counts[0] + 1, counts[1] + 1, counts[2], counts[3])
-    # The CPU: the plain versions, no launch and no count.
+    # The CPU: the band plain versions, no launch and no count.
+    def not_here(*args):
+        raise AssertionError("the CPU route reached the dense causal pair")
+
+    monkeypatch.setattr(causal_kernel, "causal_fwd", not_here)
+    monkeypatch.setattr(causal_kernel, "causal_bwd", not_here)
     torch.manual_seed(0)
     cpu = tattn.Attention(d_model, heads, causal=True, sparse=False)
     y = cpu(torch.randn((2, L, d_model)),
